@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the nos_tpu workload plane.
+
+The JAX package ``nos_tpu`` stays the reference; this package mirrors its
+module paths and function names (the counterpart of
+``nos_tpu/X/y.py::f`` is ``nos_tpu_torch/X/y.py::f``) and holds every
+Pallas kernel's counterpart as a kernel written by hand for Hopper
+(``csrc/``). It imports ``torch`` and ``numpy`` only: nothing of JAX and
+nothing of ``nos_tpu``, whose host-side pieces it copies where it needs
+them.
+
+Slice ported so far: single-device greedy serving through the paged KV
+cache (``cmd.server.build_engine`` -> ``models.serving.DecodeServer`` ->
+``models.generate.forward_paged`` -> ``ops.attention.paged_decode_attention``).
+"""
