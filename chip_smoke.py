@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases cdefg]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -20,7 +20,22 @@ e. the main path at full width: ``build_engine`` on a Llama-3-8B-shaped
    decoder (GQA 32/8 heads, d_model 4096, d_ff 14336, vocab 128256, 32
    layers, random weights from the seed; max_seq cut to 2048) serves 8
    requests x 32 tokens, with a bf16 and an int8 KV arena; the kernel's
-   launch count must equal n_layers x decode ticks.
+   launch count must equal n_layers x decode ticks;
+f. the four flash-attention kernels (forward, backward preprocess, dK/dV,
+   dQ) against their plain versions at the training slice's shape
+   (batch 8, 16 query / 4 KV heads, S 2048, head_dim 128, causal), at
+   head_dim 64, with a full mask and at a ragged S 1000, under bf16 and
+   f32, each element of O, LSE, dQ, dK, dV within a rounding-derived pin;
+   times kernel, plain version, SDPA and the FLOP bound;
+g. the training path at full width: ``train()`` on bench.py's 1.1 B
+   model (d_model 2048, 16 layers, GQA 16/4, d_ff 8192, vocab 32000,
+   batch 8 x 2048, bf16, full remat, adamw, random weights and synthetic
+   batches from the seed) takes 8 steps; the loss must be finite and
+   fall, and the flash forward must launch 2 x 16 x 8 times (full remat
+   re-runs it) and each backward kernel 16 x 8 times. Then 2 profiled
+   steps (device idle share, the attention kernels' share) and, at 2
+   layers in f32, one step's loss and gradients through the kernel
+   against ``NOS_TPU_TORCH_ATTN_IMPL=xla``.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -30,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -361,7 +377,22 @@ def profile_ticks(eng, prompts, ticks: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / ticks
     eng.drain()
-    groups = {"paged_kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    out = device_breakdown(prof, ticks, {"paged_kernel": ("paged_decode",)})
+    busy = out["device_busy_ms"]
+    return {"profiled_ms_per_tick": wall_ms,
+            "device_busy_ms_per_tick": busy,
+            "device_idle_share_profiled": 1 - busy / wall_ms,
+            "device_ms_per_tick": out["device_ms"],
+            "kernels_per_tick": out["kernels_per_run"],
+            "top_kernels": out["top_kernels"]}
+
+
+def device_breakdown(prof, runs: int, named: dict) -> dict:
+    """Kernel time per run from a torch.profiler trace, grouped as
+    ``named`` (group -> name substrings), matmuls (cuBLAS/CUTLASS names)
+    and everything else; busy = the sum of kernel times."""
+    groups = {g: 0.0 for g in named}
+    groups.update(matmul=0.0, other=0.0)
     kernels = []
     n_kernels = 0
     for e in prof.key_averages():
@@ -372,23 +403,18 @@ def profile_ticks(eng, prompts, ticks: int = 3) -> dict:
             continue
         name = e.key
         low = name.lower()
-        if "paged_decode" in low:
-            g = "paged_kernel"
-        elif any(k in low for k in ("gemm", "gemv", "xmma", "cutlass",
-                                    "cublas", "nvjet", "sm90_")):
-            g = "matmul"
-        else:
-            g = "other"
-        groups[g] += us / 1e3 / ticks
+        g = next((g for g, pats in named.items()
+                  if any(p in low for p in pats)), None)
+        if g is None:
+            g = ("matmul" if any(k in low for k in (
+                "gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet",
+                "sm90_")) else "other")
+        groups[g] += us / 1e3 / runs
         n_kernels += e.count
-        kernels.append((us / 1e3 / ticks, e.count // ticks, name[:80]))
-    busy = sum(groups.values())
+        kernels.append((us / 1e3 / runs, e.count // runs, name[:80]))
     kernels.sort(reverse=True)
-    return {"profiled_ms_per_tick": wall_ms,
-            "device_busy_ms_per_tick": busy,
-            "device_idle_share_profiled": 1 - busy / wall_ms,
-            "device_ms_per_tick": groups,
-            "kernels_per_tick": n_kernels / ticks,
+    return {"device_busy_ms": sum(groups.values()), "device_ms": groups,
+            "kernels_per_run": n_kernels / runs,
             "top_kernels": [{"ms": ms, "count": c, "name": n}
                             for ms, c, n in kernels[:8]]}
 
@@ -464,9 +490,425 @@ def phase_full_width(seed: int, kv_dtype: str, card: str) -> int:
     return launches
 
 
+# the training slice's attention shape (bench.py's 1.1B model: batch 8,
+# seq 2048, 16 query / 4 KV heads of 128)
+ATTN = dict(b=8, h=16, h_kv=4, s=2048, d=128)
+# per-element pins of the flash kernels against their plain versions, by
+# compute dtype. Forward O, as phase (c): |d| <= r |ref| + m P.|V| (bf16:
+# each side rounds its output once, 2^-8 relative each, and the kernel
+# rounds its unnormalised probabilities to bf16 before P.V where the plain
+# version rounds the normalised ones, 2^-9 relative each; the second-order
+# terms of that sum come to a factor 1 + 2^-7, and the pin allows 1 + 2^-6
+# for the f32 score noise; f32: summation order only). LSE: |d| <= r_l (1 +
+# |ref|), f32 in both, scores summed in another order. Gradients: |d| <=
+# r |ref| + m max|ref| per tensor: the kernel rounds P (for dV) and dS
+# (for dK, dQ) to bf16 where the plain version keeps f32, a 2^-9 relative
+# error per term of sums over up to g * S terms whose cancellation leaves
+# the tensor's largest element as the scale; f32 sums differ in order.
+FLASH_PINS = {
+    torch.bfloat16: dict(o=(2.0 ** -7 * (1 + 2.0 ** -6),
+                            2.0 ** -8 * (1 + 2.0 ** -6)), lse=2.0 ** -16,
+                         grad=(2.0 ** -7, 2.0 ** -7)),
+    torch.float32: dict(o=(1e-5, 1e-5), lse=2.0 ** -16,
+                        grad=(1e-5, 1e-5)),
+}
+F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
+
+
+def attn_case(rng, *, b, h, h_kv, s, d, dtype, device):
+    gen = torch.Generator(device).manual_seed(int(rng.integers(1 << 31)))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).to(dtype)
+
+    return (randn(b, h, s, d), randn(b, h_kv, s, d), randn(b, h_kv, s, d),
+            randn(b, h, s, d))
+
+
+def attn_pairs(s_q: int, s_k: int, causal: bool) -> int:
+    """(query, key) pairs the mask admits, per (batch, head)."""
+    if not causal:
+        return s_q * s_k
+    i = np.arange(s_q)
+    return int(np.minimum(s_k, i + (s_k - s_q) + 1).sum())
+
+
+def flash_bounds(q, k, causal: bool) -> dict:
+    """{kernel: (ms, "bytes"|"operations")}: each input read once, each
+    output written once; operations per admitted (query, key) pair and
+    head dim: forward 4 (QK^T, PV), dK/dV 8 (S, dP, dV, dK), dQ 6 (S,
+    dP, dQ), preprocess 2 per output element; at the bf16 tensor rate
+    for bf16 inputs, the f32 rate for f32."""
+    b, h, s_q, d = q.shape
+    h_kv, s_k = k.shape[1], k.shape[2]
+    e = q.element_size()
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    pairs = attn_pairs(s_q, s_k, causal) * b * h
+    qb, kb, rows = b * h * s_q * d * e, b * h_kv * s_k * d * e, b * h * s_q * 4
+    work = {
+        "flash_attention_fwd": (4 * d * pairs, 2 * qb + 2 * kb + rows),
+        "flash_attention_bwd_preprocess": (2 * b * h * s_q * d,
+                                           2 * qb + rows),
+        "flash_attention_bwd_dkdv": (8 * d * pairs,
+                                     2 * qb + 4 * kb + 2 * rows),
+        "flash_attention_bwd_dq": (6 * d * pairs, 3 * qb + 2 * kb + 2 * rows),
+    }
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops = ops / peak * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = ((t_ops, "operations") if t_ops >= t_bytes
+                     else (t_bytes, "bytes"))
+    return out
+
+
+def pin_check(name: str, got, ref, r: float, m: float, scale=None) -> dict:
+    """|got - ref| <= r |ref| + m * scale per element (``scale`` a tensor
+    or the tensor's max |ref| when None); raises on a miss."""
+    got, ref = got.float(), ref.float()
+    mag = ref.abs().max() if scale is None else scale
+    diff = (got - ref).abs()
+    share = float((diff / (r * ref.abs() + m * mag)).max())
+    err = float(diff.max())
+    if not (share <= 1.0 and bool(torch.isfinite(got).all())):
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version: max|diff| "
+            f"{err}, worst share of the pin {share} (pin {r:g}|ref| + "
+            f"{m:g} * scale)")
+    return {"max_abs_err": err, "worst_pin_share": share}
+
+
+def phase_flash(seed: int, device, flush) -> dict:
+    """(f): the four flash-attention kernels against their plain versions
+    at the training slice's shape (causal), at head_dim 64, with a full
+    mask, and at a ragged S = 1000, under bf16 and f32; times kernel,
+    plain version and SDPA at the slice shape in bf16. Returns the
+    kernels-line rows keyed by kernel name."""
+    from nos_tpu_torch.ops import _kernels
+    from nos_tpu_torch.ops.attention import (
+        flash_attention_backward_reference, flash_attention_reference,
+    )
+
+    rng = np.random.default_rng(seed + 7)
+    cases = [("slice", ATTN, True),
+             ("d64", dict(ATTN, b=2, h=8, h_kv=2, s=1024, d=64), True),
+             ("full_mask", dict(ATTN, b=2, s=1024), False),
+             ("ragged_s1000", dict(ATTN, b=2, s=1000), True)]
+    rows = {}
+    for label, shape, causal in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = attn_case(rng, dtype=dtype, device=device, **shape)
+            scale = shape["d"] ** -0.5
+            pins = FLASH_PINS[dtype]
+            kw = dict(causal=causal, scale=scale)
+            o, lse = _kernels.flash_fwd.launch(q, k, v, **kw)
+            o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
+            mag = flash_attention_reference(q, k, v.abs(), **kw)[0].float()
+            checks = {"o": pin_check("flash_attention_fwd O", o, o_ref,
+                                     *pins["o"], scale=mag),
+                      "lse": pin_check("flash_attention_fwd LSE", lse,
+                                       lse_ref, pins["lse"], pins["lse"],
+                                       scale=1.0)}
+            delta = _kernels.flash_bwd_pre.launch(o, do)
+            checks["delta"] = pin_check(
+                "flash_attention_bwd_preprocess", delta,
+                (do.float() * o.float()).sum(-1), *pins["grad"])
+            dk, dv = _kernels.flash_bwd_dkdv.launch(q, k, v, do, lse, delta,
+                                                    **kw)
+            (dq,) = _kernels.flash_bwd_dq.launch(q, k, v, do, lse, delta,
+                                                 **kw)
+            torch.cuda.synchronize()
+            ref = flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                     **kw)
+            for nm, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                checks[nm] = pin_check(f"flash_attention_bwd {nm}", got,
+                                       want, *pins["grad"])
+            row = {"phase": "flash_vs_plain", "case": label,
+                   "causal": causal, "compute": str(dtype).split(".")[-1],
+                   **shape, "pins": {k_: str(v_) for k_, v_ in pins.items()},
+                   "checks": checks}
+            if label == "slice" and dtype == torch.bfloat16:
+                row["timing"] = time_flash(q, k, v, do, o, lse, delta, kw,
+                                           flush)
+                rows = {name: dict(t, max_abs_err=0.0)
+                        for name, t in row["timing"].items()}
+            for name, keys in (("flash_attention_fwd", ("o", "lse")),
+                               ("flash_attention_bwd_preprocess", ("delta",)),
+                               ("flash_attention_bwd_dkdv", ("dk", "dv")),
+                               ("flash_attention_bwd_dq", ("dq",))):
+                if name in rows:
+                    rows[name]["max_abs_err"] = max(
+                        rows[name]["max_abs_err"],
+                        *(checks[c]["max_abs_err"] for c in keys))
+            emit(row)
+            del q, k, v, do, o, lse, delta, dq, dk, dv, ref, o_ref, mag
+            torch.cuda.empty_cache()
+    return rows
+
+
+def time_flash(q, k, v, do, o, lse, delta, kw, flush) -> dict:
+    """Device ms of each kernel, its plain version and one SDPA call at
+    the slice shape; SDPA takes K/V repeated to every query head."""
+    from nos_tpu_torch.ops import _kernels
+    from nos_tpu_torch.ops.attention import (
+        flash_attention_backward_reference, flash_attention_reference,
+    )
+
+    f = torch.nn.functional.scaled_dot_product_attention
+    g = q.shape[1] // k.shape[1]
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (
+        q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
+    lib_out = f(qr, kr, vr, is_causal=kw["causal"], scale=kw["scale"])
+    bounds = flash_bounds(q, k, kw["causal"])
+    plain_bwd = cuda_ms(lambda: flash_attention_backward_reference(
+        q, k, v, o, lse, do, **kw), 3, flush)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qr, kr, vr), do, retain_graph=True), 10, flush)
+    timed = {
+        "flash_attention_fwd": (
+            lambda: _kernels.flash_fwd.launch(q, k, v, **kw),
+            cuda_ms(lambda: flash_attention_reference(q, k, v, **kw), 3,
+                    flush),
+            cuda_ms(lambda: f(qr, kr, vr, is_causal=kw["causal"],
+                              scale=kw["scale"]), 10, flush)),
+        "flash_attention_bwd_preprocess": (
+            lambda: _kernels.flash_bwd_pre.launch(o, do),
+            cuda_ms(lambda: (do.float() * o.float()).sum(-1), 10, flush),
+            cuda_ms(lambda: torch.linalg.vecdot(do, o), 10, flush)),
+        "flash_attention_bwd_dkdv": (
+            lambda: _kernels.flash_bwd_dkdv.launch(q, k, v, do, lse, delta,
+                                                   **kw),
+            plain_bwd, lib_bwd),
+        "flash_attention_bwd_dq": (
+            lambda: _kernels.flash_bwd_dq.launch(q, k, v, do, lse, delta,
+                                                 **kw),
+            plain_bwd, lib_bwd),
+    }
+    out = {}
+    for name, (fn, plain_ms, lib_ms) in timed.items():
+        ms = cuda_ms(fn, 10, flush)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1],
+                     "achieved_tflops": None}
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq"):
+        if bounds[name][1] == "operations":
+            out[name]["achieved_tflops"] = (
+                bounds[name][0] * BF16_FLOPS / 1e12 / out[name]["ms"])
+    return out
+
+
+# bench.py's one-card training configuration (the headline MFU bench,
+# bench_mfu.py): 1.1 B parameters, full remat, adamw, bf16
+TRAIN = dict(vocab=32000, d_model=2048, n_layers=16, n_heads=16,
+             n_kv_heads=4, d_ff=8192, max_seq=2048)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 8
+# f32, 2 layers: loss and gradients through the kernel against the plain
+# attention. Both sides are f32 and differ only in the attention's
+# summation order (~1e-6 relative, phase f), which two layers' backward
+# carry into every gradient.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+
+
+def model_flops_per_step(cfg, batch, seq) -> float:
+    """bench.py's analytic matmul FLOPs of one fwd+bwd step (bwd = 2x fwd,
+    attention at full S^2), copied so the MFU reads as the reference's."""
+    d, ff, L, v, kv = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab, \
+        cfg.kv_dim
+    per_tok = L * (2 * d * (d + 2 * kv) + 2 * d * d + 6 * d * ff) + 2 * d * v
+    attn = L * 4 * batch * seq * seq * d
+    return 3 * (batch * seq * per_tok + attn)
+
+
+def flash_kernels() -> dict:
+    """The flash-attention kernel wrappers by their kernels-line names."""
+    from nos_tpu_torch.ops import _kernels
+
+    return {"flash_attention_fwd": _kernels.flash_fwd,
+            "flash_attention_bwd_preprocess": _kernels.flash_bwd_pre,
+            "flash_attention_bwd_dkdv": _kernels.flash_bwd_dkdv,
+            "flash_attention_bwd_dq": _kernels.flash_bwd_dq}
+
+
+def flash_launches() -> dict:
+    return {name: k.launches for name, k in flash_kernels().items()}
+
+
+def zero_flash_launches() -> None:
+    for k in flash_kernels().values():
+        k.launches = 0
+
+
+class StepLog(logging.Handler):
+    """Collects the trainer's per-step log records: (step, loss, time)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.steps = []
+
+    def emit(self, record):
+        if record.msg.startswith("step %d/%d loss"):
+            self.steps.append((record.args[0], record.args[2],
+                               record.created))
+
+
+def train_setup(cfg, seed: int, device):
+    """What ``train()`` builds before its loop: seeded params as leaves,
+    the optimizer chain and the step, for the profiled and f32 runs."""
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.train.optim import build_optimizer
+
+    params = tfm.init_params(cfg, torch.Generator(device).manual_seed(seed),
+                             device)
+    leaves = tfm.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_()
+    opt = build_optimizer(leaves, 3e-4, TRAIN_STEPS)
+    return params, tfm.make_train_step(cfg, opt)
+
+
+def profile_train(seed: int, device) -> dict:
+    """Device breakdown of 2 steady training steps at full width under
+    torch.profiler: busy = the sum of kernel times; groups: the flash
+    kernels, matmuls, everything else."""
+    from torch.profiler import ProfilerActivity, profile
+    from nos_tpu_torch.cmd.trainer import TrainerConfig, synthetic_batch
+    from nos_tpu_torch.models.transformer import TransformerConfig
+    from nos_tpu_torch.train.data import to_device
+
+    cfg = TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+    params, step = train_setup(cfg, seed, device)
+    tcfg = TrainerConfig(**TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                         seed=seed)
+    batch = to_device(synthetic_batch(tcfg, 0), device)
+    step(params, batch)
+    torch.cuda.synchronize()
+    n = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            step(params, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / n
+    out = device_breakdown(prof, n, {"flash_kernels": ("flash_fwd",
+                                                       "flash_bwd")})
+    out["profiled_ms_per_step"] = wall_ms
+    out["device_idle_share"] = 1 - out["device_busy_ms"] / wall_ms
+    out["attention_share_of_busy"] = (
+        out["device_ms"]["flash_kernels"] / out["device_busy_ms"])
+    del params, step, batch
+    return out
+
+
+def f32_parity(seed: int, device) -> dict:
+    """2 layers in f32 at the full widths: one step's loss and every
+    gradient through the kernel and through NOS_TPU_TORCH_ATTN_IMPL=xla
+    (the plain attention under autograd, no kernel launched)."""
+    from nos_tpu_torch.cmd.trainer import TrainerConfig, synthetic_batch
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.train.data import to_device
+
+    cfg = tfm.TransformerConfig(**dict(TRAIN, n_layers=2),
+                                dtype=torch.float32)
+    params, _ = train_setup(cfg, seed, device)
+    tcfg = TrainerConfig(**TRAIN, batch_size=2, seq_len=TRAIN_SEQ, seed=seed)
+    batch = to_device(synthetic_batch(tcfg, 0), device)
+    leaves = tfm.param_leaves(params)
+    runs = {}
+    for impl in ("splash", "xla"):
+        os.environ["NOS_TPU_TORCH_ATTN_IMPL"] = impl
+        zero_flash_launches()
+        loss = tfm.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        runs[impl] = (float(loss.detach()), grads, flash_launches())
+    del os.environ["NOS_TPU_TORCH_ATTN_IMPL"]
+    (lk, gk, nk), (lx, gx, nx) = runs["splash"], runs["xla"]
+    if nk["flash_attention_fwd"] != 2 * cfg.n_layers or any(nx.values()):
+        raise AssertionError(f"launches kernel {nk}, xla {nx}")
+    loss_rel = abs(lk - lx) / abs(lx)
+    shares = [float((a - b).abs().max() / b.abs().max()) for a, b in
+              zip(gk, gx)]
+    if not (loss_rel <= TRAIN_LOSS_RTOL and max(shares) <= TRAIN_GRAD_TOL):
+        raise AssertionError(
+            f"f32 step through the kernel vs plain: loss rel {loss_rel} "
+            f"(tol {TRAIN_LOSS_RTOL}), worst grad max|diff|/max|g| "
+            f"{max(shares)} (tol {TRAIN_GRAD_TOL})")
+    return {"f32_loss_kernel": lk, "f32_loss_plain": lx,
+            "f32_loss_rel_diff": loss_rel, "f32_loss_rtol": TRAIN_LOSS_RTOL,
+            "f32_worst_grad_rel_diff": max(shares),
+            "f32_grad_tol": TRAIN_GRAD_TOL, "f32_grads_compared": len(gk)}
+
+
+def phase_train(seed: int, card: str) -> dict:
+    """(g): ``train()`` at bench.py's widths, bf16, synthetic data, 8
+    steps; the flash kernels' launches must be 2 x n_layers x steps
+    (forward, re-run by full remat) and n_layers x steps (each backward
+    kernel). Then 2 profiled steps, and the f32 2-layer parity. Returns
+    the main run's launches."""
+    from nos_tpu_torch.cmd.trainer import TrainerConfig, train
+    from nos_tpu_torch.models.transformer import TransformerConfig
+
+    device = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = StepLog()
+    tlog = logging.getLogger("nos_tpu_torch.trainer")
+    tlog.setLevel(logging.INFO)
+    tlog.addHandler(log)
+    cfg = TrainerConfig(**TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                        steps=TRAIN_STEPS, log_every=1, seed=seed, bf16=True)
+    zero_flash_launches()                       # the main path's count
+    t0 = time.perf_counter()
+    final = train(cfg, device=device)
+    wall_s = time.perf_counter() - t0
+    launches = flash_launches()
+    tlog.removeHandler(log)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [loss for _, loss, _ in log.steps]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}: not finite and "
+                             f"falling over {TRAIN_STEPS} steps")
+    L = TRAIN["n_layers"]
+    want = {"flash_attention_fwd": 2 * L * TRAIN_STEPS,
+            "flash_attention_bwd_preprocess": L * TRAIN_STEPS,
+            "flash_attention_bwd_dkdv": L * TRAIN_STEPS,
+            "flash_attention_bwd_dq": L * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"flash launches {launches} != {want}")
+    times = [t for _, _, t in log.steps]
+    step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    steady_ms = float(np.median(step_ms[1:]))      # after the first two
+    mcfg = TransformerConfig(**TRAIN)
+    flops = model_flops_per_step(mcfg, TRAIN_BATCH, TRAIN_SEQ)
+    tflops = flops / (steady_ms / 1e3) / 1e12
+    row = {"phase": "train_full_width", "card": card, **TRAIN,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "remat": "full", "dtype": "bf16", "losses": losses,
+           "final_loss": final, "wall_s": wall_s, "step_ms": step_ms,
+           "step_ms_median_steady": steady_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (steady_ms / 1e3),
+           "model_tflops_per_step": flops / 1e12,
+           "model_tflops_per_s": tflops, "mfu_pct": 100 * tflops * 1e12
+           / BF16_FLOPS, "peak_mem_gb": peak_gb, "launches": launches}
+    torch.cuda.empty_cache()
+    row["profile"] = profile_train(seed, device)
+    torch.cuda.empty_cache()
+    row.update(f32_parity(seed, device))
+    emit(row)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="cdefg",
+                    help="phases to run after (a) and (b), e.g. 'f' while "
+                         "iterating on a kernel; only a run of every phase "
+                         "prints the kernels line and the ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -486,18 +928,33 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     # (b)
     emit({"phase": "build", "seconds": _kernels.build_all()})
-    # (c)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
-    kernel = phase_kernels(args.seed, device, flush)
+    paged = phase_kernels(args.seed, device, flush) if "c" in args.phases \
+        else {}
+    flash = phase_flash(args.seed, device, flush) if "f" in args.phases \
+        else {}
     del flush
-    # (d)
-    phase_exact_tokens(args.seed, device)
-    # (e)
-    kernel["launches"] = phase_full_width(args.seed, "bf16", card)
-    kernel["int8_launches"] = phase_full_width(args.seed, "int8", card)
+    if "d" in args.phases:
+        phase_exact_tokens(args.seed, device)
+    if "e" in args.phases:
+        paged["launches"] = phase_full_width(args.seed, "bf16", card)
+        paged["int8_launches"] = phase_full_width(args.seed, "int8", card)
+    if "g" in args.phases:
+        launches = phase_train(args.seed, card)
+        for name, row in flash.items():
+            row["launches"] = launches[name]
     emit({"phase": "done", "seconds": time.perf_counter() - t_all,
           "card": card})
-    emit({"kernels": [kernel]})
+    if set("cdefg") - set(args.phases):
+        return 0
+    kernels = [paged]
+    for name, row in flash.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "nos_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": "nos_tpu/ops/attention.py:186",
+                        "also_replaces": "nos_tpu/ops/attention.py:549",
+                        **row})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

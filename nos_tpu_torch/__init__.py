@@ -8,7 +8,13 @@ Pallas kernel's counterpart as a kernel written by hand for Hopper
 nothing of ``nos_tpu``, whose host-side pieces it copies where it needs
 them.
 
-Slice ported so far: single-device greedy serving through the paged KV
-cache (``cmd.server.build_engine`` -> ``models.serving.DecodeServer`` ->
-``models.generate.forward_paged`` -> ``ops.attention.paged_decode_attention``).
+Slices ported so far:
+
+- single-device greedy serving through the paged KV cache
+  (``cmd.server.build_engine`` -> ``models.serving.DecodeServer`` ->
+  ``models.generate.forward_paged`` ->
+  ``ops.attention.paged_decode_attention``);
+- single-device training (``cmd.trainer.train`` ->
+  ``models.transformer.make_train_step`` / ``loss_fn`` / ``forward`` ->
+  ``ops.attention.attention``, with ``train.optim`` and ``train.data``).
 """

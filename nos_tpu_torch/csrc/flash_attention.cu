@@ -1,0 +1,645 @@
+// Causal / full GQA flash attention for Hopper (sm_90a), forward and
+// backward, hand-written CUDA C++.
+//
+// Replaces the two TPU kernels that nos_tpu/ops/attention.py::attention
+// dispatches: splash attention (_splash_attention -> _splash_kernel_cached,
+// GQA grouped in the kernel, fused dq+dkv backward, logsumexp residual
+// "attn_residuals") and the legacy Pallas flash kernel (_pallas_flash with
+// _block_sizes). Both compute softmax(scale * Q K^T [+ mask]) V over
+// q [B, H, Sq, D] and k/v [B, Hkv, Sk, D], query head h reading kv head
+// h / (H / Hkv). The causal mask is bottom-right aligned (key j is seen by
+// query i when j <= i + Sk - Sq), as xla_attention's tril(.., Sk - Sq);
+// the wrapper requires Sq <= Sk under it, so every query row sees key 0.
+// The scale multiplies the f32 scores (flash and xla_attention do so;
+// splash pre-scales q in q's dtype instead, a bf16 rounding apart).
+//
+// Four kernels, one C entry each:
+//   flash_fwd_kernel       O (q's dtype) and LSE (f32 [B, H, Sq]);
+//   flash_bwd_pre_kernel   delta = rowsum(dO * O), f32 [B, H, Sq];
+//   flash_bwd_dkdv_kernel  one block per (K tile, kv head, b): loops over
+//                          the g query heads of its group and over the Q
+//                          tiles from the causal diagonal on, so the GQA
+//                          sum stays in the block (no atomics, the same
+//                          bits every run);
+//   flash_bwd_dq_kernel    one block per (Q tile, head, b), over K tiles.
+//
+// Bound: operations. At the training shape (S 2048, D 128) attention does
+// ~2 * S * D flops per K/V byte read, far above the card's ~295 flops per
+// byte balance point, so the tensor-core rate decides.
+//
+// Design. The TPU grids walked the KV axis in order with the softmax state
+// in VMEM scratch; here a loop inside each block walks it, with the
+// running max / sum in shared memory. Tiles of Q, K, V (and dO) are staged
+// in shared memory in the input dtype; every tile product (Q K^T, P V,
+// P^T dO, dO V^T, dS^T Q, dS K) goes through one routine, mm(): for bf16
+// it runs WMMA 16x16x16 tensor-core products with f32 accumulators
+// (P and dS are rounded to bf16 for their products, as the reference
+// rounds its probabilities to q's dtype before P.V); for f32 it runs
+// scalar f32 FMAs, so an f32 call differs from the plain version only in
+// summation order. Accumulators (O, dK, dV, dQ) live in f32 shared
+// memory, rescaled there by the online softmax. Masked scores are
+// -FLT_MAX with an explicit zero probability (never -inf, which turns
+// exp(m_prev - m_new) into NaN). Ragged tails (Sq, Sk not multiples of
+// the tile) load as zero rows and are masked by index.
+//
+// What this simple design leaves on the table: accumulators round-trip
+// shared memory for every tile product; no cp.async / TMA overlap of the
+// next tile's loads with this tile's math; WMMA instead of wgmma; one
+// block per SM in the backward (its tiles fill ~190 KB of shared memory).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <float.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBN = 64;                     // keys per K/V tile
+
+enum DType { kF32 = 0, kBF16 = 1 };
+
+// Row padding of a tile in the input dtype: 8 bf16 (16 bytes) keeps WMMA's
+// 16-byte ld rule and spreads rows over banks; 1 float does the latter for
+// the scalar f32 path. f32 accumulator tiles pad by 4 floats.
+template <typename T>
+constexpr int kPad = sizeof(T) == 2 ? 8 : 1;
+constexpr int kPadF = 4;
+
+constexpr size_t up128(size_t x) { return (x + 127) / 128 * 128; }
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// C[M x N] (+)= A' B' over shared-memory tiles, C f32 row-major. A'(m, k)
+// is A[k * lda + m] when kTA, else A[m * lda + k]; B'(k, n) is
+// B[n * ldb + k] when kTB, else B[k * ldb + n]. Called by all threads.
+template <bool kTA, bool kTB, bool kAcc, int M, int N, int K>
+__device__ __forceinline__ void mm(float* C, int ldc, const float* A,
+                                   int lda, const float* B, int ldb) {
+  for (int e = threadIdx.x; e < M * N; e += kThreads) {
+    const int m = e / N, n = e % N;
+    float s = kAcc ? C[m * ldc + n] : 0.f;
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) {
+      const float a = kTA ? A[k * lda + m] : A[m * lda + k];
+      const float b = kTB ? B[n * ldb + k] : B[k * ldb + n];
+      s = fmaf(a, b, s);
+    }
+    C[m * ldc + n] = s;
+  }
+}
+
+template <bool kTA, bool kTB, bool kAcc, int M, int N, int K>
+__device__ __forceinline__ void mm(float* C, int ldc,
+                                   const __nv_bfloat16* A, int lda,
+                                   const __nv_bfloat16* B, int ldb) {
+  using LA = typename std::conditional<kTA, wmma::col_major,
+                                       wmma::row_major>::type;
+  using LB = typename std::conditional<kTB, wmma::col_major,
+                                       wmma::row_major>::type;
+  constexpr int TN = N / 16;
+  for (int t = threadIdx.x / 32; t < (M / 16) * TN; t += kWarps) {
+    const int m0 = (t / TN) * 16, n0 = (t % TN) * 16;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+    if (kAcc)
+      wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
+    else
+      wmma::fill_fragment(c, 0.f);
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b;
+      wmma::load_matrix_sync(a, kTA ? A + k0 * lda + m0 : A + m0 * lda + k0,
+                             lda);
+      wmma::load_matrix_sync(b, kTB ? B + n0 * ldb + k0 : B + k0 * ldb + n0,
+                             ldb);
+      wmma::mma_sync(c, a, b, c);
+    }
+    wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
+  }
+}
+
+// Rows [r0, r0 + rows) of a row-major [S, D] matrix into a tile with row
+// stride ld; rows at or past S load as zeros. 16-byte global loads.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
+                                          int r0, int S, int rows) {
+  constexpr int kV = 16 / sizeof(T);
+  for (int i = threadIdx.x; i < rows * (D / kV); i += kThreads) {
+    const int r = i / (D / kV), c = (i % (D / kV)) * kV;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < S)
+      u = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
+    if constexpr (sizeof(T) == 2) {
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = u;
+    } else {
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int j = 0; j < kV; ++j) dst[r * ld + c + j] = e[j];
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_f32(float* dst, int ld, int rows) {
+  for (int i = threadIdx.x; i < rows * N; i += kThreads)
+    dst[(i / N) * ld + i % N] = 0.f;
+}
+
+// --------------------------------------------------------------- forward
+
+template <typename T, int D>
+struct FwdLayout {
+  static constexpr int kM = 64;             // query rows per block
+  static constexpr int ldT = D + kPad<T>, ldP = kBN + kPad<T>;
+  static constexpr int ldS = kBN + kPadF, ldO = D + kPadF;
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + up128(sizeof(T) * kM * ldT);
+  static constexpr size_t v = k + up128(sizeof(T) * kBN * ldT);
+  static constexpr size_t s = v + up128(sizeof(T) * kBN * ldT);
+  static constexpr size_t p = s + up128(4 * kM * ldS);
+  static constexpr size_t o = p + up128(sizeof(T) * kM * ldP);
+  static constexpr size_t row = o + up128(4 * kM * ldO);   // m, l, alpha
+  static constexpr size_t bytes = row + up128(4 * 3 * kM);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+                 float scale, int causal) {
+  using L = FwdLayout<T, D>;
+  constexpr int kM = L::kM;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem + L::q);
+  T* k_s = reinterpret_cast<T*>(smem + L::k);
+  T* v_s = reinterpret_cast<T*>(smem + L::v);
+  float* s_s = reinterpret_cast<float*>(smem + L::s);
+  T* p_s = reinterpret_cast<T*>(smem + L::p);
+  float* o_s = reinterpret_cast<float*>(smem + L::o);
+  float* m_s = reinterpret_cast<float*>(smem + L::row);
+  float* l_s = m_s + kM;
+  float* a_s = l_s + kM;
+
+  const int q0 = blockIdx.x * kM, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int off = Sk - Sq;                  // bottom-right causal offset
+  const size_t qrow = ((size_t)b * H + h) * Sq;
+  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
+  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
+
+  load_rows<T, D>(q_s, L::ldT, q + qrow * D, q0, Sq, kM);
+  zero_f32<D>(o_s, L::ldO, kM);
+  if (threadIdx.x < kM) {
+    m_s[threadIdx.x] = -FLT_MAX;
+    l_s[threadIdx.x] = 0.f;
+  }
+  // the last row of this tile sees keys up to q0 + kM - 1 + off
+  const int kv_end = causal ? min(Sk, q0 + kM + off) : Sk;
+
+  // softmax work split: 4 threads per query row, 16 columns each
+  const int sr = threadIdx.x / 4, sp = threadIdx.x % 4;
+  const int lim = causal ? q0 + sr + off : INT32_MAX;
+
+  for (int k0 = 0; k0 < kv_end; k0 += kBN) {
+    __syncthreads();                        // previous tile consumed
+    load_rows<T, D>(k_s, L::ldT, kb, k0, Sk, kBN);
+    load_rows<T, D>(v_s, L::ldT, vb, k0, Sk, kBN);
+    __syncthreads();
+    mm<false, true, false, kM, kBN, D>(s_s, L::ldS, q_s, L::ldT, k_s,
+                                       L::ldT);
+    __syncthreads();
+    {
+      float sv[kBN / 4];
+      float mx = -FLT_MAX;
+#pragma unroll
+      for (int j = 0; j < kBN / 4; ++j) {
+        const int c = sp + 4 * j, kj = k0 + c;
+        const bool ok = kj < Sk && kj <= lim;
+        sv[j] = ok ? s_s[sr * L::ldS + c] * scale : -FLT_MAX;
+        mx = fmaxf(mx, sv[j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_old = m_s[sr];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBN / 4; ++j) {
+        const int c = sp + 4 * j, kj = k0 + c;
+        const bool ok = kj < Sk && kj <= lim;
+        const float pv = ok ? expf(sv[j] - m_new) : 0.f;
+        p_s[sr * L::ldP + c] = from_f32<T>(pv);
+        sum += pv;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      __syncwarp();
+      if (sp == 0) {
+        const float alpha = expf(m_old - m_new);
+        l_s[sr] = alpha * l_s[sr] + sum;
+        m_s[sr] = m_new;
+        a_s[sr] = alpha;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kM * D; i += kThreads)
+      o_s[(i / D) * L::ldO + i % D] *= a_s[i / D];
+    __syncthreads();
+    mm<false, false, true, kM, D, kBN>(o_s, L::ldO, p_s, L::ldP, v_s,
+                                       L::ldT);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kM * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    if (q0 + r < Sq)
+      out[(qrow + q0 + r) * D + c] =
+          from_f32<T>(o_s[r * L::ldO + c] / l_s[r]);
+  }
+  if (threadIdx.x < kM && q0 + (int)threadIdx.x < Sq)
+    lse[qrow + q0 + threadIdx.x] =
+        m_s[threadIdx.x] + logf(l_s[threadIdx.x]);
+}
+
+// ------------------------------------------------------------- backward
+
+// delta[row] = sum_d dO[row, d] * O[row, d], one warp per row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_pre_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                     float* __restrict__ delta, int rows, int D) {
+  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;                  // whole warps leave together
+  const T* a = o + (size_t)row * D;
+  const T* g = dout + (size_t)row * D;
+  float s = 0.f;
+  for (int d = lane; d < D; d += 32) s = fmaf(to_f32(a[d]), to_f32(g[d]), s);
+  s = warp_sum(s);
+  if (lane == 0) delta[row] = s;
+}
+
+// Query rows per inner tile of the backward: 64 for bf16, 32 for f32 (its
+// tiles are twice as wide and the dK/dV block must stay under 227 KB).
+template <typename T>
+constexpr int kBwdM = sizeof(T) == 2 ? 64 : 32;
+
+template <typename T, int D>
+struct DkdvLayout {
+  static constexpr int kM = kBwdM<T>;
+  static constexpr int ldT = D + kPad<T>, ldP = kBN + kPad<T>;
+  static constexpr int ldS = kBN + kPadF, ldA = D + kPadF;
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + up128(sizeof(T) * kBN * ldT);
+  static constexpr size_t q = v + up128(sizeof(T) * kBN * ldT);
+  static constexpr size_t g = q + up128(sizeof(T) * kM * ldT);     // dO
+  static constexpr size_t s = g + up128(sizeof(T) * kM * ldT);
+  static constexpr size_t dp = s + up128(4 * kM * ldS);
+  static constexpr size_t p = dp + up128(4 * kM * ldS);
+  static constexpr size_t ds = p + up128(sizeof(T) * kM * ldP);
+  static constexpr size_t dk = ds + up128(sizeof(T) * kM * ldP);
+  static constexpr size_t dv = dk + up128(4 * kBN * ldA);
+  static constexpr size_t row = dv + up128(4 * kBN * ldA);        // lse, delta
+  static constexpr size_t bytes = row + up128(4 * 2 * kM);
+};
+
+// Probabilities and score gradients of one (Q tile, K tile) pair from the
+// staged scores S and dP: p = exp(scale * s - lse), zero where masked;
+// ds = p * (dp - delta).
+template <typename T, int kM>
+__device__ __forceinline__ void bwd_probs(const float* s_s,
+                                          const float* dp_s, int ldS, T* p_s,
+                                          T* ds_s, int ldP,
+                                          const float* lse_s,
+                                          const float* dl_s, int q0, int k0,
+                                          int Sq, int Sk, int off, int causal,
+                                          float scale) {
+  for (int i = threadIdx.x; i < kM * kBN; i += kThreads) {
+    const int r = i / kBN, c = i % kBN;
+    const int qi = q0 + r, kj = k0 + c;
+    const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi + off);
+    const float pv = ok ? expf(s_s[r * ldS + c] * scale - lse_s[r]) : 0.f;
+    const float ds = pv * (dp_s[r * ldS + c] - dl_s[r]);
+    if (p_s != nullptr) p_s[r * ldP + c] = from_f32<T>(pv);
+    ds_s[r * ldP + c] = from_f32<T>(ds);
+  }
+}
+
+template <int kM>
+__device__ __forceinline__ void load_row_stats(float* lse_s, float* dl_s,
+                                               const float* lse,
+                                               const float* delta, int q0,
+                                               int Sq) {
+  if (threadIdx.x < kM) {
+    const int qi = q0 + threadIdx.x;
+    lse_s[threadIdx.x] = qi < Sq ? lse[qi] : 0.f;
+    dl_s[threadIdx.x] = qi < Sq ? delta[qi] : 0.f;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int H, int Hkv, int Sq, int Sk,
+                      float scale, int causal) {
+  using L = DkdvLayout<T, D>;
+  constexpr int kM = L::kM;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* k_s = reinterpret_cast<T*>(smem + L::k);
+  T* v_s = reinterpret_cast<T*>(smem + L::v);
+  T* q_s = reinterpret_cast<T*>(smem + L::q);
+  T* g_s = reinterpret_cast<T*>(smem + L::g);
+  float* s_s = reinterpret_cast<float*>(smem + L::s);
+  float* dp_s = reinterpret_cast<float*>(smem + L::dp);
+  T* p_s = reinterpret_cast<T*>(smem + L::p);
+  T* ds_s = reinterpret_cast<T*>(smem + L::ds);
+  float* dk_s = reinterpret_cast<float*>(smem + L::dk);
+  float* dv_s = reinterpret_cast<float*>(smem + L::dv);
+  float* lse_s = reinterpret_cast<float*>(smem + L::row);
+  float* dl_s = lse_s + kM;
+
+  const int k0 = blockIdx.x * kBN, hk = blockIdx.y, b = blockIdx.z;
+  const int g = H / Hkv;
+  const int off = Sk - Sq;
+  const size_t kvrow = ((size_t)b * Hkv + hk) * Sk;
+  load_rows<T, D>(k_s, L::ldT, k + kvrow * D, k0, Sk, kBN);
+  load_rows<T, D>(v_s, L::ldT, v + kvrow * D, k0, Sk, kBN);
+  zero_f32<D>(dk_s, L::ldA, kBN);
+  zero_f32<D>(dv_s, L::ldA, kBN);
+  // the first query row that sees key k0 under the causal mask
+  const int q_first = causal ? max(0, k0 - off) / kM * kM : 0;
+
+  for (int h = hk * g; h < (hk + 1) * g; ++h) {
+    const size_t qrow = ((size_t)b * H + h) * Sq;
+    for (int q0 = q_first; q0 < Sq; q0 += kM) {
+      __syncthreads();                      // previous tile consumed
+      load_rows<T, D>(q_s, L::ldT, q + qrow * D, q0, Sq, kM);
+      load_rows<T, D>(g_s, L::ldT, dout + qrow * D, q0, Sq, kM);
+      load_row_stats<kM>(lse_s, dl_s, lse + qrow, delta + qrow, q0, Sq);
+      __syncthreads();
+      mm<false, true, false, kM, kBN, D>(s_s, L::ldS, q_s, L::ldT, k_s,
+                                         L::ldT);              // S = Q K^T
+      mm<false, true, false, kM, kBN, D>(dp_s, L::ldS, g_s, L::ldT, v_s,
+                                         L::ldT);              // dP = dO V^T
+      __syncthreads();
+      bwd_probs<T, kM>(s_s, dp_s, L::ldS, p_s, ds_s, L::ldP, lse_s, dl_s,
+                       q0, k0, Sq, Sk, off, causal, scale);
+      __syncthreads();
+      mm<true, false, true, kBN, D, kM>(dv_s, L::ldA, p_s, L::ldP, g_s,
+                                        L::ldT);               // dV += P^T dO
+      mm<true, false, true, kBN, D, kM>(dk_s, L::ldA, ds_s, L::ldP, q_s,
+                                        L::ldT);               // dK += dS^T Q
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kBN * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    if (k0 + r < Sk) {
+      dk[(kvrow + k0 + r) * D + c] = from_f32<T>(dk_s[r * L::ldA + c] * scale);
+      dv[(kvrow + k0 + r) * D + c] = from_f32<T>(dv_s[r * L::ldA + c]);
+    }
+  }
+}
+
+template <typename T, int D>
+struct DqLayout {
+  static constexpr int kM = kBwdM<T>;
+  static constexpr int ldT = D + kPad<T>, ldP = kBN + kPad<T>;
+  static constexpr int ldS = kBN + kPadF, ldA = D + kPadF;
+  static constexpr size_t q = 0;
+  static constexpr size_t g = q + up128(sizeof(T) * kM * ldT);     // dO
+  static constexpr size_t k = g + up128(sizeof(T) * kM * ldT);
+  static constexpr size_t v = k + up128(sizeof(T) * kBN * ldT);
+  static constexpr size_t s = v + up128(sizeof(T) * kBN * ldT);
+  static constexpr size_t dp = s + up128(4 * kM * ldS);
+  static constexpr size_t ds = dp + up128(4 * kM * ldS);
+  static constexpr size_t dq = ds + up128(sizeof(T) * kM * ldP);
+  static constexpr size_t row = dq + up128(4 * kM * ldA);
+  static constexpr size_t bytes = row + up128(4 * 2 * kM);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int H, int Hkv, int Sq, int Sk, float scale, int causal) {
+  using L = DqLayout<T, D>;
+  constexpr int kM = L::kM;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem + L::q);
+  T* g_s = reinterpret_cast<T*>(smem + L::g);
+  T* k_s = reinterpret_cast<T*>(smem + L::k);
+  T* v_s = reinterpret_cast<T*>(smem + L::v);
+  float* s_s = reinterpret_cast<float*>(smem + L::s);
+  float* dp_s = reinterpret_cast<float*>(smem + L::dp);
+  T* ds_s = reinterpret_cast<T*>(smem + L::ds);
+  float* dq_s = reinterpret_cast<float*>(smem + L::dq);
+  float* lse_s = reinterpret_cast<float*>(smem + L::row);
+  float* dl_s = lse_s + kM;
+
+  const int q0 = blockIdx.x * kM, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int off = Sk - Sq;
+  const size_t qrow = ((size_t)b * H + h) * Sq;
+  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
+  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
+  load_rows<T, D>(q_s, L::ldT, q + qrow * D, q0, Sq, kM);
+  load_rows<T, D>(g_s, L::ldT, dout + qrow * D, q0, Sq, kM);
+  load_row_stats<kM>(lse_s, dl_s, lse + qrow, delta + qrow, q0, Sq);
+  zero_f32<D>(dq_s, L::ldA, kM);
+  const int kv_end = causal ? min(Sk, q0 + kM + off) : Sk;
+
+  for (int k0 = 0; k0 < kv_end; k0 += kBN) {
+    __syncthreads();                        // previous tile consumed
+    load_rows<T, D>(k_s, L::ldT, kb, k0, Sk, kBN);
+    load_rows<T, D>(v_s, L::ldT, vb, k0, Sk, kBN);
+    __syncthreads();
+    mm<false, true, false, kM, kBN, D>(s_s, L::ldS, q_s, L::ldT, k_s,
+                                       L::ldT);                // S = Q K^T
+    mm<false, true, false, kM, kBN, D>(dp_s, L::ldS, g_s, L::ldT, v_s,
+                                       L::ldT);                // dP = dO V^T
+    __syncthreads();
+    bwd_probs<T, kM>(s_s, dp_s, L::ldS, static_cast<T*>(nullptr), ds_s,
+                     L::ldP, lse_s, dl_s, q0, k0, Sq, Sk, off, causal, scale);
+    __syncthreads();
+    mm<false, false, true, kM, D, kBN>(dq_s, L::ldA, ds_s, L::ldP, k_s,
+                                       L::ldT);                // dQ += dS K
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kM * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    if (q0 + r < Sq)
+      dq[(qrow + q0 + r) * D + c] = from_f32<T>(dq_s[r * L::ldA + c] * scale);
+  }
+}
+
+// ------------------------------------------------------------- launches
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T, int D>
+cudaError_t fwd_typed(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int B, int H, int Hkv, int Sq, int Sk,
+                      float scale, int causal, cudaStream_t st) {
+  using L = FwdLayout<T, D>;
+  auto kernel = flash_fwd_kernel<T, D>;
+  cudaError_t e = set_smem(kernel, L::bytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Sq + L::kM - 1) / L::kM, H, B);
+  kernel<<<grid, kThreads, L::bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      H, Hkv, Sq, Sk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t dkdv_typed(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int H, int Hkv, int Sq,
+                       int Sk, float scale, int causal, cudaStream_t st) {
+  using L = DkdvLayout<T, D>;
+  auto kernel = flash_bwd_dkdv_kernel<T, D>;
+  cudaError_t e = set_smem(kernel, L::bytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Sk + kBN - 1) / kBN, Hkv, B);
+  kernel<<<grid, kThreads, L::bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Sk, scale,
+      causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t dq_typed(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, int B, int H, int Hkv, int Sq, int Sk,
+                     float scale, int causal, cudaStream_t st) {
+  using L = DqLayout<T, D>;
+  auto kernel = flash_bwd_dq_kernel<T, D>;
+  cudaError_t e = set_smem(kernel, L::bytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Sq + L::kM - 1) / L::kM, H, B);
+  kernel<<<grid, kThreads, L::bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), H, Hkv, Sq, Sk, scale, causal);
+  return cudaGetLastError();
+}
+
+bool shape_ok(int B, int H, int Hkv, int Sq, int Sk, int causal) {
+  return B > 0 && Hkv > 0 && H % Hkv == 0 && Sq > 0 && Sk > 0 &&
+         B <= 65535 && H <= 65535 && (!causal || Sq <= Sk);
+}
+
+// One dispatch over (dtype, head_dim) for the three tiled launches.
+#define NOS_FLASH_DISPATCH(FN, ...)                                 \
+  do {                                                              \
+    if (dtype == kF32 && D == 64) return FN<float, 64>(__VA_ARGS__);  \
+    if (dtype == kF32 && D == 128) return FN<float, 128>(__VA_ARGS__); \
+    if (dtype == kBF16 && D == 64)                                  \
+      return FN<__nv_bfloat16, 64>(__VA_ARGS__);                    \
+    if (dtype == kBF16 && D == 128)                                 \
+      return FN<__nv_bfloat16, 128>(__VA_ARGS__);                   \
+    return cudaErrorInvalidValue;                                   \
+  } while (0)
+
+}  // namespace
+
+// Plain C entries for ctypes; every tensor is contiguous, 16-byte aligned
+// and in the layout above: q/o/dq [B, H, Sq, D], k/v/dk/dv [B, Hkv, Sk, D]
+// in one dtype (0 f32, 1 bf16), lse/delta f32 [B, H, Sq]. D is 64 or 128.
+// Each returns the launch's cudaGetLastError(); 0 is success.
+
+extern "C" int nos_flash_attention_fwd(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       int B, int H, int Hkv, int Sq, int Sk,
+                                       int D, float scale, int causal,
+                                       int dtype, void* stream) {
+  if (!shape_ok(B, H, Hkv, Sq, Sk, causal)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  NOS_FLASH_DISPATCH(fwd_typed, q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale,
+                     causal, st);
+}
+
+extern "C" int nos_flash_attention_bwd_preprocess(const void* o,
+                                                  const void* dout,
+                                                  void* delta, int rows,
+                                                  int D, int dtype,
+                                                  void* stream) {
+  if (rows <= 0 || (D != 64 && D != 128)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (rows + kWarps - 1) / kWarps;
+  if (dtype == kF32)
+    flash_bwd_pre_kernel<float><<<blocks, kThreads, 0, st>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout),
+        static_cast<float*>(delta), rows, D);
+  else if (dtype == kBF16)
+    flash_bwd_pre_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(o),
+        static_cast<const __nv_bfloat16*>(dout), static_cast<float*>(delta),
+        rows, D);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+extern "C" int nos_flash_attention_bwd_dkdv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+    int Hkv, int Sq, int Sk, int D, float scale, int causal, int dtype,
+    void* stream) {
+  if (!shape_ok(B, H, Hkv, Sq, Sk, causal)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  NOS_FLASH_DISPATCH(dkdv_typed, q, k, v, dout, lse, delta, dk, dv, B, H,
+                     Hkv, Sq, Sk, scale, causal, st);
+}
+
+extern "C" int nos_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int B, int H, int Hkv,
+    int Sq, int Sk, int D, float scale, int causal, int dtype,
+    void* stream) {
+  if (!shape_ok(B, H, Hkv, Sq, Sk, causal)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  NOS_FLASH_DISPATCH(dq_typed, q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq,
+                     Sk, scale, causal, st);
+}

@@ -52,22 +52,33 @@ def _lib_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
-def _build(source: Path) -> Path:
-    """Compile ``source`` with ``nvcc`` unless its library is built; the
-    output lands under a temporary name and is renamed on success."""
+def _start(source: Path) -> Optional[subprocess.Popen]:
+    """Start ``nvcc`` on ``source`` unless its library is built; the
+    output lands under a temporary name that ``_finish`` renames."""
     out = _lib_path(source)
     if out.exists():
-        return out
-    nvcc = _nvcc()
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
+    return subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                             str(source)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(source: Path, proc: Optional[subprocess.Popen]) -> Path:
+    out = _lib_path(source)
+    if proc is None:
+        return out
+    log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {out.name}:\n{proc.stdout}")
-    os.replace(tmp, out)
+        raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
+    os.replace(out.with_suffix(f".{os.getpid()}.tmp"), out)
     return out
+
+
+def _build(source: Path) -> Path:
+    """Compile ``source`` with ``nvcc`` unless its library is built."""
+    return _finish(source, _start(source))
 
 
 class _Kernel:
@@ -190,16 +201,164 @@ def _split(b: int, gs: int, h_kv: int, timeline: int,
 
 
 paged_decode = _PagedDecode()
-KERNELS: List[_Kernel] = [paged_decode]
+
+
+def _check_flash(name: str, tensors: List[torch.Tensor]) -> None:
+    """Device, dtype, contiguity and 16-byte alignment of a flash
+    kernel's tensors (the first sets the device and dtype; f32 row
+    statistics are named by the caller after the others)."""
+    ref = tensors[0]
+    if ref.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtype must be f32|bf16, got {ref.dtype}")
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != ref.device:
+            raise ValueError(f"{name}: every tensor must be on "
+                             f"{ref.device} (CUDA), got {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be contiguous and "
+                             f"16-byte aligned")
+
+
+def _flash_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, causal: bool) -> tuple:
+    b, h, s_q, d = q.shape
+    h_kv, s_k = k.shape[1], k.shape[2]
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q/k/v dtypes differ: {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if k.shape != (b, h_kv, s_k, d) or v.shape != k.shape:
+        raise ValueError(f"{name}: k/v {tuple(k.shape)}/{tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim must be one of {HEAD_DIMS}, "
+                         f"got {d}")
+    if h % h_kv:
+        raise ValueError(f"{name}: heads {h} must divide by kv heads {h_kv}")
+    if causal and s_q > s_k:
+        raise ValueError(f"{name}: the bottom-right causal mask needs "
+                         f"Sq <= Sk, got {s_q} > {s_k}")
+    return b, h, h_kv, s_q, s_k, d
+
+
+def _rows_f32(name: str, t: torch.Tensor, shape: tuple,
+              device: torch.device) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != shape \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: row statistics must be contiguous f32 "
+                         f"{shape} on {device}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class _FlashKernel(_Kernel):
+    """One launch of ``csrc/flash_attention.cu``, the counterpart of the
+    splash and flash kernels ``nos_tpu/ops/attention.py::attention``
+    dispatches; the four launches share one library."""
+
+    def __init__(self, symbol: str, argtypes: list):
+        super().__init__("flash_attention.cu", symbol, argtypes)
+
+    def _call(self, *args) -> None:
+        rc = self.fn()(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} kernel launch failed: "
+                               f"cudaError {rc}")
+        self.launches += 1
+
+
+class _FlashForward(_FlashKernel):
+    def __init__(self):
+        super().__init__("nos_flash_attention_fwd",
+                         [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P])
+
+    def launch(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool, scale: float) -> tuple:
+        """(o [B, H, Sq, D] in q's dtype, lse f32 [B, H, Sq])."""
+        _check_flash("flash_attention_fwd", [q, k, v])
+        b, h, h_kv, s_q, s_k, d = _flash_shapes("flash_attention_fwd",
+                                                q, k, v, causal)
+        o = torch.empty_like(q)
+        lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+        self._call(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   lse.data_ptr(), b, h, h_kv, s_q, s_k, d, float(scale),
+                   int(causal), _DTYPE_CODE[q.dtype], _stream(q))
+        return o, lse
+
+
+class _FlashPreprocess(_FlashKernel):
+    def __init__(self):
+        super().__init__("nos_flash_attention_bwd_preprocess",
+                         [_P] * 3 + [_I] * 3 + [_P])
+
+    def launch(self, o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+        """delta = rowsum(dO * O), f32 [B, H, Sq]."""
+        _check_flash("flash_attention_bwd_preprocess", [o, do])
+        if do.shape != o.shape or do.dtype != o.dtype:
+            raise ValueError("flash_attention_bwd_preprocess: dO must "
+                             "match O in shape and dtype")
+        if o.shape[-1] not in HEAD_DIMS:
+            raise ValueError(f"flash_attention_bwd_preprocess: head_dim "
+                             f"must be one of {HEAD_DIMS}, got "
+                             f"{o.shape[-1]}")
+        delta = torch.empty(o.shape[:-1], dtype=torch.float32,
+                            device=o.device)
+        self._call(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                   delta.numel(), o.shape[-1], _DTYPE_CODE[o.dtype],
+                   _stream(o))
+        return delta
+
+
+class _FlashBackward(_FlashKernel):
+    """The dK/dV launch (``dq=False``) or the dQ launch (``dq=True``)."""
+
+    def __init__(self, dq: bool):
+        n_out = 1 if dq else 2
+        super().__init__(
+            "nos_flash_attention_bwd_dq" if dq
+            else "nos_flash_attention_bwd_dkdv",
+            [_P] * (6 + n_out) + [_I] * 6 + [_F, _I, _I, _P])
+        self.dq = dq
+
+    def launch(self, q, k, v, do, lse, delta, *, causal: bool,
+               scale: float) -> tuple:
+        name = self.symbol[4:]
+        _check_flash(name, [q, k, v, do])
+        b, h, h_kv, s_q, s_k, d = _flash_shapes(name, q, k, v, causal)
+        if do.shape != q.shape or do.dtype != q.dtype:
+            raise ValueError(f"{name}: dO must match q in shape and dtype")
+        _rows_f32(name, lse, (b, h, s_q), q.device)
+        _rows_f32(name, delta, (b, h, s_q), q.device)
+        outs = ((torch.empty_like(q),) if self.dq
+                else (torch.empty_like(k), torch.empty_like(v)))
+        self._call(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                   lse.data_ptr(), delta.data_ptr(),
+                   *(t.data_ptr() for t in outs), b, h, h_kv, s_q, s_k, d,
+                   float(scale), int(causal), _DTYPE_CODE[q.dtype],
+                   _stream(q))
+        return outs
+
+
+flash_fwd = _FlashForward()
+flash_bwd_pre = _FlashPreprocess()
+flash_bwd_dkdv = _FlashBackward(dq=False)
+flash_bwd_dq = _FlashBackward(dq=True)
+KERNELS: List[_Kernel] = [paged_decode, flash_fwd, flash_bwd_pre,
+                          flash_bwd_dkdv, flash_bwd_dq]
 
 
 def build_all() -> Dict[str, float]:
-    """Build and load every kernel library; returns {source: seconds}.
-    One source so far: with a second, start one ``nvcc`` per source
-    together."""
+    """Build and load every kernel library: one ``nvcc`` per source, all
+    started together; returns {source: seconds until its library was
+    ready}."""
+    t0 = time.perf_counter()
+    sources = sorted({k.source for k in KERNELS})
+    procs = {src: _start(src) for src in sources}
     out = {}
+    for src in sources:
+        _finish(src, procs[src])
+        out[src.name] = time.perf_counter() - t0
     for k in KERNELS:
-        t0 = time.perf_counter()
         k.fn()
-        out[k.source.name] = time.perf_counter() - t0
     return out

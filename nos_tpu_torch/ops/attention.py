@@ -1,5 +1,6 @@
-"""Attention ops of the serving slice (port of the paged half of
-``nos_tpu/ops/attention.py``).
+"""Attention ops (port of ``nos_tpu/ops/attention.py``): the paged
+decode half the serving slice runs and the causal/full flash attention
+the training path runs.
 
 Layouts are the reference's: a paged arena is ``[NB, Hkv, bs, D]`` per
 layer (``[L, NB, Hkv, bs, D]`` in the cache), int8 scale planes
@@ -13,6 +14,13 @@ launches the kernel, on a CPU tensor it runs
 formulation the reference itself uses as its oracle. The scatters
 update the arena IN PLACE where the reference's jitted programs donated
 it.
+
+``attention`` is the counterpart of the reference's dispatch between its
+two Pallas library kernels, splash and flash: both map to one
+hand-written CUDA kernel family (``csrc/flash_attention.cu``, forward
+and backward) behind a ``torch.autograd.Function``, with
+``flash_attention_reference`` / ``flash_attention_backward_reference``
+as the plain versions the CPU runs.
 """
 from __future__ import annotations
 
@@ -23,9 +31,11 @@ import torch
 
 from nos_tpu_torch.ops import _kernels
 
-__all__ = ["xla_attention", "paged_gather_kv", "paged_gather_scale",
-           "paged_scatter_kv", "paged_scatter_scale", "quantize_kv",
-           "dequantize_kv", "paged_decode_attention",
+__all__ = ["attention", "effective_impl", "flash_attention_reference",
+           "flash_attention_backward_reference", "flash_attention_backward",
+           "check_attention_head_dim", "xla_attention", "paged_gather_kv",
+           "paged_gather_scale", "paged_scatter_kv", "paged_scatter_scale",
+           "quantize_kv", "dequantize_kv", "paged_decode_attention",
            "paged_decode_attention_reference", "effective_paged_impl",
            "check_paged_kernel_head_dim"]
 
@@ -229,3 +239,161 @@ def paged_decode_attention(
     return _kernels.paged_decode.launch(
         q, k_arena, v_arena, table, pos, k_scale=k_scale, v_scale=v_scale,
         scale=scale if scale is not None else q.shape[-1] ** -0.5)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (training path)
+# ---------------------------------------------------------------------------
+
+_ATTN_IMPLS = ("splash", "flash", "xla")
+
+
+def effective_impl(q_shape, k_shape, *, force_xla: bool = False) -> str:
+    """Which formulation ``attention`` dispatches: "splash" | "flash"
+    (both the CUDA flash-attention kernel family on the card, its plain
+    version on the CPU) or "xla" (``xla_attention`` under autograd).
+    ``NOS_TPU_TORCH_ATTN_IMPL`` (default "splash") selects it. Unlike the
+    reference, no shape routes to "xla" on its own: the kernel masks
+    ragged sequence tails itself, and on the card a head_dim it is not
+    built for raises (``check_attention_head_dim``)."""
+    impl = os.environ.get("NOS_TPU_TORCH_ATTN_IMPL", "splash")
+    if impl not in _ATTN_IMPLS:
+        raise ValueError(f"NOS_TPU_TORCH_ATTN_IMPL must be one of "
+                         f"{_ATTN_IMPLS}, got {impl!r}")
+    return "xla" if force_xla else impl
+
+
+def check_attention_head_dim(head_dim: int, device: torch.device,
+                             impl: str) -> None:
+    """Raise a ValueError naming ``head_dim`` when the kernel formulation
+    is selected on the card for a head dim the CUDA kernel is not built
+    for (64 and 128): never a quiet fall-back to the plain version."""
+    if (impl != "xla" and device.type == "cuda"
+            and head_dim not in _kernels.HEAD_DIMS):
+        raise ValueError(
+            f"head_dim {head_dim} is not one the CUDA flash attention "
+            f"kernel takes {_kernels.HEAD_DIMS}: pick widths with such a "
+            f"head_dim, or set NOS_TPU_TORCH_ATTN_IMPL=xla")
+
+
+def _masked_scores(q, k, causal: bool, scale: float) -> torch.Tensor:
+    """f32 scores [B, Hkv, g, Sq, Sk], finfo(f32).min outside
+    ``xla_attention``'s bottom-right causal mask."""
+    scores = _grouped_scores(q, k, scale)
+    if causal:
+        s_q, s_k = scores.shape[-2:]
+        mask = torch.ones((s_q, s_k), dtype=torch.bool,
+                          device=q.device).tril(s_k - s_q)
+        scores = torch.where(mask, scores, _NEG)
+    return scores
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool,
+                              scale: float) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """The forward kernel's plain version: (o [B, H, Sq, D] in q's dtype,
+    lse f32 [B, H, Sq]). Scores and softmax in f32 with the scale on the
+    f32 scores, probabilities cast to q's dtype before P.V, exactly
+    ``xla_attention``; lse = logsumexp of the scaled, masked scores."""
+    b, h, s_q, _ = q.shape
+    scores = _masked_scores(q, k, causal, scale)
+    lse = torch.logsumexp(scores, dim=-1)
+    probs = torch.exp(scores - lse[..., None]).to(q.dtype)
+    return _grouped_pv(probs, v), lse.reshape(b, h, s_q)
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, causal: bool, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' plain version, the textbook formulas in f32:
+    P = exp(scale * Q K^T - lse) (exactly zero where the mask put
+    finfo(f32).min), dV = P^T dO,
+    dP = dO V^T, D = rowsum(dO * O), dS = P * (dP - D), dQ = scale * dS K,
+    dK = scale * dS^T Q; the GQA group's query heads sum into their kv
+    head. Returns (dq, dk, dv) in the inputs' dtypes."""
+    b, h, s_q, d = q.shape
+    h_kv = k.shape[1]
+    g = h // h_kv
+
+    def grouped(t):
+        return t.float().reshape(b, h_kv, g, t.shape[2], d)
+
+    qg, og, dog = grouped(q), grouped(o), grouped(do)
+    k32, v32 = k.float().unsqueeze(2), v.float().unsqueeze(2)
+    scores = _masked_scores(q, k, causal, scale)        # [B, Hkv, g, Sq, Sk]
+    p = torch.exp(scores - lse.reshape(b, h_kv, g, s_q, 1))
+    dv = torch.matmul(p.transpose(-1, -2), dog).sum(dim=2)
+    dp = torch.matmul(dog, v32.transpose(-1, -2))
+    delta = (dog * og).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, k32) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qg).sum(dim=2) * scale
+    return (dq.reshape(b, h, s_q, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, causal: bool, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) through the three backward kernels on CUDA tensors
+    (delta = rowsum(dO * O), then dK/dV, then dQ), through
+    ``flash_attention_backward_reference`` on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, o, lse, do, causal=causal, scale=scale)
+    delta = _kernels.flash_bwd_pre.launch(o, do)
+    dk, dv = _kernels.flash_bwd_dkdv.launch(q, k, v, do, lse, delta,
+                                            causal=causal, scale=scale)
+    (dq,) = _kernels.flash_bwd_dq.launch(q, k, v, do, lse, delta,
+                                         causal=causal, scale=scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with a kernel backward: the forward saves q, k, v,
+    o and the f32 lse (the counterpart of splash's ``"attn_residuals"``),
+    and the backward never re-runs the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if q.device.type == "cpu":
+            o, lse = flash_attention_reference(q, k, v, causal=causal,
+                                               scale=scale)
+        else:
+            o, lse = _kernels.flash_fwd.launch(q, k, v, causal=causal,
+                                               scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = False, scale: Optional[float] = None,
+              force_xla: bool = False) -> torch.Tensor:
+    """q [B, H, Sq, D]; k, v [B, Hkv, Sk, D] with H % Hkv == 0 ->
+    [B, H, Sq, D] in q's dtype. The causal mask is bottom-right aligned
+    (``xla_attention``'s), which is splash's top-left mask whenever
+    Sq == Sk, as every training caller has. The scale multiplies the f32
+    scores (flash's and ``xla_attention``'s rule; splash pre-scales q in
+    q's dtype, a bf16 rounding apart). "splash" and "flash" run
+    ``_FlashAttention``: on CUDA tensors the hand-written kernels (or a
+    raise), on CPU tensors their plain versions; "xla" runs
+    ``xla_attention`` under autograd."""
+    impl = effective_impl(q.shape, k.shape, force_xla=force_xla)
+    if impl == "xla":
+        return xla_attention(q, k, v, causal=causal, scale=scale)
+    check_attention_head_dim(q.shape[-1], q.device, impl)
+    sm_scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, causal, float(sm_scale))

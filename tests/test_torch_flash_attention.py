@@ -1,0 +1,225 @@
+"""Port parity: ``attention`` (the training path's flash attention) on
+the CPU against the JAX reference.
+
+On CPU tensors the port runs the kernels' plain versions
+(``flash_attention_reference`` / ``flash_attention_backward_reference``)
+behind the same ``torch.autograd.Function`` the card runs its CUDA
+kernels through. The reference runs ``xla_attention`` here (its splash
+gate needs a TPU), and its TPU splash kernel runs in Pallas interpret
+mode, built as ``_splash_kernel_cached`` builds it. Tolerances, on
+unit-normal inputs: f32 1e-4 absolute (the two JAX paths differ by
+2.2e-6 forward and 2.4e-5 in the gradients at these shapes); bf16 a few
+bf16 ulps of the outputs' scale, since the plain backward keeps f32
+where JAX's autodiff rounds to bf16 between its ops. The CUDA kernels
+run only on the card (chip_smoke.py holds them against these plain
+versions).
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from nos_tpu.ops import attention as ja  # noqa: E402
+from nos_tpu_torch.ops import _kernels  # noqa: E402
+from nos_tpu_torch.ops import attention as ta  # noqa: E402
+
+F32_TOL = 1e-4
+# bf16: forward one output ulp at |o| < 4 (2^-6) plus rounding of the
+# probabilities; gradients 4 ulps of their largest element
+BF16_FWD_TOL = 2.0 ** -5
+BF16_GRAD_REL = 2.0 ** -6
+
+DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
+          "bf16": (None, jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(seed, b, h, h_kv, s, d):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, s, d)).astype(np.float32)
+    k = rng.normal(size=(b, h_kv, s, d)).astype(np.float32)
+    v = rng.normal(size=(b, h_kv, s, d)).astype(np.float32)
+    do = rng.normal(size=(b, h, s, d)).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax_fwd_grads(fn, arrays, jdt):
+    q, k, v, do = (jnp.asarray(a, jdt) for a in arrays)
+    out, vjp = jax.vjp(fn, q, k, v)
+    return [np.asarray(x, np.float32) for x in (out, *vjp(do))]
+
+
+def _port_fwd_grads(arrays, tdt, causal):
+    q, k, v, do = (torch.from_numpy(a).to(tdt) for a in arrays)
+    for t in (q, k, v):
+        t.requires_grad_()
+    out = ta.attention(q, k, v, causal=causal)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    return [t.detach().float().numpy() for t in (out, *grads)]
+
+
+def _assert_close(got, want, dtype, what):
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        if dtype == "f32":
+            np.testing.assert_allclose(g, w, atol=F32_TOL, rtol=0,
+                                       err_msg=f"{what} {name}")
+        else:
+            tol = (BF16_FWD_TOL if name == "o"
+                   else BF16_GRAD_REL * np.abs(w).max())
+            np.testing.assert_allclose(g, w, atol=tol, rtol=0,
+                                       err_msg=f"{what} {name}")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_matches_reference_xla_forward_and_grads(causal, g, dtype):
+    arrays = _inputs(g, 2, 4, 4 // g, 48, 32)
+    want = _jax_fwd_grads(
+        lambda q, k, v: ja.xla_attention(q, k, v, causal=causal), arrays,
+        DTYPES[dtype][1])
+    got = _port_fwd_grads(arrays, DTYPES[dtype][2], causal)
+    _assert_close(got, want, dtype, f"causal={causal} g={g}")
+
+
+@pytest.fixture
+def splash_interpret():
+    """The reference's splash kernel in Pallas interpret mode, built with
+    ``_splash_kernel_cached``'s block sizes and mask, applied as
+    ``_splash_attention`` applies it (q pre-scaled in its dtype, vmap
+    over batch)."""
+    sk, mk = ja._splash_mod()
+
+    def attend(q, k, v, *, causal):
+        h, s, d = q.shape[1], q.shape[2], q.shape[3]
+        bq, bkv = ja._clamp_block(512, s), ja._clamp_block(512, s)
+        bd = ja._clamp_block(128, s)
+        bs = sk.BlockSizes(
+            block_q=bq, block_kv=bkv, block_kv_compute=bkv, block_q_dkv=bd,
+            block_kv_dkv=bd, block_kv_dkv_compute=bd, block_q_dq=None,
+            block_kv_dq=None, use_fused_bwd_kernel=True)
+        mask_cls = mk.CausalMask if causal else mk.FullMask
+        mask = mk.MultiHeadMask([mask_cls((s, s)) for _ in range(h)])
+        kernel = sk.make_splash_mha(mask=mask, block_sizes=bs,
+                                    head_shards=1, q_seq_shards=1,
+                                    interpret=True)
+        return jax.vmap(kernel)((q * d ** -0.5).astype(q.dtype), k, v)
+
+    return attend
+
+
+@pytest.mark.parametrize("causal,g", [(True, 2), (False, 4)])
+def test_attention_matches_reference_splash_kernel_interpret(
+        splash_interpret, causal, g):
+    arrays = _inputs(10 + g, 1, 4, 4 // g, 256, 128)
+    want = _jax_fwd_grads(
+        lambda q, k, v: splash_interpret(q, k, v, causal=causal), arrays,
+        jnp.float32)
+    got = _port_fwd_grads(arrays, torch.float32, causal)
+    _assert_close(got, want, "f32", f"splash causal={causal} g={g}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_reference_matches_autograd_through_xla_attention(causal):
+    """The textbook backward (D = rowsum(dO*O), dS = P*(dP - D)) against
+    jax.vjp of the reference's xla_attention, GQA g = 2, ragged S."""
+    q, k, v, do = _inputs(3, 2, 4, 2, 37, 16)
+    want = _jax_fwd_grads(
+        lambda q, k, v: ja.xla_attention(q, k, v, causal=causal),
+        (q, k, v, do), jnp.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = ta.flash_attention_reference(tq, tk, tv, causal=causal,
+                                          scale=16 ** -0.5)
+    grads = ta.flash_attention_backward_reference(
+        tq, tk, tv, o, lse, tdo, causal=causal, scale=16 ** -0.5)
+    np.testing.assert_allclose(o.numpy(), want[0], atol=1e-5, rtol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want[1:]):
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=0,
+                                   err_msg=name)
+
+
+def test_lse_is_the_logsumexp_of_the_masked_scores():
+    q, k, v, _ = _inputs(4, 1, 2, 1, 20, 8)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    _, lse = ta.flash_attention_reference(tq, tk, tv, causal=True,
+                                          scale=0.5)
+    scores = np.einsum("hqd,kd->hqk", q[0], k[0, 0]) * 0.5
+    scores = np.where(np.tri(20, dtype=bool), scores, -np.inf)
+    want = np.log(np.exp(scores - scores.max(-1, keepdims=True)).sum(-1)) \
+        + scores.max(-1)
+    np.testing.assert_allclose(lse[0].numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.fixture
+def spy(monkeypatch):
+    """Counts calls of the plain versions the Function routes to."""
+    calls = {"fwd": 0, "bwd": 0}
+
+    def wrap(name, key):
+        orig = getattr(ta, name)
+
+        def counted(*a, **kw):
+            calls[key] += 1
+            return orig(*a, **kw)
+
+        monkeypatch.setattr(ta, name, counted)
+
+    wrap("flash_attention_reference", "fwd")
+    wrap("flash_attention_backward_reference", "bwd")
+    return calls
+
+
+@pytest.mark.parametrize("impl", ["splash", "flash"])
+def test_function_routes_cpu_tensors_to_the_plain_versions(
+        spy, monkeypatch, impl):
+    monkeypatch.setenv("NOS_TPU_TORCH_ATTN_IMPL", impl)
+    for k in _kernels.KERNELS:
+        monkeypatch.setattr(k, "launches", 0)
+    q, k, v, do = (torch.from_numpy(a).requires_grad_()
+                   for a in _inputs(5, 1, 4, 2, 16, 8))
+    out = ta.attention(q, k, v, causal=True)
+    assert spy == {"fwd": 1, "bwd": 0}
+    out.backward(do.detach())
+    assert spy == {"fwd": 1, "bwd": 1}
+    assert all(k.launches == 0 for k in _kernels.KERNELS)
+    assert q.grad is not None and k.grad.shape == k.shape
+
+
+def test_xla_impl_runs_autograd_through_xla_attention(spy, monkeypatch):
+    monkeypatch.setenv("NOS_TPU_TORCH_ATTN_IMPL", "xla")
+    q, k, v, do = (torch.from_numpy(a).requires_grad_()
+                   for a in _inputs(6, 1, 2, 2, 8, 8))
+    ta.attention(q, k, v, causal=True).backward(do.detach())
+    assert spy == {"fwd": 0, "bwd": 0}
+    assert ta.effective_impl(q.shape, k.shape) == "xla"
+    monkeypatch.setenv("NOS_TPU_TORCH_ATTN_IMPL", "splash")
+    assert ta.effective_impl(q.shape, k.shape, force_xla=True) == "xla"
+
+
+def test_effective_impl_default_and_unknown(monkeypatch):
+    monkeypatch.delenv("NOS_TPU_TORCH_ATTN_IMPL", raising=False)
+    # no shape routes to the plain path: ragged S and any head_dim
+    assert ta.effective_impl((1, 2, 100, 48), (1, 1, 100, 48)) == "splash"
+    monkeypatch.setenv("NOS_TPU_TORCH_ATTN_IMPL", "pallas")
+    with pytest.raises(ValueError, match="NOS_TPU_TORCH_ATTN_IMPL"):
+        ta.effective_impl((1, 2, 8, 8), (1, 1, 8, 8))
+
+
+def test_head_dim_gate_raises_on_the_card_only():
+    cuda = torch.device("cuda")
+    for d in _kernels.HEAD_DIMS:
+        ta.check_attention_head_dim(d, cuda, "splash")
+    with pytest.raises(ValueError, match="head_dim 96"):
+        ta.check_attention_head_dim(96, cuda, "flash")
+    ta.check_attention_head_dim(96, cuda, "xla")
+    ta.check_attention_head_dim(96, torch.device("cpu"), "splash")
+
+
+def test_flash_kernels_share_one_source_and_count_launches():
+    flash = [_kernels.flash_fwd, _kernels.flash_bwd_pre,
+             _kernels.flash_bwd_dkdv, _kernels.flash_bwd_dq]
+    assert all(k in _kernels.KERNELS for k in flash)
+    assert {k.source.name for k in flash} == {"flash_attention.cu"}
+    assert len({k.symbol for k in flash}) == 4
+    assert (_kernels.CSRC / "flash_attention.cu").exists()

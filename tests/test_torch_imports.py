@@ -51,6 +51,21 @@ def test_importing_the_server_loads_no_jax():
                    cwd=str(ROOT), timeout=120)
 
 
+def test_importing_the_trainer_loads_no_jax_and_builds_nothing():
+    code = ("import sys, nos_tpu_torch.cmd.trainer, "
+            "nos_tpu_torch.train.optim, nos_tpu_torch.train.data, "
+            "nos_tpu_torch.models.transformer; "
+            "from nos_tpu_torch.ops import _kernels; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'nos_tpu' or "
+            "m.startswith('nos_tpu.')]; "
+            "assert not bad, bad; "
+            "assert all(k._fn is None for k in _kernels.KERNELS)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """With no CUDA device visible the smoke exits non-zero and prints
     no result line; so does a copy standing alone, without the port."""
