@@ -24,16 +24,19 @@ e. the main path at full width: ``build_engine`` on a Llama-3-8B-shaped
 f. the four flash-attention kernels (forward, backward preprocess, dK/dV,
    dQ) against their plain versions at the training slice's shape
    (batch 8, 16 query / 4 KV heads, S 2048, head_dim 128, causal), at
-   head_dim 64, with a full mask and at a ragged S 1000, under bf16 and
-   f32, each element of O, LSE, dQ, dK, dV within a rounding-derived pin;
-   times kernel, plain version, SDPA and the FLOP bound;
+   head_dim 64, with a full mask, at a ragged S 1000 (head_dim 128 and
+   64), with GQA groups of 1 and of 8 (S 4096), under bf16 and f32, each
+   element of O, LSE, dQ, dK, dV within a rounding-derived pin, and dK,
+   dV, dQ bit-identical over two launches; times kernel, plain version,
+   SDPA and the FLOP bound;
 g. the training path at full width: ``train()`` on bench.py's 1.1 B
    model (d_model 2048, 16 layers, GQA 16/4, d_ff 8192, vocab 32000,
    batch 8 x 2048, bf16, full remat, adamw, random weights and synthetic
    batches from the seed) takes 8 steps; the loss must be finite and
    fall, and the flash forward must launch 2 x 16 x 8 times (full remat
    re-runs it) and each backward kernel 16 x 8 times. Then 2 profiled
-   steps (device idle share, the attention kernels' share) and, at 2
+   steps (device idle share; the flash forward and backward kernels'
+   milliseconds and their share of busy time) and, at 2
    layers in f32, one step's loss and gradients through the kernel
    against ``NOS_TPU_TORCH_ATTN_IMPL=xla``.
 
@@ -505,13 +508,20 @@ ATTN = dict(b=8, h=16, h_kv=4, s=2048, d=128)
 # (for dK, dQ) to bf16 where the plain version keeps f32, a 2^-9 relative
 # error per term of sums over up to g * S terms whose cancellation leaves
 # the tensor's largest element as the scale; f32 sums differ in order.
+# The cases added to hold the backward (``BWD_CASES``) hold O to the
+# round-to-nearest bound instead, ``o_rn``: bf16's unit roundoff is 2^-8
+# (half an ulp of 2^-7), so two output roundings give r = 2^-7 and two
+# probability roundings m = 2^-7; the pin above takes 2^-9 for the
+# latter and is exceeded at those cases' shapes (g1 read 1.05 of it).
 FLASH_PINS = {
     torch.bfloat16: dict(o=(2.0 ** -7 * (1 + 2.0 ** -6),
                             2.0 ** -8 * (1 + 2.0 ** -6)), lse=2.0 ** -16,
-                         grad=(2.0 ** -7, 2.0 ** -7)),
+                         grad=(2.0 ** -7, 2.0 ** -7),
+                         o_rn=(2.0 ** -7, 2.0 ** -7)),
     torch.float32: dict(o=(1e-5, 1e-5), lse=2.0 ** -16,
-                        grad=(1e-5, 1e-5)),
+                        grad=(1e-5, 1e-5), o_rn=(1e-5, 1e-5)),
 }
+BWD_CASES = ("g1", "g8_s4096", "ragged_s1000_d64")
 F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 
 
@@ -582,7 +592,8 @@ def pin_check(name: str, got, ref, r: float, m: float, scale=None) -> dict:
 def phase_flash(seed: int, device, flush) -> dict:
     """(f): the four flash-attention kernels against their plain versions
     at the training slice's shape (causal), at head_dim 64, with a full
-    mask, and at a ragged S = 1000, under bf16 and f32; times kernel,
+    mask, at a ragged S = 1000, and with GQA groups of 1 and 8, under bf16
+    and f32, the backward also bit-identical over two launches; times kernel,
     plain version and SDPA at the slice shape in bf16. Returns the
     kernels-line rows keyed by kernel name."""
     from nos_tpu_torch.ops import _kernels
@@ -594,7 +605,11 @@ def phase_flash(seed: int, device, flush) -> dict:
     cases = [("slice", ATTN, True),
              ("d64", dict(ATTN, b=2, h=8, h_kv=2, s=1024, d=64), True),
              ("full_mask", dict(ATTN, b=2, s=1024), False),
-             ("ragged_s1000", dict(ATTN, b=2, s=1000), True)]
+             ("ragged_s1000", dict(ATTN, b=2, s=1000), True),
+             ("g1", dict(ATTN, b=2, h=8, h_kv=8, s=1024), True),
+             ("g8_s4096", dict(ATTN, b=1, h=32, h_kv=4, s=4096), True),
+             ("ragged_s1000_d64", dict(ATTN, b=2, h=8, h_kv=2, s=1000, d=64),
+              True)]
     rows = {}
     for label, shape, causal in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -605,11 +620,17 @@ def phase_flash(seed: int, device, flush) -> dict:
             o, lse = _kernels.flash_fwd.launch(q, k, v, **kw)
             o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
             mag = flash_attention_reference(q, k, v.abs(), **kw)[0].float()
+            o_pin = pins["o_rn" if label in BWD_CASES else "o"]
             checks = {"o": pin_check("flash_attention_fwd O", o, o_ref,
-                                     *pins["o"], scale=mag),
+                                     *o_pin, scale=mag),
                       "lse": pin_check("flash_attention_fwd LSE", lse,
                                        lse_ref, pins["lse"], pins["lse"],
                                        scale=1.0)}
+            if label in BWD_CASES:
+                r, m = pins["o"]
+                checks["o"]["share_of_pin_o"] = float(
+                    ((o.float() - o_ref.float()).abs()
+                     / (r * o_ref.float().abs() + m * mag)).max())
             delta = _kernels.flash_bwd_pre.launch(o, do)
             checks["delta"] = pin_check(
                 "flash_attention_bwd_preprocess", delta,
@@ -624,6 +645,17 @@ def phase_flash(seed: int, device, flush) -> dict:
             for nm, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
                 checks[nm] = pin_check(f"flash_attention_bwd {nm}", got,
                                        want, *pins["grad"])
+            # no atomics: a second launch gives the same bits
+            again = (*_kernels.flash_bwd_dkdv.launch(q, k, v, do, lse, delta,
+                                                     **kw),
+                     *_kernels.flash_bwd_dq.launch(q, k, v, do, lse, delta,
+                                                   **kw))
+            if not all(torch.equal(a, b_) for a, b_ in
+                       zip(again, (dk, dv, dq))):
+                raise AssertionError(f"{label} {dtype}: dK/dV/dQ differ "
+                                     f"between two launches")
+            checks["bit_identical_rerun"] = True
+            del again
             row = {"phase": "flash_vs_plain", "case": label,
                    "causal": causal, "compute": str(dtype).split(".")[-1],
                    **shape, "pins": {k_: str(v_) for k_, v_ in pins.items()},
@@ -772,7 +804,8 @@ def train_setup(cfg, seed: int, device):
 def profile_train(seed: int, device) -> dict:
     """Device breakdown of 2 steady training steps at full width under
     torch.profiler: busy = the sum of kernel times; groups: the flash
-    kernels, matmuls, everything else."""
+    forward, the flash backward (preprocess, dK/dV, dQ), matmuls,
+    everything else."""
     from torch.profiler import ProfilerActivity, profile
     from nos_tpu_torch.cmd.trainer import TrainerConfig, synthetic_batch
     from nos_tpu_torch.models.transformer import TransformerConfig
@@ -793,12 +826,13 @@ def profile_train(seed: int, device) -> dict:
             step(params, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / n
-    out = device_breakdown(prof, n, {"flash_kernels": ("flash_fwd",
-                                                       "flash_bwd")})
+    out = device_breakdown(prof, n, {"flash_fwd": ("flash_fwd",),
+                                     "flash_bwd": ("flash_bwd",)})
     out["profiled_ms_per_step"] = wall_ms
     out["device_idle_share"] = 1 - out["device_busy_ms"] / wall_ms
     out["attention_share_of_busy"] = (
-        out["device_ms"]["flash_kernels"] / out["device_busy_ms"])
+        (out["device_ms"]["flash_fwd"] + out["device_ms"]["flash_bwd"])
+        / out["device_busy_ms"])
     del params, step, batch
     return out
 

@@ -16,36 +16,78 @@
 // Four kernels, one C entry each:
 //   flash_fwd_kernel       O (q's dtype) and LSE (f32 [B, H, Sq]);
 //   flash_bwd_pre_kernel   delta = rowsum(dO * O), f32 [B, H, Sq];
-//   flash_bwd_dkdv_kernel  one block per (K tile, kv head, b): loops over
+//   dK/dV                  one block per (K tile, kv head, b): loops over
 //                          the g query heads of its group and over the Q
 //                          tiles from the causal diagonal on, so the GQA
 //                          sum stays in the block (no atomics, the same
-//                          bits every run);
-//   flash_bwd_dq_kernel    one block per (Q tile, head, b), over K tiles.
+//                          bits every run); bf16: flash_bwd_dkdv_wgmma_-
+//                          kernel, f32: flash_bwd_dkdv_kernel;
+//   dQ                     one block per (Q tile, head, b), over K tiles;
+//                          bf16: flash_bwd_dq_wgmma_kernel, f32:
+//                          flash_bwd_dq_kernel.
+// Every kernel name keeps "flash_fwd" or "flash_bwd": profiles group by
+// those substrings (and would book an "sm90_" name as a GEMM).
 //
 // Bound: operations. At the training shape (S 2048, D 128) attention does
 // ~2 * S * D flops per K/V byte read, far above the card's ~295 flops per
 // byte balance point, so the tensor-core rate decides.
 //
-// Design. The TPU grids walked the KV axis in order with the softmax state
-// in VMEM scratch; here a loop inside each block walks it, with the
-// running max / sum in shared memory. Tiles of Q, K, V (and dO) are staged
-// in shared memory in the input dtype; every tile product (Q K^T, P V,
-// P^T dO, dO V^T, dS^T Q, dS K) goes through one routine, mm(): for bf16
-// it runs WMMA 16x16x16 tensor-core products with f32 accumulators
-// (P and dS are rounded to bf16 for their products, as the reference
-// rounds its probabilities to q's dtype before P.V); for f32 it runs
-// scalar f32 FMAs, so an f32 call differs from the plain version only in
-// summation order. Accumulators (O, dK, dV, dQ) live in f32 shared
-// memory, rescaled there by the online softmax. Masked scores are
-// -FLT_MAX with an explicit zero probability (never -inf, which turns
-// exp(m_prev - m_new) into NaN). Ragged tails (Sq, Sk not multiples of
-// the tile) load as zero rows and are masked by index.
+// Forward and f32 backward. The TPU grids walked the KV axis in order
+// with the softmax state in VMEM scratch; here a loop inside each block
+// walks it, with the running max / sum in shared memory. Tiles of Q, K, V
+// (and dO) are staged in shared memory in the input dtype; every tile
+// product goes through one routine, mm(): for bf16 it runs WMMA 16x16x16
+// tensor-core products with f32 accumulators (P is rounded to bf16 for
+// P.V, as the reference rounds its probabilities to q's dtype); for f32
+// it runs scalar f32 FMAs, so an f32 call differs from the plain version
+// only in summation order (never TF32). Accumulators live in f32 shared
+// memory. Masked scores are -FLT_MAX with an explicit zero probability
+// (never -inf, which turns exp(m_prev - m_new) into NaN). Ragged tails
+// load as zero rows and are masked by index.
 //
-// What this simple design leaves on the table: accumulators round-trip
-// shared memory for every tile product; no cp.async / TMA overlap of the
-// next tile's loads with this tile's math; WMMA instead of wgmma; one
-// block per SM in the backward (its tiles fill ~190 KB of shared memory).
+// bf16 backward (Hopper; FlashAttention-3's backward kept as two
+// kernels). Three warpgroups per block: a producer warp issues TMA loads
+// into a two-stage ring of shared-memory stages with full/empty
+// mbarriers; two consumer warpgroups each own 64 rows of the block's
+// tile (keys for dK/dV, queries for dQ) and run wgmma: S and dP as
+// m64n64k16 products with both operands in shared memory, then P and dS
+// in registers, then the gradient products in the RS form, the A operand
+// being P or dS packed to bf16 straight from the accumulator registers
+// that computed them. dK and dV (64 + 64 f32 a thread) or dQ (64) stay
+// in registers for the whole block; setmaxnreg moves registers from the
+// producer (24) to the consumers (240). dK/dV keeps its K and V tile
+// resident and streams (Q, dO, lse, delta) across the group's heads; dQ
+// keeps Q and dO resident and streams (K, V). Only tiles on the causal
+// diagonal or the ragged edge test each element. Blocks of the longest
+// walks are launched first (the tile index is the grid's slowest axis).
+// P and dS round to bf16 before their products (the plain version keeps
+// them in f32; chip_smoke.py's gradient pins allow for that rounding).
+//
+// Where the bf16 backward could go wrong, and what it does:
+//  1. TMA maps over ctypes: cuTensorMapEncodeTiled comes from the runtime's
+//     driver entry-point table inside the C entry (no -lcuda); the maps
+//     are kernel parameters (__grid_constant__), encoded 3-D [B*H, S, D]
+//     so the box past a ragged S zero-fills instead of reading the next
+//     head's rows.
+//  2. Swizzle: with SWIZZLE_128B a box is at most 64 bf16 wide, so a
+//     D = 128 tile is two boxes; the descriptors' offsets follow
+//     sm90.cuh (MN-major: leading = the distance between boxes, stride =
+//     1024 bytes; K-major: stride 1024), checked product by product.
+//  3. The RS operand: the m64nN accumulator fragment, packed in pairs, is
+//     the A fragment of the next k16 steps (sm90.cuh); the registers are
+//     pinned across each asynchronous product.
+//  4. Masking: a masked or out-of-range (query, key) pair gives an
+//     explicit zero probability, so rows past Sq (lse and delta loaded as
+//     0) never contribute exp(S).
+//  5. Profile names: see above.
+//  6. Rebuild key: the library's name hashes sm90.cuh too (_kernels.py).
+//  7. Build time: raw PTX helpers, no CuTe; the library builds in seconds.
+//
+// What the bf16 backward leaves for later: each consumer still waits for
+// its S and dP before the exponentials (no intra-warpgroup overlap of
+// softmax and products), one block per SM exposes each block's prologue
+// and epilogue (no persistent grid), the epilogue stores from the
+// fragments (no TMA store), and the forward is still the WMMA kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,6 +96,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -304,14 +348,13 @@ flash_bwd_pre_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = s;
 }
 
-// Query rows per inner tile of the backward: 64 for bf16, 32 for f32 (its
-// tiles are twice as wide and the dK/dV block must stay under 227 KB).
-template <typename T>
-constexpr int kBwdM = sizeof(T) == 2 ? 64 : 32;
+// Query rows per inner tile of the f32 backward (the dK/dV block must
+// stay under 227 KB).
+constexpr int kBwdM = 32;
 
 template <typename T, int D>
 struct DkdvLayout {
-  static constexpr int kM = kBwdM<T>;
+  static constexpr int kM = kBwdM;
   static constexpr int ldT = D + kPad<T>, ldP = kBN + kPad<T>;
   static constexpr int ldS = kBN + kPadF, ldA = D + kPadF;
   static constexpr size_t k = 0;
@@ -431,7 +474,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 struct DqLayout {
-  static constexpr int kM = kBwdM<T>;
+  static constexpr int kM = kBwdM;
   static constexpr int ldT = D + kPad<T>, ldP = kBN + kPad<T>;
   static constexpr int ldS = kBN + kPadF, ldA = D + kPadF;
   static constexpr size_t q = 0;
@@ -503,6 +546,405 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------- bf16 backward for Hopper
+//
+// Three warpgroups: two consumers (warps 0-7) and a producer (warps
+// 8-11, of which warp 8 works). The producer streams tiles with TMA into
+// a ring of kStages shared-memory stages, each guarded by a "full"
+// mbarrier (data landed) and an "empty" one (both consumers are done
+// with it). Each consumer owns 64 rows of the block's tile and keeps its
+// gradient accumulator in registers for the whole block.
+
+constexpr int kWg = 128;                    // threads per warpgroup
+constexpr int kBwdThreads = 3 * kWg;
+constexpr int kStages = 2;
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr size_t up1024(size_t x) { return (x + 1023) / 1024 * 1024; }
+
+// Byte offset of 1024-byte alignment in dynamic shared memory (the
+// swizzled boxes need it); layouts reserve 1024 bytes for it.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
+}
+
+template <int D>
+struct DkdvSm90Layout {
+  static constexpr int kN = 128;            // keys per block
+  static constexpr int kM = 64;             // query rows per ring stage
+  static constexpr int kKV = kN * D * 2;    // bytes of the K (or V) tile
+  static constexpr int kQ = kM * D * 2;     // bytes of a Q (or dO) tile
+  static constexpr size_t k = 0, v = kKV, ring = 2 * (size_t)kKV;
+  // a stage: Q, dO, then lse * log2(e) and delta for its 64 rows
+  static constexpr size_t stage = up1024(2 * kQ + 2 * kM * 4);
+  static constexpr size_t bars = ring + kStages * stage;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + 1024;
+};
+
+// dK, dV for 128 keys of kv head blockIdx.x, batch blockIdx.y; key tile
+// blockIdx.z, so the longest walks (the first keys, under the causal
+// mask) are launched first. Consumer wg owns keys k0 + 64 wg ... + 63:
+// per (query head of the group, Q tile of 64 rows from the diagonal on)
+//   S^T = K_wg Q^T, dP^T = V_wg dO^T      (wgmma SS, K-major operands)
+//   P^T = exp2(S^T scale log2e - lse log2e), 0 where masked
+//   dS^T = P^T (dP^T - delta)
+//   dV += P^T dO, dK += dS^T Q            (wgmma RS: P^T, dS^T packed to
+//                                          bf16 from the registers they
+//                                          were computed in; dO, Q
+//                                          MN-major)
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int H, int Hkv,
+                            int Sq, int Sk, float scale, int causal) {
+  using L = DkdvSm90Layout<D>;
+  constexpr int kBoxes = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * L::kN;
+  const int g = H / Hkv, off = Sk - Sq;
+  // the first Q tile whose rows see key k0 under the causal mask
+  const int q_first = causal ? max(0, k0 - off) / L::kM * L::kM : 0;
+  const int n_q = (Sq - q_first + L::kM - 1) / L::kM;
+  const int n_iter = g * n_q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 32);        // the producer warp's lanes
+      sm90::mbar_init(&empty[s], 8);        // one lane per consumer warp
+    }
+    sm90::mbar_init(kv_full, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    sm90::regs_dec<kProducerRegs>();
+    if (warp != 8) return;
+    if (lane == 0) {
+      const int plane = b * Hkv + hk;
+      sm90::mbar_arrive_tx(kv_full, 2 * L::kKV);
+      for (int c = 0; c < kBoxes; ++c) {
+        sm90::tma_load_3d(smem + L::k + c * L::kN * 128, &k_map, kv_full,
+                          64 * c, k0, plane);
+        sm90::tma_load_3d(smem + L::v + c * L::kN * 128, &v_map, kv_full,
+                          64 * c, k0, plane);
+      }
+    }
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % kStages, r = it / kStages;
+      const int h = hk * g + it / n_q, q0 = q_first + (it % n_q) * L::kM;
+      if (r > 0) sm90::mbar_wait(&empty[s], (r - 1) & 1);
+      unsigned char* st = smem + L::ring + s * L::stage;
+      float* rows = reinterpret_cast<float*>(st + 2 * L::kQ);
+      const size_t row0 = ((size_t)b * H + h) * Sq;
+      for (int j = lane; j < L::kM; j += 32) {
+        const int qi = q0 + j;
+        rows[j] = qi < Sq ? lse[row0 + qi] * kLog2e : 0.f;
+        rows[L::kM + j] = qi < Sq ? delta[row0 + qi] : 0.f;
+      }
+      if (lane == 0) {
+        sm90::mbar_arrive_tx(&full[s], 2 * L::kQ);
+        for (int c = 0; c < kBoxes; ++c) {
+          sm90::tma_load_3d(st + c * L::kM * 128, &q_map, &full[s], 64 * c,
+                            q0, b * H + h);
+          sm90::tma_load_3d(st + L::kQ + c * L::kM * 128, &do_map, &full[s],
+                            64 * c, q0, b * H + h);
+        }
+      } else {
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  sm90::regs_inc<kConsumerRegs>();
+  const int wg = warp / 4, wl = warp % 4;
+  const int kw0 = k0 + 64 * wg;             // this warpgroup's first key
+  const int key_r = kw0 + 16 * wl + lane / 4;   // + 8 for odd pairs
+  const int col_t = 2 * (lane % 4);             // + 8 j (+ 1)
+  const float scale2 = scale * kLog2e;
+  const unsigned char* k_s = smem + L::k + wg * 64 * 128;
+  const unsigned char* v_s = smem + L::v + wg * 64 * 128;
+  float dV[D / 2], dK[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dV[i] = dK[i] = 0.f;
+  sm90::mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages, r = it / kStages;
+    const int q0 = q_first + (it % n_q) * L::kM;
+    const unsigned char* st = smem + L::ring + s * L::stage;
+    const float* rows = reinterpret_cast<const float*>(st + 2 * L::kQ);
+    sm90::mbar_wait(&full[s], r & 1);
+
+    float S[32], dP[32];
+    sm90::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int box = kk / 4, kb = (kk % 4) * 32;
+      sm90::mma_ss_n64(
+          S, sm90::desc(k_s + box * L::kN * 128 + kb, 16, 1024),
+          sm90::desc(st + box * L::kM * 128 + kb, 16, 1024), kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int box = kk / 4, kb = (kk % 4) * 32;
+      sm90::mma_ss_n64(
+          dP, sm90::desc(v_s + box * L::kN * 128 + kb, 16, 1024),
+          sm90::desc(st + L::kQ + box * L::kM * 128 + kb, 16, 1024), kk);
+    }
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+    sm90::pin(S);
+    sm90::pin(dP);
+
+    // only tiles on the diagonal or the ragged edge test each element
+    const bool whole = q0 + L::kM <= Sq && kw0 + 64 <= Sk &&
+                       (!causal || kw0 + 63 <= q0 + off);
+    uint32_t pa[16], dsa[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int col = 8 * (i / 4) + col_t;  // query row within the tile
+      const int key = key_r + 8 * ((i / 2) % 2);
+      const float2 l2 = *reinterpret_cast<const float2*>(rows + col);
+      const float2 dl = *reinterpret_cast<const float2*>(rows + L::kM + col);
+      float p0 = exp2f(fmaf(S[i], scale2, -l2.x));
+      float p1 = exp2f(fmaf(S[i + 1], scale2, -l2.y));
+      if (!whole) {
+        const int qi = q0 + col;
+        if (!(qi < Sq && key < Sk && (!causal || key <= qi + off))) p0 = 0.f;
+        if (!(qi + 1 < Sq && key < Sk && (!causal || key <= qi + 1 + off)))
+          p1 = 0.f;
+      }
+      pa[i / 2] = sm90::pack_bf16(p0, p1);
+      dsa[i / 2] =
+          sm90::pack_bf16(p0 * (dP[i] - dl.x), p1 * (dP[i + 1] - dl.y));
+    }
+
+    sm90::pin(dV);
+    sm90::pin(dK);
+    sm90::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < L::kM / 16; ++kk)
+      sm90::mma_rs<D>(dV, pa + 4 * kk,
+                      sm90::desc(st + L::kQ + kk * 16 * 128, L::kM * 128,
+                                 1024));
+#pragma unroll
+    for (int kk = 0; kk < L::kM / 16; ++kk)
+      sm90::mma_rs<D>(dK, dsa + 4 * kk,
+                      sm90::desc(st + kk * 16 * 128, L::kM * 128, 1024));
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+    sm90::pin(dV);
+    sm90::pin(dK);
+    sm90::pin(pa);
+    sm90::pin(dsa);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+  const size_t kvrow = ((size_t)b * Hkv + hk) * Sk;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int col = 8 * (i / 4) + col_t;
+    const int key = key_r + 8 * ((i / 2) % 2);
+    if (key < Sk) {
+      const size_t at = (kvrow + key) * D + col;
+      *reinterpret_cast<uint32_t*>(dk + at) =
+          sm90::pack_bf16(dK[i] * scale, dK[i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + at) =
+          sm90::pack_bf16(dV[i], dV[i + 1]);
+    }
+  }
+}
+
+template <int D>
+struct DqSm90Layout {
+  static constexpr int kM = 128;            // query rows per block
+  static constexpr int kN = 64;             // keys per ring stage
+  static constexpr int kQ = kM * D * 2;     // bytes of the Q (or dO) tile
+  static constexpr int kKV = kN * D * 2;    // bytes of a K (or V) tile
+  static constexpr size_t q = 0, g = kQ, ring = 2 * (size_t)kQ;
+  static constexpr size_t stage = 2 * (size_t)kKV;            // K, then V
+  static constexpr size_t bars = ring + kStages * stage;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + 1024;
+};
+
+// dQ for 128 query rows of head blockIdx.x, batch blockIdx.y; the Q tile
+// counts down from the last as blockIdx.z grows, so the longest walks
+// (the last rows, under the causal mask) are launched first. Consumer wg
+// owns rows q0 + 64 wg ... + 63: per K/V tile of 64 keys
+//   S = Q_wg K^T, dP = dO_wg V^T           (wgmma SS, K-major operands)
+//   dS = P (dP - delta), P as above
+//   dQ += dS K                              (wgmma RS, K MN-major)
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int H, int Hkv,
+                          int Sq, int Sk, float scale, int causal) {
+  using L = DqSm90Layout<D>;
+  constexpr int kBoxes = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + kStages;
+  uint64_t* qd_full = empty + kStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * L::kM;
+  const int hk = h / (H / Hkv), off = Sk - Sq;
+  const int kv_end = causal ? min(Sk, q0 + L::kM + off) : Sk;
+  const int n_iter = (kv_end + L::kN - 1) / L::kN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);
+    }
+    sm90::mbar_init(qd_full, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    sm90::regs_dec<kProducerRegs>();
+    if (warp != 8 || lane != 0) return;
+    const int plane = b * Hkv + hk;
+    sm90::mbar_arrive_tx(qd_full, 2 * L::kQ);
+    for (int c = 0; c < kBoxes; ++c) {
+      sm90::tma_load_3d(smem + L::q + c * L::kM * 128, &q_map, qd_full,
+                        64 * c, q0, b * H + h);
+      sm90::tma_load_3d(smem + L::g + c * L::kM * 128, &do_map, qd_full,
+                        64 * c, q0, b * H + h);
+    }
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % kStages, r = it / kStages;
+      if (r > 0) sm90::mbar_wait(&empty[s], (r - 1) & 1);
+      unsigned char* st = smem + L::ring + s * L::stage;
+      sm90::mbar_arrive_tx(&full[s], 2 * L::kKV);
+      for (int c = 0; c < kBoxes; ++c) {
+        sm90::tma_load_3d(st + c * L::kN * 128, &k_map, &full[s], 64 * c,
+                          it * L::kN, plane);
+        sm90::tma_load_3d(st + L::kKV + c * L::kN * 128, &v_map, &full[s],
+                          64 * c, it * L::kN, plane);
+      }
+    }
+    return;
+  }
+
+  sm90::regs_inc<kConsumerRegs>();
+  const int wg = warp / 4, wl = warp % 4;
+  const int qw0 = q0 + 64 * wg;             // this warpgroup's first row
+  const int row_r = qw0 + 16 * wl + lane / 4;   // + 8 for odd pairs
+  const int col_t = 2 * (lane % 4);
+  const float scale2 = scale * kLog2e;
+  const size_t row0 = ((size_t)b * H + h) * Sq;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int qi = row_r + 8 * j;
+    l2[j] = qi < Sq ? lse[row0 + qi] * kLog2e : 0.f;
+    dl[j] = qi < Sq ? delta[row0 + qi] : 0.f;
+  }
+  const unsigned char* q_s = smem + L::q + wg * 64 * 128;
+  const unsigned char* g_s = smem + L::g + wg * 64 * 128;
+  float dQ[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dQ[i] = 0.f;
+  sm90::mbar_wait(qd_full, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages, r = it / kStages;
+    const int k0 = it * L::kN;
+    const unsigned char* st = smem + L::ring + s * L::stage;
+    sm90::mbar_wait(&full[s], r & 1);
+    // under the causal mask the first warpgroup's rows end a tile early
+    if (!causal || k0 <= qw0 + 63 + off) {
+      float S[32], dP[32];
+      sm90::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int box = kk / 4, kb = (kk % 4) * 32;
+        sm90::mma_ss_n64(
+            S, sm90::desc(q_s + box * L::kM * 128 + kb, 16, 1024),
+            sm90::desc(st + box * L::kN * 128 + kb, 16, 1024), kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int box = kk / 4, kb = (kk % 4) * 32;
+        sm90::mma_ss_n64(
+            dP, sm90::desc(g_s + box * L::kM * 128 + kb, 16, 1024),
+            sm90::desc(st + L::kKV + box * L::kN * 128 + kb, 16, 1024), kk);
+      }
+      sm90::wg_commit();
+      sm90::wg_wait_all();
+      sm90::pin(S);
+      sm90::pin(dP);
+
+      const bool whole = qw0 + 64 <= Sq && k0 + L::kN <= Sk &&
+                         (!causal || k0 + L::kN - 1 <= qw0 + off);
+      uint32_t dsa[16];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int key = k0 + 8 * (i / 4) + col_t;
+        const int j = (i / 2) % 2;
+        const int qi = row_r + 8 * j;
+        float p0 = exp2f(fmaf(S[i], scale2, -l2[j]));
+        float p1 = exp2f(fmaf(S[i + 1], scale2, -l2[j]));
+        if (!whole) {
+          const bool row_ok = qi < Sq;
+          if (!(row_ok && key < Sk && (!causal || key <= qi + off))) p0 = 0.f;
+          if (!(row_ok && key + 1 < Sk && (!causal || key + 1 <= qi + off)))
+            p1 = 0.f;
+        }
+        dsa[i / 2] =
+            sm90::pack_bf16(p0 * (dP[i] - dl[j]), p1 * (dP[i + 1] - dl[j]));
+      }
+
+      sm90::pin(dQ);
+      sm90::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < L::kN / 16; ++kk)
+        sm90::mma_rs<D>(dQ, dsa + 4 * kk,
+                        sm90::desc(st + kk * 16 * 128, L::kN * 128, 1024));
+      sm90::wg_commit();
+      sm90::wg_wait_all();
+      sm90::pin(dQ);
+      sm90::pin(dsa);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int qi = row_r + 8 * ((i / 2) % 2);
+    if (qi < Sq)
+      *reinterpret_cast<uint32_t*>(dq + (row0 + qi) * D + 8 * (i / 4) +
+                                   col_t) =
+          sm90::pack_bf16(dQ[i] * scale, dQ[i + 1] * scale);
+  }
+}
+
 // ------------------------------------------------------------- launches
 
 template <typename K>
@@ -528,23 +970,51 @@ cudaError_t fwd_typed(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// The bf16 backward's four tensor maps: q and dO [B H, Sq, D] in boxes of
+// q_rows rows, k and v [B Hkv, Sk, D] in boxes of kv_rows rows.
+template <int D>
+bool bwd_maps(CUtensorMap (&m)[4], const void* q, const void* dout,
+              const void* k, const void* v, int B, int H, int Hkv, int Sq,
+              int Sk, int q_rows, int kv_rows) {
+  return sm90::encode_bf16_3d(&m[0], q, D, Sq, B * H, q_rows) &&
+         sm90::encode_bf16_3d(&m[1], dout, D, Sq, B * H, q_rows) &&
+         sm90::encode_bf16_3d(&m[2], k, D, Sk, B * Hkv, kv_rows) &&
+         sm90::encode_bf16_3d(&m[3], v, D, Sk, B * Hkv, kv_rows);
+}
+
 template <typename T, int D>
 cudaError_t dkdv_typed(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int H, int Hkv, int Sq,
                        int Sk, float scale, int causal, cudaStream_t st) {
-  using L = DkdvLayout<T, D>;
-  auto kernel = flash_bwd_dkdv_kernel<T, D>;
-  cudaError_t e = set_smem(kernel, L::bytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sk + kBN - 1) / kBN, Hkv, B);
-  kernel<<<grid, kThreads, L::bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Sk, scale,
-      causal);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using L = DkdvSm90Layout<D>;
+    CUtensorMap m[4];
+    if (!bwd_maps<D>(m, q, dout, k, v, B, H, Hkv, Sq, Sk, L::kM, L::kN))
+      return cudaErrorNotSupported;
+    auto kernel = flash_bwd_dkdv_wgmma_kernel<D>;
+    cudaError_t e = set_smem(kernel, L::bytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid(Hkv, B, (Sk + L::kN - 1) / L::kN);
+    kernel<<<grid, kBwdThreads, L::bytes, st>>>(
+        m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), H, Hkv, Sq, Sk, scale, causal);
+    return cudaGetLastError();
+  } else {
+    using L = DkdvLayout<T, D>;
+    auto kernel = flash_bwd_dkdv_kernel<T, D>;
+    cudaError_t e = set_smem(kernel, L::bytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid((Sk + kBN - 1) / kBN, Hkv, B);
+    kernel<<<grid, kThreads, L::bytes, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Sk, scale,
+        causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -552,17 +1022,33 @@ cudaError_t dq_typed(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int H, int Hkv, int Sq, int Sk,
                      float scale, int causal, cudaStream_t st) {
-  using L = DqLayout<T, D>;
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  cudaError_t e = set_smem(kernel, L::bytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sq + L::kM - 1) / L::kM, H, B);
-  kernel<<<grid, kThreads, L::bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Hkv, Sq, Sk, scale, causal);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using L = DqSm90Layout<D>;
+    CUtensorMap m[4];
+    if (!bwd_maps<D>(m, q, dout, k, v, B, H, Hkv, Sq, Sk, L::kM, L::kN))
+      return cudaErrorNotSupported;
+    auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+    cudaError_t e = set_smem(kernel, L::bytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid(H, B, (Sq + L::kM - 1) / L::kM);
+    kernel<<<grid, kBwdThreads, L::bytes, st>>>(
+        m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H,
+        Hkv, Sq, Sk, scale, causal);
+    return cudaGetLastError();
+  } else {
+    using L = DqLayout<T, D>;
+    auto kernel = flash_bwd_dq_kernel<T, D>;
+    cudaError_t e = set_smem(kernel, L::bytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid((Sq + L::kM - 1) / L::kM, H, B);
+    kernel<<<grid, kThreads, L::bytes, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), H, Hkv, Sq, Sk, scale, causal);
+    return cudaGetLastError();
+  }
 }
 
 bool shape_ok(int B, int H, int Hkv, int Sq, int Sk, int causal) {

@@ -2,8 +2,12 @@
 
 Each kernel source under ``nos_tpu_torch/csrc/`` has a plain C entry
 point; it is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-under ``nos_tpu_torch/_build/`` (named by the source's hash, so an
-edited source rebuilds) at first use, and loaded with ``ctypes``.
+under ``nos_tpu_torch/_build/`` (named by a hash of the source and of the
+``csrc/*.cuh`` headers it includes, so an edit to either rebuilds) at
+first use, and loaded with ``ctypes``. The library needs no ``-lcuda``:
+the bf16 flash backward builds its TMA tensor maps in its C entry with
+``cuTensorMapEncodeTiled``, taken from the CUDA runtime's driver
+entry-point table (``csrc/sm90.cuh``).
 Nothing here touches CUDA when the module is imported, so the CPU tests
 import it freely. Each wrapper checks what it is handed, allocates its
 output with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -15,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,9 +52,20 @@ def _nvcc() -> str:
         "are built from source at first use")
 
 
+def _includes(source: Path) -> List[Path]:
+    """The ``csrc`` headers ``source`` includes (``#include "x.cuh"``)."""
+    text = source.read_text()
+    return [CSRC / name for name in
+            re.findall(r'^\s*#include\s+"([^"]+\.cuh)"', text, re.M)]
+
+
 def _lib_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{digest}.so"
+    """The library's name carries a hash of the source and of every
+    header it includes, so an edit to either rebuilds it."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in _includes(source):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _start(source: Path) -> Optional[subprocess.Popen]:
@@ -255,7 +271,12 @@ def _stream(t: torch.Tensor) -> int:
 class _FlashKernel(_Kernel):
     """One launch of ``csrc/flash_attention.cu``, the counterpart of the
     splash and flash kernels ``nos_tpu/ops/attention.py::attention``
-    dispatches; the four launches share one library."""
+    dispatches; the four launches share one library. In bf16 the dK/dV
+    and dQ launches run the Hopper backward: a producer warp streams
+    tiles with TMA through a two-stage mbarrier ring while two consumer
+    warpgroups run wgmma with their gradient accumulators in registers,
+    each output summed by one block in a fixed order (no atomics, the
+    same bits every run). f32 runs the scalar tiled kernels."""
 
     def __init__(self, symbol: str, argtypes: list):
         super().__init__("flash_attention.cu", symbol, argtypes)

@@ -14,6 +14,9 @@ where JAX's autodiff rounds to bf16 between its ops. The CUDA kernels
 run only on the card (chip_smoke.py holds them against these plain
 versions).
 """
+import ctypes
+import re
+
 import numpy as np
 import pytest
 
@@ -223,3 +226,43 @@ def test_flash_kernels_share_one_source_and_count_launches():
     assert {k.source.name for k in flash} == {"flash_attention.cu"}
     assert len({k.symbol for k in flash}) == 4
     assert (_kernels.CSRC / "flash_attention.cu").exists()
+
+
+def _c_entries():
+    """{symbol: [(is_pointer, base type)]} of every ``extern "C" int
+    nos_*`` entry in ``csrc/*.cu``, parsed from the source."""
+    out = {}
+    for src in sorted(_kernels.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (nos_\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            out[name] = [("*" in p, p.replace("*", " ").split()[-2])
+                         for p in params.split(",")]
+    return out
+
+
+def test_every_c_entry_has_a_wrapper():
+    assert set(_c_entries()) == {k.symbol for k in _kernels.KERNELS}
+
+
+@pytest.mark.parametrize("kernel", _kernels.KERNELS, ids=lambda k: k.symbol)
+def test_wrapper_argtypes_match_the_c_entry(kernel):
+    """A stale ``argtypes`` entry makes ctypes pass a pointer as a 32-bit
+    int (or a float as an int) on the card; only the source shows it."""
+    params = _c_entries()[kernel.symbol]
+    assert len(kernel.argtypes) == len(params), kernel.symbol
+    scalar = {"int": ctypes.c_int, "float": ctypes.c_float}
+    for i, ((pointer, base), got) in enumerate(zip(params, kernel.argtypes)):
+        want = ctypes.c_void_p if pointer else scalar[base]
+        assert got is want, (kernel.symbol, i, base, got)
+
+
+def test_library_name_hashes_the_included_headers(tmp_path, monkeypatch):
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    (tmp_path / "a.cuh").write_text("// v1\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda.h>\n#include "a.cuh"\n')
+    assert _kernels._includes(src) == [tmp_path / "a.cuh"]
+    before = _kernels._lib_path(src)
+    (tmp_path / "a.cuh").write_text("// v2\n")
+    assert _kernels._lib_path(src) != before
+    assert _kernels._lib_path(src).name.startswith("k-")
