@@ -25,10 +25,10 @@ f. the four flash-attention kernels (forward, backward preprocess, dK/dV,
    dQ) against their plain versions at the training slice's shape
    (batch 8, 16 query / 4 KV heads, S 2048, head_dim 128, causal), at
    head_dim 64, with a full mask, at a ragged S 1000 (head_dim 128 and
-   64), with GQA groups of 1 and of 8 (S 4096), under bf16 and f32, each
-   element of O, LSE, dQ, dK, dV within a rounding-derived pin, and dK,
-   dV, dQ bit-identical over two launches; times kernel, plain version,
-   SDPA and the FLOP bound;
+   64), with GQA groups of 1 and of 8 (S 4096), and with Sq 1000 < Sk
+   2048 (causal), under bf16 and f32, each element of O, LSE, dQ, dK, dV
+   within a rounding-derived pin, and dK, dV, dQ bit-identical over two
+   launches; times kernel, plain version, SDPA and the FLOP bound;
 g. the training path at full width: ``train()`` on bench.py's 1.1 B
    model (d_model 2048, 16 layers, GQA 16/4, d_ff 8192, vocab 32000,
    batch 8 x 2048, bf16, full remat, adamw, random weights and synthetic
@@ -495,45 +495,38 @@ def phase_full_width(seed: int, kv_dtype: str, card: str) -> int:
 
 # the training slice's attention shape (bench.py's 1.1B model: batch 8,
 # seq 2048, 16 query / 4 KV heads of 128)
-ATTN = dict(b=8, h=16, h_kv=4, s=2048, d=128)
+ATTN = dict(b=8, h=16, h_kv=4, s_q=2048, s_k=2048, d=128)
 # per-element pins of the flash kernels against their plain versions, by
-# compute dtype. Forward O, as phase (c): |d| <= r |ref| + m P.|V| (bf16:
-# each side rounds its output once, 2^-8 relative each, and the kernel
-# rounds its unnormalised probabilities to bf16 before P.V where the plain
-# version rounds the normalised ones, 2^-9 relative each; the second-order
-# terms of that sum come to a factor 1 + 2^-7, and the pin allows 1 + 2^-6
-# for the f32 score noise; f32: summation order only). LSE: |d| <= r_l (1 +
-# |ref|), f32 in both, scores summed in another order. Gradients: |d| <=
-# r |ref| + m max|ref| per tensor: the kernel rounds P (for dV) and dS
-# (for dK, dQ) to bf16 where the plain version keeps f32, a 2^-9 relative
-# error per term of sums over up to g * S terms whose cancellation leaves
-# the tensor's largest element as the scale; f32 sums differ in order.
-# The cases added to hold the backward (``BWD_CASES``) hold O to the
-# round-to-nearest bound instead, ``o_rn``: bf16's unit roundoff is 2^-8
-# (half an ulp of 2^-7), so two output roundings give r = 2^-7 and two
-# probability roundings m = 2^-7; the pin above takes 2^-9 for the
-# latter and is exceeded at those cases' shapes (g1 read 1.05 of it).
+# compute dtype. Forward O, as phase (c): |d| <= r |ref| + m P.|V|. bf16:
+# a bf16 rounding has unit roundoff 2^-8. Each side rounds O once (r =
+# 2 x 2^-8), and each rounds its probabilities once before P.V: the
+# plain version the normalised ones, the kernel the unnormalised ones
+# (<= 1, relative to the running max; the later rescale by alpha is in
+# f32 and keeps their relative error), so m = 2 x 2^-8. f32: summation
+# order only. LSE: |d| <= r_l (1 + |ref|), f32 in both, scores summed in
+# another order. Gradients: |d| <= r |ref| + m max|ref| per tensor: the
+# kernel rounds P (for dV) and dS (for dK, dQ) to bf16 where the plain
+# version keeps f32, a 2^-9 relative error per term of sums over up to
+# g * S terms whose cancellation leaves the tensor's largest element as
+# the scale; f32 sums differ in order.
 FLASH_PINS = {
-    torch.bfloat16: dict(o=(2.0 ** -7 * (1 + 2.0 ** -6),
-                            2.0 ** -8 * (1 + 2.0 ** -6)), lse=2.0 ** -16,
-                         grad=(2.0 ** -7, 2.0 ** -7),
-                         o_rn=(2.0 ** -7, 2.0 ** -7)),
-    torch.float32: dict(o=(1e-5, 1e-5), lse=2.0 ** -16,
-                        grad=(1e-5, 1e-5), o_rn=(1e-5, 1e-5)),
+    torch.bfloat16: dict(o_rn=(2.0 ** -7, 2.0 ** -7), lse=2.0 ** -16,
+                         grad=(2.0 ** -7, 2.0 ** -7)),
+    torch.float32: dict(o_rn=(1e-5, 1e-5), lse=2.0 ** -16,
+                        grad=(1e-5, 1e-5)),
 }
-BWD_CASES = ("g1", "g8_s4096", "ragged_s1000_d64")
 F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 
 
-def attn_case(rng, *, b, h, h_kv, s, d, dtype, device):
+def attn_case(rng, *, b, h, h_kv, s_q, s_k, d, dtype, device):
     gen = torch.Generator(device).manual_seed(int(rng.integers(1 << 31)))
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device,
                            dtype=torch.float32).to(dtype)
 
-    return (randn(b, h, s, d), randn(b, h_kv, s, d), randn(b, h_kv, s, d),
-            randn(b, h, s, d))
+    return (randn(b, h, s_q, d), randn(b, h_kv, s_k, d),
+            randn(b, h_kv, s_k, d), randn(b, h, s_q, d))
 
 
 def attn_pairs(s_q: int, s_k: int, causal: bool) -> int:
@@ -592,45 +585,50 @@ def pin_check(name: str, got, ref, r: float, m: float, scale=None) -> dict:
 def phase_flash(seed: int, device, flush) -> dict:
     """(f): the four flash-attention kernels against their plain versions
     at the training slice's shape (causal), at head_dim 64, with a full
-    mask, at a ragged S = 1000, and with GQA groups of 1 and 8, under bf16
-    and f32, the backward also bit-identical over two launches; times kernel,
-    plain version and SDPA at the slice shape in bf16. Returns the
-    kernels-line rows keyed by kernel name."""
+    mask, at a ragged S = 1000, with GQA groups of 1 and 8, with Sq 1000
+    < Sk 2048 under the causal mask, and with a negative scale, under bf16
+    and f32, the backward also bit-identical over two launches; times
+    kernel, plain version and SDPA at the slice shape in bf16. Returns
+    the kernels-line rows keyed by kernel name."""
     from nos_tpu_torch.ops import _kernels
     from nos_tpu_torch.ops.attention import (
         flash_attention_backward_reference, flash_attention_reference,
     )
 
     rng = np.random.default_rng(seed + 7)
+
+    def sized(s, **kw):
+        return dict(ATTN, s_q=s, s_k=s, **kw)
+
     cases = [("slice", ATTN, True),
-             ("d64", dict(ATTN, b=2, h=8, h_kv=2, s=1024, d=64), True),
-             ("full_mask", dict(ATTN, b=2, s=1024), False),
-             ("ragged_s1000", dict(ATTN, b=2, s=1000), True),
-             ("g1", dict(ATTN, b=2, h=8, h_kv=8, s=1024), True),
-             ("g8_s4096", dict(ATTN, b=1, h=32, h_kv=4, s=4096), True),
-             ("ragged_s1000_d64", dict(ATTN, b=2, h=8, h_kv=2, s=1000, d=64),
-              True)]
+             ("d64", sized(1024, b=2, h=8, h_kv=2, d=64), True),
+             ("full_mask", sized(1024, b=2), False),
+             ("ragged_s1000", sized(1000, b=2), True),
+             ("g1", sized(1024, b=2, h=8, h_kv=8), True),
+             ("g8_s4096", sized(4096, b=1, h=32, h_kv=4), True),
+             ("ragged_s1000_d64", sized(1000, b=2, h=8, h_kv=2, d=64), True),
+             # Sq < Sk: the bottom-right mask's offset Sk - Sq moves the
+             # diagonal off the tile grid
+             ("offset_q1000_k2048", dict(ATTN, b=2, s_q=1000, s_k=2048),
+              True),
+             # a negative scale: the running max is of the scaled scores
+             ("neg_scale_s1000", sized(1000, b=1, h=8, h_kv=2), True)]
     rows = {}
     for label, shape, causal in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = attn_case(rng, dtype=dtype, device=device, **shape)
-            scale = shape["d"] ** -0.5
+            scale = shape["d"] ** -0.5 * (-1 if label == "neg_scale_s1000"
+                                          else 1)
             pins = FLASH_PINS[dtype]
             kw = dict(causal=causal, scale=scale)
             o, lse = _kernels.flash_fwd.launch(q, k, v, **kw)
             o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
             mag = flash_attention_reference(q, k, v.abs(), **kw)[0].float()
-            o_pin = pins["o_rn" if label in BWD_CASES else "o"]
             checks = {"o": pin_check("flash_attention_fwd O", o, o_ref,
-                                     *o_pin, scale=mag),
+                                     *pins["o_rn"], scale=mag),
                       "lse": pin_check("flash_attention_fwd LSE", lse,
                                        lse_ref, pins["lse"], pins["lse"],
                                        scale=1.0)}
-            if label in BWD_CASES:
-                r, m = pins["o"]
-                checks["o"]["share_of_pin_o"] = float(
-                    ((o.float() - o_ref.float()).abs()
-                     / (r * o_ref.float().abs() + m * mag)).max())
             delta = _kernels.flash_bwd_pre.launch(o, do)
             checks["delta"] = pin_check(
                 "flash_attention_bwd_preprocess", delta,

@@ -13,8 +13,11 @@
 // The scale multiplies the f32 scores (flash and xla_attention do so;
 // splash pre-scales q in q's dtype instead, a bf16 rounding apart).
 //
-// Four kernels, one C entry each:
-//   flash_fwd_kernel       O (q's dtype) and LSE (f32 [B, H, Sq]);
+// Four launches, one C entry each:
+//   forward                O (q's dtype) and LSE (f32 [B, H, Sq]) per
+//                          (Q tile, head, b), over K/V tiles; bf16:
+//                          flash_fwd_wgmma_kernel (persistent), f32:
+//                          flash_fwd_kernel (a block per Q tile);
 //   flash_bwd_pre_kernel   delta = rowsum(dO * O), f32 [B, H, Sq];
 //   dK/dV                  one block per (K tile, kv head, b): loops over
 //                          the g query heads of its group and over the Q
@@ -32,88 +35,118 @@
 // ~2 * S * D flops per K/V byte read, far above the card's ~295 flops per
 // byte balance point, so the tensor-core rate decides.
 //
-// Forward and f32 backward. The TPU grids walked the KV axis in order
+// f32: scalar tiled kernels. The TPU grids walked the KV axis in order
 // with the softmax state in VMEM scratch; here a loop inside each block
 // walks it, with the running max / sum in shared memory. Tiles of Q, K, V
-// (and dO) are staged in shared memory in the input dtype; every tile
-// product goes through one routine, mm(): for bf16 it runs WMMA 16x16x16
-// tensor-core products with f32 accumulators (P is rounded to bf16 for
-// P.V, as the reference rounds its probabilities to q's dtype); for f32
-// it runs scalar f32 FMAs, so an f32 call differs from the plain version
-// only in summation order (never TF32). Accumulators live in f32 shared
-// memory. Masked scores are -FLT_MAX with an explicit zero probability
-// (never -inf, which turns exp(m_prev - m_new) into NaN). Ragged tails
-// load as zero rows and are masked by index.
+// (and dO) are staged in shared memory and every tile product runs scalar
+// f32 FMAs (never TF32), so an f32 call differs from the plain version
+// only in summation order. Accumulators live in f32 shared memory. Masked
+// scores are -FLT_MAX with an explicit zero probability (never -inf,
+// which turns exp(m_prev - m_new) into NaN). Ragged tails load as zero
+// rows and are masked by index.
 //
-// bf16 backward (Hopper; FlashAttention-3's backward kept as two
-// kernels). Three warpgroups per block: a producer warp issues TMA loads
-// into a two-stage ring of shared-memory stages with full/empty
-// mbarriers; two consumer warpgroups each own 64 rows of the block's
-// tile (keys for dK/dV, queries for dQ) and run wgmma: S and dP as
-// m64n64k16 products with both operands in shared memory, then P and dS
-// in registers, then the gradient products in the RS form, the A operand
-// being P or dS packed to bf16 straight from the accumulator registers
-// that computed them. dK and dV (64 + 64 f32 a thread) or dQ (64) stay
-// in registers for the whole block; setmaxnreg moves registers from the
-// producer (24) to the consumers (240). dK/dV keeps its K and V tile
-// resident and streams (Q, dO, lse, delta) across the group's heads; dQ
-// keeps Q and dO resident and streams (K, V). Only tiles on the causal
-// diagonal or the ragged edge test each element. Blocks of the longest
-// walks are launched first (the tile index is the grid's slowest axis).
-// P and dS round to bf16 before their products (the plain version keeps
-// them in f32; chip_smoke.py's gradient pins allow for that rounding).
+// bf16: FlashAttention-3's forward, and its backward kept as two kernels.
+// Three warpgroups per block: a producer warp issues TMA loads into a
+// two-stage ring of shared-memory stages guarded by full/empty mbarriers;
+// two consumer warpgroups each own 64 rows of a 128-row tile (queries for
+// the forward and dQ, keys for dK/dV) and run wgmma with their
+// accumulators in registers for the whole tile; setmaxnreg moves
+// registers from the producer (24) to the consumers (240). A product whose
+// A operand was computed in registers (P, dS) runs in the RS form, packed
+// to bf16 straight from the accumulator registers that computed it. Only
+// tiles on the causal diagonal or the ragged edge test each element. The
+// longest causal walks are taken first.
+//   Forward (persistent: one block per SM walks its share of the (Q tile,
+//   head, batch) list, and its ring runs on from one tile into the
+//   next): Q resident; K and V stream in 128-key stages with their own
+//   full and empty barriers, so S = Q K^T starts as soon as K has landed
+//   and K's slot refills while V is still being read. S (64 x 128 a
+//   warpgroup, m64n128k16 SS) -> online softmax in registers (a thread
+//   owns two rows, reduced over its quad of lanes; the running max in
+//   log2 units with scale * log2(e) folded in; exp2 on the SFU with
+//   subnormals flushed; O rescaled by alpha = exp2(m_old - m_new)) -> P
+//   packed to bf16 -> O += P V (RS, V read MN-major). Ping-pong
+//   (FlashAttention-3's): the two warpgroups take turns on a pair of
+//   named barriers, each turn issuing one warpgroup's P V of step j - 1
+//   together with its S of step j, so one's exponentials run while the
+//   other's products do. After its last S a warpgroup frees the Q
+//   buffer, and the producer loads the next tile's Q; at the tile's end
+//   O / l goes to bf16 in the warpgroup's rows of an O buffer, in the
+//   swizzled box layout, and out by TMA in whole lines while the next
+//   tile's loads land.
+//   Backward: dK/dV keeps its K and V tile resident and streams (Q, dO,
+//   lse, delta) across the group's heads; dQ keeps Q and dO resident and
+//   streams (K, V); S and dP as m64n64k16 SS products, then P and dS in
+//   registers, then dV, dK or dQ in the RS form; one block per tile.
+// P (and dS) round to bf16 before their products. The plain version
+// rounds the forward's normalised P to bf16 and keeps the backward's in
+// f32; chip_smoke.py's pins allow for both.
 //
-// Where the bf16 backward could go wrong, and what it does:
+// Where the bf16 kernels could go wrong, and what they do:
 //  1. TMA maps over ctypes: cuTensorMapEncodeTiled comes from the runtime's
 //     driver entry-point table inside the C entry (no -lcuda); the maps
 //     are kernel parameters (__grid_constant__), encoded 3-D [B*H, S, D]
 //     so the box past a ragged S zero-fills instead of reading the next
-//     head's rows.
+//     head's rows (and a store past Sq is clipped). A map that cannot be
+//     built is cudaErrorNotSupported.
 //  2. Swizzle: with SWIZZLE_128B a box is at most 64 bf16 wide, so a
 //     D = 128 tile is two boxes; the descriptors' offsets follow
 //     sm90.cuh (MN-major: leading = the distance between boxes, stride =
-//     1024 bytes; K-major: stride 1024), checked product by product.
+//     1024 bytes; K-major: stride 1024), checked product by product; the
+//     forward's epilogue writes O in the same swizzle the store reads.
 //  3. The RS operand: the m64nN accumulator fragment, packed in pairs, is
 //     the A fragment of the next k16 steps (sm90.cuh); the registers are
-//     pinned across each asynchronous product.
+//     pinned across each asynchronous product, and a register rescaled
+//     between two products is pinned before the wgmma fence.
 //  4. Masking: a masked or out-of-range (query, key) pair gives an
-//     explicit zero probability, so rows past Sq (lse and delta loaded as
-//     0) never contribute exp(S).
-//  5. Profile names: see above.
-//  6. Rebuild key: the library's name hashes sm90.cuh too (_kernels.py).
-//  7. Build time: raw PTX helpers, no CuTe; the library builds in seconds.
+//     explicit zero probability; rows past Sq are computed but never
+//     stored (the backward loads their lse and delta as 0). The forward's
+//     running max starts at -FLT_MAX and is finite after the first tile
+//     (every row sees key 0), so nothing subtracts -inf. It is taken on
+//     the scaled scores, so a scale of either sign works.
+//  5. Ping-pong: each consumer warpgroup syncs on its own named barrier
+//     before issuing and arrives on the other's after. The first turn is
+//     the first warpgroup's (it arrives on its own barrier once), both
+//     take steps + 1 turns a tile (a warpgroup whose rows end a step
+//     early takes an empty last turn), and the second warpgroup's very
+//     last turn arrives nowhere, so no barrier is left part-way.
+//  6. Ring phases across tiles: the producer and the consumers count ring
+//     steps over the block's tiles, so a stage's parity carries on from
+//     one tile into the next; Q and its full/empty pair flip once a tile.
+//  7. Profile names: see above.
+//  8. Rebuild key: the library's name hashes sm90.cuh too (_kernels.py).
+//  9. Build time: raw PTX helpers, no CuTe; the library builds in seconds.
 //
-// What the bf16 backward leaves for later: each consumer still waits for
-// its S and dP before the exponentials (no intra-warpgroup overlap of
-// softmax and products), one block per SM exposes each block's prologue
-// and epilogue (no persistent grid), the epilogue stores from the
-// fragments (no TMA store), and the forward is still the WMMA kernel.
+// Measured on the card and not kept (PERF.md): the same kernel without
+// ping-pong (slower in every paired run), FlashAttention-3's intra-
+// warpgroup overlap (waiting only for S, so the exponentials also run
+// under the warpgroup's own P V), a third ring stage, and a pair of heads
+// in a cluster sharing their K/V loads by multicast. What the bf16 kernels
+// leave for later: the backward runs one block per tile (no persistent
+// grid), its epilogues store from the fragments, and its consumers wait
+// for their S and dP before the exponentials.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <float.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "sm90.cuh"
 
-namespace {
 
-using namespace nvcuda;
+namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 64;                     // keys per K/V tile
+constexpr int kBN = 64;                     // keys per K/V tile (f32)
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
-// Row padding of a tile in the input dtype: 8 bf16 (16 bytes) keeps WMMA's
-// 16-byte ld rule and spreads rows over banks; 1 float does the latter for
-// the scalar f32 path. f32 accumulator tiles pad by 4 floats.
-template <typename T>
-constexpr int kPad = sizeof(T) == 2 ? 8 : 1;
+// Row padding of the f32 kernels' shared-memory tiles, in floats: input
+// tiles by 1 and accumulator tiles by 4, to spread rows over banks.
+constexpr int kPad = 1;
 constexpr int kPadF = 4;
 
 constexpr size_t up128(size_t x) { return (x + 127) / 128 * 128; }
@@ -121,15 +154,6 @@ constexpr size_t up128(size_t x) { return (x + 127) / 128 * 128; }
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -157,54 +181,21 @@ __device__ __forceinline__ void mm(float* C, int ldc, const float* A,
   }
 }
 
-template <bool kTA, bool kTB, bool kAcc, int M, int N, int K>
-__device__ __forceinline__ void mm(float* C, int ldc,
-                                   const __nv_bfloat16* A, int lda,
-                                   const __nv_bfloat16* B, int ldb) {
-  using LA = typename std::conditional<kTA, wmma::col_major,
-                                       wmma::row_major>::type;
-  using LB = typename std::conditional<kTB, wmma::col_major,
-                                       wmma::row_major>::type;
-  constexpr int TN = N / 16;
-  for (int t = threadIdx.x / 32; t < (M / 16) * TN; t += kWarps) {
-    const int m0 = (t / TN) * 16, n0 = (t % TN) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (kAcc)
-      wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b;
-      wmma::load_matrix_sync(a, kTA ? A + k0 * lda + m0 : A + m0 * lda + k0,
-                             lda);
-      wmma::load_matrix_sync(b, kTB ? B + n0 * ldb + k0 : B + k0 * ldb + n0,
-                             ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
-  }
-}
-
 // Rows [r0, r0 + rows) of a row-major [S, D] matrix into a tile with row
 // stride ld; rows at or past S load as zeros. 16-byte global loads.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
-                                          int r0, int S, int rows) {
-  constexpr int kV = 16 / sizeof(T);
-  for (int i = threadIdx.x; i < rows * (D / kV); i += kThreads) {
-    const int r = i / (D / kV), c = (i % (D / kV)) * kV;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* src, int r0, int S,
+                                          int rows) {
+  for (int i = threadIdx.x; i < rows * (D / 4); i += kThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < S)
-      u = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    if constexpr (sizeof(T) == 2) {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = u;
-    } else {
-      const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int j = 0; j < kV; ++j) dst[r * ld + c + j] = e[j];
-    }
+      u = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D + c);
+    dst[r * ld + c] = u.x;
+    dst[r * ld + c + 1] = u.y;
+    dst[r * ld + c + 2] = u.z;
+    dst[r * ld + c + 3] = u.w;
   }
 }
 
@@ -214,37 +205,37 @@ __device__ __forceinline__ void zero_f32(float* dst, int ld, int rows) {
     dst[(i / N) * ld + i % N] = 0.f;
 }
 
-// --------------------------------------------------------------- forward
+// ----------------------------------------------------------- f32 forward
 
-template <typename T, int D>
+template <int D>
 struct FwdLayout {
   static constexpr int kM = 64;             // query rows per block
-  static constexpr int ldT = D + kPad<T>, ldP = kBN + kPad<T>;
+  static constexpr int ldT = D + kPad, ldP = kBN + kPad;
   static constexpr int ldS = kBN + kPadF, ldO = D + kPadF;
   static constexpr size_t q = 0;
-  static constexpr size_t k = q + up128(sizeof(T) * kM * ldT);
-  static constexpr size_t v = k + up128(sizeof(T) * kBN * ldT);
-  static constexpr size_t s = v + up128(sizeof(T) * kBN * ldT);
+  static constexpr size_t k = q + up128(4 * kM * ldT);
+  static constexpr size_t v = k + up128(4 * kBN * ldT);
+  static constexpr size_t s = v + up128(4 * kBN * ldT);
   static constexpr size_t p = s + up128(4 * kM * ldS);
-  static constexpr size_t o = p + up128(sizeof(T) * kM * ldP);
+  static constexpr size_t o = p + up128(4 * kM * ldP);
   static constexpr size_t row = o + up128(4 * kM * ldO);   // m, l, alpha
   static constexpr size_t bytes = row + up128(4 * 3 * kM);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
                  float scale, int causal) {
-  using L = FwdLayout<T, D>;
+  using L = FwdLayout<D>;
   constexpr int kM = L::kM;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem + L::q);
-  T* k_s = reinterpret_cast<T*>(smem + L::k);
-  T* v_s = reinterpret_cast<T*>(smem + L::v);
+  float* q_s = reinterpret_cast<float*>(smem + L::q);
+  float* k_s = reinterpret_cast<float*>(smem + L::k);
+  float* v_s = reinterpret_cast<float*>(smem + L::v);
   float* s_s = reinterpret_cast<float*>(smem + L::s);
-  T* p_s = reinterpret_cast<T*>(smem + L::p);
+  float* p_s = reinterpret_cast<float*>(smem + L::p);
   float* o_s = reinterpret_cast<float*>(smem + L::o);
   float* m_s = reinterpret_cast<float*>(smem + L::row);
   float* l_s = m_s + kM;
@@ -254,10 +245,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (H / Hkv);
   const int off = Sk - Sq;                  // bottom-right causal offset
   const size_t qrow = ((size_t)b * H + h) * Sq;
-  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
-  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
+  const float* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
+  const float* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
 
-  load_rows<T, D>(q_s, L::ldT, q + qrow * D, q0, Sq, kM);
+  load_rows<D>(q_s, L::ldT, q + qrow * D, q0, Sq, kM);
   zero_f32<D>(o_s, L::ldO, kM);
   if (threadIdx.x < kM) {
     m_s[threadIdx.x] = -FLT_MAX;
@@ -272,8 +263,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < kv_end; k0 += kBN) {
     __syncthreads();                        // previous tile consumed
-    load_rows<T, D>(k_s, L::ldT, kb, k0, Sk, kBN);
-    load_rows<T, D>(v_s, L::ldT, vb, k0, Sk, kBN);
+    load_rows<D>(k_s, L::ldT, kb, k0, Sk, kBN);
+    load_rows<D>(v_s, L::ldT, vb, k0, Sk, kBN);
     __syncthreads();
     mm<false, true, false, kM, kBN, D>(s_s, L::ldS, q_s, L::ldT, k_s,
                                        L::ldT);
@@ -298,7 +289,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = sp + 4 * j, kj = k0 + c;
         const bool ok = kj < Sk && kj <= lim;
         const float pv = ok ? expf(sv[j] - m_new) : 0.f;
-        p_s[sr * L::ldP + c] = from_f32<T>(pv);
+        p_s[sr * L::ldP + c] = pv;
         sum += pv;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -322,17 +313,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = threadIdx.x; i < kM * D; i += kThreads) {
     const int r = i / D, c = i % D;
     if (q0 + r < Sq)
-      out[(qrow + q0 + r) * D + c] =
-          from_f32<T>(o_s[r * L::ldO + c] / l_s[r]);
+      out[(qrow + q0 + r) * D + c] = o_s[r * L::ldO + c] / l_s[r];
   }
   if (threadIdx.x < kM && q0 + (int)threadIdx.x < Sq)
     lse[qrow + q0 + threadIdx.x] =
         m_s[threadIdx.x] + logf(l_s[threadIdx.x]);
 }
 
-// ------------------------------------------------------------- backward
+// ---------------------------------------------------------- f32 backward
 
-// delta[row] = sum_d dO[row, d] * O[row, d], one warp per row.
+// delta[row] = sum_d dO[row, d] * O[row, d], one warp per row (f32 and
+// bf16).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_pre_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -352,20 +343,20 @@ flash_bwd_pre_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // stay under 227 KB).
 constexpr int kBwdM = 32;
 
-template <typename T, int D>
+template <int D>
 struct DkdvLayout {
   static constexpr int kM = kBwdM;
-  static constexpr int ldT = D + kPad<T>, ldP = kBN + kPad<T>;
+  static constexpr int ldT = D + kPad, ldP = kBN + kPad;
   static constexpr int ldS = kBN + kPadF, ldA = D + kPadF;
   static constexpr size_t k = 0;
-  static constexpr size_t v = k + up128(sizeof(T) * kBN * ldT);
-  static constexpr size_t q = v + up128(sizeof(T) * kBN * ldT);
-  static constexpr size_t g = q + up128(sizeof(T) * kM * ldT);     // dO
-  static constexpr size_t s = g + up128(sizeof(T) * kM * ldT);
+  static constexpr size_t v = k + up128(4 * kBN * ldT);
+  static constexpr size_t q = v + up128(4 * kBN * ldT);
+  static constexpr size_t g = q + up128(4 * kM * ldT);            // dO
+  static constexpr size_t s = g + up128(4 * kM * ldT);
   static constexpr size_t dp = s + up128(4 * kM * ldS);
   static constexpr size_t p = dp + up128(4 * kM * ldS);
-  static constexpr size_t ds = p + up128(sizeof(T) * kM * ldP);
-  static constexpr size_t dk = ds + up128(sizeof(T) * kM * ldP);
+  static constexpr size_t ds = p + up128(4 * kM * ldP);
+  static constexpr size_t dk = ds + up128(4 * kM * ldP);
   static constexpr size_t dv = dk + up128(4 * kBN * ldA);
   static constexpr size_t row = dv + up128(4 * kBN * ldA);        // lse, delta
   static constexpr size_t bytes = row + up128(4 * 2 * kM);
@@ -374,10 +365,10 @@ struct DkdvLayout {
 // Probabilities and score gradients of one (Q tile, K tile) pair from the
 // staged scores S and dP: p = exp(scale * s - lse), zero where masked;
 // ds = p * (dp - delta).
-template <typename T, int kM>
+template <int kM>
 __device__ __forceinline__ void bwd_probs(const float* s_s,
-                                          const float* dp_s, int ldS, T* p_s,
-                                          T* ds_s, int ldP,
+                                          const float* dp_s, int ldS,
+                                          float* p_s, float* ds_s, int ldP,
                                           const float* lse_s,
                                           const float* dl_s, int q0, int k0,
                                           int Sq, int Sk, int off, int causal,
@@ -387,9 +378,8 @@ __device__ __forceinline__ void bwd_probs(const float* s_s,
     const int qi = q0 + r, kj = k0 + c;
     const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi + off);
     const float pv = ok ? expf(s_s[r * ldS + c] * scale - lse_s[r]) : 0.f;
-    const float ds = pv * (dp_s[r * ldS + c] - dl_s[r]);
-    if (p_s != nullptr) p_s[r * ldP + c] = from_f32<T>(pv);
-    ds_s[r * ldP + c] = from_f32<T>(ds);
+    if (p_s != nullptr) p_s[r * ldP + c] = pv;
+    ds_s[r * ldP + c] = pv * (dp_s[r * ldS + c] - dl_s[r]);
   }
 }
 
@@ -405,25 +395,27 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* dl_s,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int H, int Hkv, int Sq, int Sk,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int H, int Hkv, int Sq, int Sk,
                       float scale, int causal) {
-  using L = DkdvLayout<T, D>;
+  using L = DkdvLayout<D>;
   constexpr int kM = L::kM;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem + L::k);
-  T* v_s = reinterpret_cast<T*>(smem + L::v);
-  T* q_s = reinterpret_cast<T*>(smem + L::q);
-  T* g_s = reinterpret_cast<T*>(smem + L::g);
+  float* k_s = reinterpret_cast<float*>(smem + L::k);
+  float* v_s = reinterpret_cast<float*>(smem + L::v);
+  float* q_s = reinterpret_cast<float*>(smem + L::q);
+  float* g_s = reinterpret_cast<float*>(smem + L::g);
   float* s_s = reinterpret_cast<float*>(smem + L::s);
   float* dp_s = reinterpret_cast<float*>(smem + L::dp);
-  T* p_s = reinterpret_cast<T*>(smem + L::p);
-  T* ds_s = reinterpret_cast<T*>(smem + L::ds);
+  float* p_s = reinterpret_cast<float*>(smem + L::p);
+  float* ds_s = reinterpret_cast<float*>(smem + L::ds);
   float* dk_s = reinterpret_cast<float*>(smem + L::dk);
   float* dv_s = reinterpret_cast<float*>(smem + L::dv);
   float* lse_s = reinterpret_cast<float*>(smem + L::row);
@@ -433,8 +425,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = H / Hkv;
   const int off = Sk - Sq;
   const size_t kvrow = ((size_t)b * Hkv + hk) * Sk;
-  load_rows<T, D>(k_s, L::ldT, k + kvrow * D, k0, Sk, kBN);
-  load_rows<T, D>(v_s, L::ldT, v + kvrow * D, k0, Sk, kBN);
+  load_rows<D>(k_s, L::ldT, k + kvrow * D, k0, Sk, kBN);
+  load_rows<D>(v_s, L::ldT, v + kvrow * D, k0, Sk, kBN);
   zero_f32<D>(dk_s, L::ldA, kBN);
   zero_f32<D>(dv_s, L::ldA, kBN);
   // the first query row that sees key k0 under the causal mask
@@ -444,8 +436,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t qrow = ((size_t)b * H + h) * Sq;
     for (int q0 = q_first; q0 < Sq; q0 += kM) {
       __syncthreads();                      // previous tile consumed
-      load_rows<T, D>(q_s, L::ldT, q + qrow * D, q0, Sq, kM);
-      load_rows<T, D>(g_s, L::ldT, dout + qrow * D, q0, Sq, kM);
+      load_rows<D>(q_s, L::ldT, q + qrow * D, q0, Sq, kM);
+      load_rows<D>(g_s, L::ldT, dout + qrow * D, q0, Sq, kM);
       load_row_stats<kM>(lse_s, dl_s, lse + qrow, delta + qrow, q0, Sq);
       __syncthreads();
       mm<false, true, false, kM, kBN, D>(s_s, L::ldS, q_s, L::ldT, k_s,
@@ -453,8 +445,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mm<false, true, false, kM, kBN, D>(dp_s, L::ldS, g_s, L::ldT, v_s,
                                          L::ldT);              // dP = dO V^T
       __syncthreads();
-      bwd_probs<T, kM>(s_s, dp_s, L::ldS, p_s, ds_s, L::ldP, lse_s, dl_s,
-                       q0, k0, Sq, Sk, off, causal, scale);
+      bwd_probs<kM>(s_s, dp_s, L::ldS, p_s, ds_s, L::ldP, lse_s, dl_s, q0,
+                    k0, Sq, Sk, off, causal, scale);
       __syncthreads();
       mm<true, false, true, kBN, D, kM>(dv_s, L::ldA, p_s, L::ldP, g_s,
                                         L::ldT);               // dV += P^T dO
@@ -466,46 +458,47 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = threadIdx.x; i < kBN * D; i += kThreads) {
     const int r = i / D, c = i % D;
     if (k0 + r < Sk) {
-      dk[(kvrow + k0 + r) * D + c] = from_f32<T>(dk_s[r * L::ldA + c] * scale);
-      dv[(kvrow + k0 + r) * D + c] = from_f32<T>(dv_s[r * L::ldA + c]);
+      dk[(kvrow + k0 + r) * D + c] = dk_s[r * L::ldA + c] * scale;
+      dv[(kvrow + k0 + r) * D + c] = dv_s[r * L::ldA + c];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 struct DqLayout {
   static constexpr int kM = kBwdM;
-  static constexpr int ldT = D + kPad<T>, ldP = kBN + kPad<T>;
+  static constexpr int ldT = D + kPad, ldP = kBN + kPad;
   static constexpr int ldS = kBN + kPadF, ldA = D + kPadF;
   static constexpr size_t q = 0;
-  static constexpr size_t g = q + up128(sizeof(T) * kM * ldT);     // dO
-  static constexpr size_t k = g + up128(sizeof(T) * kM * ldT);
-  static constexpr size_t v = k + up128(sizeof(T) * kBN * ldT);
-  static constexpr size_t s = v + up128(sizeof(T) * kBN * ldT);
+  static constexpr size_t g = q + up128(4 * kM * ldT);            // dO
+  static constexpr size_t k = g + up128(4 * kM * ldT);
+  static constexpr size_t v = k + up128(4 * kBN * ldT);
+  static constexpr size_t s = v + up128(4 * kBN * ldT);
   static constexpr size_t dp = s + up128(4 * kM * ldS);
   static constexpr size_t ds = dp + up128(4 * kM * ldS);
-  static constexpr size_t dq = ds + up128(sizeof(T) * kM * ldP);
+  static constexpr size_t dq = ds + up128(4 * kM * ldP);
   static constexpr size_t row = dq + up128(4 * kM * ldA);
   static constexpr size_t bytes = row + up128(4 * 2 * kM);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Hkv, int Sq, int Sk, float scale, int causal) {
-  using L = DqLayout<T, D>;
+  using L = DqLayout<D>;
   constexpr int kM = L::kM;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem + L::q);
-  T* g_s = reinterpret_cast<T*>(smem + L::g);
-  T* k_s = reinterpret_cast<T*>(smem + L::k);
-  T* v_s = reinterpret_cast<T*>(smem + L::v);
+  float* q_s = reinterpret_cast<float*>(smem + L::q);
+  float* g_s = reinterpret_cast<float*>(smem + L::g);
+  float* k_s = reinterpret_cast<float*>(smem + L::k);
+  float* v_s = reinterpret_cast<float*>(smem + L::v);
   float* s_s = reinterpret_cast<float*>(smem + L::s);
   float* dp_s = reinterpret_cast<float*>(smem + L::dp);
-  T* ds_s = reinterpret_cast<T*>(smem + L::ds);
+  float* ds_s = reinterpret_cast<float*>(smem + L::ds);
   float* dq_s = reinterpret_cast<float*>(smem + L::dq);
   float* lse_s = reinterpret_cast<float*>(smem + L::row);
   float* dl_s = lse_s + kM;
@@ -514,26 +507,26 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (H / Hkv);
   const int off = Sk - Sq;
   const size_t qrow = ((size_t)b * H + h) * Sq;
-  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
-  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
-  load_rows<T, D>(q_s, L::ldT, q + qrow * D, q0, Sq, kM);
-  load_rows<T, D>(g_s, L::ldT, dout + qrow * D, q0, Sq, kM);
+  const float* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
+  const float* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
+  load_rows<D>(q_s, L::ldT, q + qrow * D, q0, Sq, kM);
+  load_rows<D>(g_s, L::ldT, dout + qrow * D, q0, Sq, kM);
   load_row_stats<kM>(lse_s, dl_s, lse + qrow, delta + qrow, q0, Sq);
   zero_f32<D>(dq_s, L::ldA, kM);
   const int kv_end = causal ? min(Sk, q0 + kM + off) : Sk;
 
   for (int k0 = 0; k0 < kv_end; k0 += kBN) {
     __syncthreads();                        // previous tile consumed
-    load_rows<T, D>(k_s, L::ldT, kb, k0, Sk, kBN);
-    load_rows<T, D>(v_s, L::ldT, vb, k0, Sk, kBN);
+    load_rows<D>(k_s, L::ldT, kb, k0, Sk, kBN);
+    load_rows<D>(v_s, L::ldT, vb, k0, Sk, kBN);
     __syncthreads();
     mm<false, true, false, kM, kBN, D>(s_s, L::ldS, q_s, L::ldT, k_s,
                                        L::ldT);                // S = Q K^T
     mm<false, true, false, kM, kBN, D>(dp_s, L::ldS, g_s, L::ldT, v_s,
                                        L::ldT);                // dP = dO V^T
     __syncthreads();
-    bwd_probs<T, kM>(s_s, dp_s, L::ldS, static_cast<T*>(nullptr), ds_s,
-                     L::ldP, lse_s, dl_s, q0, k0, Sq, Sk, off, causal, scale);
+    bwd_probs<kM>(s_s, dp_s, L::ldS, nullptr, ds_s, L::ldP, lse_s, dl_s, q0,
+                  k0, Sq, Sk, off, causal, scale);
     __syncthreads();
     mm<false, false, true, kM, D, kBN>(dq_s, L::ldA, ds_s, L::ldP, k_s,
                                        L::ldT);                // dQ += dS K
@@ -542,24 +535,25 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = threadIdx.x; i < kM * D; i += kThreads) {
     const int r = i / D, c = i % D;
     if (q0 + r < Sq)
-      dq[(qrow + q0 + r) * D + c] = from_f32<T>(dq_s[r * L::ldA + c] * scale);
+      dq[(qrow + q0 + r) * D + c] = dq_s[r * L::ldA + c] * scale;
   }
 }
 
-// ------------------------------------------- bf16 backward for Hopper
+// --------------------------------------------------- bf16 kernels, Hopper
 //
 // Three warpgroups: two consumers (warps 0-7) and a producer (warps
 // 8-11, of which warp 8 works). The producer streams tiles with TMA into
 // a ring of kStages shared-memory stages, each guarded by a "full"
 // mbarrier (data landed) and an "empty" one (both consumers are done
 // with it). Each consumer owns 64 rows of the block's tile and keeps its
-// gradient accumulator in registers for the whole block.
+// accumulator in registers for the whole block.
 
 constexpr int kWg = 128;                    // threads per warpgroup
-constexpr int kBwdThreads = 3 * kWg;
+constexpr int kSm90Threads = 3 * kWg;
 constexpr int kStages = 2;
 constexpr int kConsumerRegs = 240, kProducerRegs = 24;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr size_t up1024(size_t x) { return (x + 1023) / 1024 * 1024; }
 
@@ -568,6 +562,369 @@ constexpr size_t up1024(size_t x) { return (x + 1023) / 1024 * 1024; }
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
 }
+
+// One lane per warp arrives on `bar` once every lane of the warp is done.
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) sm90::mbar_arrive(bar);
+}
+
+// ---- forward
+
+template <int D>
+struct FwdSm90Layout {
+  static constexpr int kM = 128;            // query rows per tile
+  static constexpr int kN = 128;            // keys per ring stage
+  static constexpr int kQ = kM * D * 2;     // bytes of the Q (or O) tile
+  static constexpr int kKV = kN * D * 2;    // bytes of a K (or V) tile
+  static constexpr size_t q = 0, o = kQ, ring = 2 * (size_t)kQ;
+  static constexpr size_t stage = 2 * (size_t)kKV;            // K, then V
+  static constexpr size_t bars = ring + kStages * stage;
+  // q_full, q_empty, then k_full, v_full, k_empty, v_empty per stage
+  static constexpr size_t bytes = bars + 8 * (2 + 4 * kStages) + 1024;
+};
+
+// The forward's work list: tile t is (Q tile, head, batch), the Q tiles
+// counted down from the last, so the longest causal walks come first.
+struct FwdTile {
+  int q0, h, b;
+};
+
+__device__ __forceinline__ FwdTile fwd_tile(int t, int H, int B, int n_qt) {
+  const int hb = t % (H * B);
+  return {(n_qt - 1 - t / (H * B)) * 128, hb % H, hb / H};
+}
+
+// S = Q_wg K^T for one 128-key stage: 64 x 128, both operands K-major.
+template <int D>
+__device__ __forceinline__ void fwd_scores(float (&S)[64],
+                                           const unsigned char* q_s,
+                                           const unsigned char* k_s) {
+  using L = FwdSm90Layout<D>;
+  sm90::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int box = kk / 4, kb = (kk % 4) * 32;
+    sm90::mma_ss_n128(S, sm90::desc(q_s + box * L::kM * 128 + kb, 16, 1024),
+                      sm90::desc(k_s + box * L::kN * 128 + kb, 16, 1024), kk);
+  }
+  sm90::wg_commit();
+}
+
+// O += P V for one 128-key stage: P from registers, V MN-major. O was
+// rescaled just before, so it is pinned ahead of the fence.
+template <int D>
+__device__ __forceinline__ void fwd_pv(float (&O)[D / 2],
+                                       const uint32_t (&P)[32],
+                                       const unsigned char* v_s) {
+  using L = FwdSm90Layout<D>;
+  sm90::pin(O);
+  sm90::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::kN / 16; ++kk)
+    sm90::mma_rs<D>(O, P + 4 * kk,
+                    sm90::desc(v_s + kk * 16 * 128, L::kN * 128, 1024));
+  sm90::wg_commit();
+}
+
+// The online softmax of one 64 x 128 score tile, for this thread's two
+// rows (row_r and row_r + 8; register i is row j = (i / 2) % 2): the
+// scores scaled by scale2 (so any sign of the scale holds), their max
+// over the quad, m (log2 units) moved to it, alpha =
+// exp2(m_old - m_new), l (this thread's partial row sum; the quad's four
+// are added in the epilogue) rescaled and grown, and S overwritten by the
+// unnormalised probabilities exp2(s scale2 - m). kMasked (a tile on the
+// diagonal or the ragged edge) tests each element and gives a masked one
+// probability 0; other tiles test nothing.
+template <bool kMasked>
+__device__ __forceinline__ void fwd_softmax_tile(
+    float (&S)[64], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    float scale2, int k0, int col_t, int row_r, int Sk, int off,
+    int causal) {
+  auto ok = [&](int i) {
+    const int key = k0 + 8 * (i / 4) + col_t + i % 2;
+    const int qi = row_r + 8 * ((i / 2) % 2);
+    return !kMasked || (key < Sk && (!causal || key <= qi + off));
+  };
+  float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    S[i] *= scale2;
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], ok(i) ? S[i] : -FLT_MAX);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+    const float m_new = fmaxf(m[j], mx[j]);
+    alpha[j] = sm90::exp2_ftz(m[j] - m_new);
+    m[j] = m_new;
+    l[j] *= alpha[j];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int j = (i / 2) % 2;
+    const float p = ok(i) ? sm90::exp2_ftz(S[i] - m[j]) : 0.f;
+    S[i] = p;
+    l[j] += p;
+  }
+}
+
+__device__ __forceinline__ void fwd_softmax(float (&S)[64], float (&m)[2],
+                                            float (&l)[2], float (&alpha)[2],
+                                            float scale2, bool masked, int k0,
+                                            int col_t, int row_r, int Sk,
+                                            int off, int causal) {
+  if (masked)
+    fwd_softmax_tile<true>(S, m, l, alpha, scale2, k0, col_t, row_r, Sk, off,
+                           causal);
+  else
+    fwd_softmax_tile<false>(S, m, l, alpha, scale2, k0, col_t, row_r, Sk,
+                            off, causal);
+}
+
+// Between the softmax and P V: P = S packed to bf16 (the RS operand), and
+// O moved to the new running max.
+template <int D>
+__device__ __forceinline__ void fwd_to_pv(uint32_t (&P)[32], float (&O)[D / 2],
+                                          const float (&S)[64],
+                                          const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) P[i / 2] = sm90::pack_bf16(S[i], S[i + 1]);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) O[i] *= alpha[(i / 2) % 2];
+}
+
+// O and LSE, persistent: block blockIdx.x takes tiles blockIdx.x,
+// + gridDim.x, ... of the work list (one block per SM), and its K/V ring
+// runs on from one tile into the next. Per tile of 128 query rows,
+// consumer wg owns rows q0 + 64 wg ... + 63: per K/V stage of 128 keys
+//   S = Q_wg K^T                            (wgmma SS, K-major operands)
+//   online softmax in registers, P packed to bf16
+//   O = alpha O + P V                       (wgmma RS, V MN-major)
+// After its last S a warpgroup frees the Q buffer (the producer loads
+// the next tile's Q once both have), and at the tile's end O / l goes to
+// bf16 in its rows of the O buffer (the swizzled box layout) and out by
+// TMA, one store per 64-column box, clipped at Sq, while the next tile's
+// loads land; lse = (m + log2 l) ln 2.
+template <int D>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap o_map,
+                       float* __restrict__ lse, int B, int H, int Hkv,
+                       int Sq, int Sk, float scale, int causal) {
+  using L = FwdSm90Layout<D>;
+  constexpr int kBoxes = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+
+  const int n_qt = (Sq + L::kM - 1) / L::kM, n_tiles = n_qt * H * B;
+  const int off = Sk - Sq;
+  auto kv_steps = [&](int q0) {
+    const int kv_end = causal ? min(Sk, q0 + L::kM + off) : Sk;
+    return (kv_end + L::kN - 1) / L::kN;
+  };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    sm90::mbar_init(q_empty, 8);            // one lane per consumer warp
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&k_empty[s], 8);
+      sm90::mbar_init(&v_empty[s], 8);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    sm90::regs_dec<kProducerRegs>();
+    if (warp != 8 || lane != 0) return;
+    // K or V rows key .. key + 127 into the stage of ring step `step`
+    auto load = [&](const CUtensorMap* map, uint64_t* full, uint64_t* empty,
+                    int step, size_t at, int key, int plane) {
+      const int s = step % kStages, r = step / kStages;
+      if (r > 0) sm90::mbar_wait(&empty[s], (r - 1) & 1);
+      unsigned char* dst = smem + L::ring + s * L::stage + at;
+      sm90::mbar_arrive_tx(&full[s], L::kKV);
+      for (int c = 0; c < kBoxes; ++c)
+        sm90::tma_load_3d(dst + c * L::kN * 128, map, &full[s], 64 * c, key,
+                          plane);
+    };
+    int g = 0;                              // ring steps of earlier tiles
+    for (int t = blockIdx.x, j = 0; t < n_tiles; t += gridDim.x, ++j) {
+      const FwdTile w = fwd_tile(t, H, B, n_qt);
+      const int plane = w.b * Hkv + w.h / (H / Hkv);
+      const int n_iter = kv_steps(w.q0);
+      // K of step 0 first, then Q once both warpgroups are done with the
+      // last tile's, then K of step it + 1 before V of step it, so a
+      // stage's K slot refills while its V is still being read
+      load(&k_map, k_full, k_empty, g, 0, 0, plane);
+      if (j > 0) sm90::mbar_wait(q_empty, (j - 1) & 1);
+      sm90::mbar_arrive_tx(q_full, L::kQ);
+      for (int c = 0; c < kBoxes; ++c)
+        sm90::tma_load_3d(smem + L::q + c * L::kM * 128, &q_map, q_full,
+                          64 * c, w.q0, w.b * H + w.h);
+      for (int it = 1; it <= n_iter; ++it) {
+        if (it < n_iter)
+          load(&k_map, k_full, k_empty, g + it, 0, it * L::kN, plane);
+        load(&v_map, v_full, v_empty, g + it - 1, L::kKV, (it - 1) * L::kN,
+             plane);
+      }
+      g += n_iter;
+    }
+    return;
+  }
+
+  sm90::regs_inc<kConsumerRegs>();
+  const int wg = warp / 4, wl = warp % 4;
+  // ping-pong: the first turn is warpgroup 0's
+  if (wg == 0) sm90::bar_arrive(1, 2 * kWg);
+  const int r_t = 16 * wl + lane / 4;       // row in the warpgroup (+ 8)
+  const int col_t = 2 * (lane % 4);         // + 8 (i / 4) + i % 2
+  const float scale2 = scale * kLog2e;
+  const unsigned char* q_s = smem + L::q + wg * 64 * 128;
+  unsigned char* o_s = smem + L::o + wg * 64 * 128;
+  const bool storer = threadIdx.x % kWg == 0;
+
+  int g = 0;
+  for (int t = blockIdx.x, j = 0; t < n_tiles; t += gridDim.x, ++j) {
+    const FwdTile w = fwd_tile(t, H, B, n_qt);
+    const int n_iter = kv_steps(w.q0);
+    const int qw0 = w.q0 + 64 * wg;         // this warpgroup's first row
+    const int row_r = qw0 + r_t;
+    // under the causal mask the first warpgroup's rows may end a step
+    // early
+    const int n_wg =
+        causal ? min(n_iter, (qw0 + 63 + off) / L::kN + 1) : n_iter;
+    // only steps on the diagonal or the ragged edge test each element
+    auto masked = [&](int it) {
+      const int k0 = it * L::kN;
+      return !(k0 + L::kN <= Sk && (!causal || k0 + L::kN - 1 <= qw0 + off));
+    };
+
+    float O[D / 2], S[64];
+    uint32_t P[32];
+    float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) O[i] = 0.f;
+    sm90::mbar_wait(q_full, j & 1);
+
+    auto stage = [&](int it) {
+      return smem + L::ring + ((g + it) % kStages) * L::stage;
+    };
+    auto phase = [&](int it) { return ((g + it) / kStages) & 1; };
+    auto full = [&](uint64_t* bars, int it) {
+      sm90::mbar_wait(&bars[(g + it) % kStages], phase(it));
+    };
+    auto release = [&](uint64_t* bars, int it) {
+      warp_arrive(&bars[(g + it) % kStages]);
+    };
+    // turns: S_0; then P_{it-1} V_{it-1} with S_it; then the last P V
+    const bool last_tile = t + (int)gridDim.x >= n_tiles;
+    auto turn_begin = [&] { sm90::bar_sync(1 + wg, 2 * kWg); };
+    auto turn_end = [&](bool last_turn) {
+      if (!(wg == 1 && last_tile && last_turn))
+        sm90::bar_arrive(2 - wg, 2 * kWg);
+    };
+    full(k_full, 0);
+    turn_begin();
+    fwd_scores<D>(S, q_s, stage(0));
+    turn_end(false);
+    sm90::wg_wait_all();
+    sm90::pin(S);
+    release(k_empty, 0);
+    if (n_wg == 1) warp_arrive(q_empty);
+    fwd_softmax(S, m, l, alpha, scale2, masked(0), 0, col_t, row_r, Sk,
+                off, causal);
+    for (int it = 1; it < n_wg; ++it) {
+      fwd_to_pv<D>(P, O, S, alpha);
+      full(v_full, it - 1);
+      full(k_full, it);
+      turn_begin();
+      fwd_pv<D>(O, P, stage(it - 1) + L::kKV);
+      fwd_scores<D>(S, q_s, stage(it));
+      turn_end(false);
+      sm90::wg_wait_all();
+      sm90::pin(O);
+      sm90::pin(P);
+      sm90::pin(S);
+      release(v_empty, it - 1);
+      release(k_empty, it);
+      if (it == n_wg - 1) warp_arrive(q_empty);
+      fwd_softmax(S, m, l, alpha, scale2, masked(it), it * L::kN, col_t,
+                  row_r, Sk, off, causal);
+    }
+    fwd_to_pv<D>(P, O, S, alpha);
+    full(v_full, n_wg - 1);
+    turn_begin();
+    fwd_pv<D>(O, P, stage(n_wg - 1) + L::kKV);
+    turn_end(n_wg == n_iter);
+    sm90::wg_wait_all();
+    sm90::pin(O);
+    sm90::pin(P);
+    release(v_empty, n_wg - 1);
+    if (n_wg < n_iter) {
+      // the tile's last step is past all of this warpgroup's rows:
+      // release the stage once it has landed, and take the empty turn
+      // that keeps both warpgroups' turn counts equal
+      full(k_full, n_wg);
+      release(k_empty, n_wg);
+      full(v_full, n_wg);
+      release(v_empty, n_wg);
+      turn_begin();
+      turn_end(true);
+    }
+    g += n_iter;
+
+    const size_t row0 = ((size_t)w.b * H + w.h) * Sq;
+    float inv[2];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      l[jj] += __shfl_xor_sync(0xffffffffu, l[jj], 1);
+      l[jj] += __shfl_xor_sync(0xffffffffu, l[jj], 2);
+      inv[jj] = 1.f / l[jj];
+      const int qi = row_r + 8 * jj;
+      if (lane % 4 == 0 && qi < Sq)
+        lse[row0 + qi] = (m[jj] + log2f(l[jj])) * kLn2;
+    }
+    // the last tile's store has read the O buffer
+    if (storer) sm90::tma_store_wait_read();
+    sm90::bar_sync(3 + wg, kWg);
+    // (row, col) of the swizzled box: 16-byte chunk col / 8 of row r sits
+    // at chunk (col / 8) ^ (r % 8) (sm90.cuh)
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int jj = (i / 2) % 2, r = r_t + 8 * jj;
+      const int col = 8 * (i / 4) + col_t, c = col % 64;
+      *reinterpret_cast<uint32_t*>(
+          o_s + (col / 64) * L::kM * 128 + r * 128 +
+          (((c / 8) ^ (r % 8)) * 16) + (c % 8) * 2) =
+          sm90::pack_bf16(O[i] * inv[jj], O[i + 1] * inv[jj]);
+    }
+    sm90::fence_proxy_async();
+    sm90::bar_sync(3 + wg, kWg);            // the warpgroup's rows written
+    if (storer && qw0 < Sq) {
+      for (int c = 0; c < kBoxes; ++c)
+        sm90::tma_store_3d(&o_map, o_s + c * L::kM * 128, 64 * c, qw0,
+                           w.b * H + w.h);
+      sm90::tma_store_commit();
+    }
+  }
+  if (storer) sm90::tma_store_wait();
+}
+
+// ---- backward
 
 template <int D>
 struct DkdvSm90Layout {
@@ -594,7 +951,7 @@ struct DkdvSm90Layout {
 //                                          were computed in; dO, Q
 //                                          MN-major)
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kSm90Threads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap do_map,
                             const __grid_constant__ CUtensorMap k_map,
@@ -752,8 +1109,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     sm90::pin(dK);
     sm90::pin(pa);
     sm90::pin(dsa);
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    warp_arrive(&empty[s]);
   }
 
   const size_t kvrow = ((size_t)b * Hkv + hk) * Sk;
@@ -791,7 +1147,7 @@ struct DqSm90Layout {
 //   dS = P (dP - delta), P as above
 //   dQ += dS K                              (wgmma RS, K MN-major)
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kSm90Threads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap do_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -931,8 +1287,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       sm90::pin(dQ);
       sm90::pin(dsa);
     }
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    warp_arrive(&empty[s]);
   }
 
 #pragma unroll
@@ -958,16 +1313,39 @@ template <typename T, int D>
 cudaError_t fwd_typed(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int H, int Hkv, int Sq, int Sk,
                       float scale, int causal, cudaStream_t st) {
-  using L = FwdLayout<T, D>;
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t e = set_smem(kernel, L::bytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sq + L::kM - 1) / L::kM, H, B);
-  kernel<<<grid, kThreads, L::bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, Hkv, Sq, Sk, scale, causal);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using L = FwdSm90Layout<D>;
+    CUtensorMap m[4];               // q, k, v; o in one warpgroup's rows
+    if (!(sm90::encode_bf16_3d(&m[0], q, D, Sq, B * H, L::kM) &&
+          sm90::encode_bf16_3d(&m[1], k, D, Sk, B * Hkv, L::kN) &&
+          sm90::encode_bf16_3d(&m[2], v, D, Sk, B * Hkv, L::kN) &&
+          sm90::encode_bf16_3d(&m[3], o, D, Sq, B * H, L::kM / 2)))
+      return cudaErrorNotSupported;
+    auto kernel = flash_fwd_wgmma_kernel<D>;
+    cudaError_t e = set_smem(kernel, L::bytes);
+    int dev = 0, sms = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    // one block per SM, each walking its share of the tiles
+    const int tiles = (Sq + L::kM - 1) / L::kM * H * B;
+    kernel<<<min(tiles, sms), kSm90Threads, L::bytes, st>>>(
+        m[0], m[1], m[2], m[3], static_cast<float*>(lse), B, H, Hkv, Sq, Sk,
+        scale, causal);
+    return cudaGetLastError();
+  } else {
+    using L = FwdLayout<D>;
+    auto kernel = flash_fwd_kernel<D>;
+    cudaError_t e = set_smem(kernel, L::bytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid((Sq + L::kM - 1) / L::kM, H, B);
+    kernel<<<grid, kThreads, L::bytes, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o),
+        static_cast<float*>(lse), H, Hkv, Sq, Sk, scale, causal);
+    return cudaGetLastError();
+  }
 }
 
 // The bf16 backward's four tensor maps: q and dO [B H, Sq, D] in boxes of
@@ -996,23 +1374,23 @@ cudaError_t dkdv_typed(const void* q, const void* k, const void* v,
     cudaError_t e = set_smem(kernel, L::bytes);
     if (e != cudaSuccess) return e;
     dim3 grid(Hkv, B, (Sk + L::kN - 1) / L::kN);
-    kernel<<<grid, kBwdThreads, L::bytes, st>>>(
+    kernel<<<grid, kSm90Threads, L::bytes, st>>>(
         m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
         static_cast<__nv_bfloat16*>(dv), H, Hkv, Sq, Sk, scale, causal);
     return cudaGetLastError();
   } else {
-    using L = DkdvLayout<T, D>;
-    auto kernel = flash_bwd_dkdv_kernel<T, D>;
+    using L = DkdvLayout<D>;
+    auto kernel = flash_bwd_dkdv_kernel<D>;
     cudaError_t e = set_smem(kernel, L::bytes);
     if (e != cudaSuccess) return e;
     dim3 grid((Sk + kBN - 1) / kBN, Hkv, B);
     kernel<<<grid, kThreads, L::bytes, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Sk, scale,
-        causal);
+        static_cast<float*>(dk), static_cast<float*>(dv), H, Hkv, Sq, Sk,
+        scale, causal);
     return cudaGetLastError();
   }
 }
@@ -1031,22 +1409,22 @@ cudaError_t dq_typed(const void* q, const void* k, const void* v,
     cudaError_t e = set_smem(kernel, L::bytes);
     if (e != cudaSuccess) return e;
     dim3 grid(H, B, (Sq + L::kM - 1) / L::kM);
-    kernel<<<grid, kBwdThreads, L::bytes, st>>>(
+    kernel<<<grid, kSm90Threads, L::bytes, st>>>(
         m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H,
         Hkv, Sq, Sk, scale, causal);
     return cudaGetLastError();
   } else {
-    using L = DqLayout<T, D>;
-    auto kernel = flash_bwd_dq_kernel<T, D>;
+    using L = DqLayout<D>;
+    auto kernel = flash_bwd_dq_kernel<D>;
     cudaError_t e = set_smem(kernel, L::bytes);
     if (e != cudaSuccess) return e;
     dim3 grid((Sq + L::kM - 1) / L::kM, H, B);
     kernel<<<grid, kThreads, L::bytes, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), H, Hkv, Sq, Sk, scale, causal);
+        static_cast<float*>(dq), H, Hkv, Sq, Sk, scale, causal);
     return cudaGetLastError();
   }
 }

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks in raw PTX: TMA tensor maps and loads,
-// mbarriers, wgmma descriptors and products, register reallocation.
+// Hopper (sm_90a) building blocks in raw PTX: TMA tensor maps, loads and
+// stores, mbarriers, named barriers, wgmma descriptors and products,
+// register reallocation, the SFU's exp2.
 // Header-only; a kernel source includes it and builds in seconds (no CuTe).
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
@@ -126,6 +127,42 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
 }
 
+// One TMA box from src (shared memory, in the box's swizzled layout) to
+// map at (c0 innermost, c1, c2); elements past the map's bounds are not
+// written. Completion is tracked by bulk groups (commit, then wait).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+      "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until the committed stores have read their shared memory, or
+// have completed.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Make this thread's shared-memory writes visible to the async proxy
+// (TMA, wgmma) before it reads them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 2^x on the special-function unit; subnormal results flush to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <int kRegs>
 __device__ __forceinline__ void regs_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
@@ -151,6 +188,15 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads:
+// sync waits for the count, arrive adds to it and goes on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Keep the compiler from moving register operands of an asynchronous
@@ -202,6 +248,19 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " NOS_D32
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : NOS_F8(d, 0), NOS_F8(d, 8), NOS_F8(d, 16), NOS_F8(d, 24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory and
+// K-major. accumulate = 0 zeroes d.
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " NOS_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : NOS_F8(d, 0), NOS_F8(d, 8), NOS_F8(d, 16), NOS_F8(d, 24),
+        NOS_F8(d, 32), NOS_F8(d, 40), NOS_F8(d, 48), NOS_F8(d, 56)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -5,8 +5,8 @@ point; it is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 under ``nos_tpu_torch/_build/`` (named by a hash of the source and of the
 ``csrc/*.cuh`` headers it includes, so an edit to either rebuilds) at
 first use, and loaded with ``ctypes``. The library needs no ``-lcuda``:
-the bf16 flash backward builds its TMA tensor maps in its C entry with
-``cuTensorMapEncodeTiled``, taken from the CUDA runtime's driver
+the bf16 flash kernels build their TMA tensor maps in their C entries
+with ``cuTensorMapEncodeTiled``, taken from the CUDA runtime's driver
 entry-point table (``csrc/sm90.cuh``).
 Nothing here touches CUDA when the module is imported, so the CPU tests
 import it freely. Each wrapper checks what it is handed, allocates its
@@ -271,12 +271,13 @@ def _stream(t: torch.Tensor) -> int:
 class _FlashKernel(_Kernel):
     """One launch of ``csrc/flash_attention.cu``, the counterpart of the
     splash and flash kernels ``nos_tpu/ops/attention.py::attention``
-    dispatches; the four launches share one library. In bf16 the dK/dV
-    and dQ launches run the Hopper backward: a producer warp streams
-    tiles with TMA through a two-stage mbarrier ring while two consumer
-    warpgroups run wgmma with their gradient accumulators in registers,
-    each output summed by one block in a fixed order (no atomics, the
-    same bits every run). f32 runs the scalar tiled kernels."""
+    dispatches; the four launches share one library. In bf16 the
+    forward, dK/dV and dQ launches run Hopper kernels: a producer warp
+    streams tiles with TMA through a two-stage mbarrier ring while two
+    consumer warpgroups run wgmma with their accumulators (O with the
+    online softmax's state, or the gradients) in registers, each output
+    summed by one block in a fixed order (no atomics, the same bits every
+    run). f32 runs the scalar tiled kernels."""
 
     def __init__(self, symbol: str, argtypes: list):
         super().__init__("flash_attention.cu", symbol, argtypes)

@@ -142,6 +142,84 @@ def test_backward_reference_matches_autograd_through_xla_attention(causal):
                                    err_msg=name)
 
 
+def _blocked_bf16_forward(q, k, v, *, causal, scale, tile=128):
+    """The bf16 Hopper forward's arithmetic (csrc/flash_attention.cu,
+    flash_fwd_wgmma_kernel) in f32 on the CPU: 128-key tiles, f32 scores
+    multiplied by scale * log2(e), their running max (log2 units), masked
+    pairs at probability 0, unnormalised probabilities summed into l in
+    f32 and rounded to bf16 before P.V, which accumulates in f32, the
+    alpha rescale of l and O per tile, then O / l rounded to bf16 once and
+    lse = (m + log2 l) ln 2."""
+    b, h, s_q, d = q.shape
+    h_kv, s_k = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, h_kv, h // h_kv, s_q, d)
+    kf, vf = k.float().unsqueeze(2), v.float().unsqueeze(2)
+    scale2 = scale * float(np.log2(np.e))
+    neg = torch.finfo(torch.float32).min
+    m = torch.full((b, h_kv, h // h_kv, s_q, 1), neg)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qg)
+    last_key = torch.arange(s_q)[:, None] + (s_k - s_q)
+    for k0 in range(0, s_k, tile):
+        kt, vt = kf[..., k0:k0 + tile, :], vf[..., k0:k0 + tile, :]
+        s = torch.matmul(qg, kt.transpose(-1, -2)) * scale2
+        keys = torch.arange(k0, k0 + kt.shape[-2])[None, :]
+        ok = keys <= last_key if causal else torch.ones_like(s, dtype=bool)
+        m_new = torch.maximum(
+            m, torch.where(ok, s, neg).amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    o = (acc / l).to(torch.bfloat16).reshape(b, h, s_q, d)
+    lse = ((m + torch.log2(l)) * float(np.log(2.0))).reshape(b, h, s_q)
+    return o, lse
+
+
+# chip_smoke.py's bf16 O pin, |d| <= r |ref| + m P.|V|: each side rounds
+# O once (r = 2 x 2^-8, bf16's unit roundoff) and its probabilities once
+# (m = 2 x 2^-8: the reference its normalised P, the kernel its
+# unnormalised P, which the f32 rescale by alpha keeps relative); and the
+# LSE pin, |d| <= 2^-16 (1 + |ref|)
+O_RN_PIN = (2.0 ** -7, 2.0 ** -7)
+LSE_PIN = 2.0 ** -16
+
+
+# sign -1: the running max is taken on the scaled scores, so a negative
+# scale (the largest raw score is then the least likely key) holds too
+@pytest.mark.parametrize("causal,g,s_q,s_k,sign", [
+    (True, 1, 256, 256, 1), (True, 4, 256, 256, 1), (False, 1, 256, 256, 1),
+    (False, 4, 256, 256, 1), (True, 4, 200, 200, 1), (True, 4, 72, 200, 1),
+    (True, 4, 200, 200, -1), (False, 4, 200, 200, -1)])
+def test_blocked_bf16_forward_holds_to_the_o_pin(causal, g, s_q, s_k, sign):
+    """The new forward's blocked numerics against JAX's xla_attention and
+    the port's plain version, per element, D 64, bf16 inputs."""
+    rng = np.random.default_rng(20 + g + s_q + sign)
+    b, h, d = 2, 4, 64
+    arrays = [rng.normal(size=shape).astype(np.float32) for shape in
+              ((b, h, s_q, d), (b, h // g, s_k, d), (b, h // g, s_k, d))]
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    scale = sign * d ** -0.5
+    o, lse = _blocked_bf16_forward(q, k, v, causal=causal, scale=scale)
+    o_plain, lse_plain = ta.flash_attention_reference(
+        q, k, v, causal=causal, scale=scale)
+    o_jax = np.asarray(ja.xla_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in arrays), causal=causal,
+        scale=scale), np.float32)
+    mag = ta.flash_attention_reference(
+        q.float(), k.float(), v.float().abs(), causal=causal,
+        scale=scale)[0].numpy()
+    r, m = O_RN_PIN
+    for name, want in (("plain", o_plain.float().numpy()), ("jax", o_jax)):
+        share = np.abs(o.float().numpy() - want) / (r * np.abs(want)
+                                                    + m * mag)
+        assert share.max() <= 1.0, (name, float(share.max()))
+    lse_share = (np.abs(lse.numpy() - lse_plain.numpy())
+                 / (LSE_PIN * (1 + np.abs(lse_plain.numpy()))))
+    assert lse_share.max() <= 1.0, float(lse_share.max())
+
+
 def test_lse_is_the_logsumexp_of_the_masked_scores():
     q, k, v, _ = _inputs(4, 1, 2, 1, 20, 8)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
