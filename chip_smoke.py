@@ -9,10 +9,13 @@ Phases (each raises on failure; nothing is caught):
 
 a. identify the card (name, power limit) and turn TF32 off;
 b. build every CUDA kernel from ``nos_tpu_torch/csrc`` with ``nvcc``;
-c. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, under bf16 and f32 compute, each element within
-   a pin derived from the rounding each dtype allows; time kernel,
-   plain version, a library call and the bytes/operations bound;
+c. hold the paged kernel against its plain PyTorch version on the card
+   at the main path's shapes (S 1/4/256, bf16 and int8 arenas under bf16
+   compute, the same under f32), at full context (every row at 2048
+   tokens) and at bs 8 / head_dim 64, each element within a pin derived
+   from the rounding each dtype allows, and bit-identical over two
+   launches; time kernel (CUDA events, and torch.profiler's kernel
+   durations), plain version, a library call and the bytes bound;
 d. exact tokens in f32, plain and int8 arenas: the serving engine
    through the kernel commits the same tokens as ``generate_paged``
    through the kernel and through the plain gather formulation;
@@ -20,7 +23,8 @@ e. the main path at full width: ``build_engine`` on a Llama-3-8B-shaped
    decoder (GQA 32/8 heads, d_model 4096, d_ff 14336, vocab 128256, 32
    layers, random weights from the seed; max_seq cut to 2048) serves 8
    requests x 32 tokens, with a bf16 and an int8 KV arena; the kernel's
-   launch count must equal n_layers x decode ticks;
+   launch count must equal n_layers x decode ticks, and the profiled
+   ticks must show one paged_decode kernel per layer (no merge launch);
 f. the four flash-attention kernels (forward, backward preprocess, dK/dV,
    dQ) against their plain versions at the training slice's shape
    (batch 8, 16 query / 4 KV heads, S 2048, head_dim 128, causal), at
@@ -79,16 +83,25 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# ~200 us of spinning on the stream at the H100's 1.98 GHz boost clock
+SPIN_CYCLES = 400_000
+
+
 def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed
     alone with CUDA events after overwriting a buffer larger than L2,
-    so every launch finds the cache cold as a decode step does."""
+    so every launch finds the cache cold as a decode step does. The
+    stream then spins for ~200 us before the start event, so the host
+    has queued ``fn``'s launches (its Python wrapper's checks and calls)
+    before the start event is reached: host time does not enter the
+    reading."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -96,19 +109,47 @@ def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def paged_case(rng, *, b, h, h_kv, d, bs, nb, s, int8, dtype, device):
-    """Kernel inputs at the slice's shapes, q in ``dtype``: ragged
-    positions, shuffled physical blocks, null tails, and row 0 inactive
-    (all-null table)."""
+def kernel_profile(fn, iters: int, flush: torch.Tensor,
+                   pattern: str) -> tuple:
+    """(device ms per call, kernels per call) of the kernels whose name
+    holds ``pattern``, from torch.profiler over ``iters`` calls of
+    ``fn``, each after the L2 flush: the kernels' own durations, without
+    launch gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        t = device_us(e)
+        if t > 0 and pattern in e.key.lower():
+            us += t
+            n += e.count
+    return us / 1e3 / iters, n / iters
+
+
+def paged_case(rng, *, b, h, h_kv, d, bs, nb, s, int8, dtype, device,
+               full=False):
+    """Kernel inputs, q in ``dtype``: ragged positions, shuffled
+    physical blocks, null tails, and row 0 inactive (all-null table);
+    with ``full``, every row's window ends at its table's last slot."""
     from nos_tpu_torch.ops.attention import quantize_kv
 
     nb_phys = 1 + b * nb
     pos = rng.integers(0, nb * bs - s + 1, size=b).astype(np.int32)
     pos[0] = 0
+    if full:
+        pos[:] = nb * bs - s
     table = np.zeros((b, nb), np.int32)
     perm = rng.permutation(np.arange(1, nb_phys)).astype(np.int32)
     i = 0
-    for row in range(1, b):
+    for row in range(0 if full else 1, b):
         n = (int(pos[row]) + s - 1) // bs + 1
         table[row, :n] = perm[i:i + n]
         i += n
@@ -131,11 +172,11 @@ def paged_case(rng, *, b, h, h_kv, d, bs, nb, s, int8, dtype, device):
                 k_scale=ks, v_scale=vs)
 
 
-def paged_bound(case) -> tuple:
-    """(ms, "bytes"|"operations"): the least time for this call's work.
-    Bytes: each live K/V token (+ its scales) read once, its table
-    entries, q and pos read once, out written once. Operations: QK and
-    PV over the live tokens, at the bf16 tensor rate."""
+def paged_work(case) -> tuple:
+    """(bytes, operations) of this call's work. Bytes: each live K/V
+    token (+ its scales) read once, its table entries, q and pos read
+    once, out written once. Operations: QK and PV over the live
+    tokens."""
     q, ka = case["q"], case["k_arena"]
     b, h, s, d = q.shape
     h_kv, bs = ka.shape[1], ka.shape[2]
@@ -147,7 +188,13 @@ def paged_bound(case) -> tuple:
     nbytes = (int(tokens.sum()) * per_tok
               + int(np.ceil(tokens / bs).sum()) * 4 + b * 4
               + 2 * q.numel() * q.element_size())
-    flops = 4 * h * s * d * int(tokens.sum())
+    return nbytes, 4 * h * s * d * int(tokens.sum())
+
+
+def paged_bound(case) -> tuple:
+    """(ms, "bytes"|"operations"): the least time for this call's work,
+    bytes at the HBM rate, operations at the bf16 tensor rate."""
+    nbytes, flops = paged_work(case)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -210,65 +257,96 @@ def check_kernel(out, case) -> dict:
             "pin": f"{r:g}*|ref| + {m:g}*P.|V|", "tol": KERNEL_TOL}
 
 
+# phase (c)'s shapes: the serving slice's decode shape, and bs 8 with
+# head_dim 64 (1 KB bf16 pages, the smallest bulk copies the kernel takes)
+PAGED = dict(b=8, h=32, h_kv=8, d=128, bs=16, nb=128)
+PAGED_BS8_D64 = dict(b=8, h=32, h_kv=8, d=64, bs=8, nb=256)
+
+
 def phase_kernels(seed: int, device, flush) -> dict:
     """(c): the paged kernel against its plain version at the slice's
     shapes, with bf16 and int8 arenas under bf16 compute (the main
     path's) and the same under f32 compute, where only the summation
     order differs from the plain version and a structural slip (a
-    dropped block, an off-by-one mask) cannot hide in rounding; returns
-    the numbers for the kernels line."""
+    dropped block, an off-by-one mask) cannot hide in rounding; at full
+    context (bf16, int8) and at bs 8 / head_dim 64 (bf16, f32). Every
+    case is also launched twice and must give the same bits. Returns the
+    numbers for the kernels line."""
     from nos_tpu_torch.ops import _kernels
     from nos_tpu_torch.ops.attention import paged_decode_attention_reference
 
     rng = np.random.default_rng(seed)
-    shape = dict(b=8, h=32, h_kv=8, d=128, bs=16, nb=128)
-    worst = 0.0
+    cases = [(f"S{s}", PAGED, arena, dtype, int8, s, False)
+             for arena, dtype, int8 in (("bf16", torch.bfloat16, False),
+                                        ("int8", torch.bfloat16, True),
+                                        ("f32", torch.float32, False),
+                                        ("int8_f32", torch.float32, True))
+             for s in (1, 4, 256)]
+    cases += [("full_context", PAGED, "bf16", torch.bfloat16, False, 1,
+               True),
+              ("full_context", PAGED, "int8", torch.bfloat16, True, 1, True),
+              ("bs8_d64", PAGED_BS8_D64, "bf16", torch.bfloat16, False, 1,
+               False),
+              ("bs8_d64", PAGED_BS8_D64, "f32", torch.float32, False, 1,
+               False)]
+    worst = {"max_abs_err": 0.0, "worst_pin_share": 0.0}
     timed = {}
-    for arena, dtype, int8 in (("bf16", torch.bfloat16, False),
-                               ("int8", torch.bfloat16, True),
-                               ("f32", torch.float32, False),
-                               ("int8_f32", torch.float32, True)):
-        for s in (1, 4, 256):
-            case = paged_case(rng, s=s, int8=int8, dtype=dtype,
-                              device=device, **shape)
-            out = _kernels.paged_decode.launch(
+    for label, shape, arena, dtype, int8, s, full in cases:
+        case = paged_case(rng, s=s, int8=int8, dtype=dtype, device=device,
+                          full=full, **shape)
+
+        def launch():
+            return _kernels.paged_decode.launch(
                 case["q"], case["k_arena"], case["v_arena"], case["table"],
                 case["pos"], k_scale=case["k_scale"],
-                v_scale=case["v_scale"], scale=128 ** -0.5)
-            row = {"phase": "kernel_vs_plain", "kernel":
-                   "paged_decode_attention", "S": s, "arena": arena,
-                   "compute": str(dtype).split(".")[-1], **shape,
-                   "live_tokens": int((case["pos"] + s).sum()),
-                   **check_kernel(out, case)}
-            worst = max(worst, row["max_abs_err"])
-            if s == 1 and dtype == torch.bfloat16:
-                ref = paged_decode_attention_reference(**case)
-                lib = library_call(case)
-                lib_err = float((lib().float() - ref.float()).abs().max())
-                row.update(
-                    ms=cuda_ms(lambda: _kernels.paged_decode.launch(
-                        case["q"], case["k_arena"], case["v_arena"],
-                        case["table"], case["pos"],
-                        k_scale=case["k_scale"], v_scale=case["v_scale"],
-                        scale=128 ** -0.5), 100, flush),
-                    plain_ms=cuda_ms(
-                        lambda: paged_decode_attention_reference(**case),
-                        30, flush),
-                    library_ms=cuda_ms(lib, 100, flush),
-                    library_max_abs_err=lib_err)
-                row["bound_ms"], row["bound_by"] = paged_bound(case)
-                timed[arena] = row
-            emit(row)
-            del case, out
-    main = timed["bf16"]
+                v_scale=case["v_scale"], scale=shape["d"] ** -0.5)
+
+        out = launch()
+        row = {"phase": "kernel_vs_plain", "kernel":
+               "paged_decode_attention", "case": label, "S": s,
+               "arena": arena, "compute": str(dtype).split(".")[-1],
+               **shape, "live_tokens": int((case["pos"] + s).clamp(
+                   max=shape["nb"] * shape["bs"]).sum()),
+               **check_kernel(out, case)}
+        if not torch.equal(launch(), out):
+            raise AssertionError(f"paged kernel {label} {arena}: two "
+                                 f"launches gave different bits")
+        row["bit_identical_rerun"] = True
+        for k in worst:
+            worst[k] = max(worst[k], row[k])
+        if s == 1 and dtype == torch.bfloat16 and shape is PAGED:
+            ref = paged_decode_attention_reference(**case)
+            lib = library_call(case)
+            row["library_max_abs_err"] = float(
+                (lib().float() - ref.float()).abs().max())
+            row["ms"] = cuda_ms(launch, 100, flush)
+            row["profiled_ms"], row["kernels_per_call"] = kernel_profile(
+                launch, 50, flush, "paged_decode")
+            row["plain_ms"] = cuda_ms(
+                lambda: paged_decode_attention_reference(**case), 30, flush)
+            row["library_ms"] = cuda_ms(lib, 100, flush)
+            row["bound_ms"], row["bound_by"] = paged_bound(case)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["achieved_gb_per_s"] = paged_work(case)[0] / row["ms"] / 1e6
+            timed[(label, arena)] = row
+        emit(row)
+        del case, out
+    main, i8 = timed[("S1", "bf16")], timed[("S1", "int8")]
+    fc, fc8 = timed[("full_context", "bf16")], timed[("full_context", "int8")]
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "nos_tpu_torch/csrc/paged_decode_attention.cu",
             "replaces": "nos_tpu/ops/attention.py:430",
-            "max_abs_err": worst, "ms": main["ms"],
+            "max_abs_err": worst["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "int8_ms": timed["int8"]["ms"],
-            "int8_bound_ms": timed["int8"]["bound_ms"]}
+            "profiled_ms": main["profiled_ms"],
+            "kernels_per_call": main["kernels_per_call"],
+            "worst_pin_share": worst["worst_pin_share"],
+            "int8_ms": i8["ms"], "int8_bound_ms": i8["bound_ms"],
+            "full_context_ms": fc["ms"],
+            "full_context_bound_ms": fc["bound_ms"],
+            "full_context_int8_ms": fc8["ms"],
+            "full_context_int8_bound_ms": fc8["bound_ms"]}
 
 
 def phase_exact_tokens(seed: int, device) -> None:
@@ -363,9 +441,8 @@ def profile_ticks(eng, prompts, ticks: int = 3) -> dict:
     torch.profiler. Device busy = the sum of kernel times; the idle
     share against the profiled wall overstates idleness (the profiler
     slows the host), so the caller also reports it against the
-    unprofiled tick. Kernels are grouped as the paged kernel (its
-    attention and split-merge launches), matmuls (cuBLAS/CUTLASS names)
-    and everything else."""
+    unprofiled tick. Kernels are grouped as the paged kernel (one launch
+    per layer), matmuls (cuBLAS/CUTLASS names) and everything else."""
     from torch.profiler import ProfilerActivity, profile
 
     for p in prompts:
@@ -387,22 +464,35 @@ def profile_ticks(eng, prompts, ticks: int = 3) -> dict:
             "device_idle_share_profiled": 1 - busy / wall_ms,
             "device_ms_per_tick": out["device_ms"],
             "kernels_per_tick": out["kernels_per_run"],
+            "paged_kernels_per_tick":
+                out["group_kernels_per_run"]["paged_kernel"],
             "top_kernels": out["top_kernels"]}
+
+
+def device_us(event) -> float:
+    """An averaged profiler event's own device microseconds (0 for host
+    events)."""
+    us = getattr(event, "self_device_time_total", None)
+    if us is None:
+        us = getattr(event, "self_cuda_time_total", 0.0)
+    if str(getattr(event, "device_type", "")).endswith("CPU"):
+        return 0.0
+    return us
 
 
 def device_breakdown(prof, runs: int, named: dict) -> dict:
     """Kernel time per run from a torch.profiler trace, grouped as
     ``named`` (group -> name substrings), matmuls (cuBLAS/CUTLASS names)
-    and everything else; busy = the sum of kernel times."""
+    and everything else, with the kernels of each group per run; busy =
+    the sum of kernel times."""
     groups = {g: 0.0 for g in named}
     groups.update(matmul=0.0, other=0.0)
+    counts = dict.fromkeys(groups, 0)
     kernels = []
     n_kernels = 0
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us <= 0 or str(getattr(e, "device_type", "")).endswith("CPU"):
+        us = device_us(e)
+        if us <= 0:
             continue
         name = e.key
         low = name.lower()
@@ -413,11 +503,13 @@ def device_breakdown(prof, runs: int, named: dict) -> dict:
                 "gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet",
                 "sm90_")) else "other")
         groups[g] += us / 1e3 / runs
+        counts[g] += e.count
         n_kernels += e.count
         kernels.append((us / 1e3 / runs, e.count // runs, name[:80]))
     kernels.sort(reverse=True)
     return {"device_busy_ms": sum(groups.values()), "device_ms": groups,
             "kernels_per_run": n_kernels / runs,
+            "group_kernels_per_run": {g: n / runs for g, n in counts.items()},
             "top_kernels": [{"ms": ms, "count": c, "name": n}
                             for ms, c, n in kernels[:8]]}
 
@@ -476,6 +568,11 @@ def phase_full_width(seed: int, kv_dtype: str, card: str) -> int:
     probe = decode_probe(eng, snapshot)
     del snapshot
     breakdown = profile_ticks(eng, prompts)
+    if breakdown["paged_kernels_per_tick"] != FULL["n_layers"]:
+        raise AssertionError(
+            f"profiled paged_decode kernels per tick "
+            f"{breakdown['paged_kernels_per_tick']} != one per layer "
+            f"({FULL['n_layers']})")
     emit({"phase": "full_width", "kv_dtype": kv_dtype, "card": card,
           **{k: FULL[k] for k in FULL}, "requests": len(prompts),
           "prompt_lens": [int(n) for n in lens], "new_tokens": new,

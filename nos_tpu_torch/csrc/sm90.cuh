@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks in raw PTX: TMA tensor maps, loads and
-// stores, mbarriers, named barriers, wgmma descriptors and products,
-// register reallocation, the SFU's exp2.
+// stores, 1-D bulk copies, L2 prefetch, mbarriers, named barriers, wgmma
+// descriptors and products, register reallocation, the SFU's exp2.
 // Header-only; a kernel source includes it and builds in seconds (no CuTe).
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
@@ -125,6 +125,23 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// A 1-D bulk copy of `bytes` contiguous bytes from global src into this
+// block's shared memory at dst; completion is reported to bar's
+// transaction count. dst, src and bytes must be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+      "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// Fetch the 128-byte line holding p into L2, without waiting.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 // One TMA box from src (shared memory, in the box's swizzled layout) to

@@ -34,9 +34,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 HEAD_DIMS = (64, 128)
-# paged_decode_attention.cu's block shape: query rows per block and
-# tokens per staged chunk (a split of the timeline is whole chunks)
-_ROWS, _CHUNK = 16, 32
+# paged_decode_attention.cu: the most blocks that split one row tile's
+# live pages between them
+MAX_SPLIT = 8
 
 
 def _nvcc() -> str:
@@ -123,12 +123,32 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 class _PagedDecode(_Kernel):
     """``csrc/paged_decode_attention.cu``: the counterpart of
-    ``nos_tpu/ops/attention.py::paged_decode_attention``."""
+    ``nos_tpu/ops/attention.py::paged_decode_attention``, one launch per
+    call. The ``n_split`` blocks (``paged_splits``) of each (query-row
+    tile, kv head, batch row) split the row's live pages, stream them
+    through a ring of bulk copies, and merge their softmax states inside
+    the launch: each leaves its state in a slot of a per-device scratch
+    and takes a ticket, and the last folds the slots in split order. The
+    scratch and its tickets are allocated once per device and grown when
+    a call needs more (the kernel leaves the tickets at zero), so a call
+    allocates only its output; calls share them, so they run in stream
+    order on one stream."""
 
     def __init__(self):
         super().__init__(
             "paged_decode_attention.cu", "nos_paged_decode_attention",
-            [_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _P])
+            [_P] * 10 + [_I] * 7 + [_F, _I, _I, _I, _P])
+        self._scratch: Dict[torch.device, tuple] = {}
+
+    def _part(self, device: torch.device, floats: int, tickets: int):
+        """(part, ticket) of at least these sizes on ``device``."""
+        part, ticket = self._scratch.get(device, (None, None))
+        if part is None or part.numel() < floats \
+                or ticket.numel() < tickets:
+            part = torch.empty(floats, dtype=torch.float32, device=device)
+            ticket = torch.zeros(tickets, dtype=torch.int32, device=device)
+            self._scratch[device] = (part, ticket)
+        return part, ticket
 
     def launch(self, q: torch.Tensor, k_arena: torch.Tensor,
                v_arena: torch.Tensor, table: torch.Tensor,
@@ -179,21 +199,27 @@ class _PagedDecode(_Kernel):
                      or v_scale.shape != (nb_phys, h_kv, bs)):
             raise ValueError(
                 "int8 arena needs f32 k_scale and v_scale [NB, Hkv, bs]")
+        if any(t.data_ptr() % 16 for t in tensors[1:3] + tensors[5:]):
+            raise ValueError("paged_decode_attention: the arenas and scale "
+                             "planes must be 16-byte aligned (bulk copies)")
         out = torch.empty_like(q)
-        split_tok, n_split = _split(b, h // h_kv * s, h_kv, nb * bs,
-                                    q.device)
-        part = (torch.empty(b * h_kv * n_split * (h // h_kv * s) * (d + 2),
-                            dtype=torch.float32, device=q.device)
-                if n_split > 1 else None)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        gs = h // h_kv * s
+        tiles = b * h_kv * paged_row_tiles(gs)
+        n_split = paged_splits(tiles, _sm_count(q.device))
+        part = ticket = None
+        if n_split > 1:
+            rows = 4 if gs <= 4 else 8
+            part, ticket = self._part(
+                q.device, tiles * n_split * rows * (d + 2), tiles)
         rc = self.fn()(
             q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
             k_scale.data_ptr() if int8 else None,
             v_scale.data_ptr() if int8 else None,
             table.data_ptr(), pos.data_ptr(), out.data_ptr(),
             part.data_ptr() if part is not None else None,
-            b, h, h_kv, s, d, bs, nb, float(scale), split_tok,
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_arena.dtype], stream)
+            ticket.data_ptr() if ticket is not None else None,
+            b, h, h_kv, s, d, bs, nb, float(scale), n_split,
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_arena.dtype], _stream(q))
         if rc != 0:
             raise RuntimeError(
                 f"paged_decode_attention kernel launch failed: "
@@ -202,18 +228,34 @@ class _PagedDecode(_Kernel):
         return out
 
 
-def _split(b: int, gs: int, h_kv: int, timeline: int,
-           device: torch.device) -> tuple:
-    """(split_tok, n_split): cut each row's timeline into whole-chunk
-    splits until the grid holds about four blocks per SM, since a decode
-    step alone has only B * Hkv row tiles; windows that fill the card
-    already run as one split."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-gs // _ROWS) * h_kv * b
-    chunks = -(-timeline // _CHUNK)
-    n = max(1, min(-(-4 * sms // tiles), chunks))
-    split_tok = -(-chunks // n) * _CHUNK
-    return split_tok, -(-timeline // split_tok)
+def paged_row_tiles(gs: int) -> int:
+    """Query-row tiles of one kv head's ``gs = g * S`` rows: the kernel
+    takes 4 rows a block when they fit (a decode step), else 8."""
+    return -(-gs // (4 if gs <= 4 else 8))
+
+
+def paged_splits(tiles: int, sms: int) -> int:
+    """Blocks per (row tile, kv head, batch row) for ``tiles`` of them on
+    ``sms`` SMs: the smallest power of two that gives the grid at least
+    two blocks per SM, at most ``MAX_SPLIT``; 1 when the tiles alone
+    fill the card. Chosen without reading ``pos``."""
+    n = 1
+    while n < MAX_SPLIT and tiles * n < 2 * sms:
+        n *= 2
+    return n
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The device's SM count, asked once per device."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
 
 
 paged_decode = _PagedDecode()
