@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefg]
+    python3 chip_smoke.py [--seed N] [--phases cdefgh]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -22,9 +22,12 @@ d. exact tokens in f32, plain and int8 arenas: the serving engine
 e. the main path at full width: ``build_engine`` on a Llama-3-8B-shaped
    decoder (GQA 32/8 heads, d_model 4096, d_ff 14336, vocab 128256, 32
    layers, random weights from the seed; max_seq cut to 2048) serves 8
-   requests x 32 tokens, with a bf16 and an int8 KV arena; the kernel's
+   requests x 32 tokens, greedy with a bf16 and an int8 KV arena, then
+   sampled on the bf16 arena (temperature 0.8, top-k 50, top-p 0.95,
+   seeds 0-7, served twice for the same tokens); each run's kernel
    launch count must equal n_layers x decode ticks, and the profiled
    ticks must show one paged_decode kernel per layer (no merge launch);
+   the sampled run also times its sampling ops alone;
 f. the four flash-attention kernels (forward, backward preprocess, dK/dV,
    dQ) against their plain versions at the training slice's shape
    (batch 8, 16 query / 4 KV heads, S 2048, head_dim 128, causal), at
@@ -37,12 +40,21 @@ g. the training path at full width: ``train()`` on bench.py's 1.1 B
    model (d_model 2048, 16 layers, GQA 16/4, d_ff 8192, vocab 32000,
    batch 8 x 2048, bf16, full remat, adamw, random weights and synthetic
    batches from the seed) takes 8 steps; the loss must be finite and
-   fall, and the flash forward must launch 2 x 16 x 8 times (full remat
-   re-runs it) and each backward kernel 16 x 8 times. Then 2 profiled
-   steps (device idle share; the flash forward and backward kernels'
-   milliseconds and their share of busy time) and, at 2
-   layers in f32, one step's loss and gradients through the kernel
-   against ``NOS_TPU_TORCH_ATTN_IMPL=xla``.
+   fall, the flash forward must launch 2 x 16 x 8 times (full remat
+   re-runs it), each backward kernel 16 x 8 times and the adamw kernel
+   once per param leaf and step. Then 2 profiled steps (device idle
+   share; the flash forward and backward kernels' milliseconds and
+   their share of busy time), at 2 layers in f32 one step's loss and
+   gradients through the kernel against ``NOS_TPU_TORCH_ATTN_IMPL=xla``,
+   and the adamw kernel against its plain version on the model's leaves
+   (bit-identical, bf16 and f32), timed beside the plain version and
+   ``torch.optim.AdamW(fused=True)``;
+h. sampled decoding, f32 on phase (d)'s model: the port's threefry
+   (keys, bits, split, randint, uniform, gumbel, categorical) on the card
+   equals it on the CPU bit for bit; the engine's sampled streams (mixed
+   temperatures, top-k, top-p, seeds) through the kernel equal those
+   through the gather formulation; each request alone equals it in a
+   full batch; a rerun with the same seeds gives the same tokens.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -77,6 +89,9 @@ PINS = {torch.bfloat16: (2.0 ** -7, 2.0 ** -8), torch.float32: (1e-5, 1e-5)}
 
 FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
+# every phase after (a) and (b); a run of all of them prints the kernels
+# line and the ok line
+PHASES = "cdefgh"
 
 
 def emit(obj) -> None:
@@ -349,6 +364,11 @@ def phase_kernels(seed: int, device, flush) -> dict:
             "full_context_int8_bound_ms": fc8["bound_ms"]}
 
 
+# phase (d)'s small f32 model, shared with phase (h)
+SMALL = dict(vocab=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+             d_ff=512, max_seq=256)
+
+
 def phase_exact_tokens(seed: int, device) -> None:
     """(d): f32, plain and int8 arenas: the engine through the kernel
     commits the same tokens as ``generate_paged`` through the kernel
@@ -362,9 +382,7 @@ def phase_exact_tokens(seed: int, device) -> None:
     )
     from nos_tpu_torch.ops import _kernels
 
-    cfg = TransformerConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
-                            n_kv_heads=2, d_ff=512, max_seq=256,
-                            dtype=torch.float32)
+    cfg = TransformerConfig(**SMALL, dtype=torch.float32)
     params = init_params(cfg, torch.Generator(device).manual_seed(seed),
                          device)
     rng = np.random.default_rng(seed)
@@ -375,7 +393,7 @@ def phase_exact_tokens(seed: int, device) -> None:
         _kernels.paged_decode.launches = 0
         eng = DecodeServer(params, cfg, max_batch=4, kv_block_size=16,
                            kv_blocks=1 + 4 * 16, kv_dtype=kv_dtype,
-                           device=device)
+                           device=device, paged_impl="kernel")
         assert eng.paged_kernel == "kernel", eng.paged_kernel
         rids = [eng.submit(p, new) for p in prompts]
         served = eng.drain()
@@ -396,6 +414,111 @@ def phase_exact_tokens(seed: int, device) -> None:
               "equal_generate_paged_kernel": True,
               "equal_generate_paged_plain": True,
               "engine_launches": launches})
+
+
+# phase (h)'s requests: (prompt length, new tokens, sampling params)
+SAMPLED_MIX = [(5, 16, dict(temperature=0.7, seed=11)),
+               (17, 12, dict()),
+               (40, 16, dict(temperature=1.3, top_k=5, seed=3)),
+               (77, 9, dict(temperature=1.0, top_p=0.9, seed=2 ** 32 - 1)),
+               (9, 14, dict(temperature=0.9, top_k=50, top_p=0.95, seed=8)),
+               (33, 10, dict(temperature=1.1, top_k=1, seed=5))]
+
+
+def prng_card_vs_cpu(device) -> int:
+    """Threefry keys, bits, split, randint, uniform and gumbel on the card
+    against the same calls on CPU tensors, bit for bit, over a grid of
+    seeds and shapes; returns the number of comparisons."""
+    from nos_tpu_torch.utils import prng
+
+    n = 0
+
+    def same(name, card, cpu):
+        nonlocal n
+        n += 1
+        if not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"prng {name}: the card's bits differ "
+                                 f"from the CPU's")
+
+    for seed in (0, 1, 42, 2 ** 31 - 1, 2 ** 32 - 1):
+        kc, kh = prng.PRNGKey(seed, device), prng.PRNGKey(seed)
+        same(f"fold_in {seed}", prng.fold_in(kc, 1234), prng.fold_in(kh, 1234))
+        same(f"split {seed}", prng.split(kc, 64), prng.split(kh, 64))
+        for shape in ((), (7,), (3, 5, 7), (8, 128256)):
+            for name, fn in (
+                    ("bits", prng.random_bits),
+                    ("uniform", prng.uniform), ("gumbel", prng.gumbel),
+                    ("randint", lambda k, sh: prng.randint(k, sh, 0,
+                                                           128256))):
+                same(f"{name} {seed} {shape}", fn(kc, shape), fn(kh, shape))
+    seeds = torch.tensor([0, 7, 2 ** 32 - 1, 99], dtype=torch.int64)
+    pos = torch.tensor([1, 500, 2047, 3], dtype=torch.int64)
+    keys_c = prng.fold_in(prng.PRNGKey(seeds.to(device)), pos.to(device))
+    keys_h = prng.fold_in(prng.PRNGKey(seeds), pos)
+    same("batched fold_in", keys_c, keys_h)
+    logits = torch.randn(4, 128256, generator=torch.Generator().manual_seed(1))
+    same("batched categorical", prng.categorical(keys_c, logits.to(device)),
+         prng.categorical(keys_h, logits))
+    return n
+
+
+def phase_sampling(seed: int, device) -> None:
+    """(h): sampled decoding on the card, f32, phase (d)'s model: the
+    port's threefry on the card equals it on the CPU; the engine's
+    sampled streams through the kernel equal its streams through the
+    gather formulation; a sampled request alone equals it in a full
+    batch; rerunning with the same seeds gives the same tokens."""
+    from nos_tpu_torch.models.serving import DecodeServer
+    from nos_tpu_torch.models.transformer import (
+        TransformerConfig, init_params,
+    )
+    from nos_tpu_torch.ops import _kernels
+
+    checks = prng_card_vs_cpu(device)
+    cfg = TransformerConfig(**SMALL, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device).manual_seed(seed),
+                         device)
+    rng = np.random.default_rng(seed + 1)
+    reqs = [(rng.integers(0, cfg.vocab, size=n).tolist(), new, kw)
+            for n, new, kw in SAMPLED_MIX]
+
+    def engine(impl):
+        return DecodeServer(params, cfg, max_batch=4, kv_block_size=16,
+                            kv_blocks=1 + 4 * 16, device=device,
+                            paged_impl=impl)
+
+    def serve(impl, requests):
+        eng = engine(impl)
+        rids = [eng.submit(p, new, **kw) for p, new, kw in requests]
+        out = eng.drain()
+        return [out[r] for r in rids], eng.ticks
+
+    _kernels.paged_decode.launches = 0          # the main path's count
+    kernel, ticks = serve("kernel", reqs)
+    launches = _kernels.paged_decode.launches
+    if launches != cfg.n_layers * ticks:
+        raise AssertionError(f"sampled engine: kernel launches {launches} "
+                             f"!= n_layers x ticks {cfg.n_layers} x {ticks}")
+    gather, _ = serve("xla", reqs)
+    if kernel != gather:
+        raise AssertionError(
+            f"sampled streams through the kernel {kernel} differ from the "
+            f"gather formulation's {gather}")
+    again, _ = serve("kernel", reqs)
+    if again != kernel:
+        raise AssertionError("sampled rerun with the same seeds differs")
+    alone = [serve("kernel", [r])[0][0] for r in reqs]
+    if alone != kernel:
+        raise AssertionError(
+            f"a sampled request alone {alone} differs from it in a full "
+            f"batch {kernel}")
+    emit({"phase": "sampling_f32", "prng_comparisons": checks,
+          "prng_card_equals_cpu": True, "requests": len(reqs),
+          "sampled_requests": sum(1 for *_, kw in reqs if kw),
+          "kernel_equals_gather": True, "alone_equals_batched": True,
+          "rerun_same_tokens": True, "engine_ticks": ticks,
+          "engine_launches": launches,
+          "tokens_sha256": token_digest(kernel)})
 
 
 def decode_probe(eng, snapshot) -> dict:
@@ -435,18 +558,19 @@ def decode_probe(eng, snapshot) -> dict:
             "probe_argmax_agree": int(agree.sum())}
 
 
-def profile_ticks(eng, prompts, ticks: int = 3) -> dict:
-    """Device breakdown of steady decode ticks: serve ``prompts`` again,
-    take one warm tick, then profile ``ticks`` engine steps with
-    torch.profiler. Device busy = the sum of kernel times; the idle
-    share against the profiled wall overstates idleness (the profiler
-    slows the host), so the caller also reports it against the
-    unprofiled tick. Kernels are grouped as the paged kernel (one launch
-    per layer), matmuls (cuBLAS/CUTLASS names) and everything else."""
+def profile_ticks(eng, prompts, ticks: int = 3, sampling=None) -> dict:
+    """Device breakdown of steady decode ticks: serve ``prompts`` again
+    (with ``sampling[i]``'s params when given), take one warm tick, then
+    profile ``ticks`` engine steps with torch.profiler. Device busy = the
+    sum of kernel times; the idle share against the profiled wall
+    overstates idleness (the profiler slows the host), so the caller
+    also reports it against the unprofiled tick. Kernels are grouped as
+    the paged kernel (one launch per layer), matmuls (cuBLAS/CUTLASS
+    names) and everything else."""
     from torch.profiler import ProfilerActivity, profile
 
-    for p in prompts:
-        eng.submit(p, ticks + 2)
+    for i, p in enumerate(prompts):
+        eng.submit(p, ticks + 2, **(sampling[i] if sampling else {}))
     eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -514,9 +638,45 @@ def device_breakdown(prof, runs: int, named: dict) -> dict:
                             for ms, c, n in kernels[:8]]}
 
 
-def phase_full_width(seed: int, kv_dtype: str, card: str) -> int:
-    """(e): build_engine at the 8B-class widths, 8 requests x 32 tokens;
-    returns the kernel's launches on this main-path run."""
+# phase (e)'s sampled run: every request samples, per-request seeds
+SAMPLED = [dict(temperature=0.8, top_k=50, top_p=0.95, seed=i)
+           for i in range(8)]
+
+
+def sampling_profile(eng) -> dict:
+    """Device ms and kernels of the sampled tick's sampling ops alone
+    (``DecodeServer._sample`` on a [max_batch, vocab] logit row with
+    phase (e)'s sampling rows), from torch.profiler over 5 calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(eng.device).manual_seed(0)
+    step = torch.randn((eng.max_batch, eng.cfg.vocab), generator=gen,
+                       device=eng.device) * 3
+    pos0 = torch.full((eng.max_batch,), 700, dtype=torch.int32,
+                      device=eng.device)
+    greedy = step.argmax(-1)
+    eng._sample(step, pos0, greedy)
+    torch.cuda.synchronize()
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            eng._sample(step, pos0, greedy)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / n
+    out = device_breakdown(prof, n, {})
+    return {"sampling_device_ms": out["device_busy_ms"],
+            "sampling_kernels": out["kernels_per_run"],
+            "sampling_profiled_wall_ms": wall}
+
+
+def phase_full_width(seed: int, kv_dtype: str, card: str,
+                     sampled: bool = False) -> int:
+    """(e): build_engine at the 8B-class widths, 8 requests x 32 tokens,
+    greedy, or with ``sampled`` every request at ``SAMPLED``'s params
+    and served twice (the same tokens both times); returns the kernel's
+    launches on this main-path run."""
     from nos_tpu_torch.cmd.server import ServerConfig, build_engine
     from nos_tpu_torch.ops import _kernels
 
@@ -533,13 +693,14 @@ def phase_full_width(seed: int, kv_dtype: str, card: str) -> int:
     lens = rng.integers(64, 1025, size=8)
     prompts = [rng.integers(0, FULL["vocab"], size=n).tolist() for n in lens]
     new = 32
+    sampling = SAMPLED if sampled else [{}] * len(prompts)
 
     _kernels.paged_decode.launches = 0          # the main path's count
     prefill_ms = []
     rids = []
-    for p in prompts:
+    for p, kw in zip(prompts, sampling):
         t = time.perf_counter()
-        rids.append(eng.submit(p, new))          # prefill + first token
+        rids.append(eng.submit(p, new, **kw))    # prefill + first token
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t) * 1e3)
     # the live arena after prefill, for the kernel-vs-plain probe below
@@ -565,15 +726,28 @@ def phase_full_width(seed: int, kv_dtype: str, card: str) -> int:
         raise AssertionError(
             f"kernel launches {launches} != n_layers x ticks "
             f"{FULL['n_layers']} x {ticks}")
+    extra = {}
+    if sampled:
+        again = [eng.submit(p, new, **kw) for p, kw in zip(prompts,
+                                                           sampling)]
+        rerun = eng.drain()
+        if [rerun[r] for r in again] != [served[r] for r in rids]:
+            raise AssertionError("sampled run: a second pass with the same "
+                                 "seeds gave other tokens")
+        extra = {"sampling": SAMPLED[0], "seeds": [kw["seed"]
+                                                   for kw in SAMPLED],
+                 "rerun_same_tokens": True, **sampling_profile(eng)}
     probe = decode_probe(eng, snapshot)
     del snapshot
-    breakdown = profile_ticks(eng, prompts)
+    breakdown = profile_ticks(eng, prompts,
+                              sampling=SAMPLED if sampled else None)
     if breakdown["paged_kernels_per_tick"] != FULL["n_layers"]:
         raise AssertionError(
             f"profiled paged_decode kernels per tick "
             f"{breakdown['paged_kernels_per_tick']} != one per layer "
             f"({FULL['n_layers']})")
-    emit({"phase": "full_width", "kv_dtype": kv_dtype, "card": card,
+    emit({"phase": "full_width", "kv_dtype": kv_dtype,
+          "mode": "sampled" if sampled else "greedy", "card": card,
           **{k: FULL[k] for k in FULL}, "requests": len(prompts),
           "prompt_lens": [int(n) for n in lens], "new_tokens": new,
           "build_s": build_s, "prefill_ms": prefill_ms,
@@ -582,12 +756,20 @@ def phase_full_width(seed: int, kv_dtype: str, card: str) -> int:
           "decode_tokens": decoded,
           "decode_tokens_per_s": decoded / decode_s,
           "kernel_launches": launches,
+          "tokens_sha256": token_digest([served[r] for r in rids]),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **probe,
           "device_idle_share": 1 - breakdown["device_busy_ms_per_tick"]
-          / (decode_s * 1e3 / ticks),
+          / (decode_s * 1e3 / ticks), **extra,
           "profile": breakdown})
     del eng, served
     return launches
+
+
+def token_digest(seqs) -> str:
+    """A short digest of served token lists, to compare runs by."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(seqs).encode()).hexdigest()[:16]
 
 
 # the training slice's attention shape (bench.py's 1.1B model: batch 8,
@@ -849,23 +1031,122 @@ def model_flops_per_step(cfg, batch, seq) -> float:
     return 3 * (batch * seq * per_tok + attn)
 
 
-def flash_kernels() -> dict:
-    """The flash-attention kernel wrappers by their kernels-line names."""
+def train_kernels() -> dict:
+    """The training path's kernel wrappers by their kernels-line names:
+    the four flash-attention kernels and the adamw update."""
     from nos_tpu_torch.ops import _kernels
 
     return {"flash_attention_fwd": _kernels.flash_fwd,
             "flash_attention_bwd_preprocess": _kernels.flash_bwd_pre,
             "flash_attention_bwd_dkdv": _kernels.flash_bwd_dkdv,
-            "flash_attention_bwd_dq": _kernels.flash_bwd_dq}
+            "flash_attention_bwd_dq": _kernels.flash_bwd_dq,
+            "adamw": _kernels.adamw}
 
 
-def flash_launches() -> dict:
-    return {name: k.launches for name, k in flash_kernels().items()}
+def train_launches() -> dict:
+    return {name: k.launches for name, k in train_kernels().items()}
 
 
-def zero_flash_launches() -> None:
-    for k in flash_kernels().values():
+def zero_train_launches() -> None:
+    for k in train_kernels().values():
         k.launches = 0
+
+
+def n_param_leaves() -> int:
+    """Leaves of the decoder's params (one adamw launch each per update),
+    counted on a tiny CPU instance: the count does not depend on the
+    widths."""
+    from nos_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(vocab=8, d_model=8, n_layers=1, n_heads=1,
+                                d_ff=8, max_seq=8, dtype=torch.float32)
+    return len(tfm.param_leaves(tfm.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")))
+
+
+# the adamw check's update: hyper-parameters as the trainer's defaults,
+# an update count past the first
+ADAMW = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+ADAMW_COUNT = 3
+
+
+def check_adamw(seed: int, device, flush) -> dict:
+    """The adamw kernel against its plain version on the training path's
+    leaves (bench.py's 1.1 B model in bf16, and f32 copies of the first
+    two layers of three stacked leaves):
+    params and both moments bit-identical after one update from the same
+    state. Times one update of every bf16 leaf: kernel, plain version,
+    and one library call (``torch.optim.AdamW(fused=True).step``), and
+    the bytes bound (p, g, mu, nu read, p, mu, nu written once)."""
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.ops import _kernels
+    from nos_tpu_torch.train.optim import adamw_consts, \
+        adamw_update_reference
+
+    cfg = tfm.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+    gen = torch.Generator(device).manual_seed(seed + 3)
+    leaves = tfm.param_leaves(tfm.init_params(cfg, gen, device))
+
+    def like(p, scale, square=False):
+        t = torch.randn(p.shape, generator=gen, device=device) * scale
+        return (t * t if square else t).to(p.dtype)
+
+    def state(leaf_list):
+        return [(p, like(p, 1e-2), like(p, 1e-3), like(p, 1e-2, True))
+                for p in leaf_list]
+
+    bf16 = state(leaves)
+    # f32 leaves at the norms' and one projection's shapes
+    f32 = state([p[:2].float().contiguous() for p in leaves
+                 if p.dim() >= 2][:3])
+    worst = 0.0
+    compared = 0
+    for group in (bf16, f32):
+        consts = adamw_consts(group[0][0].dtype, ADAMW_COUNT, ADAMW["lr"],
+                              b1=ADAMW["b1"], b2=ADAMW["b2"],
+                              eps=ADAMW["eps"],
+                              weight_decay=ADAMW["weight_decay"])
+        for p, g, mu, nu in group:
+            kern = [t.clone() for t in (p, mu, nu)]
+            plain = [t.clone() for t in (p, mu, nu)]
+            _kernels.adamw.launch(kern[0], g, kern[1], kern[2], consts)
+            adamw_update_reference(plain[0], g, plain[1], plain[2], consts)
+            for a, b in zip(kern, plain):
+                worst = max(worst, float((a.float() - b.float()).abs()
+                                         .max()))
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"adamw kernel differs from its plain version on a "
+                        f"{p.dtype} leaf {tuple(p.shape)}")
+                compared += 1
+            del kern, plain
+    consts = adamw_consts(torch.bfloat16, ADAMW_COUNT, ADAMW["lr"],
+                          b1=ADAMW["b1"], b2=ADAMW["b2"], eps=ADAMW["eps"],
+                          weight_decay=ADAMW["weight_decay"])
+    ms = cuda_ms(lambda: [_kernels.adamw.launch(p, g, mu, nu, consts)
+                          for p, g, mu, nu in bf16], 10, flush)
+    plain_ms = cuda_ms(lambda: [adamw_update_reference(p, g, mu, nu, consts)
+                                for p, g, mu, nu in bf16], 3, flush)
+    params = [p for p, *_ in bf16]
+    for p, g, *_ in bf16:
+        p.grad = g
+    lib = torch.optim.AdamW(params, lr=ADAMW["lr"],
+                            betas=(ADAMW["b1"], ADAMW["b2"]),
+                            eps=ADAMW["eps"],
+                            weight_decay=ADAMW["weight_decay"], fused=True)
+    library_ms = cuda_ms(lib.step, 10, flush)
+    n = sum(p.numel() for p in params)
+    bound_ms = 7 * 2 * n / HBM_BYTES_PER_S * 1e3
+    row = {"phase": "adamw_vs_plain", "leaves": len(bf16),
+           "elements": n, "compared_tensors": compared,
+           "bit_identical": True, "max_abs_err": worst, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "achieved_gb_per_s": 7 * 2 * n / ms / 1e6}
+    emit(row)
+    del bf16, f32, params, lib, leaves
+    torch.cuda.empty_cache()
+    return row
 
 
 class StepLog(logging.Handler):
@@ -904,13 +1185,12 @@ def profile_train(seed: int, device) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from nos_tpu_torch.cmd.trainer import TrainerConfig, synthetic_batch
     from nos_tpu_torch.models.transformer import TransformerConfig
-    from nos_tpu_torch.train.data import to_device
 
     cfg = TransformerConfig(**TRAIN, dtype=torch.bfloat16)
     params, step = train_setup(cfg, seed, device)
     tcfg = TrainerConfig(**TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                          seed=seed)
-    batch = to_device(synthetic_batch(tcfg, 0), device)
+    batch = synthetic_batch(tcfg, 0, device)
     step(params, batch)
     torch.cuda.synchronize()
     n = 2
@@ -938,21 +1218,20 @@ def f32_parity(seed: int, device) -> dict:
     (the plain attention under autograd, no kernel launched)."""
     from nos_tpu_torch.cmd.trainer import TrainerConfig, synthetic_batch
     from nos_tpu_torch.models import transformer as tfm
-    from nos_tpu_torch.train.data import to_device
 
     cfg = tfm.TransformerConfig(**dict(TRAIN, n_layers=2),
                                 dtype=torch.float32)
     params, _ = train_setup(cfg, seed, device)
     tcfg = TrainerConfig(**TRAIN, batch_size=2, seq_len=TRAIN_SEQ, seed=seed)
-    batch = to_device(synthetic_batch(tcfg, 0), device)
+    batch = synthetic_batch(tcfg, 0, device)
     leaves = tfm.param_leaves(params)
     runs = {}
     for impl in ("splash", "xla"):
         os.environ["NOS_TPU_TORCH_ATTN_IMPL"] = impl
-        zero_flash_launches()
+        zero_train_launches()
         loss = tfm.loss_fn(params, cfg, batch)
         grads = torch.autograd.grad(loss, leaves)
-        runs[impl] = (float(loss.detach()), grads, flash_launches())
+        runs[impl] = (float(loss.detach()), grads, train_launches())
     del os.environ["NOS_TPU_TORCH_ATTN_IMPL"]
     (lk, gk, nk), (lx, gx, nx) = runs["splash"], runs["xla"]
     if nk["flash_attention_fwd"] != 2 * cfg.n_layers or any(nx.values()):
@@ -989,11 +1268,11 @@ def phase_train(seed: int, card: str) -> dict:
     tlog.addHandler(log)
     cfg = TrainerConfig(**TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                         steps=TRAIN_STEPS, log_every=1, seed=seed, bf16=True)
-    zero_flash_launches()                       # the main path's count
+    zero_train_launches()                       # the main path's count
     t0 = time.perf_counter()
     final = train(cfg, device=device)
     wall_s = time.perf_counter() - t0
-    launches = flash_launches()
+    launches = train_launches()
     tlog.removeHandler(log)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [loss for _, loss, _ in log.steps]
@@ -1005,9 +1284,10 @@ def phase_train(seed: int, card: str) -> dict:
     want = {"flash_attention_fwd": 2 * L * TRAIN_STEPS,
             "flash_attention_bwd_preprocess": L * TRAIN_STEPS,
             "flash_attention_bwd_dkdv": L * TRAIN_STEPS,
-            "flash_attention_bwd_dq": L * TRAIN_STEPS}
+            "flash_attention_bwd_dq": L * TRAIN_STEPS,
+            "adamw": n_param_leaves() * TRAIN_STEPS}
     if launches != want:
-        raise AssertionError(f"flash launches {launches} != {want}")
+        raise AssertionError(f"training launches {launches} != {want}")
     times = [t for _, _, t in log.steps]
     step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
     steady_ms = float(np.median(step_ms[1:]))      # after the first two
@@ -1034,7 +1314,7 @@ def phase_train(seed: int, card: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="cdefg",
+    ap.add_argument("--phases", default=PHASES,
                     help="phases to run after (a) and (b), e.g. 'f' while "
                          "iterating on a kernel; only a run of every phase "
                          "prints the kernels line and the ok line")
@@ -1062,19 +1342,26 @@ def main(argv=None) -> int:
         else {}
     flash = phase_flash(args.seed, device, flush) if "f" in args.phases \
         else {}
-    del flush
     if "d" in args.phases:
         phase_exact_tokens(args.seed, device)
+    if "h" in args.phases:
+        phase_sampling(args.seed, device)
     if "e" in args.phases:
         paged["launches"] = phase_full_width(args.seed, "bf16", card)
         paged["int8_launches"] = phase_full_width(args.seed, "int8", card)
+        paged["sampled_launches"] = phase_full_width(args.seed, "bf16", card,
+                                                     sampled=True)
+    adamw = {}
     if "g" in args.phases:
         launches = phase_train(args.seed, card)
         for name, row in flash.items():
             row["launches"] = launches[name]
+        adamw = check_adamw(args.seed, device, flush)
+        adamw["launches"] = launches["adamw"]
+    del flush
     emit({"phase": "done", "seconds": time.perf_counter() - t_all,
           "card": card})
-    if set("cdefg") - set(args.phases):
+    if set(PHASES) - set(args.phases):
         return 0
     kernels = [paged]
     for name, row in flash.items():
@@ -1083,6 +1370,14 @@ def main(argv=None) -> int:
                         "replaces": "nos_tpu/ops/attention.py:186",
                         "also_replaces": "nos_tpu/ops/attention.py:549",
                         **row})
+    kernels.append({"name": "adamw", "route": "cuda",
+                    "source": "nos_tpu_torch/csrc/adamw.cu",
+                    "replaces": "nos_tpu/train/optim.py:78",
+                    "replaces_what": "XLA's fusion of optax.adamw (no "
+                                     "Pallas kernel)",
+                    **{k: adamw[k] for k in (
+                        "launches", "max_abs_err", "ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms")}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,11 +10,15 @@ them.
 
 Slices ported so far:
 
-- single-device greedy serving through the paged KV cache
-  (``cmd.server.build_engine`` -> ``models.serving.DecodeServer`` ->
-  ``models.generate.forward_paged`` ->
-  ``ops.attention.paged_decode_attention``);
+- single-device serving through the paged KV cache, greedy or sampled
+  per request (``cmd.server.build_engine`` ->
+  ``models.serving.DecodeServer`` -> ``models.generate.forward_paged``
+  -> ``ops.attention.paged_decode_attention``), and the generate binary
+  (``cmd.generate``);
 - single-device training (``cmd.trainer.train`` ->
   ``models.transformer.make_train_step`` / ``loss_fn`` / ``forward`` ->
-  ``ops.attention.attention``, with ``train.optim`` and ``train.data``).
+  ``ops.attention.attention``, with ``train.optim``, whose adamw runs
+  ``csrc/adamw.cu``, and ``train.data``);
+- ``utils.prng``: the parts of ``jax.random`` the reference draws from
+  (threefry), bit for bit, so seeds give the reference's streams.
 """

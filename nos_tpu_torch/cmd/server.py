@@ -8,13 +8,10 @@ made. The HTTP ``ServingLoop`` is the next slice's work.
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 from nos_tpu_torch.device import DeviceLike, resolve_device
-from nos_tpu_torch.ops.attention import (
-    check_paged_kernel_head_dim, effective_paged_impl,
-)
+from nos_tpu_torch.ops.attention import check_paged_kernel_head_dim
 
 
 @dataclass
@@ -62,7 +59,9 @@ class ServerConfig:
 
 def build_engine(cfg: ServerConfig, device: DeviceLike = None):
     """Make params (seeded, int8 twin when ``cfg.int8``) and build the
-    continuous-batching engine on ``device`` (default: the card)."""
+    continuous-batching engine on ``device`` (default: the card). The
+    paged attention formulation goes to the engine as its
+    ``paged_impl``; nothing is written to the environment."""
     from nos_tpu_torch.cmd.generate import GenerateConfig, load_params
     from nos_tpu_torch.models.serving import DecodeServer, reject_unported
 
@@ -98,11 +97,10 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
     if cfg.paged_kernel not in ("on", "off"):
         raise ValueError(
             f"paged_kernel must be on|off, got {cfg.paged_kernel!r}")
-    # plumbed by env, as the reference does, so every engine built in
-    # this process sees one answer; the kernel walks per-slot block
-    # tables, so without kv_blocks "on" is inert
-    os.environ["NOS_TPU_TORCH_PAGED_KERNEL"] = \
-        "1" if (cfg.paged_kernel == "on" and cfg.kv_blocks) else "0"
+    # the kernel walks per-slot block tables, so without kv_blocks
+    # "on" is inert
+    paged_impl = ("kernel" if cfg.paged_kernel == "on" and cfg.kv_blocks
+                  else "xla")
     if cfg.draft_checkpoint_dir and cfg.draft_n_tokens < 1:
         raise ValueError(
             f"draft_n_tokens must be >= 1, got {cfg.draft_n_tokens}")
@@ -173,7 +171,7 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
         role=cfg.role, kv_swap=cfg.kv_swap)
     device = resolve_device(device)
     check_paged_kernel_head_dim(cfg.d_model // cfg.n_heads, device,
-                                effective_paged_impl())
+                                paged_impl)
     gcfg = GenerateConfig(
         vocab=cfg.vocab, d_model=cfg.d_model, n_layers=cfg.n_layers,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
@@ -185,4 +183,5 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
                         kv_block_size=cfg.kv_block_size,
                         kv_blocks=cfg.kv_blocks,
                         hbm_admit_frac=cfg.kv_hbm_admit_frac,
-                        kv_dtype=cfg.kv_dtype, device=device)
+                        kv_dtype=cfg.kv_dtype, device=device,
+                        paged_impl=paged_impl)

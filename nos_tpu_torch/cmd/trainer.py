@@ -23,7 +23,6 @@ import time
 from dataclasses import dataclass, fields
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from nos_tpu_torch.device import DeviceLike, resolve_device
@@ -75,8 +74,9 @@ class TrainerConfig:
     seed: int = 0
     log_every: int = 10
     # data: glob of memory-mapped token shards (train/data.py); empty =
-    # deterministic synthetic batches. prefetch = batches staged ahead
-    # onto the device; 0 assembles each step's batch synchronously
+    # deterministic synthetic batches. prefetch = token-shard batches
+    # staged ahead onto the device; 0 assembles each step's batch
+    # synchronously (synthetic batches always are)
     data_path: str = ""
     prefetch: int = 2
     # held-out evaluation: every eval_every steps, mean loss over
@@ -140,19 +140,18 @@ def check_ported(cfg: TrainerConfig) -> None:
             "COORDINATOR_ADDRESS: multi-host training is not ported yet")
 
 
-def synthetic_batch(cfg: TrainerConfig, step: int) -> dict:
-    """The deterministic synthetic batch of ``step``: tokens uniform in
-    [0, vocab) from a CPU ``torch.Generator`` seeded from (seed + 1,
-    step), targets the tokens rolled left by one. The reference draws
-    from JAX's threefry stream (``fold_in(PRNGKey(seed + 1), step)``),
-    which this does not reproduce: the numbers differ, the recipe is
-    the same."""
-    mix = np.random.SeedSequence([cfg.seed + 1, step]).generate_state(1)
-    gen = torch.Generator().manual_seed(int(mix[0]))
-    tokens = torch.randint(0, cfg.vocab, (cfg.batch_size, cfg.seq_len),
-                           generator=gen)
-    return {"tokens": tokens.numpy(),
-            "targets": torch.roll(tokens, -1, dims=1).numpy()}
+def synthetic_batch(cfg: TrainerConfig, step: int,
+                    device: DeviceLike = "cpu") -> dict:
+    """The deterministic synthetic batch of ``step``, the reference's own
+    stream: tokens ``randint(fold_in(PRNGKey(seed + 1), step), (batch,
+    seq), 0, vocab)`` drawn by the port's threefry on ``device`` (so a
+    step on the card never waits for host work), targets the tokens
+    rolled left by one; int64 tensors."""
+    from nos_tpu_torch.utils import prng
+
+    key = prng.fold_in(prng.PRNGKey(cfg.seed + 1, device), step)
+    tokens = prng.randint(key, (cfg.batch_size, cfg.seq_len), 0, cfg.vocab)
+    return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
 
 
 def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
@@ -205,7 +204,7 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
         # a pure function of (seed, step), so a rerun replays the stream
         if dataset is not None:
             return dataset.batch(step, cfg.batch_size)
-        return synthetic_batch(cfg, step)
+        return synthetic_batch(cfg, step, device)
 
     def put(batch: dict) -> dict:
         return to_device(batch, device)
@@ -215,10 +214,14 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
     prev_handler = None
     loss = float("nan")
     t0 = time.perf_counter()
-    if cfg.prefetch > 0:
+    if cfg.prefetch > 0 and dataset is not None:
         batches = prefetch_to_device(batch_for, 0, cfg.steps, put=put,
                                      depth=cfg.prefetch)
-    else:   # synchronous: no background thread, nothing staged ahead
+    else:
+        # synchronous, no background thread: a synthetic batch is drawn
+        # on the card by this thread, because a producer thread's
+        # hundreds of small launches contend with the step's dispatch
+        # for the interpreter lock (10-30 ms a step on an H100)
         batches = (put(batch_for(s)) for s in range(cfg.steps))
     try:
         if cfg.handle_sigterm and \
@@ -226,8 +229,12 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
             prev_handler = signal.signal(signal.SIGTERM,
                                          lambda *_: stop.set())
             handler_installed = True
-        for step, batch in zip(range(cfg.steps), batches):
+        batch = next(batches, None)
+        for step in range(cfg.steps):
             loss_t = step_fn(params, batch)
+            # the next batch goes on the stream behind this step, before
+            # the host waits for its loss
+            batch = next(batches, None)
             if stop.is_set():
                 loss = float(loss_t)
                 logger.info("stop requested (preemption): exiting after "

@@ -25,9 +25,11 @@ from nos_tpu_torch.ops.layers import (
     apply_rope, rms_norm, rope_frequencies, swiglu,
 )
 from nos_tpu_torch.ops.quant import embed_lookup, qdot
+from nos_tpu_torch.utils import prng
 
 __all__ = ["init_cache", "init_paged_cache", "forward_with_cache",
-           "forward_paged", "generate", "generate_paged"]
+           "forward_paged", "generate", "generate_paged",
+           "replicated_logits"]
 
 Cache = Dict[str, torch.Tensor]
 
@@ -81,6 +83,80 @@ def init_paged_cache(cfg: TransformerConfig, kv_blocks: int,
         for name in ("k", "v"):
             cache[name] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
+
+
+def replicated_logits(step: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A logit row canonicalized for a sampling decision: f32. The
+    reference also pins it replicated under a mesh; meshes are not
+    ported, so one is refused."""
+    _refuse_mesh(mesh)
+    return step.float()
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise ValueError(
+            "mesh is not ported to the torch port yet (tensor-parallel "
+            "serving)")
+
+
+def _tempered(step: torch.Tensor, temperature: float) -> torch.Tensor:
+    """``step / temperature`` in f32, as a true division: the divisor is
+    a tensor on ``step``'s device, because the card divides by a Python
+    scalar as a multiplication by its reciprocal, which rounds apart
+    from the reference's division."""
+    return step / torch.full((), temperature, dtype=torch.float32,
+                             device=step.device)
+
+
+def _truncate_logits(logits: torch.Tensor, top_k: int,
+                     top_p: float) -> torch.Tensor:
+    """Mask logits outside the top-k set and/or the top-p nucleus of
+    ``softmax(logits)`` (callers pass already-tempered logits), with a
+    scalar ``top_k``/``top_p`` shared by every row; a shape adapter over
+    ``_truncate_logits_rows``. No-op when both are unset."""
+    do_k = 0 < top_k < logits.shape[-1]
+    do_p = 0.0 < top_p < 1.0
+    if not (do_k or do_p):
+        return logits
+    shape = logits.shape
+    flat = logits.reshape(-1, shape[-1])
+    b = flat.shape[0]
+    out = _truncate_logits_rows(
+        flat, torch.full((b,), top_k, dtype=torch.long, device=flat.device),
+        torch.full((b,), top_p, dtype=torch.float32, device=flat.device))
+    return out.reshape(shape)
+
+
+def _truncate_logits_rows(logits: torch.Tensor, top_k: torch.Tensor,
+                          top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row top-k/top-p truncation of f32 ``logits`` [B, V]: ``top_k``
+    [B] (0 = off) and ``top_p`` [B] (outside (0, 1) = off) vary by row.
+    The reference's sequential semantics: top-k first, then the nucleus
+    of what is left; rows with both filters off pass through."""
+    b, v = logits.shape
+    neg = torch.finfo(logits.dtype).min
+    ar = torch.arange(v, device=logits.device)
+    k_eff = torch.where((top_k > 0) & (top_k < v), top_k.long(), v)
+    # off-rows get threshold 2.0 (not 1.0): cumsum float error must
+    # never drop the least-likely token of an untruncated row
+    p_eff = torch.where((top_p > 0.0) & (top_p < 1.0), top_p.float(), 2.0)
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    sorted_desc = torch.where(ar[None, :] < k_eff[:, None], sorted_desc,
+                              neg)
+    kth = torch.gather(sorted_desc, 1, k_eff[:, None] - 1)
+    logits = torch.where(logits >= kth, logits, neg)
+    # softmax and running sum in f64, rounded once: torch's f32 ones
+    # drift ~1.5e-6 over a 32000-token row, where XLA's stay within
+    # ~3e-7 of the exact sum
+    cum = torch.cumsum(torch.softmax(sorted_desc.double(), dim=-1),
+                       dim=-1).float()
+    before = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], dim=-1)
+    keep = before < p_eff[:, None]
+    cutoff = torch.where(keep, sorted_desc,
+                         torch.finfo(logits.dtype).max).amin(
+                             dim=-1, keepdim=True)
+    return torch.where(logits >= cutoff, logits, neg)
 
 
 def _layer(params: Params, i: int) -> dict:
@@ -216,16 +292,16 @@ def _prompt_tensor(prompt: Union[torch.Tensor, Sequence[Sequence[int]]],
 def generate(
     params: Params, cfg: TransformerConfig,
     prompt: Union[torch.Tensor, List[List[int]]], max_new_tokens: int, *,
-    temperature: float = 0.0, max_len: Optional[int] = None,
-    device: DeviceLike = None,
+    temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+    rng: Optional[torch.Tensor] = None, max_len: Optional[int] = None,
+    mesh=None, device: DeviceLike = None,
 ) -> torch.Tensor:
-    """GREEDY generation over the slot-static cache: prompt [B, S] ->
-    [B, S + max_new_tokens]. Sampling (temperature > 0) waits for the
-    threefry port, whose draws must match JAX's stream."""
-    if temperature > 0:
-        raise ValueError(
-            "temperature > 0 is not ported yet: sampling waits for the "
-            "threefry port so draws match the reference's stream")
+    """Greedy (temperature 0) or temperature sampling, optionally
+    truncated to the ``top_k`` most likely tokens and/or the smallest
+    ``top_p``-mass nucleus, over the slot-static cache: prompt [B, S] ->
+    [B, S + max_new_tokens]. ``rng`` is a ``utils.prng`` key; step i
+    samples with ``split(rng, max_new_tokens)[i]``, the reference's
+    stream. A mesh is refused (not ported)."""
     device = resolve_device(device)
     prompt = _prompt_tensor(prompt, device)
     b, s = prompt.shape
@@ -236,13 +312,37 @@ def generate(
         raise ValueError(
             f"prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds "
             f"cache length {max_len}")
+    if temperature > 0 and rng is None:
+        raise ValueError("temperature sampling needs an rng key")
+    if temperature <= 0 and (top_k or top_p):
+        raise ValueError(
+            "top_k/top_p only apply when sampling — set temperature > 0 "
+            "(greedy decoding ignores truncation)")
+    if top_k < 0 or not (0.0 <= top_p <= 1.0):
+        raise ValueError(
+            f"top_k must be >= 0 and top_p in [0, 1] (a probability, "
+            f"not a percent): got top_k={top_k}, top_p={top_p}")
+    _refuse_mesh(mesh)
+    keys = (prng.split(rng.to(device), max_new_tokens)
+            if rng is not None else None)
+
+    def pick(step: torch.Tensor, i: int) -> torch.Tensor:
+        if temperature > 0:
+            # temperature first, truncation second: the nucleus covers
+            # the distribution actually sampled from
+            step = _truncate_logits(
+                _tempered(replicated_logits(step), temperature),
+                top_k, top_p)
+            return prng.categorical(keys[i], step)
+        return torch.argmax(step, dim=-1)
+
     cache = init_cache(cfg, b, max_len, device=device)
     logits, cache = forward_with_cache(params, cfg, prompt, cache)
-    tok = torch.argmax(logits[:, -1], dim=-1)
+    tok = pick(logits[:, -1], 0)
     out = [tok]
-    for _ in range(max_new_tokens - 1):
+    for i in range(1, max_new_tokens):
         logits, cache = forward_with_cache(params, cfg, tok[:, None], cache)
-        tok = torch.argmax(logits[:, -1], dim=-1)
+        tok = pick(logits[:, -1], i)
         out.append(tok)
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
 

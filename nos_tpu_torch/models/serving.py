@@ -9,14 +9,18 @@ then installs the row into the slot's freshly allocated blocks —
 quantizing into an int8 arena when ``kv_dtype="int8"``. ``step`` runs
 one decode tick for every active slot through ``forward_paged``
 (inactive slots ride along with their table rows zeroed to the null
-block and their ``pos`` frozen) and appends each slot's greedy token.
-Greedy requests are token-identical to ``generate_paged``.
+block and their ``pos`` frozen) and appends each slot's token. Greedy
+requests are token-identical to ``generate_paged``. Every slot carries
+its own sampling params (temperature, top-k, top-p, seed), and a
+sampled token is keyed by (seed, absolute position), so a request's
+stream does not depend on what else shares the batch; a tick in which
+no active slot samples runs none of the sampling ops.
 
 What the reference engine has and this slice does not yet port raises
 a ``ValueError`` naming the knob: the prefix cache, chunked and
 budgeted prefill, ``pipeline_depth > 1``, ``decode_steps > 1``, meshes,
 tenant quotas, the host tier, prefill/decode roles, the slot-static
-engine (``kv_blocks == 0``), preemption, and sampling (temperature > 0).
+engine (``kv_blocks == 0``) and preemption.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ import torch
 from nos_tpu_torch.device import DeviceLike, resolve_device
 from nos_tpu_torch.models.errors import Infeasible, QueueFull
 from nos_tpu_torch.models.generate import (
-    Cache, forward_paged, forward_with_cache, init_cache, init_paged_cache,
+    Cache, _tempered, _truncate_logits_rows, forward_paged,
+    forward_with_cache, init_cache, init_paged_cache,
 )
 from nos_tpu_torch.models.kvblocks import (
     BlockAllocator, NoFreeBlocks, blocks_for,
@@ -40,6 +45,7 @@ from nos_tpu_torch.models.transformer import Params, TransformerConfig
 from nos_tpu_torch.ops.attention import (
     check_paged_kernel_head_dim, effective_paged_impl, quantize_kv,
 )
+from nos_tpu_torch.utils import prng
 
 __all__ = ["DecodeServer", "QueueFull", "Infeasible"]
 
@@ -85,6 +91,10 @@ class _Request:
     rid: int
     prompt: List[int]
     max_new_tokens: int
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 0.0
+    seed: int = 0
     out: List[int] = field(default_factory=list)
     slot: int = -1
 
@@ -101,7 +111,9 @@ class DecodeServer:
     request; ``step`` decodes one token for every active slot;
     ``drain`` runs to completion and returns {rid: prompt + generated}
     for the requests finished since the last drain. Runs on ``device``
-    (default: the card; the CPU only when asked)."""
+    (default: the card; the CPU only when asked). ``paged_impl`` picks
+    the paged attention formulation, "kernel" or "xla" (the gather);
+    None reads ``effective_paged_impl()``."""
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  max_batch: int = 8, max_len: Optional[int] = None,
@@ -112,7 +124,8 @@ class DecodeServer:
                  kv_swap: bool = True, hbm_admit_frac: float = 0.0,
                  kv_dtype: str = "bf16", tenant_quota=None,
                  role: str = "colocated", host_tier=None,
-                 prefill_budget: int = 0, device: DeviceLike = None):
+                 prefill_budget: int = 0, device: DeviceLike = None,
+                 paged_impl: Optional[str] = None):
         # the reference's own validation first, same messages
         if prefill_budget < 0:
             raise ValueError(
@@ -159,9 +172,12 @@ class DecodeServer:
                 f"(blocks_per_slot x block_size) must equal max_len "
                 f"exactly so paged attention stays bit-identical to "
                 f"the slot-static program")
-        # the paged attention formulation, captured ONCE at build: a
-        # later env change cannot flip what this engine runs
-        self.paged_kernel = effective_paged_impl()
+        # the paged attention formulation, fixed ONCE at build: a later
+        # env change cannot flip what this engine runs
+        if paged_impl not in (None, "kernel", "xla"):
+            raise ValueError(
+                f"paged_impl must be kernel|xla, got {paged_impl!r}")
+        self.paged_kernel = paged_impl or effective_paged_impl()
         check_paged_kernel_head_dim(cfg.head_dim, self.device,
                                     self.paged_kernel)
         self._nbs = self.max_len // bs
@@ -172,6 +188,15 @@ class DecodeServer:
                                   device=self.device)
         self._tables: List[List[int]] = [[] for _ in range(max_batch)]
         self._last = torch.zeros((max_batch, 1), dtype=torch.long,
+                                 device=self.device)
+        # per-slot sampling params, rows the decode tick reads
+        self._temp = torch.zeros((max_batch,), dtype=torch.float32,
+                                 device=self.device)
+        self._topk = torch.zeros((max_batch,), dtype=torch.long,
+                                 device=self.device)
+        self._topp = torch.zeros((max_batch,), dtype=torch.float32,
+                                 device=self.device)
+        self._seed = torch.zeros((max_batch,), dtype=torch.long,
                                  device=self.device)
         self.max_pending = max_pending
         self._free: Deque[int] = deque(range(max_batch))
@@ -187,18 +212,20 @@ class DecodeServer:
 
     # ------------------------------------------------------------------
     def submit(self, prompt: List[int], max_new_tokens: int, *,
-               temperature: float = 0.0) -> int:
-        """Enqueue a greedy request; returns its id. ``Infeasible`` (a
-        ValueError) when it can never fit this server, ``QueueFull``
-        when ``max_pending`` requests already wait."""
+               temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 0.0, seed: Optional[int] = None) -> int:
+        """Enqueue a request; returns its id. ``temperature`` 0 is greedy;
+        > 0 samples, optionally truncated by ``top_k``/``top_p``.
+        ``seed`` keys the request's sample stream (default: the request
+        id): the same (prompt, params, seed) gives the same tokens
+        whatever else shares the batch. ``Infeasible`` (a ValueError)
+        when it can never fit this server, ``QueueFull`` when
+        ``max_pending`` requests already wait."""
         if not prompt:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        if temperature > 0:
-            raise _not_ported("temperature > 0",
-                              "sampling waits for the threefry port")
         if len(prompt) + max_new_tokens > self.max_len:
             raise Infeasible(
                 f"prompt ({len(prompt)}) + max_new_tokens "
@@ -214,6 +241,14 @@ class DecodeServer:
                 f"(kv_blocks={self._alloc.num_blocks}, "
                 f"kv_block_size={self.kv_block_size}); no amount of "
                 f"retrying can serve it")
+        if temperature <= 0 and (top_k or top_p):
+            raise ValueError(
+                "top_k/top_p only apply when sampling — set temperature "
+                "> 0 (greedy decoding ignores truncation)")
+        if top_k < 0 or not (0.0 <= top_p <= 1.0):
+            raise ValueError(
+                f"top_k must be >= 0 and top_p in [0, 1]: got "
+                f"top_k={top_k}, top_p={top_p}")
         if self.max_pending and len(self._pending) >= self.max_pending:
             if not self._free:
                 raise QueueFull(
@@ -228,8 +263,11 @@ class DecodeServer:
                     reason="hbm_admission")
         rid = self._next_rid
         self._next_rid += 1
-        self._pending.append(_Request(rid, [int(t) for t in prompt],
-                                      max_new_tokens))
+        self._pending.append(_Request(
+            rid, [int(t) for t in prompt], max_new_tokens,
+            temperature=float(temperature), top_k=int(top_k),
+            top_p=float(top_p),
+            seed=(rid if seed is None else int(seed)) & 0xFFFFFFFF))
         self._admit()
         return rid
 
@@ -283,7 +321,20 @@ class DecodeServer:
         toks = torch.tensor([req.prompt + [0] * (bucket - plen)],
                             dtype=torch.long, device=self.device)
         logits, row = forward_with_cache(self.params, cfg, toks, row)
-        first = int(torch.argmax(logits[0, plen - 1]))
+        step = logits[0, plen - 1]
+        if req.temperature > 0:
+            # the token at absolute index plen: the decode tick's
+            # (seed, index) keying, so prefill and decode are seamless
+            key = prng.fold_in(prng.PRNGKey(req.seed, self.device), plen)
+            trunc = _truncate_logits_rows(
+                _tempered(step, max(req.temperature, 1e-6))[None, :],
+                torch.full((1,), req.top_k, device=self.device),
+                torch.full((1,), req.top_p, dtype=torch.float32,
+                           device=self.device))
+            first = int(prng.categorical(key, trunc[0]))
+        else:
+            first = int(torch.argmax(step))
+        self._set_sampling_rows(req)
         self._paged_install(req, row, first)
         req.out.append(first)
         self._finish_if_done(req)
@@ -311,6 +362,15 @@ class DecodeServer:
         self._set_table_row(s)
         self.cache["pos"][s] = plen
         self._last[s, 0] = first
+
+    def _set_sampling_rows(self, req: _Request) -> None:
+        """Install one request's sampling params in its slot's rows: the
+        one place they land."""
+        s = req.slot
+        self._temp[s] = req.temperature
+        self._topk[s] = req.top_k
+        self._topp[s] = req.top_p
+        self._seed[s] = req.seed
 
     def _set_table_row(self, slot: int) -> None:
         """Mirror one slot's host block table into the device table
@@ -376,7 +436,10 @@ class DecodeServer:
             self.params, self.cfg, self._last, self.cache, table,
             paged_impl=self.paged_kernel)
         self.cache["pos"] = torch.where(keep, self.cache["pos"], pos0)
-        nxt = torch.argmax(logits[:, -1].float(), dim=-1)
+        step = logits[:, -1].float()
+        nxt = torch.argmax(step, dim=-1)
+        if any(self._active[s].temperature > 0 for s in active):
+            nxt = self._sample(step, pos0, nxt)
         self._last = torch.where(keep[:, None], nxt[:, None], self._last)
         toks = nxt.cpu().tolist()
         self.ticks += 1
@@ -389,6 +452,18 @@ class DecodeServer:
         self.tokens_emitted += emitted
         self._admit()
         return emitted
+
+    def _sample(self, step: torch.Tensor, pos0: torch.Tensor,
+                greedy: torch.Tensor) -> torch.Tensor:
+        """The sampled tick's choice per slot: the token being produced
+        sits at absolute index pos0 + 1, and (seed, index) keys its
+        draw; greedy slots keep their argmax."""
+        keys = prng.fold_in(prng.PRNGKey(self._seed), pos0 + 1)
+        trunc = _truncate_logits_rows(
+            step / torch.clamp_min(self._temp, 1e-6)[:, None], self._topk,
+            self._topp)
+        sampled = prng.categorical(keys, trunc)
+        return torch.where(self._temp > 0, sampled, greedy)
 
     def pop_result(self, rid: int) -> Optional[List[int]]:
         """The finished sequence (prompt + generated) for ``rid``, handed

@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -127,27 +127,31 @@ class _PagedDecode(_Kernel):
     call. The ``n_split`` blocks (``paged_splits``) of each (query-row
     tile, kv head, batch row) split the row's live pages, stream them
     through a ring of bulk copies, and merge their softmax states inside
-    the launch: each leaves its state in a slot of a per-device scratch
-    and takes a ticket, and the last folds the slots in split order. The
-    scratch and its tickets are allocated once per device and grown when
-    a call needs more (the kernel leaves the tickets at zero), so a call
-    allocates only its output; calls share them, so they run in stream
-    order on one stream."""
+    the launch: each leaves its state in a slot of a scratch and takes a
+    ticket, and the last folds the slots in split order. The scratch and
+    its tickets belong to one (device, stream): calls on one stream run
+    in order and share them, while launches on two streams never touch
+    each other's tickets. They are allocated at a stream's first call
+    and grown when a call needs more (the kernel leaves the tickets at
+    zero), so a call allocates only its output; a CUDA graph captures
+    the scratch that a warm-up launch on its stream allocated."""
 
     def __init__(self):
         super().__init__(
             "paged_decode_attention.cu", "nos_paged_decode_attention",
             [_P] * 10 + [_I] * 7 + [_F, _I, _I, _I, _P])
-        self._scratch: Dict[torch.device, tuple] = {}
+        self._scratch: Dict[Tuple[torch.device, int], tuple] = {}
 
-    def _part(self, device: torch.device, floats: int, tickets: int):
-        """(part, ticket) of at least these sizes on ``device``."""
-        part, ticket = self._scratch.get(device, (None, None))
+    def _part(self, device: torch.device, stream: int, floats: int,
+              tickets: int):
+        """(part, ticket) of at least these sizes for ``stream`` (its
+        handle) on ``device``."""
+        part, ticket = self._scratch.get((device, stream), (None, None))
         if part is None or part.numel() < floats \
                 or ticket.numel() < tickets:
             part = torch.empty(floats, dtype=torch.float32, device=device)
             ticket = torch.zeros(tickets, dtype=torch.int32, device=device)
-            self._scratch[device] = (part, ticket)
+            self._scratch[(device, stream)] = (part, ticket)
         return part, ticket
 
     def launch(self, q: torch.Tensor, k_arena: torch.Tensor,
@@ -206,11 +210,12 @@ class _PagedDecode(_Kernel):
         gs = h // h_kv * s
         tiles = b * h_kv * paged_row_tiles(gs)
         n_split = paged_splits(tiles, _sm_count(q.device))
+        stream = _stream(q)
         part = ticket = None
         if n_split > 1:
             rows = 4 if gs <= 4 else 8
             part, ticket = self._part(
-                q.device, tiles * n_split * rows * (d + 2), tiles)
+                q.device, stream, tiles * n_split * rows * (d + 2), tiles)
         rc = self.fn()(
             q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
             k_scale.data_ptr() if int8 else None,
@@ -219,7 +224,7 @@ class _PagedDecode(_Kernel):
             part.data_ptr() if part is not None else None,
             ticket.data_ptr() if ticket is not None else None,
             b, h, h_kv, s, d, bs, nb, float(scale), n_split,
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_arena.dtype], _stream(q))
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_arena.dtype], stream)
         if rc != 0:
             raise RuntimeError(
                 f"paged_decode_attention kernel launch failed: "
@@ -408,8 +413,47 @@ flash_fwd = _FlashForward()
 flash_bwd_pre = _FlashPreprocess()
 flash_bwd_dkdv = _FlashBackward(dq=False)
 flash_bwd_dq = _FlashBackward(dq=True)
+class _AdamW(_Kernel):
+    """``csrc/adamw.cu``: optax's adamw update of one parameter leaf in
+    place, every operation rounded to the leaf's dtype as the
+    reference's ops are; the plain version is
+    ``train/optim.py::adamw_update_reference``. One launch per leaf."""
+
+    def __init__(self):
+        super().__init__("adamw.cu", "nos_adamw",
+                         [_P] * 4 + [_I, _I] + [_F] * 9 + [_I, _P])
+
+    def launch(self, p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+               nu: torch.Tensor, consts: Tuple[float, ...]) -> None:
+        """``consts``: (1 - b1, b1, 1 - b2, b2, bc1, bc2, eps, wd, -lr),
+        each a value of the leaf's dtype."""
+        for t in (p, g, mu, nu):
+            if t.device.type != "cuda" or t.device != p.device:
+                raise ValueError(f"adamw: every tensor must be on p's CUDA "
+                                 f"device {p.device}, got {t.device}")
+            if t.dtype != p.dtype or t.shape != p.shape:
+                raise ValueError("adamw: p, g, mu, nu must share one dtype "
+                                 "and shape")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError("adamw: tensors must be contiguous and "
+                                 "16-byte aligned")
+        if p.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"adamw: dtype must be f32|bf16, got {p.dtype}")
+        if p.numel() >= 2 ** 31:
+            raise ValueError(f"adamw: a leaf of {p.numel()} elements; the "
+                             f"kernel takes fewer than 2^31")
+        rc = self.fn()(p.data_ptr(), g.data_ptr(), mu.data_ptr(),
+                       nu.data_ptr(), p.numel(), _DTYPE_CODE[p.dtype],
+                       *consts, _sm_count(p.device), _stream(p))
+        if rc != 0:
+            raise RuntimeError(f"adamw kernel launch failed: cudaError {rc}")
+        self.launches += 1
+
+
+adamw = _AdamW()
+
 KERNELS: List[_Kernel] = [paged_decode, flash_fwd, flash_bwd_pre,
-                          flash_bwd_dkdv, flash_bwd_dq]
+                          flash_bwd_dkdv, flash_bwd_dq, adamw]
 
 
 def build_all() -> Dict[str, float]:

@@ -180,9 +180,13 @@ def to_device(batch: Dict[str, np.ndarray],
     """Host arrays -> int64 tensors on ``device``. On the card each array
     goes through pinned memory and a ``non_blocking`` copy on the current
     stream (the caching host allocator keeps the pinned buffer until the
-    copy is done), so staging overlaps the step running there."""
+    copy is done), so staging overlaps the step running there. Tensors
+    (a batch made on the device) pass through as int64."""
     out = {}
     for k, v in batch.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v.to(device=device, dtype=torch.int64)
+            continue
         t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.int64))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)

@@ -178,3 +178,23 @@ def test_paged_splits_choice(tiles, sms, want):
                                       (16, 2), (1024, 128)])
 def test_paged_row_tiles(gs, tiles):
     assert _kernels.paged_row_tiles(gs) == tiles
+
+
+def test_scratch_is_kept_per_stream_and_reused():
+    """The split merge's scratch and tickets belong to one (device,
+    stream): two streams get two buffers (their launches never share
+    tickets), a second call on a stream with the same or smaller sizes
+    allocates nothing, and a larger call grows only that stream's."""
+    paged = _kernels._PagedDecode()
+    cpu = torch.device("cpu")
+    a = paged._part(cpu, 1, 64, 8)
+    b = paged._part(cpu, 2, 64, 8)
+    assert a[0].data_ptr() != b[0].data_ptr()
+    assert a[1].data_ptr() != b[1].data_ptr()
+    again = paged._part(cpu, 1, 32, 4)
+    assert again[0] is a[0] and again[1] is a[1]
+    grown = paged._part(cpu, 1, 128, 8)
+    assert grown[0].numel() == 128 and grown[0] is not a[0]
+    assert paged._part(cpu, 2, 64, 8)[0] is b[0]
+    assert not grown[1].any() and grown[1].dtype == torch.int32
+    assert sorted(paged._scratch) == [(cpu, 1), (cpu, 2)]

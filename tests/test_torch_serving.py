@@ -45,10 +45,10 @@ def params():
 
 @pytest.fixture
 def clean_env(monkeypatch):
-    """Both engines' kernel switches, restored after the test (the
-    reference's build_engine writes its switch into os.environ)."""
+    """The reference engine's kernel switch, restored after the test (the
+    reference's build_engine writes it into os.environ). The port's
+    engines take ``paged_impl`` instead."""
     monkeypatch.setenv("NOS_TPU_PAGED_KERNEL", "0")
-    monkeypatch.setenv("NOS_TPU_TORCH_PAGED_KERNEL", "1")
 
 
 def _serve(engine):
@@ -66,12 +66,14 @@ def test_engine_tokens_equal_reference_engine_and_generate_paged(
         params, clean_env, kv_dtype):
     jp, tp = params
     ref = _serve(JDecodeServer(jp, JCFG, kv_dtype=kv_dtype, **ENGINE))
-    port = DecodeServer(tp, TCFG, kv_dtype=kv_dtype, device="cpu", **ENGINE)
+    port = DecodeServer(tp, TCFG, kv_dtype=kv_dtype, device="cpu",
+                        paged_impl="kernel", **ENGINE)
     got = _serve(port)
     assert got == ref
     for (prompt, n, _), seq in zip(ARRIVALS, got):
         want = generate_paged(tp, TCFG, [prompt], n, block_size=8,
-                              kv_dtype=kv_dtype, device="cpu")
+                              kv_dtype=kv_dtype, paged_impl="kernel",
+                              device="cpu")
         assert seq == want[0].tolist()
         jwant = jg.generate_paged(jp, JCFG, jnp.asarray([prompt], jnp.int32),
                                  n, block_size=8, kv_dtype=kv_dtype)
@@ -83,7 +85,8 @@ def test_engine_tokens_equal_reference_engine_and_generate_paged(
 
 def test_engine_progress_pop_result_and_refusals(params, clean_env):
     _, tp = params
-    eng = DecodeServer(tp, TCFG, max_pending=1, device="cpu", **ENGINE)
+    eng = DecodeServer(tp, TCFG, max_pending=1, device="cpu",
+                       paged_impl="kernel", **ENGINE)
     a = eng.submit([1, 2, 3], 4)
     b = eng.submit([4, 5], 3)
     c = eng.submit([6], 2)                      # waits: both slots busy
@@ -92,8 +95,8 @@ def test_engine_progress_pop_result_and_refusals(params, clean_env):
         eng.submit([7], 2)
     with pytest.raises(Infeasible):
         eng.submit([1] * 60, 10)
-    with pytest.raises(ValueError, match="temperature"):
-        eng.submit([1], 2, temperature=0.5)
+    with pytest.raises(ValueError, match="temperature > 0"):
+        eng.submit([1], 2, top_k=3)
     while eng.has_work():
         eng.step()
     assert eng.progress(a)[1] and len(eng.progress(a)[0]) == 4
@@ -158,8 +161,40 @@ def test_build_engine_serves_seeded_weights(clean_env):
     mcfg, p = tgen.load_params(
         tgen.GenerateConfig(bf16=False, int8=True, seed=3, **KW), "cpu")
     want = generate_paged(p, mcfg, [[5, 6, 7]], 6, block_size=8,
-                          device="cpu")
+                          paged_impl="kernel", device="cpu")
     assert got == want[0].tolist()
+
+
+@pytest.mark.parametrize("paged_kernel,want", [("on", "kernel"),
+                                                ("off", "xla")])
+def test_build_engine_leaves_the_environment_alone(clean_env, monkeypatch,
+                                                   paged_kernel, want):
+    """build_engine hands the formulation to the engine as its
+    ``paged_impl``: ``os.environ`` is the same after the build, and the
+    engine runs what ``cfg.paged_kernel`` says whatever the variable
+    holds."""
+    import os
+
+    for env in ("1", "0"):
+        monkeypatch.setenv("NOS_TPU_TORCH_PAGED_KERNEL", env)
+        before = dict(os.environ)
+        eng = tserver.build_engine(tserver.ServerConfig(
+            bf16=False, kv_blocks=24, kv_block_size=8, max_batch=2,
+            paged_kernel=paged_kernel, **KW), device="cpu")
+        assert dict(os.environ) == before
+        assert eng.paged_kernel == want == eng.kv_stats()["kernel"]
+
+
+def test_engine_paged_impl_is_explicit_or_the_env_default(params,
+                                                          monkeypatch):
+    _, tp = params
+    monkeypatch.setenv("NOS_TPU_TORCH_PAGED_KERNEL", "0")
+    assert DecodeServer(tp, TCFG, device="cpu",
+                        **ENGINE).paged_kernel == "xla"
+    assert DecodeServer(tp, TCFG, device="cpu", paged_impl="kernel",
+                        **ENGINE).paged_kernel == "kernel"
+    with pytest.raises(ValueError, match="paged_impl must be kernel|xla"):
+        DecodeServer(tp, TCFG, device="cpu", paged_impl="pallas", **ENGINE)
 
 
 def test_kernel_engine_refuses_head_dim_on_the_card(params, clean_env):
@@ -171,7 +206,7 @@ def test_kernel_engine_refuses_head_dim_on_the_card(params, clean_env):
         tserver.build_engine(tserver.ServerConfig(
             bf16=False, kv_blocks=24, kv_block_size=8, **KW), device="cuda")
     with pytest.raises(ValueError, match="head_dim 8"):
-        DecodeServer(tp, TCFG, device="cuda", **ENGINE)
+        DecodeServer(tp, TCFG, device="cuda", paged_impl="kernel", **ENGINE)
 
 
 def test_entry_points_refuse_the_cpu_without_device(monkeypatch, params):
@@ -186,7 +221,6 @@ def test_entry_points_refuse_the_cpu_without_device(monkeypatch, params):
         DecodeServer(tp, TCFG, **ENGINE)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate_paged(tp, TCFG, [[1, 2]], 2, block_size=8)
-    monkeypatch.setenv("NOS_TPU_TORCH_PAGED_KERNEL", "1")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserver.build_engine(tserver.ServerConfig(
             bf16=False, kv_blocks=24, kv_block_size=8, **KW))

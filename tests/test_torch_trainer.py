@@ -6,8 +6,8 @@ clipping) on the same params and batches: losses within 1e-5 relative;
 params within 2e-5 absolute after the three updates (lr 1e-3: the f32
 gradient noise of the two frameworks, <= 1e-5 of each tensor's scale,
 moves Adam's normalised step by far less than that except where a
-gradient is itself at the noise level). Token-shard batches are held bit
-for bit.
+gradient is itself at the noise level). Token-shard batches and the
+synthetic batches (threefry) are held bit for bit.
 """
 import dataclasses
 import logging
@@ -170,6 +170,24 @@ def test_synthetic_batches_are_a_function_of_seed_and_step():
     assert not np.array_equal(a["tokens"],
                               ttr.synthetic_batch(other, 3)["tokens"])
     assert a["tokens"].min() >= 0 and a["tokens"].max() < cfg.vocab
+
+
+@pytest.mark.parametrize("seed,step,vocab", [
+    (0, 0, 64), (0, 3, 64), (1, 0, 32000), (5, 7, 7), (41, 2, 128256),
+    (2 ** 31 - 2, 11, 1000)])
+def test_synthetic_batch_is_the_reference_stream(seed, step, vocab):
+    """The reference's ``batch_for`` on synthetic data: randint over
+    fold_in(PRNGKey(seed + 1), step); tokens and targets bit-equal."""
+    cfg = ttr.TrainerConfig(**dict(TINY, vocab=vocab, seed=seed,
+                                   batch_size=3, seq_len=24))
+    key = jax.random.fold_in(jax.random.PRNGKey(cfg.seed + 1), step)
+    want = np.asarray(jax.random.randint(
+        key, (cfg.batch_size, cfg.seq_len), 0, cfg.vocab))
+    got = ttr.synthetic_batch(cfg, step)
+    assert got["tokens"].dtype == torch.int64
+    np.testing.assert_array_equal(got["tokens"].numpy(), want)
+    np.testing.assert_array_equal(got["targets"].numpy(),
+                                  np.roll(want, -1, axis=1))
 
 
 def test_trainer_config_has_every_reference_field_and_default():
