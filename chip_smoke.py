@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefgh]
+    python3 chip_smoke.py [--seed N] [--phases cdefghi]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -54,7 +54,21 @@ h. sampled decoding, f32 on phase (d)'s model: the port's threefry
    equals it on the CPU bit for bit; the engine's sampled streams (mixed
    temperatures, top-k, top-p, seeds) through the kernel equal those
    through the gather formulation; each request alone equals it in a
-   full batch; a rerun with the same seeds gives the same tokens.
+   full batch; a rerun with the same seeds gives the same tokens;
+i. the serving binary at phase (e)'s full width: ``build_engine`` on the
+   same 8B-class decoder (bf16 arena, paged kernel on) drained directly
+   once, then served by ``ServingLoop`` (restart budget 1, watchdog on)
+   behind ``make_http_server`` on 127.0.0.1: phase (e)'s 8 prompts from 8
+   concurrent client threads (6 unary, 2 SSE), greedy at 32 new tokens,
+   then sampled at phase (e)'s params. Every response equals phase (e)'s
+   tokens for its prompt (greedy and sampled), the SSE deltas joined equal
+   the unary result, paged launches equal n_layers x the loop's ticks,
+   /healthz and /readyz answer ok, /stats keys are the reference's,
+   /metrics counts 8 finished requests and 8 x 31 decode tokens, and a
+   request after /admin/drain gets 503. Prints TTFT/TPOT p50/p99 from the
+   loop's histograms, ms per tick through the loop beside the direct
+   drain, the tick phases, the device idle share of a profiled stretch
+   of loop ticks, build seconds and peak memory.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -91,7 +105,7 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefgh"
+PHASES = "cdefghi"
 
 
 def emit(obj) -> None:
@@ -671,12 +685,19 @@ def sampling_profile(eng) -> dict:
             "sampling_profiled_wall_ms": wall}
 
 
+def full_width_prompts(seed: int) -> list:
+    """Phase (e)'s 8 prompts, 64-1024 tokens, from the seed."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 1025, size=8)
+    return [rng.integers(0, FULL["vocab"], size=n).tolist() for n in lens]
+
+
 def phase_full_width(seed: int, kv_dtype: str, card: str,
-                     sampled: bool = False) -> int:
+                     sampled: bool = False) -> tuple:
     """(e): build_engine at the 8B-class widths, 8 requests x 32 tokens,
     greedy, or with ``sampled`` every request at ``SAMPLED``'s params
     and served twice (the same tokens both times); returns the kernel's
-    launches on this main-path run."""
+    launches on this main-path run and the served sequences."""
     from nos_tpu_torch.cmd.server import ServerConfig, build_engine
     from nos_tpu_torch.ops import _kernels
 
@@ -689,9 +710,8 @@ def phase_full_width(seed: int, kv_dtype: str, card: str,
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     assert eng.paged_kernel == "kernel", eng.paged_kernel
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(64, 1025, size=8)
-    prompts = [rng.integers(0, FULL["vocab"], size=n).tolist() for n in lens]
+    prompts = full_width_prompts(seed)
+    lens = [len(p) for p in prompts]
     new = 32
     sampling = SAMPLED if sampled else [{}] * len(prompts)
 
@@ -761,8 +781,9 @@ def phase_full_width(seed: int, kv_dtype: str, card: str,
           "device_idle_share": 1 - breakdown["device_busy_ms_per_tick"]
           / (decode_s * 1e3 / ticks), **extra,
           "profile": breakdown})
+    seqs = [served[r] for r in rids]
     del eng, served
-    return launches
+    return launches, seqs
 
 
 def token_digest(seqs) -> str:
@@ -770,6 +791,377 @@ def token_digest(seqs) -> str:
     import hashlib
 
     return hashlib.sha256(json.dumps(seqs).encode()).hexdigest()[:16]
+
+
+# the reference's documented replica /stats keys
+# (tests/test_metrics_docs.py::REPLICA_STATS_KEYS)
+REPLICA_STATS_KEYS = {
+    "engine", "role", "handoff", "max_batch", "max_len", "slots",
+    "active_slots", "pending", "prefill_sched", "pipeline",
+    "prefix_cache", "prefix_index", "kv", "tenants", "compiles",
+    "tokens_emitted", "healthy", "draining", "recovering", "uptime_s",
+    "config", "per_request", "supervisor", "deadline", "slo", "rates",
+    "kv_fabric_pulls", "tick_phases", "slo_budget", "chip_ledger",
+}
+
+
+def http_call(url: str, path: str, body=None, timeout: float = 300.0):
+    """(status, body bytes) of a GET (``body`` None) or a JSON POST,
+    error statuses included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+        method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def sse_tokens(url: str, body: dict, timeout: float = 300.0) -> list:
+    """The token deltas of a ``"stream": true`` POST, SSE frame by frame
+    (raises on an error frame or a missing [DONE])."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + "/v1/generate", data=json.dumps({**body, "stream": True})
+        .encode(), headers={"Content-Type": "application/json"},
+        method="POST")
+    deltas = []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if r.headers["Content-Type"] != "text/event-stream":
+            raise AssertionError(f"SSE content type {r.headers}")
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            payload = line[len("data: "):]
+            if payload == "[DONE]":
+                return deltas
+            frame = json.loads(payload)
+            if "error" in frame:
+                raise AssertionError(f"SSE error frame: {frame['error']}")
+            deltas.append(frame["tokens"])
+    raise AssertionError("SSE stream ended without [DONE]")
+
+
+def http_pass(url: str, prompts, new: int, sampling) -> tuple:
+    """Phase (i)'s traffic: every prompt from its own client thread, all
+    released together; the last two stream (SSE), the rest are unary.
+    Returns (full sequences by prompt, SSE deltas by prompt, wall s)."""
+    import threading
+
+    n = len(prompts)
+    seqs, deltas, errors = [None] * n, [None] * n, []
+    gate = threading.Barrier(n + 1)
+
+    def client(i):
+        body = {"prompt": prompts[i], "max_new_tokens": new, **sampling[i]}
+        try:
+            gate.wait(timeout=60)
+            if i >= n - 2:
+                deltas[i] = sse_tokens(url, body)
+                seqs[i] = prompts[i] + [t for d in deltas[i] for t in d]
+            else:
+                status, raw = http_call(url, "/v1/generate", body)
+                if status != 200:
+                    raise AssertionError(f"status {status}: {raw[:300]}")
+                seqs[i] = json.loads(raw)["tokens"]
+        except BaseException as e:       # re-raised below, on this thread
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    gate.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"HTTP clients failed: {errors}")
+    return seqs, deltas, wall
+
+
+def metric_line(text: str, name: str) -> float:
+    """A sample's value in /metrics text; 0 before its first increment
+    (an unlabeled counter is not exposed until then)."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def profile_loop_ticks(loop, url, prompts, new: int) -> dict:
+    """Device busy and idle share over a stretch of the loop's ticks:
+    8 greedy requests from client threads, torch.profiler on while the
+    loop ticks with all 8 slots decoding (prefill excluded)."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = loop.engine
+    threads = [threading.Thread(target=http_call, args=(
+        url, "/v1/generate", {"prompt": p, "max_new_tokens": new}))
+        for p in prompts]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 60
+    while eng.occupancy() != (len(prompts), 0):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"occupancy {eng.occupancy()}: the 8 "
+                                 f"requests were never decoding together")
+        time.sleep(0.002)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ticks0 = loop.m_ticks.value()
+        t = time.perf_counter()
+        while loop.m_ticks.value() < ticks0 + 6:
+            if time.perf_counter() - t > 60:
+                raise AssertionError("the loop stopped ticking while "
+                                     "profiled")
+            time.sleep(0.002)
+        ticks = loop.m_ticks.value() - ticks0
+        wall_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+    for th in threads:
+        th.join(timeout=300)
+    out = device_breakdown(prof, 1, {"paged_kernel": ("paged_decode",)})
+    busy = out["device_busy_ms"]
+    return {"profiled_loop_ticks": ticks,
+            "profiled_wall_ms_per_tick": wall_ms / ticks,
+            "device_busy_ms_per_tick": busy / ticks,
+            "device_idle_share": 1 - busy / wall_ms,
+            "kernels_per_tick": out["kernels_per_run"] / ticks}
+
+
+def loop_tick_cost(loop, url, prompts, new: int) -> list:
+    """What the loop and its consumers cost a tick, drift-controlled: the
+    same greedy traffic run directly on the engine (``drain()`` under the
+    loop's lock, so the ticker stays parked) between runs through the
+    loop with its consumers varied — over HTTP (8 client threads),
+    in-process (8 threads calling ``loop.generate``), one consumer (8
+    streams opened, then read one after another by this thread), and
+    over HTTP with a 10x longer interpreter switch interval. Each run
+    reports the engine's host-blocked ms per tick (dispatch + token
+    wait, the same clock for every run) and, through the loop, the
+    tick's service time and dispatch phase."""
+    import sys
+    import threading
+
+    eng = loop.engine
+
+    def direct():
+        with loop._work:
+            for p in prompts:
+                eng.submit(p, new)
+            eng.drain()
+
+    def in_process():
+        threads = [threading.Thread(target=loop.generate, args=(p, new))
+                   for p in prompts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+
+    def one_consumer():
+        streams = [loop.stream(p, new) for p in prompts]
+        for st in streams:
+            for _ in st:
+                pass
+
+    def http():
+        http_pass(url, prompts, new, [{}] * len(prompts))
+
+    def http_slow_switch():
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(interval * 10)
+        try:
+            http()
+        finally:
+            sys.setswitchinterval(interval)
+
+    runs = []
+    for name, run in (("direct", direct), ("http", http),
+                      ("direct", direct), ("in_process", in_process),
+                      ("direct", direct), ("one_consumer", one_consumer),
+                      ("direct", direct),
+                      ("http_switch_50ms", http_slow_switch),
+                      ("direct", direct)):
+        k0, b0 = eng.ticks, eng.host_block_s
+        n0, s0 = loop.h_tick.observations()
+        d0, ds0 = loop.h_tick_phase.observations("dispatch")
+        t = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t
+        k1 = eng.ticks
+        row = {"run": name, "ticks": k1 - k0, "wall_s": wall,
+               "host_block_ms_per_tick":
+                   (eng.host_block_s - b0) * 1e3 / (k1 - k0)}
+        if name == "direct":
+            row["ms_per_tick"] = wall * 1e3 / (k1 - k0)
+        else:
+            n1, s1 = loop.h_tick.observations()
+            d1, ds1 = loop.h_tick_phase.observations("dispatch")
+            row["loop_tick_ms"] = (s1 - s0) * 1e3 / (n1 - n0)
+            row["dispatch_ms_per_tick"] = (ds1 - ds0) * 1e3 / (d1 - d0)
+        runs.append(row)
+    return runs
+
+
+def phase_http(seed: int, card: str, served: dict) -> int:
+    """(i): the serving binary at phase (e)'s width; returns the paged
+    kernel's launches over the greedy HTTP pass. ``served`` holds phase
+    (e)'s greedy and sampled sequences when (e) ran in this call."""
+    import threading
+
+    from nos_tpu_torch.cmd.server import (
+        ServerConfig, ServingLoop, build_engine, make_http_server,
+    )
+    from nos_tpu_torch.ops import _kernels
+
+    cfg = ServerConfig(
+        bf16=True, kv_blocks=1 + 8 * 128, kv_block_size=16, max_batch=8,
+        paged_kernel="on", kv_dtype="bf16", seed=seed, port=0, **FULL)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_engine(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompts = full_width_prompts(seed)
+    new = 32
+    greedy = [{}] * len(prompts)
+
+    # the direct drain on this engine, before the loop owns it: the
+    # reference tokens of this call and its ms per tick
+    rids = [eng.submit(p, new) for p in prompts]
+    torch.cuda.synchronize()
+    ticks0 = eng.ticks
+    t = time.perf_counter()
+    direct = eng.drain()
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t) * 1e3 / (eng.ticks - ticks0)
+    direct = [direct[r] for r in rids]
+    if "greedy" in served and direct != served["greedy"]:
+        raise AssertionError("direct drain != phase (e)'s greedy tokens")
+
+    loop = ServingLoop(eng, engine_factory=lambda: build_engine(cfg),
+                       restart_budget=1, watchdog_s=120.0,
+                       device_stats_interval_s=10.0)
+    for h in (loop.h_ttft, loop.h_tpot):
+        h.enable_sample_tracking()
+    httpd = make_http_server(cfg, loop, host="127.0.0.1")
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        for path in ("/healthz", "/readyz"):
+            status, raw = http_call(url, path)
+            if status != 200 or json.loads(raw)["status"] != "ok":
+                raise AssertionError(f"{path}: {status} {raw}")
+        _, text = http_call(url, "/metrics")
+        text = text.decode()
+        fin0 = metric_line(
+            text, 'nos_tpu_serve_requests_total{outcome="finished"}')
+        tok0 = metric_line(text, "nos_tpu_serve_tokens_total")
+        ticks0 = loop.m_ticks.value()
+        tick_n0, tick_s0 = loop.h_tick.observations()
+        ttft_at, tpot_at = loop.h_ttft.num_samples(), \
+            loop.h_tpot.num_samples()
+
+        _kernels.paged_decode.launches = 0      # the main path's count
+        seqs, deltas, wall = http_pass(url, prompts, new, greedy)
+        launches = _kernels.paged_decode.launches
+        ticks = loop.m_ticks.value() - ticks0
+
+        if seqs != direct:
+            bad = [i for i, (a, b) in enumerate(zip(seqs, direct)) if a != b]
+            raise AssertionError(f"HTTP greedy tokens differ from the "
+                                 f"direct drain for prompts {bad}")
+        for i, d in enumerate(deltas):
+            if d is not None and prompts[i] + [t for x in d for t in x] \
+                    != direct[i]:
+                raise AssertionError(f"SSE deltas of prompt {i}")
+        if launches != FULL["n_layers"] * ticks:
+            raise AssertionError(
+                f"paged launches {launches} != n_layers x loop ticks "
+                f"{FULL['n_layers']} x {ticks}")
+        _, text = http_call(url, "/metrics")
+        text = text.decode()
+        finished = metric_line(
+            text, 'nos_tpu_serve_requests_total{outcome="finished"}') - fin0
+        tokens = metric_line(text, "nos_tpu_serve_tokens_total") - tok0
+        if finished != len(prompts) or tokens != len(prompts) * (new - 1):
+            raise AssertionError(f"/metrics: finished {finished}, tokens "
+                                 f"{tokens}")
+        _, raw = http_call(url, "/stats")
+        snap = json.loads(raw)
+        if not set(snap) <= REPLICA_STATS_KEYS:
+            raise AssertionError(f"/stats keys outside the reference's: "
+                                 f"{sorted(set(snap) - REPLICA_STATS_KEYS)}")
+        if snap["per_request"]["window"] != len(prompts):
+            raise AssertionError(f"per_request {snap['per_request']}")
+        phases = snap["tick_phases"]["seconds"]
+        tick_n, tick_s = loop.h_tick.observations()
+        loop_tick_ms = (tick_s - tick_s0) * 1e3 / (tick_n - tick_n0)
+        q = {}
+        for name, h, at in (("ttft", loop.h_ttft, ttft_at),
+                            ("tpot", loop.h_tpot, tpot_at)):
+            for p in (0.5, 0.99):
+                q[f"{name}_p{int(p * 100)}_ms"] = h.quantile(p, at) * 1e3
+
+        sampled, _, sampled_wall = http_pass(url, prompts, new, SAMPLED)
+        if "sampled" in served and sampled != served["sampled"]:
+            bad = [i for i, (a, b) in enumerate(zip(sampled,
+                                                    served["sampled"]))
+                   if a != b]
+            raise AssertionError(f"HTTP sampled tokens differ from phase "
+                                 f"(e)'s for prompts {bad}")
+        prof = profile_loop_ticks(loop, url, prompts, 48)
+        cost = loop_tick_cost(loop, url, prompts, new)
+
+        status, raw = http_call(url, "/admin/drain", {})
+        if status != 200:
+            raise AssertionError(f"/admin/drain: {status}")
+        status, raw = http_call(url, "/v1/generate",
+                                {"prompt": prompts[0][:8],
+                                 "max_new_tokens": 2})
+        if status != 503 or json.loads(raw)["reason"] != "draining":
+            raise AssertionError(f"request while draining: {status} {raw}")
+        if not loop.wait_idle(60):
+            raise AssertionError("loop not idle after the drain")
+    finally:
+        httpd.shutdown()
+        loop.shutdown()
+        httpd.server_close()
+    total = sum(phases.values())
+    emit({"phase": "http", "card": card, "requests": len(prompts),
+          "unary": len(prompts) - 2, "sse": 2, "new_tokens": new,
+          "build_s": build_s, "loop_ticks": ticks,
+          "kernel_launches": launches, "http_wall_s": wall,
+          "sampled_http_wall_s": sampled_wall,
+          "loop_ms_per_tick": loop_tick_ms,
+          "direct_ms_per_tick": direct_ms, **q,
+          "tick_phase_share": {k: v / total for k, v in phases.items()},
+          "tick_phase_seconds": phases,
+          "tokens_sha256": token_digest(seqs),
+          "sampled_tokens_sha256": token_digest(sampled),
+          "compared_with_phase_e": sorted(served),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          **prof, "consumers": cost})
+    # the loop and its threads hold the engine in reference cycles
+    del eng, loop, httpd
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # the training slice's attention shape (bench.py's 1.1B model: batch 8,
@@ -1346,11 +1738,15 @@ def main(argv=None) -> int:
         phase_exact_tokens(args.seed, device)
     if "h" in args.phases:
         phase_sampling(args.seed, device)
+    served = {}
     if "e" in args.phases:
-        paged["launches"] = phase_full_width(args.seed, "bf16", card)
-        paged["int8_launches"] = phase_full_width(args.seed, "int8", card)
-        paged["sampled_launches"] = phase_full_width(args.seed, "bf16", card,
-                                                     sampled=True)
+        paged["launches"], served["greedy"] = phase_full_width(
+            args.seed, "bf16", card)
+        paged["int8_launches"], _ = phase_full_width(args.seed, "int8", card)
+        paged["sampled_launches"], served["sampled"] = phase_full_width(
+            args.seed, "bf16", card, sampled=True)
+    if "i" in args.phases:
+        paged["http_launches"] = phase_http(args.seed, card, served)
     adamw = {}
     if "g" in args.phases:
         launches = phase_train(args.seed, card)

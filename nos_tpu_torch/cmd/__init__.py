@@ -4,9 +4,8 @@
 Shared logging lives here, copied from ``nos_tpu/cmd/__init__.py``:
 every binary that takes ``--log-format json`` routes through
 :func:`setup_logging`, which in json mode emits one JSON object per
-line. The reference also injects ``trace_id``/``span_id`` while a
-tracing span is active; the port has no tracing yet, so no span is ever
-active and its lines are the reference's lines outside a span.
+line, with ``trace_id``/``span_id`` injected from the port's tracing
+(``nos_tpu_torch/obs/tracing.py``) while a span is active.
 """
 from __future__ import annotations
 
@@ -16,10 +15,12 @@ import time
 
 
 class JsonLogFormatter(logging.Formatter):
-    """One JSON object per line: time, level, logger, message and, for
-    an exception, its traceback."""
+    """One JSON object per line: time, level, logger, message, the
+    active tracing span's ids and, for an exception, its traceback."""
 
     def format(self, record: logging.LogRecord) -> str:
+        from nos_tpu_torch.obs import tracing
+
         out = {
             "ts": time.strftime("%Y-%m-%dT%H:%M:%S",
                                 time.gmtime(record.created))
@@ -28,6 +29,10 @@ class JsonLogFormatter(logging.Formatter):
             "logger": record.name,
             "msg": record.getMessage(),
         }
+        sp = tracing.current()
+        if sp is not None:
+            out["trace_id"] = sp.trace_id
+            out["span_id"] = sp.span_id
         if record.exc_info:
             out["exc"] = self.formatException(record.exc_info)
         return json.dumps(out, ensure_ascii=False)
