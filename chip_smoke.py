@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghi]
+    python3 chip_smoke.py [--seed N] [--phases cdefghij]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -18,14 +18,20 @@ c. hold the paged kernel against its plain PyTorch version on the card
    durations), plain version, a library call and the bytes bound;
 d. exact tokens in f32, plain and int8 arenas: the serving engine
    through the kernel commits the same tokens as ``generate_paged``
-   through the kernel and through the plain gather formulation;
+   through the kernel and through the plain gather formulation. Every
+   decode tick is a CUDA graph replay; the paged kernel counts its own
+   launches on the card, the count must be n_layers x T x replays, and
+   torch.profiler must see as many paged kernels (the engine captures
+   its decode programs before the counted run, here and in (e), (h),
+   (j));
 e. the main path at full width: ``build_engine`` on a Llama-3-8B-shaped
    decoder (GQA 32/8 heads, d_model 4096, d_ff 14336, vocab 128256, 32
    layers, random weights from the seed; max_seq cut to 2048) serves 8
    requests x 32 tokens, greedy with a bf16 and an int8 KV arena, then
    sampled on the bf16 arena (temperature 0.8, top-k 50, top-p 0.95,
    seeds 0-7, served twice for the same tokens); each run's kernel
-   launch count must equal n_layers x decode ticks, and the profiled
+   launch count (the kernel's own) must equal n_layers x graph
+   replays, and the profiled
    ticks must show one paged_decode kernel per layer (no merge launch);
    the sampled run also times its sampling ops alone;
 f. the four flash-attention kernels (forward, backward preprocess, dK/dV,
@@ -56,19 +62,39 @@ h. sampled decoding, f32 on phase (d)'s model: the port's threefry
    through the gather formulation; each request alone equals it in a
    full batch; a rerun with the same seeds gives the same tokens;
 i. the serving binary at phase (e)'s full width: ``build_engine`` on the
-   same 8B-class decoder (bf16 arena, paged kernel on) drained directly
-   once, then served by ``ServingLoop`` (restart budget 1, watchdog on)
-   behind ``make_http_server`` on 127.0.0.1: phase (e)'s 8 prompts from 8
+   same 8B-class decoder (bf16 arena, paged kernel on) served by
+   ``ServingLoop`` (restart budget 1, watchdog on) behind
+   ``make_http_server`` on 127.0.0.1: phase (e)'s 8 prompts from 8
    concurrent client threads (6 unary, 2 SSE), greedy at 32 new tokens,
-   then sampled at phase (e)'s params. Every response equals phase (e)'s
-   tokens for its prompt (greedy and sampled), the SSE deltas joined equal
-   the unary result, paged launches equal n_layers x the loop's ticks,
-   /healthz and /readyz answer ok, /stats keys are the reference's,
-   /metrics counts 8 finished requests and 8 x 31 decode tokens, and a
-   request after /admin/drain gets 503. Prints TTFT/TPOT p50/p99 from the
-   loop's histograms, ms per tick through the loop beside the direct
-   drain, the tick phases, the device idle share of a profiled stretch
-   of loop ticks, build seconds and peak memory.
+   then drained directly under the loop's lock, then sampled at phase
+   (e)'s params. Every response equals phase (e)'s tokens for its prompt
+   (greedy and sampled) and the direct drain's, and the SSE deltas
+   joined equal the unary result. The binary captures each decode
+   program at the first tick that needs it, as a user meets it, so the
+   kernel's own count of paged launches equals n_layers x (graph
+   replays + one warm-up run per capture), and the capture seconds are
+   printed beside the TTFT/TPOT quantiles they fall in. /healthz and
+   /readyz answer ok, /stats keys are the reference's, /metrics counts 8
+   finished requests and 8 x 31 decode tokens, and a request after
+   /admin/drain gets 503. Prints TTFT/TPOT p50/p99 from the loop's
+   histograms, ms per tick through the loop beside the direct drain,
+   the tick phases, the device idle share and paged kernels (n_layers
+   per replay) of a profiled stretch of loop ticks, build seconds and
+   peak memory. Then the same traffic through a second binary whose
+   engine runs ``pipeline_depth`` 2 and ``decode_steps`` 4 (greedy and
+   sampled, the same tokens, the launches counted the same way; its
+   TTFT and TPOT p50/p99 and capture seconds);
+j. pipelined, graph-replayed decode at phase (e)'s width: (depth, T) in
+   (1, 1), (2, 1), (2, 4) greedy bf16, (2, 4) sampled bf16 and (2, 4)
+   greedy int8, each served by the un-captured program (the same
+   engine, every kernel launched from the host) and by the captured one:
+   the same tokens, equal to phase (e)'s; paged launches (the kernel's
+   own count) n_layers x T x replays, and n_layers x T paged kernels in each profiled replay; per
+   engine, one tick replayed from a snapshot is bit-identical to the
+   program called directly (logits, tokens, pos, feed tokens, arena).
+   Prints ms per tick and per step beside the un-captured program,
+   tokens/s, kernels per tick, device busy ms and idle share, capture
+   seconds per program, graph-pool and peak memory.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -77,6 +103,7 @@ when there is no CUDA device or when the port is not beside this file.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import logging
 import os
@@ -105,13 +132,15 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghi"
+PHASES = "cdefghij"
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# seconds after which a run is taken to hang (see ``main``)
+HANG_S = 1100
 # ~200 us of spinning on the stream at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 400_000
 
@@ -404,15 +433,25 @@ def phase_exact_tokens(seed: int, device) -> None:
                for n in (5, 17, 40, 77)]
     new = 16
     for kv_dtype in ("bf16", "int8"):       # "bf16" is the f32 arena here
-        _kernels.paged_decode.launches = 0
         eng = DecodeServer(params, cfg, max_batch=4, kv_block_size=16,
                            kv_blocks=1 + 4 * 16, kv_dtype=kv_dtype,
                            device=device, paged_impl="kernel")
         assert eng.paged_kernel == "kernel", eng.paged_kernel
-        rids = [eng.submit(p, new) for p in prompts]
-        served = eng.drain()
+        eng.capture_programs()
+        _kernels.paged_decode.launches = 0      # the main path's count
+
+        def run():
+            rids = [eng.submit(p, new) for p in prompts]
+            return rids, eng.drain()
+
+        (rids, served), seen = paged_kernels_seen(run)
         launches = _kernels.paged_decode.launches
-        assert launches == cfg.n_layers * eng.ticks, (launches, eng.ticks)
+        # every tick a graph replay of one paged launch per layer
+        want = cfg.n_layers * eng.decode_steps * eng.ticks_dispatched
+        if not launches == want == seen:
+            raise AssertionError(
+                f"paged launches {launches}, profiled {seen}, want n_layers "
+                f"x T x ticks = {want}")
         for rid, p in zip(rids, prompts):
             for impl in ("kernel", "xla"):
                 want = generate_paged(params, cfg, [p], new, block_size=16,
@@ -427,7 +466,8 @@ def phase_exact_tokens(seed: int, device) -> None:
               "requests": len(prompts), "new_tokens": new,
               "equal_generate_paged_kernel": True,
               "equal_generate_paged_plain": True,
-              "engine_launches": launches})
+              "engine_launches": launches, "profiled_paged_kernels": seen,
+              "graph_replays": eng.ticks_dispatched})
 
 
 # phase (h)'s requests: (prompt length, new tokens, sampling params)
@@ -501,24 +541,32 @@ def phase_sampling(seed: int, device) -> None:
                             kv_blocks=1 + 4 * 16, device=device,
                             paged_impl=impl)
 
-    def serve(impl, requests):
+    def serve(impl, requests, count=False):
         eng = engine(impl)
-        rids = [eng.submit(p, new, **kw) for p, new, kw in requests]
-        out = eng.drain()
-        return [out[r] for r in rids], eng.ticks
+        eng.capture_programs()
+        if count:
+            _kernels.paged_decode.launches = 0  # the main path's count
 
-    _kernels.paged_decode.launches = 0          # the main path's count
-    kernel, ticks = serve("kernel", reqs)
+        def run():
+            rids = [eng.submit(p, new, **kw) for p, new, kw in requests]
+            out = eng.drain()
+            return [out[r] for r in rids]
+
+        out, seen = paged_kernels_seen(run) if count else (run(), None)
+        return out, eng.ticks_dispatched, seen
+
+    kernel, ticks, seen = serve("kernel", reqs, count=True)
     launches = _kernels.paged_decode.launches
-    if launches != cfg.n_layers * ticks:
-        raise AssertionError(f"sampled engine: kernel launches {launches} "
-                             f"!= n_layers x ticks {cfg.n_layers} x {ticks}")
-    gather, _ = serve("xla", reqs)
+    if not launches == cfg.n_layers * ticks == seen:
+        raise AssertionError(f"sampled engine: kernel launches {launches}, "
+                             f"profiled {seen}, want n_layers x ticks "
+                             f"{cfg.n_layers} x {ticks}")
+    gather, _, _ = serve("xla", reqs)
     if kernel != gather:
         raise AssertionError(
             f"sampled streams through the kernel {kernel} differ from the "
             f"gather formulation's {gather}")
-    again, _ = serve("kernel", reqs)
+    again, _, _ = serve("kernel", reqs)
     if again != kernel:
         raise AssertionError("sampled rerun with the same seeds differs")
     alone = [serve("kernel", [r])[0][0] for r in reqs]
@@ -531,7 +579,7 @@ def phase_sampling(seed: int, device) -> None:
           "sampled_requests": sum(1 for *_, kw in reqs if kw),
           "kernel_equals_gather": True, "alone_equals_batched": True,
           "rerun_same_tokens": True, "engine_ticks": ticks,
-          "engine_launches": launches,
+          "engine_launches": launches, "profiled_paged_kernels": seen,
           "tokens_sha256": token_digest(kernel)})
 
 
@@ -572,34 +620,56 @@ def decode_probe(eng, snapshot) -> dict:
             "probe_argmax_agree": int(agree.sum())}
 
 
-def profile_ticks(eng, prompts, ticks: int = 3, sampling=None) -> dict:
-    """Device breakdown of steady decode ticks: serve ``prompts`` again
-    (with ``sampling[i]``'s params when given), take one warm tick, then
-    profile ``ticks`` engine steps with torch.profiler. Device busy = the
-    sum of kernel times; the idle share against the profiled wall
-    overstates idleness (the profiler slows the host), so the caller
-    also reports it against the unprofiled tick. Kernels are grouped as
-    the paged kernel (one launch per layer), matmuls (cuBLAS/CUTLASS
-    names) and everything else."""
+def paged_kernels_seen(fn) -> tuple:
+    """(fn's result, paged_decode kernels the card ran during it) from
+    torch.profiler: the kernels a graph replay launches included."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if device_us(e) > 0 and "paged_decode" in e.key.lower())
+    return out, n
+
+
+def profile_ticks(eng, prompts, ticks: int = 3, sampling=None) -> dict:
+    """Device breakdown of steady decode ticks: serve ``prompts`` again
+    (with ``sampling[i]``'s params when given), fill the engine's window,
+    let the card finish what is queued, then profile ``ticks`` engine
+    steps with torch.profiler; each dispatches one tick (one graph
+    replay of T steps), and the readings are per dispatched tick. Device
+    busy = the sum of kernel times; the idle share against the profiled
+    wall overstates idleness (the profiler slows the host), so the
+    caller also reports it against the unprofiled tick. Kernels are
+    grouped as the paged kernel (one launch per layer and step), matmuls
+    (cuBLAS/CUTLASS names) and everything else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    new = (ticks + eng.pipeline_depth + 2) * eng.decode_steps
     for i, p in enumerate(prompts):
-        eng.submit(p, ticks + 2, **(sampling[i] if sampling else {}))
+        eng.submit(p, new, **(sampling[i] if sampling else {}))
     eng.step()
     torch.cuda.synchronize()
+    k0 = eng.ticks_dispatched
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(ticks):
             eng.step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3 / ticks
+        wall_ms = (time.perf_counter() - t) * 1e3
+    dispatched = eng.ticks_dispatched - k0
     eng.drain()
-    out = device_breakdown(prof, ticks, {"paged_kernel": ("paged_decode",)})
+    out = device_breakdown(prof, dispatched,
+                           {"paged_kernel": ("paged_decode",)})
     busy = out["device_busy_ms"]
-    return {"profiled_ms_per_tick": wall_ms,
+    return {"profiled_ticks": dispatched,
+            "profiled_ms_per_tick": wall_ms / dispatched,
             "device_busy_ms_per_tick": busy,
-            "device_idle_share_profiled": 1 - busy / wall_ms,
+            "device_idle_share_profiled": 1 - busy * dispatched / wall_ms,
             "device_ms_per_tick": out["device_ms"],
             "kernels_per_tick": out["kernels_per_run"],
             "paged_kernels_per_tick":
@@ -714,6 +784,7 @@ def phase_full_width(seed: int, kv_dtype: str, card: str,
     lens = [len(p) for p in prompts]
     new = 32
     sampling = SAMPLED if sampled else [{}] * len(prompts)
+    capture_s = eng.capture_programs()
 
     _kernels.paged_decode.launches = 0          # the main path's count
     prefill_ms = []
@@ -735,16 +806,18 @@ def phase_full_width(seed: int, kv_dtype: str, card: str,
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t
     launches = _kernels.paged_decode.launches
-    ticks = eng.ticks
+    ticks = eng.ticks_dispatched
     decoded = eng.tokens_emitted                # before probe and profile
 
     for rid, p in zip(rids, prompts):
         got = served[rid][len(p):]
         if len(got) != new or served[rid][:len(p)] != p:
             raise AssertionError(f"request {rid}: {len(got)} tokens")
+    # every tick one graph replay of one paged launch per layer; the
+    # profile below shows the card running them
     if launches != FULL["n_layers"] * ticks:
         raise AssertionError(
-            f"kernel launches {launches} != n_layers x ticks "
+            f"kernel launches {launches} != n_layers x graph replays "
             f"{FULL['n_layers']} x {ticks}")
     extra = {}
     if sampled:
@@ -775,7 +848,10 @@ def phase_full_width(seed: int, kv_dtype: str, card: str,
           "decode_ticks": ticks, "decode_ms_per_tick": decode_s * 1e3 / ticks,
           "decode_tokens": decoded,
           "decode_tokens_per_s": decoded / decode_s,
-          "kernel_launches": launches,
+          "kernel_launches": launches, "graph_replays": ticks,
+          "capture_s": capture_s,
+          "graph_pool_gb": {("sampled" if k else "greedy"): g.pool_bytes / 1e9
+                            for k, g in eng._graphs.items()},
           "tokens_sha256": token_digest([served[r] for r in rids]),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **probe,
           "device_idle_share": 1 - breakdown["device_busy_ms_per_tick"]
@@ -899,7 +975,8 @@ def metric_line(text: str, name: str) -> float:
 def profile_loop_ticks(loop, url, prompts, new: int) -> dict:
     """Device busy and idle share over a stretch of the loop's ticks:
     8 greedy requests from client threads, torch.profiler on while the
-    loop ticks with all 8 slots decoding (prefill excluded)."""
+    loop ticks with all 8 slots decoding (prefill excluded). ``new``
+    must keep them decoding past the profiler's start."""
     import threading
 
     from torch.profiler import ProfilerActivity, profile
@@ -916,27 +993,51 @@ def profile_loop_ticks(loop, url, prompts, new: int) -> dict:
             raise AssertionError(f"occupancy {eng.occupancy()}: the 8 "
                                  f"requests were never decoding together")
         time.sleep(0.002)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the profiler starts and stops while no thread can launch: a graph
+    # replay on the ticker racing the profiler's stop deadlocked inside
+    # both on the H100 (every launch of the loop's threads is made under
+    # its lock)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with loop._work:
+        prof.start()
         ticks0 = loop.m_ticks.value()
+        replays0 = eng.ticks_dispatched
         t = time.perf_counter()
+    try:
         while loop.m_ticks.value() < ticks0 + 6:
             if time.perf_counter() - t > 60:
                 raise AssertionError("the loop stopped ticking while "
                                      "profiled")
             time.sleep(0.002)
-        ticks = loop.m_ticks.value() - ticks0
-        wall_ms = (time.perf_counter() - t) * 1e3
-        torch.cuda.synchronize()
+    finally:
+        with loop._work:
+            ticks = loop.m_ticks.value() - ticks0
+            replays = eng.ticks_dispatched - replays0
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+            prof.stop()
     for th in threads:
         th.join(timeout=300)
     out = device_breakdown(prof, 1, {"paged_kernel": ("paged_decode",)})
     busy = out["device_busy_ms"]
+    paged = out["group_kernels_per_run"]["paged_kernel"]
+    # every replay dispatched while the profiler ran finished before it
+    # stopped; the ticks already in flight at its start may show some of
+    # their kernels too
+    want = FULL["n_layers"] * eng.decode_steps
+    if not want * replays <= paged <= want * (replays
+                                              + eng.pipeline_depth):
+        raise AssertionError(f"profiled paged kernels {paged} over "
+                             f"{replays} replays, want n_layers x T = "
+                             f"{want} each")
+    # the device's work per replay dispatched in the window (a loop
+    # tick finished in it may have been dispatched before it)
     return {"profiled_loop_ticks": ticks,
             "profiled_wall_ms_per_tick": wall_ms / ticks,
-            "device_busy_ms_per_tick": busy / ticks,
+            "device_busy_ms_per_tick": busy / replays,
             "device_idle_share": 1 - busy / wall_ms,
-            "kernels_per_tick": out["kernels_per_run"] / ticks}
+            "kernels_per_tick": out["kernels_per_run"] / replays,
+            "profiled_replays": replays, "paged_kernels_profiled": paged}
 
 
 def loop_tick_cost(loop, url, prompts, new: int) -> list:
@@ -1037,20 +1138,11 @@ def phase_http(seed: int, card: str, served: dict) -> int:
     prompts = full_width_prompts(seed)
     new = 32
     greedy = [{}] * len(prompts)
+    L = FULL["n_layers"]
 
-    # the direct drain on this engine, before the loop owns it: the
-    # reference tokens of this call and its ms per tick
-    rids = [eng.submit(p, new) for p in prompts]
-    torch.cuda.synchronize()
-    ticks0 = eng.ticks
-    t = time.perf_counter()
-    direct = eng.drain()
-    torch.cuda.synchronize()
-    direct_ms = (time.perf_counter() - t) * 1e3 / (eng.ticks - ticks0)
-    direct = [direct[r] for r in rids]
-    if "greedy" in served and direct != served["greedy"]:
-        raise AssertionError("direct drain != phase (e)'s greedy tokens")
-
+    # the binary captures each decode program at the first tick that
+    # needs it, as a user meets it: the greedy pass below pays the greedy
+    # capture and the sampled pass the sampled one
     loop = ServingLoop(eng, engine_factory=lambda: build_engine(cfg),
                        restart_budget=1, watchdog_s=120.0,
                        device_stats_interval_s=10.0)
@@ -1075,11 +1167,33 @@ def phase_http(seed: int, card: str, served: dict) -> int:
         ttft_at, tpot_at = loop.h_ttft.num_samples(), \
             loop.h_tpot.num_samples()
 
+        # (the loop drains the engine's compile_events into its
+        # histogram, so captures are read from the running totals)
+        replays0, compiles0, capture0 = (eng.ticks_dispatched,
+                                         eng.compiles, eng.compile_s)
         _kernels.paged_decode.launches = 0      # the main path's count
         seqs, deltas, wall = http_pass(url, prompts, new, greedy)
         launches = _kernels.paged_decode.launches
         ticks = loop.m_ticks.value() - ticks0
+        replays = eng.ticks_dispatched - replays0
+        captures = eng.compiles - compiles0
+        capture_s = {"greedy": eng.compile_s - capture0}
+        q = loop_quantiles(loop, {"ttft": ttft_at, "tpot": tpot_at})
 
+        # the direct drain on this engine, the loop's ticker parked on
+        # its lock: the reference tokens of this call and its ms per tick
+        with loop._work:
+            rids = [eng.submit(p, new) for p in prompts]
+            torch.cuda.synchronize()
+            ticks1 = eng.ticks
+            t = time.perf_counter()
+            direct = eng.drain()
+            torch.cuda.synchronize()
+            direct_ms = (time.perf_counter() - t) * 1e3 / (eng.ticks
+                                                          - ticks1)
+        direct = [direct[r] for r in rids]
+        if "greedy" in served and direct != served["greedy"]:
+            raise AssertionError("direct drain != phase (e)'s greedy tokens")
         if seqs != direct:
             bad = [i for i, (a, b) in enumerate(zip(seqs, direct)) if a != b]
             raise AssertionError(f"HTTP greedy tokens differ from the "
@@ -1088,10 +1202,12 @@ def phase_http(seed: int, card: str, served: dict) -> int:
             if d is not None and prompts[i] + [t for x in d for t in x] \
                     != direct[i]:
                 raise AssertionError(f"SSE deltas of prompt {i}")
-        if launches != FULL["n_layers"] * ticks:
+        # the kernel's own count: one launch per layer in every replay,
+        # and in the warm-up run before each capture
+        if captures != 1 or launches != L * (replays + captures):
             raise AssertionError(
-                f"paged launches {launches} != n_layers x loop ticks "
-                f"{FULL['n_layers']} x {ticks}")
+                f"paged launches {launches} != n_layers x (graph replays + "
+                f"captures) = {L} x ({replays} + {captures})")
         _, text = http_call(url, "/metrics")
         text = text.decode()
         finished = metric_line(
@@ -1110,20 +1226,24 @@ def phase_http(seed: int, card: str, served: dict) -> int:
         phases = snap["tick_phases"]["seconds"]
         tick_n, tick_s = loop.h_tick.observations()
         loop_tick_ms = (tick_s - tick_s0) * 1e3 / (tick_n - tick_n0)
-        q = {}
-        for name, h, at in (("ttft", loop.h_ttft, ttft_at),
-                            ("tpot", loop.h_tpot, tpot_at)):
-            for p in (0.5, 0.99):
-                q[f"{name}_p{int(p * 100)}_ms"] = h.quantile(p, at) * 1e3
 
+        at = {"ttft": loop.h_ttft.num_samples(),
+              "tpot": loop.h_tpot.num_samples()}
+        compiles0, capture0 = eng.compiles, eng.compile_s
         sampled, _, sampled_wall = http_pass(url, prompts, new, SAMPLED)
+        capture_s["sampled"] = eng.compile_s - capture0
+        q_sampled = loop_quantiles(loop, at)
+        if eng.compiles - compiles0 != 1:
+            raise AssertionError(f"the sampled pass captured "
+                                 f"{eng.compiles - compiles0} programs, "
+                                 f"not 1")
         if "sampled" in served and sampled != served["sampled"]:
             bad = [i for i, (a, b) in enumerate(zip(sampled,
                                                     served["sampled"]))
                    if a != b]
             raise AssertionError(f"HTTP sampled tokens differ from phase "
                                  f"(e)'s for prompts {bad}")
-        prof = profile_loop_ticks(loop, url, prompts, 48)
+        prof = profile_loop_ticks(loop, url, prompts, 256)
         cost = loop_tick_cost(loop, url, prompts, new)
 
         status, raw = http_call(url, "/admin/drain", {})
@@ -1140,28 +1260,278 @@ def phase_http(seed: int, card: str, served: dict) -> int:
         httpd.shutdown()
         loop.shutdown()
         httpd.server_close()
-    total = sum(phases.values())
-    emit({"phase": "http", "card": card, "requests": len(prompts),
-          "unary": len(prompts) - 2, "sse": 2, "new_tokens": new,
-          "build_s": build_s, "loop_ticks": ticks,
-          "kernel_launches": launches, "http_wall_s": wall,
-          "sampled_http_wall_s": sampled_wall,
-          "loop_ms_per_tick": loop_tick_ms,
-          "direct_ms_per_tick": direct_ms, **q,
-          "tick_phase_share": {k: v / total for k, v in phases.items()},
-          "tick_phase_seconds": phases,
-          "tokens_sha256": token_digest(seqs),
-          "sampled_tokens_sha256": token_digest(sampled),
-          "compared_with_phase_e": sorted(served),
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          **prof, "consumers": cost})
     # the loop and its threads hold the engine in reference cycles
     del eng, loop, httpd
     import gc
 
     gc.collect()
     torch.cuda.empty_cache()
+    pipelined = http_pipelined(cfg, prompts, new, direct, served)
+    total = sum(phases.values())
+    emit({"phase": "http", "card": card, "requests": len(prompts),
+          "unary": len(prompts) - 2, "sse": 2, "new_tokens": new,
+          "build_s": build_s, "loop_ticks": ticks, "graph_replays": replays,
+          "kernel_launches": launches, "http_wall_s": wall,
+          "capture_s": capture_s,
+          "sampled_http_wall_s": sampled_wall,
+          "loop_ms_per_tick": loop_tick_ms,
+          "direct_ms_per_tick": direct_ms, **q,
+          "sampled_pass": q_sampled,
+          "tick_phase_share": {k: v / total for k, v in phases.items()},
+          "tick_phase_seconds": phases,
+          "tokens_sha256": token_digest(seqs),
+          "sampled_tokens_sha256": token_digest(sampled),
+          "compared_with_phase_e": sorted(served),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          **prof, "consumers": cost, "pipelined": pipelined})
     return launches
+
+
+def loop_quantiles(loop, at: dict) -> dict:
+    """TTFT and TPOT p50/p99 in ms from the loop's histograms, over the
+    samples taken since ``at`` ({name: sample count})."""
+    q = {}
+    for name, h in (("ttft", loop.h_ttft), ("tpot", loop.h_tpot)):
+        for p in (0.5, 0.99):
+            q[f"{name}_p{int(p * 100)}_ms"] = h.quantile(p, at[name]) * 1e3
+    return q
+
+
+def http_pipelined(cfg, prompts, new: int, direct, served) -> dict:
+    """Phase (i)'s traffic through the binary again, on an engine built
+    with ``pipeline_depth`` 2 and ``decode_steps`` 4: greedy and sampled
+    passes give phase (e)'s tokens (greedy: this phase's direct drain's),
+    SSE deltas joined included, and the paged launches equal n_layers x
+    T x graph replays. Returns TTFT/TPOT p50/p99 and ms per replay."""
+    import dataclasses
+    import threading
+
+    from nos_tpu_torch.cmd.server import (
+        ServingLoop, build_engine, make_http_server,
+    )
+    from nos_tpu_torch.ops import _kernels
+    from nos_tpu_torch.utils.metrics import default_registry
+
+    pcfg = dataclasses.replace(cfg, pipeline_depth=2, decode_steps=4)
+    eng = build_engine(pcfg)
+    # the loop's histograms live in the process registry, where the first
+    # loop of this phase turned their sample retention on; a new loop
+    # registers them with it off, as production code does
+    reg = default_registry()
+    for name in ("nos_tpu_serve_ttft_seconds", "nos_tpu_serve_tpot_seconds"):
+        reg.get(name).track_samples = False
+    loop = ServingLoop(eng, restart_budget=0, device_stats_interval_s=10.0)
+    for h in (loop.h_ttft, loop.h_tpot):
+        h.enable_sample_tracking()
+    httpd = make_http_server(pcfg, loop, host="127.0.0.1")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        at = {"ttft": loop.h_ttft.num_samples(),
+              "tpot": loop.h_tpot.num_samples()}
+        replays0, n0, s0 = eng.ticks_dispatched, *loop.h_tick.observations()
+        _kernels.paged_decode.launches = 0      # the main path's count
+        seqs, deltas, wall = http_pass(url, prompts, new, [{}] * len(prompts))
+        launches = _kernels.paged_decode.launches
+        replays = eng.ticks_dispatched - replays0
+        captures, capture_s = eng.compiles, {"greedy": eng.compile_s}
+        n1, s1 = loop.h_tick.observations()
+        q = loop_quantiles(loop, at)
+        if seqs != direct:
+            raise AssertionError("pipelined HTTP greedy tokens differ from "
+                                 "the direct drain")
+        for i, d in enumerate(deltas):
+            if d is not None and prompts[i] + [t for x in d for t in x] \
+                    != direct[i]:
+                raise AssertionError(f"pipelined SSE deltas of prompt {i}")
+        # the kernel's own count: T launches per layer in every replay,
+        # and in the warm-up run before the greedy capture
+        want = FULL["n_layers"] * pcfg.decode_steps * (replays + 1)
+        if captures != 1 or launches != want:
+            raise AssertionError(f"pipelined paged launches {launches} != "
+                                 f"n_layers x T x (replays + 1 capture) = "
+                                 f"{want} ({captures} captures)")
+        at = {"ttft": loop.h_ttft.num_samples(),
+              "tpot": loop.h_tpot.num_samples()}
+        sampled, _, _ = http_pass(url, prompts, new, SAMPLED)
+        q_sampled = loop_quantiles(loop, at)
+        capture_s["sampled"] = eng.compile_s - capture_s["greedy"]
+        if eng.compiles != 2:
+            raise AssertionError(f"{eng.compiles} captures, not 2")
+        if "sampled" in served and sampled != served["sampled"]:
+            raise AssertionError("pipelined HTTP sampled tokens differ from "
+                                 "phase (e)'s")
+        sse_frames = [len(d) for d in deltas if d is not None]
+    finally:
+        httpd.shutdown()
+        loop.shutdown()
+        httpd.server_close()
+    out = {"pipeline_depth": 2, "decode_steps": 4, "http_wall_s": wall,
+           "graph_replays": replays, "kernel_launches": launches,
+           "loop_ms_per_tick": (s1 - s0) * 1e3 / (n1 - n0), **q,
+           "sse_frames": sse_frames,
+           "capture_s": capture_s,
+           "sampled_pass": q_sampled,
+           "tokens_sha256": token_digest(seqs),
+           "sampled_tokens_sha256": token_digest(sampled)}
+    del eng, loop, httpd
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase (j)'s points: (kv_dtype, sampled, pipeline_depth, decode_steps)
+PIPELINE_POINTS = [("bf16", False, 1, 1), ("bf16", False, 2, 1),
+                   ("bf16", False, 2, 4), ("bf16", True, 2, 4),
+                   ("int8", False, 2, 4)]
+
+
+def timed_drain(eng, prompts, new: int, sampling) -> tuple:
+    """Submit every prompt (prefill), then drain on the host clock:
+    (sequences, decode seconds, ticks dispatched, decode tokens)."""
+    rids = [eng.submit(p, new, **kw) for p, kw in zip(prompts, sampling)]
+    torch.cuda.synchronize()
+    k0, n0 = eng.ticks_dispatched, eng.tokens_emitted
+    t = time.perf_counter()
+    out = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return ([out[r] for r in rids], wall, eng.ticks_dispatched - k0,
+            eng.tokens_emitted - n0)
+
+
+def replay_vs_direct(eng, prompts, sampling) -> dict:
+    """One tick from a snapshot (the prompts prefilled, every slot
+    decoding): the captured program replayed, then, from the same
+    snapshot, the same program called directly on the card. Logits, the
+    T steps' tokens, pos, the feed tokens and the arena must be
+    bit-identical. The snapshot is restored after, and the requests
+    drained."""
+    sampled = bool(sampling[0])
+    for p, kw in zip(prompts, sampling):
+        eng.submit(p, 8 * eng.decode_steps, **kw)
+    eng._set_keep(tuple(sorted(eng._active)))
+    bufs = dict(eng.cache, last=eng._last, toks=eng._toks)
+    snap = {k: v.clone() for k, v in bufs.items()}
+
+    def restore():
+        for k, v in bufs.items():
+            v.copy_(snap[k])
+
+    runs = []
+    for fn in (eng._launch, eng._decode_program):
+        restore()
+        logits = fn(sampled).clone()
+        runs.append((logits, {k: v.clone() for k, v in bufs.items()}))
+    restore()
+    torch.cuda.synchronize()
+    (lr, br), (ld, bd) = runs
+    same = {k: bool(torch.equal(br[k], bd[k])) for k in bufs}
+    same["logits"] = bool(torch.equal(lr, ld))
+    if not all(same.values()):
+        raise AssertionError(f"replayed tick != direct program: {same}")
+    eng.drain()
+    return {"replay_bit_identical": same,
+            "replay_logits_max_abs_diff": float((lr - ld).abs().max())}
+
+
+def phase_pipeline(seed: int, card: str, served: dict) -> list:
+    """(j): pipelined, graph-replayed decode at phase (e)'s width. For
+    each ``PIPELINE_POINTS`` point, the 8 prompts x 32 tokens through the
+    un-captured program (the same engine, each tick's kernels launched
+    from the host) and then through the captured one; both give the same
+    tokens, equal to phase (e)'s when it ran in this call; the paged
+    launches of the captured run equal n_layers x T x graph replays, and
+    the profiled ticks show n_layers x T paged kernels each. Per engine,
+    one replayed tick against the direct call (bit-identical). Returns
+    the point rows."""
+    import dataclasses
+    import gc
+
+    from nos_tpu_torch.cmd.server import ServerConfig, build_engine
+    from nos_tpu_torch.models.serving import uncaptured
+    from nos_tpu_torch.ops import _kernels
+
+    prompts = full_width_prompts(seed)
+    new = 32
+    L = FULL["n_layers"]
+    base = ServerConfig(bf16=True, kv_blocks=1 + 8 * 128, kv_block_size=16,
+                        max_batch=8, paged_kernel="on", seed=seed, **FULL)
+    rows = []
+    eng = key = None
+    for kv_dtype, sampled, depth, steps in PIPELINE_POINTS:
+        probes = None
+        if key != (kv_dtype, steps):
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            key = (kv_dtype, steps)
+            eng = build_engine(dataclasses.replace(
+                base, kv_dtype=kv_dtype, decode_steps=steps))
+            capture_s = eng.capture_programs()
+            probes = {("sampled" if m else "greedy"): replay_vs_direct(
+                eng, prompts, SAMPLED if m else [{}] * len(prompts))
+                for m in (False, True)}
+            torch.cuda.reset_peak_memory_stats()
+        eng.pipeline_depth = depth
+        sampling = SAMPLED if sampled else [{}] * len(prompts)
+        with uncaptured(eng):
+            eager, eager_s, eager_ticks, _ = timed_drain(eng, prompts, new,
+                                                         sampling)
+        _kernels.paged_decode.launches = 0      # the main path's count
+        seqs, wall, ticks, decoded = timed_drain(eng, prompts, new, sampling)
+        launches = _kernels.paged_decode.launches
+        if seqs != eager:
+            raise AssertionError(f"{key} depth {depth}: captured tokens != "
+                                 f"the un-captured program's")
+        ref = served.get(("int8_" if kv_dtype == "int8" else "")
+                         + ("sampled" if sampled else "greedy"))
+        if ref is not None and seqs != ref:
+            raise AssertionError(f"{key} depth {depth}: tokens != phase "
+                                 f"(e)'s")
+        if launches != L * steps * ticks:
+            raise AssertionError(f"paged launches {launches} != n_layers x "
+                                 f"T x replays = {L * steps * ticks}")
+        prof = profile_ticks(eng, prompts, sampling=sampling if sampled
+                             else None)
+        if prof["paged_kernels_per_tick"] != L * steps:
+            raise AssertionError(f"profiled paged kernels per replay "
+                                 f"{prof['paged_kernels_per_tick']} != "
+                                 f"n_layers x T = {L * steps}")
+        ms = wall * 1e3 / ticks
+        row = {"phase": "pipeline", "card": card, "kv_dtype": kv_dtype,
+               "mode": "sampled" if sampled else "greedy",
+               "pipeline_depth": depth, "decode_steps": steps,
+               "ticks": ticks, "ms_per_tick": ms,
+               "ms_per_step": ms / steps,
+               "tokens_per_s": decoded / wall,
+               "uncaptured_ticks": eager_ticks,
+               "uncaptured_ms_per_tick": eager_s * 1e3 / eager_ticks,
+               "uncaptured_ms_per_step": eager_s * 1e3 / eager_ticks / steps,
+               "speedup_vs_uncaptured": eager_s / wall,
+               "kernel_launches": launches,
+               "kernels_per_tick": prof["kernels_per_tick"],
+               "device_busy_ms_per_tick": prof["device_busy_ms_per_tick"],
+               "device_idle_share": 1 - prof["device_busy_ms_per_tick"] / ms,
+               "device_idle_share_profiled":
+                   prof["device_idle_share_profiled"],
+               "capture_s": capture_s,
+               "graph_pool_gb": {("sampled" if k else "greedy"):
+                                 g.pool_bytes / 1e9
+                                 for k, g in eng._graphs.items()},
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "tokens_sha256": token_digest(seqs),
+               "equal_phase_e": ref is not None, "profile": prof}
+        if probes is not None:
+            row["replay_vs_direct"] = probes
+        rows.append(row)
+        emit(row)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 # the training slice's attention shape (bench.py's 1.1B model: batch 8,
@@ -1714,6 +2084,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    # a run that hangs prints every thread's stack and exits non-zero
+    # before the 1200 s a run may take
+    faulthandler.dump_traceback_later(HANG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from nos_tpu_torch.ops import _kernels
 
@@ -1742,11 +2115,17 @@ def main(argv=None) -> int:
     if "e" in args.phases:
         paged["launches"], served["greedy"] = phase_full_width(
             args.seed, "bf16", card)
-        paged["int8_launches"], _ = phase_full_width(args.seed, "int8", card)
+        paged["int8_launches"], served["int8_greedy"] = phase_full_width(
+            args.seed, "int8", card)
         paged["sampled_launches"], served["sampled"] = phase_full_width(
             args.seed, "bf16", card, sampled=True)
     if "i" in args.phases:
         paged["http_launches"] = phase_http(args.seed, card, served)
+    if "j" in args.phases:
+        paged["pipeline_launches"] = {
+            f"{r['kv_dtype']}_{r['mode']}_depth{r['pipeline_depth']}"
+            f"_T{r['decode_steps']}": r["kernel_launches"]
+            for r in phase_pipeline(args.seed, card, served)}
     adamw = {}
     if "g" in args.phases:
         launches = phase_train(args.seed, card)

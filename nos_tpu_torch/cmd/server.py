@@ -23,7 +23,11 @@ Requests batch continuously: concurrent POSTs share the engine's decode
 ticks, each blocking only until its own slot completes. The ticker runs
 the engine's one blocking wait (``step_wait``, a CUDA event) outside the
 loop's lock, so handlers submit, stream and cancel while the card
-computes; every wait of a handler is on the loop's condition.
+computes; every wait of a handler is on the loop's condition. With
+``--pipeline-depth k`` and ``--decode-steps T`` a tick is T fused
+decode steps, one CUDA graph replay on the card, and up to k of them
+are in flight, so SSE frames coarsen to about k x T tokens, as the
+reference's do.
 
 Usage:
     python -m nos_tpu_torch.cmd.server --kv-blocks 1025 \\
@@ -931,8 +935,7 @@ class ServingLoop:
 
     def _drain_compile_events(self) -> None:
         """Engine-side compile accounting -> metrics (caller holds the
-        lock). The torch engine compiles nothing, so its list stays
-        empty; stub engines may fill it."""
+        lock): on the card, the first capture of each decode program."""
         events = getattr(self.engine, "compile_events", None)
         if events:
             self.engine.compile_events = []
@@ -1887,7 +1890,6 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
     reject_unported(
         kv_blocks=cfg.kv_blocks, prefix_cache_size=cfg.prefix_cache_size,
         prefill_chunk=cfg.prefill_chunk, prefill_budget=cfg.prefill_budget,
-        pipeline_depth=cfg.pipeline_depth, decode_steps=cfg.decode_steps,
         role=cfg.role, kv_swap=cfg.kv_swap)
     device = resolve_device(device)
     check_paged_kernel_head_dim(cfg.d_model // cfg.n_heads, device,
@@ -1900,6 +1902,8 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
     model_cfg, params = load_params(gcfg, device)
     return DecodeServer(params, model_cfg, max_batch=cfg.max_batch,
                         max_pending=cfg.max_pending,
+                        pipeline_depth=cfg.pipeline_depth,
+                        decode_steps=cfg.decode_steps,
                         kv_block_size=cfg.kv_block_size,
                         kv_blocks=cfg.kv_blocks,
                         hbm_admit_frac=cfg.kv_hbm_admit_frac,

@@ -57,6 +57,9 @@
 //   so a decode step's 64 took two waves; with 5 blocks an SM (no
 //   producer warp, 96 registers) they fit, but the walk spilled and
 //   slowed (PERF.md, PR 5).
+// - The launch counts itself: block (0, 0, 0) adds one to a 64-bit
+//   counter the wrapper owns, so a launch that a CUDA graph recorded
+//   counts at every replay, and the count is what the card ran.
 // - Tensor cores buy nothing at S = 1 (~4 flops per byte at g = 4), and
 //   no S > 1 window is on the serving path, so P.V stays on the FMAs.
 
@@ -185,7 +188,7 @@ template <typename KT, int D, int R> struct Layout {
 // f32 scales). R: query rows per block. Grid (n_split, tiles * Hkv, B).
 // With n_split > 1, part holds every block's state [tiles * Hkv * B,
 // n_split, R, D + 2] and ticket one counter per (row tile, kv head, b),
-// zero between launches.
+// zero between launches. launches: the count block (0, 0, 0) bumps.
 template <typename QT, typename KT, int D, int R>
 __global__ void __launch_bounds__(kThreads, R == 4 ? 4 : 2)
 paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_arena,
@@ -195,7 +198,8 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_arena,
                     const int32_t* __restrict__ table,
                     const int32_t* __restrict__ pos, QT* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ ticket,
-                    int H, int Hkv, int S, int bs, int nb, float sm_scale) {
+                    unsigned long long* __restrict__ launches, int H,
+                    int Hkv, int S, int bs, int nb, float sm_scale) {
   using L = Layout<KT, D, R>;
   constexpr int kL = D / 8;                 // lanes per token
   constexpr int kGW = 32 / kL;              // token groups per warp
@@ -213,6 +217,8 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_arena,
   const int b = blockIdx.z;
   const int r0 = tile * R;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0 && split == 0 && blockIdx.y == 0 && b == 0)
+    atomicAdd(launches, 1ull);
   const int32_t* tab = table + (size_t)b * nb;
   // the row's block table into L2 while pos is read (4 KB a warp pass)
   if (warp == kWarps)
@@ -507,8 +513,9 @@ template <typename QT, typename KT, int D, int R>
 cudaError_t launch_rows(const void* q, const void* k, const void* v,
                         const void* ks, const void* vs, const void* table,
                         const void* pos, void* out, void* part, void* ticket,
-                        int B, int H, int Hkv, int S, int bs, int nb,
-                        float sm_scale, int n_split, cudaStream_t stream) {
+                        void* launches, int B, int H, int Hkv, int S, int bs,
+                        int nb, float sm_scale, int n_split,
+                        cudaStream_t stream) {
   auto kernel = paged_decode_kernel<QT, KT, D, R>;
   constexpr int bytes = Layout<KT, D, R>::kBytes;
   static cudaError_t attr = cudaFuncSetAttribute(
@@ -520,8 +527,9 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v,
       static_cast<const KT*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int32_t*>(table),
       static_cast<const int32_t*>(pos), static_cast<QT*>(out),
-      static_cast<float*>(part), static_cast<int*>(ticket), H, Hkv, S, bs,
-      nb, sm_scale);
+      static_cast<float*>(part), static_cast<int*>(ticket),
+      static_cast<unsigned long long*>(launches), H, Hkv, S, bs, nb,
+      sm_scale);
   return cudaGetLastError();
 }
 
@@ -529,23 +537,24 @@ template <typename QT, typename KT>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          const void* ks, const void* vs, const void* table,
                          const void* pos, void* out, void* part,
-                         void* ticket, int B, int H, int Hkv, int S, int D,
-                         int bs, int nb, float sm_scale, int n_split,
-                         cudaStream_t stream) {
+                         void* ticket, void* launches, int B, int H, int Hkv,
+                         int S, int D, int bs, int nb, float sm_scale,
+                         int n_split, cudaStream_t stream) {
   if (n_split < 1 || n_split > kMaxSplit || (n_split & (n_split - 1)) ||
       bs < 8 || (bs & (bs - 1)) || H % Hkv ||
-      (n_split > 1 && (part == nullptr || ticket == nullptr)))
+      (n_split > 1 && (part == nullptr || ticket == nullptr)) ||
+      launches == nullptr)
     return cudaErrorInvalidValue;
   const bool wide = (H / Hkv) * S > 4;       // R = 8 rows, else 4
 #define NOS_ROWS(DD)                                                       \
   return wide ? launch_rows<QT, KT, DD, 8>(q, k, v, ks, vs, table, pos,   \
-                                           out, part, ticket, B, H, Hkv,  \
-                                           S, bs, nb, sm_scale, n_split,  \
-                                           stream)                        \
+                                           out, part, ticket, launches,   \
+                                           B, H, Hkv, S, bs, nb,          \
+                                           sm_scale, n_split, stream)     \
               : launch_rows<QT, KT, DD, 4>(q, k, v, ks, vs, table, pos,   \
-                                           out, part, ticket, B, H, Hkv,  \
-                                           S, bs, nb, sm_scale, n_split,  \
-                                           stream)
+                                           out, part, ticket, launches,   \
+                                           B, H, Hkv, S, bs, nb,          \
+                                           sm_scale, n_split, stream)
   if (D == 64) NOS_ROWS(64);
   if (D == 128) NOS_ROWS(128);
 #undef NOS_ROWS
@@ -561,31 +570,32 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 // floats (R = 4 rows a tile when H / Hkv * S <= 4, else 8; tiles =
 // ceil(H / Hkv * S / R)) and ticket an int32 buffer of B * Hkv * tiles
 // zeros, which the kernel leaves zero; both may be reused by the next
-// launch on the same stream. Every arena and scale pointer must be
+// launch on the same stream. launches points at a 64-bit counter the
+// launch adds one to on the card. Every arena and scale pointer must be
 // 16-byte aligned (bulk copies). Returns the launch's cudaError_t; 0 is
 // success.
 extern "C" int nos_paged_decode_attention(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* table, const void* pos, void* out,
-    void* part, void* ticket, int B, int H, int Hkv, int S, int D, int bs,
-    int nb, float sm_scale, int n_split, int q_dtype, int kv_dtype,
-    void* stream) {
+    void* part, void* ticket, void* launches, int B, int H, int Hkv, int S,
+    int D, int bs, int nb, float sm_scale, int n_split, int q_dtype,
+    int kv_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == kF32 && kv_dtype == kF32)
     return launch_typed<float, float>(q, k, v, nullptr, nullptr, table, pos,
-                                      out, part, ticket, B, H, Hkv, S, D, bs,
-                                      nb, sm_scale, n_split, st);
+                                      out, part, ticket, launches, B, H, Hkv,
+                                      S, D, bs, nb, sm_scale, n_split, st);
   if (q_dtype == kBF16 && kv_dtype == kBF16)
     return launch_typed<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, nullptr, nullptr, table, pos, out, part, ticket, B, H, Hkv,
-        S, D, bs, nb, sm_scale, n_split, st);
+        q, k, v, nullptr, nullptr, table, pos, out, part, ticket, launches, B,
+        H, Hkv, S, D, bs, nb, sm_scale, n_split, st);
   if (q_dtype == kF32 && kv_dtype == kI8)
     return launch_typed<float, int8_t>(q, k, v, ks, vs, table, pos, out,
-                                       part, ticket, B, H, Hkv, S, D, bs, nb,
-                                       sm_scale, n_split, st);
+                                       part, ticket, launches, B, H, Hkv, S,
+                                       D, bs, nb, sm_scale, n_split, st);
   if (q_dtype == kBF16 && kv_dtype == kI8)
     return launch_typed<__nv_bfloat16, int8_t>(
-        q, k, v, ks, vs, table, pos, out, part, ticket, B, H, Hkv, S, D, bs,
-        nb, sm_scale, n_split, st);
+        q, k, v, ks, vs, table, pos, out, part, ticket, launches, B, H, Hkv,
+        S, D, bs, nb, sm_scale, n_split, st);
   return cudaErrorInvalidValue;
 }

@@ -16,13 +16,14 @@ import torch
 
 from nos_tpu_torch.device import DeviceLike, resolve_device
 from nos_tpu_torch.models.transformer import Params, TransformerConfig
+from nos_tpu_torch.ops._kernels import PagedScratch
 from nos_tpu_torch.ops.attention import (
     _cached_attention, effective_paged_impl, paged_decode_attention,
-    paged_decode_attention_reference, paged_scatter_kv, paged_scatter_scale,
-    quantize_kv,
+    paged_decode_attention_reference, paged_write_route, quantize_kv,
+    scatter_kv_routed, scatter_scale_routed,
 )
 from nos_tpu_torch.ops.layers import (
-    apply_rope, rms_norm, rope_frequencies, swiglu,
+    rms_norm, rope_frequencies, rope_rows, rotate, swiglu,
 )
 from nos_tpu_torch.ops.quant import embed_lookup, qdot
 from nos_tpu_torch.utils import prng
@@ -169,16 +170,15 @@ def _mlp_residual(x: torch.Tensor, layer: dict) -> torch.Tensor:
     return x + swiglu(h2, layer["w_gate"], layer["w_up"], layer["w_down"])
 
 
-def _qkv(x: torch.Tensor, layer: dict, cfg: TransformerConfig, freqs,
-         positions: torch.Tensor):
-    """Normed projections with rope: q [B, S, H, D], k/v [B, S, Hkv, D]."""
+def _qkv(x: torch.Tensor, layer: dict, cfg: TransformerConfig, rope):
+    """Normed projections with rope (``rope_rows``' pair, gathered once
+    per forward): q [B, S, H, D], k/v [B, S, Hkv, D]."""
     b, s, _ = x.shape
     h = rms_norm(x, layer["attn_norm"])
     q = qdot(h, layer["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = qdot(h, layer["wk"]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
     v = qdot(h, layer["wv"]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
-    return (apply_rope(q, freqs, positions), apply_rope(k, freqs, positions),
-            v)
+    return rotate(q, rope), rotate(k, rope), v
 
 
 def _logits(x: torch.Tensor, params: Params) -> torch.Tensor:
@@ -190,6 +190,7 @@ def forward_paged(
     params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     cache: Cache, table: torch.Tensor, *,
     paged_impl: Optional[str] = None,
+    scratch: Optional[PagedScratch] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """``forward_with_cache`` over a paged arena: tokens [B, S] (the
     next S tokens after each row's ``cache['pos']``), block tables
@@ -197,7 +198,9 @@ def forward_paged(
     scatter into the arena in place (quantized under int8); attention
     runs the ``paged_decode_attention`` kernel (``paged_impl="kernel"``)
     or the gather formulation (``"xla"``); None reads
-    ``effective_paged_impl``. The mesh path is not ported."""
+    ``effective_paged_impl``; ``scratch`` is the kernel's split-merge
+    scratch when the caller keeps its own (a CUDA graph's owner). The
+    mesh path is not ported."""
     b, s = tokens.shape
     if paged_impl is None:
         paged_impl = effective_paged_impl()
@@ -209,31 +212,42 @@ def forward_paged(
     positions = pos0.long()[:, None] + torch.arange(
         s, device=tokens.device)[None, :]                   # [B, S]
     scale = cfg.head_dim ** -0.5
+    # what every layer shares, computed once: the rope rows and the
+    # arena slots this call's K/V land in. A pipelined engine's overrun
+    # ticks (a finished request not yet observed) may run past the rope
+    # table; their rows are clamped, as the reference's gather clamps,
+    # and their output is discarded.
+    rope = rope_rows(freqs, positions.clamp(max=cfg.max_seq - 1))
+    route = paged_write_route(table, pos0, s, cache["k"].shape[3])
 
     x = embed_lookup(params["embed"], tokens, cfg.dtype)
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
         ck, cv = cache["k"][i], cache["v"][i]               # arena views
         cks = cvs = None
-        q, k, v = _qkv(x, layer, cfg, freqs, positions)
+        q, k, v = _qkv(x, layer, cfg, rope)
         kt = k.transpose(1, 2)                              # [B, Hkv, S, D]
         vt = v.transpose(1, 2)
         if int8_kv:
             cks, cvs = cache["k_scale"][i], cache["v_scale"][i]
             kq, ksc = quantize_kv(kt)
             vq, vsc = quantize_kv(vt)
-            paged_scatter_kv(ck, table, pos0, kq)
-            paged_scatter_kv(cv, table, pos0, vq)
-            paged_scatter_scale(cks, table, pos0, ksc)
-            paged_scatter_scale(cvs, table, pos0, vsc)
+            scatter_kv_routed(ck, route, kq)
+            scatter_kv_routed(cv, route, vq)
+            scatter_scale_routed(cks, route, ksc)
+            scatter_scale_routed(cvs, route, vsc)
         else:
-            paged_scatter_kv(ck, table, pos0, kt)
-            paged_scatter_kv(cv, table, pos0, vt)
+            scatter_kv_routed(ck, route, kt)
+            scatter_kv_routed(cv, route, vt)
         qt = q.transpose(1, 2).contiguous()                 # [B, H, S, D]
-        attend = (paged_decode_attention if use_kernel
-                  else paged_decode_attention_reference)
-        o = attend(qt, ck, cv, table, pos0, k_scale=cks, v_scale=cvs,
-                   scale=scale)
+        if use_kernel:
+            o = paged_decode_attention(qt, ck, cv, table, pos0, k_scale=cks,
+                                       v_scale=cvs, scale=scale,
+                                       scratch=scratch)
+        else:
+            o = paged_decode_attention_reference(
+                qt, ck, cv, table, pos0, k_scale=cks, v_scale=cvs,
+                scale=scale)
         o = o.transpose(1, 2).reshape(b, s, cfg.d_model)
         x = x + qdot(o, layer["wo"])
         x = _mlp_residual(x, layer)
@@ -260,12 +274,13 @@ def forward_with_cache(
     scale = cfg.head_dim ** -0.5
     starts = pos0.tolist() if vector else None
     start = None if vector else int(pos0)
+    rope = rope_rows(freqs, positions)
 
     x = embed_lookup(params["embed"], tokens, cfg.dtype)
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
         ck, cv = cache["k"][i], cache["v"][i]               # [B, Hkv, T, D]
-        q, k, v = _qkv(x, layer, cfg, freqs, positions)
+        q, k, v = _qkv(x, layer, cfg, rope)
         kt = k.transpose(1, 2)
         vt = v.transpose(1, 2)
         if vector:

@@ -1,46 +1,60 @@
 """Continuous-batching decode serving over the paged KV cache (port of
-the host-serial, paged core of ``nos_tpu/models/serving.py``).
+the paged core of ``nos_tpu/models/serving.py``).
 
 Requests occupy rows ("slots") of one decode batch; their KV lives in a
 pooled arena mapped per slot by block tables. ``submit`` admits a
 request to a free slot and prefills it at once over a scratch row
 (``forward_with_cache``, the prompt padded to a power-of-two bucket),
 then installs the row into the slot's freshly allocated blocks —
-quantizing into an int8 arena when ``kv_dtype="int8"``. A decode tick
-runs every active slot through ``forward_paged`` (inactive slots ride
-along with their table rows zeroed to the null block and their ``pos``
-frozen) and appends each slot's token. Greedy requests are
-token-identical to ``generate_paged``. Every slot carries its own
+quantizing into an int8 arena when ``kv_dtype="int8"``. Greedy requests
+are token-identical to ``generate_paged``. Every slot carries its own
 sampling params (temperature, top-k, top-p, seed), and a sampled token
-is keyed by (seed, absolute position), so a request's stream does not
-depend on what else shares the batch; a tick in which no active slot
-samples runs none of the sampling ops.
+is keyed by (seed, absolute position), so a request's stream depends
+neither on what else shares the batch nor on how ticks are fused.
+
+The decode tick is one program over the engine's persistent device
+buffers (``_decode_program``): ``decode_steps`` = T copies of the
+reference's fused step (the keep-masked table, ``forward_paged``, pos
+frozen for inactive rows, argmax, the sampling ops when a slot samples,
+the next feed tokens), writing ``pos``, the feed tokens and a
+``[max_batch, T]`` token buffer in place. On the card each program
+(greedy, sampled) is captured once into a CUDA graph, the counterpart
+of the reference's jitted program, and every tick is one replay; the
+first capture per key is accounted as the reference accounts a compile.
+On the CPU the program is called directly.
 
 A tick is three phases, as in the reference, so a serving loop can run
-the one blocking wait outside its lock: ``step_begin`` dispatches the
-tick's device work and starts a non-blocking copy of its tokens into a
-pinned host buffer behind a CUDA event; ``step_wait`` blocks on that
-event only; ``step_finish`` appends the tokens, retires completions and
-admits. ``step`` is the three in a row. Every change of the batch while
-a tick is in flight (admission, ``cancel``) first consumes that tick
-(the reference's barrier ``_flush``), so ``step_finish`` is idempotent
-on a flushed tick. Each request keeps the reference's latency ledger
-(``pop_ledger``), read by the serving loop's TTFT/TPOT histograms.
+the one blocking wait outside its lock: ``step_begin`` dispatches ticks
+until ``pipeline_depth`` are in flight, each followed by a non-blocking
+copy of its tokens into its own pinned host buffer behind a CUDA event;
+``step_wait`` blocks on the oldest's event only; ``step_finish``
+consumes it (appending up to T tokens a slot, stopping at ``done``),
+retires completions and admits. A completion observed late (pipelining)
+or mid-burst (fused steps) has over-decoded; the overrun is never
+appended, and resetting the slot's pos rolls it back. Every change of
+the batch (admission, ``cancel``) first consumes the whole window (the
+reference's barrier ``_flush``), block frees wait for the window to
+drain, and every host write to a device buffer the program reads is
+queued on the engine's stream behind the ticks in flight. Each request
+keeps the reference's latency ledger (``pop_ledger``), read by the
+serving loop's TTFT/TPOT histograms.
 
 What the reference engine has and this slice does not yet port raises
 a ``ValueError`` naming the knob: the prefix cache, chunked and
-budgeted prefill, ``pipeline_depth > 1``, ``decode_steps > 1``, meshes,
-tenant quotas, the host tier, prefill/decode roles, the slot-static
-engine (``kv_blocks == 0``) and preemption, with its capture and
-restore. ``cache_prefix`` and ``tenant`` are accepted and ignored, as
-the reference engine ignores them with no prefix cache and no quota.
+budgeted prefill, meshes, tenant quotas, the host tier, prefill/decode
+roles, the slot-static engine (``kv_blocks == 0``) and preemption, with
+its capture and restore. ``cache_prefix`` and ``tenant`` are accepted
+and ignored, as the reference engine ignores them with no prefix cache
+and no quota.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Deque, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +71,7 @@ from nos_tpu_torch.models.kvblocks import (
     BlockAllocator, NoFreeBlocks, blocks_for,
 )
 from nos_tpu_torch.models.transformer import Params, TransformerConfig
+from nos_tpu_torch.ops import _kernels
 from nos_tpu_torch.ops.attention import (
     check_paged_kernel_head_dim, effective_paged_impl, quantize_kv,
 )
@@ -80,7 +95,6 @@ def _not_ported(knob: str, what: str) -> NotPorted:
 
 def reject_unported(*, kv_blocks: int, prefix_cache_size: int = 0,
                     prefill_chunk: int = 0, prefill_budget: int = 0,
-                    pipeline_depth: int = 1, decode_steps: int = 1,
                     mesh=None, tenant_quota=None, host_tier=None,
                     role: str = "colocated", kv_swap: bool = True) -> None:
     """Raise a ValueError naming the first engine knob set outside this
@@ -90,8 +104,6 @@ def reject_unported(*, kv_blocks: int, prefix_cache_size: int = 0,
             ("prefix_cache_size", prefix_cache_size, "prefix cache"),
             ("prefill_chunk", prefill_chunk, "chunked prefill"),
             ("prefill_budget", prefill_budget, "budgeted prefill"),
-            ("pipeline_depth", pipeline_depth > 1, "pipelined decode"),
-            ("decode_steps", decode_steps > 1, "fused decode steps"),
             ("mesh", mesh is not None, "tensor-parallel serving"),
             ("tenant_quota", tenant_quota is not None, "tenant quotas"),
             ("host_tier", host_tier is not None, "host KV tier"),
@@ -185,12 +197,12 @@ class _Request:
 
 
 class _InFlight:
-    """One dispatched, unconsumed decode tick: the host buffer its
-    tokens are copied into, the event that marks the copy done (None on
-    the CPU, where the copy is synchronous), the slots it decoded, and
-    (once fetched) the tokens as a list. ``consumed`` makes consumption
-    idempotent, so a barrier flush racing ``step_finish`` processes the
-    tick exactly once."""
+    """One dispatched, unconsumed decode tick: its own host buffer of
+    ``[max_batch, T]`` tokens (pinned on the card), the event that marks
+    the copy into it done (None on the CPU, where the copy is
+    synchronous), the slots it decoded, and (once fetched) the tokens as
+    lists. ``consumed`` makes consumption idempotent, so a barrier flush
+    racing ``step_finish`` processes the tick exactly once."""
 
     __slots__ = ("buf", "event", "slots", "host", "consumed")
 
@@ -198,8 +210,40 @@ class _InFlight:
         self.buf = buf
         self.event = event
         self.slots = slots
-        self.host: Optional[List[int]] = None
+        self.host: Optional[List[List[int]]] = None
         self.consumed = False
+
+
+class _Graph:
+    """One captured decode program: the graph, its output (the last
+    step's logits, rewritten by every replay), the paged kernel's
+    scratch tensors its launches recorded (held so they outlive any
+    replacement), and its memory pool's reserved bytes at capture."""
+
+    __slots__ = ("graph", "logits", "scratch", "pool_bytes")
+
+    def __init__(self, graph, logits: torch.Tensor, scratch: tuple,
+                 pool_bytes: int):
+        self.graph = graph
+        self.logits = logits
+        self.scratch = scratch
+        self.pool_bytes = pool_bytes
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        return self.logits
+
+
+@contextlib.contextmanager
+def uncaptured(engine: "DecodeServer") -> Iterator[None]:
+    """Within the block, ``engine`` runs its decode program directly on
+    its device instead of replaying its captured graph: the comparison
+    that ``chip_smoke.py`` and the tests make, not a mode to serve in."""
+    engine._launch = engine._decode_program
+    try:
+        yield
+    finally:
+        del engine._launch
 
 
 class DecodeServer:
@@ -245,7 +289,6 @@ class DecodeServer:
         reject_unported(
             kv_blocks=kv_blocks, prefix_cache_size=prefix_cache_size,
             prefill_chunk=prefill_chunk, prefill_budget=prefill_budget,
-            pipeline_depth=pipeline_depth, decode_steps=decode_steps,
             mesh=mesh, tenant_quota=tenant_quota, host_tier=host_tier,
             role=role, kv_swap=kv_swap)
         self.device = resolve_device(device)
@@ -298,6 +341,21 @@ class DecodeServer:
                                  device=self.device)
         self._seed = torch.zeros((max_batch,), dtype=torch.long,
                                  device=self.device)
+        # the decode program's other static buffers: the rows that decode
+        # (copied in when the active-slot set changes, outside the
+        # program), the tokens of its T steps, and the paged kernel's
+        # split-merge scratch, which this engine owns so that nothing
+        # else can replace what its graphs replay
+        self._keep = torch.zeros((max_batch,), dtype=torch.bool,
+                                 device=self.device)
+        self._keep_for: Optional[Tuple[int, ...]] = None
+        self._toks = torch.zeros((max_batch, decode_steps), dtype=torch.long,
+                                 device=self.device)
+        self._scratch = _kernels.PagedScratch()
+        # captured programs by ``sampling`` and the side stream they are
+        # captured on
+        self._graphs: Dict[bool, _Graph] = {}
+        self._capture_stream = None
         self.max_pending = max_pending
         self._free: Deque[int] = deque(range(max_batch))
         self._active: Dict[int, _Request] = {}      # slot -> request
@@ -319,11 +377,12 @@ class DecodeServer:
         # between the loop's interval samples); None on the CPU
         self.hbm: Optional[dict] = None
         self._hbm_next = 0.0
-        # the one in-flight tick (pipeline_depth 1) and the pinned host
-        # buffer its tokens land in; tokens a barrier flush consumed are
-        # credited to the next step_finish
-        self._inflight: Optional[_InFlight] = None
-        self._host_toks: Optional[torch.Tensor] = None
+        # the in-flight window (up to pipeline_depth ticks, consumed in
+        # dispatch order), block frees parked while it is not empty, and
+        # tokens a barrier flush consumed, credited to the next
+        # step_finish
+        self._inflight: Deque[_InFlight] = deque()
+        self._deferred: List[int] = []
         self._flush_emitted = 0
         self.ticks = 0
         # dispatch economics: time with no tick in flight while slots
@@ -342,7 +401,8 @@ class DecodeServer:
         self.ledger_enabled = True
         self.ledger_cap = 4096
         self._ledgers: Dict[int, dict] = {}
-        # eager torch compiles nothing: no compile events, ever
+        # compile accounting: the first capture of each program on the
+        # card (the CPU captures nothing)
         self.compiles = 0
         self.compile_s = 0.0
         self.compile_events: List[float] = []
@@ -514,7 +574,7 @@ class DecodeServer:
         plen = len(req.prompt)
         n = blocks_for(plen, bs)
         table = self._alloc.alloc_many(n)
-        idx = torch.tensor(table, dtype=torch.long, device=self.device)
+        idx = self._to_device(torch.tensor(table, dtype=torch.long))
         for name in ("k", "v"):
             r = row[name][:, 0, :, :n * bs]             # [L, Hkv, n*bs, D]
             L, h_kv, _, d = r.shape
@@ -526,37 +586,46 @@ class DecodeServer:
         s = req.slot
         self._tables[s] = table
         self._set_table_row(s)
-        self.cache["pos"][s] = plen
-        self._last[s, 0] = first
+        self.cache["pos"][s].fill_(plen)
+        self._last[s, 0].fill_(first)
 
     def _set_sampling_rows(self, req: _Request) -> None:
         """Install one request's sampling params in its slot's rows: the
         one place they land."""
         s = req.slot
-        self._temp[s] = req.temperature
-        self._topk[s] = req.top_k
-        self._topp[s] = req.top_p
-        self._seed[s] = req.seed
+        self._temp[s].fill_(req.temperature)
+        self._topk[s].fill_(req.top_k)
+        self._topp[s].fill_(req.top_p)
+        self._seed[s].fill_(req.seed)
+
+    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the engine's device. On the card it is copied
+        from pinned memory, queued on the engine's stream behind the
+        ticks in flight, so the host does not wait for them."""
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     def _set_table_row(self, slot: int) -> None:
         """Mirror one slot's host block table into the device table
-        (unassigned logical blocks -> the null block 0)."""
+        (unassigned logical blocks -> the null block 0); the write lands
+        after the ticks in flight, which still read the old row."""
         row = np.zeros((self._nbs,), np.int32)
         blocks = self._tables[slot]
         row[:len(blocks)] = blocks
-        self._table[slot] = torch.from_numpy(row).to(self.device)
+        self._table[slot].copy_(self._to_device(torch.from_numpy(row)))
 
     def _finish_if_done(self, req: _Request, admit: bool = True) -> None:
         """Completion: free the slot's blocks, reset its pos, close the
-        ledger, and (unless the caller admits once after a whole tick)
-        admit."""
+        ledger, and (unless the caller is consuming an arrival, and
+        admits once after the window) admit."""
         if req.done and req.slot >= 0:
             s = req.slot
             del self._active[s]
-            for b in self._tables[s]:
-                self._alloc.decref(b)
-            self._tables[s] = []
-            self.cache["pos"][s] = 0
+            self._free_slot_blocks(s)
+            # the rollback: pos alone decides what exists, so the overrun
+            # of ticks that decoded past the request's end is discarded
+            self.cache["pos"][s].fill_(0)
             self._free.append(s)
             req.slot = -1
             self._done[req.rid] = req
@@ -591,95 +660,228 @@ class DecodeServer:
         self._ledgers.clear()
         return out
 
+    def _free_slot_blocks(self, slot: int) -> None:
+        """Release a finished or cancelled slot's blocks. With ticks in
+        flight the frees park: those ticks still write through this
+        table, and a block reallocated before they land would be
+        overwritten. ``_drain_deferred`` lands them once the window is
+        empty."""
+        table, self._tables[slot] = self._tables[slot], []
+        if self._inflight:
+            self._deferred.extend(table)
+        else:
+            for b in table:
+                self._alloc.decref(b)
+
+    def _drain_deferred(self) -> None:
+        if self._deferred and not self._inflight:
+            for b in self._deferred:
+                self._alloc.decref(b)
+            self._deferred.clear()
+
     def _ensure_blocks(self, active: List[int]) -> None:
-        """Each decoding slot's next write position must land in a block
+        """Each decoding slot's next ``decode_steps`` write positions,
+        past those the ticks in flight already cover, must land in blocks
         it owns: growth allocates. Positions past the request's terminal
         length stay unallocated and route to the null block. Blocks are
         never shared in this slice (no prefix cache, no fork), so no
         copy-on-write is needed."""
-        bs = self.kv_block_size
+        bs, span = self.kv_block_size, self.decode_steps
         for s in active:
             req = self._active[s]
-            start = len(req.prompt) + len(req.out) - 1
-            if start >= len(req.prompt) + req.max_new_tokens - 1:
+            pending = sum(1 for ent in self._inflight
+                          if not ent.consumed and s in ent.slots)
+            start = len(req.prompt) + len(req.out) - 1 + pending * span
+            end = min(start + span, len(req.prompt) + req.max_new_tokens - 1)
+            if start >= end:
                 continue
             table = self._tables[s]
-            if start // bs >= len(table):
-                try:
-                    table.append(self._alloc.alloc())
-                except NoFreeBlocks as e:
-                    raise NoFreeBlocks(
-                        f"{e}; preemption is not ported to the torch "
-                        f"engine yet — size kv_blocks for the load") from e
+            grown = False
+            while len(table) <= (end - 1) // bs:
+                table.append(self._alloc.alloc())
+                grown = True
+            if grown:
                 self._set_table_row(s)
 
+    def _pre_dispatch(self, active: List[int]) -> bool:
+        """Block discipline before a dispatch. True: dispatch ``active``
+        as it is. False: the pool ran dry and the window was flushed
+        (late completions and their frees landed); recompute and retry.
+        Dry with nothing in flight raises."""
+        try:
+            self._ensure_blocks(active)
+            return True
+        except NoFreeBlocks as e:
+            if self._inflight:
+                self._flush()
+                return False
+            raise NoFreeBlocks(
+                f"{e}; preemption is not ported to the torch engine yet "
+                f"— size kv_blocks for the load") from e
+
     def step(self) -> int:
-        """One decode tick for every active slot, the three phases in a
-        row; returns the tokens emitted (0 when idle)."""
+        """One scheduling quantum, the three phases in a row: dispatch
+        until the window is full, wait for the oldest tick, consume it;
+        returns the tokens emitted (0 when idle)."""
         handle = self.step_begin()
         self.step_wait(handle)
         return self.step_finish(handle)
 
     def step_begin(self) -> Optional[_InFlight]:
-        """Dispatch phase: grow block tables, dispatch the tick's device
-        work (``forward_paged``, argmax, the sampling ops when a slot
-        samples), update ``_last`` and ``pos``, and start a non-blocking
-        copy of the ``[max_batch]`` tokens into a pinned host buffer
-        behind a CUDA event. Returns the in-flight tick without waiting
-        (None when idle); with a tick already in flight it dispatches
-        nothing and returns that one."""
+        """Dispatch phase: ticks back to back until ``pipeline_depth``
+        are in flight (the program feeds itself its next tokens on the
+        device, so tick N+1 never waits for tick N's), each after its
+        block growth and with its token copy to the host started.
+        Returns the oldest unconsumed tick without waiting (None when
+        idle)."""
         t_begin = time.perf_counter()
         self._begin_dispatch_s = 0.0
-        if self._inflight is None:
-            active = sorted(self._active)
-            if active:
-                self._ensure_blocks(active)
-                self._dispatch_tick(active)
+        active = sorted(self._active)
+        while active and len(self._inflight) < self.pipeline_depth:
+            if not self._pre_dispatch(active):
+                active = sorted(self._active)
+                continue
+            self._dispatch_tick(active)
         # everything outside _dispatch_tick is assembly
         self.last_assemble_s = max(
             0.0, time.perf_counter() - t_begin - self._begin_dispatch_s)
-        return self._inflight
+        return self._inflight[0] if self._inflight else None
+
+    def _set_keep(self, active: Tuple[int, ...]) -> None:
+        """Point the program's keep mask at ``active``: copied into the
+        static buffer behind the ticks in flight, and only when the set
+        changed (sets repeat for whole decode phases)."""
+        if active == self._keep_for:
+            return
+        host = torch.zeros((self.max_batch,), dtype=torch.bool)
+        host[list(active)] = True
+        self._keep.copy_(self._to_device(host))
+        self._keep_for = active
 
     def _dispatch_tick(self, active: List[int]) -> None:
+        """Run one decode program for ``active`` slots (one replay on the
+        card) and start the copy of its ``[max_batch, T]`` tokens into
+        the tick's own host buffer; no host sync."""
+        self._set_keep(tuple(active))
+        sampling = any(self._active[s].temperature > 0 for s in active)
         t0 = time.perf_counter()
         if self._idle_since is not None:
             # the dispatch gap ends when a tick is in flight again
             self.dispatch_gap_s += t0 - self._idle_since
             self._idle_since = None
-        keep = torch.zeros((self.max_batch,), dtype=torch.bool,
-                           device=self.device)
-        keep[active] = True
-        # inactive rows decode too, into the null block, pos frozen
-        table = torch.where(keep[:, None], self._table,
-                            torch.zeros_like(self._table))
-        pos0 = self.cache["pos"].clone()
-        logits, self.cache = forward_paged(
-            self.params, self.cfg, self._last, self.cache, table,
-            paged_impl=self.paged_kernel)
-        self.cache["pos"] = torch.where(keep, self.cache["pos"], pos0)
-        step = logits[:, -1].float()
-        nxt = torch.argmax(step, dim=-1)
-        if any(self._active[s].temperature > 0 for s in active):
-            nxt = self._sample(step, pos0, nxt)
-        self._last = torch.where(keep[:, None], nxt[:, None], self._last)
+        self._launch(sampling)
         if self.device.type == "cuda":
-            if self._host_toks is None:
-                self._host_toks = torch.empty(
-                    (self.max_batch,), dtype=torch.long, pin_memory=True)
-            # one buffer serves every tick: a tick is consumed before the
-            # next is dispatched
-            self._host_toks.copy_(nxt, non_blocking=True)
+            buf = torch.empty(tuple(self._toks.shape), dtype=torch.long,
+                              pin_memory=True)
+            buf.copy_(self._toks, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-            buf = self._host_toks
         else:
-            buf, event = nxt, None        # already on the host
+            buf, event = self._toks.clone(), None
         self.ticks += 1
         self.ticks_dispatched += 1
         dt = time.perf_counter() - t0
         self.host_block_s += dt
         self._begin_dispatch_s += dt
-        self._inflight = _InFlight(buf, event, tuple(active))
+        self._inflight.append(_InFlight(buf, event, tuple(active)))
+
+    def _decode_program(self, sampling: bool) -> torch.Tensor:
+        """The decode tick on the engine's static buffers: ``T =
+        decode_steps`` copies of the reference's ``decode_one`` (its
+        ``lax.scan``, unrolled). Reads the arena, ``pos``, ``_table``,
+        ``_last``, ``_keep`` and the sampling rows; writes the arena,
+        ``pos``, ``_last`` and ``_toks`` in place. Rows outside ``_keep``
+        decode into the null block with their pos and feed token frozen.
+        A sampled token is keyed by (seed, its absolute index pos + 1),
+        so streams do not depend on T. Returns the last step's logits."""
+        keep = self._keep
+        pos = self.cache["pos"]
+        table = torch.where(keep[:, None], self._table,
+                            torch.zeros_like(self._table))
+        toks = self._last
+        for j in range(self.decode_steps):
+            logits, out = forward_paged(self.params, self.cfg, toks,
+                                        self.cache, table,
+                                        paged_impl=self.paged_kernel,
+                                        scratch=self._scratch)
+            step = logits[:, -1].float()
+            nxt = torch.argmax(step, dim=-1)
+            if sampling:
+                nxt = self._sample(step, pos, nxt)
+            pos.copy_(torch.where(keep, out["pos"], pos))
+            self._toks[:, j].copy_(nxt)
+            toks = torch.where(keep[:, None], nxt[:, None], toks)
+        self._last.copy_(toks)
+        return step
+
+    def _launch(self, sampling: bool) -> torch.Tensor:
+        """Run the decode program: on the card, replay its graph
+        (captured at the first tick that needs it); on the CPU, call it.
+        Returns the last step's logits."""
+        if self.device.type != "cuda":
+            return self._decode_program(sampling)
+        graph = self._graphs.get(sampling)
+        if graph is None:
+            graph = self._graphs[sampling] = self._capture(sampling)
+        return graph.replay()
+
+    def capture_programs(self) -> Dict[str, float]:
+        """Capture the decode programs (greedy, sampled) that are not yet
+        captured, now instead of at the first tick that needs each, so
+        no tick pays a capture; returns {"greedy"|"sampled": seconds}
+        for those captured. Needs an idle engine. The CPU captures
+        nothing."""
+        if self.device.type != "cuda":
+            return {}
+        if self.has_work() or self._inflight:
+            raise RuntimeError("capture_programs needs an idle engine")
+        out = {}
+        for sampling in (False, True):
+            if sampling not in self._graphs:
+                t0 = self.compile_s
+                self._graphs[sampling] = self._capture(sampling)
+                out["sampled" if sampling else "greedy"] = \
+                    self.compile_s - t0
+        return out
+
+    def _capture(self, sampling: bool) -> _Graph:
+        """Capture one decode program into a CUDA graph, on a side stream
+        after everything queued on the engine's stream. A warm-up run
+        first loads the kernels and sizes the paged kernel's scratch and
+        launch counter (neither may be allocated inside a capture), as a
+        null tick: every row outside the keep mask, so it writes only
+        the null block and leaves pos and the feed tokens as they were.
+        The graph reads nothing that is keyed by the side stream. Errors
+        raise; the time is accounted as the reference accounts a
+        compile."""
+        t0 = time.perf_counter()
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        side = self._capture_stream
+        main = torch.cuda.current_stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            keep = self._keep.clone()
+            self._keep.zero_()
+            self._decode_program(sampling)
+            self._keep.copy_(keep)
+        main.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            logits = self._decode_program(sampling)
+        out = _Graph(graph, logits,
+                     (self._scratch.part, self._scratch.ticket),
+                     torch.cuda.memory_reserved(self.device) - reserved)
+        dt = time.perf_counter() - t0
+        self.compiles += 1
+        self.compile_s += dt
+        self.compile_events.append(dt)
+        return out
 
     def step_wait(self, ent: Optional[_InFlight]) -> None:
         """Block until ``ent``'s tokens are on the host: the event's
@@ -690,7 +892,7 @@ class DecodeServer:
         self._fetch(ent)
 
     def _fetch(self, ent: _InFlight) -> None:
-        """The tick's tokens as a host list. Two threads may fetch one
+        """The tick's tokens as host lists. Two threads may fetch one
         tick at once: the ticker in ``step_wait`` (unlocked) and a
         barrier flush; the buffer stays on the tick, so both read the
         same tokens."""
@@ -710,16 +912,26 @@ class DecodeServer:
         emitted = self._flush_emitted
         self._flush_emitted = 0
         if ent is not None and not ent.consumed:
-            assert self._inflight is ent
-            self._inflight = None
+            # arrivals are consumed in dispatch order; ent is the window
+            # head unless a flush got there first
+            assert self._inflight and self._inflight[0] is ent
+            self._inflight.popleft()
             emitted += self._consume(ent)
         self._admit()
+        if not self._active and not self._pending and self._inflight:
+            # the burst ended with overrun ticks in flight: consume them
+            # now (nothing appends), so no frees linger while idle
+            self._flush()
+        self._drain_deferred()
         self._note_window_empty()
         return emitted
 
     def _consume(self, ent: _InFlight) -> int:
-        """Append one tick's tokens to its requests, once. A slot whose
-        request finished meanwhile contributes nothing."""
+        """Append one tick's tokens ([max_batch, T]) to its requests in
+        order, once, stopping at each request's end: the overrun after a
+        stop token or ``max_new_tokens`` is never appended (and earns no
+        ledger stamp). A slot whose request finished meanwhile
+        contributes nothing. One clock read stamps the arrival."""
         if ent.consumed:
             return 0
         ent.consumed = True
@@ -731,32 +943,48 @@ class DecodeServer:
             req = self._active.get(s)
             if req is None or req.done:
                 continue
-            req.out.append(toks[s])
-            req.note_token()
-            emitted += 1
+            n = 0
+            for t in toks[s]:
+                req.out.append(t)
+                req.note_token()
+                n += 1
+                if req.done:
+                    break
+            emitted += n
             if now:
-                req.led.note_tokens(1, now)
+                req.led.note_tokens(n, now)
             self._finish_if_done(req, admit=False)
         self.tokens_emitted += emitted
         return emitted
 
     def _flush(self) -> int:
-        """Barrier: consume the in-flight tick before the batch changes;
-        its tokens are credited to the next step_finish."""
-        ent, self._inflight = self._inflight, None
-        if ent is None:
-            return 0
-        self.pipeline_flushes += 1
-        emitted = self._consume(ent)
+        """Barrier: consume every tick in flight, in dispatch order,
+        before the batch changes; their tokens are credited to the next
+        step_finish, and the parked block frees land."""
+        emitted = 0
+        if self._inflight:
+            self.pipeline_flushes += 1
+        while self._inflight:
+            emitted += self._consume(self._inflight.popleft())
         self._flush_emitted += emitted
+        self._drain_deferred()
         return emitted
 
     def _note_window_empty(self) -> None:
         """Start the dispatch-gap clock when no tick is in flight while
         slots could decode."""
-        if self._inflight is None and self._idle_since is None \
+        if not self._inflight and self._idle_since is None \
                 and self._active:
             self._idle_since = time.perf_counter()
+
+    def reset_dispatch_stats(self) -> None:
+        """Zero the dispatch-economics counters and the gap clock (a
+        measurement window's fence)."""
+        self.dispatch_gap_s = 0.0
+        self.host_block_s = 0.0
+        self.ticks_dispatched = 0
+        self.pipeline_flushes = 0
+        self._idle_since = None
 
     def note_tick_seconds(self, seconds: float) -> None:
         """A measured decode-tick duration, kept for the budgeted-prefill
@@ -797,7 +1025,7 @@ class DecodeServer:
                 return True
         if not any(req.rid == rid for req in self._active.values()):
             return False
-        # barrier: the in-flight tick lands first (it may even finish
+        # barrier: the ticks in flight land first (they may even finish
         # the request, which then is no longer active below)
         self._flush()
         for req in self._active.values():
@@ -835,7 +1063,7 @@ class DecodeServer:
             "blocks_free": self._alloc.free_count,
             "blocks_used": self._alloc.used_count,
             "cow_shared": 0,            # no prefix cache, no fork
-            "deferred_frees": 0,
+            "deferred_frees": len(self._deferred),
             "prefix": None,
             "preempts": {"swap": 0, "recompute": 0},   # not ported
             "tenant_reclaims": 0,
@@ -879,7 +1107,7 @@ class DecodeServer:
             "prefill_sched": None,
             "pipeline": {"depth": self.pipeline_depth,
                          "decode_steps": self.decode_steps,
-                         "in_flight": int(self._inflight is not None),
+                         "in_flight": len(self._inflight),
                          "flushes": self.pipeline_flushes,
                          "ticks_dispatched": self.ticks_dispatched},
             "prefix_cache": {"capacity": 0, "entries": 0,
@@ -894,15 +1122,18 @@ class DecodeServer:
         }
 
     def free_device_memory(self, free_cache: bool = True) -> None:
-        """Drop this engine's device tensors (weights, arena, tables) so
-        a supervised rebuild does not need twice the card's memory; the
-        host bookkeeping (progress, stats) stays readable. The engine
-        cannot tick again. ``free_cache`` also returns the freed blocks
-        to the device (not done for a device declared wedged: freeing
-        would wait on it)."""
+        """Drop this engine's device tensors (weights, arena, tables, the
+        captured graphs and their memory pools) so a supervised rebuild
+        does not need twice the card's memory; the host bookkeeping
+        (progress, stats) stays readable. The engine cannot tick again.
+        ``free_cache`` also returns the freed blocks to the device (not
+        done for a device declared wedged: freeing would wait on it)."""
         self.params = self.cache = self._table = self._last = None
         self._temp = self._topk = self._topp = self._seed = None
-        self._inflight = None
+        self._keep = self._toks = self._scratch = None
+        self._graphs = {}
+        self._capture_stream = None
+        self._inflight = deque()
         if free_cache and self.device.type == "cuda":
             torch.cuda.empty_cache()
 

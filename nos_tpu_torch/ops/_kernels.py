@@ -12,7 +12,11 @@ Nothing here touches CUDA when the module is imported, so the CPU tests
 import it freely. Each wrapper checks what it is handed, allocates its
 output with ``torch.empty``, launches on PyTorch's current stream, raises
 on a non-zero ``cudaGetLastError()``, and counts its launches in
-``launches`` (set it to 0 to start a count).
+``launches`` (set it to 0 to start a count). The paged decode kernel,
+which the serving engine records into CUDA graphs, counts itself on the
+card, so its count is what the card ran, every replay included; the
+other kernels are counted by their wrappers and refuse to be recorded
+into a graph.
 """
 from __future__ import annotations
 
@@ -121,44 +125,110 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+def _refuse_capture(name: str) -> None:
+    """A kernel counted by its wrapper must not be recorded into a CUDA
+    graph, whose replays would launch it uncounted."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name}: its launches are counted on the host, "
+                           f"so it cannot be recorded into a CUDA graph")
+
+
+class PagedScratch:
+    """The paged kernel's split-merge scratch: ``part`` (f32, the
+    blocks' softmax states) and ``ticket`` (int32 counters, zero between
+    launches: the kernel leaves them zero). Launches that share one must
+    run in order on one stream. It grows when a call needs more, but
+    never inside a CUDA graph capture: a graph replays the pointers it
+    recorded, so its owner runs the program once before capturing it
+    and keeps these tensors for as long as it replays the graph."""
+
+    def __init__(self):
+        self.part: Optional[torch.Tensor] = None
+        self.ticket: Optional[torch.Tensor] = None
+
+    def get(self, device: torch.device, floats: int, tickets: int) -> tuple:
+        """(part, ticket) of at least these sizes on ``device``."""
+        if self.part is None or self.part.numel() < floats \
+                or self.ticket.numel() < tickets:
+            if device.type == "cuda" \
+                    and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "paged_decode_attention: the scratch would grow inside "
+                    "a CUDA graph capture; run the program once first")
+            self.part = torch.empty(floats, dtype=torch.float32,
+                                    device=device)
+            self.ticket = torch.zeros(tickets, dtype=torch.int32,
+                                      device=device)
+        return self.part, self.ticket
+
+
 class _PagedDecode(_Kernel):
     """``csrc/paged_decode_attention.cu``: the counterpart of
     ``nos_tpu/ops/attention.py::paged_decode_attention``, one launch per
     call. The ``n_split`` blocks (``paged_splits``) of each (query-row
     tile, kv head, batch row) split the row's live pages, stream them
     through a ring of bulk copies, and merge their softmax states inside
-    the launch: each leaves its state in a slot of a scratch and takes a
-    ticket, and the last folds the slots in split order. The scratch and
-    its tickets belong to one (device, stream): calls on one stream run
-    in order and share them, while launches on two streams never touch
-    each other's tickets. They are allocated at a stream's first call
-    and grown when a call needs more (the kernel leaves the tickets at
-    zero), so a call allocates only its output; a CUDA graph captures
-    the scratch that a warm-up launch on its stream allocated."""
+    the launch: each leaves its state in a slot of a ``PagedScratch``
+    and takes a ticket, and the last folds the slots in split order. A
+    caller that records launches into a CUDA graph passes its own
+    scratch; other calls share one per (device, stream): calls on one
+    stream run in order, while launches on two streams never touch each
+    other's tickets. Each launch adds one to a counter on its device
+    (``launches`` reads them), so a graph's replays count as they run."""
 
     def __init__(self):
+        self._counts: Dict[torch.device, torch.Tensor] = {}
+        self._launch_base = 0
         super().__init__(
             "paged_decode_attention.cu", "nos_paged_decode_attention",
-            [_P] * 10 + [_I] * 7 + [_F, _I, _I, _I, _P])
-        self._scratch: Dict[Tuple[torch.device, int], tuple] = {}
+            [_P] * 11 + [_I] * 7 + [_F, _I, _I, _I, _P])
+        self._scratch: Dict[Tuple[torch.device, int], PagedScratch] = {}
+
+    @property
+    def launches(self) -> int:
+        """The launches the card ran since the count was last set, as
+        the kernel counted them; reading waits for each device."""
+        n = self._launch_base
+        for device, count in self._counts.items():
+            torch.cuda.synchronize(device)
+            n += int(count.item())
+        return n
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        for device, count in self._counts.items():
+            torch.cuda.synchronize(device)
+            count.zero_()
+            torch.cuda.synchronize(device)
+        self._launch_base = value
+
+    def _count(self, device: torch.device) -> torch.Tensor:
+        """The device's launch counter, made outside any graph capture
+        (a capture would record its zeroing into every replay)."""
+        count = self._counts.get(device)
+        if count is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "paged_decode_attention: the first launch on a device "
+                    "cannot be inside a CUDA graph capture")
+            count = self._counts[device] = torch.zeros(
+                1, dtype=torch.int64, device=device)
+        return count
 
     def _part(self, device: torch.device, stream: int, floats: int,
               tickets: int):
         """(part, ticket) of at least these sizes for ``stream`` (its
         handle) on ``device``."""
-        part, ticket = self._scratch.get((device, stream), (None, None))
-        if part is None or part.numel() < floats \
-                or ticket.numel() < tickets:
-            part = torch.empty(floats, dtype=torch.float32, device=device)
-            ticket = torch.zeros(tickets, dtype=torch.int32, device=device)
-            self._scratch[(device, stream)] = (part, ticket)
-        return part, ticket
+        scratch = self._scratch.get((device, stream))
+        if scratch is None:
+            scratch = self._scratch[(device, stream)] = PagedScratch()
+        return scratch.get(device, floats, tickets)
 
     def launch(self, q: torch.Tensor, k_arena: torch.Tensor,
                v_arena: torch.Tensor, table: torch.Tensor,
                pos: torch.Tensor, *, k_scale: Optional[torch.Tensor],
-               v_scale: Optional[torch.Tensor],
-               scale: float) -> torch.Tensor:
+               v_scale: Optional[torch.Tensor], scale: float,
+               scratch: Optional[PagedScratch] = None) -> torch.Tensor:
         int8 = k_scale is not None
         tensors = [q, k_arena, v_arena, table, pos]
         if int8:
@@ -211,11 +281,14 @@ class _PagedDecode(_Kernel):
         tiles = b * h_kv * paged_row_tiles(gs)
         n_split = paged_splits(tiles, _sm_count(q.device))
         stream = _stream(q)
+        count = self._count(q.device)
         part = ticket = None
         if n_split > 1:
             rows = 4 if gs <= 4 else 8
-            part, ticket = self._part(
-                q.device, stream, tiles * n_split * rows * (d + 2), tiles)
+            floats = tiles * n_split * rows * (d + 2)
+            part, ticket = (
+                scratch.get(q.device, floats, tiles) if scratch is not None
+                else self._part(q.device, stream, floats, tiles))
         rc = self.fn()(
             q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
             k_scale.data_ptr() if int8 else None,
@@ -223,13 +296,13 @@ class _PagedDecode(_Kernel):
             table.data_ptr(), pos.data_ptr(), out.data_ptr(),
             part.data_ptr() if part is not None else None,
             ticket.data_ptr() if ticket is not None else None,
-            b, h, h_kv, s, d, bs, nb, float(scale), n_split,
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_arena.dtype], stream)
+            count.data_ptr(), b, h, h_kv, s, d, bs, nb, float(scale),
+            n_split, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_arena.dtype],
+            stream)
         if rc != 0:
             raise RuntimeError(
                 f"paged_decode_attention kernel launch failed: "
                 f"cudaError {rc}")
-        self.launches += 1
         return out
 
 
@@ -330,6 +403,7 @@ class _FlashKernel(_Kernel):
         super().__init__("flash_attention.cu", symbol, argtypes)
 
     def _call(self, *args) -> None:
+        _refuse_capture(self.symbol[4:])
         rc = self.fn()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} kernel launch failed: "
@@ -413,6 +487,8 @@ flash_fwd = _FlashForward()
 flash_bwd_pre = _FlashPreprocess()
 flash_bwd_dkdv = _FlashBackward(dq=False)
 flash_bwd_dq = _FlashBackward(dq=True)
+
+
 class _AdamW(_Kernel):
     """``csrc/adamw.cu``: optax's adamw update of one parameter leaf in
     place, every operation rounded to the leaf's dtype as the
@@ -442,6 +518,7 @@ class _AdamW(_Kernel):
         if p.numel() >= 2 ** 31:
             raise ValueError(f"adamw: a leaf of {p.numel()} elements; the "
                              f"kernel takes fewer than 2^31")
+        _refuse_capture("adamw")
         rc = self.fn()(p.data_ptr(), g.data_ptr(), mu.data_ptr(),
                        nu.data_ptr(), p.numel(), _DTYPE_CODE[p.dtype],
                        *consts, _sm_count(p.device), _stream(p))

@@ -35,6 +35,7 @@ __all__ = ["attention", "effective_impl", "flash_attention_reference",
            "flash_attention_backward_reference", "flash_attention_backward",
            "check_attention_head_dim", "xla_attention", "paged_gather_kv",
            "paged_gather_scale", "paged_scatter_kv", "paged_scatter_scale",
+           "paged_write_route", "scatter_kv_routed", "scatter_scale_routed",
            "quantize_kv", "dequantize_kv", "paged_decode_attention",
            "paged_decode_attention_reference", "effective_paged_impl",
            "check_paged_kernel_head_dim"]
@@ -131,11 +132,13 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def _route_paged_writes(table: torch.Tensor, pos: torch.Tensor, s: int,
-                        bs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def paged_write_route(table: torch.Tensor, pos: torch.Tensor, s: int,
+                      bs: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Positions pos..pos+s-1 on each row's timeline -> (phys [B, S]
     physical block ids, offs [B, S] within-block offsets). Out-of-range
-    logical blocks route to the null block 0."""
+    logical blocks route to the null block 0. It depends on the table,
+    pos and the block size only, so a forward computes it once for every
+    layer's scatters."""
     nb = table.shape[1]
     offs = pos.long()[:, None] + torch.arange(s, device=pos.device)[None, :]
     logical = torch.div(offs, bs, rounding_mode="floor")
@@ -146,26 +149,44 @@ def _route_paged_writes(table: torch.Tensor, pos: torch.Tensor, s: int,
     return phys, offs % bs
 
 
+def scatter_kv_routed(arena: torch.Tensor, route: Tuple[torch.Tensor,
+                                                        torch.Tensor],
+                      vals: torch.Tensor) -> torch.Tensor:
+    """``paged_scatter_kv`` along a ``paged_write_route``: vals
+    [B, Hkv, S, D] into arena [NB, Hkv, bs, D] IN PLACE; returns it."""
+    phys, offs = route
+    arena[phys, :, offs, :] = vals.permute(0, 2, 1, 3).to(arena.dtype)
+    return arena
+
+
+def scatter_scale_routed(scales: torch.Tensor,
+                         route: Tuple[torch.Tensor, torch.Tensor],
+                         vals: torch.Tensor) -> torch.Tensor:
+    """``paged_scatter_scale`` along a ``paged_write_route``: vals
+    [B, Hkv, S] into scales [NB, Hkv, bs] IN PLACE; returns it."""
+    phys, offs = route
+    scales[phys, :, offs] = vals.permute(0, 2, 1)
+    return scales
+
+
 def paged_scatter_kv(arena: torch.Tensor, table: torch.Tensor,
                      pos: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Write vals [B, Hkv, S, D] at positions pos..pos+S-1 of each row's
     timeline into arena [NB, Hkv, bs, D] IN PLACE (the reference donates
     the arena); returns it. Rows routed to the null block may collide
     there; its content is never read unmasked."""
-    phys, offs = _route_paged_writes(table, pos, vals.shape[2],
-                                     arena.shape[2])
-    arena[phys, :, offs, :] = vals.permute(0, 2, 1, 3).to(arena.dtype)
-    return arena
+    return scatter_kv_routed(
+        arena, paged_write_route(table, pos, vals.shape[2], arena.shape[2]),
+        vals)
 
 
 def paged_scatter_scale(scales: torch.Tensor, table: torch.Tensor,
                         pos: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Scale-plane twin of ``paged_scatter_kv``: vals [B, Hkv, S] into
     scales [NB, Hkv, bs] IN PLACE, same routing."""
-    phys, offs = _route_paged_writes(table, pos, vals.shape[2],
-                                     scales.shape[2])
-    scales[phys, :, offs] = vals.permute(0, 2, 1)
-    return scales
+    return scatter_scale_routed(
+        scales, paged_write_route(table, pos, vals.shape[2],
+                                  scales.shape[2]), vals)
 
 
 def effective_paged_impl() -> str:
@@ -222,6 +243,7 @@ def paged_decode_attention(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    scratch: Optional[_kernels.PagedScratch] = None,
 ) -> torch.Tensor:
     """Paged attention of an S-wide query window walked by block table
     (``nos_tpu/ops/attention.py::paged_decode_attention`` without its
@@ -230,15 +252,18 @@ def paged_decode_attention(
     q [B, H, S, D] at positions pos..pos+S-1 per row; k_arena/v_arena
     [NB, Hkv, bs, D] (bf16/f32, or int8 with ``k_scale``/``v_scale``
     [NB, Hkv, bs]); table [B, nb] int32; pos [B] int32 -> [B, H, S, D]
-    in q's dtype. CUDA tensors launch the hand-written kernel; CPU
-    tensors run ``paged_decode_attention_reference``."""
+    in q's dtype. CUDA tensors launch the hand-written kernel (with
+    ``scratch``, the caller's split-merge scratch: one that records the
+    launch into a CUDA graph keeps it alive); CPU tensors run
+    ``paged_decode_attention_reference``."""
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
             q, k_arena, v_arena, table, pos, k_scale=k_scale,
             v_scale=v_scale, scale=scale)
     return _kernels.paged_decode.launch(
         q, k_arena, v_arena, table, pos, k_scale=k_scale, v_scale=v_scale,
-        scale=scale if scale is not None else q.shape[-1] ** -0.5)
+        scale=scale if scale is not None else q.shape[-1] ** -0.5,
+        scratch=scratch)
 
 
 # ---------------------------------------------------------------------------

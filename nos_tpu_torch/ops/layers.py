@@ -37,25 +37,37 @@ def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0,
     return torch.cos(freqs), torch.sin(freqs)
 
 
+def rope_rows(freqs: Freqs, positions: Optional[torch.Tensor] = None,
+              seq: Optional[int] = None) -> Freqs:
+    """The (cos, sin) rows ``apply_rope`` rotates by, gathered at
+    ``positions`` ([seq] shared or [batch, seq] per row; None: the first
+    ``seq`` rows) and shaped to broadcast over the heads axis. A forward
+    gathers them once and rotates every layer's q and k with them."""
+    cos, sin = freqs
+    if positions is None:
+        cos, sin = cos[:seq], sin[:seq]
+    else:
+        cos, sin = cos[positions], sin[positions]
+    return cos[..., :, None, :], sin[..., :, None, :]
+
+
+def rotate(x: torch.Tensor, rows: Freqs) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim] rotated by ``rope_rows``' pair:
+    INTERLEAVED pairs (x[2i], x[2i+1]) as the reference's complex
+    multiply does, in f32, cast back once."""
+    cos, sin = rows
+    xc = x.float().reshape(*x.shape[:-1], -1, 2)
+    xr, xi = xc[..., 0], xc[..., 1]
+    out = torch.stack([xr * cos - xi * sin, xr * sin + xi * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
 def apply_rope(x: torch.Tensor, freqs: Freqs,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: [..., seq, heads, head_dim]; freqs: (cos, sin) from
     ``rope_frequencies``. ``positions`` may be [seq] (shared) or
-    [batch, seq] (per row). Rotates INTERLEAVED pairs (x[2i], x[2i+1])
-    as the reference's complex multiply does, in f32."""
-    orig_dtype = x.dtype
-    cos, sin = freqs
-    if positions is None:
-        seq = x.shape[-3]
-        cos, sin = cos[:seq], sin[:seq]
-    else:
-        cos, sin = cos[positions], sin[positions]
-    cos = cos[..., :, None, :]          # broadcast over the heads axis
-    sin = sin[..., :, None, :]
-    xc = x.float().reshape(*x.shape[:-1], -1, 2)
-    xr, xi = xc[..., 0], xc[..., 1]
-    out = torch.stack([xr * cos - xi * sin, xr * sin + xi * cos], dim=-1)
-    return out.reshape(x.shape).to(orig_dtype)
+    [batch, seq] (per row)."""
+    return rotate(x, rope_rows(freqs, positions, x.shape[-3]))
 
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:

@@ -198,3 +198,59 @@ def test_scratch_is_kept_per_stream_and_reused():
     assert paged._part(cpu, 2, 64, 8)[0] is b[0]
     assert not grown[1].any() and grown[1].dtype == torch.int32
     assert sorted(paged._scratch) == [(cpu, 1), (cpu, 2)]
+
+
+def test_owned_scratch_grows_only_when_a_call_needs_more():
+    """A caller's own scratch (a CUDA graph's owner passes one) is made
+    at its first call, reused while calls fit, and grown past them."""
+    scratch = _kernels.PagedScratch()
+    cpu = torch.device("cpu")
+    part, ticket = scratch.get(cpu, 64, 8)
+    assert part.numel() == 64 and ticket.numel() == 8
+    assert not ticket.any() and ticket.dtype == torch.int32
+    again = scratch.get(cpu, 32, 8)
+    assert again[0] is part and again[1] is ticket
+    grown = scratch.get(cpu, 64, 16)
+    assert grown[1].numel() == 16 and grown[0] is not part
+    assert (scratch.part, scratch.ticket) == grown
+
+
+@pytest.fixture
+def capturing(monkeypatch):
+    """As if the current CUDA stream were recording a graph."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+
+
+def test_scratch_never_grows_inside_a_capture(capturing):
+    with pytest.raises(RuntimeError, match="capture"):
+        _kernels.PagedScratch().get(torch.device("cuda", 0), 64, 8)
+
+
+def test_launch_counter_is_never_made_inside_a_capture(capturing):
+    """A counter zeroed inside a capture would be zeroed at every
+    replay."""
+    with pytest.raises(RuntimeError, match="capture"):
+        _kernels._PagedDecode()._count(torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("recording", [False, True])
+def test_host_counted_kernels_refuse_a_capture(monkeypatch, recording):
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: recording)
+    if not recording:
+        _kernels._refuse_capture("adamw")
+        return
+    with pytest.raises(RuntimeError, match="adamw: .*counted on the host"):
+        _kernels._refuse_capture("adamw")
+
+
+def test_paged_launch_count_reads_back_what_was_set():
+    """With no device counter yet (no launch), the count is what it was
+    set to; nothing touches CUDA."""
+    paged = _kernels._PagedDecode()
+    assert paged.launches == 0
+    paged.launches = 7
+    assert paged.launches == 7
+    paged.launches = 0
+    assert paged.launches == 0 and paged._counts == {}

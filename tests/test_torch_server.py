@@ -18,6 +18,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from collections import deque
 
 import pytest
 
@@ -663,7 +664,7 @@ def test_stats_endpoint_schema(served):
                                      "flushes", "ticks_dispatched"}
     assert set(snap["prefix_cache"]) == {"capacity", "entries", "hits",
                                          "tokens_saved"}
-    # eager torch compiles nothing
+    # the CPU captures no graph: nothing is compiled
     assert snap["compiles"] == {"count": 0, "seconds": 0.0}
     assert snap["tokens_emitted"] >= 1
     assert snap["healthy"] is True and snap["draining"] is False
@@ -696,7 +697,7 @@ def test_latency_histograms_exported_and_no_compiles(params):
             assert h.observations()[0] == before[n] + 1, n
         # 4 new tokens -> 3 decode tokens, each one TPOT sample
         assert loop.h_tpot.observations()[0] == tpot0 + 3
-        # eager torch compiles nothing: the series exist and stay put
+        # the CPU captures no graph: the series exist and stay put
         assert loop.m_compiles.value() == c0
         assert loop.h_compile.observations()[0] == compile0
         text = get(url, "/metrics")[1].decode()
@@ -1075,7 +1076,7 @@ def test_flush_while_the_ticker_is_inside_the_device_wait(params):
         def _dispatch_tick(self, active):
             super()._dispatch_tick(active)
             if not first.go.is_set():
-                self._inflight.event = first
+                self._inflight[-1].event = first
 
     eng = port_engine(tp, max_batch=3, cls=HeldFirstTick)
     loop = ServingLoop(eng)
@@ -1196,6 +1197,61 @@ def test_step_error_rebuilds_engine_and_fails_live_requests(params):
         loop.shutdown()
 
 
+def test_step_error_at_depth_2_accounts_every_live_request_once(params):
+    """A pipelined, fused engine (depth 2, T 4) fails a tick with two
+    requests live and ticks in flight: the loop rebuilds it, each live
+    request is accounted ``failed`` exactly once, the dead engine keeps
+    no graph, window or static buffer, and the rebuilt engine serves."""
+    jp, tp = params
+
+    class ParkThenFail(_ParkedWait):
+        armed = True
+
+        def step_wait(self, ent):
+            if ParkThenFail.armed and self.go.is_set() \
+                    and len(self._active) == 2 and len(self._inflight) == 2:
+                ParkThenFail.armed = False
+                raise RuntimeError("injected tick failure")
+            super().step_wait(ent)
+
+    def factory():
+        eng = port_engine(tp, cls=ParkThenFail, pipeline_depth=2,
+                          decode_steps=4)
+        eng.go.set()
+        return eng
+
+    dead = port_engine(tp, cls=ParkThenFail, pipeline_depth=2,
+                       decode_steps=4)
+    loop = ServingLoop(dead, engine_factory=factory, restart_budget=1,
+                       restart_backoff_s=0.0)
+    try:
+        before = _outcomes()
+        a = loop.stream([1, 2], 40)
+        assert dead.in_wait.wait(timeout=30)    # ticker parked, unlocked
+        b = loop.stream([5, 6, 7], 40)          # barrier flush + prefill
+        assert dead._inflight == deque() and len(dead._active) == 2
+        dead.go.set()
+        for st in (a, b):
+            with pytest.raises(RuntimeError, match="lost in engine restart"):
+                for _ in st:
+                    pass
+        assert _wait_until(lambda: not loop.recovering
+                           and loop.engine is not dead)
+        assert dead.params is None and dead.cache is None
+        assert not dead._graphs and dead._capture_stream is None
+        assert dead._keep is None and dead._toks is None
+        assert not dead._inflight
+        assert loop.generate([3], 9, timeout=60) == want(jp, [3], 9)
+        assert _wait_until(lambda: _outcome_delta(before)
+                           == {"failed": 2, "finished": 1})
+        sup = loop.stats()["supervisor"]
+        assert sup["restarts"] == 1 and sup["lost"] == 2
+        assert loop.healthy
+    finally:
+        dead.go.set()
+        loop.shutdown()
+
+
 # ---------------------------------------------------------------------------
 # build_engine flags (:1065-1260), for the knobs the port serves or
 # refuses by name
@@ -1245,8 +1301,8 @@ def test_build_engine_validation_messages(kw, match):
     (dict(role="decode"), "role=decode"),
     (dict(role="prefill", decode_pool="http://d0:8000"), "role=prefill"),
     (dict(prefill_chunk=16), "prefill_chunk"),
-    (dict(pipeline_depth=2), "pipeline_depth"),
-    (dict(decode_steps=2), "decode_steps"),
+    (dict(prefix_cache_size=4), "prefix_cache_size"),
+    (dict(checkpoint_dir="/c"), "checkpoint_dir"),
     (dict(kv_swap=False), "kv_swap"),
     (dict(kv_blocks=0, kv_block_size=0), "kv_blocks=0"),
 ])
@@ -1331,7 +1387,7 @@ def test_main_flags_give_the_reference_config(argv, monkeypatch, tmp_path,
     (["--kv-blocks", "16", "--kv-block-size", "8",
       "--kv-fabric-token", "s"], "kv_fabric_token"),
     (["--kv-blocks", "16", "--kv-block-size", "8",
-      "--pipeline-depth", "2"], "pipeline_depth"),
+      "--prefill-chunk", "16"], "prefill_chunk"),
 ])
 def test_main_refused_knob_exits_naming_it(argv, knob, capsys,
                                            restore_logging):
@@ -1408,6 +1464,42 @@ def test_side_by_side_tokens(replicas, body, stream):
     assert tokens(turl) == ref
     if "temperature" not in body and "stop_tokens" not in body:
         assert ref == want(jp, body["prompt"], body["max_new_tokens"])
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["unary", "sse"])
+def test_side_by_side_pipelined_fused_replicas(params, stream):
+    """A reference replica and a port replica, both at pipeline_depth 2
+    and decode_steps 4: every side-by-side body gives the same unary and
+    joined-SSE tokens (SSE frames coarsen to about depth x T tokens)."""
+    from nos_tpu.cmd import server as jserver
+    from nos_tpu.models.serving import DecodeServer as JDecodeServer
+
+    jp, tp = params
+    knobs = dict(pipeline_depth=2, decode_steps=4)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NOS_TPU_PAGED_KERNEL", "0")
+        jeng = JDecodeServer(jp, JCFG, max_batch=2, **PAGED, **knobs)
+    cfg = jserver.ServerConfig(**MODEL, bf16=False, max_batch=2, port=0,
+                               **knobs)
+    jloop = jserver.ServingLoop(jeng)
+    jhttpd = jserver.make_http_server(cfg, jloop)
+    threading.Thread(target=jhttpd.serve_forever, daemon=True).start()
+    tloop = ServingLoop(port_engine(tp, **knobs))
+    thttpd, turl = serve(tloop)
+    jurl = f"http://127.0.0.1:{jhttpd.server_address[1]}"
+    try:
+        for body in SIDE_BY_SIDE:
+            def tokens(url):
+                if not stream:
+                    return post(url, body)["tokens"]
+                batches, done, err = sse_post(url, {**body, "stream": True})
+                assert done and err is None
+                return body["prompt"] + [t for b in batches for t in b]
+
+            assert tokens(turl) == tokens(jurl), body
+    finally:
+        stop(jhttpd, jloop)
+        stop(thttpd, tloop)
 
 
 @pytest.mark.parametrize("path,body", [

@@ -137,7 +137,8 @@ def test_build_engine_raises_reference_messages(clean_env, bad):
 
 @pytest.mark.parametrize("knob", [
     dict(kv_blocks=0), dict(prefix_cache_size=4), dict(prefill_chunk=16),
-    dict(pipeline_depth=2), dict(decode_steps=2), dict(tp=2),
+    dict(kv_fabric_token="s"),
+    dict(role="prefill", decode_pool="http://d0:8000"), dict(tp=2),
     dict(role="decode"), dict(kv_swap=False), dict(tenant_config="t.json"),
     dict(draft_checkpoint_dir="/d"), dict(checkpoint_dir="/c"),
 ])
