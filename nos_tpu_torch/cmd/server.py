@@ -33,9 +33,12 @@ Usage:
     python -m nos_tpu_torch.cmd.server --kv-blocks 1025 \\
         --kv-block-size 16 --port 8000
 
-``build_engine`` validates a config with the reference's messages, then
-refuses every knob the torch engine does not serve yet by name
-(``NotPorted``), before any weights are made: disaggregation roles and
+``--prefix-cache-size``, ``--prefill-chunk`` and ``--prefill-budget``
+serve as the reference's engine knobs do (a request's ``cache_prefix``
+publishes its prompt to the prefix cache). ``build_engine`` validates a
+config with the reference's messages, then refuses every knob the torch
+engine does not serve yet by name (``NotPorted``), before any weights
+are made: disaggregation roles and
 ``/v1/handoff``, the KV fabric (``/v1/kvchain``, ``kv_sources``, its
 token), tenant quotas, tensor parallelism and speculative decoding. An
 HTTP request that reaches one of them is answered 404 with the knob's
@@ -584,6 +587,43 @@ class ServingLoop:
                 ("mode",))
             for mode in ("swap", "recompute"):
                 self.m_preempt.labels(mode).inc(0)
+        # prefix-chain evictions, registered whenever the engine has a
+        # prefix index; the "demote" tier stays 0 until the host tier is
+        # ported. Mirrored as deltas of the engine's counts.
+        self._prefix_evict_seen = {"drop": 0, "demote": 0}
+        if getattr(engine, "_pindex", None) is not None:
+            self.m_prefix_evict = reg.counter(
+                "nos_tpu_serve_prefix_evict_total",
+                "Prefix chains evicted from the HBM index under block "
+                "pressure, by tier (drop = thrown away — the next hit "
+                "re-prefills; demote = swap payload captured into the "
+                "host-RAM KV tier for bit-exact promotion later)",
+                ("tier",))
+            for tier in ("drop", "demote"):
+                self.m_prefix_evict.labels(tier).inc(0)
+        # budgeted chunked prefill, registered only when the engine runs
+        # a per-tick budget (an unbudgeted loop exports no dead series)
+        if getattr(engine, "prefill_budget", 0) > 0:
+            self.m_psched_spent = reg.counter(
+                "nos_tpu_serve_prefill_budget_tokens_total",
+                "Prompt tokens of chunked prefill charged against the "
+                "per-tick budget (--prefill-budget), including "
+                "TTFT-critical overdraws")
+            self.m_psched_clamp = reg.counter(
+                "nos_tpu_serve_prefill_clamp_total",
+                "Ticks the prefill budget clamped to zero because an "
+                "active decode slot's TPOT slack went negative — "
+                "decode drains first, prefill rides its banked credit")
+            self.m_psched_override = reg.counter(
+                "nos_tpu_serve_prefill_override_total",
+                "Over-budget chunk forwards granted to a prefill "
+                "whose TTFT slack was inside one decode tick (at most "
+                "one per tick; the overdraw pays back from later "
+                "budget)")
+            self.m_psched_spent.inc(0)
+            self.m_psched_clamp.inc(0)
+            self.m_psched_override.inc(0)
+        self._psched_seen = {"spent": 0, "clamped": 0, "overrides": 0}
         self.m_compiles = reg.counter(
             "nos_tpu_serve_compiles_total",
             "XLA compiles observed by the engine (first dispatch per "
@@ -877,6 +917,11 @@ class ServingLoop:
                 "sample": max(0.0, t3 - t2),
                 "bookkeep": max(0.0, t4 - t3),
             }
+            if getattr(eng, "prefill_budget", 0) > 0:
+                # the budgeted prefill's TPOT cost model samples the
+                # decode half of the tick (assemble + dispatch + wait);
+                # step_finish, which runs the chunks, stays out of it
+                eng.note_tick_seconds(max(0.0, t2 - t0))
         else:
             phases = {
                 "assemble": 0.0,
@@ -1304,7 +1349,12 @@ class ServingLoop:
                 self._fail(exc)
                 return
             self.engine = new_engine
+            # the rebuilt engine's counts start at 0: reset the mirrors,
+            # or their deltas would go negative and freeze the counters
             self._preempt_seen = {"swap": 0, "recompute": 0}
+            self._psched_seen = {"spent": 0, "clamped": 0,
+                                 "overrides": 0}
+            self._prefix_evict_seen = {"drop": 0, "demote": 0}
             resumed = {"swap": 0, "recompute": 0}
             lost = 0
             seen = set()
@@ -1546,6 +1596,26 @@ class ServingLoop:
         if hits is not None:
             self.m_prefix_hits.set(hits)
             self.m_prefix_saved.set(self.engine.prefix_tokens_saved)
+        pindex = getattr(self.engine, "_pindex", None)
+        if pindex is not None and hasattr(self, "m_prefix_evict"):
+            for tier, n in pindex.evicted.items():
+                delta = n - self._prefix_evict_seen.get(tier, 0)
+                if delta > 0:
+                    self.m_prefix_evict.labels(tier).inc(delta)
+                    self._prefix_evict_seen[tier] = n
+        if hasattr(self, "m_psched_spent"):
+            for attr, key, m in (
+                    ("prefill_budget_spent", "spent",
+                     self.m_psched_spent),
+                    ("prefill_budget_clamped", "clamped",
+                     self.m_psched_clamp),
+                    ("prefill_budget_overrides", "overrides",
+                     self.m_psched_override)):
+                n = getattr(self.engine, attr, 0)
+                delta = n - self._psched_seen[key]
+                if delta > 0:
+                    m.inc(delta)
+                    self._psched_seen[key] = n
         occupancy = getattr(self.engine, "occupancy", None)
         if occupancy is not None:
             active, pending = occupancy()
@@ -1613,6 +1683,15 @@ class ServingLoop:
             if dl_s is not None:
                 est, est_tokens = self._estimate_completion_s(
                     max_new_tokens)
+                # the chunk queue ahead of this request delays its TTFT:
+                # its estimated seconds count at admission, the earliest
+                # layer that can know the deadline is dead
+                backlog_fn = getattr(self.engine, "prefill_backlog_s",
+                                     None)
+                backlog_s = float(backlog_fn() or 0.0) \
+                    if backlog_fn is not None else 0.0
+                if est is not None:
+                    est += backlog_s
                 if est is not None and est > dl_s \
                         and (self._shed_streak + 1) \
                         % DEADLINE_PROBE_EVERY != 0:
@@ -1629,8 +1708,11 @@ class ServingLoop:
                         f"{max(0.0, est_tokens - 1):.0f} expected "
                         f"tokens at "
                         f"~{(self._est_tpot_s or 0.0) * 1e3:.1f}ms "
-                        f"each); retry with a longer deadline or when "
-                        f"load drops")
+                        f"each"
+                        + (f", plus ~{backlog_s:.3f}s of chunked "
+                           f"prefill queued ahead" if backlog_s else "")
+                        + "); retry with a longer deadline or when "
+                        "load drops")
             if tenant is not None:
                 sampling["tenant"] = tenant
             if dl_s is not None:
@@ -1887,10 +1969,8 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
         if on:
             raise NotPorted(
                 f"{knob} is not ported to the torch engine yet ({what})")
-    reject_unported(
-        kv_blocks=cfg.kv_blocks, prefix_cache_size=cfg.prefix_cache_size,
-        prefill_chunk=cfg.prefill_chunk, prefill_budget=cfg.prefill_budget,
-        role=cfg.role, kv_swap=cfg.kv_swap)
+    reject_unported(kv_blocks=cfg.kv_blocks, role=cfg.role,
+                    kv_swap=cfg.kv_swap)
     device = resolve_device(device)
     check_paged_kernel_head_dim(cfg.d_model // cfg.n_heads, device,
                                 paged_impl)
@@ -1901,6 +1981,9 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
         int8=cfg.int8, seed=cfg.seed)
     model_cfg, params = load_params(gcfg, device)
     return DecodeServer(params, model_cfg, max_batch=cfg.max_batch,
+                        prefix_cache_size=cfg.prefix_cache_size,
+                        prefill_chunk=cfg.prefill_chunk,
+                        prefill_budget=cfg.prefill_budget,
                         max_pending=cfg.max_pending,
                         pipeline_depth=cfg.pipeline_depth,
                         decode_steps=cfg.decode_steps,
@@ -2203,6 +2286,13 @@ def main(argv: Optional[Sequence[str]] = None,
         "--decode-steps", type=int, default=None,
         help="decode steps fused into one dispatch (1 = off; overrides "
              "config)")
+    # beyond the reference's flag set: its main reaches the same field
+    # through --config only (test_main_serves_admission_flags)
+    parser.add_argument(
+        "--prefix-cache-size", type=int, default=None,
+        help="prefix-cache budget in KV blocks for block-granular "
+             "prefix chains (0 = off [default]; requires --kv-blocks; "
+             "overrides config)")
     parser.add_argument(
         "--prefill-chunk", type=int, default=None,
         help="chunked prefill chunk size in prompt tokens (0 = off "
@@ -2328,8 +2418,8 @@ def main(argv: Optional[Sequence[str]] = None,
     cfg = ServerConfig.from_yaml_file(args.config) if args.config \
         else ServerConfig()
     for name in ("checkpoint_dir", "port", "pipeline_depth",
-                 "decode_steps", "prefill_chunk", "prefill_budget",
-                 "kv_block_size", "kv_blocks", "kv_dtype",
+                 "decode_steps", "prefix_cache_size", "prefill_chunk",
+                 "prefill_budget", "kv_block_size", "kv_blocks", "kv_dtype",
                  "kv_host_tier_bytes", "kv_fabric_token", "paged_kernel",
                  "role", "decode_pool", "handoff_cooldown_s",
                  "handoff_health_interval_s", "draft_checkpoint_dir",

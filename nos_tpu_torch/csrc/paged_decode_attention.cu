@@ -60,8 +60,12 @@
 // - The launch counts itself: block (0, 0, 0) adds one to a 64-bit
 //   counter the wrapper owns, so a launch that a CUDA graph recorded
 //   counts at every replay, and the count is what the card ran.
-// - Tensor cores buy nothing at S = 1 (~4 flops per byte at g = 4), and
-//   no S > 1 window is on the serving path, so P.V stays on the FMAs.
+// - Tensor cores buy nothing at S = 1 (~4 flops per byte at g = 4), so
+//   P.V stays on the FMAs. S > 1 windows are on the serving path too: a
+//   prefix hit prefills its suffix in the arena as one window at B = 1,
+//   S = the suffix's power-of-two bucket (8 to 1024 at max_seq 2048),
+//   rows reading the shared head through the table; they run the same
+//   FMA path.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -12,6 +12,26 @@ sampling params (temperature, top-k, top-p, seed), and a sampled token
 is keyed by (seed, absolute position), so a request's stream depends
 neither on what else shares the batch nor on how ticks are fused.
 
+Admission, as the reference runs it under paging:
+
+- ``prefix_cache_size`` > 0 keeps a block-granular prefix index
+  (``PrefixBlockIndex``): a ``cache_prefix`` prompt publishes its full
+  blocks, and a later prompt that starts with them shares them by
+  refcount. With the kernel formulation a prefix hit prefills its
+  suffix IN the arena: one bucketed S > 1 window of
+  ``forward_paged`` over a one-row view, which scatters the suffix's
+  K/V into fresh blocks and attends over the shared head through the
+  block table; with the gather formulation the shared blocks seed a
+  scratch row. A shared block is copied before its first write
+  (copy-on-write, scale planes included), and ``fork`` shares an
+  active request's whole table.
+- ``prefill_chunk`` > 0 prefills a long suffix one chunk per tick,
+  interleaved with decode ticks, over the full block table reserved at
+  admission; ``prefill_budget`` > 0 spends at most that many prompt
+  tokens a tick, picking chunks earliest-deadline-first on TTFT slack
+  and clamping to zero while a decoding slot is out of TPOT slack.
+  Scheduling changes only when a chunk runs, never its contents.
+
 The decode tick is one program over the engine's persistent device
 buffers (``_decode_program``): ``decode_steps`` = T copies of the
 reference's fused step (the keep-masked table, ``forward_paged``, pos
@@ -21,7 +41,8 @@ the next feed tokens), writing ``pos``, the feed tokens and a
 (greedy, sampled) is captured once into a CUDA graph, the counterpart
 of the reference's jitted program, and every tick is one replay; the
 first capture per key is accounted as the reference accounts a compile.
-On the CPU the program is called directly.
+On the CPU the program is called directly. Slots still prefilling ride
+the tick as rows outside the keep mask, into the null block.
 
 A tick is three phases, as in the reference, so a serving loop can run
 the one blocking wait outside its lock: ``step_begin`` dispatches ticks
@@ -29,32 +50,35 @@ until ``pipeline_depth`` are in flight, each followed by a non-blocking
 copy of its tokens into its own pinned host buffer behind a CUDA event;
 ``step_wait`` blocks on the oldest's event only; ``step_finish``
 consumes it (appending up to T tokens a slot, stopping at ``done``),
-retires completions and admits. A completion observed late (pipelining)
-or mid-burst (fused steps) has over-decoded; the overrun is never
-appended, and resetting the slot's pos rolls it back. Every change of
-the batch (admission, ``cancel``) first consumes the whole window (the
-reference's barrier ``_flush``), block frees wait for the window to
-drain, and every host write to a device buffer the program reads is
-queued on the engine's stream behind the ticks in flight. Each request
-keeps the reference's latency ledger (``pop_ledger``), read by the
-serving loop's TTFT/TPOT histograms.
+runs the prefill chunks, retires completions and admits. A completion
+observed late (pipelining) or mid-burst (fused steps) has
+over-decoded; the overrun is never appended, and resetting the slot's
+pos rolls it back. Every change of the batch (admission, ``cancel``,
+``fork``) first consumes the whole window (the reference's barrier
+``_flush``), block frees wait for the window to drain, and every write
+to a device buffer the program reads (a table row, a copy-on-write, an
+install, an in-arena window) is queued on the engine's stream behind
+the ticks in flight. Each request keeps the reference's latency ledger
+(``pop_ledger``), read by the serving loop's TTFT/TPOT histograms.
 
 What the reference engine has and this slice does not yet port raises
-a ``ValueError`` naming the knob: the prefix cache, chunked and
-budgeted prefill, meshes, tenant quotas, the host tier, prefill/decode
-roles, the slot-static engine (``kv_blocks == 0``) and preemption, with
-its capture and restore. ``cache_prefix`` and ``tenant`` are accepted
-and ignored, as the reference engine ignores them with no prefix cache
-and no quota.
+a ``ValueError`` naming the knob: meshes, tenant quotas, the host tier,
+prefill/decode roles, the slot-static engine (``kv_blocks == 0``) and
+preemption, with its capture and restore. Under block pressure the
+engine flushes the window, lands deferred frees and evicts prefix
+chains; where the reference would then preempt a slot, it raises.
+``tenant`` is accepted and ignored, as the reference engine ignores it
+with no quota.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, Iterator, List, Optional, Tuple
+from typing import Deque, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,12 +92,14 @@ from nos_tpu_torch.models.generate import (
     forward_with_cache, init_cache, init_paged_cache,
 )
 from nos_tpu_torch.models.kvblocks import (
-    BlockAllocator, NoFreeBlocks, blocks_for,
+    BlockAllocator, NoFreeBlocks, PrefixBlockIndex, ScaleLedger,
+    blocks_for,
 )
 from nos_tpu_torch.models.transformer import Params, TransformerConfig
 from nos_tpu_torch.ops import _kernels
 from nos_tpu_torch.ops.attention import (
-    check_paged_kernel_head_dim, effective_paged_impl, quantize_kv,
+    check_paged_kernel_head_dim, dequantize_kv, effective_paged_impl,
+    quantize_kv,
 )
 from nos_tpu_torch.utils import prng
 
@@ -87,23 +113,29 @@ def _bucket(n: int) -> int:
     return b
 
 
+def chain_digest(tokens: Sequence[int], scope: Optional[str] = None) -> str:
+    """A prefix chain's fleet-wide identity (a copy of
+    ``nos_tpu/kvfabric/codec.py::chain_digest``): blake2b-16 over scope +
+    token content, the digest ``/stats`` publishes for each chain."""
+    toks = b",".join(str(int(t)).encode() for t in tokens)
+    if scope is not None:
+        toks = scope.encode() + b"\x00" + toks
+    return hashlib.blake2b(toks, digest_size=16).hexdigest()
+
+
 def _not_ported(knob: str, what: str) -> NotPorted:
     return NotPorted(
         f"{knob} is not ported to the torch engine yet ({what}); the "
         f"JAX engine nos_tpu.models.serving.DecodeServer serves it")
 
 
-def reject_unported(*, kv_blocks: int, prefix_cache_size: int = 0,
-                    prefill_chunk: int = 0, prefill_budget: int = 0,
-                    mesh=None, tenant_quota=None, host_tier=None,
-                    role: str = "colocated", kv_swap: bool = True) -> None:
+def reject_unported(*, kv_blocks: int, mesh=None, tenant_quota=None,
+                    host_tier=None, role: str = "colocated",
+                    kv_swap: bool = True) -> None:
     """Raise a ValueError naming the first engine knob set outside this
     slice; ``build_engine`` calls it before loading any weights."""
     for knob, on, what in (
             ("kv_blocks=0", kv_blocks <= 0, "the slot-static engine"),
-            ("prefix_cache_size", prefix_cache_size, "prefix cache"),
-            ("prefill_chunk", prefill_chunk, "chunked prefill"),
-            ("prefill_budget", prefill_budget, "budgeted prefill"),
             ("mesh", mesh is not None, "tensor-parallel serving"),
             ("tenant_quota", tenant_quota is not None, "tenant quotas"),
             ("host_tier", host_tier is not None, "host KV tier"),
@@ -176,12 +208,21 @@ class _Request:
     seed: int = 0
     out: List[int] = field(default_factory=list)
     slot: int = -1
+    cache_prefix: bool = False
     stop_tokens: tuple = ()
     led: Optional[_Ledger] = None
-    # stored as the reference stores them: priority orders preemption
-    # (not ported), the deadline orders budgeted prefill (not ported)
+    # stored as the reference stores it: priority orders preemption
+    # (not ported)
     priority: int = 0
     tenant: str = DEFAULT_TENANT
+    # paged admission plumbing: prefix blocks claimed for this request
+    # (refcounts already bumped) and the full block table reserved at a
+    # chunked or in-arena admission
+    shared_blocks: List[int] = field(default_factory=list)
+    reserved_blocks: Optional[List[int]] = None
+    # absolute completion deadline on the engine's slack clock (None =
+    # none): budgeted prefill orders chunk work by the slack left
+    # against it
     deadline: Optional[float] = None
 
     def note_token(self) -> None:
@@ -268,12 +309,20 @@ class DecodeServer:
                  kv_swap: bool = True, hbm_admit_frac: float = 0.0,
                  kv_dtype: str = "bf16", tenant_quota=None,
                  role: str = "colocated", host_tier=None,
-                 prefill_budget: int = 0, device: DeviceLike = None,
+                 prefill_budget: int = 0, slack_clock=None,
+                 device: DeviceLike = None,
                  paged_impl: Optional[str] = None):
         # the reference's own validation first, same messages
         if prefill_budget < 0:
             raise ValueError(
                 f"prefill_budget must be >= 0, got {prefill_budget}")
+        if prefill_chunk and (prefill_chunk < 8
+                              or prefill_chunk & (prefill_chunk - 1)):
+            raise ValueError(
+                f"prefill_chunk must be 0 or a power of two >= 8, got "
+                f"{prefill_chunk} (chunks are compiled shapes; the final "
+                f"partial chunk pads to a power-of-two bucket that must "
+                f"not exceed the chunk)")
         if pipeline_depth < 1:
             raise ValueError(
                 f"pipeline_depth must be >= 1, got {pipeline_depth}")
@@ -287,10 +336,8 @@ class DecodeServer:
             raise ValueError(
                 f"role must be colocated|prefill|decode, got {role!r}")
         reject_unported(
-            kv_blocks=kv_blocks, prefix_cache_size=prefix_cache_size,
-            prefill_chunk=prefill_chunk, prefill_budget=prefill_budget,
-            mesh=mesh, tenant_quota=tenant_quota, host_tier=host_tier,
-            role=role, kv_swap=kv_swap)
+            kv_blocks=kv_blocks, mesh=mesh, tenant_quota=tenant_quota,
+            host_tier=host_tier, role=role, kv_swap=kv_swap)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -327,6 +374,18 @@ class DecodeServer:
         self._alloc = BlockAllocator(kv_blocks, bs)
         self.cache = init_paged_cache(cfg, kv_blocks, bs, max_batch,
                                       kv_dtype=kv_dtype, device=self.device)
+        self._scales: Optional[ScaleLedger] = None
+        if kv_dtype == "int8":
+            # per-block scale lifecycle rides the allocator: the decref
+            # that frees a block drops its ledger entry
+            self._scales = ScaleLedger()
+            self._alloc.scale_ledger = self._scales
+        # the block-granular prefix index (None = no prefix cache)
+        self._prefix_max = prefix_cache_size
+        self._pindex = (PrefixBlockIndex(self._alloc, prefix_cache_size)
+                        if prefix_cache_size > 0 else None)
+        self._digests: Dict[tuple, str] = {}    # chain key -> digest
+        self._blk_nbytes: Optional[int] = None
         self._table = torch.zeros((max_batch, self._nbs), dtype=torch.int32,
                                   device=self.device)
         self._tables: List[List[int]] = [[] for _ in range(max_batch)]
@@ -370,9 +429,39 @@ class DecodeServer:
         self.role = role
         self.pipeline_depth = pipeline_depth
         self.decode_steps = decode_steps
-        self.prefill_budget = prefill_budget
         self.prefix_hits = 0
         self.prefix_tokens_saved = 0
+        # copy-on-write block copies issued (fork and prefix sharing) and
+        # in-arena prefill windows run (prefix hits under the kernel)
+        self.cow_copies = 0
+        self.arena_windows = 0
+        # chunked prefill (prefill_chunk > 0): a long suffix prefills one
+        # chunk per tick, interleaved with decode ticks. Entries: {"req",
+        # "row" (the scratch row mid-prefill), "todo" (the remaining
+        # token chunks), "step" (the last position's logits, once
+        # done)}; the request holds its slot and its reserved blocks
+        self._prefill_chunk = prefill_chunk
+        self._prefilling: Deque[dict] = deque()
+        # per-tick prefill budget in prompt tokens (0 = one chunk a tick
+        # for the head entry): credit capped at max(budget, chunk), EDF
+        # on TTFT slack, clamped while a decoding slot is out of TPOT
+        # slack, one TTFT-critical overdraw a tick
+        self.prefill_budget = prefill_budget
+        self._prefill_credit = 0.0
+        # the clock every deadline is read on (submit stamps, EDF, the
+        # clamp); injectable so tests schedule deterministically
+        self._slack_clock = slack_clock or time.monotonic
+        # rolling cost model: host seconds per prefill prompt token
+        # (around each chunk forward) and per decode tick (the serving
+        # loop's tick phases, or step()'s own reading); the hints pin
+        # the estimates
+        self._chunk_tok_s: Deque[float] = deque(maxlen=64)
+        self.prefill_tok_s_hint: Optional[float] = None
+        self.tick_s_hint: Optional[float] = None
+        self.prefill_chunk_tokens = 0       # every chunk-forward token
+        self.prefill_budget_spent = 0       # tokens charged to a budget
+        self.prefill_budget_clamped = 0     # ticks clamped for TPOT slack
+        self.prefill_budget_overrides = 0   # TTFT-critical overdraws
         # admission-time device-memory snapshot (the HBM gauges' source
         # between the loop's interval samples); None on the CPU
         self.hbm: Optional[dict] = None
@@ -420,13 +509,16 @@ class DecodeServer:
         ``seed`` keys the request's sample stream (default: the request
         id): the same (prompt, params, seed) gives the same tokens
         whatever else shares the batch. A token in ``stop_tokens`` ends
-        the request (it is part of the output). ``priority`` and
-        ``deadline_s`` are stored for the schedulers that read them
-        (preemption, budgeted prefill: not ported); ``cache_prefix`` and
-        ``tenant`` are accepted and ignored, as the reference ignores them
-        with no prefix cache and no tenant quota. ``Infeasible`` (a
-        ValueError) when it can never fit this server, ``QueueFull``
-        when ``max_pending`` requests already wait."""
+        the request (it is part of the output). ``cache_prefix``
+        publishes the prompt's full blocks to the prefix cache (ignored
+        without one). ``deadline_s`` is the request's remaining budget
+        in seconds: budgeted prefill orders chunk work by the slack left
+        against it (enforcement stays with the serving loop).
+        ``priority`` is stored for preemption (not ported); ``tenant``
+        is accepted and ignored, as the reference ignores it with no
+        tenant quota. ``Infeasible`` (a ValueError) when it can never
+        fit this server, ``QueueFull`` when ``max_pending`` requests
+        already wait."""
         if not prompt:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
@@ -469,16 +561,17 @@ class DecodeServer:
                     reason="hbm_admission")
         rid = self._next_rid
         self._next_rid += 1
-        now = time.perf_counter()
         self._pending.append(_Request(
             rid, [int(t) for t in prompt], max_new_tokens,
             temperature=float(temperature), top_k=int(top_k),
             top_p=float(top_p),
             seed=(rid if seed is None else int(seed)) & 0xFFFFFFFF,
+            cache_prefix=bool(cache_prefix) and self._prefix_max > 0,
             stop_tokens=tuple(int(t) for t in stop_tokens or ()),
-            led=_Ledger(now), priority=int(priority),
+            led=_Ledger(time.perf_counter()), priority=int(priority),
             tenant=(str(tenant) if tenant else DEFAULT_TENANT),
-            deadline=(now + float(deadline_s) if deadline_s else None)))
+            deadline=(self._slack_clock() + float(deadline_s)
+                      if deadline_s else None)))
         self._admit()
         return rid
 
@@ -520,7 +613,10 @@ class DecodeServer:
     def _admit_headroom(self, req: _Request) -> bool:
         """Memory-aware admission: the request's install blocks plus one
         block of growth headroom (capped at its full-length need) must
-        be free, and the card's memory below ``hbm_admit_frac``."""
+        be free, and the card's memory below ``hbm_admit_frac``. Cached
+        prefix chains are the cheapest memory: LRU chains are evicted
+        for a waiting head rather than stall it (with no slot decoding,
+        nothing else would ever free a block)."""
         plen = len(req.prompt)
         base_need = blocks_for(plen, self.kv_block_size)
         cap_blocks = blocks_for(plen + req.max_new_tokens - 1,
@@ -530,19 +626,337 @@ class DecodeServer:
         if self.hbm_admit_frac and hbm and hbm["limit"] \
                 and hbm["in_use"] / hbm["limit"] > self.hbm_admit_frac:
             return False
-        return need <= self._alloc.free_count
+        if need <= self._alloc.free_count:
+            return True
+        if self._pindex is not None:
+            self._pindex.evict_lru(need - self._alloc.free_count)
+            return need <= self._alloc.free_count
+        return False
+
+    def _tokens(self, toks: List[int]) -> torch.Tensor:
+        """One row of token ids on the device, queued behind the ticks
+        in flight (a chunk may run while ticks are in flight)."""
+        return self._to_device(torch.tensor([toks], dtype=torch.long))
+
+    def _row(self, bucket: int, pos: int) -> Cache:
+        """A one-row scratch cache of ``bucket`` positions in the model's
+        dtype (an int8 arena quantizes only at install). Its write
+        position is a host scalar, so a chunk forward reads it without
+        waiting for the device."""
+        row = init_cache(self.cfg, 1, bucket, device=self.device)
+        row["pos"] = torch.tensor(pos, dtype=torch.int32)
+        return row
 
     def _prefill_slot(self, req: _Request) -> None:
-        """Fresh-prompt prefill over a bucket-sized scratch row, then the
-        first token and the install into the slot's blocks."""
+        """Paged admission: prefill over a bucket-sized scratch row, then
+        land it in the slot's blocks. A block-granular prefix match
+        skips the shared head's compute (a suffix-only forward) and its
+        storage (the matched blocks are refcount-shared, not copied);
+        with the kernel formulation the suffix prefills in the arena.
+        With ``prefill_chunk`` set and a suffix longer than one chunk,
+        the forwards are left to the ticks, one chunk each."""
+        bs = self.kv_block_size
         plen = len(req.prompt)
-        bucket = min(max(_bucket(plen), self.kv_block_size), self.max_len)
-        cfg = self.cfg
-        row = init_cache(cfg, 1, bucket, device=self.device)
-        toks = torch.tensor([req.prompt + [0] * (bucket - plen)],
-                            dtype=torch.long, device=self.device)
-        logits, row = forward_with_cache(self.params, cfg, toks, row)
-        step = logits[0, plen - 1]
+        m, mkey = (self._pindex.match(req.prompt, plen - 1)
+                   if self._pindex is not None else (0, None))
+        # profitability: the reuse must also save prefill compute (fewer
+        # query tokens per bucket tier), or a trivial shared head would
+        # route every request through the prefix path for nothing
+        if m > 0 and _bucket(plen - m) >= _bucket(plen):
+            m = 0
+        # fit: prefix + padded suffix must land inside max_len; shrink
+        # by whole blocks (a partial block cannot be shared)
+        guard = 0
+        while m > 0 and m + _bucket(plen - m) > self.max_len \
+                and guard < 64:
+            m = (max(0, self.max_len - _bucket(plen - m)) // bs) * bs
+            guard += 1
+        if m > 0 and m + _bucket(plen - m) > self.max_len:
+            m = 0
+        if self._prefill_chunk and plen - m > self._prefill_chunk \
+                and self._start_chunked(req, m, mkey):
+            return
+        sbucket = _bucket(plen - m)
+        # scratch rounded up to the block size so whole blocks copy out
+        bucket = min(max(_bucket(max(plen, m + sbucket)), bs),
+                     self.max_len)
+        shared = self._pindex.take(mkey, m) if m > 0 else []
+        req.shared_blocks = shared
+        self._sync_prefix_stats()
+        if m > 0 and self.paged_kernel == "kernel":
+            return self._prefill_in_arena(req, m, sbucket)
+        row = self._row(bucket, m)
+        if m > 0:
+            self._seed_scratch(row, shared)
+            suffix = req.prompt[m:]
+            toks = self._tokens(suffix + [0] * (sbucket - len(suffix)))
+            logits, row = forward_with_cache(self.params, self.cfg, toks,
+                                             row)
+            step = logits[0, len(suffix) - 1]
+        else:
+            toks = self._tokens(req.prompt + [0] * (bucket - plen))
+            logits, row = forward_with_cache(self.params, self.cfg, toks,
+                                             row)
+            step = logits[0, plen - 1]
+        self._finish_prefill(req, row, step)
+
+    def _prefill_in_arena(self, req: _Request, m: int,
+                          sbucket: int) -> None:
+        """Prefix-hit admission through the kernel: reserve the slot's
+        full table (the shared head plus fresh blocks), then run ONE
+        bucketed S > 1 window of ``forward_paged`` over a one-row view of
+        the arena at pos m with the slot's table row. The K/V scatter
+        lands in the fresh blocks (quantized under int8, as a decode
+        step's), and attention reads the shared head through the table.
+        Padding past the suffix lands in the null block or past pos in
+        the last fresh block: only pos decides what exists. The window
+        takes the kernel's per-stream scratch, never the engine's, so
+        the tensors the decode graphs recorded are never replaced."""
+        bs = self.kv_block_size
+        plen = len(req.prompt)
+        s = req.slot
+        shared = req.shared_blocks
+        table = shared + self._alloc.alloc_many(
+            blocks_for(plen, bs) - len(shared))
+        self._tables[s] = table
+        self._set_table_row(s)
+        if self._scales is not None:
+            for blk in table[len(shared):]:
+                self._scales.note_write(blk)
+        suffix = req.prompt[m:]
+        toks = self._tokens(suffix + [0] * (sbucket - len(suffix)))
+        view = {k: v for k, v in self.cache.items() if k != "pos"}
+        view["pos"] = self._to_device(torch.tensor([m], dtype=torch.int32))
+        logits, _ = forward_paged(self.params, self.cfg, toks, view,
+                                  self._table[s:s + 1],
+                                  paged_impl=self.paged_kernel)
+        self.arena_windows += 1
+        req.reserved_blocks = table
+        self._finish_prefill(req, None, logits[0, len(suffix) - 1],
+                             installed=True)
+
+    def _start_chunked(self, req: _Request, m: int, mkey) -> bool:
+        """Chunk-at-a-time admission. The slot's FULL block table is
+        reserved here (the shared prefix plus fresh blocks): prefill
+        spans several ticks during which other slots grow, and an
+        install that found the pool empty would have no good answer.
+        False falls back to the one-shot path (the suffix fits one
+        chunk, the padded span does not fit, or the pool cannot hold the
+        reservation, in which case the prefix claim is rolled back)."""
+        bs = self.kv_block_size
+        chunk = self._prefill_chunk
+        plen = len(req.prompt)
+        suffix = plen - m
+        full, rem = divmod(suffix, chunk)
+        span = m + full * chunk + (_bucket(rem) if rem else 0)
+        bucket = min(max(_bucket(max(plen, span)), bs), self.max_len)
+        if suffix <= chunk or span > bucket:
+            return False
+        shared = self._pindex.take(mkey, m) if m > 0 else []
+        try:
+            fresh = self._alloc.alloc_many(
+                blocks_for(plen, bs) - len(shared))
+        except NoFreeBlocks:
+            for b in shared:            # undo the claim, fall back
+                self._alloc.decref(b)
+            if m > 0:
+                # one admission, one hit: the fallback takes again
+                self._pindex.hits -= 1
+                self._pindex.tokens_saved -= m
+            return False
+        req.shared_blocks = shared
+        req.reserved_blocks = shared + fresh
+        self._sync_prefix_stats()
+        row = self._row(bucket, m)
+        if m > 0:
+            self._seed_scratch(row, shared)
+        tail = req.prompt[m:]
+        todo = deque(tail[i:i + chunk] for i in range(0, suffix, chunk))
+        self._prefilling.append({"req": req, "row": row, "todo": todo})
+        return True
+
+    def _seed_scratch(self, row: Cache, shared: List[int]) -> None:
+        """Copy a shared prefix's arena blocks into the scratch row (the
+        reference's ``scratch_from_block``, one indexed read per plane):
+        an int8 arena dequantizes to the row's dtype, so the suffix
+        forward attends to the values a decode-path gather reads."""
+        bs = self.kv_block_size
+        n = len(shared)
+        idx = self._to_device(torch.tensor(shared, dtype=torch.long))
+        for name in ("k", "v"):
+            blk = self.cache[name][:, idx]          # [L, n, Hkv, bs, D]
+            if self.kv_dtype == "int8":
+                blk = dequantize_kv(blk, self.cache[f"{name}_scale"][:, idx],
+                                    row[name].dtype)
+            L, _, h_kv, _, d = blk.shape
+            row[name][:, 0, :, :n * bs] = blk.permute(0, 2, 1, 3, 4).reshape(
+                L, h_kv, n * bs, d).to(row[name].dtype)
+
+    def _prefill_tick(self) -> int:
+        """Advance the head prefilling request by one chunk (the
+        unbudgeted rule); returns tokens emitted (1 when its admission
+        finished, else 0)."""
+        return self._advance_entry(0)
+
+    def _advance_entry(self, idx: int) -> int:
+        """Run ONE chunk forward for ``self._prefilling[idx]``, timed on
+        the host clock (the budget's cost model reads it; no sync is
+        added, so on the card this is dispatch time), and finish the
+        admission when its chunks are exhausted. Returns tokens emitted
+        (1 on completion, else 0)."""
+        ent = self._prefilling[idx]
+        cost = self._chunk_cost(ent)
+        t0 = time.perf_counter()
+        done = self._prefill_advance(ent)
+        dt = time.perf_counter() - t0
+        self.prefill_chunk_tokens += cost
+        if cost > 0:
+            self._chunk_tok_s.append(dt / cost)
+        if not done:
+            return 0
+        del self._prefilling[idx]
+        self._finish_prefill(ent["req"], ent["row"], ent["step"])
+        return 1
+
+    def _chunk_cost(self, ent: dict) -> int:
+        """Prompt tokens the entry's NEXT chunk forward processes: the
+        unit the per-tick budget is counted in."""
+        return len(ent["todo"][0])
+
+    def _prefill_remaining(self, ent: dict) -> int:
+        """Prompt tokens the entry still has to prefill."""
+        return sum(len(c) for c in ent["todo"])
+
+    def _est_prefill_tok_s(self) -> float:
+        """Estimated seconds per prefill prompt token: the hint when one
+        is set, else the rolling median, 0.0 before the first chunk (the
+        slack checks stand down rather than guess)."""
+        if self.prefill_tok_s_hint is not None:
+            return self.prefill_tok_s_hint
+        if not self._chunk_tok_s:
+            return 0.0
+        s = sorted(self._chunk_tok_s)
+        return s[len(s) // 2]
+
+    def _est_tick_s(self) -> float:
+        """Estimated seconds per decode tick: hint, else rolling median,
+        else 0.0."""
+        if self.tick_s_hint is not None:
+            return self.tick_s_hint
+        if not self._tick_s:
+            return 0.0
+        s = sorted(self._tick_s)
+        return s[len(s) // 2]
+
+    def prefill_backlog(self) -> int:
+        """Prompt tokens queued in chunked-prefill entries."""
+        return sum(self._prefill_remaining(e) for e in self._prefilling)
+
+    def prefill_backlog_s(self) -> float:
+        """Estimated seconds of chunk forwards in the backlog (0.0 when
+        idle or the cost model is cold): the serving loop adds it to
+        its admission-time estimate, so a deadline that cannot survive
+        the chunk queue ahead of it sheds at submit."""
+        return self.prefill_backlog() * self._est_prefill_tok_s()
+
+    def _ttft_slack(self, ent: dict, now: float, tok_s: float) -> float:
+        """Seconds before the entry's deadline if its remaining chunks
+        ran back to back; +inf with no deadline (so deadline-less work
+        sorts last, in arrival order)."""
+        req = ent["req"]
+        if req.deadline is None:
+            return float("inf")
+        return (req.deadline - now) - self._prefill_remaining(ent) * tok_s
+
+    def _prefill_sched(self) -> int:
+        """One tick of chunked prefill. With no budget, one chunk for the
+        head entry. With one, spend at most ``prefill_budget`` prompt
+        tokens (plus banked credit, capped at max(budget, chunk)) on
+        chunk forwards, entries taken earliest TTFT slack first
+        (re-ranked every pick); clamp to zero when a decoding slot is
+        out of TPOT slack; allow ONE over-budget chunk when the most
+        urgent prefill's slack is inside one tick; and with nothing
+        decoding, advance one chunk free. The schedule decides only
+        WHEN chunks run, so tokens equal the unbudgeted run's."""
+        if not self._prefilling:
+            return 0
+        if self.prefill_budget <= 0:
+            return self._prefill_tick()
+        now = self._slack_clock()
+        tok_s = self._est_prefill_tok_s()
+        tick_s = self._est_tick_s()
+        budget = float(self.prefill_budget)
+        decode_slots = [s for s in self._active_slots()
+                        if not self._active[s].done]
+        if tick_s > 0:
+            for s in decode_slots:
+                r = self._active[s]
+                if r.deadline is None:
+                    continue
+                rem_out = max(0, r.max_new_tokens - len(r.out))
+                if (r.deadline - now) - rem_out * tick_s < 0:
+                    # a decoding slot is out of TPOT slack: decode
+                    # drains first, prefill rides its banked credit
+                    budget = 0.0
+                    self.prefill_budget_clamped += 1
+                    break
+        clamped = budget == 0.0
+        cap = float(max(self.prefill_budget, self._prefill_chunk))
+        self._prefill_credit = min(self._prefill_credit + budget, cap)
+        emitted = 0
+        advanced = 0
+        overrode = False
+        while self._prefilling:
+            # re-ranked every pick: a finished admission can admit a new
+            # chunked entry, and slack shifts as work runs
+            idx = min(range(len(self._prefilling)),
+                      key=lambda i: (self._ttft_slack(
+                          self._prefilling[i], now, tok_s), i))
+            cost = self._chunk_cost(self._prefilling[idx])
+            if self._prefill_credit >= cost:
+                self._prefill_credit -= cost
+                self.prefill_budget_spent += cost
+            elif (not clamped and not overrode
+                  and self._ttft_slack(self._prefilling[idx], now,
+                                       tok_s) < max(tick_s, 0.0)):
+                # TTFT-critical overdraw, once a tick, paid back later
+                self._prefill_credit -= cost
+                self.prefill_budget_spent += cost
+                self.prefill_budget_overrides += 1
+                overrode = True
+            elif advanced == 0 and not decode_slots:
+                # liveness: nothing decodes and no credit is banked, so
+                # one free advance a tick (the unbudgeted pace)
+                pass
+            else:
+                break
+            emitted += self._advance_entry(idx)
+            advanced += 1
+        return emitted
+
+    def _prefill_advance(self, ent: dict) -> bool:
+        """Run ONE chunk forward for ``ent``; the last chunk pads to its
+        bucket. On the last chunk, keep the last real position's logits
+        in ``ent["step"]`` and return True."""
+        toks_list = ent["todo"].popleft()
+        rem = len(toks_list)
+        rbucket = _bucket(rem) if not ent["todo"] else rem
+        toks = self._tokens(toks_list + [0] * (rbucket - rem))
+        logits, ent["row"] = forward_with_cache(self.params, self.cfg, toks,
+                                                ent["row"])
+        if ent["todo"]:
+            return False
+        ent["step"] = logits[0, rem - 1]
+        return True
+
+    def _finish_prefill(self, req: _Request, row: Optional[Cache],
+                        step: torch.Tensor, *,
+                        installed: bool = False) -> None:
+        """The admission tail: pick the first token from the last
+        position's logits, set the slot's sampling rows, install the KV
+        (``installed``: an in-arena window already wrote it), and stamp
+        the ledger."""
+        plen = len(req.prompt)
         if req.temperature > 0:
             # the token at absolute index plen: the decode tick's
             # (seed, index) keying, so prefill and decode are seamless
@@ -556,7 +970,7 @@ class DecodeServer:
         else:
             first = int(torch.argmax(step))
         self._set_sampling_rows(req)
-        self._paged_install(req, row, first)
+        self._paged_install(req, row, plen, first, installed=installed)
         req.out.append(first)
         req.note_token()
         # the first token is observed here (its argmax or draw was a host
@@ -565,29 +979,52 @@ class DecodeServer:
             time.perf_counter()
         self._finish_if_done(req)
 
-    def _paged_install(self, req: _Request, row: Cache, first: int) -> None:
-        """Land the prefilled scratch row in freshly allocated arena
-        blocks (quantized per token under int8 — the same rule as the
-        decode scatter), then set the slot's table row, pos and feed
-        token. One indexed write per plane, in place."""
+    def _paged_install(self, req: _Request, row: Optional[Cache], plen: int,
+                       first: int, *, installed: bool = False) -> None:
+        """Land the prefilled scratch row in the slot's blocks past the
+        shared prefix (quantized per token under int8, the decode
+        scatter's rule; one indexed write per plane, in place), into the
+        blocks a chunked admission reserved or fresh ones; ``installed``
+        skips the copy. Then set the slot's table row, pos and feed
+        token, and publish a ``cache_prefix`` prompt's full blocks."""
         bs = self.kv_block_size
-        plen = len(req.prompt)
-        n = blocks_for(plen, bs)
-        table = self._alloc.alloc_many(n)
-        idx = self._to_device(torch.tensor(table, dtype=torch.long))
-        for name in ("k", "v"):
-            r = row[name][:, 0, :, :n * bs]             # [L, Hkv, n*bs, D]
-            L, h_kv, _, d = r.shape
-            blk = r.reshape(L, h_kv, n, bs, d).permute(0, 2, 1, 3, 4)
-            if self.kv_dtype == "int8":
-                blk, sc = quantize_kv(blk)
-                self.cache[f"{name}_scale"][:, idx] = sc
-            self.cache[name][:, idx] = blk.to(self.cache[name].dtype)
+        shared = req.shared_blocks
+        req.shared_blocks = []
+        n_total = blocks_for(plen, bs)
+        if req.reserved_blocks is not None:
+            table = req.reserved_blocks
+            req.reserved_blocks = None
+        else:
+            table = shared + self._alloc.alloc_many(n_total - len(shared))
+        lo = len(shared)
+        if not installed and n_total > lo:
+            idx = self._to_device(torch.tensor(table[lo:n_total],
+                                               dtype=torch.long))
+            for name in ("k", "v"):
+                r = row[name][:, 0, :, lo * bs:n_total * bs]
+                L, h_kv, _, d = r.shape
+                blk = r.reshape(L, h_kv, n_total - lo, bs, d).permute(
+                    0, 2, 1, 3, 4)
+                if self.kv_dtype == "int8":
+                    blk, sc = quantize_kv(blk)
+                    self.cache[f"{name}_scale"][:, idx] = sc
+                self.cache[name][:, idx] = blk.to(self.cache[name].dtype)
+            if self._scales is not None:
+                for b in table[lo:n_total]:
+                    self._scales.note_write(b)
         s = req.slot
         self._tables[s] = table
         self._set_table_row(s)
         self.cache["pos"][s].fill_(plen)
         self._last[s, 0].fill_(first)
+        if req.cache_prefix and self._pindex is not None:
+            self._pindex.publish(req.prompt, table)
+            self._sync_prefix_stats()
+
+    def _sync_prefix_stats(self) -> None:
+        if self._pindex is not None:
+            self.prefix_hits = self._pindex.hits
+            self.prefix_tokens_saved = self._pindex.tokens_saved
 
     def _set_sampling_rows(self, req: _Request) -> None:
         """Install one request's sampling params in its slot's rows: the
@@ -682,11 +1119,11 @@ class DecodeServer:
     def _ensure_blocks(self, active: List[int]) -> None:
         """Each decoding slot's next ``decode_steps`` write positions,
         past those the ticks in flight already cover, must land in blocks
-        it owns: growth allocates. Positions past the request's terminal
-        length stay unallocated and route to the null block. Blocks are
-        never shared in this slice (no prefix cache, no fork), so no
-        copy-on-write is needed."""
-        bs, span = self.kv_block_size, self.decode_steps
+        it owns EXCLUSIVELY: growth allocates, a shared block is copied
+        first (``_grow_slot_blocks``). Positions past the request's
+        terminal length stay unallocated and route to the null block.
+        Raises NoFreeBlocks under pool pressure."""
+        span = self.decode_steps
         for s in active:
             req = self._active[s]
             pending = sum(1 for ent in self._inflight
@@ -695,37 +1132,98 @@ class DecodeServer:
             end = min(start + span, len(req.prompt) + req.max_new_tokens - 1)
             if start >= end:
                 continue
-            table = self._tables[s]
-            grown = False
-            while len(table) <= (end - 1) // bs:
-                table.append(self._alloc.alloc())
-                grown = True
-            if grown:
+            self._grow_slot_blocks(s, start, end)
+
+    def _grow_slot_blocks(self, s: int, start: int, end: int) -> None:
+        """Make slot ``s`` own every block covering write positions
+        [start, end) exclusively: copy shared blocks (copy-on-write),
+        allocate growth; the device table row follows whatever changed,
+        also when an allocation raises midway."""
+        bs = self.kv_block_size
+        table = self._tables[s]
+        changed = False
+        try:
+            for j in range(start // bs, (end - 1) // bs + 1):
+                if j < len(table):
+                    if not self._alloc.writable(table[j]):
+                        fresh = self._alloc.alloc()
+                        self._cow_block(table[j], fresh)
+                        if self._scales is not None:
+                            self._scales.note_copy(table[j], fresh)
+                        self._alloc.decref(table[j])
+                        table[j] = fresh
+                        changed = True
+                else:
+                    while len(table) <= j:
+                        table.append(self._alloc.alloc())
+                        changed = True
+                if self._scales is not None:
+                    # data and scales this dispatch's scatter writes
+                    self._scales.note_write(table[j])
+        finally:
+            if changed:
                 self._set_table_row(s)
+
+    def _cow_block(self, src: int, dst: int) -> None:
+        """Copy-on-write: block ``src`` into ``dst`` in every layer, the
+        scale planes of an int8 arena in the same step, queued on the
+        engine's stream after the ticks in flight (which may still
+        write positions the copy must carry)."""
+        for name in ("k", "v", "k_scale", "v_scale"):
+            plane = self.cache.get(name)
+            if plane is not None:
+                plane[:, dst].copy_(plane[:, src])
+        self.cow_copies += 1
 
     def _pre_dispatch(self, active: List[int]) -> bool:
         """Block discipline before a dispatch. True: dispatch ``active``
-        as it is. False: the pool ran dry and the window was flushed
-        (late completions and their frees landed); recompute and retry.
-        Dry with nothing in flight raises."""
+        as it is. False: the pool ran dry and pressure relief ran
+        (``_relieve_pressure``); recompute and retry."""
         try:
             self._ensure_blocks(active)
             return True
         except NoFreeBlocks as e:
-            if self._inflight:
-                self._flush()
-                return False
-            raise NoFreeBlocks(
-                f"{e}; preemption is not ported to the torch engine yet "
-                f"— size kv_blocks for the load") from e
+            self._relieve_pressure(e)
+            return False
+
+    def _relieve_pressure(self, err: NoFreeBlocks) -> None:
+        """Free KV blocks, cheapest first, in the reference's order up to
+        its preemption step: 1) flush the window (late completions and
+        their deferred frees land); 2) land deferred frees; 3) evict one
+        LRU prefix chain. Each step makes progress or the next runs.
+        Where the reference would then preempt a slot, this raises:
+        preemption is not ported, so a pool that cannot hold the running
+        slots (a chunked admission's reservation included) is a sizing
+        error here."""
+        if self._inflight:
+            self._flush()
+            return
+        self._drain_deferred()
+        if self._pindex is not None and self._pindex.evict_lru(1) > 0:
+            return
+        raise NoFreeBlocks(
+            f"{err}; preemption is not ported to the torch engine yet "
+            f"— size kv_blocks for the load") from err
 
     def step(self) -> int:
         """One scheduling quantum, the three phases in a row: dispatch
-        until the window is full, wait for the oldest tick, consume it;
-        returns the tokens emitted (0 when idle)."""
+        until the window is full, wait for the oldest tick, consume it,
+        run the prefill chunks; returns the tokens emitted (0 when
+        idle). Under a prefill budget a caller without a serving loop
+        feeds the cost model itself: each tick's dispatch and wait, on
+        ticks that captured no graph."""
+        c0, t0 = self.compiles, time.perf_counter()
         handle = self.step_begin()
         self.step_wait(handle)
+        if handle is not None and self.prefill_budget > 0 \
+                and self.compiles == c0:
+            self.note_tick_seconds(time.perf_counter() - t0)
         return self.step_finish(handle)
+
+    def _active_slots(self) -> List[int]:
+        """The slots that decode: active and not still prefilling."""
+        pre = {ent["req"].slot for ent in self._prefilling}
+        return sorted(s for s in self._active if s not in pre)
 
     def step_begin(self) -> Optional[_InFlight]:
         """Dispatch phase: ticks back to back until ``pipeline_depth``
@@ -736,10 +1234,10 @@ class DecodeServer:
         idle)."""
         t_begin = time.perf_counter()
         self._begin_dispatch_s = 0.0
-        active = sorted(self._active)
+        active = self._active_slots()
         while active and len(self._inflight) < self.pipeline_depth:
             if not self._pre_dispatch(active):
-                active = sorted(self._active)
+                active = self._active_slots()
                 continue
             self._dispatch_tick(active)
         # everything outside _dispatch_tick is assembly
@@ -906,7 +1404,8 @@ class DecodeServer:
 
     def step_finish(self, ent: Optional[_InFlight]) -> int:
         """Host phase: consume ``ent`` (append tokens, retire
-        completions) and admit into freed slots. Returns the tokens
+        completions), run the prefill chunks, and admit into freed
+        slots. Returns the tokens
         emitted, those of any barrier flush since the last step_finish
         included."""
         emitted = self._flush_emitted
@@ -917,6 +1416,8 @@ class DecodeServer:
             assert self._inflight and self._inflight[0] is ent
             self._inflight.popleft()
             emitted += self._consume(ent)
+        if self._prefilling:
+            emitted += self._prefill_sched()
         self._admit()
         if not self._active and not self._pending and self._inflight:
             # the burst ended with overrun ticks in flight: consume them
@@ -972,9 +1473,9 @@ class DecodeServer:
 
     def _note_window_empty(self) -> None:
         """Start the dispatch-gap clock when no tick is in flight while
-        slots could decode."""
+        slots could decode (a slot still prefilling cannot)."""
         if not self._inflight and self._idle_since is None \
-                and self._active:
+                and len(self._active) > len(self._prefilling):
             self._idle_since = time.perf_counter()
 
     def reset_dispatch_stats(self) -> None:
@@ -987,8 +1488,9 @@ class DecodeServer:
         self._idle_since = None
 
     def note_tick_seconds(self, seconds: float) -> None:
-        """A measured decode-tick duration, kept for the budgeted-prefill
-        cost model (not ported)."""
+        """Feed one measured decode-tick duration into the budgeted
+        prefill's TPOT cost model (the serving loop's tick phases;
+        ``step`` measures its own)."""
         if seconds > 0:
             self._tick_s.append(seconds)
 
@@ -1028,6 +1530,18 @@ class DecodeServer:
         # barrier: the ticks in flight land first (they may even finish
         # the request, which then is no longer active below)
         self._flush()
+        for i, ent in enumerate(self._prefilling):
+            if ent["req"].rid == rid:
+                # drop the chunk queue first (no later chunk may install
+                # into the freed slot); its reserved blocks, shared
+                # prefix references included, never reached the device
+                # table, so they are released here directly
+                del self._prefilling[i]
+                for b in ent["req"].reserved_blocks or []:
+                    self._alloc.decref(b)
+                ent["req"].reserved_blocks = None
+                ent["req"].shared_blocks = []
+                break
         for req in self._active.values():
             if req.rid == rid:
                 req.max_new_tokens = len(req.out)
@@ -1050,32 +1564,157 @@ class DecodeServer:
         """(active slots, waiting requests)."""
         return len(self._active), len(self._pending)
 
+    def _resume_row(self, req: _Request) -> None:
+        """A fork's tail: sampling rows, the slot's pos (the committed KV
+        length) and feed token (the last committed, not yet fed)."""
+        s = req.slot
+        self._set_sampling_rows(req)
+        self.cache["pos"][s].fill_(len(req.prompt) + len(req.out) - 1)
+        self._last[s, 0].fill_(req.out[-1])
+        req.led.t_prefill_end = time.perf_counter()
+
+    def fork(self, rid: int, *, max_new_tokens: Optional[int] = None,
+             temperature: Optional[float] = None,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             seed: Optional[int] = None) -> int:
+        """Copy-on-write fork of an active request: the new request
+        shares every block of the source's committed context by refcount
+        and diverges from its next token on; a shared block is copied
+        only before its first write. A greedy fork continues
+        bit-identically to the source's own continuation; another
+        ``seed`` (or temperature, top-k, top-p) branches a sampled
+        stream. Needs a free slot (QueueFull otherwise) and an active,
+        fully prefilled source (ValueError otherwise); returns the new
+        request's id."""
+        if any(e["req"].rid == rid for e in self._prefilling):
+            raise ValueError(f"request {rid} is still prefilling")
+        src = next((r for r in self._active.values() if r.rid == rid),
+                   None)
+        if src is None:
+            raise ValueError(f"request {rid} is not active")
+        self._flush()       # barrier: the batch changes below
+        if src.done or src.slot < 0:
+            raise ValueError(
+                f"request {rid} finished during the fork barrier")
+        # after the barrier: a completion in an unconsumed tick frees
+        # its slot during the flush
+        if not self._free:
+            raise QueueFull(
+                "no free slot to fork into; retry after a completion")
+        new_max = src.max_new_tokens if max_new_tokens is None \
+            else int(max_new_tokens)
+        if new_max <= len(src.out):
+            raise ValueError(
+                f"max_new_tokens {new_max} <= tokens already produced "
+                f"({len(src.out)}); nothing left to decode")
+        if len(src.prompt) + new_max > self.max_len:
+            raise Infeasible(
+                f"prompt ({len(src.prompt)}) + max_new_tokens "
+                f"({new_max}) exceeds cache length {self.max_len}")
+        fork_cap = blocks_for(len(src.prompt) + new_max - 1,
+                              self.kv_block_size)
+        if fork_cap > self._alloc.capacity:
+            raise Infeasible(
+                f"fork needs {fork_cap} KV blocks at its full length "
+                f"but the pool only has {self._alloc.capacity}")
+        nrid = self._next_rid
+        self._next_rid += 1
+        req = _Request(
+            nrid, list(src.prompt), new_max,
+            temperature=(src.temperature if temperature is None
+                         else float(temperature)),
+            top_k=src.top_k if top_k is None else int(top_k),
+            top_p=src.top_p if top_p is None else float(top_p),
+            seed=(src.seed if seed is None else int(seed)) & 0xFFFFFFFF,
+            stop_tokens=src.stop_tokens, priority=src.priority,
+            tenant=src.tenant, led=_Ledger(time.perf_counter()))
+        req.out = list(src.out)
+        now = time.perf_counter()
+        req.led.t_admit = req.led.t_prefill_start = now
+        req.led.t_first = req.led.t_last = now
+        slot = self._free.popleft()
+        req.slot = slot
+        self._active[slot] = req
+        nblk = blocks_for(len(src.prompt) + len(src.out) - 1,
+                          self.kv_block_size)
+        self._tables[slot] = self._alloc.fork(self._tables[src.slot][:nblk])
+        self._set_table_row(slot)
+        self._resume_row(req)
+        return nrid
+
     def kv_stats(self) -> dict:
-        """Block-pool accounting, the formulation this engine runs, and
-        the admission-time memory snapshot, under the reference's keys
-        (what is not ported reads as the reference reads with it off)."""
+        """Block-pool accounting, the formulation this engine runs, the
+        prefix index and the admission-time memory snapshot, under the
+        reference's keys (preemption, not ported, reads as the
+        reference reads with none)."""
         return {
             "block_size": self.kv_block_size,
             "dtype": self.kv_dtype,
             "kernel": self.paged_kernel,
-            "scaled_blocks": None,
+            "scaled_blocks": (self._scales.count
+                              if self._scales is not None else None),
             "blocks_total": self._alloc.capacity,
             "blocks_free": self._alloc.free_count,
             "blocks_used": self._alloc.used_count,
-            "cow_shared": 0,            # no prefix cache, no fork
+            "cow_shared": self._alloc.shared_count(),
             "deferred_frees": len(self._deferred),
-            "prefix": None,
+            "prefix": (self._pindex.stats()
+                       if self._pindex is not None else None),
             "preempts": {"swap": 0, "recompute": 0},   # not ported
             "tenant_reclaims": 0,
             "swapped_pending": 0,
             "hbm": self.hbm,
         }
 
+    def _chain_digest(self, key: tuple) -> str:
+        d = self._digests.get(key)
+        if d is None:
+            d = self._digests[key] = chain_digest(key[1], key[0])
+        return d
+
+    def _chain_block_nbytes(self) -> int:
+        """Host bytes one arena block snapshots to (K/V planes, plus the
+        scale planes of an int8 arena)."""
+        if self._blk_nbytes is None:
+            tot = 0
+            for name in ("k", "v", "k_scale", "v_scale"):
+                arr = self.cache.get(name)
+                if arr is not None:
+                    tot += arr.element_size() * arr.shape[0] * int(
+                        np.prod(arr.shape[2:]))
+            self._blk_nbytes = tot
+        return self._blk_nbytes
+
+    def prefix_index_snapshot(self) -> Optional[dict]:
+        """The /stats ``prefix_index`` section: eviction tiers, the
+        fabric counters (zero: no host tier or fabric is ported), and
+        every resident chain as (digest, token length, tier, bytes,
+        scope); None without a prefix index."""
+        if self._pindex is None:
+            return None
+        per_blk = self._chain_block_nbytes()
+        chains, live = [], set()
+        for key, blks in self._pindex.chain_items():
+            live.add(key)
+            chains.append({"digest": self._chain_digest(key),
+                           "len": len(key[1]), "tier": "hbm",
+                           "nbytes": per_blk * len(blks),
+                           "scope": key[0]})
+        self._digests = {k: v for k, v in self._digests.items()
+                         if k in live}
+        return {"evicted": dict(self._pindex.evicted),
+                "fabric": {"demote": 0, "promote": 0, "ingest": 0,
+                           "ingest_rejected": 0},
+                "host_tier": None,
+                "chains": chains}
+
     def stats(self) -> dict:
         """Live introspection for ``/stats``, the reference's engine
-        half: per-slot state, queue, the in-flight window, the prefix
-        cache and compile accounting (zero here), the block pool."""
+        half: per-slot state, queue, the prefill scheduler, the
+        in-flight window, the prefix cache and index, compile
+        accounting, the block pool."""
         now = time.perf_counter()
+        prefilling = {e["req"].rid for e in self._prefilling}
         slots = []
         for s in sorted(self._active):
             req = self._active[s]
@@ -1088,7 +1727,7 @@ class DecodeServer:
                 "pos": len(req.prompt) + len(req.out),
                 "tokens_out": len(req.out),
                 "max_new_tokens": req.max_new_tokens,
-                "prefilling": False,
+                "prefilling": req.rid in prefilling,
                 "sampling": {"temperature": req.temperature,
                              "top_k": req.top_k, "top_p": req.top_p,
                              "seed": req.seed},
@@ -1104,16 +1743,33 @@ class DecodeServer:
             "slots": slots,
             "pending": {"depth": len(self._pending),
                         "oldest_wait_s": round(oldest, 6)},
-            "prefill_sched": None,
+            "prefill_sched": ({
+                "budget": self.prefill_budget,
+                "credit": round(self._prefill_credit, 3),
+                "backlog_tokens": self.prefill_backlog(),
+                "chunk_tokens": self.prefill_chunk_tokens,
+                "budget_spent_tokens": self.prefill_budget_spent,
+                "clamped_ticks": self.prefill_budget_clamped,
+                "overrides": self.prefill_budget_overrides,
+                "est_prefill_tok_s": round(self._est_prefill_tok_s(), 9),
+                "est_tick_s": round(self._est_tick_s(), 9),
+            } if self._prefill_chunk else None),
             "pipeline": {"depth": self.pipeline_depth,
                          "decode_steps": self.decode_steps,
                          "in_flight": len(self._inflight),
                          "flushes": self.pipeline_flushes,
                          "ticks_dispatched": self.ticks_dispatched},
-            "prefix_cache": {"capacity": 0, "entries": 0,
-                             "hits": self.prefix_hits,
-                             "tokens_saved": self.prefix_tokens_saved},
-            "prefix_index": None,
+            "prefix_cache": (
+                {"capacity_blocks": self._pindex.max_blocks,
+                 "entries": self._pindex.stats()["chains"],
+                 "blocks": self._pindex.block_count,
+                 "hits": self._pindex.hits,
+                 "tokens_saved": self._pindex.tokens_saved}
+                if self._pindex is not None else
+                {"capacity": self._prefix_max, "entries": 0,
+                 "hits": self.prefix_hits,
+                 "tokens_saved": self.prefix_tokens_saved}),
+            "prefix_index": self.prefix_index_snapshot(),
             "kv": self.kv_stats(),
             "tenants": None,
             "compiles": {"count": self.compiles,
@@ -1131,6 +1787,8 @@ class DecodeServer:
         self.params = self.cache = self._table = self._last = None
         self._temp = self._topk = self._topp = self._seed = None
         self._keep = self._toks = self._scratch = None
+        for ent in self._prefilling:
+            ent["row"] = None
         self._graphs = {}
         self._capture_stream = None
         self._inflight = deque()

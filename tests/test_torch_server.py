@@ -1300,8 +1300,6 @@ def test_build_engine_validation_messages(kw, match):
     (dict(kv_fabric_token="s"), "kv_fabric_token"),
     (dict(role="decode"), "role=decode"),
     (dict(role="prefill", decode_pool="http://d0:8000"), "role=prefill"),
-    (dict(prefill_chunk=16), "prefill_chunk"),
-    (dict(prefix_cache_size=4), "prefix_cache_size"),
     (dict(checkpoint_dir="/c"), "checkpoint_dir"),
     (dict(kv_swap=False), "kv_swap"),
     (dict(kv_blocks=0, kv_block_size=0), "kv_blocks=0"),
@@ -1386,8 +1384,6 @@ def test_main_flags_give_the_reference_config(argv, monkeypatch, tmp_path,
       "--draft-checkpoint-dir", "/d"], "draft_checkpoint_dir"),
     (["--kv-blocks", "16", "--kv-block-size", "8",
       "--kv-fabric-token", "s"], "kv_fabric_token"),
-    (["--kv-blocks", "16", "--kv-block-size", "8",
-      "--prefill-chunk", "16"], "prefill_chunk"),
 ])
 def test_main_refused_knob_exits_naming_it(argv, knob, capsys,
                                            restore_logging):
@@ -1395,6 +1391,37 @@ def test_main_refused_knob_exits_naming_it(argv, knob, capsys,
         tserver.main(argv)
     assert e.value.code == 2
     assert knob in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,knobs", [
+    (["--prefill-chunk", "16"], dict(prefill_chunk=16)),
+    (["--prefill-chunk", "16", "--prefill-budget", "32"],
+     dict(prefill_chunk=16, prefill_budget=32)),
+    (["--prefix-cache-size", "4"], dict(prefix_cache_size=4)),
+], ids=["prefill_chunk", "prefill_budget", "prefix_cache_size"])
+def test_main_serves_admission_flags(argv, knobs, monkeypatch,
+                                     restore_logging):
+    """The admission flags reach the config the reference's main makes
+    (the reference has no --prefix-cache-size flag: its config field is
+    the comparison), and an engine built from it serves them."""
+    from nos_tpu.cmd import server as jserver
+
+    paged = ["--kv-blocks", "16", "--kv-block-size", "8"]
+    got = _main_config(tserver, paged + argv, monkeypatch)
+    if "prefix_cache_size" in knobs:
+        ref = _main_config(jserver, paged, monkeypatch)
+        ref.update(knobs)
+    else:
+        ref = _main_config(jserver, paged + argv, monkeypatch)
+    assert got == ref
+    monkeypatch.undo()          # the real build_engine again
+    eng = tserver.build_engine(tserver.ServerConfig(**{
+        **got, **MODEL, "bf16": False, "max_batch": 2}), device="cpu")
+    assert eng._prefill_chunk == knobs.get("prefill_chunk", 0)
+    assert eng.prefill_budget == knobs.get("prefill_budget", 0)
+    assert eng._prefix_max == knobs.get("prefix_cache_size", 0)
+    rid = eng.submit(list(range(1, 40)), 3)
+    assert len(eng.drain()[rid]) == 42
 
 
 def test_main_validates_like_the_reference(restore_logging):
@@ -1526,6 +1553,151 @@ def test_side_by_side_stats_keys(replicas):
     for key in ("pending", "pipeline", "prefix_cache", "kv", "deadline",
                 "slo", "rates", "per_request", "tick_phases"):
         assert set(snaps[1][key]) == set(snaps[0][key]), key
+
+
+def _admission_replicas(jp, tp, knobs):
+    """A reference replica and a port replica over engines with the
+    admission knobs on; returns ((jloop, jhttpd, jurl), (tloop, thttpd,
+    turl))."""
+    from nos_tpu.cmd import server as jserver
+    from nos_tpu.models.serving import DecodeServer as JDecodeServer
+
+    engine = dict(max_batch=2, kv_block_size=8, kv_blocks=8, **knobs)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NOS_TPU_PAGED_KERNEL", "0")
+        jeng = JDecodeServer(jp, JCFG, **engine)
+    cfg = jserver.ServerConfig(**MODEL, bf16=False, max_batch=2, port=0)
+    jloop = jserver.ServingLoop(jeng)
+    jhttpd = jserver.make_http_server(cfg, jloop)
+    threading.Thread(target=jhttpd.serve_forever, daemon=True).start()
+    tloop = ServingLoop(DecodeServer(tp, TCFG, device="cpu",
+                                     paged_impl="xla", **engine))
+    thttpd, turl = serve(tloop)
+    return ((jloop, jhttpd, f"http://127.0.0.1:{jhttpd.server_address[1]}"),
+            (tloop, thttpd, turl))
+
+
+ADMISSION_METRICS = (
+    'nos_tpu_serve_prefix_evict_total{tier="drop"}',
+    'nos_tpu_serve_prefix_evict_total{tier="demote"}',
+    "nos_tpu_serve_prefill_budget_tokens_total",
+    "nos_tpu_serve_prefill_clamp_total",
+    "nos_tpu_serve_prefill_override_total",
+    "nos_tpu_serve_prefix_hits",
+    "nos_tpu_serve_prefix_tokens_saved",
+)
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(prefix_cache_size=4, prefill_chunk=8, prefill_budget=8),
+    dict(prefix_cache_size=4, prefill_chunk=8),
+], ids=["budgeted", "unbudgeted"])
+def test_side_by_side_admission_stats_and_metrics(params, knobs):
+    """Prefix cache, chunked (and budgeted) prefill on both replicas: the
+    same tokens for a shared-prompt sequence and a long prompt that
+    evicts the cached chain; /stats' prefix and prefill sections equal
+    the reference's; /metrics moves the same counters by the same
+    amounts, the budget counters registered only under a budget and the
+    eviction counter (tier drop) whenever there is a prefix index."""
+    from nos_tpu.cmd import server as jserver
+
+    jp, tp = params
+    (jloop, jhttpd, jurl), (tloop, thttpd, turl) = _admission_replicas(
+        jp, tp, knobs)
+    bodies = [
+        {"prompt": list(range(1, 18)), "max_new_tokens": 3,
+         "cache_prefix": True},
+        {"prompt": list(range(1, 17)) + [40, 41, 42], "max_new_tokens": 5},
+        {"prompt": list(range(1, 17)) + list(range(20, 32)),
+         "max_new_tokens": 4},
+        {"prompt": [33] * 40, "max_new_tokens": 6},
+    ]
+    try:
+        texts = {}
+        for url, reg in ((jurl, jserver.default_registry()),
+                         (turl, default_registry())):
+            before = reg.expose()
+            toks = [post(url, body)["tokens"] for body in bodies]
+            snap = json.loads(get(url, "/stats")[1])
+            after = reg.expose()
+            texts[url] = (toks, snap, {
+                name: metric_value(after, name) - metric_value(before, name)
+                for name in ADMISSION_METRICS})
+        (jtoks, jsnap, jdelta), (ttoks, tsnap, tdelta) = \
+            texts[jurl], texts[turl]
+        assert ttoks == jtoks
+        assert ttoks[1] == want(jp, bodies[1]["prompt"], 5)
+        assert tdelta == jdelta
+        assert jdelta['nos_tpu_serve_prefix_evict_total{tier="drop"}'] == 1
+        for key in ("prefix_cache", "prefix_index"):
+            assert tsnap[key] == jsnap[key], key
+        assert tsnap["kv"]["prefix"] == jsnap["kv"]["prefix"]
+        assert set(tsnap["prefill_sched"]) == set(jsnap["prefill_sched"])
+        for key in ("budget", "backlog_tokens", "chunk_tokens",
+                    "budget_spent_tokens", "clamped_ticks", "overrides"):
+            assert tsnap["prefill_sched"][key] == \
+                jsnap["prefill_sched"][key], key
+        budgeted = knobs.get("prefill_budget", 0) > 0
+        assert hasattr(tloop, "m_psched_spent") == budgeted \
+            == hasattr(jloop, "m_psched_spent")
+        assert hasattr(tloop, "m_prefix_evict") and \
+            hasattr(jloop, "m_prefix_evict")
+    finally:
+        stop(jhttpd, jloop)
+        stop(thttpd, tloop)
+
+
+class _Backlogged(_FakeEngine):
+    """A stub engine with seconds of chunked prefill queued ahead."""
+
+    def prefill_backlog_s(self):
+        return 2.0
+
+
+def test_deadline_behind_the_prefill_backlog_is_shed_at_submit():
+    """A deadline the rolling estimates alone would meet, but not with
+    the chunk queue ahead of it, is shed at submit, by the port's loop as
+    by the reference's, with the same message; the same deadline with
+    no backlog is admitted."""
+    from nos_tpu.cmd import server as jserver
+
+    msgs = []
+    for mod in (jserver, tserver):
+        loop = mod.ServingLoop(_Backlogged())
+        try:
+            loop._est_ttft_s, loop._est_tpot_s = 0.1, 0.01
+            with pytest.raises(Exception) as e:
+                loop.generate([1], 8, deadline_s=1.0, timeout=5)
+            assert type(e.value).__name__ == "DeadlineUnmeetable"
+            assert e.value.reason == "deadline_unmeetable"
+            msgs.append(str(e.value))
+        finally:
+            loop.shutdown()
+        loop = mod.ServingLoop(_FakeEngine())
+        try:
+            loop._est_ttft_s, loop._est_tpot_s = 0.1, 0.01
+            assert loop.generate([1], 8, deadline_s=1.0, timeout=5)
+        finally:
+            loop.shutdown()
+    assert msgs[1] == msgs[0]
+    assert "chunked prefill queued ahead" in msgs[1]
+
+
+def test_loop_feeds_tick_seconds_to_a_budgeted_engine(params):
+    """The serving loop's tick phases feed the engine's TPOT cost model
+    (assemble + dispatch + wait), only under a budget."""
+    _, tp = params
+    for budget, fed in ((8, True), (0, False)):
+        eng = port_engine(tp, prefill_chunk=8, prefill_budget=budget)
+        seen = []
+        eng.note_tick_seconds = seen.append
+        loop = ServingLoop(eng)
+        try:
+            assert len(loop.generate(list(range(1, 30)), 6,
+                                     timeout=60)) == 35
+        finally:
+            loop.shutdown()
+        assert bool(seen) == fed
 
 
 def test_reference_gateway_in_front_of_the_port(replicas):

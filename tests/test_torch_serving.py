@@ -136,8 +136,7 @@ def test_build_engine_raises_reference_messages(clean_env, bad):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(kv_blocks=0), dict(prefix_cache_size=4), dict(prefill_chunk=16),
-    dict(kv_fabric_token="s"),
+    dict(kv_blocks=0), dict(kv_fabric_token="s"),
     dict(role="prefill", decode_pool="http://d0:8000"), dict(tp=2),
     dict(role="decode"), dict(kv_swap=False), dict(tenant_config="t.json"),
     dict(draft_checkpoint_dir="/d"), dict(checkpoint_dir="/c"),
@@ -149,6 +148,38 @@ def test_build_engine_names_every_knob_outside_the_slice(clean_env, knob):
         tserver.build_engine(tserver.ServerConfig(**kw), device="cpu")
     name = next(iter(knob))
     assert name.split("=")[0] in str(err.value)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(prefix_cache_size=4), dict(prefill_chunk=16),
+    dict(prefill_chunk=16, prefill_budget=16),
+], ids=["prefix_cache_size", "prefill_chunk", "prefill_budget"])
+def test_build_engine_serves_admission_knobs(clean_env, knob):
+    """The knobs reach the engine as the reference's build_engine passes
+    them, and serve: a shared-prompt, long-prompt mix gives the tokens of
+    the engine built without them (prefix reuse and chunking change no
+    token)."""
+    kw = dict(KW, bf16=False, kv_blocks=24, kv_block_size=8, max_batch=2)
+    ref = jserver.build_engine(jserver.ServerConfig(**kw, **knob))
+    port = tserver.build_engine(tserver.ServerConfig(**kw, **knob),
+                                device="cpu")
+    plain = tserver.build_engine(tserver.ServerConfig(**kw), device="cpu")
+    for attr in ("_prefill_chunk", "prefill_budget", "_prefix_max"):
+        assert getattr(port, attr) == getattr(ref, attr), attr
+    assert (port._pindex is None) == (ref._pindex is None)
+    head = list(range(1, 18))
+    reqs = [(head, 3, dict(cache_prefix=True)), (head + [40, 41], 5, {}),
+            (list(range(5, 45)), 4, {})]
+    outs = []
+    for eng in (port, plain):
+        got = []
+        for prompt, n, extra in reqs:
+            rid = eng.submit(prompt, n, **extra)
+            got.append(eng.drain()[rid])
+        outs.append(got)
+    assert outs[0] == outs[1]
+    if "prefix_cache_size" in knob:
+        assert port.prefix_hits == 1 and port.prefix_tokens_saved == 16
 
 
 def test_build_engine_serves_seeded_weights(clean_env):
