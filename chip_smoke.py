@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijk]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijkl]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -125,6 +125,29 @@ k. the admission path at phase (e)'s width, every engine on one set of
    (4) in f32 on phase (d)'s model: prefix hit == fresh prefill, chunked
    == one-shot, budgeted == unbudgeted, through the kernel and the
    gather formulation.
+l. the KV payload at phase (e)'s width, every engine on one set of
+   ``build_engine`` weights: (1) after 4 ticks of phase (e)'s 8
+   requests, one row's newest step replayed through the replay program
+   (the tick's width, the other rows on the null block) and through a
+   B = 1 ``forward_paged``: whether each rewrites the tick's K/V bytes
+   and reproduces its logits bit for bit, with the paged kernel's split
+   counts, bf16 and int8 arenas; a recompute resume against an
+   undisturbed twin: the replayed output span's K/V must equal the
+   twin's bytes, the re-prefilled prompt span's equality and the next
+   step's max|dlogit| printed, the eager replay's bytes equal to the
+   graph's, ms per replayed token of both; (2) phase (e)'s prompts x 64
+   tokens on a pool of 88% of the batch's final footprint, kv_swap on
+   and off x bf16 and int8 arenas x (depth, T) (1, 1) and (2, 4): at
+   least two preemptions each, swap resumes giving the undisturbed
+   run's tokens bit for bit, recompute's agreement with them printed,
+   the kernel's own launch count n_layers x (T x replays + replayed
+   tokens), swap payload bytes, swap-out / swap-in / resume ms; (3)
+   ``ServingLoop`` with an engine factory and a ``FaultInjector`` error
+   at the 10th tick: every request finishes exactly once with the
+   undisturbed tokens (swap capture), the resumed-by-mode counters and
+   recovery seconds; (4) a prefill-role and a decode-role replica over
+   HTTP on 127.0.0.1: the undisturbed tokens through the handoff, the
+   handoff bytes (bf16, int8) and the capture+ship ms per handoff.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -162,7 +185,7 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijk"
+PHASES = "cdefghijkl"
 
 
 def emit(obj) -> None:
@@ -914,14 +937,17 @@ REPLICA_STATS_KEYS = {
 
 
 def http_call(url: str, path: str, body=None, timeout: float = 300.0):
-    """(status, body bytes) of a GET (``body`` None) or a JSON POST,
-    error statuses included."""
+    """(status, body bytes) of a GET (``body`` None), a POST of raw
+    bytes, or a JSON POST, error statuses included."""
     import urllib.error
     import urllib.request
 
+    raw = isinstance(body, bytes)
     req = urllib.request.Request(
-        url + path, data=None if body is None else json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"},
+        url + path, data=body if raw or body is None
+        else json.dumps(body).encode(),
+        headers={"Content-Type": "application/octet-stream" if raw
+                 else "application/json"},
         method="GET" if body is None else "POST")
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -2258,6 +2284,590 @@ def phase_k(seed: int, card: str, flush) -> dict:
     return out
 
 
+# phase (l): the KV payload at phase (e)'s width. A pool sized at
+# PRESSURE_FRAC of the batch's final footprint: the reference's
+# memory-aware admission waits for headroom, so at 75% the requests
+# queue at admission and no decoding slot is squeezed (a CPU rehearsal
+# of these prompts' block arithmetic preempted none); at 88% all 8
+# admit and their growth preempts 3 slots
+PRESSURE_NEW = 64
+PRESSURE_FRAC = 0.88
+PRESSURE_POINTS = [(swap, kv, d, t) for swap in (True, False)
+                   for kv in ("bf16", "int8") for d, t in ((1, 1), (2, 4))]
+HANDOFF_NEW = 32
+
+
+def quiet_histograms() -> None:
+    """A new ``ServingLoop`` registers the loop's histograms without
+    sample retention, as production code does; an earlier phase may
+    have turned it on in the process registry."""
+    from nos_tpu_torch.utils.metrics import default_registry
+
+    reg = default_registry()
+    for name in ("nos_tpu_serve_ttft_seconds", "nos_tpu_serve_tpot_seconds"):
+        h = reg.get(name)
+        if h is not None:
+            h.track_samples = False
+
+
+def pressure_pool(prompts, new: int, bs: int = 16) -> int:
+    """Blocks (the null block included) for ``PRESSURE_FRAC`` of the
+    batch's final KV footprint."""
+    from nos_tpu_torch.models.kvblocks import blocks_for
+
+    final = sum(blocks_for(len(p) + new - 1, bs) for p in prompts)
+    return 1 + int(PRESSURE_FRAC * final)
+
+
+def instrument(eng) -> dict:
+    """Time the engine's swap-out, swap-in and replay on the card (a sync
+    before and after each, so each reads its own device work) and record
+    the swap payloads' bytes; returns the lists it fills."""
+    rec = {"swap_out_ms": [], "swap_in_ms": [], "payload_bytes": [],
+           "replay_ms": [], "replay_tokens": []}
+    swap_out, swap_in, replay = (eng._swap_payload, eng._resume_swapped,
+                                 eng._replay_committed)
+
+    def timed(fn, key, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        rec[key].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def swap_payload(table, nblk):
+        p = timed(swap_out, "swap_out_ms", table, nblk)
+        rec["payload_bytes"].append(sum(
+            int(p[k].nbytes) for k in ("k", "v", "k_scale", "v_scale")
+            if k in p))
+        return p
+
+    def replay_committed(req):
+        rec["replay_tokens"].append(len(req.out) - 1)
+        return timed(replay, "replay_ms", req)
+
+    eng._swap_payload = swap_payload
+    eng._resume_swapped = lambda req: timed(swap_in, "swap_in_ms", req)
+    eng._replay_committed = replay_committed
+    return rec
+
+
+def kv_at(eng, slot: int, pos: int) -> list:
+    """Every K/V plane (and int8 scale plane) of one slot at one
+    position, all layers, cloned."""
+    bs = eng.kv_block_size
+    blk = eng._tables[slot][pos // bs]
+    return [eng.cache[n][:, blk, :, pos % bs].clone()
+            for n in ("k", "v", "k_scale", "v_scale") if n in eng.cache]
+
+
+def put_kv(eng, slot: int, pos: int, planes: list) -> None:
+    bs = eng.kv_block_size
+    blk = eng._tables[slot][pos // bs]
+    for n, x in zip([n for n in ("k", "v", "k_scale", "v_scale")
+                     if n in eng.cache], planes):
+        eng.cache[n][:, blk, :, pos % bs] = x
+
+
+def same(a: list, b: list) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def batch_invariance(eng, prompts) -> dict:
+    """(l.1) The last tick wrote K/V for each row at its newest position
+    and left that step's logits in the greedy graph's output. Replay the
+    same token at the same position for one row through the replay
+    program (the tick's width, only that row live) and through a B = 1
+    ``forward_paged`` on a one-row view of the same arena: whether each
+    rewrote the tick's K/V bytes and reproduced its logits bit for bit,
+    with the paged kernel's split count of each. The tick's bytes are
+    put back after each replay."""
+    from nos_tpu_torch.models.generate import forward_paged
+    from nos_tpu_torch.ops import _kernels
+
+    for p in prompts:
+        eng.submit(p, 16)
+    for _ in range(4):
+        eng.step()
+    torch.cuda.synchronize()
+    assert not eng._inflight and eng.decode_steps == 1
+    s = sorted(eng._active)[0]
+    req = eng._active[s]
+    pos = len(req.prompt) + len(req.out) - 2
+    tok = req.out[-2]
+    tick_logits = eng._graphs[False].logits[s].clone()
+    tick = kv_at(eng, s, pos)
+    eng._rtable[s].copy_(eng._table[s])
+    eng._rtoks[s, 0].fill_(tok)
+    eng._rpos[s].fill_(pos)
+    width_logits = eng._launch_replay()[s].clone()
+    eng._rtable[s].zero_()
+    eng._rpos[s].zero_()
+    torch.cuda.synchronize()
+    width = kv_at(eng, s, pos)
+    put_kv(eng, s, pos, tick)
+    view = {k: v for k, v in eng.cache.items() if k != "pos"}
+    view["pos"] = torch.tensor([pos], dtype=torch.int32, device=eng.device)
+    one_logits, _ = forward_paged(
+        eng.params, eng.cfg, torch.tensor([[tok]], device=eng.device), view,
+        eng._table[s:s + 1], paged_impl="kernel")
+    torch.cuda.synchronize()
+    one = kv_at(eng, s, pos)
+    put_kv(eng, s, pos, tick)
+    eng.drain()
+    cfg = eng.cfg
+    g = cfg.n_heads // cfg.n_kv_heads
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def splits(b):
+        return _kernels.paged_splits(
+            b * cfg.n_kv_heads * _kernels.paged_row_tiles(g), sms)
+
+    def err(x, y):
+        return float(max((a.float() - b.float()).abs().max()
+                         for a, b in zip(x, y)))
+
+    one_logits = one_logits[0, -1].float()
+    return {"kv_dtype": eng.kv_dtype, "slot": s, "position": pos,
+            "width_rows": eng.max_batch,
+            "width_kv_bit_equal": same(width, tick),
+            "width_logits_bit_equal": bool(torch.equal(width_logits,
+                                                       tick_logits)),
+            "width_max_abs_logit_diff": float(
+                (width_logits - tick_logits).abs().max()),
+            "b1_kv_bit_equal": same(one, tick),
+            "b1_max_abs_kv_diff": err(one, tick),
+            "b1_logits_bit_equal": bool(torch.equal(one_logits,
+                                                    tick_logits)),
+            "b1_max_abs_logit_diff": float(
+                (one_logits - tick_logits).abs().max()),
+            "paged_splits_width": splits(eng.max_batch),
+            "paged_splits_b1": splits(1)}
+
+
+def recompute_probe(engine, prompts, plen: int, ticks: int,
+                    eager: bool) -> dict:
+    """A recompute resume against an undisturbed twin, two engines on one
+    set of weights and the same traffic (8 requests, ``ticks`` ticks):
+    the request whose prompt has ``plen`` tokens is preempted by
+    recompute in the second and resumed (a re-prefill of its prompt over
+    a scratch row, then its committed tokens replayed through the replay
+    graph), then both take one more tick. The re-prefilled prompt span's
+    K/V (the prompt alone, in its admission's bucket) and the replayed
+    output span's must equal the twin's bytes; the next step's logits
+    and token are compared and printed. With ``eager`` the request is
+    then preempted again and resumed with the replay program called
+    eagerly: its output span must equal the graph resume's bytes; ms per
+    committed token of both."""
+    from nos_tpu_torch.models.serving import uncaptured
+
+    twin, eng = engine(kv_swap=False), engine(kv_swap=False)
+    for e in (twin, eng):
+        e.capture_programs()
+        for p in prompts:
+            e.submit(p, ticks + 8)
+        for _ in range(ticks):
+            e.step()
+    torch.cuda.synchronize()
+    s = next(k for k, r in eng._active.items() if len(r.prompt) == plen)
+    req = eng._active[s]
+    rid = req.rid
+    rec = instrument(eng)
+    assert eng.preempt(rid, "recompute")
+    eng._admit()
+
+    def slot_of(e, r):
+        return next(k for k, q in e._active.items() if q.rid == r)
+
+    def timeline(e, slot, written):
+        bs = e.kv_block_size
+        return [torch.stack([e.cache[n][:, e._tables[slot][q // bs], :,
+                                        q % bs] for q in range(written)])
+                for n in ("k", "v", "k_scale", "v_scale") if n in e.cache]
+
+    def spans(a, b):
+        return (same([x[:plen] for x in a], [y[:plen] for y in b]),
+                same([x[plen:] for x in a], [y[plen:] for y in b]))
+
+    n = plen + len(req.out) - 1
+    written = n
+    prompt_equal, output_equal = spans(timeline(eng, slot_of(eng, rid),
+                                                written),
+                                       timeline(twin, s, written))
+    if not (prompt_equal and output_equal):
+        raise AssertionError(
+            f"recompute resume: K/V differs from the undisturbed engine's "
+            f"(prompt span equal {prompt_equal}, output span equal "
+            f"{output_equal}): the prompt re-prefills as its admission did "
+            f"and the replay runs the tick's shapes")
+    for e in (twin, eng):
+        e.step()
+    torch.cuda.synchronize()
+    la = twin._graphs[False].logits[s]
+    lb = eng._graphs[False].logits[slot_of(eng, rid)]
+    out = {"request_prompt_tokens": plen, "committed_tokens": len(req.out),
+           "admission_bucket": max(8, 1 << (plen - 1).bit_length()),
+           "committed_sequence_bucket": max(8, 1 << (n - 1).bit_length()),
+           "prompt_span_bit_equal": prompt_equal,
+           "output_span_bit_equal": output_equal,
+           "next_step_logits_bit_equal": bool(torch.equal(la, lb)),
+           "next_step_max_abs_logit_diff": float((la - lb).abs().max()),
+           "next_token_equal": twin._active[s].out
+           == eng._active[slot_of(eng, rid)].out,
+           "replayed_tokens": list(rec["replay_tokens"]),
+           "resume_ms": list(rec["replay_ms"]),
+           "replay_graph_ms_per_token":
+               rec["replay_ms"][-1] / rec["replay_tokens"][-1]}
+    if eager:
+        # again, the replay program called eagerly: the same bytes
+        written = plen + len(eng._active[slot_of(eng, rid)].out) - 1
+        before = timeline(eng, slot_of(eng, rid), written)
+        assert eng.preempt(rid, "recompute")
+        with uncaptured(eng):
+            eng._admit()
+        torch.cuda.synchronize()
+        _, eager_equal = spans(timeline(eng, slot_of(eng, rid), written),
+                               before)
+        if not eager_equal:
+            raise AssertionError("recompute resume: the eager replay wrote "
+                                 "other bytes than the replay graph")
+        out.update(eager_replay_output_span_bit_equal=True,
+                   resume_ms=list(rec["replay_ms"]),
+                   replay_eager_ms_per_token=rec["replay_ms"][-1]
+                   / rec["replay_tokens"][-1])
+    twin.drain()
+    eng.drain()
+    return out
+
+
+def pressure_run(engine, prompts, kv_swap: bool, kv_dtype: str,
+                 depth: int, steps: int, L: int) -> dict:
+    """(l.2) One point: phase (e)'s 8 prompts x ``PRESSURE_NEW`` tokens on
+    a pool of ``pressure_pool`` blocks, programs captured up front. At
+    least two slots must be preempted; the kernel's own launch count is
+    n_layers x (T x replays + replayed tokens); the pool balances."""
+    from nos_tpu_torch.ops import _kernels
+
+    eng = engine(kv_blocks=pressure_pool(prompts, PRESSURE_NEW),
+                 kv_swap=kv_swap, kv_dtype=kv_dtype, pipeline_depth=depth,
+                 decode_steps=steps)
+    capture_s = eng.capture_programs()
+    rec = instrument(eng)
+    torch.cuda.synchronize()
+    replays0 = eng.ticks_dispatched
+    _kernels.paged_decode.launches = 0          # the main path's count
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, PRESSURE_NEW) for p in prompts]
+    served = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.paged_decode.launches
+    replays = eng.ticks_dispatched - replays0
+    replayed = eng.replayed_tokens
+    want = L * (steps * replays + replayed)
+    if launches != want:
+        raise AssertionError(
+            f"paged launches {launches} != n_layers x (T x replays + "
+            f"replayed tokens) = {L} x ({steps} x {replays} + {replayed})")
+    pre = eng.kv_stats()["preempts"]
+    mode = "swap" if kv_swap else "recompute"
+    if pre[mode] < 2:
+        raise AssertionError(f"{pre[mode]} {mode} preemptions (want >= 2)")
+    if kv_swap and replayed:
+        raise AssertionError("a swap resume replayed tokens")
+    if eng._alloc.used_count or eng._deferred or any(eng._tables):
+        raise AssertionError("pool not balanced after the drain")
+    seqs = [served[r] for r in rids]
+    del eng
+    return {"kv_swap": kv_swap, "kv_dtype": kv_dtype,
+            "pipeline_depth": depth, "decode_steps": steps,
+            "pool_blocks": pressure_pool(prompts, PRESSURE_NEW),
+            "preempts": pre, "kernel_launches": launches,
+            "graph_replays": replays, "replayed_tokens": replayed,
+            "capture_s": capture_s, "wall_s": wall,
+            "swap_payload_bytes": rec["payload_bytes"],
+            "swap_out_ms": rec["swap_out_ms"], "swap_in_ms": rec["swap_in_ms"],
+            "resume_ms": rec["replay_ms"],
+            "resume_ms_per_token": [ms / max(1, n) for ms, n in zip(
+                rec["replay_ms"], rec["replay_tokens"])],
+            "seqs": seqs}
+
+
+def restart_run(engine, prompts, L: int) -> dict:
+    """(l.3) Phase (e)'s 8 greedy prompts through ``ServingLoop`` with an
+    engine factory (swap capture), a ``FaultInjector`` error raised at
+    the 10th tick's dispatch: every request finishes exactly once;
+    returns the sequences, the resumed-by-mode counters, the recovery
+    seconds and the kernel's launches over the run."""
+    import threading
+
+    from nos_tpu_torch.cmd.server import OUTCOMES, ServingLoop
+    from nos_tpu_torch.models.supervision import FaultInjector
+    from nos_tpu_torch.ops import _kernels
+    from nos_tpu_torch.utils.metrics import default_registry
+
+    inj = FaultInjector(schedule={10: "error"})
+    built = []
+
+    def factory():
+        eng = engine()
+        built.append(eng)
+        return inj.wrap(eng)
+
+    first = factory()
+    built[0].capture_programs()
+    quiet_histograms()
+    loop = ServingLoop(first, engine_factory=factory, restart_budget=1,
+                       restart_backoff_s=0.0)
+    counter = default_registry().counter(
+        "nos_tpu_serve_requests_total", "", ("outcome",))
+    before = {o: counter.value(o) for o in OUTCOMES}
+    outs, errors = {}, []
+
+    def client(i):
+        try:
+            outs[i] = loop.generate(prompts[i], HANDOFF_NEW, timeout=600)
+        except BaseException as e:
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    _kernels.paged_decode.launches = 0          # the main path's count
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        launches = _kernels.paged_decode.launches
+        if errors or len(outs) != len(prompts):
+            raise AssertionError(f"restart clients failed: {errors}")
+        sup = loop._sup.stats()
+        delta = {o: counter.value(o) - before[o] for o in OUTCOMES}
+        if sup["restarts"] != 1 or sup["lost"] or delta["finished"] != \
+                len(prompts) or sum(delta.values()) != len(prompts):
+            raise AssertionError(f"restart: {sup}, outcomes {delta}")
+        if sup["resumed"]["swap"] < 1:
+            raise AssertionError(f"no swap resume: {sup['resumed']}")
+        replays = sum(e.ticks_dispatched for e in built)
+        warmups = built[1].compiles
+        want = L * (replays + warmups)
+        if launches != want:
+            raise AssertionError(
+                f"paged launches {launches} != n_layers x (replays + "
+                f"capture warm-ups) = {L} x ({replays} + {warmups})")
+        return {"seqs": [outs[i] for i in range(len(prompts))],
+                "restarts": sup["restarts"], "resumed": sup["resumed"],
+                "lost": sup["lost"],
+                "recovery_s": [e["mttr_s"] for e in sup["episodes"]],
+                "injected": inj.injected[0]["tick"],
+                "kernel_launches": launches, "graph_replays": replays,
+                "capture_warmups": warmups}
+    finally:
+        loop.shutdown()
+
+
+def handoff_pair(engine, prompts, L: int) -> dict:
+    """(l.4) A prefill-role and a decode-role replica (``ServingLoop`` +
+    ``make_http_server`` on 127.0.0.1, one process, one set of weights):
+    phase (e)'s greedy prompts POSTed to the prefill replica come back
+    as handoff descriptors; the decode replica's /v1/result gives each
+    request's tokens. Returns them, the handoff bytes, the capture+ship
+    ms per handoff and the decode replica's paged launches."""
+    import threading
+
+    from nos_tpu_torch.cmd.server import (
+        ServerConfig, ServingLoop, make_http_server,
+    )
+    from nos_tpu_torch.ops import _kernels
+
+    quiet_histograms()
+    cfg = dict(bf16=True, kv_blocks=1 + 8 * 128, kv_block_size=16,
+               max_batch=8, port=0, **FULL)
+    dec_eng = engine(role="decode")
+    dec_eng.capture_programs()
+    dec = ServingLoop(dec_eng, role="decode")
+    dec_httpd = make_http_server(ServerConfig(role="decode", **cfg), dec,
+                                 host="127.0.0.1")
+    threading.Thread(target=dec_httpd.serve_forever, daemon=True).start()
+    dec_url = f"http://127.0.0.1:{dec_httpd.server_address[1]}"
+
+    def send(target, data):
+        status, raw = http_call(target, "/v1/handoff", data)
+        if status != 200:
+            raise RuntimeError(f"handoff push: {status} {raw[:200]}")
+        return int(json.loads(raw)["rid"])
+
+    pre_eng = engine(role="prefill")
+    pre = ServingLoop(pre_eng, role="prefill", handoff_targets=[dec_url],
+                      handoff_send=send)
+    pre_httpd = make_http_server(
+        ServerConfig(role="prefill", decode_pool=dec_url, **cfg), pre,
+        host="127.0.0.1")
+    threading.Thread(target=pre_httpd.serve_forever, daemon=True).start()
+    pre_url = f"http://127.0.0.1:{pre_httpd.server_address[1]}"
+    try:
+        replays0 = dec_eng.ticks_dispatched
+        n0, s0 = pre.h_handoff.observations()
+        _kernels.paged_decode.launches = 0      # the main path's count
+        descs, seqs = [], []
+        for p in prompts:
+            status, raw = http_call(pre_url, "/v1/generate",
+                                    {"prompt": p,
+                                     "max_new_tokens": HANDOFF_NEW})
+            if status != 200:
+                raise AssertionError(f"prefill replica: {status} {raw}")
+            descs.append(json.loads(raw)["handoff"])
+        for d in descs:
+            if d["target"] != dec_url:
+                raise AssertionError(f"handoff target {d}")
+            status, raw = http_call(dec_url, f"/v1/result/{d['rid']}")
+            if status != 200:
+                raise AssertionError(f"decode replica: {status} {raw}")
+            seqs.append(json.loads(raw)["tokens"])
+        torch.cuda.synchronize()
+        launches = _kernels.paged_decode.launches
+        replays = dec_eng.ticks_dispatched - replays0
+        if launches != L * replays:
+            raise AssertionError(f"decode replica: paged launches "
+                                 f"{launches} != {L} x {replays} replays")
+        n1, s1 = pre.h_handoff.observations()
+        st = pre_eng.stats()["handoff"]
+        return {"seqs": seqs, "handoffs": st["total"],
+                "payload_bytes_bf16": st["payload_bytes"],
+                "capture_ms_per_handoff": st["capture_s"] * 1e3
+                / max(1, st["total"]),
+                "capture_and_ship_ms_per_handoff": (s1 - s0) * 1e3
+                / max(1, n1 - n0),
+                "kernel_launches": launches, "graph_replays": replays}
+    finally:
+        for httpd, loop in ((pre_httpd, pre), (dec_httpd, dec)):
+            httpd.shutdown()
+            loop.shutdown()
+            httpd.server_close()
+
+
+def phase_l(seed: int, card: str, served: dict) -> dict:
+    """(l): preemption, restart and handoff at phase (e)'s width, every
+    engine a ``DecodeServer`` on one set of ``build_engine`` weights;
+    ``served`` holds phase (e)'s sequences when (e) ran in this call.
+    Returns the paged kernel's launches of each main-path run."""
+    import gc
+
+    from nos_tpu_torch.cmd.server import ServerConfig, build_engine
+    from nos_tpu_torch.models.serving import DecodeServer
+
+    torch.cuda.empty_cache()
+    eng0 = build_engine(ServerConfig(
+        bf16=True, kv_blocks=2, kv_block_size=16, max_batch=1,
+        paged_kernel="on", seed=seed, **FULL))
+    L = FULL["n_layers"]
+    prompts = full_width_prompts(seed)
+    starts = [len(p) for p in prompts]
+
+    def engine(**kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        return DecodeServer(eng0.params, eng0.cfg, max_batch=8,
+                            kv_block_size=16, device=eng0.device, **{
+                                "kv_blocks": 1 + 8 * 128,
+                                "paged_impl": "kernel", **kw})
+
+    out = {"phase": "kv_payload", "card": card}
+    # l.1: batch invariance of a replayed step, both arenas
+    out["batch_invariance"] = []
+    for kv_dtype in ("bf16", "int8"):
+        eng = engine(kv_swap=False, kv_dtype=kv_dtype)
+        eng.capture_programs()
+        out["batch_invariance"].append(batch_invariance(eng, prompts))
+        del eng
+    # a resume whose committed sequence stays in its prompt's bucket (the
+    # longest prompt after 6 ticks; seed 0: 881 tokens, bucket 1024),
+    # timed graph against eager; then one whose committed sequence has
+    # crossed into the next bucket (the prompt nearest below a power of
+    # two, 4 ticks past it; seed 0: 103 tokens, 128 -> 256), where a
+    # re-prefill of prompt + out[:-1] (the reference's) gave other bits
+    # on the H100
+    def bucket(n):
+        return max(8, 1 << (n - 1).bit_length())
+
+    cross = min((len(p) for p in prompts), key=lambda n: bucket(n) - n)
+    out["recompute_probe"] = [
+        recompute_probe(engine, prompts, max(len(p) for p in prompts), 6,
+                        eager=True),
+        recompute_probe(engine, prompts, cross, bucket(cross) - cross + 4,
+                        eager=False)]
+    # l.2: the undisturbed runs, then pressure
+    undisturbed = {}
+    for kv_dtype in ("bf16", "int8"):
+        eng = engine(kv_dtype=kv_dtype)
+        eng.capture_programs()
+        rids = [eng.submit(p, PRESSURE_NEW) for p in prompts]
+        res = eng.drain()
+        undisturbed[kv_dtype] = [res[r] for r in rids]
+        del eng
+    for key, kv_dtype in (("greedy", "bf16"), ("int8_greedy", "int8")):
+        if key in served:
+            head = [s[:n + 32] for s, n in zip(undisturbed[kv_dtype], starts)]
+            if head != served[key]:
+                raise AssertionError(f"undisturbed {kv_dtype} run differs "
+                                     f"from phase (e)'s tokens")
+    points, launches = [], {}
+    for kv_swap, kv_dtype, depth, steps in PRESSURE_POINTS:
+        r = pressure_run(engine, prompts, kv_swap, kv_dtype, depth, steps, L)
+        seqs = r.pop("seqs")
+        ref = undisturbed[kv_dtype]
+        r["agreement_with_undisturbed"] = agreement(seqs, ref, starts)
+        r["tokens_equal_undisturbed"] = seqs == ref
+        if kv_swap and not r["tokens_equal_undisturbed"]:
+            raise AssertionError(
+                f"swap resume at {kv_dtype} ({depth}, {steps}): tokens "
+                f"differ from the undisturbed run")
+        r["tokens_sha256"] = token_digest(seqs)
+        points.append(r)
+        launches[f"{'swap' if kv_swap else 'recompute'}_{kv_dtype}_depth"
+                 f"{depth}_T{steps}"] = r["kernel_launches"]
+    out["pressure"] = points
+    out["undisturbed_sha256"] = {k: token_digest(v)
+                                 for k, v in undisturbed.items()}
+    b16 = [sum(r["swap_payload_bytes"]) for r in points
+           if r["kv_swap"] and r["kv_dtype"] == "bf16"]
+    q8 = [sum(r["swap_payload_bytes"]) for r in points
+          if r["kv_swap"] and r["kv_dtype"] == "int8"]
+    # l.3: supervised restart, swap capture
+    head = [s[:n + HANDOFF_NEW] for s, n in zip(undisturbed["bf16"], starts)]
+    restart = restart_run(engine, prompts, L)
+    if restart.pop("seqs") != head:
+        raise AssertionError("supervised restart (swap): tokens differ from "
+                             "the undisturbed run")
+    out["restart"] = dict(restart, tokens_equal_undisturbed=True)
+    # l.4: handoff over HTTP; the int8 payload's bytes from a prefill-role
+    # engine alone
+    hand = handoff_pair(engine, prompts, L)
+    if hand.pop("seqs") != head:
+        raise AssertionError("handoff: tokens differ from the undisturbed "
+                             "run")
+    eng = engine(role="prefill", kv_dtype="int8")
+    for p in prompts:
+        eng.submit(p, HANDOFF_NEW)
+    eng.pop_handoffs()
+    hand["payload_bytes_int8"] = eng.handoff_payload_bytes
+    hand["int8_over_bf16_bytes"] = eng.handoff_payload_bytes \
+        / hand["payload_bytes_bf16"]
+    del eng
+    out["handoff"] = dict(hand, tokens_equal_undisturbed=True)
+    out["swap_payload_int8_over_bf16"] = (
+        sum(q8) / sum(b16) if b16 and q8 and sum(b16) else None)
+    emit(out)
+    del eng0
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["restart"] = restart["kernel_launches"]
+    launches["handoff_decode"] = hand["kernel_launches"]
+    return launches
+
+
 # the training slice's attention shape (bench.py's 1.1B model: batch 8,
 # seq 2048, 16 query / 4 KV heads of 128)
 ATTN = dict(b=8, h=16, h_kv=4, s_q=2048, s_k=2048, d=128)
@@ -2857,6 +3467,8 @@ def main(argv=None) -> int:
         paged["window"] = {key: k["window"][key] for key in (
             "S", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}
+    if "l" in args.phases:
+        paged["kv_payload_launches"] = phase_l(args.seed, card, served)
     adamw = {}
     if "g" in args.phases:
         launches = phase_train(args.seed, card)

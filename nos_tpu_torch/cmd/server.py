@@ -1,13 +1,17 @@
 """nos-tpu-torch-server — the serving binary on the card: the
 continuous-batching engine (``models/serving.py``) behind the
-reference's HTTP API (port of ``nos_tpu/cmd/server.py``, colocated
-role).
+reference's HTTP API (port of ``nos_tpu/cmd/server.py``: the colocated,
+prefill and decode roles).
 
     POST /v1/generate   {"prompt": [ids], "max_new_tokens": N,
                          "temperature": T?, "top_k": K?, "top_p": P?,
                          "seed": S?, "stop_tokens": [ids]?,
                          "stream": bool?}
                         -> {"tokens": [full sequence]}, or SSE frames
+    POST /v1/handoff    (role=decode) adopt one encoded KV handoff
+                        -> {"rid": N}
+    GET  /v1/result/N   (role=decode) the adopted request's full
+                        sequence; GET /v1/stream/N streams it as SSE
     POST /admin/drain   begin graceful drain (stop admitting, flip
                         /readyz)
     POST /admin/undrain revert a drain (resume admitting)
@@ -35,14 +39,18 @@ Usage:
 
 ``--prefix-cache-size``, ``--prefill-chunk`` and ``--prefill-budget``
 serve as the reference's engine knobs do (a request's ``cache_prefix``
-publishes its prompt to the prefix cache). ``build_engine`` validates a
-config with the reference's messages, then refuses every knob the torch
-engine does not serve yet by name (``NotPorted``), before any weights
-are made: disaggregation roles and
-``/v1/handoff``, the KV fabric (``/v1/kvchain``, ``kv_sources``, its
-token), tenant quotas, tensor parallelism and speculative decoding. An
-HTTP request that reaches one of them is answered 404 with the knob's
-name.
+publishes its prompt to the prefix cache); ``--kv-swap off`` resumes a
+preempted slot by recompute instead of swap. ``--role prefill`` answers
+each request with a handoff descriptor after its first token, once the
+KV handoff has been shipped round-robin to ``--decode-pool``;
+``--role decode`` adopts handoffs (the same wire bytes as the
+reference's, so the two frameworks serve either end of a pair).
+``build_engine`` validates a config with the reference's messages, then
+refuses every knob the torch engine does not serve yet by name
+(``NotPorted``), before any weights are made: the KV fabric
+(``/v1/kvchain``, ``kv_sources``, its token), the host KV tier, tenant
+quotas, tensor parallelism and speculative decoding. An HTTP request
+that reaches one of them is answered 404 with the knob's name.
 """
 from __future__ import annotations
 
@@ -448,14 +456,17 @@ class ServingLoop:
     engine, releases the dead engine's device memory, rebuilds it
     through the factory (exponential backoff + seeded jitter between
     attempts), and re-admits the captured requests at the front of the
-    fresh queue. The port's engine has no capture yet (preemption and
-    its restore are not ported), so each live request is accounted
-    ``failed`` exactly once, as the reference accounts it for such an
-    engine. While recovery is in flight, submissions get
-    ``EngineRecovering`` (HTTP 503 + Retry-After) and /readyz reports
-    ``degraded``; /healthz flips only on TERMINAL failure. A stuck-tick
-    watchdog (``watchdog_s``) counts a tick in flight past the threshold
-    as a failure and takes the same path.
+    fresh queue: swap-restored byte for byte, or re-prefilled by
+    recompute, so a greedy request's tokens are the undisturbed run's.
+    A request the capture misses or the restore refuses is accounted
+    ``failed`` exactly once. While recovery is in flight, submissions
+    get ``EngineRecovering`` (HTTP 503 + Retry-After) and /readyz
+    reports ``degraded``; /healthz flips only on TERMINAL failure. A
+    stuck-tick watchdog (``watchdog_s``) counts a tick in flight past the
+    threshold as a failure and takes the same path. The faults it
+    recovers from are those a rebuilt engine can get past: a sticky CUDA
+    error poisons the process's CUDA context, and the rebuild then fails
+    too, which ends in the terminal path.
 
     Requests may carry a deadline (``deadline_s``; ``default_deadline_s``
     otherwise): unmeetable deadlines are shed at admission against
@@ -463,8 +474,15 @@ class ServingLoop:
     next tick barrier — either way the request's one terminal outcome
     is ``deadline``.
 
-    Disaggregation (``role``), tenant quotas (``tenant_quota``) and the
-    KV fabric (``fabric_token``) are refused with ``NotPorted``."""
+    Disaggregation: a ``role="prefill"`` loop answers each request with
+    a handoff descriptor once a pusher thread has shipped its KV
+    (``handoff_send``, round-robin over ``handoff_targets`` with a
+    failure cooldown and an optional /stats health view); a
+    ``role="decode"`` loop adopts handoffs (``adopt``) and serves them
+    through ``result``/``watch``, cancelling one whose consumer never
+    attaches within ``adopt_ttl_s``. Tenant quotas (``tenant_quota``)
+    and the KV fabric (``fabric_token``) are refused with
+    ``NotPorted``."""
 
     def __init__(self, engine, slo_ttft_ms: float = 0.0,
                  slo_tpot_ms: float = 0.0,
@@ -476,9 +494,13 @@ class ServingLoop:
                  default_deadline_s: float = 0.0, seed: int = 0,
                  config_echo: Optional[dict] = None,
                  tenant_quota=None, role: str = "colocated",
+                 handoff_targets: Optional[list] = None,
+                 handoff_send=None,
+                 handoff_cooldown_s: float = 5.0,
+                 handoff_health_interval_s: float = 0.0,
+                 adopt_ttl_s: float = 600.0,
                  fabric_token: str = ""):
         for knob, on, what in (
-                (f"role={role}", role != "colocated", "disaggregation"),
                 ("tenant_quota", tenant_quota is not None,
                  "tenant quotas"),
                 ("kv_fabric_token", fabric_token, "KV fabric")):
@@ -486,7 +508,6 @@ class ServingLoop:
                 raise NotPorted(
                     f"{knob} is not ported to the torch serving loop yet "
                     f"({what})")
-        self.role = role
         reg = default_registry()
         # register() is idempotent per (name, type, labels) and raises on
         # a mismatched re-registration — exactly what we want at startup
@@ -601,6 +622,101 @@ class ServingLoop:
                 ("tier",))
             for tier in ("drop", "demote"):
                 self.m_prefix_evict.labels(tier).inc(0)
+        # prefill/decode disaggregation (registered only on a
+        # prefill-role loop — colocated and decode servers must not
+        # export dead zero series): handoffs shipped to the decode
+        # pool by outcome, payload bytes per handoff (the int8-halves-
+        # the-wire claim is readable straight off this histogram), and
+        # capture+ship wall time per handoff
+        self.role = role
+        self._handoff_targets = list(handoff_targets or [])
+        self._handoff_send = handoff_send
+        self._handoff_rr = 0
+        self._handoff_done: dict = {}       # loop rid -> descriptor
+        self._handoff_gone: set = set()     # client departed pre-push
+        # pusher health memory: a decode replica that refused/failed a
+        # push is skipped for this cooldown window before being
+        # retried (blind round-robin would keep burning an attempt on
+        # a dead replica every lap). target url -> abs monotonic the
+        # cooldown ends; cleared on the next successful push. When the
+        # WHOLE pool is cooling the pusher falls back to probing every
+        # target — a cooldown degrades to blind round-robin, never to
+        # dropping the handoff.
+        self._handoff_cooldown_s = handoff_cooldown_s or 0.0
+        self._handoff_unhealthy: dict = {}  # target -> abs monotonic
+        # pusher health VIEW (beyond the reactive cooldown above): at
+        # a bounded cadence the pusher scrapes each decode target's
+        # /stats so pushes prefer healthy, least-loaded replicas and a
+        # draining/recovering replica is skipped BEFORE the first
+        # failed attempt. ``pool_stats_fetch`` is the injectable
+        # fetcher (target url -> parsed stats dict) so tests drive the
+        # view without sockets; None = the urllib default.
+        self._handoff_health_interval_s = handoff_health_interval_s \
+            or 0.0
+        self.pool_stats_fetch = None
+        self._pool_health: dict = {}    # target -> health row
+        self._pool_health_at: Optional[float] = None
+        # prefill-side deadline carry: the prefill server doesn't
+        # ENFORCE deadlines (phase 1 is short; the decode side owns
+        # expiry) but must not DROP them — the pusher attaches the
+        # remaining seconds at ship time so the adopting decode
+        # replica can shed expired phase-2 work early.
+        self._prefill_deadlines: dict = {}  # loop rid -> abs monotonic
+        # trace carry over the same seam: the prefill-side request
+        # span's encoded context ships in the handoff meta plane so the
+        # adopting decode replica's serve.request parents into the SAME
+        # journey instead of minting a fresh trace_id
+        self._prefill_traceparents: dict = {}   # loop rid -> traceparent
+        # adopted-request TTL (decode role): an adopted handoff whose
+        # consumer never shows up — the gateway crashed mid-resume, or
+        # phase 2 exhausted its attempts — must not decode-and-park
+        # forever. adopt() arms rid -> abs monotonic expiry here; a
+        # consumer attach (result/watch) disarms it (the consumer's
+        # own timeout/disconnect discipline owns the lifecycle from
+        # there); _reap_orphans cancels whatever expires unclaimed.
+        self._handoff_deadline: dict = {}   # loop rid -> abs monotonic
+        self._adopt_ttl_s = adopt_ttl_s
+        self._adopted: dict = {}            # loop rid -> prompt tokens
+        # finished adopted results kept for re-fetch (same TTL): a
+        # gateway retry of /v1/result after a socket timeout races the
+        # abandoned first handler for the single engine pop — the
+        # winner parks the tokens here so the loser still answers
+        # instead of failing a fully-decoded request as "vanished"
+        self._adopted_final: dict = {}      # loop rid -> full tokens
+        # live _deltas consumers per rid: only the LAST one's teardown
+        # forgets the request — an abandoned handler timing out must
+        # not cancel the rid a retried resume is still attached to
+        self._watchers: dict = {}           # loop rid -> consumer count
+        if role == "prefill":
+            self.m_handoff = reg.counter(
+                "nos_tpu_serve_handoff_total",
+                "Prefill->decode handoffs leaving this prefill-role "
+                "server, by outcome (sent = adopted by a decode "
+                "replica | failed = every decode-pool target refused "
+                "or was unreachable; the request's one terminal "
+                "outcome follows it)",
+                ("outcome",))
+            self.h_handoff_bytes = reg.histogram(
+                "nos_tpu_serve_handoff_bytes",
+                "KV payload bytes per handoff (quantized blocks + "
+                "per-block scales under int8 — roughly half the bf16 "
+                "bytes per request over DCN)",
+                buckets=(1e3, 1e4, 1e5, 1e6, 1e7, 1e8, 1e9))
+            self.h_handoff = reg.histogram(
+                "nos_tpu_serve_handoff_seconds",
+                "Wall time per handoff: KV swap-out capture plus the "
+                "ship to the decode replica")
+            self.m_handoff_skipped = reg.counter(
+                "nos_tpu_serve_handoff_skipped_total",
+                "Decode-pool targets skipped by the pusher: cooling "
+                "down after a failed push (--handoff-cooldown-s) or "
+                "reported draining/recovering by the scraped health "
+                "view (--handoff-health-interval-s — skipped BEFORE "
+                "the first failed attempt); a sustained rate means "
+                "part of the decode pool is down or rolling")
+            for outcome in ("sent", "failed"):
+                self.m_handoff.labels(outcome).inc(0)
+            self.m_handoff_skipped.inc(0)
         # budgeted chunked prefill, registered only when the engine runs
         # a per-tick budget (an unbudgeted loop exports no dead series)
         if getattr(engine, "prefill_budget", 0) > 0:
@@ -723,20 +839,27 @@ class ServingLoop:
         self._est_ttft_s: Optional[float] = None
         self._est_tpot_s: Optional[float] = None
         self._est_out_tokens: Optional[float] = None
-        # live _deltas consumers per rid: only the LAST one's teardown
-        # forgets the request
-        self._watchers: dict = {}
         for outcome in OUTCOMES:        # export 0s, not absent series
             self.m_requests.labels(outcome).inc(0)
         self._mirror_engine_gauges()
         self._sample_device_stats()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
+        self._handoff_thread: Optional[threading.Thread] = None
+        if role == "prefill" and self._handoff_send is not None:
+            self._handoff_thread = threading.Thread(
+                target=self._push_handoffs, daemon=True)
+            self._handoff_thread.start()
         self._monitor_thread: Optional[threading.Thread] = None
         if self._watchdog_s > 0:
             self._monitor_thread = threading.Thread(
                 target=self._monitor, daemon=True)
             self._monitor_thread.start()
+        self._orphan_thread: Optional[threading.Thread] = None
+        if role == "decode" and adopt_ttl_s > 0:
+            self._orphan_thread = threading.Thread(
+                target=self._reap_orphans, daemon=True)
+            self._orphan_thread.start()
 
     @property
     def healthy(self) -> bool:
@@ -810,7 +933,13 @@ class ServingLoop:
         self.m_requests.labels(outcome).inc()
         self._live.discard(rid)
         self._deadlines.pop(rid, None)
+        self._prefill_deadlines.pop(rid, None)
+        self._prefill_traceparents.pop(rid, None)
         self._rid_map.pop(rid, None)
+        # an adopted (decode-role) request's prompt leaves with its
+        # terminal outcome: the streaming attach never calls result()
+        self._adopted.pop(rid, None)
+        self._handoff_deadline.pop(rid, None)
         sp = self._spans.pop(rid, None)
         tid = (sp.trace_id or None) if sp is not None else None
         breaches = []
@@ -1404,8 +1533,8 @@ class ServingLoop:
                     rsp.end()
                     tracing.recorder().pin(sp.trace_id, "recover")
             for orig in sorted(self._live - seen):
-                # live at failure time but absent from the capture (the
-                # torch engine has no capture yet): lost, drained as
+                # live at failure time but absent from the capture (an
+                # engine whose capture raised): lost, drained as
                 # ``failed``, exactly once
                 self._lost_rids.add(orig)
                 self.m_lost.inc()
@@ -1498,36 +1627,421 @@ class ServingLoop:
         self._mirror_engine_gauges()
         self._work.notify_all()     # the stream raises DeadlineExceeded
 
-    # -- paths whose engine feature is not ported -----------------------
+    # -- disaggregation ------------------------------------------------
+    def _fetch_pool_stats(self, target: str) -> dict:
+        """Default /stats scraper for the pusher's decode-pool health
+        view; ``pool_stats_fetch`` overrides it (tests, benches)."""
+        import urllib.request
+
+        with urllib.request.urlopen(
+                target.rstrip("/") + "/stats", timeout=2) as resp:
+            return json.loads(resp.read())
+
+    def _refresh_pool_health(self, targets) -> None:
+        """Refresh the pusher's health view of the decode pool from
+        each target's /stats, at most every
+        --handoff-health-interval-s. A target whose scrape fails goes
+        UNKNOWN (dropped from the view), not unhealthy — the push
+        attempt itself owns failure cooldowns."""
+        now = time.monotonic()
+        if self._pool_health_at is not None and \
+                now - self._pool_health_at \
+                < self._handoff_health_interval_s:
+            return
+        self._pool_health_at = now
+        fetch = self.pool_stats_fetch or self._fetch_pool_stats
+        health = {}
+        for t in targets:
+            try:
+                st = fetch(t)
+            except Exception:   # noqa: BLE001 — scrape is best-effort
+                continue
+            pending = st.get("pending")
+            depth = pending.get("depth", 0) \
+                if isinstance(pending, dict) else 0
+            health[t] = {
+                "queue": int(depth or 0),
+                "draining": bool(st.get("draining")),
+                "recovering": bool(st.get("recovering")),
+            }
+        self._pool_health = health
+
+    def _order_pool(self, pool: list) -> list:
+        """Order push candidates by the health view: draining or
+        recovering targets are dropped (skipped BEFORE a failed
+        attempt — counted in nos_tpu_serve_handoff_skipped_total),
+        healthy ones sort by scraped queue depth ascending with the
+        round-robin cursor breaking ties, unknown targets (scrape
+        failed) sort after every known-healthy one. An empty result
+        (whole pool draining) falls back to the unordered pool —
+        the health view degrades to blind round-robin, never to
+        dropping the handoff."""
+        if not self._pool_health:
+            return pool
+        keep, skipped = [], 0
+        for t in pool:
+            h = self._pool_health.get(t)
+            if h is not None and (h["draining"] or h["recovering"]):
+                skipped += 1
+                continue
+            keep.append(t)
+        if skipped:
+            self.m_handoff_skipped.inc(skipped)
+        if not keep:
+            return pool
+        rank = {t: i for i, t in enumerate(keep)}
+        rr = self._handoff_rr
+
+        def key(t):
+            h = self._pool_health.get(t)
+            return ((0, h["queue"]) if h is not None else (1, 0)) \
+                + ((rank[t] - rr) % len(keep),)
+
+        return sorted(keep, key=key)
+
+    def _push_handoffs(self) -> None:
+        """Pusher thread (prefill role): drain the engine's parked
+        handoff states and ship each to a decode-pool target —
+        round-robin, next target on failure, two laps before the
+        handoff (and its request) fails. Encoding and the network send
+        run OUTSIDE the loop lock; only the bookkeeping (result map,
+        terminal accounting, metrics) re-enters it."""
+        from nos_tpu_torch.models.handoff import encode_handoff, handoff_nbytes
+        while True:
+            with self._work:
+                while not self._stop and self._failed is None \
+                        and not getattr(self.engine, "_handoffs", None):
+                    self._work.wait(timeout=0.25)
+                if self._stop or self._failed is not None:
+                    return
+                states = self.engine.pop_handoffs()
+                # reverse map BEFORE releasing the lock: a recovery
+                # could remap rids while we ship
+                rev = {erid: lrid
+                       for lrid, erid in self._rid_map.items()}
+            for st in states:
+                with self._work:
+                    lrid0 = rev.get(st["rid"])
+                    if lrid0 is not None \
+                            and lrid0 in self._handoff_gone:
+                        # the client departed while the payload was
+                        # parked: don't ship KV nobody will read —
+                        # resolve the request as cancelled here
+                        self._handoff_gone.discard(lrid0)
+                        self._account(lrid0, "cancelled",
+                                      self._pop_ledger(st["rid"]))
+                        self._work.notify_all()
+                        continue
+                    dl = (self._prefill_deadlines.get(lrid0)
+                          if lrid0 is not None else None)
+                    tp = (self._prefill_traceparents.get(lrid0)
+                          if lrid0 is not None else None)
+                if tp is not None:
+                    # the journey context rides the same JSON meta
+                    # plane as deadline_s: the adopting decode
+                    # replica's serve.request parents into it
+                    st["traceparent"] = tp
+                if dl is not None:
+                    # carry the REMAINING seconds, computed at ship
+                    # time: wall budgets survive the hop without any
+                    # cross-host clock sync. An already-negative carry
+                    # still ships — adopt() arms it in the past and
+                    # the decode side's next sweep sheds the expired
+                    # work instead of decoding an answer nobody waits
+                    # for. The descriptor key rides the handoff's JSON
+                    # meta plane (models/handoff.py round-trips
+                    # non-array keys verbatim).
+                    st["deadline_s"] = dl - time.monotonic()
+                t0 = time.monotonic()
+                data = encode_handoff(st)
+                sent, last_err = None, None
+                targets = self._handoff_targets
+                now = time.monotonic()
+                pool = [t for t in targets
+                        if self._handoff_unhealthy.get(t, 0.0) <= now]
+                if len(pool) < len(targets):
+                    self.m_handoff_skipped.inc(len(targets) - len(pool))
+                ordered = None
+                if not pool:
+                    pool = targets      # whole pool cooling: probe all
+                elif self._handoff_health_interval_s > 0:
+                    # health view: skip draining/recovering targets
+                    # before the first attempt, try the least-loaded
+                    # healthy replica first (RR breaks ties)
+                    self._refresh_pool_health(pool)
+                    ordered = self._order_pool(pool)
+                for i in range(max(1, 2 * len(pool))):
+                    if ordered:
+                        target = ordered[i % len(ordered)]
+                    else:
+                        target = pool[self._handoff_rr % len(pool)]
+                    self._handoff_rr += 1
+                    try:
+                        remote_rid = self._handoff_send(target, data)
+                        sent = {"target": target, "rid": int(remote_rid)}
+                        self._handoff_unhealthy.pop(target, None)
+                        break
+                    except Exception as e:  # noqa: BLE001 — next target
+                        last_err = e
+                        if self._handoff_cooldown_s > 0:
+                            self._handoff_unhealthy[target] = \
+                                time.monotonic() + self._handoff_cooldown_s
+                with self._work:
+                    lrid = rev.get(st["rid"])
+                    ledger = self._pop_ledger(st["rid"])
+                    self.h_handoff_bytes.observe(handoff_nbytes(st))
+                    self.h_handoff.observe(time.monotonic() - t0)
+                    if sent is not None:
+                        self.m_handoff.labels("sent").inc()
+                        if lrid is not None:
+                            if lrid in self._handoff_gone:
+                                # departed mid-ship: the decode side
+                                # owns an orphan now, but THIS loop's
+                                # outcome is exactly-once cancelled
+                                # and no descriptor parks unclaimed
+                                self._handoff_gone.discard(lrid)
+                                self._account(lrid, "cancelled",
+                                              ledger)
+                            else:
+                                self._handoff_done[lrid] = sent
+                                self._account(lrid, "finished", ledger)
+                    else:
+                        logger.error("handoff for rid %s failed on "
+                                     "every decode target: %s",
+                                     st["rid"], last_err)
+                        self.m_handoff.labels("failed").inc()
+                        if lrid is not None:
+                            self._handoff_done[lrid] = {
+                                "error": f"handoff failed: {last_err}"}
+                            self._account(lrid, "failed", ledger)
+                    self._work.notify_all()
+
     def prefill(self, prompt, max_new_tokens, timeout: float = 300.0,
-                **sampling):
-        """The prefill-role request path: refused (disaggregation)."""
-        raise NotPorted(
-            "role=prefill is not ported to the torch serving loop yet "
-            "(disaggregation: the KV handoff needs preemption's swap "
-            "payload)")
+                deadline_s: Optional[float] = None,
+                traceparent: Optional[str] = None, **sampling):
+        """Prefill-role request path: submit, wait for the handoff to
+        land on a decode replica, return its descriptor
+        ``{"handoff": {"target", "rid"}}`` — the gateway (or client)
+        then streams/fetches from the decode replica. A request whose
+        first token already completes it (max_new_tokens == 1) never
+        hands off: its tokens come back directly, same wire shape as
+        a colocated answer.
+
+        ``deadline_s`` is not ENFORCED here (phase 1 is short; expiry
+        is the decode side's job) but it is no longer dropped: the
+        pusher ships the remaining budget inside the handoff
+        descriptor and the adopting replica arms it, so expired
+        phase-2 work is shed early instead of decoding unread
+        tokens."""
+        dl_s = deadline_s if deadline_s is not None \
+            else (self._default_deadline_s or None)
+        if dl_s is not None:
+            dl_s = float(dl_s)
+            # same finite-only discipline as stream(): NaN passes every
+            # comparison as a never-expiring ghost deadline
+            if not math.isfinite(dl_s) or dl_s < 0:
+                raise ValueError(
+                    f"deadline_s must be a finite number >= 0, "
+                    f"got {dl_s}")
+            if dl_s == 0:       # an EXPLICIT 0 opts out of the default
+                dl_s = None
+        with self._work:
+            if self._failed is not None:
+                raise RuntimeError(f"serving loop failed: {self._failed}")
+            if self._recovering:
+                self.m_requests.labels("rejected").inc()
+                raise EngineRecovering(
+                    "engine restarting after a fault; retry shortly")
+            if self._draining:
+                raise DrainingError(
+                    "server is draining (terminating); retry elsewhere")
+            if dl_s is not None:
+                # the budgeted prefill scheduler orders waiting chunk
+                # work by TTFT slack even on a prefill-role engine;
+                # engines without it just see an extra kwarg
+                sampling["deadline_s"] = dl_s
+            try:
+                erid = self.engine.submit(prompt, max_new_tokens,
+                                          **sampling)
+            except QueueFull:
+                self.m_requests.labels("rejected").inc()
+                raise
+            rid = self._next_rid
+            self._next_rid += 1
+            self._rid_map[rid] = erid
+            self._live.add(rid)
+            if dl_s is not None:
+                self._prefill_deadlines[rid] = time.monotonic() + dl_s
+            # the prefill side of a disaggregated request records its
+            # own serve.request span (role=prefill, closed by _account
+            # when the handoff ships or the request completes locally)
+            # and STASHES a context for the pusher: the encoded child
+            # context when recording, else the raw inbound header —
+            # tracing-off prefill replicas still forward the journey
+            # untouched to the decode side
+            sp = tracing.start_span(
+                "serve.request", component="server", parent=traceparent,
+                attrs={"prompt_tokens": len(prompt),
+                       "max_new_tokens": max_new_tokens,
+                       "role": "prefill"})
+            if sp.recording:
+                self._spans[rid] = sp
+                self._prefill_traceparents[rid] = sp.context.encode()
+            elif traceparent:
+                self._prefill_traceparents[rid] = traceparent
+            self._mirror_engine_gauges()
+            self._work.notify_all()
+            deadline = time.monotonic() + timeout
+            while True:
+                done = self._handoff_done.pop(rid, None)
+                if done is not None:
+                    if "error" in done:
+                        raise RuntimeError(done["error"])
+                    return {"handoff": done}
+                cur = self._rid_map.get(rid)
+                prog = self.engine.progress(cur) \
+                    if cur is not None else None
+                if prog is not None and prog[1]:
+                    # completed locally (max_new_tokens == 1): the
+                    # ordinary unary answer
+                    ledger = self._pop_ledger(cur)
+                    self.engine.pop_result(cur)
+                    self._account(rid, "finished", ledger)
+                    return {"tokens": list(prompt) + prog[0]}
+                if self._failed is not None:
+                    raise RuntimeError(
+                        f"serving loop failed: {self._failed}")
+                if self._stop:
+                    raise RuntimeError(
+                        f"request {rid} unfinished at server shutdown")
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    self._forget_locked(rid)
+                    raise TimeoutError(f"request {rid} timed out "
+                                       f"awaiting handoff")
+                self._work.wait(timeout=min(remaining, 1.0))
+
+    def _forget_locked(self, rid: int) -> None:
+        """_forget's body expects to take the lock itself; this is the
+        already-locked twin for the prefill wait path."""
+        self._work.release()
+        try:
+            self._forget(rid)
+        finally:
+            self._work.acquire()
 
     def adopt(self, data: bytes) -> int:
-        """The decode-role handoff ingest: refused (disaggregation)."""
-        raise NotPorted(
-            "role=decode is not ported to the torch serving loop yet "
-            "(disaggregation: /v1/handoff adoption needs the engine's "
-            "restore)")
+        """Decode-role ingest: decode one handoff payload and restore
+        it into the engine — byte-exact resume of the prefilled KV plus
+        the committed first token. Returns the loop rid ``result`` /
+        ``watch`` serve. Geometry mismatches (block size, kv_dtype,
+        model dims) raise Infeasible from the engine's restore."""
+        from nos_tpu_torch.models.handoff import decode_handoff
+        state = decode_handoff(data)
+        # deadline carried through the handoff (remaining seconds at
+        # ship time): popped before restore — it is loop bookkeeping,
+        # not engine KV state
+        carried_dl = state.pop("deadline_s", None)
+        # trace context carried the same way: the decode side's
+        # serve.request span parents into the prefill side's, so one
+        # trace_id spans the disaggregated pair
+        carried_tp = state.pop("traceparent", None)
+        with self._work:
+            if self._failed is not None:
+                raise RuntimeError(f"serving loop failed: {self._failed}")
+            if self._recovering:
+                raise EngineRecovering(
+                    "engine restarting after a fault; retry shortly")
+            if self._draining:
+                raise DrainingError(
+                    "server is draining (terminating); retry elsewhere")
+            erid = self.engine.restore(state)
+            rid = self._next_rid
+            self._next_rid += 1
+            self._rid_map[rid] = erid
+            self._live.add(rid)
+            self._adopted[rid] = list(state["prompt"])
+            if self._adopt_ttl_s > 0:
+                self._handoff_deadline[rid] = \
+                    time.monotonic() + self._adopt_ttl_s
+            if carried_dl is not None:
+                # arm the carried request deadline in the SAME ledger
+                # stream()'s deadlines live in: _deltas raises
+                # DeadlineExceeded and _sweep_deadlines sheds it
+                # mid-decode exactly like a locally-submitted request.
+                # A non-positive carry (expired in transit) arms in
+                # the past and the next sweep cancels it before it
+                # burns a decode tick quantum.
+                self._deadlines[rid] = \
+                    time.monotonic() + float(carried_dl)
+            sp = tracing.start_span(
+                "serve.request", component="server",
+                parent=carried_tp if isinstance(carried_tp, str)
+                else None,
+                attrs={"prompt_tokens": len(state["prompt"]),
+                       "role": "decode", "adopted": True})
+            if sp.recording:
+                self._spans[rid] = sp
+            self._mirror_engine_gauges()
+            self._work.notify_all()
+        return rid
 
     def watch(self, rid: int, timeout: float = 300.0):
-        """Attach to a request's token stream by rid: yields newly
-        decoded token lists exactly like ``stream``."""
+        """Attach to an adopted request's token stream (the decode-side
+        SSE surface after a handoff): yields newly-decoded token lists
+        exactly like ``stream``, for a request that entered via
+        ``adopt`` instead of ``submit``."""
         with self._work:
             if self._rid_map.get(rid) is None:
                 raise ValueError(f"unknown request {rid}")
+            # a consumer owns the lifecycle now (its disconnect runs
+            # _forget): the unclaimed-orphan TTL stands down
+            self._handoff_deadline.pop(rid, None)
         return _Stream(self, rid, self._deltas(rid, timeout))
 
     def result(self, rid: int, timeout: float = 300.0):
-        """The full sequence of an ADOPTED request (the decode-side
-        unary surface after a handoff). Nothing is adopted on a
-        colocated replica, so every rid is unknown here, as the
-        reference answers on one."""
-        raise ValueError(f"unknown request {rid}")
+        """Block for an adopted request's full sequence (prompt +
+        generated) — the decode-side unary surface after a handoff.
+        Idempotent once finished (until the re-fetch TTL expires): a
+        gateway retrying after a socket timeout gets the same tokens
+        its abandoned first attempt drained."""
+        with self._work:
+            final = self._adopted_final.get(rid)
+            if final is not None:
+                return list(final)
+            prompt = self._adopted.get(rid)
+            if prompt is None:
+                raise ValueError(f"unknown request {rid}")
+            self._handoff_deadline.pop(rid, None)   # consumer attached
+        out = list(prompt)
+        try:
+            for delta in self._deltas(rid, timeout):
+                out.extend(delta)
+        except RuntimeError:
+            # "request N vanished": a concurrent result() handler for
+            # the same rid (an abandoned attempt the client timed out
+            # on) won the engine pop — its parked final answers us.
+            # Brief recheck window: the winner's pop (inside _deltas)
+            # and its park below are two lock acquisitions apart.
+            end = time.monotonic() + 2.0
+            with self._work:
+                while True:
+                    final = self._adopted_final.get(rid)
+                    if final is not None:
+                        return list(final)
+                    if time.monotonic() >= end:
+                        break
+                    self._work.wait(timeout=0.05)
+            raise
+        with self._work:
+            self._adopted_final[rid] = list(out)
+            if self._adopt_ttl_s > 0:
+                # re-fetch grace window; _reap_orphans drops it after
+                self._handoff_deadline[rid] = \
+                    time.monotonic() + self._adopt_ttl_s
+            self._adopted.pop(rid, None)
+            self._work.notify_all()
+        return out
 
     def generate(self, prompt, max_new_tokens, timeout: float = 300.0,
                  deadline_s: Optional[float] = None,
@@ -1560,6 +2074,13 @@ class ServingLoop:
                 self._abandoned.discard(rid)
                 return
             if erid is None or self.engine.progress(erid) is None:
+                # prefill role: the request may be parked as, or already
+                # shipped as, a handoff. Drop any unclaimed descriptor,
+                # and mark a still-live rid so the pusher resolves a
+                # departed client's handoff as cancelled
+                self._handoff_done.pop(rid, None)
+                if self.role == "prefill" and rid in self._live:
+                    self._handoff_gone.add(rid)
                 self._abandoned.discard(rid)    # already popped
                 return
             draining_out = self._failed is not None or self._stop
@@ -1826,6 +2347,34 @@ class ServingLoop:
                 return
         self._forget(rid)
 
+    def _reap_orphans(self) -> None:
+        """Decode-role reaper thread: an adopted handoff whose consumer
+        never attached (the gateway crashed mid-resume, or phase 2
+        exhausted its retries — the pusher's 'decode side owns an
+        orphan now' case) would otherwise decode to completion and park
+        its result, ledger and rid maps forever. Whatever is still
+        armed in _handoff_deadline past its TTL is dropped: unclaimed
+        live requests are cancelled out of the engine (terminal
+        ``cancelled``, exactly once), consumed finals just leave the
+        re-fetch cache."""
+        period = min(5.0, max(0.1, self._adopt_ttl_s / 4.0))
+        while not self._stop_event.wait(period):
+            expired: list = []
+            with self._work:
+                if not self._handoff_deadline:
+                    continue
+                now = time.monotonic()
+                for rid, dl in list(self._handoff_deadline.items()):
+                    if now <= dl:
+                        continue
+                    self._handoff_deadline.pop(rid, None)
+                    if self._adopted_final.pop(rid, None) is not None:
+                        self._adopted.pop(rid, None)
+                    else:
+                        expired.append(rid)
+            for rid in expired:
+                self._forget(rid)
+
     def shutdown(self) -> None:
         """Stop the loop deterministically, INCLUDING during an
         in-progress recovery (which then drains its captured requests as
@@ -1837,6 +2386,10 @@ class ServingLoop:
         self._thread.join(timeout=5)
         if self._monitor_thread is not None:
             self._monitor_thread.join(timeout=5)
+        if self._handoff_thread is not None:
+            self._handoff_thread.join(timeout=5)
+        if self._orphan_thread is not None:
+            self._orphan_thread.join(timeout=5)
 
 
 class _Stream:
@@ -1969,8 +2522,7 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
         if on:
             raise NotPorted(
                 f"{knob} is not ported to the torch engine yet ({what})")
-    reject_unported(kv_blocks=cfg.kv_blocks, role=cfg.role,
-                    kv_swap=cfg.kv_swap)
+    reject_unported(kv_blocks=cfg.kv_blocks)
     device = resolve_device(device)
     check_paged_kernel_head_dim(cfg.d_model // cfg.n_heads, device,
                                 paged_impl)
@@ -1988,10 +2540,10 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
                         pipeline_depth=cfg.pipeline_depth,
                         decode_steps=cfg.decode_steps,
                         kv_block_size=cfg.kv_block_size,
-                        kv_blocks=cfg.kv_blocks,
+                        kv_blocks=cfg.kv_blocks, kv_swap=cfg.kv_swap,
                         hbm_admit_frac=cfg.kv_hbm_admit_frac,
-                        kv_dtype=cfg.kv_dtype, device=device,
-                        paged_impl=paged_impl)
+                        kv_dtype=cfg.kv_dtype, role=cfg.role,
+                        device=device, paged_impl=paged_impl)
 
 
 def _not_ported_route(path: str, knob: str, what: str) -> dict:
@@ -2053,14 +2605,26 @@ def make_http_server(cfg: ServerConfig, loop: ServingLoop,
             elif self.path == "/stats":
                 self._reply(200, loop.stats())
             elif self.path.startswith("/v1/result/"):
-                # the decode-role unary attach of an adopted handoff:
-                # nothing is adopted on a colocated replica
+                # decode-role unary attach: the full sequence of an
+                # adopted handoff once it finishes
                 try:
                     rid = int(self.path.rsplit("/", 1)[1].split("?")[0])
-                    tokens = loop.result(rid)
+                    tokens = loop.result(rid, timeout=cfg.drain_timeout_s
+                                         + 270.0)
                 except ValueError as e:
                     self._reply(404, {"error": str(e),
                                       "reason": "unknown_rid"})
+                    return
+                except DeadlineExceeded as e:
+                    self._reply(504, {"error": str(e),
+                                      "deadline_exceeded": True})
+                    return
+                except TimeoutError as e:
+                    self._reply(503, {"error": str(e),
+                                      "reason": "timeout"})
+                    return
+                except Exception as e:  # noqa: BLE001 — JSON 500
+                    self._reply(500, {"error": f"{type(e).__name__}: {e}"})
                     return
                 self._reply(200, {"tokens": tokens})
             elif self.path.startswith("/v1/stream/"):
@@ -2150,8 +2714,29 @@ def make_http_server(cfg: ServerConfig, loop: ServingLoop,
                 self._reply(200, {"status": "ok"})
                 return
             if self.path == "/v1/handoff":
-                self._reply(404, _not_ported_route(
-                    self.path, "role=decode", "KV handoff adoption"))
+                # decode-role ingest: one encoded handoff payload ->
+                # adopted rid (restored byte for byte into the engine)
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    rid = loop.adopt(self.rfile.read(length))
+                except Infeasible as e:
+                    self._reply(400, {"error": f"{type(e).__name__}: {e}",
+                                      "infeasible": True,
+                                      "reason": e.reason})
+                    return
+                except EngineRecovering as e:
+                    self._reply(503, {"error": str(e),
+                                      "reason": "recovering"},
+                                headers=[("Retry-After", "1")])
+                    return
+                except DrainingError as e:
+                    self._reply(503, {"error": str(e),
+                                      "reason": "draining"})
+                    return
+                except Exception as e:  # noqa: BLE001 — JSON 500
+                    self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+                    return
+                self._reply(200, {"rid": rid})
                 return
             if self.path != "/v1/generate":
                 self._reply(404, {"error": f"unknown path {self.path}"})
@@ -2205,6 +2790,10 @@ def make_http_server(cfg: ServerConfig, loop: ServingLoop,
                         "kv_fabric_token) is not ported to the torch "
                         "engine yet")
                 if cfg.role == "prefill":
+                    # the answer is a handoff descriptor ({"handoff":
+                    # {"target", "rid"}}) the client follows to the
+                    # decode replica's /v1/result or /v1/stream, or plain
+                    # tokens when the first token completed the request
                     self._reply(200, loop.prefill(prompt, n, **sampling))
                     return
                 if body.get("stream"):
@@ -2341,7 +2930,14 @@ def main(argv: Optional[Sequence[str]] = None,
         "--role", choices=("colocated", "prefill", "decode"),
         default=None,
         help="prefill/decode disaggregation role (overrides config): "
-             "colocated = one engine prefills and decodes (default)")
+             "colocated = one engine prefills and decodes (default); "
+             "prefill = requests leave after their first token as a "
+             "KV handoff shipped round-robin to --decode-pool "
+             "(requires --kv-blocks; int8 KV halves handoff bytes); "
+             "decode = adopts handoffs via POST /v1/handoff and "
+             "serves /v1/result//v1/stream (requires --kv-blocks and "
+             "the same kv geometry as the prefill peers). Echoed in "
+             "/stats config for fleet drift detection")
     parser.add_argument(
         "--decode-pool", default=None,
         help="comma-separated decode-replica base URLs a prefill-role "
@@ -2459,8 +3055,29 @@ def main(argv: Optional[Sequence[str]] = None,
         engine = build_engine(cfg, device)
     except NotPorted as e:
         parser.exit(2, f"{parser.prog}: {e}\n")
+
+    def _http_handoff_send(target: str, data: bytes) -> int:
+        """Ship one encoded handoff to a decode replica; returns the
+        decode-side rid. Errors propagate: the pusher tries the next
+        pool target."""
+        import urllib.request
+
+        req = urllib.request.Request(
+            target.rstrip("/") + "/v1/handoff", data=data,
+            headers={"Content-Type": "application/octet-stream"},
+            method="POST")
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return int(json.loads(resp.read())["rid"])
+
+    decode_pool = [u.strip() for u in cfg.decode_pool.split(",")
+                   if u.strip()]
     loop = ServingLoop(
         engine, slo_ttft_ms=cfg.slo_ttft_ms,
+        role=cfg.role, handoff_targets=decode_pool,
+        handoff_send=(_http_handoff_send if cfg.role == "prefill"
+                      else None),
+        handoff_cooldown_s=cfg.handoff_cooldown_s,
+        handoff_health_interval_s=cfg.handoff_health_interval_s,
         slo_tpot_ms=cfg.slo_tpot_ms,
         device_stats_interval_s=cfg.device_stats_interval_s,
         engine_factory=factory, restart_budget=cfg.restart_budget,

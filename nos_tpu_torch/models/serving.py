@@ -61,14 +61,27 @@ install, an in-arena window) is queued on the engine's stream behind
 the ticks in flight. Each request keeps the reference's latency ledger
 (``pop_ledger``), read by the serving loop's TTFT/TPOT histograms.
 
+Under block pressure the engine frees blocks in the reference's order:
+flush the window, land deferred frees, evict one LRU prefix chain, then
+preempt the lowest-priority (then youngest) decoding slot, re-enqueued
+at the front of the queue. ``kv_swap`` picks how it resumes: swap (the
+slot's committed blocks copied to host and restored byte for byte) or
+recompute (``prompt + out[:-1]`` re-prefilled over a scratch row; under
+the kernel formulation the prompt alone is re-prefilled, in its
+admission's bucket, and the committed output tokens are replayed through
+the paged kernel at the tick's width, one step a token, so every
+rewritten position is the arithmetic that first wrote it). The same payload
+carries a supervised restart (``capture_resumable`` / ``restore``) and
+the prefill->decode handoff: ``role="prefill"`` parks each request after
+its first token as a handoff state (``pop_handoffs``), and a
+``role="decode"`` engine adopts one through ``restore``. The payload
+keeps the reference's layout and dtype names (``models/handoff.py``), so
+JAX and torch engines adopt each other's.
+
 What the reference engine has and this slice does not yet port raises
-a ``ValueError`` naming the knob: meshes, tenant quotas, the host tier,
-prefill/decode roles, the slot-static engine (``kv_blocks == 0``) and
-preemption, with its capture and restore. Under block pressure the
-engine flushes the window, lands deferred frees and evicts prefix
-chains; where the reference would then preempt a slot, it raises.
-``tenant`` is accepted and ignored, as the reference engine ignores it
-with no quota.
+a ``ValueError`` naming the knob: meshes, tenant quotas, the host tier
+and the slot-static engine (``kv_blocks == 0``). ``tenant`` is accepted
+and ignored, as the reference engine ignores it with no quota.
 """
 from __future__ import annotations
 
@@ -90,6 +103,9 @@ from nos_tpu_torch.models.errors import (
 from nos_tpu_torch.models.generate import (
     Cache, _tempered, _truncate_logits_rows, forward_paged,
     forward_with_cache, init_cache, init_paged_cache,
+)
+from nos_tpu_torch.models.handoff import (
+    BF16, handoff_nbytes, plane_bits, plane_dtype,
 )
 from nos_tpu_torch.models.kvblocks import (
     BlockAllocator, NoFreeBlocks, PrefixBlockIndex, ScaleLedger,
@@ -130,19 +146,31 @@ def _not_ported(knob: str, what: str) -> NotPorted:
 
 
 def reject_unported(*, kv_blocks: int, mesh=None, tenant_quota=None,
-                    host_tier=None, role: str = "colocated",
-                    kv_swap: bool = True) -> None:
+                    host_tier=None) -> None:
     """Raise a ValueError naming the first engine knob set outside this
     slice; ``build_engine`` calls it before loading any weights."""
     for knob, on, what in (
             ("kv_blocks=0", kv_blocks <= 0, "the slot-static engine"),
             ("mesh", mesh is not None, "tensor-parallel serving"),
             ("tenant_quota", tenant_quota is not None, "tenant quotas"),
-            ("host_tier", host_tier is not None, "host KV tier"),
-            (f"role={role}", role != "colocated", "disaggregation"),
-            ("kv_swap=False", not kv_swap, "recompute preemption")):
+            ("host_tier", host_tier is not None, "host KV tier")):
         if on:
             raise _not_ported(knob, what)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype under numpy's (and the reference payload's) name:
+    ``torch.bfloat16`` -> ``"bfloat16"``."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def _host_plane(t: torch.Tensor) -> np.ndarray:
+    """One payload plane on the host: bf16 as its uint16 bits (numpy has
+    no bfloat16), everything else as itself."""
+    t = t.cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 class _Ledger:
@@ -211,10 +239,15 @@ class _Request:
     cache_prefix: bool = False
     stop_tokens: tuple = ()
     led: Optional[_Ledger] = None
-    # stored as the reference stores it: priority orders preemption
-    # (not ported)
+    # under block pressure the lowest priority (then the youngest) slot
+    # is preempted; a preempted request waits at the front of the queue
+    # with its committed tokens, and a swapped one with the host copy of
+    # its KV blocks (its resume goes through restore or recompute, not a
+    # fresh prefill)
     priority: int = 0
     tenant: str = DEFAULT_TENANT
+    preempted: bool = False
+    swap_state: Optional[dict] = None
     # paged admission plumbing: prefix blocks claimed for this request
     # (refcounts already bumped) and the full block table reserved at a
     # chunked or in-arena admission
@@ -256,10 +289,11 @@ class _InFlight:
 
 
 class _Graph:
-    """One captured decode program: the graph, its output (the last
-    step's logits, rewritten by every replay), the paged kernel's
-    scratch tensors its launches recorded (held so they outlive any
-    replacement), and its memory pool's reserved bytes at capture."""
+    """One captured program (a decode tick, or the replay step): the
+    graph, its output (the last step's logits, rewritten by every
+    replay), the paged kernel's scratch tensors its launches recorded
+    (held so they outlive any replacement), and its memory pool's
+    reserved bytes at capture."""
 
     __slots__ = ("graph", "logits", "scratch", "pool_bytes")
 
@@ -277,14 +311,16 @@ class _Graph:
 
 @contextlib.contextmanager
 def uncaptured(engine: "DecodeServer") -> Iterator[None]:
-    """Within the block, ``engine`` runs its decode program directly on
-    its device instead of replaying its captured graph: the comparison
-    that ``chip_smoke.py`` and the tests make, not a mode to serve in."""
+    """Within the block, ``engine`` runs its decode and replay programs
+    directly on its device instead of replaying their captured graphs:
+    the comparison that ``chip_smoke.py`` and the tests make, not a mode
+    to serve in."""
     engine._launch = engine._decode_program
+    engine._launch_replay = engine._replay_program
     try:
         yield
     finally:
-        del engine._launch
+        del engine._launch, engine._launch_replay
 
 
 class DecodeServer:
@@ -295,10 +331,13 @@ class DecodeServer:
     request; ``step`` decodes one token for every active slot (or
     ``step_begin`` / ``step_wait`` / ``step_finish`` in turn); ``drain``
     runs to completion and returns {rid: prompt + generated} for the
-    requests finished since the last drain. Runs on ``device`` (default:
-    the card; the CPU only when asked). ``paged_impl`` picks the paged
-    attention formulation, "kernel" or "xla" (the gather); None reads
-    ``effective_paged_impl()``."""
+    requests finished since the last drain. ``preempt`` vacates a slot
+    (swap or recompute), ``capture_resumable`` / ``restore`` carry live
+    requests into a rebuilt engine, and ``role`` ("prefill", "decode")
+    splits prefill from decode through ``pop_handoffs`` / ``restore``.
+    Runs on ``device`` (default: the card; the CPU only when asked).
+    ``paged_impl`` picks the paged attention formulation, "kernel" or
+    "xla" (the gather); None reads ``effective_paged_impl()``."""
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  max_batch: int = 8, max_len: Optional[int] = None,
@@ -337,7 +376,7 @@ class DecodeServer:
                 f"role must be colocated|prefill|decode, got {role!r}")
         reject_unported(
             kv_blocks=kv_blocks, mesh=mesh, tenant_quota=tenant_quota,
-            host_tier=host_tier, role=role, kv_swap=kv_swap)
+            host_tier=host_tier)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -345,6 +384,7 @@ class DecodeServer:
         self.max_len = max_len or cfg.max_seq
         self.kv_block_size = bs = kv_block_size
         self.kv_dtype = kv_dtype
+        self.kv_swap = bool(kv_swap)
         self.hbm_admit_frac = float(hbm_admit_frac or 0.0)
         if self.max_len > cfg.max_seq:
             raise ValueError(
@@ -411,9 +451,20 @@ class DecodeServer:
         self._toks = torch.zeros((max_batch, decode_steps), dtype=torch.long,
                                  device=self.device)
         self._scratch = _kernels.PagedScratch()
-        # captured programs by ``sampling`` and the side stream they are
+        # the replay program's static buffers (a recompute resume under
+        # the kernel formulation): one decode step at the tick's width,
+        # only the resumed row's table live, every other row on the null
+        # block, so each replayed position sees the tick's shapes
+        self._rtoks = torch.zeros((max_batch, 1), dtype=torch.long,
+                                  device=self.device)
+        self._rpos = torch.zeros((max_batch,), dtype=torch.int32,
+                                 device=self.device)
+        self._rtable = torch.zeros((max_batch, self._nbs),
+                                   dtype=torch.int32, device=self.device)
+        # captured programs by key (``sampling`` for the decode tick,
+        # "replay" for the replay step) and the side stream they are
         # captured on
-        self._graphs: Dict[bool, _Graph] = {}
+        self._graphs: Dict[object, _Graph] = {}
         self._capture_stream = None
         self.max_pending = max_pending
         self._free: Deque[int] = deque(range(max_batch))
@@ -435,6 +486,18 @@ class DecodeServer:
         # in-arena prefill windows run (prefix hits under the kernel)
         self.cow_copies = 0
         self.arena_windows = 0
+        # preemptions by resume mode, and committed tokens replayed
+        # through the replay program by recompute resumes
+        self.preempts = {"swap": 0, "recompute": 0}
+        self.replayed_tokens = 0
+        # role="prefill": requests that finished prefill park here as
+        # handoff states (the swap-payload format) until the serving loop
+        # ships them, in admission order; the counters feed /stats and
+        # the loop's handoff metrics
+        self._handoffs: Dict[int, dict] = {}
+        self.handoffs = 0
+        self.handoff_payload_bytes = 0
+        self.handoff_capture_s = 0.0
         # chunked prefill (prefill_chunk > 0): a long suffix prefills one
         # chunk per tick, interleaved with decode ticks. Entries: {"req",
         # "row" (the scratch row mid-prefill), "todo" (the remaining
@@ -514,9 +577,10 @@ class DecodeServer:
         without one). ``deadline_s`` is the request's remaining budget
         in seconds: budgeted prefill orders chunk work by the slack left
         against it (enforcement stays with the serving loop).
-        ``priority`` is stored for preemption (not ported); ``tenant``
-        is accepted and ignored, as the reference ignores it with no
-        tenant quota. ``Infeasible`` (a ValueError) when it can never
+        ``priority`` orders preemption under block pressure: the
+        lowest priority (then the youngest) slot yields first;
+        ``tenant`` is accepted and ignored, as the reference ignores it
+        with no tenant quota. ``Infeasible`` (a ValueError) when it can never
         fit this server, ``QueueFull`` when ``max_pending`` requests
         already wait."""
         if not prompt:
@@ -591,8 +655,15 @@ class DecodeServer:
             self._pending.popleft()
             req.slot = self._free.popleft()
             self._active[req.slot] = req
+            # a preempted (or restored) request resumes through its swap
+            # payload or by recompute instead of a fresh prefill
             req.led.t_admit = req.led.t_prefill_start = time.perf_counter()
-            self._prefill_slot(req)
+            if req.swap_state is not None:
+                self._resume_swapped(req)
+            elif req.preempted:
+                self._resume_recompute(req)
+            else:
+                self._prefill_slot(req)
 
     def _hbm_sample(self) -> Optional[dict]:
         """The card's memory in use by PyTorch and its capacity, sampled
@@ -618,7 +689,13 @@ class DecodeServer:
         for a waiting head rather than stall it (with no slot decoding,
         nothing else would ever free a block)."""
         plen = len(req.prompt)
-        base_need = blocks_for(plen, self.kv_block_size)
+        if req.swap_state is not None:
+            base_need = req.swap_state["nblk"]
+        elif req.preempted:
+            base_need = blocks_for(plen + len(req.out) - 1,
+                                   self.kv_block_size)
+        else:
+            base_need = blocks_for(plen, self.kv_block_size)
         cap_blocks = blocks_for(plen + req.max_new_tokens - 1,
                                 self.kv_block_size)
         need = min(base_need + 1, max(base_need, cap_blocks))
@@ -977,6 +1054,11 @@ class DecodeServer:
         # sync): TTFT's far stamp, and the TPOT clock's arm
         req.led.t_prefill_end = req.led.t_first = req.led.t_last = \
             time.perf_counter()
+        if self.role == "prefill" and not req.done:
+            # a prefill-role engine never decodes: the request leaves now
+            # as a handoff state (its prompt KV and first token), and the
+            # freed slot admits the next prefill
+            return self._handoff_slot(req)
         self._finish_if_done(req)
 
     def _paged_install(self, req: _Request, row: Optional[Cache], plen: int,
@@ -996,22 +1078,8 @@ class DecodeServer:
             req.reserved_blocks = None
         else:
             table = shared + self._alloc.alloc_many(n_total - len(shared))
-        lo = len(shared)
-        if not installed and n_total > lo:
-            idx = self._to_device(torch.tensor(table[lo:n_total],
-                                               dtype=torch.long))
-            for name in ("k", "v"):
-                r = row[name][:, 0, :, lo * bs:n_total * bs]
-                L, h_kv, _, d = r.shape
-                blk = r.reshape(L, h_kv, n_total - lo, bs, d).permute(
-                    0, 2, 1, 3, 4)
-                if self.kv_dtype == "int8":
-                    blk, sc = quantize_kv(blk)
-                    self.cache[f"{name}_scale"][:, idx] = sc
-                self.cache[name][:, idx] = blk.to(self.cache[name].dtype)
-            if self._scales is not None:
-                for b in table[lo:n_total]:
-                    self._scales.note_write(b)
+        if not installed:
+            self._write_rows(row, table[:n_total], len(shared))
         s = req.slot
         self._tables[s] = table
         self._set_table_row(s)
@@ -1020,6 +1088,27 @@ class DecodeServer:
         if req.cache_prefix and self._pindex is not None:
             self._pindex.publish(req.prompt, table)
             self._sync_prefix_stats()
+
+    def _write_rows(self, row: Cache, blocks: List[int], lo: int) -> None:
+        """Land a scratch row's positions ``[lo*bs, len(blocks)*bs)`` in
+        ``blocks[lo:]`` (quantized per token under int8, the decode
+        scatter's rule; one indexed write per plane, in place)."""
+        bs = self.kv_block_size
+        hi = len(blocks)
+        if hi <= lo:
+            return
+        idx = self._to_device(torch.tensor(blocks[lo:hi], dtype=torch.long))
+        for name in ("k", "v"):
+            r = row[name][:, 0, :, lo * bs:hi * bs]
+            L, h_kv, _, d = r.shape
+            blk = r.reshape(L, h_kv, hi - lo, bs, d).permute(0, 2, 1, 3, 4)
+            if self.kv_dtype == "int8":
+                blk, sc = quantize_kv(blk)
+                self.cache[f"{name}_scale"][:, idx] = sc
+            self.cache[name][:, idx] = blk.to(self.cache[name].dtype)
+        if self._scales is not None:
+            for b in blocks[lo:hi]:
+                self._scales.note_write(b)
 
     def _sync_prefix_stats(self) -> None:
         if self._pindex is not None:
@@ -1182,28 +1271,378 @@ class DecodeServer:
         try:
             self._ensure_blocks(active)
             return True
-        except NoFreeBlocks as e:
-            self._relieve_pressure(e)
+        except NoFreeBlocks:
+            self._relieve_pressure()
             return False
 
-    def _relieve_pressure(self, err: NoFreeBlocks) -> None:
-        """Free KV blocks, cheapest first, in the reference's order up to
-        its preemption step: 1) flush the window (late completions and
-        their deferred frees land); 2) land deferred frees; 3) evict one
-        LRU prefix chain. Each step makes progress or the next runs.
-        Where the reference would then preempt a slot, this raises:
-        preemption is not ported, so a pool that cannot hold the running
-        slots (a chunked admission's reservation included) is a sizing
-        error here."""
+    def _relieve_pressure(self) -> None:
+        """Free KV blocks, cheapest first, in the reference's order. Each
+        step makes progress or the next runs, so the step_begin retry
+        loop ends: 1) flush the window (late completions and their
+        deferred frees land); 2) land deferred frees and evict one LRU
+        prefix chain; 3) preempt the lowest-priority (then youngest)
+        decoding slot, swapped or dropped for recompute per ``kv_swap``
+        and re-enqueued at the front of the queue; 4) nothing left:
+        raise (the pool cannot hold even one slot, a sizing error)."""
         if self._inflight:
             self._flush()
             return
         self._drain_deferred()
         if self._pindex is not None and self._pindex.evict_lru(1) > 0:
             return
+        if self._preempt_victim():
+            return
         raise NoFreeBlocks(
-            f"{err}; preemption is not ported to the torch engine yet "
-            f"— size kv_blocks for the load") from err
+            "KV block pool exhausted with nothing left to reclaim (no "
+            "in-flight ticks, no cached prefixes, no preemptible slot); "
+            "size kv_blocks to hold at least one full-length request")
+
+    def _preempt_victim(self) -> bool:
+        """Preempt one decoding slot: the lowest priority, then the
+        youngest admitted. The sole decoder cannot steal from itself,
+        unless a chunked admission holds reserved blocks: vacating the
+        decoder lets that admission finish and the pool drain."""
+        pre = {ent["req"].slot for ent in self._prefilling}
+        cands = [s for s in self._active if s not in pre]
+        if len(cands) <= 1 and not self._prefilling:
+            return False
+        if not cands:
+            return False
+        victim = min(cands, key=lambda s: (self._active[s].priority,
+                                           -self._active[s].led.t_admit))
+        self._preempt_slot(victim, "swap" if self.kv_swap else "recompute")
+        return True
+
+    def preempt(self, rid: int, mode: Optional[str] = None) -> bool:
+        """Preempt an active request's slot now (``mode`` swap or
+        recompute, default per ``kv_swap``), re-enqueuing it at the front
+        of the queue. False for a request that is not an active, fully
+        prefilled slot (or that the barrier flush finished)."""
+        mode = mode or ("swap" if self.kv_swap else "recompute")
+        if mode not in ("swap", "recompute"):
+            raise ValueError(f"mode must be swap|recompute, got {mode!r}")
+        if any(e["req"].rid == rid for e in self._prefilling):
+            return False
+        slot = next((s for s, r in self._active.items() if r.rid == rid),
+                    None)
+        if slot is None:
+            return False
+        self._flush()       # barrier: may even finish the request
+        req = self._active.get(slot)
+        if req is None or req.rid != rid or req.done:
+            return False
+        self._preempt_slot(slot, mode)
+        return True
+
+    def _preempt_slot(self, slot: int, mode: str) -> None:
+        """Vacate ``slot`` (the window must be flushed): keep its resume
+        state (swap: the host copy of its committed blocks; recompute:
+        the tokens alone), free its blocks, and re-enqueue the request
+        at the front of the queue."""
+        assert not self._inflight, "preemption requires a flushed window"
+        req = self._active.pop(slot)
+        base = len(req.prompt) + len(req.out) - 1
+        nblk = blocks_for(base, self.kv_block_size)
+        table = self._tables[slot]
+        if mode == "swap":
+            req.swap_state = self._swap_payload(table, nblk)
+        self._tables[slot] = []
+        for b in table:
+            self._alloc.decref(b)
+        self.cache["pos"][slot].fill_(0)
+        self._free.append(slot)
+        req.slot = -1
+        req.preempted = True
+        self._pending.appendleft(req)
+        self.preempts[mode] += 1
+        if not self._active:
+            self._idle_since = None
+
+    def _swap_payload(self, table: List[int], nblk: int) -> dict:
+        """Host copies of a slot's first ``nblk`` committed blocks, the
+        one payload preemption, restart capture and the handoff share:
+        ``[L, nblk, Hkv, bs, D]`` K/V planes (bf16 as uint16 bits, named
+        by ``"dtype"``) plus, for int8, the f32 scale planes
+        ``[L, nblk, Hkv, bs]``."""
+        idx = self._to_device(torch.tensor(table[:nblk], dtype=torch.long))
+        payload: dict = {"nblk": nblk}
+        for name in ("k", "v", "k_scale", "v_scale"):
+            plane = self.cache.get(name)
+            if plane is not None:
+                payload[name] = _host_plane(plane[:, idx])
+        if self.cache["k"].dtype == torch.bfloat16:
+            payload["dtype"] = BF16
+        return payload
+
+    def _restore_blocks(self, swap: dict, blocks: List[int]) -> None:
+        """Swap-in: a payload's planes scatter into ``blocks`` (one
+        indexed write per plane, queued on the engine's stream behind
+        the ticks in flight), the int8 scales with their bytes, so the
+        restored slot continues on the same timeline byte for byte."""
+        idx = self._to_device(torch.tensor(blocks, dtype=torch.long))
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if name not in swap:
+                continue
+            plane = self.cache[name]
+            host = np.array(plane_bits(swap[name]))
+            if plane.dtype == torch.bfloat16:
+                src = torch.from_numpy(host.view(np.int16)).view(
+                    torch.bfloat16)
+            else:
+                src = torch.from_numpy(host)
+            plane[:, idx] = self._to_device(src)
+        if self._scales is not None:
+            for b in blocks:
+                self._scales.note_write(b)
+
+    def _resume_swapped(self, req: _Request) -> None:
+        """Swap-in resume: the preempted request's KV bytes into fresh
+        blocks, bit-exact by construction (the bytes never changed)."""
+        st = req.swap_state
+        req.swap_state = None
+        req.preempted = False
+        blocks = self._alloc.alloc_many(st["nblk"])
+        self._restore_blocks(st, blocks)
+        self._tables[req.slot] = blocks
+        self._set_table_row(req.slot)
+        self._resume_row(req)
+
+    def _resume_recompute(self, req: _Request) -> None:
+        """Recompute resume: re-prefill the committed sequence over one
+        scratch row, one-shot, install it, and set the slot's row state.
+        Under the gather formulation that sequence is ``prompt +
+        out[:-1]`` (the reference's; the last committed token is not yet
+        fed). Under the kernel formulation the committed output span was
+        written by decode ticks, and ``_replay_committed`` rewrites it
+        with their arithmetic; the re-prefill then covers the prompt
+        alone, in the bucket its admission used, so the prompt span is
+        the admission's arithmetic too. On the card a re-prefill of
+        ``prompt + out[:-1]`` that crosses into a larger bucket gives
+        other bits (ROADMAP C.10)."""
+        req.preempted = False
+        bs = self.kv_block_size
+        replay = self.paged_kernel == "kernel" and len(req.out) > 1
+        seq = req.prompt if replay else req.prompt + req.out[:-1]
+        n = len(seq)
+        bucket = min(max(_bucket(n), bs), self.max_len)
+        row = self._row(bucket, 0)
+        _logits, row = forward_with_cache(
+            self.params, self.cfg, self._tokens(seq + [0] * (bucket - n)),
+            row)
+        blocks = self._alloc.alloc_many(
+            blocks_for(len(req.prompt) + len(req.out) - 1, bs))
+        self._write_rows(row, blocks[:blocks_for(n, bs)], 0)
+        if self._scales is not None:
+            for b in blocks[blocks_for(n, bs):]:
+                self._scales.note_write(b)      # the replay writes them
+        self._tables[req.slot] = blocks
+        self._set_table_row(req.slot)
+        if replay:
+            self._replay_committed(req)
+        self._resume_row(req)
+
+    def _replay_committed(self, req: _Request) -> None:
+        """Rewrite a recompute resume's committed output span with the
+        arithmetic the undisturbed run wrote it with: each committed
+        token (but the last, not yet fed) through the replay program,
+        one decode step at the tick's width (the paged kernel's split
+        count and every matmul's shape are the tick's), the resumed
+        row's table live at its own slot and every other row on the null
+        block. On the card the step is one captured graph, replayed once
+        a token."""
+        s = req.slot
+        n0 = len(req.prompt)
+        toks = self._to_device(torch.tensor(req.out[:-1], dtype=torch.long))
+        self._rtable[s].copy_(self._table[s])
+        for i in range(len(req.out) - 1):
+            self._rtoks[s, 0].copy_(toks[i])
+            self._rpos[s].fill_(n0 + i)
+            self._launch_replay()
+        self._rtable[s].zero_()
+        self._rpos[s].zero_()
+        self.replayed_tokens += len(req.out) - 1
+
+    def _replay_program(self) -> torch.Tensor:
+        """One decode step of the replay program on its static buffers:
+        ``forward_paged`` of ``_rtoks`` at ``_rpos`` through ``_rtable``
+        on the engine's arena and split scratch. Writes the arena only;
+        returns the step's logits."""
+        view = {k: v for k, v in self.cache.items() if k != "pos"}
+        view["pos"] = self._rpos
+        logits, _ = forward_paged(self.params, self.cfg, self._rtoks, view,
+                                  self._rtable, paged_impl=self.paged_kernel,
+                                  scratch=self._scratch)
+        return logits[:, -1].float()
+
+    def _launch_replay(self) -> torch.Tensor:
+        """Run the replay program: on the card, replay its graph
+        (captured at first use); on the CPU, call it."""
+        if self.device.type != "cuda":
+            return self._replay_program()
+        graph = self._graphs.get("replay")
+        if graph is None:
+            graph = self._graphs["replay"] = self._capture("replay")
+        return graph.replay()
+
+    def _request_state(self, req: _Request) -> dict:
+        """The resumable description of one request: the schema
+        ``restore`` consumes, shared by restart capture and the
+        handoff."""
+        return {
+            "rid": req.rid,
+            "prompt": list(req.prompt),
+            "out": list(req.out[:req.max_new_tokens]),
+            "max_new_tokens": req.max_new_tokens,
+            "temperature": req.temperature,
+            "top_k": req.top_k,
+            "top_p": req.top_p,
+            "seed": req.seed,
+            "stop_tokens": list(req.stop_tokens),
+            "priority": req.priority,
+            "tenant": req.tenant,
+            "cache_prefix": req.cache_prefix,
+        }
+
+    def _handoff_slot(self, req: _Request) -> None:
+        """Vacate a freshly prefilled slot into a handoff state: the
+        committed KV (the prompt's positions; the first token's KV is
+        written by the decode step that feeds it, on the decode engine)
+        swapped to host, the blocks freed, the state parked for
+        ``pop_handoffs``."""
+        t0 = time.perf_counter()
+        s = req.slot
+        base = len(req.prompt) + len(req.out) - 1
+        nblk = blocks_for(base, self.kv_block_size)
+        state = self._request_state(req)
+        state["swap"] = self._swap_payload(self._tables[s], nblk)
+        state["handoff"] = True
+        del self._active[s]
+        self._free_slot_blocks(s)
+        self.cache["pos"][s].fill_(0)
+        self._free.append(s)
+        req.slot = -1
+        self._handoffs[req.rid] = state
+        self.handoffs += 1
+        self.handoff_payload_bytes += handoff_nbytes(state)
+        self.handoff_capture_s += time.perf_counter() - t0
+        self._record_ledger(req, outcome="handoff")
+        if not self._active:
+            self._idle_since = None
+        self._admit()
+
+    def pop_handoffs(self) -> List[dict]:
+        """The parked handoff states, in admission order, cleared: the
+        serving loop ships each to a decode-role replica."""
+        out = list(self._handoffs.values())
+        self._handoffs.clear()
+        return out
+
+    def capture_resumable(self, device_ok: bool = True) -> List[dict]:
+        """Resumable states of every request this engine still owes an
+        answer, in arrival (rid) order: active slots (a mid-prefill one
+        restarts its admission), the pending queue (swap payloads kept),
+        parked handoffs, and finished but unpopped results. Host
+        bookkeeping only, except the swap-to-host of an active slot's
+        committed blocks under ``kv_swap``; a device read that raises
+        leaves that slot to recompute, and ``device_ok=False`` (a card
+        declared wedged) skips every device read."""
+        pre = {ent["req"].rid for ent in self._prefilling}
+        states = []
+        live = list(self._active.values()) + list(self._pending)
+        for req in sorted(live, key=lambda r: r.rid):
+            st = self._request_state(req)
+            if req.rid in pre:
+                st["out"] = []          # mid-prefill: restart admission
+            elif req.swap_state is not None:
+                st["swap"] = req.swap_state     # already on the host
+            elif device_ok and self.kv_swap and req.slot >= 0 and req.out:
+                base = len(req.prompt) + len(req.out) - 1
+                nblk = blocks_for(base, self.kv_block_size)
+                table = self._tables[req.slot]
+                if nblk and len(table) >= nblk:
+                    try:
+                        st["swap"] = self._swap_payload(table, nblk)
+                    except Exception:   # device gone: recompute instead
+                        pass
+            states.append(st)
+        states.extend(dict(st) for st in self._handoffs.values())
+        for rid, req in list(self._done.items()):
+            states.append({
+                "rid": rid,
+                "prompt": list(req.prompt),
+                "out": list(req.out[:req.max_new_tokens]),
+                "max_new_tokens": req.max_new_tokens,
+                "tenant": req.tenant,
+                "done": True,
+            })
+        return states
+
+    def restore(self, state: dict) -> int:
+        """Re-admit one captured (or handed-off) request into this engine
+        with its committed tokens, returning its new rid. A ``done``
+        state parks in the result table; a handoff state on a
+        prefill-role engine re-parks for the loop's push. Committed
+        output resumes through the preemption machinery: the swap
+        payload restored byte for byte when the state carries one (its
+        geometry and dtype must match this arena: ``Infeasible``
+        otherwise), recompute otherwise."""
+        prompt = [int(t) for t in state["prompt"]]
+        max_new = int(state["max_new_tokens"])
+        rid = self._next_rid
+        self._next_rid += 1
+        req = _Request(
+            rid, prompt, max_new,
+            temperature=float(state.get("temperature", 0.0)),
+            top_k=int(state.get("top_k", 0)),
+            top_p=float(state.get("top_p", 0.0)),
+            seed=int(state.get("seed", rid)) & 0xFFFFFFFF,
+            cache_prefix=bool(state.get("cache_prefix", False))
+            and self._prefix_max > 0,
+            stop_tokens=tuple(int(t) for t in state.get("stop_tokens")
+                              or ()),
+            priority=int(state.get("priority", 0)),
+            tenant=str(state.get("tenant") or DEFAULT_TENANT),
+            led=_Ledger(time.perf_counter()))
+        req.out = [int(t) for t in state.get("out") or []]
+        if state.get("done"):
+            self._done[rid] = req
+            return rid
+        if state.get("handoff") and self.role == "prefill":
+            st = dict(state)
+            st["rid"] = rid
+            self._handoffs[rid] = st
+            return rid
+        if len(prompt) + max_new > self.max_len:
+            raise Infeasible(
+                f"restored prompt ({len(prompt)}) + max_new_tokens "
+                f"({max_new}) exceeds cache length {self.max_len}")
+        need = blocks_for(len(prompt) + max_new - 1, self.kv_block_size)
+        if need > self._alloc.capacity:
+            raise Infeasible(
+                f"restored request needs {need} KV blocks but the "
+                f"pool only has {self._alloc.capacity}")
+        if req.out:
+            swap = state.get("swap")
+            if swap is not None:
+                want = tuple(self.cache["k"].shape[i] for i in (0, 2, 3, 4))
+                got = tuple(np.asarray(swap["k"]).shape[i]
+                            for i in (0, 2, 3, 4))
+                want_dt = _dtype_name(self.cache["k"].dtype)
+                got_dt = plane_dtype(swap, "k")
+                if want != got or want_dt != got_dt or \
+                        (("k_scale" in swap) != (self.kv_dtype == "int8")):
+                    raise Infeasible(
+                        f"KV payload geometry [L,Hkv,bs,D]={got} "
+                        f"dtype={got_dt} does not match this engine's "
+                        f"arena {want} dtype={want_dt} "
+                        f"kv_dtype={self.kv_dtype}; handoff/restore "
+                        f"requires identical kv_block_size, kv_dtype "
+                        f"and model geometry on both ends")
+                req.swap_state = dict(swap)
+            req.preempted = True
+        self._pending.append(req)
+        self._admit()
+        return rid
 
     def step(self) -> int:
         """One scheduling quantum, the three phases in a row: dispatch
@@ -1326,43 +1765,53 @@ class DecodeServer:
     def capture_programs(self) -> Dict[str, float]:
         """Capture the decode programs (greedy, sampled) that are not yet
         captured, now instead of at the first tick that needs each, so
-        no tick pays a capture; returns {"greedy"|"sampled": seconds}
-        for those captured. Needs an idle engine. The CPU captures
-        nothing."""
+        no tick pays a capture, and the replay program too when this
+        engine resumes by recompute through the kernel; returns
+        {"greedy"|"sampled"|"replay": seconds} for those captured. Needs
+        an idle engine. The CPU captures nothing."""
         if self.device.type != "cuda":
             return {}
         if self.has_work() or self._inflight:
             raise RuntimeError("capture_programs needs an idle engine")
+        keys = [False, True]
+        if not self.kv_swap and self.paged_kernel == "kernel":
+            keys.append("replay")
         out = {}
-        for sampling in (False, True):
-            if sampling not in self._graphs:
+        for key in keys:
+            if key not in self._graphs:
                 t0 = self.compile_s
-                self._graphs[sampling] = self._capture(sampling)
-                out["sampled" if sampling else "greedy"] = \
-                    self.compile_s - t0
+                self._graphs[key] = self._capture(key)
+                name = key if key == "replay" else (
+                    "sampled" if key else "greedy")
+                out[name] = self.compile_s - t0
         return out
 
-    def _capture(self, sampling: bool) -> _Graph:
-        """Capture one decode program into a CUDA graph, on a side stream
-        after everything queued on the engine's stream. A warm-up run
-        first loads the kernels and sizes the paged kernel's scratch and
-        launch counter (neither may be allocated inside a capture), as a
-        null tick: every row outside the keep mask, so it writes only
-        the null block and leaves pos and the feed tokens as they were.
-        The graph reads nothing that is keyed by the side stream. Errors
-        raise; the time is accounted as the reference accounts a
-        compile."""
+    def _capture(self, key) -> _Graph:
+        """Capture one program into a CUDA graph, on a side stream after
+        everything queued on the engine's stream: the decode program for
+        ``key`` = sampling, the replay step for ``key == "replay"``. A
+        warm-up run first loads the kernels and sizes the paged kernel's
+        scratch and launch counter (neither may be allocated inside a
+        capture), as a null run: the keep mask (the replay table)
+        cleared, so it writes only the null block and leaves pos and the
+        feed tokens as they were. The graph reads nothing that is keyed
+        by the side stream. Errors raise; the time is accounted as the
+        reference accounts a compile."""
         t0 = time.perf_counter()
+        if key == "replay":
+            program, null = self._replay_program, self._rtable
+        else:
+            program, null = (lambda: self._decode_program(key)), self._keep
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
         side = self._capture_stream
         main = torch.cuda.current_stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            keep = self._keep.clone()
-            self._keep.zero_()
-            self._decode_program(sampling)
-            self._keep.copy_(keep)
+            saved = null.clone()
+            null.zero_()
+            program()
+            null.copy_(saved)
         main.wait_stream(side)
         torch.cuda.synchronize(self.device)
         gc.collect()
@@ -1371,7 +1820,7 @@ class DecodeServer:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side,
                               capture_error_mode="thread_local"):
-            logits = self._decode_program(sampling)
+            logits = program()
         out = _Graph(graph, logits,
                      (self._scratch.part, self._scratch.ticket),
                      torch.cuda.memory_reserved(self.device) - reserved)
@@ -1644,9 +2093,8 @@ class DecodeServer:
 
     def kv_stats(self) -> dict:
         """Block-pool accounting, the formulation this engine runs, the
-        prefix index and the admission-time memory snapshot, under the
-        reference's keys (preemption, not ported, reads as the
-        reference reads with none)."""
+        prefix index, preemptions and the admission-time memory
+        snapshot, under the reference's keys."""
         return {
             "block_size": self.kv_block_size,
             "dtype": self.kv_dtype,
@@ -1660,9 +2108,10 @@ class DecodeServer:
             "deferred_frees": len(self._deferred),
             "prefix": (self._pindex.stats()
                        if self._pindex is not None else None),
-            "preempts": {"swap": 0, "recompute": 0},   # not ported
+            "preempts": dict(self.preempts),
             "tenant_reclaims": 0,
-            "swapped_pending": 0,
+            "swapped_pending": sum(1 for r in self._pending
+                                   if r.swap_state is not None),
             "hbm": self.hbm,
         }
 
@@ -1737,7 +2186,15 @@ class DecodeServer:
         return {
             "engine": type(self).__name__,
             "role": self.role,
-            "handoff": None,
+            # the disaggregation surface (None unless role=prefill):
+            # parked payloads waiting for the loop's push, cumulative
+            # handoffs and bytes
+            "handoff": ({
+                "ready": len(self._handoffs),
+                "total": self.handoffs,
+                "payload_bytes": self.handoff_payload_bytes,
+                "capture_s": round(self.handoff_capture_s, 6),
+            } if self.role == "prefill" else None),
             "max_batch": self.max_batch,
             "max_len": self.max_len,
             "slots": slots,
@@ -1787,6 +2244,7 @@ class DecodeServer:
         self.params = self.cache = self._table = self._last = None
         self._temp = self._topk = self._topp = self._seed = None
         self._keep = self._toks = self._scratch = None
+        self._rtoks = self._rpos = self._rtable = None
         for ent in self._prefilling:
             ent["row"] = None
         self._graphs = {}

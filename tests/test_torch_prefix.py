@@ -26,7 +26,6 @@ from nos_tpu.models.serving import DecodeServer as JDecodeServer  # noqa: E402
 from nos_tpu_torch.models import serving as tserving  # noqa: E402
 from nos_tpu_torch.models import transformer as ttfm  # noqa: E402
 from nos_tpu_torch.models.errors import Infeasible  # noqa: E402
-from nos_tpu_torch.models.kvblocks import NoFreeBlocks  # noqa: E402
 from nos_tpu_torch.models.serving import DecodeServer  # noqa: E402
 
 KW = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -272,9 +271,12 @@ def test_prefix_evicted_for_waiting_request_while_others_decode(
 
 def test_pressure_relief_evicts_a_chain_then_raises_without_preemption(
         params, monkeypatch):
-    """Under decode-time pool pressure the port evicts LRU chains, as the
-    reference does before it preempts; where the reference would then
-    preempt (not ported), the port raises NoFreeBlocks naming it."""
+    """Under decode-time pool pressure the port evicts LRU chains first,
+    as the reference does, and preempts only after: a chunked
+    reservation that squeezes the sole decoder preempts it (the
+    reference's tests/test_serving_paged.py:357) instead of raising, and
+    both engines commit the same tokens with the same preemption counts
+    and a balanced pool."""
     _, tp = params
     srv = DecodeServer(tp, TCFG, max_batch=2, kv_block_size=8, kv_blocks=5,
                        prefix_cache_size=8, device="cpu")
@@ -284,16 +286,24 @@ def test_pressure_relief_evicts_a_chain_then_raises_without_preemption(
     r = srv.submit([4, 5], 20)      # grows past the two free blocks
     out = srv.drain()
     assert srv.kv_stats()["prefix"]["evicted"]["drop"] == 1
+    assert srv.kv_stats()["preempts"] == {"swap": 0, "recompute": 0}
     assert out[r] == ref(params[0], [4, 5], 20)
-    # a chunked reservation squeezing the sole decoder: the reference
-    # preempts it (tests/test_serving_paged.py:357); the port raises
-    srv = DecodeServer(tp, TCFG, max_batch=2, kv_block_size=8, kv_blocks=10,
-                       prefill_chunk=8, decode_steps=4, device="cpu")
-    srv.submit(list(range(1, 8)), 20)
-    srv.submit(list(range(1, 49)), 2)
-    assert srv._prefilling
-    with pytest.raises(NoFreeBlocks, match="preemption is not ported"):
-        srv.drain()
+
+    long = list(range(1, 49))
+
+    def scenario(eng):
+        r0 = eng.submit(list(range(1, 8)), 20)
+        r1 = eng.submit(long, 2)
+        assert eng._prefilling
+        res = eng.drain()
+        return res[r0], res[r1], eng.kv_stats()["preempts"]
+
+    (out0, out1, preempts), _ = both(
+        params, monkeypatch, scenario, max_batch=2, kv_blocks=10,
+        prefill_chunk=8, decode_steps=4, kv_swap=False)
+    assert preempts["recompute"] >= 1
+    assert out0 == ref(params[0], list(range(1, 8)), 20)
+    assert out1 == ref(params[0], long, 2)
 
 
 # ---------------------------------------------------------------------------

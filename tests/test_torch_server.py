@@ -515,7 +515,10 @@ def test_unknown_path_is_404(served):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("method,path,body,knob", [
-    ("POST", "/v1/handoff", {}, "role=decode"),
+    ("POST", "/v1/generate",
+     {"prompt": [1], "max_new_tokens": 2, "stream": True,
+      "kv_sources": [{"url": "http://peer", "digest": "d"}]},
+     "kv_sources"),
     ("GET", "/v1/kvchain/abc", None, "kv_fabric_token"),
     ("POST", "/v1/generate",
      {"prompt": [1], "max_new_tokens": 2,
@@ -536,20 +539,31 @@ def test_unported_routes_answer_404_naming_the_knob(served, method, path,
 
 
 def test_prefill_role_request_is_refused_by_name(params):
-    _, tp = params
-    loop = ServingLoop(port_engine(tp))
+    """role=prefill is served now: a prefill-role replica answers a
+    POST with the handoff descriptor of a decode-role loop that adopted
+    the request (shipped in process here), and the decode loop's result
+    is the reference's tokens; a request its first token completes
+    answers with tokens."""
+    jp, tp = params
+    dec = ServingLoop(port_engine(tp, role="decode"), role="decode")
+    loop = ServingLoop(port_engine(tp, role="prefill"), role="prefill",
+                       handoff_targets=["in-process"],
+                       handoff_send=lambda target, data: dec.adopt(data))
     httpd, url = serve(loop, ServerConfig(**MODEL, port=0, role="prefill"))
     try:
-        status, reply = post_status(url, {"prompt": [1], "max_new_tokens": 2})
-        assert status == 404 and "role=prefill" in reply["error"]
-        with pytest.raises(NotPorted, match="role=decode"):
-            loop.adopt(b"")
+        reply = post(url, {"prompt": [1, 2], "max_new_tokens": 5})
+        assert reply["handoff"]["target"] == "in-process"
+        assert dec.result(reply["handoff"]["rid"], timeout=60) == \
+            want(jp, [1, 2], 5)
+        assert post(url, {"prompt": [3], "max_new_tokens": 1}) == \
+            {"tokens": want(jp, [3], 1)}
     finally:
         stop(httpd, loop)
+        dec.shutdown()
 
 
 @pytest.mark.parametrize("kw,knob", [
-    ({"role": "decode"}, "role=decode"),
+    ({"role": "decode", "fabric_token": "s"}, "kv_fabric_token"),
     ({"tenant_quota": object()}, "tenant_quota"),
     ({"fabric_token": "s"}, "kv_fabric_token"),
 ])
@@ -1161,9 +1175,10 @@ def test_unmeetable_deadline_is_shed_429():
 # ---------------------------------------------------------------------------
 
 def test_step_error_rebuilds_engine_and_fails_live_requests(params):
-    """A tick that raises: the loop rebuilds the engine through the
-    factory, the live request (no capture in the torch engine) is
-    accounted ``failed`` exactly once, and the rebuilt engine serves."""
+    """A tick that raises: the loop captures the live request, rebuilds
+    the engine through the factory and resumes it (swap), so it finishes
+    with the undisturbed tokens; nothing is accounted ``failed``, and the
+    rebuilt engine serves."""
     jp, tp = params
 
     class FailOnce(DecodeServer):
@@ -1183,15 +1198,15 @@ def test_step_error_rebuilds_engine_and_fails_live_requests(params):
                        restart_backoff_s=0.0)
     try:
         before = _outcomes()
-        with pytest.raises(RuntimeError, match="lost in engine restart"):
-            loop.generate([1, 2], 5, timeout=30)
+        assert loop.generate([1, 2], 5, timeout=60) == want(jp, [1, 2], 5)
         assert _wait_until(lambda: not loop.recovering
                            and loop.engine is not dead)
         assert dead.params is None and dead.cache is None   # released
         assert loop.generate([3], 4, timeout=60) == want(jp, [3], 4)
-        assert _outcome_delta(before) == {"failed": 1, "finished": 1}
+        assert _outcome_delta(before) == {"finished": 2}
         sup = loop.stats()["supervisor"]
-        assert sup["restarts"] == 1 and sup["lost"] == 1
+        assert sup["restarts"] == 1 and sup["lost"] == 0
+        assert sup["resumed"] == {"swap": 1, "recompute": 0}
         assert loop.healthy
     finally:
         loop.shutdown()
@@ -1199,9 +1214,10 @@ def test_step_error_rebuilds_engine_and_fails_live_requests(params):
 
 def test_step_error_at_depth_2_accounts_every_live_request_once(params):
     """A pipelined, fused engine (depth 2, T 4) fails a tick with two
-    requests live and ticks in flight: the loop rebuilds it, each live
-    request is accounted ``failed`` exactly once, the dead engine keeps
-    no graph, window or static buffer, and the rebuilt engine serves."""
+    requests live and ticks in flight: the loop rebuilds it and resumes
+    both (swap), each finishing exactly once with the undisturbed
+    tokens; the dead engine keeps no graph, window or static buffer,
+    and the rebuilt engine serves."""
     jp, tp = params
 
     class ParkThenFail(_ParkedWait):
@@ -1231,10 +1247,11 @@ def test_step_error_at_depth_2_accounts_every_live_request_once(params):
         b = loop.stream([5, 6, 7], 40)          # barrier flush + prefill
         assert dead._inflight == deque() and len(dead._active) == 2
         dead.go.set()
-        for st in (a, b):
-            with pytest.raises(RuntimeError, match="lost in engine restart"):
-                for _ in st:
-                    pass
+        for st, prompt in ((a, [1, 2]), (b, [5, 6, 7])):
+            toks = list(prompt)
+            for delta in st:
+                toks.extend(delta)
+            assert toks == want(jp, prompt, 40)
         assert _wait_until(lambda: not loop.recovering
                            and loop.engine is not dead)
         assert dead.params is None and dead.cache is None
@@ -1243,9 +1260,10 @@ def test_step_error_at_depth_2_accounts_every_live_request_once(params):
         assert not dead._inflight
         assert loop.generate([3], 9, timeout=60) == want(jp, [3], 9)
         assert _wait_until(lambda: _outcome_delta(before)
-                           == {"failed": 2, "finished": 1})
+                           == {"finished": 3})
         sup = loop.stats()["supervisor"]
-        assert sup["restarts"] == 1 and sup["lost"] == 2
+        assert sup["restarts"] == 1 and sup["lost"] == 0
+        assert sup["resumed"] == {"swap": 2, "recompute": 0}
         assert loop.healthy
     finally:
         dead.go.set()
@@ -1298,10 +1316,12 @@ def test_build_engine_validation_messages(kw, match):
     (dict(draft_checkpoint_dir="/nope"), "draft_checkpoint_dir"),
     (dict(tenant_config='{"tenants": {}}'), "tenant_config"),
     (dict(kv_fabric_token="s"), "kv_fabric_token"),
-    (dict(role="decode"), "role=decode"),
-    (dict(role="prefill", decode_pool="http://d0:8000"), "role=prefill"),
+    (dict(role="decode", tenant_config='{"tenants": {}}'), "tenant_config"),
+    (dict(role="prefill", decode_pool="http://d0:8000",
+          kv_host_tier_bytes=1024, prefix_cache_size=4),
+     "kv_host_tier_bytes"),
     (dict(checkpoint_dir="/c"), "checkpoint_dir"),
-    (dict(kv_swap=False), "kv_swap"),
+    (dict(kv_swap=False, tp=2), "tp"),
     (dict(kv_blocks=0, kv_block_size=0), "kv_blocks=0"),
 ])
 def test_build_engine_refuses_unported_knobs_by_name(kw, knob):
@@ -1376,8 +1396,9 @@ def test_main_flags_give_the_reference_config(argv, monkeypatch, tmp_path,
 
 
 @pytest.mark.parametrize("argv,knob", [
-    (["--kv-blocks", "16", "--kv-block-size", "8", "--role", "decode"],
-     "role=decode"),
+    (["--kv-blocks", "16", "--kv-block-size", "8", "--role", "decode",
+      "--kv-host-tier-bytes", "1024", "--prefix-cache-size", "4"],
+     "kv_host_tier_bytes"),
     (["--kv-blocks", "16", "--kv-block-size", "8",
       "--tenant-config", '{"tenants": {}}'], "tenant_config"),
     (["--kv-blocks", "16", "--kv-block-size", "8",

@@ -137,8 +137,11 @@ def test_build_engine_raises_reference_messages(clean_env, bad):
 
 @pytest.mark.parametrize("knob", [
     dict(kv_blocks=0), dict(kv_fabric_token="s"),
-    dict(role="prefill", decode_pool="http://d0:8000"), dict(tp=2),
-    dict(role="decode"), dict(kv_swap=False), dict(tenant_config="t.json"),
+    dict(kv_host_tier_bytes=1024, prefix_cache_size=4,
+         role="prefill", decode_pool="http://d0:8000"), dict(tp=2),
+    dict(tenant_config="t.json", role="decode"),
+    dict(draft_checkpoint_dir="/d", kv_swap=False),
+    dict(tenant_config="t.json"),
     dict(draft_checkpoint_dir="/d"), dict(checkpoint_dir="/c"),
 ])
 def test_build_engine_names_every_knob_outside_the_slice(clean_env, knob):
