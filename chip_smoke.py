@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijkl]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijklm]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -135,7 +135,12 @@ l. the KV payload at phase (e)'s width, every engine on one set of
    undisturbed twin: the replayed output span's K/V must equal the
    twin's bytes, the re-prefilled prompt span's equality and the next
    step's max|dlogit| printed, the eager replay's bytes equal to the
-   graph's, ms per replayed token of both; (2) phase (e)'s prompts x 64
+   graph's, ms per replayed token of both; two recompute victims admitted
+   another way (phase (k)'s system prompt + 64 tokens through a prefix
+   hit's S > 1 window, phase (k.3)'s 1536-token prompt in 256-token
+   chunks), bf16 and int8, resumed by repeating their admission's path:
+   prompt span, output span, next-step logits and tokens equal to an
+   undisturbed twin's, beside the one-shot re-prefill's; (2) phase (e)'s prompts x 64
    tokens on a pool of 88% of the batch's final footprint, kv_swap on
    and off x bf16 and int8 arenas x (depth, T) (1, 1) and (2, 4): at
    least two preemptions each, swap resumes giving the undisturbed
@@ -148,6 +153,27 @@ l. the KV payload at phase (e)'s width, every engine on one set of
    recovery seconds; (4) a prefill-role and a decode-role replica over
    HTTP on 127.0.0.1: the undisturbed tokens through the handoff, the
    handoff bytes (bf16, int8) and the capture+ship ms per handoff.
+m. the rest of the KV payload at phase (e)'s width, on one set of
+   ``build_engine`` weights: (1) the reference bench's host-tier section
+   (4 zipf-popular 1024-token system prompts, 24 requests of one plus a
+   64-token suffix x 32 tokens, ``max_batch`` 2, a one-chain prefix
+   cache, a pool of 4 requests' blocks, a host tier that holds every
+   chain the trace demotes, 4 GiB): tiered, drop and no-pressure arms in
+   int8 and bf16, prefill tokens, TTFT p50/p99, demotes and promotes,
+   a chain's copy down and up (ms, GB/s) beside a plain pinned copy of
+   the same bytes and the host copies staging makes, the tiered tokens
+   equal to the no-pressure arm's; phase (l.2)'s swap points at (1, 1)
+   again; (2) two
+   replicas over HTTP with one fabric token: B pulls A's chain through
+   ``kv_sources`` (4 concurrent requests, one pull), a tokenless offer
+   counts ``pull_denied``, another tenant's offer is refused at ingest;
+   B's tokens equal A's; pull bytes, fetch and ingest ms, B's TTFT with
+   the pull and without; (3) bronze fills 8 slots, two guaranteed gold
+   requests arrive after 8 ticks on the injected tenant clock: 2
+   reclaims, bronze's 8 token digests equal the undisturbed run's, by
+   swap and by recompute; through the binary, bronze over its max is
+   served idle and gets 429 ``tenant_quota`` under contention, and
+   /stats' chip ledger adds up to its span.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -185,7 +211,7 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijkl"
+PHASES = "cdefghijklm"
 
 
 def emit(obj) -> None:
@@ -2336,8 +2362,8 @@ def instrument(eng) -> dict:
         rec[key].append((time.perf_counter() - t) * 1e3)
         return out
 
-    def swap_payload(table, nblk):
-        p = timed(swap_out, "swap_out_ms", table, nblk)
+    def swap_payload(table, nblk, **kw):
+        p = timed(lambda *a: swap_out(*a, **kw), "swap_out_ms", table, nblk)
         rec["payload_bytes"].append(sum(
             int(p[k].nbytes) for k in ("k", "v", "k_scale", "v_scale")
             if k in p))
@@ -2538,6 +2564,105 @@ def recompute_probe(engine, prompts, plen: int, ticks: int,
                    / rec["replay_tokens"][-1])
     twin.drain()
     eng.drain()
+    return out
+
+
+ADMISSION_PROBE_TICKS = 6
+
+
+def admission_probe(engine, kind: str, kv_dtype: str, seed: int) -> dict:
+    """(l.1, ROADMAP C.12) A recompute victim admitted another way than a
+    one-shot prefill, against an undisturbed twin: ``hit``, phase (k)'s
+    1024-token system prompt (published) plus a 64-token suffix, which
+    the kernel admits as one S > 1 window over the shared head; or
+    ``chunked``, phase (k.3)'s 1536-token prompt in 256-token chunks.
+    After ``ADMISSION_PROBE_TICKS`` ticks the victim is preempted by
+    recompute and resumed, which repeats its admission's path (the
+    window over the re-shared head, or the same chunks) and replays its
+    committed tokens; then both take one more tick. Its prompt span's
+    and output span's K/V (planes and scales), the next step's logits
+    and its tokens to the end must equal the twin's. A third engine
+    resumes the same victim by the one-shot re-prefill of its prompt
+    (the resume before the repair), whose equality is printed."""
+    system, suffixes = prefix_traffic(seed)
+    _, long = admission_traffic(seed)
+    rng = np.random.default_rng(seed + 303)
+    if kind == "hit":
+        prompt = system + rng.integers(0, FULL["vocab"], size=64).tolist()
+        knobs = dict(prefix_cache_size=PREFIX_LEN // 16)
+        path = "window"
+    else:
+        prompt, knobs, path = long[0], dict(prefill_chunk=CHUNK), "chunked"
+    plen = len(prompt)
+    new = ADMISSION_PROBE_TICKS + 8
+
+    def admitted(e):
+        if kind == "hit":
+            e.submit(system, 2, cache_prefix=True)
+            e.drain()
+        rid = e.submit(prompt, new)
+        while any(x["req"].rid == rid for x in e._prefilling):
+            e.step()
+        for _ in range(ADMISSION_PROBE_TICKS):
+            e.step()
+        torch.cuda.synchronize()
+        return rid
+
+    def slot_of(e, r):
+        return next(k for k, q in e._active.items() if q.rid == r)
+
+    def timeline(e, r, written):
+        bs, slot = e.kv_block_size, slot_of(e, r)
+        return [torch.stack([e.cache[n][:, e._tables[slot][q // bs], :,
+                                        q % bs] for q in range(written)])
+                for n in ("k", "v", "k_scale", "v_scale") if n in e.cache]
+
+    twin = engine(kv_swap=False, kv_dtype=kv_dtype, **knobs)
+    rt = admitted(twin)
+    out = {"kind": kind, "kv_dtype": kv_dtype, "prompt_tokens": plen,
+           "admission": twin._active[slot_of(twin, rt)].admission[0]}
+    for name, repeat in (("repaired", True), ("one_shot", False)):
+        eng = engine(kv_swap=False, kv_dtype=kv_dtype, **knobs)
+        rid = admitted(eng)
+        committed = len(eng._active[slot_of(eng, rid)].out)
+        assert eng.preempt(rid, "recompute")
+        if not repeat:
+            eng._pending[0].admission = None
+        eng._admit()
+        torch.cuda.synchronize()
+        if repeat and eng.resume_paths[path] != 1:
+            raise AssertionError(f"{kind}: the resume took "
+                                 f"{eng.resume_paths}, not {path}")
+        written = plen + committed - 1
+        a, b = timeline(eng, rid, written), timeline(twin, rt, written)
+        prompt_eq = same([x[:plen] for x in a], [y[:plen] for y in b])
+        output_eq = same([x[plen:] for x in a], [y[plen:] for y in b])
+        for e in (twin, eng) if repeat else (eng,):
+            e.step()
+        torch.cuda.synchronize()
+        # the graphs' output buffers: every later replay rewrites them
+        la = twin._graphs[False].logits[slot_of(twin, rt)].clone()
+        lb = eng._graphs[False].logits[slot_of(eng, rid)].clone()
+        tokens = eng.drain()[rid]
+        row = {"prompt_span_bit_equal": prompt_eq,
+               "output_span_bit_equal": output_eq,
+               "next_step_logits_bit_equal": bool(torch.equal(la, lb)),
+               "next_step_max_abs_logit_diff": float((la - lb).abs().max()),
+               "committed_tokens": committed, "resume_paths":
+               dict(eng.resume_paths), "tokens": tokens}
+        out[name] = row
+        del eng
+    want = twin.drain()[rt]
+    for name in ("repaired", "one_shot"):
+        out[name]["tokens_equal_twin"] = out[name].pop("tokens") == want
+    rep = out["repaired"]
+    if not (rep["prompt_span_bit_equal"] and rep["output_span_bit_equal"]
+            and rep["next_step_logits_bit_equal"]
+            and rep["tokens_equal_twin"]):
+        raise AssertionError(f"C.12 {kind} {kv_dtype}: the repaired "
+                             f"recompute resume differs from its twin: "
+                             f"{rep}")
+    del twin
     return out
 
 
@@ -2798,6 +2923,10 @@ def phase_l(seed: int, card: str, served: dict) -> dict:
                         eager=True),
         recompute_probe(engine, prompts, cross, bucket(cross) - cross + 4,
                         eager=False)]
+    # victims admitted through a prefix hit and in chunks (ROADMAP C.12)
+    out["admission_probe"] = [
+        admission_probe(engine, kind, kv_dtype, seed)
+        for kind in ("hit", "chunked") for kv_dtype in ("bf16", "int8")]
     # l.2: the undisturbed runs, then pressure
     undisturbed = {}
     for kv_dtype in ("bf16", "int8"):
@@ -2865,6 +2994,622 @@ def phase_l(seed: int, card: str, served: dict) -> dict:
     torch.cuda.empty_cache()
     launches["restart"] = restart["kernel_launches"]
     launches["handoff_decode"] = hand["kernel_launches"]
+    return launches
+
+
+# phase (m): the reference bench's kv_fabric_section (bench_serve.py
+# :1016-1120, its KF_* constants at :164-171) at phase (e)'s width
+KF_SYS = 4                  # system prompts, zipf popularity
+KF_ZIPF_S = 1.1
+KF_SUFFIX = 64              # unique suffix tokens a request
+KF_NEW = 32
+KF_REQUESTS = 24
+KF_CACHE_CHAINS = 1         # prefix-cache budget: every switch evicts
+# the reference sizes its host tier to hold every chain the trace
+# demotes; at this width that is the 4 system chains (128 MiB each in
+# bf16) and the 24 request chains (136 MiB each: every request publishes
+# its prompt), 3.7 GiB in bf16
+KF_HOST_BYTES = 4 << 30
+FABRIC_TOKEN = "chip-smoke-fabric"
+TENANT_NEW = 64
+TENANT_TICKS = 8
+
+
+def fabric_trace(seed: int) -> tuple:
+    """(system prompts, [(system index, suffix)] x KF_REQUESTS)."""
+    rng = np.random.default_rng(seed + 17)
+    systems = [rng.integers(1, FULL["vocab"], size=PREFIX_LEN).tolist()
+               for _ in range(KF_SYS)]
+    w = np.array([1.0 / (r + 1) ** KF_ZIPF_S for r in range(KF_SYS)])
+    picks = rng.choice(KF_SYS, size=KF_REQUESTS, p=w / w.sum())
+    return systems, [(int(i), rng.integers(1, FULL["vocab"],
+                                           size=KF_SUFFIX).tolist())
+                     for i in picks]
+
+
+def link_rate(nbytes: int) -> dict:
+    """The link's rate for ``nbytes``: a plain pinned ``copy_`` each way,
+    CUDA events around 5 copies after a warm-up, GB/s; beside it the
+    host copies a staged payload makes (best of 5, host clock): pinned
+    out to fresh pageable memory by numpy (one thread) and by torch (the
+    intra-op threads), and pageable into pinned by both."""
+    host = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty((nbytes,), dtype=torch.uint8, device="cuda")
+    out = {"bytes": nbytes}
+    src = np.random.default_rng(0).integers(0, 255, nbytes, dtype=np.uint8)
+    for name, fn in (
+            ("out_numpy", lambda: np.array(host.numpy())),
+            ("out_torch", lambda: torch.empty(nbytes, dtype=torch.uint8)
+             .copy_(host)),
+            ("in_numpy", lambda: host.numpy().__setitem__(slice(None), src)),
+            ("in_torch", lambda: host.copy_(torch.from_numpy(src)))):
+        best = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fn()
+            best.append(time.perf_counter() - t)
+        out[f"host_{name}_gb_s"] = nbytes / min(best) / 1e9
+    for name, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(5):
+            dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b) / 5
+        out[f"{name}_ms"] = ms
+        out[f"{name}_gb_s"] = nbytes / ms / 1e6
+    return out
+
+
+def chain_copies(eng, reps: int = 5) -> dict:
+    """A resident chain's copies across the link, as a demotion and a
+    promotion make them, each timed alone after a sync: down (into a
+    pinned slab, then out to pageable memory on the staging worker, until
+    its event is set) and up (into a slab, then to fresh blocks, until
+    the device is done); ms and bytes a chain."""
+    from nos_tpu_torch.models.staging import READY
+
+    _key, chain = eng._pindex.chain_items()[-1]
+    rec = {"down_ms": [], "up_ms": [], "bytes": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        planes, ready = eng._swap_download(list(chain)).arrays_later()
+        ready.wait()
+        rec["down_ms"].append((time.perf_counter() - t) * 1e3)
+        swap = {"nblk": len(chain), **planes, READY: ready}
+        rec["bytes"].append(sum(int(a.nbytes) for a in planes.values()))
+        fresh = eng._alloc.alloc_many(len(chain))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng._restore_blocks(swap, fresh)
+        torch.cuda.synchronize()
+        rec["up_ms"].append((time.perf_counter() - t) * 1e3)
+        for b in fresh:
+            eng._alloc.decref(b)
+    return rec
+
+
+def rate_summary(ms: list, nbytes: list) -> dict:
+    if not ms:
+        return {"n": 0}
+    gbs = [b / m / 1e6 for m, b in zip(ms, nbytes)]
+    return {"n": len(ms), "ms_min": min(ms), "ms_max": max(ms),
+            "ms_p50": float(np.median(ms)), "bytes": nbytes[0],
+            "gb_s_min": min(gbs), "gb_s_max": max(gbs),
+            "gb_s_p50": float(np.median(gbs))}
+
+
+def fabric_arm(engine, systems, trace, kv_dtype: str, tiered: bool,
+               cache_chains: int, blocks: int, L: int) -> tuple:
+    """(m.1) One arm of the bench: the system prompts published once
+    (warm, outside the trace), then the trace one request at a time with
+    ``cache_prefix``; prefill tokens, TTFT from each request's ledger,
+    the tier counters, the copies' ms and GB/s, and the paged kernel's
+    own count over the trace, which must be n_layers x (replays +
+    in-arena windows). Returns (record, outputs)."""
+    from nos_tpu_torch.kvfabric import HostTierStore
+    from nos_tpu_torch.ops import _kernels
+
+    eng = engine(max_batch=2, kv_blocks=blocks, kv_dtype=kv_dtype,
+                 prefix_cache_size=cache_chains,
+                 host_tier=HostTierStore(KF_HOST_BYTES) if tiered else None)
+    # the warm publishes capture the greedy program at their first tick
+    for sp in systems:
+        eng.submit(sp + [1], 2, cache_prefix=True)
+        eng.drain()
+    eng.drain_ledgers()
+    torch.cuda.synchronize()
+    replays0, windows0 = eng.ticks_dispatched, eng.arena_windows
+    _kernels.paged_decode.launches = 0          # the main path's count
+    prefill, ttft, outputs = [], [], []
+    t0 = time.perf_counter()
+    for si, suffix in trace:
+        prompt = systems[si] + suffix
+        saved0 = eng.prefix_tokens_saved
+        rid = eng.submit(prompt, KF_NEW, cache_prefix=True)
+        outputs.append(eng.drain()[rid])
+        ttft.append(eng.pop_ledger(rid)["ttft_s"] * 1e3)
+        prefill.append(len(prompt) - (eng.prefix_tokens_saved - saved0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.paged_decode.launches
+    replays = eng.ticks_dispatched - replays0
+    windows = eng.arena_windows - windows0
+    if launches != L * (replays + windows):
+        raise AssertionError(f"fabric arm: paged launches {launches} != "
+                             f"{L} x ({replays} + {windows})")
+    snap = eng.prefix_index_snapshot()
+    rec = chain_copies(eng) if tiered else {"down_ms": [], "up_ms": [],
+                                            "bytes": []}
+    out = {"kv_dtype": kv_dtype, "tiered": tiered,
+           "pool_blocks": blocks, "prefix_cache_blocks": cache_chains,
+           "prefill_tokens": sum(prefill),
+           "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_p99": float(np.percentile(ttft, 99)),
+           "prefix_hits": eng.prefix_hits, "evicted": snap["evicted"],
+           "fabric": snap["fabric"],
+           "host_tier": None if snap["host_tier"] is None else {
+               k: snap["host_tier"][k] for k in ("chains", "bytes")},
+           "demote_copy": rate_summary(rec["down_ms"], rec["bytes"]),
+           "promote_copy": rate_summary(rec["up_ms"], rec["bytes"]),
+           "staging": dict(eng._staging.counts,
+                           pinned_bytes=eng._staging.pinned_bytes),
+           "wall_s": wall, "kernel_launches": launches,
+           "graph_replays": replays, "arena_windows": windows}
+    del eng
+    return out, outputs
+
+
+def phase_m1(engine, seed: int, L: int) -> dict:
+    """(m.1) The host tier: tiered, drop and no-pressure arms in int8
+    and bf16; the tiered arm's tokens must equal the no-pressure arm's.
+    Beside them the link's rate for a chain's bytes, and phase (l.2)'s
+    two swap points at (1, 1) again (swap-in ms through the staging)."""
+    from nos_tpu_torch.models.kvblocks import blocks_for
+
+    bs = 16
+    systems, trace = fabric_trace(seed)
+    sys_blocks = PREFIX_LEN // bs
+    suffix_blocks = blocks_for(KF_SUFFIX, bs)
+    per_req = blocks_for(PREFIX_LEN + KF_SUFFIX + KF_NEW, bs) + 1
+    pool = 4 * per_req
+    big_pool = (KF_SYS * (sys_blocks + 1) + KF_REQUESTS * (suffix_blocks + 1)
+                + 4 * per_req)
+    big_cache = KF_SYS * sys_blocks + KF_REQUESTS * (sys_blocks
+                                                    + suffix_blocks)
+    out = {"trace": {"requests": KF_REQUESTS, "system_prompts": KF_SYS,
+                     "system_prompt_tokens": PREFIX_LEN,
+                     "zipf_s": KF_ZIPF_S, "suffix_tokens": KF_SUFFIX,
+                     "new_tokens": KF_NEW,
+                     "prefix_cache_blocks": KF_CACHE_CHAINS,
+                     "pool_blocks": pool, "host_tier_bytes": KF_HOST_BYTES},
+           "arms": {}}
+    launches = {}
+    for kv_dtype in ("int8", "bf16"):
+        tiered, t_out = fabric_arm(engine, systems, trace, kv_dtype, True,
+                                   KF_CACHE_CHAINS, pool, L)
+        drop, d_out = fabric_arm(engine, systems, trace, kv_dtype, False,
+                                 KF_CACHE_CHAINS, pool, L)
+        nopress, n_out = fabric_arm(engine, systems, trace, kv_dtype, False,
+                                    big_cache, big_pool, L)
+        tiered["bit_exact_vs_no_pressure"] = t_out == n_out
+        drop["bit_exact_vs_no_pressure"] = d_out == n_out
+        if not tiered["bit_exact_vs_no_pressure"]:
+            raise AssertionError(f"m.1 {kv_dtype}: the tiered arm's tokens "
+                                 f"differ from the no-pressure arm's")
+        if not tiered["fabric"]["promote"]:
+            raise AssertionError(f"m.1 {kv_dtype}: nothing was promoted")
+        out["arms"][kv_dtype] = {"tiered": tiered, "drop": drop,
+                                 "no_pressure": nopress,
+                                 "tokens_sha256": token_digest(t_out)}
+        launches[f"host_tier_{kv_dtype}"] = tiered["kernel_launches"]
+    chain = out["arms"]["bf16"]["tiered"]["promote_copy"].get("bytes") \
+        or 2 * 32 * 8 * 16 * 128 * 2 * sys_blocks
+    out["link"] = link_rate(int(chain))
+    prompts = full_width_prompts(seed)
+
+    def pressure_engine(**kw):
+        return engine(max_batch=8, **kw)
+
+    out["swap_points"] = []
+    for kv_dtype in ("bf16", "int8"):
+        r = pressure_run(pressure_engine, prompts, True, kv_dtype, 1, 1, L)
+        r.pop("seqs")
+        out["swap_points"].append({k: r[k] for k in (
+            "kv_dtype", "preempts", "swap_payload_bytes", "swap_out_ms",
+            "swap_in_ms", "kernel_launches")})
+        launches[f"swap_{kv_dtype}"] = r["kernel_launches"]
+    return out, launches
+
+
+def first_frame_ms(url: str, body: dict, headers: dict) -> tuple:
+    """(ms to the first SSE frame, every token) of one streamed POST."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + "/v1/generate", data=json.dumps({**body, "stream": True})
+        .encode(), headers={"Content-Type": "application/json", **headers},
+        method="POST")
+    t0 = time.perf_counter()
+    first, toks = None, []
+    with urllib.request.urlopen(req, timeout=300) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            payload = line[len("data: "):]
+            if payload == "[DONE]":
+                return first, toks
+            frame = json.loads(payload)
+            if "error" in frame:
+                raise AssertionError(f"SSE error frame: {frame['error']}")
+            if first is None:
+                first = (time.perf_counter() - t0) * 1e3
+            toks.extend(frame["tokens"])
+    raise AssertionError("SSE stream ended without [DONE]")
+
+
+def phase_m2(engine, seed: int, L: int) -> dict:
+    """(m.2) The fabric: replicas A and B (``ServingLoop`` +
+    ``make_http_server`` on 127.0.0.1, one set of weights, one fabric
+    token, tenants gold and bronze with scoped chains). A publishes the
+    system prompt for gold; B gets phase (k)'s 8 shared requests as
+    gold, each offering A's chain in ``kv_sources``: one alone, 4 at
+    once (one pull: single-flight), the rest in turn; an offer without
+    the token counts ``pull_denied``, a bronze request offered gold's
+    chain is refused at ingest. B's tokens must equal A's for the same
+    prompts; B's TTFT with the pull beside a replica without it."""
+    import threading
+
+    from nos_tpu_torch.cmd.server import (
+        ServerConfig, ServingLoop, make_http_server,
+    )
+    from nos_tpu_torch.kvfabric import FABRIC_TOKEN_HEADER, chain_digest
+    from nos_tpu_torch.models.tenantquota import TenantQuotaConfig
+    from nos_tpu_torch.ops import _kernels
+
+    quiet_histograms()
+    system, suffixes = prefix_traffic(seed)
+    spec = '{"tenants": {"gold": {}, "bronze": {}}}'
+    cfg = dict(bf16=True, kv_blocks=1 + 8 * 128, kv_block_size=16,
+               max_batch=8, port=0, prefix_cache_size=PREFIX_LEN // 16,
+               kv_fabric_token=FABRIC_TOKEN, tenant_config=spec, **FULL)
+    reps = []
+
+    def replica(token=FABRIC_TOKEN):
+        tq = TenantQuotaConfig.from_json(spec)
+        eng = engine(prefix_cache_size=PREFIX_LEN // 16, tenant_quota=tq)
+        eng.capture_programs()
+        loop = ServingLoop(eng, tenant_quota=tq, fabric_token=token)
+        httpd = make_http_server(ServerConfig(**cfg), loop, host="127.0.0.1")
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        reps.append((httpd, loop))
+        return eng, loop, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    try:
+        eng_a, loop_a, url_a = replica()
+        eng_b, loop_b, url_b = replica()
+        eng_c, _, url_c = replica()
+        status, raw = http_call(url_a, "/v1/generate", {
+            "prompt": system, "max_new_tokens": 2, "cache_prefix": True,
+            "tenant": "gold"})
+        if status != 200:
+            raise AssertionError(f"replica A: {status} {raw}")
+        digest = chain_digest(system, "gold")
+        offer = [{"url": f"{url_a}/v1/kvchain/{digest}", "digest": digest,
+                  "len": PREFIX_LEN}]
+        tok = {FABRIC_TOKEN_HEADER: FABRIC_TOKEN}
+        fetch, ingest = [], []
+        real_fetch, real_ingest = loop_b._fetch_chain_bytes, \
+            eng_b.ingest_chain
+
+        def timed_fetch(*a, **kw):
+            t = time.perf_counter()
+            data = real_fetch(*a, **kw)
+            fetch.append(((time.perf_counter() - t) * 1e3, len(data)))
+            return data
+
+        def timed_ingest(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok = real_ingest(*a, **kw)
+            torch.cuda.synchronize()
+            ingest.append(((time.perf_counter() - t) * 1e3, ok))
+            return ok
+
+        loop_b._fetch_chain_bytes = timed_fetch
+        eng_b.ingest_chain = timed_ingest
+        prompts = [system + s for s in suffixes]
+        body = [{"prompt": p, "max_new_tokens": PREFIX_NEW,
+                 "tenant": "gold", "kv_sources": offer} for p in prompts]
+        # the refusals first: no token (never fetched), and a bronze
+        # requester offered gold's chain (fetched, refused at ingest)
+        http_call(url_b, "/v1/generate", dict(body[0], max_new_tokens=2))
+        denied = loop_b.stats()["kv_fabric_pulls"]["pull_denied"]
+        import urllib.request
+        req = urllib.request.Request(
+            url_b + "/v1/generate", data=json.dumps(dict(
+                body[0], max_new_tokens=2, tenant="bronze")).encode(),
+            headers={"Content-Type": "application/json", **tok},
+            method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            r.read()
+        refused = eng_b._fabric["ingest_rejected"]
+        if denied != 1 or refused != 1:
+            raise AssertionError(f"m.2 refusals: pull_denied {denied}, "
+                                 f"ingest_rejected {refused}")
+        eng_b.drain_ledgers()
+        torch.cuda.synchronize()
+        replays0, windows0 = eng_b.ticks_dispatched, eng_b.arena_windows
+        _kernels.paged_decode.launches = 0      # the main path's count
+        ttft, seqs = [None] * 8, [None] * 8
+
+        def client(i):
+            ttft[i], seqs[i] = first_frame_ms(url_b, body[i], tok)
+
+        client(0)
+        gate = threading.Barrier(4)
+
+        def burst(i):
+            gate.wait(timeout=60)
+            client(i)
+
+        threads = [threading.Thread(target=burst, args=(i,))
+                   for i in range(1, 5)]
+        # the first request's pull landed the chain: evict it so the
+        # burst of 4 meets a cold prefix and rides one pull
+        with loop_b._work:
+            eng_b._pindex.clear()
+        fetches0 = len(fetch)
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        burst_fetches = len(fetch) - fetches0
+        for i in range(5, 8):
+            client(i)
+        torch.cuda.synchronize()
+        launches = _kernels.paged_decode.launches
+        replays = eng_b.ticks_dispatched - replays0
+        windows = eng_b.arena_windows - windows0
+        if launches != L * (replays + windows):
+            raise AssertionError(f"replica B: paged launches {launches} != "
+                                 f"{L} x ({replays} + {windows})")
+        if burst_fetches != 1:
+            raise AssertionError(f"m.2: the 4 concurrent requests made "
+                                 f"{burst_fetches} fetches (want 1)")
+        want = []
+        for p in prompts:
+            status, raw = http_call(url_a, "/v1/generate", {
+                "prompt": p, "max_new_tokens": PREFIX_NEW,
+                "tenant": "gold"})
+            want.append(json.loads(raw)["tokens"])
+        if [list(p) + s for p, s in zip(prompts, seqs)] != want:
+            raise AssertionError("m.2: replica B's tokens differ from A's")
+        cold = []
+        for i in range(8):
+            ms, toks = first_frame_ms(url_c, {
+                "prompt": prompts[i], "max_new_tokens": PREFIX_NEW,
+                "tenant": "gold"}, {})
+            cold.append(ms)
+        pulls = loop_b.stats()["kv_fabric_pulls"]
+        return {"pulls": pulls, "fabric_b": dict(eng_b._fabric),
+                "fetches": len(fetch), "burst_requests": 4,
+                "burst_fetches": burst_fetches,
+                "riders_per_leader": 4 / burst_fetches - 1,
+                "bytes_pulled": sum(n for _, n in fetch),
+                "fetch_ms": [ms for ms, _ in fetch],
+                "ingest_ms": [ms for ms, ok in ingest if ok],
+                "ttft_ms_with_pull_p50": float(np.percentile(ttft, 50)),
+                "ttft_ms_with_pull_p99": float(np.percentile(ttft, 99)),
+                "ttft_ms_without_p50": float(np.percentile(cold, 50)),
+                "ttft_ms_without_p99": float(np.percentile(cold, 99)),
+                "tokens_equal_a": True, "kernel_launches": launches,
+                "graph_replays": replays, "arena_windows": windows}
+    finally:
+        for httpd, loop in reps:
+            httpd.shutdown()
+            loop.shutdown()
+            httpd.server_close()
+
+
+def tenant_run(engine, prompts, gold, kv_swap: bool, L: int,
+               reclaim: bool) -> dict:
+    """(m.3) Bronze fills the 8 slots with ``prompts`` x TENANT_NEW; after
+    TENANT_TICKS ticks (on the injected tenant clock, 0.1 s a tick) two
+    gold requests arrive (``reclaim``); runs to the end. Returns bronze's
+    sequences, the reclaims, gold's TTFT from the ledgers and the paged
+    kernel's own count, which must be n_layers x (T x replays + replayed
+    tokens)."""
+    from nos_tpu_torch.models.tenantquota import TenantQuotaConfig
+    from nos_tpu_torch.ops import _kernels
+
+    clock = [0.0]
+    tq = TenantQuotaConfig.from_json(
+        '{"tenants": {"gold": {"min_rate": 100000}, '
+        '"bronze": {"max_rate": 400}}, "window_s": 4.0}')
+    eng = engine(kv_swap=kv_swap, tenant_quota=tq,
+                 tenant_clock=lambda: clock[0])
+    eng.capture_programs()
+    torch.cuda.synchronize()
+    replays0 = eng.ticks_dispatched
+    _kernels.paged_decode.launches = 0          # the main path's count
+    rids = [eng.submit(p, TENANT_NEW, tenant="bronze") for p in prompts]
+    grids = []
+    for tick in range(10 ** 6):
+        if not eng.has_work():
+            break
+        if reclaim and tick == TENANT_TICKS:
+            grids = [eng.submit(g, TENANT_NEW, tenant="gold") for g in gold]
+        eng.step()
+        clock[0] += 0.1
+    served = eng.drain()
+    torch.cuda.synchronize()
+    launches = _kernels.paged_decode.launches
+    replays = eng.ticks_dispatched - replays0
+    want = L * (replays + eng.replayed_tokens)
+    if launches != want:
+        raise AssertionError(f"tenant run: paged launches {launches} != "
+                             f"{L} x ({replays} + {eng.replayed_tokens})")
+    led = [eng.pop_ledger(r) for r in grids]
+    out = {"kv_swap": kv_swap, "reclaims": eng.tenant_reclaims,
+           "preempts": eng.kv_stats()["preempts"],
+           "resume_paths": dict(eng.resume_paths),
+           "gold_ttft_ms": [x["ttft_s"] * 1e3 for x in led],
+           "kernel_launches": launches, "graph_replays": replays,
+           "replayed_tokens": eng.replayed_tokens,
+           "tenants": eng.tenant_snapshot(),
+           "seqs": [served[r] for r in rids]}
+    del eng
+    return out
+
+
+def tenant_binary(engine) -> dict:
+    """(m.3, through the binary) A ``ServingLoop`` with tenants (gold
+    with SLO objectives, bronze with a max) behind ``make_http_server``:
+    bronze over its max on an idle engine is served, then with 8 gold
+    requests decoding it gets 429 ``reason: tenant_quota``; /stats has
+    ``tenants``, ``slo_budget`` and ``chip_ledger``, and the ledger's
+    per-tenant milliseconds add up to its span."""
+    import threading
+
+    from nos_tpu_torch.cmd.server import (
+        ServerConfig, ServingLoop, make_http_server,
+    )
+    from nos_tpu_torch.models.tenantquota import TenantQuotaConfig
+
+    quiet_histograms()
+    spec = ('{"tenants": {"gold": {"slo": {"ttft_p99_ms": 2000, '
+            '"tpot_p99_ms": 200}}, "bronze": {"max_rate": 10}}, '
+            '"window_s": 4.0}')
+    tq = TenantQuotaConfig.from_json(spec)
+    eng = engine(tenant_quota=tq)
+    eng.capture_programs()
+    loop = ServingLoop(eng, tenant_quota=tq)
+    httpd = make_http_server(ServerConfig(
+        bf16=True, kv_blocks=1 + 8 * 128, kv_block_size=16, max_batch=8,
+        port=0, tenant_config=spec, **FULL), loop, host="127.0.0.1")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rng = np.random.default_rng(404)
+
+    def body(tenant, n):
+        return {"prompt": rng.integers(1, FULL["vocab"], size=64).tolist(),
+                "max_new_tokens": n, "tenant": tenant}
+
+    try:
+        # 64 tokens in a 4 s window put bronze over its max of 10/s; an
+        # idle engine still serves its next request
+        idle = [http_call(url, "/v1/generate", body("bronze", 64))[0]]
+        over = json.loads(http_call(url, "/stats")[1])["tenants"][
+            "bronze"]["over_max"]
+        idle.append(http_call(url, "/v1/generate", body("bronze", 8))[0])
+        if idle != [200, 200] or not over:
+            raise AssertionError(f"idle lending: {idle}, over_max {over}")
+        gold = [threading.Thread(target=http_call, args=(
+            url, "/v1/generate", body("gold", 256))) for _ in range(8)]
+        for t in gold:
+            t.start()
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            with loop._work:
+                full = not eng._free
+            if full:
+                break
+            time.sleep(0.01)
+        status, raw = http_call(url, "/v1/generate", body("bronze", 8))
+        reply = json.loads(raw)
+        for t in gold:
+            t.join(timeout=300)
+        if status != 429 or reply.get("reason") != "tenant_quota":
+            raise AssertionError(f"bronze under contention: {status} {reply}")
+        stats = json.loads(http_call(url, "/stats")[1])
+        block = stats["chip_ledger"]
+        per = sum(v for ph in block["chip_ms"].values() for v in ph.values())
+        if not (stats["tenants"] and stats["slo_budget"]
+                and block["conserved"]
+                and abs(per - block["wall_ms"]) < 0.01 * len(
+                    block["chip_ms"]) + 1e-6):
+            raise AssertionError(f"/stats tenancy sections: {stats['tenants']}"
+                                 f" {stats['slo_budget']} {block}")
+        return {"idle_bronze_status": idle, "contended_bronze_status": status,
+                "contended_bronze_reason": reply["reason"],
+                "tenants": stats["tenants"],
+                "slo_budget_objectives": len(stats["slo_budget"][
+                    "objectives"]),
+                "chip_ledger": block, "chip_ms_sum": per}
+    finally:
+        httpd.shutdown()
+        loop.shutdown()
+        httpd.server_close()
+
+
+def phase_m(seed: int, card: str) -> dict:
+    """(m): the rest of the KV payload at phase (e)'s width, every engine
+    a ``DecodeServer`` on one set of ``build_engine`` weights: (1) the
+    host tier, (2) the KV fabric's peer pull between two replicas over
+    HTTP, (3) tenant quotas with reclaim, at the engine and through the
+    binary. Returns the paged kernel's launches of each main-path run."""
+    import gc
+
+    from nos_tpu_torch.cmd.server import ServerConfig, build_engine
+    from nos_tpu_torch.models.serving import DecodeServer
+
+    torch.cuda.empty_cache()
+    eng0 = build_engine(ServerConfig(
+        bf16=True, kv_blocks=2, kv_block_size=16, max_batch=1,
+        paged_kernel="on", seed=seed, **FULL))
+    L = FULL["n_layers"]
+
+    def engine(**kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        return DecodeServer(eng0.params, eng0.cfg, kv_block_size=16,
+                            device=eng0.device, **{
+                                "max_batch": 8, "kv_blocks": 1 + 8 * 128,
+                                "paged_impl": "kernel", **kw})
+
+    t0 = time.perf_counter()
+    out = {"phase": "kv_fabric_tenants", "card": card}
+    out["host_tier"], launches = phase_m1(engine, seed, L)
+    out["host_tier_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["fabric"] = phase_m2(engine, seed, L)
+    launches["fabric_replica_b"] = out["fabric"]["kernel_launches"]
+    out["fabric_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    prompts = full_width_prompts(seed)
+    gold = [p[:256] for p in prompts[:2]]
+    base = tenant_run(engine, prompts, gold, True, L, reclaim=False)
+    runs = []
+    for kv_swap in (True, False):
+        r = tenant_run(engine, prompts, gold, kv_swap, L, reclaim=True)
+        seqs = r.pop("seqs")
+        r["bronze_digests_equal_undisturbed"] = sum(
+            token_digest([a]) == token_digest([b])
+            for a, b in zip(seqs, base["seqs"]))
+        if r["reclaims"] != 2 or r["bronze_digests_equal_undisturbed"] != 8:
+            raise AssertionError(
+                f"m.3 ({'swap' if kv_swap else 'recompute'}): "
+                f"{r['reclaims']} reclaims, "
+                f"{r['bronze_digests_equal_undisturbed']}/8 bronze digests "
+                f"equal the undisturbed run's")
+        runs.append(r)
+        launches[f"tenant_{'swap' if kv_swap else 'recompute'}"] = \
+            r["kernel_launches"]
+    out["tenants"] = {"undisturbed_sha256": token_digest(base["seqs"]),
+                      "runs": runs, "binary": tenant_binary(engine)}
+    out["tenants_s"] = time.perf_counter() - t2
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    del eng0
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3469,6 +4214,8 @@ def main(argv=None) -> int:
             "library_ms")}
     if "l" in args.phases:
         paged["kv_payload_launches"] = phase_l(args.seed, card, served)
+    if "m" in args.phases:
+        paged["kv_fabric_tenant_launches"] = phase_m(args.seed, card)
     adamw = {}
     if "g" in args.phases:
         launches = phase_train(args.seed, card)

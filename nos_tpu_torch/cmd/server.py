@@ -6,8 +6,11 @@ prefill and decode roles).
     POST /v1/generate   {"prompt": [ids], "max_new_tokens": N,
                          "temperature": T?, "top_k": K?, "top_p": P?,
                          "seed": S?, "stop_tokens": [ids]?,
-                         "stream": bool?}
+                         "stream": bool?, "tenant": str?,
+                         "kv_sources": [{"url", "digest"}]?}
                         -> {"tokens": [full sequence]}, or SSE frames
+    GET  /v1/kvchain/D  one prefix chain's codec payload by digest
+                        (the fleet's fabric token in the header)
     POST /v1/handoff    (role=decode) adopt one encoded KV handoff
                         -> {"rid": N}
     GET  /v1/result/N   (role=decode) the adopted request's full
@@ -45,12 +48,17 @@ each request with a handoff descriptor after its first token, once the
 KV handoff has been shipped round-robin to ``--decode-pool``;
 ``--role decode`` adopts handoffs (the same wire bytes as the
 reference's, so the two frameworks serve either end of a pair).
+``--kv-host-tier-bytes`` keeps a host-RAM tier under the arena for
+demoted prefix chains; ``--kv-fabric-token`` opens the KV fabric
+between replicas sharing the secret (``GET /v1/kvchain/<digest>``
+serves a chain, a POST carrying ``kv_sources`` pulls one before it
+prefills); ``--tenant-config`` turns on tenant quotas (429
+``reason: tenant_quota``, reclaim, scoped prefix chains, and with SLO
+objectives the ``slo_budget`` and ``chip_ledger`` sections of /stats).
 ``build_engine`` validates a config with the reference's messages, then
 refuses every knob the torch engine does not serve yet by name
-(``NotPorted``), before any weights are made: the KV fabric
-(``/v1/kvchain``, ``kv_sources``, its token), the host KV tier, tenant
-quotas, tensor parallelism and speculative decoding. An HTTP request
-that reaches one of them is answered 404 with the knob's name.
+(``NotPorted``), before any weights are made: tensor parallelism,
+speculative decoding, checkpoint loading and the slot-static engine.
 """
 from __future__ import annotations
 
@@ -68,12 +76,19 @@ from typing import Optional, Sequence
 import torch
 
 from nos_tpu_torch.device import DeviceLike, resolve_device
+from nos_tpu_torch.kvfabric import FABRIC_TOKEN_HEADER, HostTierStore
 from nos_tpu_torch.models.errors import (
     DeadlineExceeded, DeadlineUnmeetable, EngineRecovering, Infeasible,
-    NotPorted, QueueFull, validate_tenant_name,
+    NotPorted, QueueFull,
 )
 from nos_tpu_torch.models.supervision import EngineSupervisor
+from nos_tpu_torch.models.tenantquota import (
+    TenantQuotaConfig, validate_tenant_name,
+)
 from nos_tpu_torch.obs import tracing
+from nos_tpu_torch.obs.slo import (
+    IDLE_TENANT, SloBudgetEngine, objectives_from_quota,
+)
 from nos_tpu_torch.ops.attention import check_paged_kernel_head_dim
 from nos_tpu_torch.utils.metrics import default_registry
 
@@ -480,9 +495,18 @@ class ServingLoop:
     failure cooldown and an optional /stats health view); a
     ``role="decode"`` loop adopts handoffs (``adopt``) and serves them
     through ``result``/``watch``, cancelling one whose consumer never
-    attaches within ``adopt_ttl_s``. Tenant quotas (``tenant_quota``)
-    and the KV fabric (``fabric_token``) are refused with
-    ``NotPorted``."""
+    attaches within ``adopt_ttl_s``.
+
+    Tenancy (``tenant_quota``): per-tenant token, shed, preempt,
+    goodput and borrowed-rate series, and, with SLO objectives in the
+    config, the per-(tenant, objective) error budgets
+    (``SloBudgetEngine``) and the engine's chip-second ledger mirrored
+    into cumulative totals that survive a supervised rebuild. The KV
+    fabric (``fabric_token``): ``export_chain`` serves a chain by digest
+    to a peer (the lookup and the copy's enqueue under the lock, the
+    wait and encoding outside it), and ``prefetch_chain`` pulls a
+    gateway-offered chain before a request submits: fetched outside the
+    lock, single-flight per digest, ingested under it."""
 
     def __init__(self, engine, slo_ttft_ms: float = 0.0,
                  slo_tpot_ms: float = 0.0,
@@ -493,21 +517,20 @@ class ServingLoop:
                  watchdog_s: float = 0.0,
                  default_deadline_s: float = 0.0, seed: int = 0,
                  config_echo: Optional[dict] = None,
-                 tenant_quota=None, role: str = "colocated",
+                 tenant_quota: Optional[TenantQuotaConfig] = None,
+                 role: str = "colocated",
                  handoff_targets: Optional[list] = None,
                  handoff_send=None,
                  handoff_cooldown_s: float = 5.0,
                  handoff_health_interval_s: float = 0.0,
                  adopt_ttl_s: float = 600.0,
-                 fabric_token: str = ""):
-        for knob, on, what in (
-                ("tenant_quota", tenant_quota is not None,
-                 "tenant quotas"),
-                ("kv_fabric_token", fabric_token, "KV fabric")):
-            if on:
-                raise NotPorted(
-                    f"{knob} is not ported to the torch serving loop yet "
-                    f"({what})")
+                 fabric_token: str = "",
+                 slo_fast_window_s: float = 300.0,
+                 slo_slow_window_s: float = 3600.0,
+                 slo_burn_threshold: float = 14.4,
+                 slo_capture_interval_s: float = 300.0,
+                 slo_min_events: int = 10,
+                 slo_clock=None):
         reg = default_registry()
         # register() is idempotent per (name, type, labels) and raises on
         # a mismatched re-registration — exactly what we want at startup
@@ -608,10 +631,13 @@ class ServingLoop:
                 ("mode",))
             for mode in ("swap", "recompute"):
                 self.m_preempt.labels(mode).inc(0)
-        # prefix-chain evictions, registered whenever the engine has a
-        # prefix index; the "demote" tier stays 0 until the host tier is
-        # ported. Mirrored as deltas of the engine's counts.
+        # prefix-chain evictions and the KV fabric, registered whenever
+        # the engine has a prefix index (a replica serves and adopts
+        # peer chains without a host tier of its own). Engine-side
+        # events mirror as deltas of the engine's counts; pull_hit,
+        # pull_miss and pull_denied are counted here in prefetch_chain.
         self._prefix_evict_seen = {"drop": 0, "demote": 0}
+        self._fabric_seen = {"demote": 0, "promote": 0}
         if getattr(engine, "_pindex", None) is not None:
             self.m_prefix_evict = reg.counter(
                 "nos_tpu_serve_prefix_evict_total",
@@ -622,6 +648,130 @@ class ServingLoop:
                 ("tier",))
             for tier in ("drop", "demote"):
                 self.m_prefix_evict.labels(tier).inc(0)
+            self.m_kvfabric = reg.counter(
+                "nos_tpu_serve_kvfabric_total",
+                "KV-fabric tier transitions, by event (demote = chain "
+                "captured into the host tier instead of dropped; "
+                "promote = chain scattered back into the arena on a "
+                "prefix miss, bit-exact; pull_hit / pull_miss = "
+                "gateway-offered peer chains adopted vs failed/"
+                "rejected; pull_denied = kv_sources offers without "
+                "the fleet's fabric token, never honored)",
+                ("event",))
+            for ev in ("demote", "promote", "pull_hit", "pull_miss",
+                       "pull_denied"):
+                self.m_kvfabric.labels(ev).inc(0)
+        # request-level elastic quota, registered only with tenancy on;
+        # labels are the CONFIGURED tenant names (unknown wire tenants
+        # resolve to the default tenant)
+        self._tenant_cfg = tenant_quota
+        self._tenant_of: dict = {}          # loop rid -> tenant label
+        self._tenant_goodput: dict = {}     # label -> [judged, good]
+        self._tenant_preempt_seen: dict = {}
+        if tenant_quota is not None:
+            self.m_tenant_tokens = reg.counter(
+                "nos_tpu_serve_tenant_tokens_total",
+                "Output tokens delivered per tenant — the goodput "
+                "numerator the quota's min/max rates govern",
+                ("tenant",))
+            self.m_tenant_shed = reg.counter(
+                "nos_tpu_serve_tenant_shed_total",
+                "Admission sheds per tenant by machine-readable reason "
+                "(tenant_quota = the tenant is at/over its own max "
+                "token-rate under contention; queue_full / "
+                "hbm_admission / deadline_unmeetable = the shared "
+                "capacity reasons, attributed to the tenant that hit "
+                "them)",
+                ("tenant", "reason"))
+            self.m_tenant_preempt = reg.counter(
+                "nos_tpu_serve_tenant_preempt_total",
+                "Slots preempted per (victim) tenant by mode (swap | "
+                "recompute) — quota reclaim for a guaranteed tenant "
+                "and block-pool pressure both count; every preemption "
+                "resumes bit-exactly",
+                ("tenant", "mode"))
+            self.g_tenant_goodput = reg.gauge(
+                "nos_tpu_serve_tenant_goodput_ratio",
+                "Per-tenant goodput: finished-and-SLO-met requests "
+                "over all server-judged terminal outcomes (finished, "
+                "failed, deadline — client cancels excluded); with no "
+                "SLO configured, finished requests count as good",
+                ("tenant",))
+            self.g_tenant_borrowed = reg.gauge(
+                "nos_tpu_serve_tenant_borrowed_tokens_per_s",
+                "Token-rate each tenant currently runs ABOVE its "
+                "guaranteed min — the lent idle capacity the elastic "
+                "quota exists to hand out (and reclaim)",
+                ("tenant",))
+            for t in tenant_quota.names():
+                self.m_tenant_tokens.labels(t).inc(0)
+                for mode in ("swap", "recompute"):
+                    self.m_tenant_preempt.labels(t, mode).inc(0)
+        # per-tenant SLO error budgets and chip-second attribution: on
+        # only when the tenant config carries ``slo`` objectives (the
+        # engine's ledger is None otherwise)
+        self.slo_engine = None
+        self._slo_clock = slo_clock or time.monotonic
+        self._chip_cum_ns: dict = {}        # (tenant, phase) -> ns
+        self._chip_seen_ns: dict = {}       # current engine's mirror
+        self._chip_cum_kvbs: dict = {}      # tenant -> byte-seconds
+        self._chip_seen_kvbs: dict = {}
+        self._chip_cum_wall_ns = 0
+        self._chip_seen_wall_ns = 0
+        self._slo_targets: dict = {}        # tenant -> TenantSloSpec
+        if tenant_quota is not None and tenant_quota.slo_enabled():
+            self._slo_targets = {
+                n: sp.slo for n, sp in tenant_quota.tenants.items()
+                if sp.slo is not None}
+            self.slo_engine = SloBudgetEngine(
+                objectives_from_quota(tenant_quota),
+                fast_window_s=slo_fast_window_s,
+                slow_window_s=slo_slow_window_s,
+                burn_threshold=slo_burn_threshold,
+                capture_interval_s=slo_capture_interval_s,
+                min_events=slo_min_events)
+            self.g_slo_budget = reg.gauge(
+                "nos_tpu_serve_slo_budget_remaining_ratio",
+                "Slow-window error budget left per (tenant, "
+                "objective): 1 = untouched, 0 = exhausted "
+                "(bad-event fraction at/over the objective's allowance)",
+                ("tenant", "objective"))
+            self.g_slo_burn = reg.gauge(
+                "nos_tpu_serve_slo_burn_rate",
+                "SRE multi-window burn rate per (tenant, objective, "
+                "window = fast | slow): bad-event fraction over the "
+                "window divided by the objective's error-budget "
+                "allowance; a fast-window burn at/over the trip "
+                "threshold emits an slo.breach span and pins the "
+                "breaching request's trace",
+                ("tenant", "objective", "window"))
+            self.m_chip_ms = reg.counter(
+                "nos_tpu_serve_tenant_chip_ms_total",
+                "Engine wall milliseconds attributed per (tenant, "
+                "phase = decode | prefill | idle): each quantum's "
+                "measured duration split over its structural token "
+                "weights, idle time under the _idle tenant — the "
+                "ledger conserves (sum over series == engine wall "
+                "time), across supervised engine swaps too "
+                "(delta-mirrored)",
+                ("tenant", "phase"))
+            self.m_kv_byte_s = reg.counter(
+                "nos_tpu_serve_tenant_kv_byte_seconds_total",
+                "HBM byte-seconds of paged-KV residency per tenant "
+                "(block-table + prefix-chain references; _shared = "
+                "unscoped prefix chains), accrued over each engine "
+                "quantum",
+                ("tenant",))
+            for t, objs in sorted(self.slo_engine.objectives.items()):
+                for obj in sorted(objs):
+                    self.g_slo_budget.labels(t, obj).set(1.0)
+                    for w in ("fast", "slow"):
+                        self.g_slo_burn.labels(t, obj, w).set(0.0)
+            for t in tenant_quota.names():
+                for ph in ("decode", "prefill"):
+                    self.m_chip_ms.labels(t, ph).inc(0)
+                self.m_kv_byte_s.labels(t).inc(0)
+            self.m_chip_ms.labels(IDLE_TENANT, "idle").inc(0)
         # prefill/decode disaggregation (registered only on a
         # prefill-role loop — colocated and decode servers must not
         # export dead zero series): handoffs shipped to the decode
@@ -839,6 +989,16 @@ class ServingLoop:
         self._est_ttft_s: Optional[float] = None
         self._est_tpot_s: Optional[float] = None
         self._est_out_tokens: Optional[float] = None
+        # KV-fabric peer pull: an injectable fetcher (url -> payload
+        # bytes; None = urllib in _fetch_chain_bytes), single-flight per
+        # digest, outcomes counted here (the engine sees payloads only)
+        self.chain_fetch = None
+        self.chain_fetch_timeout_s = 2.0
+        self.fabric_token = fabric_token or ""
+        self._pull_lock = threading.Lock()
+        self._pull_inflight: dict = {}      # digest -> flight record
+        self._pull_counts = {"pull_hit": 0, "pull_miss": 0,
+                             "pull_denied": 0}
         for outcome in OUTCOMES:        # export 0s, not absent series
             self.m_requests.labels(outcome).inc(0)
         self._mirror_engine_gauges()
@@ -997,6 +1157,26 @@ class ServingLoop:
                     self._goodput_good += 1
                 self.g_goodput.set(
                     self._goodput_good / self._goodput_done)
+        slo_trips: list = []
+        slo_tenant = None
+        if self._tenant_cfg is not None:
+            t = self._tenant_of.pop(
+                rid, self._tenant_cfg.default_tenant)
+            slo_tenant = t
+            slo_trips = self._judge_tenant_slo(
+                t, outcome, ledger, decode_tokens, gap_sum)
+            if ledger and ledger.get("output_tokens"):
+                self.m_tenant_tokens.labels(t).inc(
+                    ledger["output_tokens"])
+            if outcome in ("finished", "failed", "deadline"):
+                # per-tenant goodput over server-judged outcomes (a
+                # client walking away is not a verdict on the quota);
+                # with no SLO targets, finishing is good
+                gp = self._tenant_goodput.setdefault(t, [0, 0])
+                gp[0] += 1
+                if outcome == "finished" and not breaches:
+                    gp[1] += 1
+                self.g_tenant_goodput.labels(t).set(gp[1] / gp[0])
         if sp is not None and sp.recording:
             sp.set_attr("outcome", outcome)
             if ledger:
@@ -1012,10 +1192,73 @@ class ServingLoop:
             if breaches:
                 sp.set_attr("slo_breach", ",".join(breaches))
                 tracing.recorder().pin(sp.trace_id, "slo")
+            if slo_trips:
+                # a fast-window burn trip: one slo.breach span under the
+                # breaching request, its trace pinned once (the budget
+                # engine's capture interval rate-limits this)
+                for obj in slo_trips:
+                    bsp = tracing.start_span(
+                        "slo.breach", component="server", parent=sp,
+                        attrs={"tenant": slo_tenant, "objective": obj,
+                               "burn_threshold":
+                                   self.slo_engine.burn_threshold})
+                    bsp.end()
+                rec = tracing.tracer().recorder
+                if rec is not None:
+                    rec.pin(sp.trace_id, "slo_burn")
             sp.end()
         if outcome in ("finished", "abandoned"):
             self._finished_cum += 1
             self._note_rates()
+
+    def _judge_tenant_slo(self, tenant: str, outcome: str,
+                          ledger: Optional[dict], decode_tokens: int,
+                          gap_sum: float) -> list:
+        """Feed one terminal request into the tenant's error-budget
+        windows and refresh its burn and budget gauges: TTFT and TPOT
+        objectives judge finished requests against the tenant's p99
+        targets, goodput judges every server-decided outcome. Returns
+        the objectives whose fast window tripped on this event."""
+        if self.slo_engine is None:
+            return []
+        targets = self._slo_targets.get(tenant)
+        tracked = self.slo_engine.tracked(tenant)
+        if targets is None or not tracked:
+            return []
+        now = self._slo_clock()
+        trips = []
+        judged = False
+        if outcome == "finished" and ledger:
+            ttft = ledger.get("ttft_s")
+            if "ttft_p99" in tracked and ttft is not None:
+                bad = ttft > targets.ttft_p99_ms / 1e3
+                if self.slo_engine.note(tenant, "ttft_p99", bad, now):
+                    trips.append("ttft_p99")
+                judged = True
+            if "tpot_p99" in tracked and decode_tokens:
+                bad = gap_sum / decode_tokens \
+                    > targets.tpot_p99_ms / 1e3
+                if self.slo_engine.note(tenant, "tpot_p99", bad, now):
+                    trips.append("tpot_p99")
+                judged = True
+        if "goodput" in tracked \
+                and outcome in ("finished", "failed", "deadline"):
+            bad = outcome != "finished"
+            if self.slo_engine.note(tenant, "goodput", bad, now):
+                trips.append("goodput")
+            judged = True
+        if judged:
+            for row in self.slo_engine.rows(now):
+                if row["tenant"] != tenant:
+                    continue
+                obj = row["objective"]
+                self.g_slo_budget.labels(tenant, obj).set(
+                    row["budget_remaining_ratio"])
+                self.g_slo_burn.labels(tenant, obj, "fast").set(
+                    row["burn_fast"])
+                self.g_slo_burn.labels(tenant, obj, "slow").set(
+                    row["burn_slow"])
+        return trips
 
     def _note_rates(self) -> None:
         """Append a (t, tokens, requests) mark and prune the window."""
@@ -1230,14 +1473,15 @@ class ServingLoop:
                                 if self._goodput_done else None),
                 },
                 "rates": rates,
-                # the KV fabric is not ported: no pull ever happens
-                "kv_fabric_pulls": {"pull_hit": 0, "pull_miss": 0,
-                                    "pull_denied": 0},
+                # KV-fabric peer-pull outcomes (loop-side: the engine
+                # only sees decoded payloads, never fetches)
+                "kv_fabric_pulls": dict(self._pull_counts),
                 "tick_phases": self._tick_phase_snapshot(),
-                # None while tenant SLO accounting is off, as the
-                # reference's with no tenant config
-                "slo_budget": None,
-                "chip_ledger": None,
+                # None when SLO accounting is off
+                "slo_budget": (
+                    self.slo_engine.snapshot(self._slo_clock())
+                    if self.slo_engine is not None else None),
+                "chip_ledger": self._chip_ledger_block(),
             })
         return snap
 
@@ -1360,6 +1604,12 @@ class ServingLoop:
                 t4 = time.monotonic()
                 self.h_tick.observe(t4 - t0,
                                     trace_id=sp.trace_id or None)
+                chip_note = getattr(eng, "chip_note_quantum", None)
+                if chip_note is not None:
+                    # the chip ledger charges the quantum with the same
+                    # two clock reads the tick profiler takes (a no-op
+                    # unless SLO accounting is configured)
+                    chip_note(t0, t4)
                 self._note_tick_phases(t0, t1, t2, t3, t4,
                                        eng if split else None,
                                        tid=sp.trace_id or None)
@@ -1484,6 +1734,13 @@ class ServingLoop:
             self._psched_seen = {"spent": 0, "clamped": 0,
                                  "overrides": 0}
             self._prefix_evict_seen = {"drop": 0, "demote": 0}
+            self._fabric_seen = {"demote": 0, "promote": 0}
+            self._tenant_preempt_seen = {}
+            # the rebuilt engine's chip ledger restarts at zero (the
+            # cumulative totals keep the old engine's charges)
+            self._chip_seen_ns = {}
+            self._chip_seen_kvbs = {}
+            self._chip_seen_wall_ns = 0
             resumed = {"swap": 0, "recompute": 0}
             lost = 0
             seen = set()
@@ -1986,6 +2243,154 @@ class ServingLoop:
             self._work.notify_all()
         return rid
 
+    def export_chain(self, digest: str) -> Optional[bytes]:
+        """KV-fabric peer-pull serve (``GET /v1/kvchain/<digest>``): one
+        chain's codec payload from this replica's prefix index or host
+        tier, or None. The lock is held only for the lookup and the
+        enqueue of the chain's copy into a pinned slab
+        (``export_chain_begin``); the wait for it and the encoding run
+        outside, so peer pulls never stall ticks or admission."""
+        begin = getattr(self.engine, "export_chain_begin", None)
+        if begin is not None:
+            with self._work:
+                if self._failed is not None or self._recovering:
+                    return None
+                handle = begin(digest)
+            if handle is None:
+                return None
+            return self.engine.export_chain_finish(handle)
+        # engines without the two-phase surface: the whole export under
+        # the lock
+        export = getattr(self.engine, "export_chain", None)
+        if export is None:
+            return None
+        with self._work:
+            if self._failed is not None or self._recovering:
+                return None
+            return export(digest)
+
+    def _fetch_chain_bytes(self, url: str, timeout_s: float = 2.0,
+                           traceparent: Optional[str] = None) -> bytes:
+        import urllib.parse
+        import urllib.request
+        if urllib.parse.urlsplit(url).scheme not in ("http", "https"):
+            # an offer names a fleet peer's HTTP surface and nothing
+            # else: file:// and friends never reach urlopen
+            raise ValueError(f"kvchain fetch: non-http url {url!r}")
+        req = urllib.request.Request(url)
+        if self.fabric_token:
+            # peer /v1/kvchain exports are token-gated (fleet-internal)
+            req.add_header(FABRIC_TOKEN_HEADER, self.fabric_token)
+        if traceparent:
+            # the holder's kvfabric.serve span parents into this pull
+            req.add_header("traceparent", traceparent)
+        with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+            if resp.status != 200:
+                raise RuntimeError(f"kvchain fetch {url}: {resp.status}")
+            return resp.read()
+
+    def note_pull_denied(self, digest: Optional[str] = None,
+                         parent: Optional[str] = None) -> None:
+        """A ``kv_sources`` offer arrived without the fleet's fabric
+        token (or none is configured): never honored (it would steer
+        this replica's outbound fetcher and seed its prefix cache), only
+        counted, and filed as a kvfabric.pull span into the request's
+        trace when it carries one."""
+        self._count_pull("pull_denied")
+        if parent:
+            dsp = tracing.start_span(
+                "kvfabric.pull", component="kvfabric", parent=parent,
+                attrs={"outcome": "pull_denied",
+                       "digest": digest or ""})
+            dsp.end()
+
+    def _count_pull(self, ev: str) -> None:
+        self._pull_counts[ev] += 1
+        if hasattr(self, "m_kvfabric"):
+            self.m_kvfabric.labels(ev).inc()
+
+    def prefetch_chain(self, sources, tenant: Optional[str] = None,
+                       deadline_s: Optional[float] = None,
+                       parent: Optional[str] = None) -> bool:
+        """Best-effort adoption of gateway-offered peer chains BEFORE a
+        request submits: fetch the codec payload from the named peer
+        (outside the lock: a slow peer must not stall the loop), then
+        ingest it under the lock so the request's own prefix match hits
+        warm. Offers without a digest are ignored (the digest binds the
+        pull to one (scope, tokens) identity, which ingest re-checks).
+        Every failure returns False (counted pull_miss) and the request
+        prefills."""
+        ok = False
+        for src in sources if isinstance(sources, list) else ():
+            if not isinstance(src, dict):
+                continue
+            url, digest = src.get("url"), src.get("digest")
+            if not isinstance(url, str) or not url \
+                    or not isinstance(digest, str) or not digest:
+                continue
+            psp = tracing.start_span(
+                "kvfabric.pull", component="kvfabric", parent=parent,
+                attrs={"digest": digest, "url": url})
+            adopted = self._pull_single_flight(
+                url, digest, tenant, deadline_s,
+                traceparent=(psp.context.encode() if psp.recording
+                             else None))
+            outcome = "pull_hit" if adopted else "pull_miss"
+            psp.set_attr("outcome", outcome)
+            psp.end()
+            self._count_pull(outcome)
+            ok = ok or adopted
+        return ok
+
+    def _pull_single_flight(self, url: str, digest: str,
+                            tenant: Optional[str],
+                            deadline_s: Optional[float],
+                            traceparent: Optional[str] = None) -> bool:
+        """One fetch and ingest per digest at a time: concurrent
+        requests sharing one cold prefix ride the leader's pull, and
+        when it lands each rider's own prefix match hits warm."""
+        with self._pull_lock:
+            flight = self._pull_inflight.get(digest)
+            leader = flight is None
+            if leader:
+                flight = {"done": threading.Event(), "adopted": False}
+                self._pull_inflight[digest] = flight
+        if not leader:
+            flight["done"].wait(
+                timeout=self.chain_fetch_timeout_s + 5.0)
+            return flight["adopted"]
+        try:
+            flight["adopted"] = self._pull_once(url, digest, tenant,
+                                                deadline_s, traceparent)
+        finally:
+            with self._pull_lock:
+                self._pull_inflight.pop(digest, None)
+            flight["done"].set()
+        return flight["adopted"]
+
+    def _pull_once(self, url: str, digest: str,
+                   tenant: Optional[str],
+                   deadline_s: Optional[float],
+                   traceparent: Optional[str] = None) -> bool:
+        timeout = self.chain_fetch_timeout_s
+        if deadline_s is not None:
+            # never wait on a peer longer than the request's own budget
+            timeout = max(0.1, min(timeout, float(deadline_s)))
+        try:
+            if self.chain_fetch is not None:
+                data = self.chain_fetch(url)
+            else:
+                data = self._fetch_chain_bytes(url, timeout_s=timeout,
+                                               traceparent=traceparent)
+            with self._work:
+                if self._failed is not None or self._recovering:
+                    raise RuntimeError("loop not serving")
+                return bool(self.engine.ingest_chain(
+                    data, tenant, expect_digest=digest))
+        except Exception as exc:
+            logger.debug("kvfabric pull failed: %s", exc)
+            return False
+
     def watch(self, rid: int, timeout: float = 300.0):
         """Attach to an adopted request's token stream (the decode-side
         SSE surface after a handoff): yields newly-decoded token lists
@@ -2117,6 +2522,18 @@ class ServingLoop:
         if hits is not None:
             self.m_prefix_hits.set(hits)
             self.m_prefix_saved.set(self.engine.prefix_tokens_saved)
+        tenant_snap = getattr(self.engine, "tenant_snapshot", None)
+        if self._tenant_cfg is not None and tenant_snap is not None:
+            snap = tenant_snap()
+            for t, row in (snap or {}).items():
+                self.g_tenant_borrowed.labels(t).set(
+                    row.get("borrowed_tokens_per_s", 0.0))
+                for mode, n in (row.get("preempts") or {}).items():
+                    seen = self._tenant_preempt_seen.get((t, mode), 0)
+                    if n > seen:
+                        self.m_tenant_preempt.labels(t, mode).inc(
+                            n - seen)
+                        self._tenant_preempt_seen[(t, mode)] = n
         pindex = getattr(self.engine, "_pindex", None)
         if pindex is not None and hasattr(self, "m_prefix_evict"):
             for tier, n in pindex.evicted.items():
@@ -2124,6 +2541,13 @@ class ServingLoop:
                 if delta > 0:
                     self.m_prefix_evict.labels(tier).inc(delta)
                     self._prefix_evict_seen[tier] = n
+            for ev, n in getattr(self.engine, "_fabric", {}).items():
+                if ev not in self._fabric_seen:
+                    continue    # ingest counts ride pull_hit/pull_miss
+                delta = n - self._fabric_seen[ev]
+                if delta > 0:
+                    self.m_kvfabric.labels(ev).inc(delta)
+                    self._fabric_seen[ev] = n
         if hasattr(self, "m_psched_spent"):
             for attr, key, m in (
                     ("prefill_budget_spent", "spent",
@@ -2137,6 +2561,7 @@ class ServingLoop:
                 if delta > 0:
                     m.inc(delta)
                     self._psched_seen[key] = n
+        self._mirror_chip_ledger()
         occupancy = getattr(self.engine, "occupancy", None)
         if occupancy is not None:
             active, pending = occupancy()
@@ -2161,6 +2586,53 @@ class ServingLoop:
                                         hbm.get("limit"))
         self._drain_compile_events()
 
+    def _mirror_chip_ledger(self) -> None:
+        """Delta-mirror the engine's chip ledger into the chip-ms and
+        kv-byte-seconds counters and the loop's cumulative totals, which
+        survive a supervised engine swap (``_do_recover`` resets the
+        seen dicts when a rebuilt engine restarts its ledger)."""
+        chip = getattr(self.engine, "chip", None)
+        if chip is None or self.slo_engine is None:
+            return
+        for key, ns in chip.totals_ns().items():
+            delta = ns - self._chip_seen_ns.get(key, 0)
+            if delta > 0:
+                self._chip_seen_ns[key] = ns
+                self._chip_cum_ns[key] = \
+                    self._chip_cum_ns.get(key, 0) + delta
+                self.m_chip_ms.labels(*key).inc(delta / 1e6)
+        delta = chip.wall_ns - self._chip_seen_wall_ns
+        if delta > 0:
+            self._chip_seen_wall_ns = chip.wall_ns
+            self._chip_cum_wall_ns += delta
+        for t, bs in chip.kv_byte_seconds().items():
+            d = bs - self._chip_seen_kvbs.get(t, 0.0)
+            if d > 0:
+                self._chip_seen_kvbs[t] = bs
+                self._chip_cum_kvbs[t] = \
+                    self._chip_cum_kvbs.get(t, 0.0) + d
+                self.m_kv_byte_s.labels(t).inc(d)
+
+    def _chip_ledger_block(self) -> Optional[dict]:
+        """/stats ``chip_ledger``: the loop's cumulative attribution
+        totals (None = SLO accounting off). Conservation is judged on
+        the cumulative integers, so it holds across engine swaps."""
+        if self.slo_engine is None:
+            return None
+        self._mirror_chip_ledger()
+        per: dict = {}
+        for (t, ph), ns in sorted(self._chip_cum_ns.items()):
+            per.setdefault(t, {})[ph] = round(ns / 1e6, 3)
+        return {
+            "wall_ms": round(self._chip_cum_wall_ns / 1e6, 3),
+            "chip_ms": per,
+            "kv_byte_seconds": {
+                t: round(v, 3)
+                for t, v in sorted(self._chip_cum_kvbs.items())},
+            "conserved": (sum(self._chip_cum_ns.values())
+                          == self._chip_cum_wall_ns),
+        }
+
     def stream(self, prompt, max_new_tokens, timeout: float = 300.0,
                deadline_s: Optional[float] = None,
                tenant: Optional[str] = None,
@@ -2174,8 +2646,11 @@ class ServingLoop:
         None = none): shed at admission when the rolling estimates say it
         cannot be met (DeadlineUnmeetable, HTTP 429), cancelled at the
         next tick barrier once expired (the iterator raises
-        DeadlineExceeded). ``tenant`` rides to the engine, which ignores
-        it without a tenant quota."""
+        DeadlineExceeded). ``tenant`` is the request-level quota
+        identity: it rides to the engine's weighted admission and keys
+        the per-tenant goodput, shed and preempt accounting here."""
+        tlabel = (self._tenant_cfg.resolve(tenant)
+                  if self._tenant_cfg is not None else None)
         with self._work:
             if self._failed is not None:
                 raise RuntimeError(f"serving loop failed: {self._failed}")
@@ -2222,6 +2697,9 @@ class ServingLoop:
                     self.m_requests.labels("deadline").inc()
                     self._deadline_shed += 1
                     self._shed_streak += 1
+                    if tlabel is not None:
+                        self.m_tenant_shed.labels(
+                            tlabel, "deadline_unmeetable").inc()
                     raise DeadlineUnmeetable(
                         f"deadline {dl_s:.3f}s cannot be met: rolling "
                         f"estimates put completion at {est:.3f}s "
@@ -2241,13 +2719,20 @@ class ServingLoop:
             try:
                 erid = self.engine.submit(prompt, max_new_tokens,
                                           **sampling)
-            except QueueFull:
+            except QueueFull as e:
                 self.m_requests.labels("rejected").inc()
+                if tlabel is not None:
+                    # the tenant's own ceiling and the shared capacity
+                    # reasons alike, attributed to the tenant
+                    self.m_tenant_shed.labels(
+                        tlabel, getattr(e, "reason", "queue_full")).inc()
                 raise
             rid = self._next_rid
             self._next_rid += 1
             self._rid_map[rid] = erid
             self._live.add(rid)
+            if tlabel is not None:
+                self._tenant_of[rid] = tlabel
             self._shed_streak = 0       # an admission ends the streak
             if dl_s is not None:
                 self._deadlines[rid] = time.monotonic() + dl_s
@@ -2515,14 +3000,18 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
             ("tp", cfg.tp > 1, "tensor-parallel serving"),
             ("draft_checkpoint_dir", cfg.draft_checkpoint_dir,
              "speculative decoding"),
-            ("tenant_config", cfg.tenant_config, "tenant quotas"),
-            ("kv_host_tier_bytes", cfg.kv_host_tier_bytes, "host KV tier"),
-            ("kv_fabric_token", cfg.kv_fabric_token, "KV fabric"),
             ("checkpoint_dir", cfg.checkpoint_dir, "checkpoint loading")):
         if on:
             raise NotPorted(
                 f"{knob} is not ported to the torch engine yet ({what})")
     reject_unported(kv_blocks=cfg.kv_blocks)
+    # parsed here so the supervisor's rebuild factory re-creates a
+    # tenant-aware engine from the same config
+    tenant_quota = TenantQuotaConfig.load(cfg.tenant_config)
+    # the host tier is built per engine: a rebuilt engine starts with an
+    # empty one, and demotions refill it
+    host_tier = (HostTierStore(cfg.kv_host_tier_bytes)
+                 if cfg.kv_host_tier_bytes else None)
     device = resolve_device(device)
     check_paged_kernel_head_dim(cfg.d_model // cfg.n_heads, device,
                                 paged_impl)
@@ -2542,22 +3031,15 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
                         kv_block_size=cfg.kv_block_size,
                         kv_blocks=cfg.kv_blocks, kv_swap=cfg.kv_swap,
                         hbm_admit_frac=cfg.kv_hbm_admit_frac,
-                        kv_dtype=cfg.kv_dtype, role=cfg.role,
+                        kv_dtype=cfg.kv_dtype, tenant_quota=tenant_quota,
+                        role=cfg.role, host_tier=host_tier,
                         device=device, paged_impl=paged_impl)
-
-
-def _not_ported_route(path: str, knob: str, what: str) -> dict:
-    return {"error": f"unknown path {path}: {knob} is not ported to the "
-                     f"torch engine yet ({what})",
-            "reason": "not_ported"}
 
 
 def make_http_server(cfg: ServerConfig, loop: ServingLoop,
                      host: str = "0.0.0.0") -> ThreadingHTTPServer:
     """The reference's HTTP surface over ``loop`` on ``host:cfg.port``:
-    the same endpoints, status codes, headers, JSON and SSE framing.
-    Routes and request fields whose engine feature is not ported answer
-    404 with the knob's name (``reason: not_ported``)."""
+    the same endpoints, status codes, headers, JSON and SSE framing."""
 
     class Handler(BaseHTTPRequestHandler):
         # a stalled read/write raises TimeoutError instead of pinning a
@@ -2638,9 +3120,53 @@ def make_http_server(cfg: ServerConfig, loop: ServingLoop,
                     return
                 self._stream_sse(gen)
             elif self.path.startswith("/v1/kvchain/"):
-                self._reply(404, _not_ported_route(
-                    self.path, "kv_fabric_token",
-                    "KV fabric peer pull"))
+                # KV-fabric peer pull: one prefix chain's codec payload
+                # by fleet digest, served raw (octet-stream: it is the
+                # handoff wire format) from the prefix index or the host
+                # tier; 404 when it aged out (the puller prefills).
+                # Digests are public arithmetic over scope + tokens, so
+                # the export is gated by the fleet's shared token and
+                # closed when none is set.
+                digest = self.path.rsplit("/", 1)[1].split("?")[0]
+                # the holder's side of a peer pull, recorded only when
+                # the pull carries a trace
+                inbound_tp = self.headers.get("traceparent")
+                ssp = tracing.start_span(
+                    "kvfabric.serve", component="kvfabric",
+                    parent=inbound_tp,
+                    attrs={"digest": digest}) if inbound_tp \
+                    else tracing.NOOP_SPAN
+                if not cfg.kv_fabric_token or self.headers.get(
+                        FABRIC_TOKEN_HEADER) != cfg.kv_fabric_token:
+                    ssp.set_attr("outcome", "denied")
+                    ssp.end()
+                    self._reply(403, {"error": "kv fabric token "
+                                      "required",
+                                      "reason": "fabric_token"})
+                    return
+                try:
+                    data = loop.export_chain(digest)
+                except Exception as e:  # noqa: BLE001 — JSON 500
+                    ssp.set_attr("outcome", "error")
+                    ssp.set_error(str(e))
+                    ssp.end()
+                    self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+                    return
+                if data is None:
+                    ssp.set_attr("outcome", "miss")
+                    ssp.end()
+                    self._reply(404, {"error": "unknown chain",
+                                      "digest": digest})
+                    return
+                ssp.set_attr("outcome", "served")
+                ssp.set_attr("nbytes", len(data))
+                ssp.end()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "application/octet-stream")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
             elif self.path == "/debug/traces":
                 self._reply(200, tracing.recorder().to_json())
             elif self.path.startswith("/debug/traces/"):
@@ -2785,10 +3311,26 @@ def make_http_server(cfg: ServerConfig, loop: ServingLoop,
                 if inbound_tp:
                     sampling["traceparent"] = inbound_tp
                 if body.get("kv_sources"):
-                    raise NotPorted(
-                        "kv_sources (KV fabric peer pull, gated by "
-                        "kv_fabric_token) is not ported to the torch "
-                        "engine yet")
+                    # gateway-attached KV-fabric peer offers: pull the
+                    # named chain(s) BEFORE submit so this request's
+                    # prefix match hits warm; best-effort (a failure is
+                    # a normal prefill). Honored ONLY with the fleet's
+                    # shared token: a client-supplied offer is counted
+                    # and dropped.
+                    if cfg.kv_fabric_token and self.headers.get(
+                            FABRIC_TOKEN_HEADER) == cfg.kv_fabric_token:
+                        loop.prefetch_chain(
+                            body["kv_sources"], sampling.get("tenant"),
+                            deadline_s=sampling.get("deadline_s"),
+                            parent=sampling.get("traceparent"))
+                    else:
+                        srcs = body["kv_sources"]
+                        loop.note_pull_denied(
+                            digest=(srcs[0].get("digest")
+                                    if isinstance(srcs, list) and srcs
+                                    and isinstance(srcs[0], dict)
+                                    else None),
+                            parent=sampling.get("traceparent"))
                 if cfg.role == "prefill":
                     # the answer is a handoff descriptor ({"handoff":
                     # {"target", "rid"}}) the client follows to the
@@ -2803,11 +3345,6 @@ def make_http_server(cfg: ServerConfig, loop: ServingLoop,
                     self._stream_sse(gen)
                     return
                 tokens = loop.generate(prompt, n, **sampling)
-            except NotPorted as e:
-                self._reply(404, {"error": f"unknown path {self.path}: "
-                                           f"{e}",
-                                  "reason": e.reason})
-                return
             except Infeasible as e:
                 # permanent: 400 with no Retry-After
                 self._reply(400, {"error": f"{type(e).__name__}: {e}",
@@ -3051,6 +3588,9 @@ def main(argv: Optional[Sequence[str]] = None,
     # config; None when restarts are disabled
     factory = (lambda: build_engine(cfg, device)) \
         if cfg.restart_budget > 0 else None
+    # parsed once more for the loop's accounting half (the engine half
+    # parses inside build_engine, so the rebuild factory carries it)
+    tenant_quota = TenantQuotaConfig.load(cfg.tenant_config)
     try:
         engine = build_engine(cfg, device)
     except NotPorted as e:
@@ -3085,6 +3625,12 @@ def main(argv: Optional[Sequence[str]] = None,
         restart_backoff_max_s=cfg.restart_backoff_max_s,
         watchdog_s=cfg.watchdog_s,
         default_deadline_s=cfg.default_deadline_s, seed=cfg.seed,
+        tenant_quota=tenant_quota,
+        fabric_token=cfg.kv_fabric_token,
+        slo_fast_window_s=cfg.slo_fast_window_s,
+        slo_slow_window_s=cfg.slo_slow_window_s,
+        slo_burn_threshold=cfg.slo_burn_threshold,
+        slo_capture_interval_s=cfg.slo_capture_interval_s,
         # /stats config echo, the reference's keys: what a fleet
         # controller compares across replicas to catch config drift
         config_echo={
@@ -3106,9 +3652,11 @@ def main(argv: Optional[Sequence[str]] = None,
             "max_seq": cfg.max_seq,
             "role": cfg.role,
             "mesh": {"tp": cfg.tp if cfg.tp and cfg.tp > 1 else 0},
-            "tenant_quota": None,
+            "tenant_quota": (tenant_quota.echo()
+                             if tenant_quota is not None else None),
             "slo_accounting": {
-                "enabled": False,
+                "enabled": bool(tenant_quota is not None
+                                and tenant_quota.slo_enabled()),
                 "fast_window_s": cfg.slo_fast_window_s,
                 "slow_window_s": cfg.slo_slow_window_s,
                 "burn_threshold": cfg.slo_burn_threshold,

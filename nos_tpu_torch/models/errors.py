@@ -88,11 +88,10 @@ class DeadlineExceeded(RuntimeError):
 
 
 class NotPorted(ValueError):
-    """The port's own refusal (no reference counterpart): a knob, route
-    or request field whose engine feature the torch engine does not
-    serve yet. A ValueError, so a config check fails before any weights
-    are made; the HTTP layer answers it as an unsupported route (404)
-    with the knob's name."""
+    """The port's own refusal (no reference counterpart): a knob whose
+    engine feature the torch engine does not serve yet. A ValueError, so
+    a config check fails before any weights are made; the binary exits
+    naming the knob."""
 
     reason = "not_ported"
 

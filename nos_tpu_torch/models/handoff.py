@@ -32,13 +32,32 @@ from typing import Dict
 import numpy as np
 
 __all__ = ["encode_handoff", "decode_handoff", "handoff_nbytes",
-           "plane_dtype", "plane_bits", "BF16"]
+           "plane_dtype", "plane_bits", "settle", "BF16", "READY"]
 
 #: the swap-payload array planes, in serialization order
 _ARRAY_KEYS = ("k", "v", "k_scale", "v_scale")
 
 #: the wire name of a bfloat16 plane
 BF16 = "bfloat16"
+
+#: the key under which a payload whose host copy is still in progress
+#: carries the ``threading.Event`` that copy sets (the engine's pinned
+#: staging finishes it off the serving path), until ``settle``
+READY = "_ready"
+
+
+def settle(swap: dict) -> None:
+    """Wait until a payload's planes are on the host, raise the error
+    their copy met, if any, and drop the event, leaving the payload's
+    own keys: every host read of a payload's bytes comes after this."""
+    ready = swap.get(READY)
+    if ready is not None:
+        ready.wait()
+        error = getattr(ready, "error", None)
+        if error is not None:
+            raise RuntimeError(
+                f"KV payload copy to the host failed: {error}") from error
+        swap.pop(READY, None)
 
 
 def plane_dtype(swap: dict, key: str) -> str:
@@ -73,6 +92,7 @@ def encode_handoff(state: dict) -> bytes:
     a ``swap`` dict of numpy arrays. Arrays travel as raw bytes with
     (shape, dtype-name) metadata, byte-deterministic for every dtype."""
     swap = dict(state.get("swap") or {})
+    settle(swap)
     meta = {k: v for k, v in state.items() if k != "swap"}
     meta["swap_nblk"] = int(swap.get("nblk", 0))
     planes = {}
@@ -82,7 +102,8 @@ def encode_handoff(state: dict) -> bytes:
             arr = plane_bits(swap[key])
             planes[key] = {"shape": list(arr.shape),
                            "dtype": plane_dtype(swap, key)}
-            arrays[key] = np.frombuffer(arr.tobytes(), dtype=np.uint8)
+            # the plane's own bytes, without a copy when it is contiguous
+            arrays[key] = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
     meta["planes"] = planes
     arrays["meta"] = np.frombuffer(
         json.dumps(meta, sort_keys=True).encode(), dtype=np.uint8)
@@ -110,8 +131,8 @@ def decode_handoff(data: bytes) -> dict:
                 swap["dtype"] = BF16
             else:
                 dtype = np.dtype(spec["dtype"])
-            swap[key] = np.frombuffer(
-                buf.tobytes(), dtype=dtype).reshape(spec["shape"])
+            swap[key] = np.ascontiguousarray(buf).view(dtype).reshape(
+                spec["shape"])
         swap["nblk"] = int(nblk)
         state["swap"] = swap
     return state

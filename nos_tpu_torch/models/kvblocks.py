@@ -22,7 +22,7 @@ engine, torch-free.
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["BlockAllocator", "PrefixBlockIndex", "ScaleLedger",
            "NoFreeBlocks", "NULL_BLOCK", "blocks_for"]
@@ -177,8 +177,9 @@ class PrefixBlockIndex:
     the cheapest memory to reclaim.
 
     Chains are SCOPE-partitioned: ``match`` / ``publish`` take an
-    opaque ``scope`` (a tenant; the engine passes None until tenant
-    quotas are ported), and a chain only ever matches prompts in
+    opaque ``scope`` (the serving engine passes the request's resolved
+    tenant under a tenant quota, None otherwise), and a chain only ever
+    matches prompts in
     its own scope. Cross-tenant KV block sharing is a timing
     side-channel (an adversary probing whether another tenant's prompt
     is cached by watching its own TTFT) and an isolation hole once a
@@ -194,9 +195,15 @@ class PrefixBlockIndex:
         self._chains: Dict[tuple, List[int]] = {}
         self.hits = 0
         self.tokens_saved = 0
-        # eviction observability, by tier: every evicted chain is a
-        # "drop" until a host tier exists to "demote" it to
+        # eviction observability and the host tier's demotion hook:
+        # every evicted chain counts under exactly one tier, "demote"
+        # when ``on_evict`` (the engine's host-tier capture, called with
+        # the chain's key and block ids BEFORE the refcounts drop, so the
+        # arena bytes are still live to read) accepted it, "drop"
+        # otherwise (no hook, hook refused, or hook failed)
         self.evicted = {"drop": 0, "demote": 0}
+        self.on_evict: Optional[
+            Callable[[tuple, Tuple[int, ...]], bool]] = None
 
     @property
     def block_count(self) -> int:
@@ -264,7 +271,16 @@ class PrefixBlockIndex:
     def _evict_one(self) -> int:
         key = next(iter(self._chains))
         chain = self._chains.pop(key)
-        self.evicted["drop"] += 1
+        tier = "drop"
+        if self.on_evict is not None:
+            # a failed demotion degrades to the plain drop, never aborts
+            # pressure relief midway
+            try:
+                if self.on_evict(key, tuple(chain)):
+                    tier = "demote"
+            except Exception:
+                tier = "drop"
+        self.evicted[tier] += 1
         freed = 0
         for b in chain:
             if self.alloc.decref(b):

@@ -78,16 +78,45 @@ its first token as a handoff state (``pop_handoffs``), and a
 keeps the reference's layout and dtype names (``models/handoff.py``), so
 JAX and torch engines adopt each other's.
 
+A recompute resume under the kernel formulation repeats what the
+request's admission did (recorded on the request): a prefix hit re-takes
+its shared head and re-runs the same S > 1 window, a chunked admission
+re-runs the same chunks, a one-shot admission re-prefills in the same
+bucket. Each writes the prompt's K/V with the arithmetic that first
+wrote it; a head evicted meanwhile falls back to the one-shot re-prefill.
+
+The KV fabric rides the same payload. ``host_tier`` (a
+``HostTierStore``) catches a prefix chain the index evicts (demote) and
+hands it back on a later miss (promote, through the restore scatter,
+bit-exact); ``export_chain_begin``/``export_chain_finish`` serve a chain
+by its fleet-wide digest from the arena or the host tier, and
+``ingest_chain`` adopts a peer's chain into this engine's prefix index,
+inside the requester's tenant scope. Every payload plane crosses the
+link through a pinned staging pool (``models/staging.py``): swap-out,
+capture, the handoff, demotion and export copy the device planes into a
+pinned slab behind an event on the engine's stream (for swap-out, the
+handoff and demotion the copy on to pageable memory finishes on the
+pool's worker, and a reader settles on its event first), and swap-in,
+promotion and ingest copy host planes into a slab and up from there.
+
+``tenant_quota`` (a ``TenantQuotaConfig``) turns the admission queue
+into the reference's weighted pick over tenants: guaranteed tenants
+first, borrowers by their fair share, a tenant over its max shed at
+``submit`` under contention (``TenantQuotaExceeded``), and a guaranteed
+tenant waiting with no slot or no blocks reclaims the most-over-quota
+tenant's youngest slot through ``_preempt_slot``. Prefix chains are
+scoped by the resolved tenant unless the config shares them. With SLO
+objectives in the config the engine keeps the per-tenant chip-second
+ledger (``chip``) the serving loop reads.
+
 What the reference engine has and this slice does not yet port raises
-a ``ValueError`` naming the knob: meshes, tenant quotas, the host tier
-and the slot-static engine (``kv_blocks == 0``). ``tenant`` is accepted
-and ignored, as the reference engine ignores it with no quota.
+a ``ValueError`` naming the knob: meshes and the slot-static engine
+(``kv_blocks == 0``).
 """
 from __future__ import annotations
 
 import contextlib
 import gc
-import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -97,21 +126,29 @@ import numpy as np
 import torch
 
 from nos_tpu_torch.device import DeviceLike, resolve_device
+from nos_tpu_torch.kvfabric.codec import (
+    chain_digest, decode_chain, encode_chain,
+)
 from nos_tpu_torch.models.errors import (
-    DEFAULT_TENANT, Infeasible, NotPorted, QueueFull,
+    DEFAULT_TENANT, Infeasible, NotPorted, QueueFull, TenantQuotaExceeded,
 )
 from nos_tpu_torch.models.generate import (
     Cache, _tempered, _truncate_logits_rows, forward_paged,
     forward_with_cache, init_cache, init_paged_cache,
 )
 from nos_tpu_torch.models.handoff import (
-    BF16, handoff_nbytes, plane_bits, plane_dtype,
+    BF16, READY, handoff_nbytes, plane_bits, plane_dtype, settle,
+)
+from nos_tpu_torch.models.staging import PinnedStaging
+from nos_tpu_torch.models.tenantquota import (
+    TenantQuotaConfig, TenantScheduler,
 )
 from nos_tpu_torch.models.kvblocks import (
     BlockAllocator, NoFreeBlocks, PrefixBlockIndex, ScaleLedger,
     blocks_for,
 )
 from nos_tpu_torch.models.transformer import Params, TransformerConfig
+from nos_tpu_torch.obs.slo import ChipLedger
 from nos_tpu_torch.ops import _kernels
 from nos_tpu_torch.ops.attention import (
     check_paged_kernel_head_dim, dequantize_kv, effective_paged_impl,
@@ -129,31 +166,18 @@ def _bucket(n: int) -> int:
     return b
 
 
-def chain_digest(tokens: Sequence[int], scope: Optional[str] = None) -> str:
-    """A prefix chain's fleet-wide identity (a copy of
-    ``nos_tpu/kvfabric/codec.py::chain_digest``): blake2b-16 over scope +
-    token content, the digest ``/stats`` publishes for each chain."""
-    toks = b",".join(str(int(t)).encode() for t in tokens)
-    if scope is not None:
-        toks = scope.encode() + b"\x00" + toks
-    return hashlib.blake2b(toks, digest_size=16).hexdigest()
-
-
 def _not_ported(knob: str, what: str) -> NotPorted:
     return NotPorted(
         f"{knob} is not ported to the torch engine yet ({what}); the "
         f"JAX engine nos_tpu.models.serving.DecodeServer serves it")
 
 
-def reject_unported(*, kv_blocks: int, mesh=None, tenant_quota=None,
-                    host_tier=None) -> None:
+def reject_unported(*, kv_blocks: int, mesh=None) -> None:
     """Raise a ValueError naming the first engine knob set outside this
     slice; ``build_engine`` calls it before loading any weights."""
     for knob, on, what in (
             ("kv_blocks=0", kv_blocks <= 0, "the slot-static engine"),
-            ("mesh", mesh is not None, "tensor-parallel serving"),
-            ("tenant_quota", tenant_quota is not None, "tenant quotas"),
-            ("host_tier", host_tier is not None, "host KV tier")):
+            ("mesh", mesh is not None, "tensor-parallel serving")):
         if on:
             raise _not_ported(knob, what)
 
@@ -162,15 +186,6 @@ def _dtype_name(dtype: torch.dtype) -> str:
     """A torch dtype under numpy's (and the reference payload's) name:
     ``torch.bfloat16`` -> ``"bfloat16"``."""
     return str(dtype).rsplit(".", 1)[-1]
-
-
-def _host_plane(t: torch.Tensor) -> np.ndarray:
-    """One payload plane on the host: bf16 as its uint16 bits (numpy has
-    no bfloat16), everything else as itself."""
-    t = t.cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
-    return t.numpy()
 
 
 class _Ledger:
@@ -257,6 +272,11 @@ class _Request:
     # none): budgeted prefill orders chunk work by the slack left
     # against it
     deadline: Optional[float] = None
+    # how the prompt's K/V was written, for a recompute resume to repeat
+    # it under the kernel formulation: ("window", m, sbucket) for a
+    # prefix hit's in-arena window, ("chunked", m, bucket) for chunks
+    # over a scratch row, None for a one-shot prefill
+    admission: Optional[tuple] = None
 
     def note_token(self) -> None:
         """After each appended token: a stop token ends the request (the
@@ -346,8 +366,10 @@ class DecodeServer:
                  pipeline_depth: int = 1, decode_steps: int = 1,
                  kv_block_size: int = 0, kv_blocks: int = 0,
                  kv_swap: bool = True, hbm_admit_frac: float = 0.0,
-                 kv_dtype: str = "bf16", tenant_quota=None,
-                 role: str = "colocated", host_tier=None,
+                 kv_dtype: str = "bf16",
+                 tenant_quota: Optional[TenantQuotaConfig] = None,
+                 tenant_clock=None, role: str = "colocated",
+                 host_tier=None,
                  prefill_budget: int = 0, slack_clock=None,
                  device: DeviceLike = None,
                  paged_impl: Optional[str] = None):
@@ -374,9 +396,7 @@ class DecodeServer:
         if role not in ("colocated", "prefill", "decode"):
             raise ValueError(
                 f"role must be colocated|prefill|decode, got {role!r}")
-        reject_unported(
-            kv_blocks=kv_blocks, mesh=mesh, tenant_quota=tenant_quota,
-            host_tier=host_tier)
+        reject_unported(kv_blocks=kv_blocks, mesh=mesh)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -424,8 +444,41 @@ class DecodeServer:
         self._prefix_max = prefix_cache_size
         self._pindex = (PrefixBlockIndex(self._alloc, prefix_cache_size)
                         if prefix_cache_size > 0 else None)
+        # the host tier under the arena (a HostTierStore): the index's
+        # eviction demotes a chain's payload into it, a later miss that
+        # matches a stored chain promotes it back (bit-exact), and the
+        # fabric exports from it; every payload crosses the link through
+        # the pinned staging pool
+        if host_tier is not None and self._pindex is None:
+            raise ValueError(
+                "host_tier requires the paged KV cache with a prefix "
+                "index (kv_blocks/kv_block_size + prefix_cache_size): "
+                "the tier stores demoted prefix chains, which only the "
+                "paged prefix index produces")
+        self._host_tier = host_tier
+        self._fabric = {"demote": 0, "promote": 0,
+                        "ingest": 0, "ingest_rejected": 0}
         self._digests: Dict[tuple, str] = {}    # chain key -> digest
         self._blk_nbytes: Optional[int] = None
+        if self._host_tier is not None:
+            self._pindex.on_evict = self._demote_chain
+        self._staging = PinnedStaging(self.device)
+        # request-level elastic quota (tenant_quota set = on): the
+        # weighted tenant pick over the admission queue, the over-max
+        # shed at submit, reclaim by preemption, tenant-scoped prefix
+        # chains (unless the config shares them), and, when the config
+        # carries SLO objectives, the per-tenant chip-second ledger;
+        # ``tenant_clock`` injects the rate clock for deterministic runs
+        self._tq = (TenantScheduler(tenant_quota)
+                    if tenant_quota is not None else None)
+        self._tq_clock = tenant_clock or time.perf_counter
+        self._prefix_scoped = (tenant_quota is not None
+                               and not tenant_quota.share_prefix)
+        self.chip = (ChipLedger()
+                     if tenant_quota is not None
+                     and tenant_quota.slo_enabled() else None)
+        self._chip_work: Dict[Tuple[str, str], int] = {}
+        self.tenant_reclaims = 0
         self._table = torch.zeros((max_batch, self._nbs), dtype=torch.int32,
                                   device=self.device)
         self._tables: List[List[int]] = [[] for _ in range(max_batch)]
@@ -490,6 +543,12 @@ class DecodeServer:
         # through the replay program by recompute resumes
         self.preempts = {"swap": 0, "recompute": 0}
         self.replayed_tokens = 0
+        # recompute resumes by the path that rewrote the prompt's K/V:
+        # the admission's own ("oneshot", "window", "chunked"), or the
+        # one-shot re-prefill when a window's or chunked admission's
+        # shared head is gone ("fallback")
+        self.resume_paths = {"oneshot": 0, "window": 0, "chunked": 0,
+                             "fallback": 0}
         # role="prefill": requests that finished prefill park here as
         # handoff states (the swap-payload format) until the serving loop
         # ships them, in admission order; the counters feed /stats and
@@ -579,10 +638,12 @@ class DecodeServer:
         against it (enforcement stays with the serving loop).
         ``priority`` orders preemption under block pressure: the
         lowest priority (then the youngest) slot yields first;
-        ``tenant`` is accepted and ignored, as the reference ignores it
-        with no tenant quota. ``Infeasible`` (a ValueError) when it can never
-        fit this server, ``QueueFull`` when ``max_pending`` requests
-        already wait."""
+        ``tenant`` names the request's quota under a tenant config (its
+        prefix scope, its rate; ignored without one).
+        ``Infeasible`` (a ValueError) when it can never fit this server,
+        ``QueueFull`` when ``max_pending`` requests already wait,
+        ``TenantQuotaExceeded`` (a QueueFull) when the tenant is at its
+        max rate while the engine is under contention."""
         if not prompt:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
@@ -611,6 +672,21 @@ class DecodeServer:
             raise ValueError(
                 f"top_k must be >= 0 and top_p in [0, 1]: got "
                 f"top_k={top_k}, top_p={top_p}")
+        if self._tq is not None:
+            now = self._tq_clock()
+            busy = bool(not self._free or self._pending
+                        or self._prefilling)
+            if busy and self._tq.over_max(tenant, now):
+                # the ladder's last rung: at or over its max rate while
+                # the engine has contention, the tenant backs off on ITS
+                # quota; an idle engine keeps lending past max
+                self._tq.note_shed(tenant)
+                spec = self._tq.cfg.spec(tenant)
+                raise TenantQuotaExceeded(
+                    f"tenant {self._tq.cfg.resolve(tenant)!r} is at "
+                    f"{self._tq.rate(tenant, now):.1f} tokens/s, "
+                    f"max {spec.max_rate:.1f}, with the engine under "
+                    f"contention; back off until the window drains")
         if self.max_pending and len(self._pending) >= self.max_pending:
             if not self._free:
                 raise QueueFull(
@@ -645,14 +721,26 @@ class DecodeServer:
             # barrier: an install changes the batch, and an unconsumed
             # tick still reads the old slot -> request binding
             self._flush()
-        while self._pending and self._free:
-            req = self._pending[0]
+        while self._pending:
+            if not self._free:
+                # a guaranteed tenant waiting with every slot busy may
+                # reclaim the most-over-quota tenant's youngest slot;
+                # otherwise the queue waits for a completion
+                if not self._reclaim_for(
+                        self._pending[self._pick_pending()]):
+                    break
+                continue
+            i = self._pick_pending()
+            req = self._pending[i]
             if not self._admit_headroom(req):
-                # free slots, but the head waits for KV-block/HBM
-                # headroom that completions free
+                # free slots, but the picked request waits for KV-block
+                # or device-memory headroom that completions free; a
+                # guaranteed tenant reclaims blocks as it reclaims slots
+                if self._reclaim_for(req):
+                    continue
                 self._admit_blocked = True
                 break
-            self._pending.popleft()
+            del self._pending[i]
             req.slot = self._free.popleft()
             self._active[req.slot] = req
             # a preempted (or restored) request resumes through its swap
@@ -664,6 +752,84 @@ class DecodeServer:
                 self._resume_recompute(req)
             else:
                 self._prefill_slot(req)
+
+    def _pick_pending(self) -> int:
+        """Index of the next request to admit: FIFO without a tenant
+        scheduler; with one, the weighted tenant pick (guaranteed
+        tenants first, borrowers by their fair share, over-max tenants
+        last), arrival order within a tenant."""
+        if self._tq is None or len(self._pending) <= 1:
+            return 0
+        t = self._tq.pick((r.tenant for r in self._pending),
+                          self._tq_clock())
+        for i, r in enumerate(self._pending):
+            if self._tq.cfg.resolve(r.tenant) == t:
+                return i
+        return 0
+
+    def _reclaim_for(self, req: _Request) -> bool:
+        """Quota reclaim for ``req``'s tenant: when a GUARANTEED tenant
+        (under its min rate) waits with no free slot or no block
+        headroom, preempt the most-over-quota tenant's youngest slot
+        (swap or recompute per ``kv_swap``, re-enqueued at the front of
+        the queue). Never a tenant within its min, never the requester's
+        own. True when it made progress (a preemption, or a flush that
+        freed a slot)."""
+        if self._tq is None:
+            return False
+        now = self._tq_clock()
+        if not self._tq.under_min(req.tenant, now):
+            return False
+        me = self._tq.cfg.resolve(req.tenant)
+
+        def victims():
+            pre = {e["req"].slot for e in self._prefilling}
+            out = []
+            for s, r in self._active.items():
+                if s in pre or r.done or not r.out:
+                    continue
+                vt = self._tq.cfg.resolve(r.tenant)
+                if vt == me or not self._tq.over_min(r.tenant, now):
+                    continue
+                out.append((s, r, vt))
+            return out
+
+        # scan before paying the flush barrier: with nothing preemptible
+        # this runs on every _admit, and a flush each time would
+        # serialize the pipelined decode for nothing
+        if not victims():
+            return False
+        free0 = len(self._free)
+        self._flush()       # barrier: preemption needs a drained window
+        if len(self._free) > free0:
+            return True     # a late completion freed a slot
+        cands = victims()
+        if not cands:
+            return False
+        # most over quota first (over-rate by fair borrow share), the
+        # youngest slot within it; one shares build for the ranking
+        shares = self._tq.borrow_shares(now)
+        ratios = {vt: self._tq.over_quota_ratio(vt, now, shares)
+                  for _, _, vt in cands}
+        s, _r, _vt = max(
+            cands, key=lambda c: (ratios[c[2]], c[1].led.t_admit))
+        self._preempt_slot(s, "swap" if self.kv_swap else "recompute")
+        self.tenant_reclaims += 1
+        return True
+
+    def _prefix_scope(self, req: _Request) -> Optional[str]:
+        """The prefix-cache partition this request may share K/V with:
+        its RESOLVED tenant under a tenant-scoped cache, one global
+        scope (None) otherwise (no tenancy, or ``share_prefix``)."""
+        return self.prefix_scope_for(req.tenant)
+
+    def prefix_scope_for(self, tenant: Optional[str]) -> Optional[str]:
+        """The ``_prefix_scope`` rule for a raw tenant label (the
+        peer-pull ingest resolves the requester's scope before any
+        pulled chain enters the cache)."""
+        if not self._prefix_scoped:
+            return None
+        return self._tq.cfg.resolve(tenant)
 
     def _hbm_sample(self) -> Optional[dict]:
         """The card's memory in use by PyTorch and its capacity, sampled
@@ -734,8 +900,13 @@ class DecodeServer:
         the forwards are left to the ticks, one chunk each."""
         bs = self.kv_block_size
         plen = len(req.prompt)
-        m, mkey = (self._pindex.match(req.prompt, plen - 1)
+        m, mkey = (self._pindex.match(req.prompt, plen - 1,
+                                      self._prefix_scope(req))
                    if self._pindex is not None else (0, None))
+        if self._host_tier is not None:
+            # a miss (or a shorter hit) may still be a host-tier hit:
+            # promote the demoted chain before the checks judge the match
+            m, mkey = self._promote_from_host(req, m, mkey, plen)
         # profitability: the reuse must also save prefill compute (fewer
         # query tokens per bucket tier), or a trivial shared head would
         # route every request through the prefix path for nothing
@@ -775,6 +946,7 @@ class DecodeServer:
             logits, row = forward_with_cache(self.params, self.cfg, toks,
                                              row)
             step = logits[0, plen - 1]
+        self._chip_add(req.tenant, "prefill", plen - m)
         self._finish_prefill(req, row, step)
 
     def _prefill_in_arena(self, req: _Request, m: int,
@@ -789,16 +961,27 @@ class DecodeServer:
         the last fresh block: only pos decides what exists. The window
         takes the kernel's per-stream scratch, never the engine's, so
         the tensors the decode graphs recorded are never replaced."""
-        bs = self.kv_block_size
         plen = len(req.prompt)
-        s = req.slot
         shared = req.shared_blocks
         table = shared + self._alloc.alloc_many(
-            blocks_for(plen, bs) - len(shared))
+            blocks_for(plen, self.kv_block_size) - len(shared))
+        step = self._arena_window(req, table, len(shared), m, sbucket)
+        req.reserved_blocks = table
+        req.admission = ("window", m, sbucket)
+        self._chip_add(req.tenant, "prefill", plen - m)
+        self._finish_prefill(req, None, step, installed=True)
+
+    def _arena_window(self, req: _Request, table: List[int], nshared: int,
+                      m: int, sbucket: int) -> torch.Tensor:
+        """Point the slot's table row at ``table`` (its first ``nshared``
+        blocks the shared head) and run the prompt's suffix from ``m`` as
+        ONE S = ``sbucket`` window of ``forward_paged`` over a one-row
+        view of the arena; returns the last real position's logits."""
+        s = req.slot
         self._tables[s] = table
         self._set_table_row(s)
         if self._scales is not None:
-            for blk in table[len(shared):]:
+            for blk in table[nshared:]:
                 self._scales.note_write(blk)
         suffix = req.prompt[m:]
         toks = self._tokens(suffix + [0] * (sbucket - len(suffix)))
@@ -808,9 +991,7 @@ class DecodeServer:
                                   self._table[s:s + 1],
                                   paged_impl=self.paged_kernel)
         self.arena_windows += 1
-        req.reserved_blocks = table
-        self._finish_prefill(req, None, logits[0, len(suffix) - 1],
-                             installed=True)
+        return logits[0, len(suffix) - 1]
 
     def _start_chunked(self, req: _Request, m: int, mkey) -> bool:
         """Chunk-at-a-time admission. The slot's FULL block table is
@@ -843,6 +1024,7 @@ class DecodeServer:
             return False
         req.shared_blocks = shared
         req.reserved_blocks = shared + fresh
+        req.admission = ("chunked", m, bucket)
         self._sync_prefix_stats()
         row = self._row(bucket, m)
         if m > 0:
@@ -887,6 +1069,7 @@ class DecodeServer:
         done = self._prefill_advance(ent)
         dt = time.perf_counter() - t0
         self.prefill_chunk_tokens += cost
+        self._chip_add(ent["req"].tenant, "prefill", cost)
         if cost > 0:
             self._chunk_tok_s.append(dt / cost)
         if not done:
@@ -1050,6 +1233,7 @@ class DecodeServer:
         self._paged_install(req, row, plen, first, installed=installed)
         req.out.append(first)
         req.note_token()
+        self._note_tenant_tokens(req, 1)
         # the first token is observed here (its argmax or draw was a host
         # sync): TTFT's far stamp, and the TPOT clock's arm
         req.led.t_prefill_end = req.led.t_first = req.led.t_last = \
@@ -1060,6 +1244,53 @@ class DecodeServer:
             # freed slot admits the next prefill
             return self._handoff_slot(req)
         self._finish_if_done(req)
+
+    def _note_tenant_tokens(self, req: _Request, n: int) -> None:
+        """Tenant token-rate accounting, one scheduler note per arrival:
+        the currency the weighted pick, the max-rate shed and reclaim
+        decide on."""
+        if self._tq is not None and n:
+            self._tq.note_tokens(req.tenant, n, self._tq_clock())
+
+    def _chip_add(self, tenant: Optional[str], phase: str,
+                  n: int) -> None:
+        """Accumulate ``n`` tokens of this quantum's work weight for the
+        chip-second split (decode tokens emitted, prefill prompt tokens
+        advanced), charged to the RESOLVED tenant; one attribute check
+        when SLO accounting is off."""
+        if self.chip is None or n <= 0:
+            return
+        key = (self._tq.cfg.resolve(tenant), phase)
+        self._chip_work[key] = self._chip_work.get(key, 0) + n
+
+    def _chip_kv_bytes(self) -> Dict[str, int]:
+        """Resident device K/V bytes per tenant, from the arena's block
+        tables: each active slot charges its resolved tenant, each prefix
+        chain its scope (``_shared`` for an unscoped cache); a shared
+        block charges every holder."""
+        nb = self._chain_block_nbytes()
+        out: Dict[str, int] = {}
+        for s, req in self._active.items():
+            blocks = len(self._tables[s])
+            if blocks:
+                t = self._tq.cfg.resolve(req.tenant)
+                out[t] = out.get(t, 0) + nb * blocks
+        if self._pindex is not None:
+            for (scope, _toks), blocks in self._pindex.chain_items():
+                t = scope if scope is not None else "_shared"
+                out[t] = out.get(t, 0) + nb * len(blocks)
+        return out
+
+    def chip_note_quantum(self, t0: float, t1: float) -> None:
+        """Charge one engine quantum ``[t0, t1]`` to the chip ledger,
+        draining the accumulated token weights: the serving loop calls it
+        with the two tick-profiler clock reads it already takes; ``step``
+        charges itself. No-op when SLO accounting is off."""
+        if self.chip is None:
+            return
+        work = self._chip_work
+        self._chip_work = {}
+        self.chip.note_quantum(t0, t1, work, self._chip_kv_bytes())
 
     def _paged_install(self, req: _Request, row: Optional[Cache], plen: int,
                        first: int, *, installed: bool = False) -> None:
@@ -1086,7 +1317,7 @@ class DecodeServer:
         self.cache["pos"][s].fill_(plen)
         self._last[s, 0].fill_(first)
         if req.cache_prefix and self._pindex is not None:
-            self._pindex.publish(req.prompt, table)
+            self._pindex.publish(req.prompt, table, self._prefix_scope(req))
             self._sync_prefix_stats()
 
     def _write_rows(self, row: Cache, blocks: List[int], lo: int) -> None:
@@ -1345,7 +1576,7 @@ class DecodeServer:
         nblk = blocks_for(base, self.kv_block_size)
         table = self._tables[slot]
         if mode == "swap":
-            req.swap_state = self._swap_payload(table, nblk)
+            req.swap_state = self._swap_payload(table, nblk, later=True)
         self._tables[slot] = []
         for b in table:
             self._alloc.decref(b)
@@ -1355,21 +1586,42 @@ class DecodeServer:
         req.preempted = True
         self._pending.appendleft(req)
         self.preempts[mode] += 1
+        if self._tq is not None:
+            self._tq.note_preempt(req.tenant, mode)
         if not self._active:
             self._idle_since = None
 
-    def _swap_payload(self, table: List[int], nblk: int) -> dict:
+    def _swap_download(self, blocks: Sequence[int]):
+        """Queue the copy of ``blocks``' planes (K/V, and the f32 scale
+        planes of an int8 arena, each ``[L, n, ...]``) into a pinned
+        staging slab on the engine's stream, behind an event; returns
+        the staging ``Download`` (nothing waits here)."""
+        idx = self._to_device(torch.tensor(list(blocks), dtype=torch.long))
+        return self._staging.download({
+            name: self.cache[name][:, idx]
+            for name in ("k", "v", "k_scale", "v_scale")
+            if self.cache.get(name) is not None})
+
+    def _swap_payload(self, table: List[int], nblk: int,
+                      later: bool = False) -> dict:
         """Host copies of a slot's first ``nblk`` committed blocks, the
-        one payload preemption, restart capture and the handoff share:
-        ``[L, nblk, Hkv, bs, D]`` K/V planes (bf16 as uint16 bits, named
-        by ``"dtype"``) plus, for int8, the f32 scale planes
-        ``[L, nblk, Hkv, bs]``."""
-        idx = self._to_device(torch.tensor(table[:nblk], dtype=torch.long))
+        one payload preemption, restart capture, demotion and the handoff
+        share: ``[L, nblk, Hkv, bs, D]`` K/V planes (bf16 as uint16
+        bits, named by ``"dtype"``) plus, for int8, the f32 scale planes
+        ``[L, nblk, Hkv, bs]``, in pageable memory. They cross the link
+        through the pinned staging pool. With ``later`` the copy out of
+        the slab finishes on the pool's worker, off the caller's path,
+        and the payload carries the event a reader settles on
+        (``handoff.settle``: the restore scatter and the codec do)."""
         payload: dict = {"nblk": nblk}
-        for name in ("k", "v", "k_scale", "v_scale"):
-            plane = self.cache.get(name)
-            if plane is not None:
-                payload[name] = _host_plane(plane[:, idx])
+        dl = self._swap_download(table[:nblk])
+        if later:
+            planes, ready = dl.arrays_later()
+            if not ready.is_set():
+                payload[READY] = ready
+        else:
+            planes = dl.arrays()
+        payload.update(planes)
         if self.cache["k"].dtype == torch.bfloat16:
             payload["dtype"] = BF16
         return payload
@@ -1378,19 +1630,17 @@ class DecodeServer:
         """Swap-in: a payload's planes scatter into ``blocks`` (one
         indexed write per plane, queued on the engine's stream behind
         the ticks in flight), the int8 scales with their bytes, so the
-        restored slot continues on the same timeline byte for byte."""
+        restored slot continues on the same timeline byte for byte. The
+        planes go up through a pinned staging slab: no pageable copy, no
+        pin per plane."""
+        settle(swap)
         idx = self._to_device(torch.tensor(blocks, dtype=torch.long))
-        for name in ("k", "v", "k_scale", "v_scale"):
-            if name not in swap:
-                continue
-            plane = self.cache[name]
-            host = np.array(plane_bits(swap[name]))
-            if plane.dtype == torch.bfloat16:
-                src = torch.from_numpy(host.view(np.int16)).view(
-                    torch.bfloat16)
-            else:
-                src = torch.from_numpy(host)
-            plane[:, idx] = self._to_device(src)
+        names = [n for n in ("k", "v", "k_scale", "v_scale") if n in swap]
+        dev = self._staging.upload(
+            {n: plane_bits(swap[n]) for n in names},
+            {n: self.cache[n].dtype for n in names})
+        for n in names:
+            self.cache[n][:, idx] = dev[n]
         if self._scales is not None:
             for b in blocks:
                 self._scales.note_write(b)
@@ -1408,38 +1658,111 @@ class DecodeServer:
         self._resume_row(req)
 
     def _resume_recompute(self, req: _Request) -> None:
-        """Recompute resume: re-prefill the committed sequence over one
-        scratch row, one-shot, install it, and set the slot's row state.
-        Under the gather formulation that sequence is ``prompt +
-        out[:-1]`` (the reference's; the last committed token is not yet
-        fed). Under the kernel formulation the committed output span was
-        written by decode ticks, and ``_replay_committed`` rewrites it
-        with their arithmetic; the re-prefill then covers the prompt
-        alone, in the bucket its admission used, so the prompt span is
-        the admission's arithmetic too. On the card a re-prefill of
-        ``prompt + out[:-1]`` that crosses into a larger bucket gives
-        other bits (ROADMAP C.10)."""
+        """Recompute resume: rewrite the committed sequence's K/V and set
+        the slot's row state. Under the gather formulation that is the
+        reference's one-shot re-prefill of ``prompt + out[:-1]`` (the
+        last committed token is not yet fed). Under the kernel
+        formulation the prompt's K/V is rewritten by the path its
+        admission took (``_reprefill_prompt``) and ``_replay_committed``
+        rewrites the committed output span with the decode ticks'
+        arithmetic, so every position is the arithmetic that first wrote
+        it. On the card another bucket or another path gives other bits
+        (ROADMAP C.10, C.12)."""
         req.preempted = False
         bs = self.kv_block_size
-        replay = self.paged_kernel == "kernel" and len(req.out) > 1
-        seq = req.prompt if replay else req.prompt + req.out[:-1]
+        total = blocks_for(len(req.prompt) + len(req.out) - 1, bs)
+        if self.paged_kernel == "kernel":
+            self._reprefill_prompt(req, total)
+            if len(req.out) > 1:
+                self._replay_committed(req)
+        else:
+            seq = req.prompt + req.out[:-1]
+            blocks = self._alloc.alloc_many(total)
+            self._oneshot_into(seq, blocks)
+            self._tables[req.slot] = blocks
+            self._set_table_row(req.slot)
+        self._resume_row(req)
+
+    def _oneshot_into(self, seq: List[int], blocks: List[int]) -> None:
+        """Prefill ``seq`` one-shot over a scratch row in its bucket and
+        land it in ``blocks`` (whose tail past ``seq`` the caller's
+        writes fill)."""
+        bs = self.kv_block_size
         n = len(seq)
         bucket = min(max(_bucket(n), bs), self.max_len)
         row = self._row(bucket, 0)
         _logits, row = forward_with_cache(
             self.params, self.cfg, self._tokens(seq + [0] * (bucket - n)),
             row)
-        blocks = self._alloc.alloc_many(
-            blocks_for(len(req.prompt) + len(req.out) - 1, bs))
         self._write_rows(row, blocks[:blocks_for(n, bs)], 0)
         if self._scales is not None:
             for b in blocks[blocks_for(n, bs):]:
                 self._scales.note_write(b)      # the replay writes them
-        self._tables[req.slot] = blocks
+
+    def _reprefill_prompt(self, req: _Request, total: int) -> None:
+        """Rewrite the prompt's K/V into ``total`` fresh (or re-shared)
+        blocks the way the admission wrote it: a prefix hit re-takes its
+        shared head and re-runs the same S > 1 window, a chunked
+        admission re-runs the same chunks over a scratch row of the same
+        bucket, a one-shot admission re-prefills in the same bucket. A
+        window's or chunked admission's shared head that no chain holds
+        any more falls back to the one-shot re-prefill."""
+        bs = self.kv_block_size
+        plen = len(req.prompt)
+        adm = req.admission
+        m = adm[1] if adm is not None else 0
+        shared = self._reshare_head(req, m, total) if m > 0 else []
+        if m > 0 and not shared:
+            adm = None
+            self.resume_paths["fallback"] += 1
+        if adm is not None and adm[0] == "window":
+            table = shared + self._alloc.alloc_many(total - len(shared))
+            self._arena_window(req, table, len(shared), m, adm[2])
+            self.resume_paths["window"] += 1
+            return
+        if adm is not None and adm[0] == "chunked":
+            ent = {"row": self._row(adm[2], m), "todo": deque(
+                req.prompt[i:i + self._prefill_chunk]
+                for i in range(m, plen, self._prefill_chunk))}
+            if m:
+                self._seed_scratch(ent["row"], shared)
+            while not self._prefill_advance(ent):
+                pass
+            table = shared + self._alloc.alloc_many(total - len(shared))
+            self._write_rows(ent["row"], table[:blocks_for(plen, bs)],
+                             len(shared))
+            if self._scales is not None:
+                for b in table[blocks_for(plen, bs):]:
+                    self._scales.note_write(b)
+            self.resume_paths["chunked"] += 1
+        else:
+            table = self._alloc.alloc_many(total)
+            self._oneshot_into(req.prompt, table)
+            if req.admission is None:
+                self.resume_paths["oneshot"] += 1
+        self._tables[req.slot] = table
         self._set_table_row(req.slot)
-        if replay:
-            self._replay_committed(req)
-        self._resume_row(req)
+
+    def _reshare_head(self, req: _Request, m: int, total: int) -> List[int]:
+        """The first ``m`` tokens' blocks of a prefix chain in the
+        request's scope, claimed again for its resume (refcounts bumped,
+        not counted as a hit); a chain demoted to the host tier is
+        promoted back when the pool holds it and the resume's own
+        blocks. [] when no chain holds them."""
+        bs = self.kv_block_size
+        plen = len(req.prompt)
+        scope = self._prefix_scope(req)
+        got, key = self._pindex.match(req.prompt, plen - 1, scope)
+        if got < m and self._host_tier is not None:
+            hkey = self._host_tier.match(scope, req.prompt,
+                                         ((plen - 1) // bs) * bs)
+            if hkey is not None and len(hkey[1]) >= m and \
+                    self._alloc.free_count >= len(hkey[1]) // bs + total:
+                got, key = self._promote_from_host(req, got, key, plen)
+        if got < m:
+            return []
+        chain = dict(self._pindex.chain_items())[key]
+        return self._alloc.fork(chain[:m // bs])
 
     def _replay_committed(self, req: _Request) -> None:
         """Rewrite a recompute resume's committed output span with the
@@ -1514,7 +1837,8 @@ class DecodeServer:
         base = len(req.prompt) + len(req.out) - 1
         nblk = blocks_for(base, self.kv_block_size)
         state = self._request_state(req)
-        state["swap"] = self._swap_payload(self._tables[s], nblk)
+        state["swap"] = self._swap_payload(self._tables[s], nblk,
+                                           later=True)
         state["handoff"] = True
         del self._active[s]
         self._free_slot_blocks(s)
@@ -1657,7 +1981,12 @@ class DecodeServer:
         if handle is not None and self.prefill_budget > 0 \
                 and self.compiles == c0:
             self.note_tick_seconds(time.perf_counter() - t0)
-        return self.step_finish(handle)
+        emitted = self.step_finish(handle)
+        if self.chip is not None:
+            # no serving loop pays the tick-profiler reads here: charge
+            # the quantum with one tail clock read
+            self.chip_note_quantum(t0, time.perf_counter())
+        return emitted
 
     def _active_slots(self) -> List[int]:
         """The slots that decode: active and not still prefilling."""
@@ -1903,6 +2232,8 @@ class DecodeServer:
             emitted += n
             if now:
                 req.led.note_tokens(n, now)
+            self._note_tenant_tokens(req, n)
+            self._chip_add(req.tenant, "decode", n)
             self._finish_if_done(req, admit=False)
         self.tokens_emitted += emitted
         return emitted
@@ -2078,6 +2409,8 @@ class DecodeServer:
             stop_tokens=src.stop_tokens, priority=src.priority,
             tenant=src.tenant, led=_Ledger(time.perf_counter()))
         req.out = list(src.out)
+        # the fork's prompt K/V is the source's, written by its admission
+        req.admission = src.admission
         now = time.perf_counter()
         req.led.t_admit = req.led.t_prefill_start = now
         req.led.t_first = req.led.t_last = now
@@ -2109,11 +2442,159 @@ class DecodeServer:
             "prefix": (self._pindex.stats()
                        if self._pindex is not None else None),
             "preempts": dict(self.preempts),
-            "tenant_reclaims": 0,
+            "tenant_reclaims": self.tenant_reclaims,
             "swapped_pending": sum(1 for r in self._pending
                                    if r.swap_state is not None),
             "hbm": self.hbm,
         }
+
+    # ------------------------------------------------------------------
+    # the KV fabric: the host tier's demote/promote under the arena, and
+    # chain export/ingest across replicas. Everything moves the swap
+    # payload preemption and the handoff move, so a tier transition is
+    # bit-exact by construction.
+    # ------------------------------------------------------------------
+    def _demote_chain(self, key: tuple, blocks: Tuple[int, ...]) -> bool:
+        """``PrefixBlockIndex.on_evict``: offer an evicting chain to the
+        host tier. Runs BEFORE the chain's refcounts drop, so its blocks
+        are still live to copy (the copy is queued ahead of any later
+        write to them on the engine's stream). True = demoted; False
+        falls through to a plain drop. The host copy of the planes
+        finishes on the staging pool's worker, off the admission that
+        evicted the chain."""
+        scope, tokens = key
+        swap = self._swap_payload(list(blocks), len(blocks), later=True)
+        if not self._host_tier.put(scope, tokens, swap):
+            return False
+        self._fabric["demote"] += 1
+        return True
+
+    def _promote_from_host(self, req: _Request, m: int, mkey,
+                           plen: int) -> Tuple[int, Optional[tuple]]:
+        """Admission-time promotion: if the host tier holds a strictly
+        longer prefix of ``req.prompt`` than the index matched, scatter
+        it back into fresh arena blocks, republish it, and re-match. The
+        chain moves tiers (its host entry popped); best-effort, never
+        required for correctness."""
+        bs = self.kv_block_size
+        scope = self._prefix_scope(req)
+        cap = ((plen - 1) // bs) * bs
+        key = self._host_tier.match(scope, req.prompt, cap)
+        if key is None or len(key[1]) <= m:
+            return m, mkey
+        ent = self._host_tier.get(key)
+        if ent is None:
+            return m, mkey
+        if self._ingest_swap(key[1], ent["swap"], scope):
+            self._host_tier.pop(key)
+            self._fabric["promote"] += 1
+        # re-match after any ingest attempt: a failed one may still have
+        # evicted chains (mkey's own among them) making room
+        return self._pindex.match(req.prompt, plen - 1, scope)
+
+    def _ingest_swap(self, tokens: tuple, swap: dict,
+                     scope: Optional[str]) -> bool:
+        """Land a chain payload in the arena as a published prefix
+        chain: the restore scatter (bit-exact), then ``publish`` so the
+        next match shares it. Only LRU prefix chains are reclaimed to
+        make room, never live work; False = no room or a payload whose
+        geometry or dtype is not this arena's (bf16 arrives as uint16
+        bits named "bfloat16"), and the caller prefills."""
+        nblk = int(swap.get("nblk") or 0)
+        if nblk <= 0 or nblk * self.kv_block_size != len(tokens) \
+                or nblk > self._alloc.capacity:
+            return False
+        want = tuple(self.cache["k"].shape[i] for i in (0, 2, 3, 4))
+        got = tuple(np.asarray(swap["k"]).shape[i] for i in (0, 2, 3, 4))
+        if want != got \
+                or _dtype_name(self.cache["k"].dtype) != plane_dtype(swap, "k") \
+                or ("k_scale" in swap) != (self.kv_dtype == "int8"):
+            return False
+        if nblk > self._alloc.free_count:
+            self._pindex.evict_lru(nblk - self._alloc.free_count)
+            if nblk > self._alloc.free_count:
+                return False
+        blocks = self._alloc.alloc_many(nblk)
+        self._restore_blocks(swap, blocks)
+        self._pindex.publish(list(tokens), blocks, scope)
+        for b in blocks:    # the index holds its own references now
+            self._alloc.decref(b)
+        return True
+
+    def ingest_chain(self, data: bytes, tenant: Optional[str] = None,
+                     expect_digest: Optional[str] = None) -> bool:
+        """Adopt a fabric chain payload pulled from a peer replica.
+        Rejections are counted, never raised (a failed pull falls back to
+        prefill): undecodable bytes, a payload scope that is not the
+        requester's own resolved scope, a digest that does not match the
+        payload's recomputed identity, or no arena room."""
+        if self._pindex is None:
+            return False
+        try:
+            state = decode_chain(data)
+        except ValueError:
+            self._fabric["ingest_rejected"] += 1
+            return False
+        scope = state.get("scope")
+        tokens = tuple(int(t) for t in state.get("tokens") or ())
+        if scope != self.prefix_scope_for(tenant) \
+                or (expect_digest is not None
+                    and chain_digest(tokens, scope) != expect_digest) \
+                or not self._ingest_swap(tokens, state["swap"], scope):
+            self._fabric["ingest_rejected"] += 1
+            return False
+        self._fabric["ingest"] += 1
+        return True
+
+    def export_chain_begin(self, digest: str) -> Optional[tuple]:
+        """Phase 1 of a peer-pull export (under the serving loop's lock):
+        find ``digest``'s chain and queue the copy of its blocks into a
+        pinned staging slab on the engine's stream. A chain's blocks are
+        never written in place (copy-on-write), and any later write to a
+        freed block is queued behind this copy, so the snapshot is the
+        chain's bytes whatever decodes after the lock drops. A host-tier
+        hit hands out its stored payload. Returns a handle for
+        ``export_chain_finish``, or None (not here)."""
+        if self._pindex is None:
+            return None
+        for key, chain in self._pindex.chain_items():
+            if self._chain_digest(key) == digest:
+                swap = {"nblk": len(chain),
+                        "_download": self._swap_download(chain)}
+                if self.cache["k"].dtype == torch.bfloat16:
+                    swap["dtype"] = BF16
+                return key[0], key[1], swap
+        if self._host_tier is not None:
+            hit = self._host_tier.find(digest)
+            if hit is not None:
+                key, ent = hit
+                return key[0], key[1], ent["swap"]
+        return None
+
+    @staticmethod
+    def export_chain_finish(handle: tuple) -> bytes:
+        """Phase 2 (outside the loop's lock): wait for the snapshot's
+        copy, encode the chain from the pinned slab, return the slab."""
+        scope, tokens, swap = handle
+        dl = swap.get("_download")
+        if dl is None:
+            settle(swap)
+            return encode_chain(scope, tokens, swap)
+        try:
+            out = {k: v for k, v in swap.items() if k != "_download"}
+            out.update(dl.views())
+            return encode_chain(scope, tokens, out)
+        finally:
+            dl.release()
+
+    def export_chain(self, digest: str) -> Optional[bytes]:
+        """One chain's fabric payload by its fleet-wide digest (the
+        ``GET /v1/kvchain/<digest>`` surface), begin and finish in one
+        call, for callers with no lock to shed."""
+        handle = self.export_chain_begin(digest)
+        if handle is None:
+            return None
+        return self.export_chain_finish(handle)
 
     def _chain_digest(self, key: tuple) -> str:
         d = self._digests.get(key)
@@ -2135,10 +2616,10 @@ class DecodeServer:
         return self._blk_nbytes
 
     def prefix_index_snapshot(self) -> Optional[dict]:
-        """The /stats ``prefix_index`` section: eviction tiers, the
-        fabric counters (zero: no host tier or fabric is ported), and
-        every resident chain as (digest, token length, tier, bytes,
-        scope); None without a prefix index."""
+        """The /stats ``prefix_index`` section the gateway's fleet index
+        reads: eviction tiers, the fabric counters, the host tier's
+        occupancy, and every resident chain as (digest, token length,
+        tier, bytes, scope); None without a prefix index."""
         if self._pindex is None:
             return None
         per_blk = self._chain_block_nbytes()
@@ -2151,10 +2632,14 @@ class DecodeServer:
                            "scope": key[0]})
         self._digests = {k: v for k, v in self._digests.items()
                          if k in live}
+        host = None
+        if self._host_tier is not None:
+            host = self._host_tier.stats()
+            for row in self._host_tier.digests():
+                chains.append(dict(row, tier="host"))
         return {"evicted": dict(self._pindex.evicted),
-                "fabric": {"demote": 0, "promote": 0, "ingest": 0,
-                           "ingest_rejected": 0},
-                "host_tier": None,
+                "fabric": dict(self._fabric),
+                "host_tier": host,
                 "chains": chains}
 
     def stats(self) -> dict:
@@ -2228,11 +2713,30 @@ class DecodeServer:
                  "tokens_saved": self.prefix_tokens_saved}),
             "prefix_index": self.prefix_index_snapshot(),
             "kv": self.kv_stats(),
-            "tenants": None,
+            "tenants": self.tenant_snapshot(),
             "compiles": {"count": self.compiles,
                          "seconds": round(self.compile_s, 6)},
             "tokens_emitted": self.tokens_emitted,
         }
+
+    def tenant_snapshot(self) -> Optional[dict]:
+        """Per-tenant quota accounting for /stats and the serving loop's
+        gauge mirror (rate, shares, sheds, preempts, pending and active
+        requests); None when tenancy is off."""
+        if self._tq is None:
+            return None
+        snap = self._tq.snapshot(self._tq_clock())
+        pending_by, active_by = {}, {}
+        for r in self._pending:
+            t = self._tq.cfg.resolve(r.tenant)
+            pending_by[t] = pending_by.get(t, 0) + 1
+        for r in self._active.values():
+            t = self._tq.cfg.resolve(r.tenant)
+            active_by[t] = active_by.get(t, 0) + 1
+        for name, row in snap.items():
+            row["pending"] = pending_by.get(name, 0)
+            row["active"] = active_by.get(name, 0)
+        return snap
 
     def free_device_memory(self, free_cache: bool = True) -> None:
         """Drop this engine's device tensors (weights, arena, tables, the
@@ -2250,6 +2754,7 @@ class DecodeServer:
         self._graphs = {}
         self._capture_stream = None
         self._inflight = deque()
+        self._staging.close()
         if free_cache and self.device.type == "cuda":
             torch.cuda.empty_cache()
 

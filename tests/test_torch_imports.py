@@ -66,6 +66,21 @@ def test_importing_the_trainer_loads_no_jax_and_builds_nothing():
                    cwd=str(ROOT), timeout=120)
 
 
+def test_fabric_and_tenant_modules_load_no_jax_and_no_torch():
+    """The KV fabric, the tenant quota module and the copied quota
+    arithmetic are host bookkeeping: importing them loads neither JAX,
+    nor the JAX package, nor torch."""
+    code = ("import sys, nos_tpu_torch.kvfabric, "
+            "nos_tpu_torch.kvfabric.codec, nos_tpu_torch.kvfabric.hosttier, "
+            "nos_tpu_torch.models.tenantquota, nos_tpu_torch.quota.info; "
+            "bad = [m for m in sys.modules if m in ('jax', 'nos_tpu', "
+            "'torch') or m.startswith(('jax.', 'nos_tpu.', 'torch.'))]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """With no CUDA device visible the smoke exits non-zero and prints
     no result line; so does a copy standing alone, without the port."""

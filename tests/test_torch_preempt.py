@@ -368,6 +368,115 @@ def test_recompute_replay_rewrites_the_ticks_bytes(params, kv_dtype, prompt,
     b.drain()
 
 
+HEAD = [7] * 16                 # two full blocks, published
+ADMISSIONS = {
+    # (prompt, engine knobs, the resume path that repeats its admission)
+    "prefix-hit": (HEAD + [3, 4, 5], dict(prefix_cache_size=8), "window"),
+    "chunked": (list(range(1, 28)), dict(prefill_chunk=8), "chunked"),
+    "chunked-hit": (HEAD + list(range(30, 49)),
+                    dict(prefix_cache_size=8, prefill_chunk=8), "chunked"),
+}
+
+
+def _admitted(srv, prompt, n):
+    """Publish the shared head (when the engine caches prefixes), then
+    submit ``prompt`` and run its admission to its first decode tick."""
+    if srv._prefix_max:
+        srv.submit(HEAD + [1], 2, cache_prefix=True)
+        srv.drain()
+    rid = srv.submit(prompt, n)
+    while any(e["req"].rid == rid for e in srv._prefilling) \
+            or not any(r.rid == rid for r in srv._active.values()):
+        srv.step()
+    return rid
+
+
+@pytest.mark.parametrize("admission", list(ADMISSIONS))
+@pytest.mark.parametrize("kv_dtype", ARENAS)
+def test_recompute_repeats_the_admissions_path(params, admission, kv_dtype):
+    """ROADMAP C.12: a recompute victim admitted through a prefix hit
+    (the in-arena S > 1 window over the shared head) or in chunks (with
+    or without a shared head) resumes by the same path: its K/V over
+    every written position (int8: planes and scales) is byte-identical
+    to an undisturbed twin's, and its tokens are the undisturbed run's
+    and the reference engine's for the same preemption."""
+    jp, tp = params
+    prompt, knobs, path = ADMISSIONS[admission]
+    n = 14
+
+    def engine():
+        return DecodeServer(tp, TCFG, max_batch=2, kv_block_size=8,
+                            kv_blocks=40, device="cpu", paged_impl="kernel",
+                            kv_dtype=kv_dtype, **knobs)
+
+    a, b = engine(), engine()
+    ra, rb = _admitted(a, prompt, n), _admitted(b, prompt, n)
+    qb = next(r for r in b._active.values() if r.rid == rb)
+    assert qb.admission is not None and qb.admission[0] == path
+    for _ in range(4):
+        a.step()
+        b.step()
+    assert b.preempt(rb, "recompute")
+    b.step()            # step_finish re-admits: the resume
+    assert b.resume_paths == {**dict.fromkeys(b.resume_paths, 0), path: 1}
+    qa = next(r for r in a._active.values() if r.rid == ra)
+    qb = next(r for r in b._active.values() if r.rid == rb)
+    assert qa.out == qb.out
+    written = len(qb.prompt) + len(qb.out) - 1
+
+    def timeline(eng, q, plane):
+        arena = eng.cache[plane][0]
+        if plane.endswith("_scale"):
+            arena = arena[..., None]
+        return paged_gather_kv(arena, eng._table[q.slot:q.slot + 1])[
+            :, :, :written]
+
+    planes = ("k", "v") + (("k_scale", "v_scale") if kv_dtype == "int8"
+                           else ())
+    for plane in planes:
+        assert torch.equal(timeline(a, qa, plane), timeline(b, qb, plane)), \
+            (admission, kv_dtype, plane)
+    got, want = b.drain()[rb], a.drain()[ra]
+    assert got == want
+    # the reference engine, preempted at the same tick, resumes to the
+    # same tokens (its own re-prefill, on the gather formulation)
+    jeng = JDecodeServer(jp, JCFG, max_batch=2, kv_block_size=8,
+                         kv_blocks=40, kv_dtype=kv_dtype, **knobs)
+    jr = _admitted(jeng, prompt, n)
+    for _ in range(4):
+        jeng.step()
+    assert jeng.preempt(jr, "recompute")
+    assert jeng.drain()[jr] == got
+    if kv_dtype == "bf16":      # f32 here: the reference's generate too
+        assert got == ref(jp, prompt, n)
+    assert_pool_balanced(b)
+
+
+def test_recompute_falls_back_when_the_head_is_gone(params):
+    """A prefix-hit victim whose shared head the index evicted while it
+    waited resumes by the one-shot re-prefill (counted ``fallback``)
+    and still finishes with the reference's tokens; with a host tier the
+    demoted head is promoted back and the window repeats."""
+    from nos_tpu_torch.kvfabric import HostTierStore
+
+    jp, tp = params
+    prompt, knobs, _ = ADMISSIONS["prefix-hit"]
+    for host, path in ((None, "fallback"),
+                       (HostTierStore(1 << 20), "window")):
+        srv = DecodeServer(tp, TCFG, max_batch=2, kv_block_size=8,
+                           kv_blocks=40, device="cpu", paged_impl="kernel",
+                           host_tier=host, **knobs)
+        rid = _admitted(srv, prompt, 12)
+        srv.step()
+        assert srv.preempt(rid, "recompute")
+        srv._pindex.evict_lru(srv._alloc.capacity)
+        assert not srv._pindex.chain_items()
+        srv.step()
+        assert srv.resume_paths[path] == 1
+        assert srv.drain()[rid] == ref(jp, prompt, 12)
+        assert_pool_balanced(srv)
+
+
 def test_recompute_replay_runs_the_ticks_width(params, monkeypatch):
     """Each replayed token is one ``forward_paged`` over all ``max_batch``
     rows (S = 1), the resumed row's table live at its slot, every other

@@ -36,6 +36,7 @@ from nos_tpu_torch.cmd.server import (  # noqa: E402
 from nos_tpu_torch.models import transformer as ttfm  # noqa: E402
 from nos_tpu_torch.models.errors import NotPorted, QueueFull  # noqa: E402
 from nos_tpu_torch.models.serving import DecodeServer  # noqa: E402
+from nos_tpu_torch.models.tenantquota import TenantQuotaConfig  # noqa: E402
 from nos_tpu_torch.obs import tracing  # noqa: E402
 from nos_tpu_torch.utils.metrics import default_registry  # noqa: E402
 
@@ -45,6 +46,9 @@ MODEL = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
 JCFG = jtfm.TransformerConfig(**MODEL, dtype=jnp.float32)
 TCFG = ttfm.TransformerConfig(**MODEL, dtype=torch.float32)
 PAGED = dict(kv_block_size=8, kv_blocks=24)
+# knobs build_engine and main refused until the KV fabric and tenant
+# quotas were ported, served now
+SERVED_KNOBS = {"tenant_config", "kv_host_tier_bytes", "kv_fabric_token"}
 # the reference's documented replica /stats keys
 # (tests/test_metrics_docs.py::REPLICA_STATS_KEYS)
 REPLICA_STATS_KEYS = {
@@ -511,7 +515,9 @@ def test_unknown_path_is_404(served):
 
 
 # ---------------------------------------------------------------------------
-# paths whose engine feature is not ported: 404 with the knob's name
+# the KV fabric's surfaces on a replica without the fabric token: a
+# kv_sources offer is counted pull_denied and the request is served, the
+# chain export answers 403 (the reference's, tests/test_server_cmd.py:1827)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("method,path,body,knob", [
@@ -527,15 +533,38 @@ def test_unknown_path_is_404(served):
 ])
 def test_unported_routes_answer_404_naming_the_knob(served, method, path,
                                                     body, knob):
-    url, _ = served
-    if method == "POST":
-        status, reply = post_status(url, body, path=path)
-    else:
+    """These routes answered 404 naming the knob while the fabric was not
+    ported; now a replica serves them as the reference's does. Without
+    the fleet's token (this replica has none) a ``kv_sources`` offer is
+    never fetched: it is counted ``pull_denied`` and the request is
+    served (unary or SSE) with the reference's tokens; the chain export
+    answers 403 ``fabric_token``."""
+    url, jp = served
+
+    def denied():
+        return json.loads(get(url, "/stats")[1])["kv_fabric_pulls"][
+            "pull_denied"]
+
+    before = denied()
+    if method == "GET":
         with pytest.raises(urllib.error.HTTPError) as e:
             get(url, path)
-        status, reply = e.value.code, json.loads(e.value.read())
-    assert status == 404
-    assert reply["reason"] == "not_ported" and knob in reply["error"]
+        assert e.value.code == 403
+        assert json.loads(e.value.read()) == {
+            "error": "kv fabric token required", "reason": "fabric_token"}
+        assert denied() == before
+        return
+    if body.get("stream"):
+        batches, done, err = sse_post(url, body)
+        assert done and err is None
+        got = [t for b in batches for t in b]
+    else:
+        got = post(url, body)["tokens"]
+    assert got == want(jp, body["prompt"], body["max_new_tokens"])[
+        -len(got):] if body.get("stream") else \
+        want(jp, body["prompt"], body["max_new_tokens"])
+    assert denied() == before + 1
+    assert knob == "kv_sources"
 
 
 def test_prefill_role_request_is_refused_by_name(params):
@@ -564,12 +593,32 @@ def test_prefill_role_request_is_refused_by_name(params):
 
 @pytest.mark.parametrize("kw,knob", [
     ({"role": "decode", "fabric_token": "s"}, "kv_fabric_token"),
-    ({"tenant_quota": object()}, "tenant_quota"),
+    ({"tenant_quota": TenantQuotaConfig.from_json(
+        '{"tenants": {"gold": {"min_rate": 5}}}')}, "tenant_quota"),
     ({"fabric_token": "s"}, "kv_fabric_token"),
 ])
 def test_loop_refuses_unported_options(kw, knob):
-    with pytest.raises(NotPorted, match=knob):
-        ServingLoop(_FakeEngine(), **kw)
+    """The loop refused a tenant quota and the fabric token while they
+    were not ported; now it serves them: the token gates its peer pulls
+    and the quota registers the per-tenant series, with the reference's
+    /stats keys (tests/test_server_cmd.py's loop options)."""
+    loop = ServingLoop(_FakeEngine(), **kw)
+    try:
+        assert loop.generate([1, 2], 3, timeout=30) == [1, 2, 0, 1, 2]
+        stats = loop.stats()
+        assert stats["kv_fabric_pulls"] == {
+            "pull_hit": 0, "pull_miss": 0, "pull_denied": 0}
+        if knob == "kv_fabric_token":
+            assert loop.fabric_token == "s"
+        else:
+            assert loop._tenant_cfg is kw["tenant_quota"]
+            text = default_registry().expose()
+            assert 'nos_tpu_serve_tenant_tokens_total{tenant="gold"}' \
+                in text
+            assert stats["slo_budget"] is None
+            assert stats["chip_ledger"] is None
+    finally:
+        loop.shutdown()
 
 
 # ---------------------------------------------------------------------------
@@ -1325,9 +1374,24 @@ def test_build_engine_validation_messages(kw, match):
     (dict(kv_blocks=0, kv_block_size=0), "kv_blocks=0"),
 ])
 def test_build_engine_refuses_unported_knobs_by_name(kw, knob):
+    """Knobs outside the port raise ``NotPorted`` by name before any
+    weights; the tenant config, the host tier and the fabric token were
+    among them and are served now: the engine carries the quota and the
+    tier, and the token builds (it gates the loop's HTTP surfaces)."""
     cfg = ServerConfig(**{**MODEL, **PAGED, **kw})
-    with pytest.raises(NotPorted, match=knob):
-        build_engine(cfg, device="cpu")
+    if knob not in SERVED_KNOBS:
+        with pytest.raises(NotPorted, match=knob):
+            build_engine(cfg, device="cpu")
+        return
+    eng = build_engine(dataclasses.replace(cfg, bf16=False), device="cpu")
+    if knob == "tenant_config":
+        assert eng._tq is not None and eng.tenant_snapshot() is not None
+    elif knob == "kv_host_tier_bytes":
+        assert eng._host_tier.capacity_bytes == 1024
+        assert eng._pindex.on_evict == eng._demote_chain
+    else:
+        assert eng._tq is None and eng._host_tier is None
+    assert eng.role == cfg.role
 
 
 # ---------------------------------------------------------------------------
@@ -1407,11 +1471,33 @@ def test_main_flags_give_the_reference_config(argv, monkeypatch, tmp_path,
       "--kv-fabric-token", "s"], "kv_fabric_token"),
 ])
 def test_main_refused_knob_exits_naming_it(argv, knob, capsys,
-                                           restore_logging):
-    with pytest.raises(SystemExit) as e:
-        tserver.main(argv)
-    assert e.value.code == 2
-    assert knob in capsys.readouterr().err
+                                           restore_logging, monkeypatch):
+    """A knob outside the port exits 2 naming it. The host tier, the
+    tenant config and the fabric token were refused so, and are served
+    now: their flags reach the config ``main`` builds its engine from,
+    as the reference's main makes it, and an engine builds from it."""
+    if knob not in SERVED_KNOBS:
+        with pytest.raises(SystemExit) as e:
+            tserver.main(argv)
+        assert e.value.code == 2
+        assert knob in capsys.readouterr().err
+        return
+    from nos_tpu.cmd import server as jserver
+
+    got = _main_config(tserver, argv, monkeypatch)
+    # the reference has no --prefix-cache-size flag: its config field
+    # is the comparison
+    jargv, extra = list(argv), {}
+    if "--prefix-cache-size" in jargv:
+        i = jargv.index("--prefix-cache-size")
+        extra["prefix_cache_size"] = int(jargv[i + 1])
+        del jargv[i:i + 2]
+    assert got == {**_main_config(jserver, jargv, monkeypatch), **extra}
+    monkeypatch.undo()          # the real build_engine again
+    eng = tserver.build_engine(tserver.ServerConfig(**{
+        **got, **MODEL, "bf16": False, "max_batch": 2}), device="cpu")
+    assert (eng._host_tier is not None) == (knob == "kv_host_tier_bytes")
+    assert (eng._tq is not None) == (knob == "tenant_config")
 
 
 @pytest.mark.parametrize("argv,knobs", [
@@ -1761,3 +1847,462 @@ def test_tracing_spans_carry_an_inbound_traceparent(served):
          headers={"traceparent": f"00-{tid}-00f067aa0ba902b7-01"})
     spans = tracing.recorder().trace(tid)
     assert any(sp.name == "serve.request" for sp in spans)
+
+
+# ---------------------------------------------------------------------------
+# tenant quotas and the KV fabric through the binary (twins of
+# tests/test_server_cmd.py:1346, :1787, :1827, :1935)
+# ---------------------------------------------------------------------------
+
+def test_tenant_config_flag_overrides_and_validates_early(monkeypatch,
+                                                         restore_logging):
+    """--tenant-config reaches the config the engine factory closes over,
+    a malformed inline JSON is a clean config error before any weights
+    (the reference's message), and tenancy is off by default."""
+    spec = ('{"tenants": {"gold": {"min_rate": 200},'
+            ' "burst": {"max_rate": 50}}}')
+    got = _main_config(tserver, ["--tenant-config", spec], monkeypatch)
+    assert got["tenant_config"] == spec
+    assert TenantQuotaConfig.load(got["tenant_config"]).tenants[
+        "gold"].min_rate == 200
+    bad = '{"tenants": {"a": {"min_rate": 9, "max_rate": 3}}}'
+    from nos_tpu.cmd import server as jserver
+    with pytest.raises(ValueError, match="min_rate") as want:
+        _main_config(jserver, ["--tenant-config", bad], monkeypatch)
+    with pytest.raises(ValueError, match="min_rate") as port:
+        _main_config(tserver, ["--tenant-config", bad], monkeypatch)
+    assert str(port.value) == str(want.value)
+    assert ServerConfig().tenant_config == ""
+    assert TenantQuotaConfig.load("") is None
+
+
+def test_kv_host_tier_flag_and_validation(monkeypatch, restore_logging):
+    """--kv-host-tier-bytes and --kv-fabric-token reach the config, and
+    build_engine wires a bounded host tier under the paged engine; the
+    knob without its prerequisites is the reference's config error."""
+    got = _main_config(tserver, [
+        "--kv-block-size", "8", "--kv-blocks", "16",
+        "--kv-host-tier-bytes", "1048576",
+        "--kv-fabric-token", "fleet-secret"], monkeypatch)
+    assert got["kv_host_tier_bytes"] == 1048576
+    assert got["kv_fabric_token"] == "fleet-secret"
+    assert ServerConfig().kv_host_tier_bytes == 0
+    assert ServerConfig().kv_fabric_token == ""
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="prefix"):
+        build_engine(ServerConfig(**MODEL, kv_host_tier_bytes=1 << 20),
+                     device="cpu")
+    with pytest.raises(ValueError, match=">= 0"):
+        build_engine(ServerConfig(**MODEL, kv_host_tier_bytes=-1),
+                     device="cpu")
+    eng = build_engine(ServerConfig(**MODEL, bf16=False, max_batch=2,
+                                    kv_block_size=8, kv_blocks=16,
+                                    prefix_cache_size=4,
+                                    kv_host_tier_bytes=1 << 20),
+                       device="cpu")
+    assert eng._host_tier is not None
+    assert eng._host_tier.capacity_bytes == 1 << 20
+
+
+def _fabric_replica(tp, token, **kw):
+    from nos_tpu_torch.kvfabric import HostTierStore
+
+    eng = port_engine(tp, prefix_cache_size=8,
+                      host_tier=HostTierStore(1 << 20), **kw)
+    loop = ServingLoop(eng, fabric_token=token)
+    httpd, url = serve(loop, ServerConfig(**MODEL, bf16=False, port=0,
+                                          kv_fabric_token=token))
+    return url, loop, httpd
+
+
+def test_kvchain_endpoint_and_peer_pull_over_http(params):
+    """The migration hop over real sockets: replica A publishes a chain,
+    GET /v1/kvchain/<digest> serves its codec payload raw, and a
+    /v1/generate on replica B carrying the gateway-shaped kv_sources
+    offer pulls and ingests it before admission: B's tokens are the
+    reference's and its pull ledger records the hit. Every fabric
+    surface is token-gated."""
+    from nos_tpu_torch.kvfabric import (
+        FABRIC_TOKEN_HEADER, chain_digest, decode_chain,
+    )
+
+    jp, tp = params
+    TOK = "fleet-secret"
+
+    def get_chain(url, digest, token=None):
+        req = urllib.request.Request(
+            f"{url}/v1/kvchain/{digest}",
+            headers={} if token is None else {FABRIC_TOKEN_HEADER: token})
+        return urllib.request.urlopen(req, timeout=30)
+
+    url_a, loop_a, httpd_a = _fabric_replica(tp, TOK)
+    url_b, loop_b, httpd_b = _fabric_replica(tp, TOK)
+    sys_p = [7] * 8
+    try:
+        post(url_a, {"prompt": sys_p + [1, 2], "max_new_tokens": 4,
+                     "cache_prefix": True})
+        digest = chain_digest(sys_p)
+        with get_chain(url_a, digest, TOK) as r:
+            assert r.headers["Content-Type"] == "application/octet-stream"
+            blob = r.read()
+        assert decode_chain(blob)["tokens"] == sys_p
+        assert blob == loop_a.export_chain(digest)
+        for bad in (None, "wrong-secret"):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                get_chain(url_a, digest, bad)
+            assert e.value.code == 403
+        with pytest.raises(urllib.error.HTTPError) as e:
+            get_chain(url_a, "feedface", TOK)
+        assert e.value.code == 404
+
+        offer = {"url": f"{url_a}/v1/kvchain/{digest}",
+                 "digest": digest, "len": len(sys_p)}
+        body = {"prompt": sys_p + [5, 6], "max_new_tokens": 6,
+                "kv_sources": [offer]}
+        assert post(url_b, body)["tokens"] == want(jp, sys_p + [5, 6], 6)
+        assert loop_b.stats()["kv_fabric_pulls"] == {
+            "pull_hit": 0, "pull_miss": 0, "pull_denied": 1}
+        rows = loop_b.stats()["prefix_index"]["chains"]
+        assert digest not in {row["digest"] for row in rows}
+
+        got = post(url_b, body, headers={FABRIC_TOKEN_HEADER: TOK})
+        assert got["tokens"] == want(jp, sys_p + [5, 6], 6)
+        assert loop_b.stats()["kv_fabric_pulls"] == {
+            "pull_hit": 1, "pull_miss": 0, "pull_denied": 1}
+        rows = loop_b.stats()["prefix_index"]["chains"]
+        assert digest in {row["digest"] for row in rows}
+        assert loop_b.engine._fabric["ingest"] == 1
+
+        got = post(url_b, {"prompt": [9] * 8 + [1], "max_new_tokens": 3,
+                           "kv_sources": [{"url": f"{url_a}/v1/kvchain/"
+                                           "feedface",
+                                           "digest": "feedface"}]},
+                   headers={FABRIC_TOKEN_HEADER: TOK})
+        assert got["tokens"] == want(jp, [9] * 8 + [1], 3)
+        assert loop_b.stats()["kv_fabric_pulls"]["pull_miss"] == 1
+
+        text = default_registry().expose()
+        for ev in ("pull_hit", "pull_miss", "pull_denied", "demote",
+                   "promote"):
+            assert f'nos_tpu_serve_kvfabric_total{{event="{ev}"}}' in text
+    finally:
+        stop(httpd_a, loop_a)
+        stop(httpd_b, loop_b)
+
+
+def test_kv_fabric_pull_guards():
+    """The pull path's local guards: non-http(s) offer URLs are refused
+    before any fetch, malformed offers are skipped, and concurrent
+    offers for one digest collapse into one fetch (single-flight)."""
+    loop = ServingLoop(_FakeEngine())
+    try:
+        for url in ("file:///etc/passwd", "ftp://peer/x", "gopher://x"):
+            with pytest.raises(ValueError, match="non-http"):
+                loop._fetch_chain_bytes(url)
+        fetched = []
+        loop.chain_fetch = lambda url: fetched.append(url) or b"blob"
+        loop.prefetch_chain([{"digest": "aa"}, {"url": "http://p/x"},
+                             {"url": 7, "digest": "aa"},
+                             {"url": "http://p/x", "digest": ""},
+                             "nonsense", None])
+        assert fetched == []
+        assert loop._pull_counts == {"pull_hit": 0, "pull_miss": 0,
+                                     "pull_denied": 0}
+    finally:
+        loop.shutdown()
+
+    class _IngestEngine(_FakeEngine):
+        def __init__(self):
+            super().__init__()
+            self.ingested = []
+
+        def ingest_chain(self, blob, tenant=None, expect_digest=None):
+            self.ingested.append(blob)
+            return True
+
+    eng = _IngestEngine()
+    loop = ServingLoop(eng)
+    gate = threading.Event()
+    calls = []
+
+    def slow_fetch(url):
+        calls.append(url)
+        gate.wait(timeout=10)
+        return b"blob"
+
+    loop.chain_fetch = slow_fetch
+    try:
+        offers = [{"url": "http://peer/v1/kvchain/aa", "digest": "aa"}]
+        t1 = threading.Thread(target=loop.prefetch_chain, args=(offers,))
+        t1.start()
+        assert _wait_until(lambda: calls, timeout=5)
+        t2 = threading.Thread(target=loop.prefetch_chain, args=(offers,))
+        t2.start()
+        time.sleep(0.1)
+        gate.set()
+        t1.join(timeout=10)
+        t2.join(timeout=10)
+        assert calls == ["http://peer/v1/kvchain/aa"]
+        assert len(eng.ingested) == 1
+        assert loop._pull_counts["pull_hit"] == 2
+        assert loop._pull_counts["pull_miss"] == 0
+    finally:
+        loop.shutdown()
+
+
+def test_prefix_evict_counters_mirror_by_tier(params):
+    """nos_tpu_serve_prefix_evict_total{tier} and
+    nos_tpu_serve_kvfabric_total{event="demote"} mirror the engine's
+    demotions through the loop (tests/test_server_cmd.py:2008)."""
+    from nos_tpu_torch.kvfabric import HostTierStore
+
+    _, tp = params
+    loop = ServingLoop(port_engine(tp, prefix_cache_size=1,
+                                   host_tier=HostTierStore(1 << 20)))
+    try:
+        loop.generate([7] * 8 + [1], 3, cache_prefix=True)
+        loop.generate([9] * 8 + [2], 3, cache_prefix=True)
+        assert loop._prefix_evict_seen == {"drop": 0, "demote": 1}
+        assert loop._fabric_seen["demote"] == 1
+        text = default_registry().expose()
+        assert 'nos_tpu_serve_prefix_evict_total{tier="demote"}' in text
+        assert 'nos_tpu_serve_kvfabric_total{event="demote"}' in text
+    finally:
+        loop.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# tenant SLO accounting through the loop (twins of
+# tests/test_slo_accounting.py:245-315, :389)
+# ---------------------------------------------------------------------------
+
+def _slo_quota(slo=True):
+    gold = ('{"min_rate": 100, "slo": {"ttft_p99_ms": 500, '
+            '"tpot_p99_ms": 50, "goodput_floor": 0.95}}' if slo
+            else '{"min_rate": 100}')
+    return TenantQuotaConfig.from_json(
+        '{"tenants": {"gold": %s, "burst": {"max_rate": 50}}, '
+        '"window_s": 8.0}' % gold)
+
+
+def test_engine_attribution_off_without_slo_config(params):
+    """A tenant config with no slo blocks means no ledger: the charge
+    paths and the quantum note are no-ops and the engine serves."""
+    jp, tp = params
+    eng = port_engine(tp, kv_blocks=17, tenant_quota=_slo_quota(False),
+                      tenant_clock=lambda: 0.0)
+    assert eng.chip is None
+    rid = eng.submit([1, 2], 4, tenant="gold")
+    assert eng.drain()[rid] == want(jp, [1, 2], 4)
+
+
+def test_handoff_adopt_charges_decode_to_served_tenant(params):
+    """Disaggregation: the prefill engine charges the tenant's prefill
+    tokens, the decode engine adopting the handoff charges the same
+    tenant's decode tokens, and both ledgers conserve."""
+    _, tp = params
+    kw = dict(kv_blocks=17, kv_swap=True, tenant_quota=_slo_quota(),
+              tenant_clock=lambda: 0.0)
+    pre = port_engine(tp, role="prefill", **kw)
+    dec = port_engine(tp, role="decode", **kw)
+    pre.submit([1, 2, 3, 4], 5, tenant="gold")
+    pre.step()
+    while pre.has_work():
+        pre.step()
+    [st] = pre.pop_handoffs()
+    assert st["tenant"] == "gold"
+    drid = dec.restore(st)
+    out = dec.drain()
+    assert len(out[drid]) == 4 + 5
+    assert pre.chip.conserved() and dec.chip.conserved()
+    assert pre.chip.snapshot()["chip_ms"]["gold"]["prefill"] > 0
+    assert dec.chip.snapshot()["chip_ms"]["gold"]["decode"] > 0
+
+
+def test_loop_unconfigured_slo_is_off():
+    """No tenant config, or one without slo blocks: no budget engine,
+    and /stats pins the mode with explicit nulls."""
+    for tq in (None, _slo_quota(False)):
+        loop = ServingLoop(_FakeEngine(), tenant_quota=tq)
+        try:
+            assert loop.slo_engine is None
+            snap = loop.stats()
+            assert snap["slo_budget"] is None
+            assert snap["chip_ledger"] is None
+        finally:
+            loop.shutdown()
+
+
+def test_loop_slo_budget_and_chip_ledger_served(params):
+    """With objectives configured the loop serves ``slo_budget`` and a
+    conserved ``chip_ledger`` in /stats, the budget gauge moves, and
+    the per-tenant series carry the reference's names."""
+    jp, tp = params
+    loop = ServingLoop(port_engine(tp, kv_blocks=17,
+                                   tenant_quota=_slo_quota()),
+                       tenant_quota=_slo_quota(), slo_min_events=1)
+    try:
+        assert loop.generate([1, 2, 3], 5, tenant="gold", timeout=60) == \
+            want(jp, [1, 2, 3], 5)
+        loop.generate([4, 5], 4, tenant="burst", timeout=60)
+        snap = loop.stats()
+        assert snap["tenants"]["gold"]["tokens_total"] == 5
+        assert snap["slo_budget"]["objectives"]
+        block = snap["chip_ledger"]
+        assert block["conserved"] and block["wall_ms"] > 0
+        assert block["chip_ms"]["gold"]["decode"] > 0
+        assert block["chip_ms"]["burst"]["decode"] > 0
+        text = default_registry().expose()
+        for name in ("nos_tpu_serve_slo_budget_remaining_ratio",
+                     "nos_tpu_serve_tenant_chip_ms_total",
+                     "nos_tpu_serve_tenant_kv_byte_seconds_total",
+                     "nos_tpu_serve_tenant_tokens_total"):
+            assert name in text, name
+    finally:
+        loop.shutdown()
+
+
+def test_slo_flags_reach_server_config(monkeypatch, restore_logging):
+    """Every serving.slo.* value lands in the config main builds the
+    loop from, as the reference's main makes it."""
+    from nos_tpu.cmd import server as jserver
+
+    argv = ["--slo-fast-window-s", "60", "--slo-slow-window-s", "600",
+            "--slo-burn-threshold", "6.0", "--slo-capture-interval-s", "30"]
+    got = _main_config(tserver, argv, monkeypatch)
+    assert got == _main_config(jserver, argv, monkeypatch)
+    assert (got["slo_fast_window_s"], got["slo_slow_window_s"],
+            got["slo_burn_threshold"], got["slo_capture_interval_s"]) == \
+        (60.0, 600.0, 6.0, 30.0)
+    dflt = ServerConfig()
+    assert (dflt.slo_fast_window_s, dflt.slo_slow_window_s) == \
+        (300.0, 3600.0)
+
+
+def test_tenant_quota_over_http_sheds_429_with_reason(params):
+    """Through the binary: a tenant over its max under contention gets
+    429 ``reason: tenant_quota`` (the loop counts the shed under the
+    tenant), and the same tenant admits on an idle engine."""
+    jp, tp = params
+    clock = [0.0]
+    cfg = TenantQuotaConfig.from_json(
+        '{"tenants": {"gold": {"min_rate": 100}, '
+        '"burst": {"max_rate": 5}}, "window_s": 4.0}')
+    eng = port_engine(tp, cls=_ParkedWait, max_batch=1, kv_blocks=17,
+                      tenant_quota=cfg, tenant_clock=lambda: clock[0])
+    eng.go.set()
+    loop = ServingLoop(eng, tenant_quota=cfg)
+    httpd, url = serve(loop)
+    try:
+        assert post(url, {"prompt": [1] * 4, "max_new_tokens": 30,
+                          "tenant": "burst"})["tokens"] == \
+            want(jp, [1] * 4, 30)
+        # idle engine: over max, still admitted
+        assert post(url, {"prompt": [2] * 4, "max_new_tokens": 2},
+                    headers={"X-Tenant": "burst"})["tokens"] == \
+            want(jp, [2] * 4, 2)
+        eng.go.clear()
+        eng.in_wait.clear()
+        holder = threading.Thread(target=post, args=(url, {
+            "prompt": [3] * 4, "max_new_tokens": 4, "tenant": "gold"}))
+        holder.start()
+        assert eng.in_wait.wait(timeout=30)
+        status, reply = post_status(url, {"prompt": [5] * 4,
+                                          "max_new_tokens": 4,
+                                          "tenant": "burst"})
+        assert status == 429 and reply["reason"] == "tenant_quota"
+        eng.go.set()
+        holder.join(timeout=60)
+        assert default_registry().counter(
+            "nos_tpu_serve_tenant_shed_total", "x",
+            ("tenant", "reason")).value("burst", "tenant_quota") >= 1
+        assert json.loads(get(url, "/stats")[1])["tenants"]["burst"][
+            "sheds"] == 1
+    finally:
+        eng.go.set()
+        stop(httpd, loop)
+
+
+# ---------------------------------------------------------------------------
+# the reference's gateway reads the port's /stats
+# ---------------------------------------------------------------------------
+
+def test_fleet_prefix_index_syncs_from_port_stats_over_http(params):
+    """The gateway's ``FleetPrefixIndex.sync`` over two port replicas'
+    /stats ``prefix_index`` sections, scraped over HTTP: a chain in one
+    replica's device index and another's host tier both list their
+    holder and tier."""
+    from nos_tpu.kvfabric import FleetPrefixIndex
+    from nos_tpu_torch.kvfabric import chain_digest
+
+    _, tp = params
+    url_a, loop_a, httpd_a = _fabric_replica(tp, "t")
+    from nos_tpu_torch.kvfabric import HostTierStore
+    eng_b = port_engine(tp, prefix_cache_size=1,
+                        host_tier=HostTierStore(1 << 20))
+    loop_b = ServingLoop(eng_b)
+    httpd_b, url_b = serve(loop_b)
+    try:
+        post(url_a, {"prompt": [7] * 8 + [1], "max_new_tokens": 2,
+                     "cache_prefix": True})
+        for p in ([7] * 8 + [2], [9] * 8 + [2]):   # the 2nd demotes
+            post(url_b, {"prompt": p, "max_new_tokens": 2,
+                         "cache_prefix": True})
+        idx = FleetPrefixIndex()
+        idx.sync({name: json.loads(get(u, "/stats")[1])["prefix_index"]
+                  for name, u in (("rep-a", url_a), ("rep-b", url_b))})
+        holders = dict(idx.holders(chain_digest([7] * 8)))
+        assert holders["rep-a"]["tier"] == "hbm"
+        assert holders["rep-b"]["tier"] == "host"
+        assert [n for n, _ in idx.holders(chain_digest([9] * 8))] == \
+            ["rep-b"]
+        assert idx.stats() == {"replicas": 2, "chains": 3}   # rows
+    finally:
+        stop(httpd_a, loop_a)
+        stop(httpd_b, loop_b)
+
+
+def test_gateway_tenant_door_sheds_from_port_stats(params):
+    """The reference gateway's tenant door (tests/test_gateway.py:988)
+    reads the ``tenants`` sections of two port replicas' /stats: their
+    rates sum fleet-wide, and a tenant at its fleet max sheds at the door
+    with ``tenant_quota`` before any replica sees it."""
+    from nos_tpu.gateway import GatewayRouter, Replica, RouterConfig
+    from nos_tpu.models.errors import QueueFull as JQueueFull
+    from nos_tpu.models.tenantquota import TenantQuotaConfig as JTQ
+
+    _, tp = params
+    spec = ('{"tenants": {"gold": {"min_rate": 100}, '
+            '"burst": {"max_rate": 10}}, "window_s": 8.0}')
+    clock = [0.0]
+    loops, urls, httpds = [], [], []
+    for _ in range(2):
+        eng = port_engine(tp, kv_blocks=17,
+                          tenant_quota=TenantQuotaConfig.from_json(spec),
+                          tenant_clock=lambda: clock[0])
+        loop = ServingLoop(eng, tenant_quota=TenantQuotaConfig.from_json(
+            spec))
+        httpd, url = serve(loop)
+        loops.append(loop), urls.append(url), httpds.append(httpd)
+    try:
+        for url, n in zip(urls, (48, 40)):
+            post(url, {"prompt": [1, 2], "max_new_tokens": n,
+                       "tenant": "burst"})
+        stats = [json.loads(get(u, "/stats")[1]) for u in urls]
+        router = GatewayRouter(RouterConfig(tenant_config=JTQ.from_json(
+            spec)), transport=lambda rep, req: req["prompt"])
+        router.update([Replica(name=f"r{i}", stats=st)
+                       for i, st in enumerate(stats)])
+        rate = sum(st["tenants"]["burst"]["rate_tokens_per_s"]
+                   for st in stats)
+        assert rate == 88 / 8.0
+        assert router.fleet_tenant_rate("burst") == rate
+        with pytest.raises(JQueueFull) as e:
+            router.dispatch([1], 1, tenant="burst")
+        assert e.value.reason == "tenant_quota"
+        assert router.stats()["tenant_shed"] == {"burst": 1}
+        toks, _, _ = router.dispatch([1], 1, tenant="gold")
+        assert toks == [1]
+    finally:
+        for httpd, loop in zip(httpds, loops):
+            stop(httpd, loop)

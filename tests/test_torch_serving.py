@@ -145,11 +145,34 @@ def test_build_engine_raises_reference_messages(clean_env, bad):
     dict(draft_checkpoint_dir="/d"), dict(checkpoint_dir="/c"),
 ])
 def test_build_engine_names_every_knob_outside_the_slice(clean_env, knob):
+    """A knob outside the port is refused by name. The fabric token,
+    the host tier and a tenant config (``t.json``, a file that does not
+    exist) were refused so until their modules were ported; now they
+    reach the reference's own validation: the token builds, the tier
+    builds on a prefill-role replica, and the missing tenant config is
+    the reference's ValueError, word for word."""
     kw = dict(KW, bf16=False, kv_blocks=24, kv_block_size=8)
     kw.update(knob)
+    name = next(iter(knob))
+    if name == "tenant_config":
+        with pytest.raises(ValueError) as ref:
+            jserver.build_engine(jserver.ServerConfig(**kw))
+        with pytest.raises(ValueError) as port:
+            tserver.build_engine(tserver.ServerConfig(**kw), device="cpu")
+        assert str(port.value) == str(ref.value)
+        assert "not ported" not in str(port.value)
+        return
+    if name in ("kv_fabric_token", "kv_host_tier_bytes"):
+        eng = tserver.build_engine(tserver.ServerConfig(**kw), device="cpu")
+        ref = jserver.build_engine(jserver.ServerConfig(**kw))
+        assert (eng._host_tier is None) == (ref._host_tier is None)
+        if eng._host_tier is not None:
+            assert eng._host_tier.capacity_bytes == \
+                ref._host_tier.capacity_bytes
+        assert eng.role == ref.role
+        return
     with pytest.raises(ValueError, match="not ported") as err:
         tserver.build_engine(tserver.ServerConfig(**kw), device="cpu")
-    name = next(iter(knob))
     assert name.split("=")[0] in str(err.value)
 
 
