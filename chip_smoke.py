@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijklm]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijklmn]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -174,6 +174,33 @@ m. the rest of the KV payload at phase (e)'s width, on one set of
    swap and by recompute; through the binary, bronze over its max is
    served idle and gets 429 ``tenant_quota`` under contention, and
    /stats' chip ledger adds up to its span.
+n. the slot-static engine and speculative decoding at phase (e)'s width,
+   every engine on the weights of one ``build_engine`` with the
+   reference's ``kv_blocks`` 0: (0) the paged kernel at the speculative
+   engine's shapes against its plain version (the verify window, B 8, S
+   4, heads 32/8, head_dim 128; the draft's step, B 8, S 1, heads 4/4,
+   head_dim 64; each in bf16 and int8, each row at its own pos over
+   64-1900),
+   timed beside the plain version, SDPA and the bound; (1) the
+   slot-static engine: phase (e)'s traffic greedy and sampled at (1, 1)
+   and (2, 2) (the same tokens at both), ms and kernels a tick, idle
+   share and captures beside the paged engine's, tokens against the
+   paged engine's and ``generate``'s (two prompts) by the token rule,
+   phase (k)'s shared prompt through the prefix LRU (hits, tokens saved,
+   TTFT with and without), a supervised restart, and the binary over
+   HTTP; (2) ``SpeculativeDecodeServer`` (n_draft 4) on the paged arm
+   (bf16, int8) and the slot-static arm, at (1, 1) and (2, 2), with a
+   seeded draft (``ServerConfig``'s draft widths) and with draft =
+   target: ms a round, tokens a window, acceptance, tokens/s beside the
+   plain engine's, greedy tokens against the plain engine's by the token
+   rule, the kernel's own launches, counted by shape, equal to ticks x
+   T x target layers at the verify window's and ticks x T x n_draft x
+   draft layers at the draft step's; on every arm, sampled streams
+   reproducible and equal across (1, 1) and (2, 2); a row preempted by swap and by recompute
+   with the undisturbed sampled tokens; a fork; a ``ServingLoop`` over
+   the paged engine exporting the speculative series. The token rule:
+   equal tokens, or a first divergence at a step where the plain run's
+   top-2 logit gap (teacher-forced) is under 0.1.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -211,7 +238,7 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijklm"
+PHASES = "cdefghijklmn"
 
 
 def emit(obj) -> None:
@@ -272,21 +299,26 @@ def kernel_profile(fn, iters: int, flush: torch.Tensor,
 
 
 def paged_case(rng, *, b, h, h_kv, d, bs, nb, s, int8, dtype, device,
-               full=False):
+               full=False, pos=None):
     """Kernel inputs, q in ``dtype``: ragged positions, shuffled
     physical blocks, null tails, and row 0 inactive (all-null table);
-    with ``full``, every row's window ends at its table's last slot."""
+    with ``full``, every row's window ends at its table's last slot;
+    with ``pos``, every row live at the positions given."""
     from nos_tpu_torch.ops.attention import quantize_kv
 
     nb_phys = 1 + b * nb
-    pos = rng.integers(0, nb * bs - s + 1, size=b).astype(np.int32)
-    pos[0] = 0
+    live = full or pos is not None
+    if pos is not None:
+        pos = np.asarray(pos, np.int32)
+    else:
+        pos = rng.integers(0, nb * bs - s + 1, size=b).astype(np.int32)
+        pos[0] = 0
     if full:
         pos[:] = nb * bs - s
     table = np.zeros((b, nb), np.int32)
     perm = rng.permutation(np.arange(1, nb_phys)).astype(np.int32)
     i = 0
-    for row in range(0 if full else 1, b):
+    for row in range(0 if live else 1, b):
         n = (int(pos[row]) + s - 1) // bs + 1
         table[row, :n] = perm[i:i + n]
         i += n
@@ -3613,6 +3645,631 @@ def phase_m(seed: int, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase (n): the slot-static engine and speculative decoding
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# ServerConfig's own draft widths (draft_d_model 256, 2 layers, 4 heads,
+# draft_n_kv_heads 0 = the heads, d_ff 704), the target's vocabulary
+DRAFT_W = dict(d_model=256, n_layers=2, n_heads=4, n_kv_heads=4, d_ff=704)
+DRAFT_SEED = 1
+# the token rule: a greedy divergence between two formulations is taken
+# only at a step where the plain run's top-2 logit gap is below this
+# (bf16 max|dlogit| between formulations read 0.07-0.09, C.10 and C.12)
+GAP_TOL = 0.1
+# (n.0): the verify window (B 8, S = n_draft, the target's heads) and
+# the draft's step (S 1, head_dim 64: the draft's 256 / 4)
+VERIFY = dict(b=8, h=32, h_kv=8, d=128, bs=16, nb=128)
+DRAFT_STEP = dict(b=8, h=4, h_kv=4, d=64, bs=16, nb=128)
+SPEC_POINTS = [(1, 1), (2, 2)]
+SPEC_ARMS = ["paged_bf16", "paged_int8", "static"]
+
+
+def spec_kernel_cases(seed: int, device, flush) -> dict:
+    """(n.0): the paged kernel at the speculative engine's shapes against
+    its plain version (``check_kernel``'s pins), bit-identical over two
+    launches, each row at its own pos spread over 64-1900: the verify
+    window and the draft's S 1 step at head_dim 64, each in bf16 and
+    int8 (an int8 engine's draft arena is int8 too); timed beside the
+    plain version, SDPA over the gathered timeline and the bound."""
+    from nos_tpu_torch.ops import _kernels
+    from nos_tpu_torch.ops.attention import paged_decode_attention_reference
+
+    rng = np.random.default_rng(seed + 12)
+    rows = {}
+    for label, shape, s, int8 in (("verify", VERIFY, SPEC_K, False),
+                                  ("verify_int8", VERIFY, SPEC_K, True),
+                                  ("draft", DRAFT_STEP, 1, False),
+                                  ("draft_int8", DRAFT_STEP, 1, True)):
+        pos = np.linspace(64, 1900, shape["b"]).round().astype(np.int32)
+        case = paged_case(rng, s=s, int8=int8, dtype=torch.bfloat16,
+                          device=device, pos=pos, **shape)
+
+        def launch(case=case, d=shape["d"]):
+            return _kernels.paged_decode.launch(
+                case["q"], case["k_arena"], case["v_arena"], case["table"],
+                case["pos"], k_scale=case["k_scale"],
+                v_scale=case["v_scale"], scale=d ** -0.5)
+
+        out = launch()
+        row = {"phase": "spec_kernel_vs_plain",
+               "kernel": "paged_decode_attention", "case": label, "S": s,
+               "arena": "int8" if int8 else "bf16", "compute": "bfloat16",
+               **shape, "pos": pos.tolist(),
+               "live_tokens": int((case["pos"] + s).sum()),
+               "splits": _kernels.paged_splits(
+                   shape["b"] * shape["h_kv"] * _kernels.paged_row_tiles(
+                       shape["h"] // shape["h_kv"] * s),
+                   _kernels._sm_count(device)),
+               **check_kernel(out, case)}
+        if not torch.equal(launch(), out):
+            raise AssertionError(f"paged kernel {label}: two launches "
+                                 f"gave different bits")
+        row["bit_identical_rerun"] = True
+        lib = library_call(case)
+        row["ms"] = cuda_ms(launch, 100, flush)
+        row["plain_ms"] = cuda_ms(
+            lambda: paged_decode_attention_reference(**case), 30, flush)
+        row["library_ms"] = cuda_ms(lib, 100, flush)
+        row["bound_ms"], row["bound_by"] = paged_bound(case)
+        emit(row)
+        rows[label] = row
+        del case, out
+    return rows
+
+
+def plain_gaps(params, cfg, seq: list) -> torch.Tensor:
+    """Top-2 logit gaps of ``seq`` teacher-forced through one
+    ``forward_with_cache`` pass: entry p is the gap of the logits that
+    choose token p + 1."""
+    from nos_tpu_torch.models.generate import forward_with_cache, init_cache
+
+    n = len(seq) - 1
+    device = params["final_norm"].device
+    cache = init_cache(cfg, 1, n, device=device)
+    logits, _ = forward_with_cache(
+        params, cfg, torch.tensor([seq[:-1]], device=device), cache)
+    top2 = logits[0].topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).float().cpu()
+
+
+def token_rule(label: str, got: list, plain: list, prompts: list, params,
+               cfg) -> dict:
+    """Hold greedy sequences to the plain run's: equal, or the first
+    differing token sits at a step where the plain run's top-2 logit gap
+    (teacher-forced) is below ``GAP_TOL``; prints each such step and gap
+    and raises on any other divergence."""
+    diverged = []
+    for i, (g, p) in enumerate(zip(got, plain)):
+        if g == p:
+            continue
+        if len(g) != len(p):
+            raise AssertionError(f"{label}: request {i} has {len(g)} "
+                                 f"tokens, the plain run {len(p)}")
+        j = next(k for k in range(len(p)) if g[k] != p[k])
+        gap = float(plain_gaps(params, cfg, p)[j - 1])
+        step = j - len(prompts[i])
+        if step < 0 or gap >= GAP_TOL:
+            raise AssertionError(
+                f"{label}: request {i} diverges at step {step} where the "
+                f"plain run's top-2 logit gap is {gap} (>= {GAP_TOL})")
+        diverged.append({"request": i, "step": step, "gap": gap})
+    return {"equal": len(got) - len(diverged), "of": len(got),
+            "diverged": diverged}
+
+
+def engine_run(eng, prompts, new: int, sampling=None) -> dict:
+    """Phase (e)'s traffic on ``eng`` with its programs captured up
+    front: each request prefilled at submit, then the decode drain, timed
+    on the host clock ending in a sync; the paged kernel's own launches
+    over the run (in all and by shape), ticks, decode tokens and, on a
+    speculative engine, proposals and acceptances."""
+    from nos_tpu_torch.ops import _kernels
+
+    capture_s = eng.capture_programs()
+    torch.cuda.synchronize()
+    ticks0, tok0 = eng.ticks_dispatched, eng.tokens_emitted
+    d0 = getattr(eng, "spec_drafted", 0)
+    a0 = getattr(eng, "spec_accepted", 0)
+    _kernels.paged_decode.launches = 0          # the main path's count
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, new, **(sampling[i] if sampling else {}))
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    served = eng.drain()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    ticks = eng.ticks_dispatched - ticks0
+    tokens = eng.tokens_emitted - tok0
+    out = {"seqs": [served[r] for r in rids], "capture_s": capture_s,
+           "prefill_s": prefill_s, "decode_s": decode_s, "ticks": ticks,
+           "decode_tokens": tokens,
+           "ms_per_tick": decode_s * 1e3 / max(ticks, 1),
+           "tokens_per_s": tokens / decode_s,
+           "kernel_launches": _kernels.paged_decode.launches,
+           "launches_by_shape": {k: n for k, n in _kernels.paged_decode
+                                 .launches_by_shape().items() if n}}
+    if hasattr(eng, "spec_drafted"):
+        drafted = eng.spec_drafted - d0
+        windows = drafted // eng.k
+        out.update(drafted=drafted, accepted=eng.spec_accepted - a0,
+                   windows=windows,
+                   acceptance=(eng.spec_accepted - a0) / max(drafted, 1),
+                   tokens_per_window=tokens / max(windows, 1),
+                   ms_per_round=decode_s * 1e3 / max(
+                       ticks * eng.decode_steps, 1))
+    return out
+
+
+def spec_shape_launches(eng, ticks: int) -> dict:
+    """The paged kernel's launches the speculative program implies over
+    ``ticks`` dispatches, by launch shape (S, head_dim, arena dtype) as
+    ``launches_by_shape`` keys them: T rounds a tick, each k draft steps
+    (a launch a draft layer at (1, the draft's head_dim)) and one verify
+    window (a launch a target layer at (k, the target's)); the
+    slot-static arm launches none."""
+    if not eng.paged:
+        return {}
+    arena = str(eng.cache["k"].dtype)[6:]
+    rounds = ticks * eng.decode_steps
+    out = {}
+    for shape, n in (((eng.k, eng.cfg.head_dim, arena),
+                      rounds * eng.cfg.n_layers),
+                     ((1, eng.draft_cfg.head_dim, arena),
+                      rounds * eng.k * eng.draft_cfg.n_layers)):
+        out[shape] = out.get(shape, 0) + n
+    return out
+
+
+def hold_spec_launches(label: str, eng, r: dict) -> None:
+    """Hold a speculative run's measured launches, shape by shape, to
+    the count its program implies (``spec_shape_launches``)."""
+    implied = spec_shape_launches(eng, r["ticks"])
+    if r["launches_by_shape"] != implied:
+        raise AssertionError(f"{label}: launches by shape "
+                             f"{r['launches_by_shape']} != implied {implied}")
+
+
+def static_restart(make, prompts, plain, params, cfg) -> dict:
+    """(n.1) Phase (e)'s greedy prompts through ``ServingLoop`` over a
+    slot-static engine with an engine factory and a ``FaultInjector``
+    error at the 10th tick: every request finishes once; the restored
+    requests resume by re-prefilling their committed sequences
+    (``_resume_recompute_static``); tokens held to the undisturbed run's
+    by the token rule; the recovery seconds."""
+    import threading
+
+    from nos_tpu_torch.cmd.server import ServingLoop
+    from nos_tpu_torch.models.supervision import FaultInjector
+
+    inj = FaultInjector(schedule={10: "error"})
+    built = []
+
+    def factory():
+        eng = make()
+        built.append(eng)
+        return inj.wrap(eng)
+
+    first = factory()
+    built[0].capture_programs()
+    quiet_histograms()
+    loop = ServingLoop(first, engine_factory=factory, restart_budget=1,
+                       restart_backoff_s=0.0)
+    outs, errors = {}, []
+
+    def client(i):
+        try:
+            outs[i] = loop.generate(prompts[i], HANDOFF_NEW, timeout=600)
+        except BaseException as e:
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or len(outs) != len(prompts):
+            raise AssertionError(f"restart clients failed: {errors}")
+        sup = loop._sup.stats()
+        if sup["restarts"] != 1 or sup["lost"] \
+                or sup["resumed"]["recompute"] < 1:
+            raise AssertionError(f"static restart: {sup}")
+        seqs = [outs[i] for i in range(len(prompts))]
+        return {"restarts": sup["restarts"], "resumed": sup["resumed"],
+                "recovery_s": [e["mttr_s"] for e in sup["episodes"]],
+                "tokens_vs_undisturbed": token_rule(
+                    "static restart", seqs, plain, prompts, params, cfg),
+                "tokens_sha256": token_digest(seqs)}
+    finally:
+        loop.shutdown()
+        del built
+
+
+def serve_http(eng, bodies: list) -> tuple:
+    """``bodies`` POSTed one after another to ``ServingLoop(eng)`` behind
+    ``make_http_server`` on 127.0.0.1; returns (token lists, /stats,
+    /metrics text)."""
+    import threading
+
+    from nos_tpu_torch.cmd.server import (
+        ServerConfig, ServingLoop, make_http_server,
+    )
+
+    quiet_histograms()
+    loop = ServingLoop(eng)
+    httpd = make_http_server(ServerConfig(port=0, max_batch=8), loop,
+                             host="127.0.0.1")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        toks = []
+        for body in bodies:
+            status, raw = http_call(url, "/v1/generate", body)
+            if status != 200:
+                raise AssertionError(f"POST /v1/generate: {status} {raw}")
+            toks.append(json.loads(raw)["tokens"])
+        _, stats = http_call(url, "/stats")
+        _, text = http_call(url, "/metrics")
+        return toks, json.loads(stats), text.decode()
+    finally:
+        httpd.shutdown()
+        loop.shutdown()
+        httpd.server_close()
+
+
+def phase_n1(seed: int, card: str, eng0, prompts) -> dict:
+    """(n.1): the slot-static engine (``build_engine`` with the
+    reference's ``kv_blocks`` 0) at phase (e)'s width and traffic."""
+    import gc
+
+    from nos_tpu_torch.models.generate import generate
+    from nos_tpu_torch.models.serving import DecodeServer
+
+    params, cfg = eng0.params, eng0.cfg
+    new = 32
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"phase": "static_engine", "card": card}
+    # greedy and sampled at (1, 1) on the binary's engine, at (2, 2) on
+    # a second; the paged engine on the same weights beside them
+    runs = {}
+    runs["s11_greedy"] = engine_run(eng0, prompts, new)
+    runs["s11_sampled"] = engine_run(eng0, prompts, new, SAMPLED)
+    again = engine_run(eng0, prompts, new, SAMPLED)["seqs"]
+    if again != runs["s11_sampled"]["seqs"]:
+        raise AssertionError("static sampled: a rerun gave other tokens")
+    prof_static = profile_ticks(eng0, prompts)
+    eng = DecodeServer(params, cfg, max_batch=8, pipeline_depth=2,
+                       decode_steps=2, device=eng0.device)
+    runs["s22_greedy"] = engine_run(eng, prompts, new)
+    runs["s22_sampled"] = engine_run(eng, prompts, new, SAMPLED)
+    del eng
+    free()
+    if runs["s22_greedy"]["seqs"] != runs["s11_greedy"]["seqs"] or \
+            runs["s22_sampled"]["seqs"] != runs["s11_sampled"]["seqs"]:
+        raise AssertionError("static (2, 2) tokens differ from (1, 1)'s")
+    eng = DecodeServer(params, cfg, max_batch=8, kv_blocks=1 + 8 * 128,
+                       kv_block_size=16, paged_impl="kernel",
+                       device=eng0.device)
+    runs["paged_greedy"] = engine_run(eng, prompts, new)
+    runs["paged_sampled"] = engine_run(eng, prompts, new, SAMPLED)
+    prof_paged = profile_ticks(eng, prompts)
+    del eng
+    free()
+    L = cfg.n_layers
+    for key in ("s11_greedy", "s11_sampled", "s22_greedy", "s22_sampled"):
+        if runs[key]["kernel_launches"] != 0:
+            raise AssertionError(f"static {key} launched the paged kernel")
+    for key in ("paged_greedy", "paged_sampled"):
+        if runs[key]["kernel_launches"] != L * runs[key]["ticks"]:
+            raise AssertionError(f"{key}: launches != n_layers x replays")
+    static = runs["s11_greedy"]["seqs"]
+    out["tokens_vs_paged"] = token_rule(
+        "static vs paged", static, runs["paged_greedy"]["seqs"], prompts,
+        params, cfg)
+    out["sampled_equal_paged"] = sum(
+        a == b for a, b in zip(runs["s11_sampled"]["seqs"],
+                               runs["paged_sampled"]["seqs"]))
+    # generate (B = 1, eager) for the shortest and the longest prompt
+    picks = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
+    picks = [picks[0], picks[-1]]
+    gen = [generate(params, cfg, [prompts[i]], new,
+                    device=eng0.device)[0].tolist() for i in picks]
+    out["tokens_vs_generate"] = token_rule(
+        "static vs generate", [static[i] for i in picks], gen,
+        [prompts[i] for i in picks], params, cfg)
+    out["generate_requests"] = picks
+    for key, r in runs.items():
+        out[key] = {k: r[k] for k in (
+            "ms_per_tick", "ticks", "decode_tokens", "tokens_per_s",
+            "prefill_s", "capture_s", "kernel_launches")}
+        out[key]["tokens_sha256"] = token_digest(r["seqs"])
+    for name, prof, run in (("static", prof_static, runs["s11_greedy"]),
+                            ("paged", prof_paged, runs["paged_greedy"])):
+        out[f"{name}_profile"] = {
+            "kernels_per_tick": prof["kernels_per_tick"],
+            "device_busy_ms_per_tick": prof["device_busy_ms_per_tick"],
+            "device_idle_share": 1 - prof["device_busy_ms_per_tick"]
+            / run["ms_per_tick"],
+            "paged_kernels_per_tick": prof["paged_kernels_per_tick"],
+            "device_ms": prof["device_ms_per_tick"]}
+
+    # phase (k)'s shared 1024-token prompt through the prefix LRU, and
+    # the same requests with the LRU empty
+    system, suffixes = prefix_traffic(seed)
+    eng0.submit(system, PREFIX_NEW, cache_prefix=True)
+    eng0.drain()
+    eng0.drain_ledgers()
+    hits0, saved0 = eng0.prefix_hits, eng0.prefix_tokens_saved
+    lru = {}
+    for arm in ("lru", "empty"):
+        if arm == "empty":
+            eng0._prefixes.clear()
+        eng0.drain_ledgers()
+        rids = [eng0.submit(system + s, PREFIX_NEW) for s in suffixes]
+        res = eng0.drain()
+        leds = {led["rid"]: led for led in eng0.drain_ledgers()}
+        ttft = sorted(leds[r]["ttft_s"] * 1e3 for r in rids)
+        lru[arm] = {"seqs": [res[r] for r in rids],
+                    "ttft_p50_ms": ttft[len(ttft) // 2],
+                    "ttft_max_ms": ttft[-1]}
+    out["prefix_lru"] = {
+        "hits": eng0.prefix_hits - hits0,
+        "tokens_saved": eng0.prefix_tokens_saved - saved0,
+        "ttft_p50_ms": lru["lru"]["ttft_p50_ms"],
+        "ttft_p50_ms_without": lru["empty"]["ttft_p50_ms"],
+        "ttft_max_ms": lru["lru"]["ttft_max_ms"],
+        "ttft_max_ms_without": lru["empty"]["ttft_max_ms"],
+        "tokens_vs_without": token_rule(
+            "prefix LRU vs none", lru["lru"]["seqs"], lru["empty"]["seqs"],
+            [system + s for s in suffixes], params, cfg)}
+    if out["prefix_lru"]["hits"] != len(suffixes):
+        raise AssertionError(f"prefix LRU hits {out['prefix_lru']}")
+
+    # a supervised restart, and the binary over HTTP
+    out["restart"] = static_restart(
+        lambda: DecodeServer(params, cfg, max_batch=8, device=eng0.device),
+        prompts, static, params, cfg)
+    free()
+    bodies = [{"prompt": prompts[i], "max_new_tokens": new}
+              for i in range(3)]
+    toks, stats, _ = serve_http(eng0, bodies)
+    if stats["kv"] is not None or stats["engine"] != "DecodeServer":
+        raise AssertionError(f"static binary /stats: {stats['kv']}")
+    out["http"] = token_rule("static over HTTP", toks, static[:3],
+                             prompts[:3], params, cfg)
+    emit(out)
+    return {"paged_run": runs["paged_greedy"],
+            "static_run": runs["s11_greedy"]}
+
+
+def spec_engine(params, cfg, dparams, dcfg, arm: str, depth: int, T: int,
+                **kw):
+    from nos_tpu_torch.models.spec_serving import SpeculativeDecodeServer
+
+    if arm != "static":
+        kw.update(kv_blocks=1 + 8 * 128, kv_block_size=16,
+                  kv_dtype="int8" if arm == "paged_int8" else "bf16",
+                  paged_impl="kernel")
+    return SpeculativeDecodeServer(
+        params, cfg, dparams, dcfg, n_draft=SPEC_K, max_batch=8,
+        pipeline_depth=depth, decode_steps=T,
+        device=params["final_norm"].device, **kw)
+
+
+def spec_preempt_fork(eng, prompts, L_d: int, L_t: int) -> dict:
+    """(n.2) On a paged speculative engine (kv_swap off, every program
+    captured up front): every request sampled, one row preempted after
+    three ticks by swap and by recompute, its tokens against the
+    undisturbed run's and the kernel's launches against the count the
+    code implies (rounds, replayed windows and draft tokens); then a
+    greedy fork, its tokens against its source's."""
+    from nos_tpu_torch.ops import _kernels
+
+    new = 32
+    want = engine_run(eng, prompts, new, SAMPLED)["seqs"]
+    out = {}
+    for mode in ("swap", "recompute"):
+        ticks0, w0, d0 = (eng.ticks_dispatched, eng.replayed_windows,
+                          eng.replayed_draft_tokens)
+        _kernels.paged_decode.launches = 0
+        rids = [eng.submit(p, new, **SAMPLED[i])
+                for i, p in enumerate(prompts)]
+        for _ in range(3):
+            eng.step()
+        if not eng.preempt(rids[3], mode):
+            raise AssertionError(f"spec preempt ({mode}) refused")
+        res = eng.drain()
+        torch.cuda.synchronize()
+        got = [res[r] for r in rids]
+        ticks = eng.ticks_dispatched - ticks0
+        windows = eng.replayed_windows - w0
+        dtoks = eng.replayed_draft_tokens - d0
+        # the rounds' launches, each replayed verify window at the
+        # window's shape and each replayed draft token at the draft's
+        implied = spec_shape_launches(eng, ticks)
+        verify, draft = list(implied)
+        implied[verify] += windows * L_t
+        implied[draft] += dtoks * L_d
+        shapes = {k: n for k, n in
+                  _kernels.paged_decode.launches_by_shape().items() if n}
+        if got != want or shapes != implied:
+            raise AssertionError(
+                f"spec preempt ({mode}): tokens equal "
+                f"{[a == b for a, b in zip(got, want)]}, launches "
+                f"{shapes} vs implied {implied}")
+        out[mode] = {"tokens_equal_undisturbed": True,
+                     "replayed_windows": windows,
+                     "replayed_draft_tokens": dtoks,
+                     "kernel_launches": sum(shapes.values()),
+                     "launches_by_shape": {
+                         f"S{s}_D{d}_{a}": n
+                         for (s, d, a), n in shapes.items()}}
+    r0 = eng.submit(prompts[0], new)
+    eng.submit(prompts[1], new)
+    for _ in range(2):
+        eng.step()
+    f0 = eng.fork(r0)
+    res = eng.drain()
+    if res[f0] != res[r0]:
+        raise AssertionError("spec fork: tokens differ from its source's")
+    out["fork_equal_source"] = True
+    return out
+
+
+def phase_n2(seed: int, card: str, eng0, prompts, plain: dict) -> dict:
+    """(n.2): ``SpeculativeDecodeServer`` at phase (e)'s width, n_draft 4,
+    on the paged arm (bf16 and int8 arenas) and the slot-static arm, at
+    (1, 1) and (2, 2), with the seeded draft and with draft = target.
+    Sampled runs (seeded draft) on every arm: two runs equal, and equal
+    across (1, 1) and (2, 2). Returns the kernel's measured launches at
+    each speculative shape in the seeded draft's greedy (1, 1) runs."""
+    import gc
+
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.models.serving import DecodeServer
+
+    params, cfg = eng0.params, eng0.cfg
+    dcfg = tfm.TransformerConfig(vocab=cfg.vocab, max_seq=cfg.max_seq,
+                                 dtype=cfg.dtype, **DRAFT_W)
+    dparams = tfm.init_params(
+        dcfg, torch.Generator(eng0.device).manual_seed(DRAFT_SEED),
+        eng0.device)
+    drafts = {"seeded": (dparams, dcfg), "target": (params, cfg)}
+    new = 32
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the plain engine of each arm at (1, 1): its greedy tokens and pace
+    eng = DecodeServer(params, cfg, max_batch=8, kv_blocks=1 + 8 * 128,
+                       kv_block_size=16, kv_dtype="int8",
+                       paged_impl="kernel", device=eng0.device)
+    int8_plain = engine_run(eng, prompts, new)
+    del eng
+    free()
+    plain_runs = {"paged_bf16": plain["paged_run"],
+                  "paged_int8": int8_plain, "static": plain["static_run"]}
+    out = {"phase": "speculative", "card": card, "n_draft": SPEC_K,
+           "draft": DRAFT_W, "runs": []}
+    sampled = {}
+    launches = {}
+    for arm in SPEC_ARMS:
+        base = plain_runs[arm]
+        for depth, T in SPEC_POINTS:
+            for name, (dp, dc) in drafts.items():
+                eng = spec_engine(params, cfg, dp, dc, arm, depth, T)
+                r = engine_run(eng, prompts, new)
+                label = f"spec {arm} {name} ({depth}, {T})"
+                hold_spec_launches(label, eng, r)
+                row = {"arm": arm, "draft": name, "pipeline_depth": depth,
+                       "decode_steps": T,
+                       **{k: r[k] for k in (
+                           "ms_per_round", "tokens_per_window",
+                           "acceptance", "tokens_per_s", "ticks",
+                           "windows", "decode_tokens", "kernel_launches",
+                           "capture_s", "prefill_s")},
+                       "plain_tokens_per_s": base["tokens_per_s"],
+                       "plain_ms_per_tick": base["ms_per_tick"],
+                       "tokens_vs_plain": token_rule(
+                           label, r["seqs"], base["seqs"], prompts, params,
+                           cfg),
+                       "tokens_sha256": token_digest(r["seqs"]),
+                       "launches_by_shape": {
+                           f"S{s}_D{d}_{a}": n for (s, d, a), n in
+                           r["launches_by_shape"].items()}}
+                if arm != "static" and name == "seeded" \
+                        and (depth, T) == (1, 1):
+                    # the kernels line's counts: this run's measured
+                    # launches at the verify window's shape and the
+                    # draft step's
+                    suffix = "" if arm == "paged_bf16" else "_int8"
+                    arena = "bfloat16" if arm == "paged_bf16" else "int8"
+                    launches["verify" + suffix] = r["launches_by_shape"][
+                        (SPEC_K, cfg.head_dim, arena)]
+                    launches["draft" + suffix] = r["launches_by_shape"][
+                        (1, dc.head_dim, arena)]
+                if name == "seeded":
+                    runs2 = [engine_run(eng, prompts, new, SAMPLED)
+                             for _ in range(2)]
+                    for i, rs in enumerate(runs2):
+                        hold_spec_launches(f"{label} sampled {i}", eng, rs)
+                    if runs2[0]["seqs"] != runs2[1]["seqs"]:
+                        raise AssertionError(
+                            f"{label} sampled: a rerun gave other tokens")
+                    sampled[(arm, depth, T)] = runs2[0]["seqs"]
+                    row["sampled_tokens_sha256"] = token_digest(
+                        runs2[0]["seqs"])
+                emit({"phase": "speculative_run", "card": card, **row})
+                out["runs"].append(row)
+                del eng
+                free()
+    for arm in SPEC_ARMS:
+        if sampled[(arm, 1, 1)] != sampled[(arm, 2, 2)]:
+            raise AssertionError(f"spec {arm} sampled tokens differ "
+                                 f"between (1, 1) and (2, 2)")
+    out["sampled_invariant_to_knobs"] = {
+        arm: token_digest(sampled[(arm, 1, 1)]) for arm in SPEC_ARMS}
+    # preemption, fork and the loop on the paged bf16 arm, seeded draft
+    eng = spec_engine(params, cfg, dparams, dcfg, "paged_bf16", 1, 1,
+                      kv_swap=False)
+    out["preempt_fork"] = spec_preempt_fork(eng, prompts, dcfg.n_layers,
+                                            cfg.n_layers)
+    toks, stats, text = serve_http(
+        eng, [{"prompt": prompts[0], "max_new_tokens": new}])
+    series = {n: metric_line(text, n) for n in (
+        "nos_tpu_serve_spec_draft_total",
+        "nos_tpu_serve_spec_accepted_total",
+        "nos_tpu_serve_spec_accepted_per_window_count")}
+    if series["nos_tpu_serve_spec_draft_total"] <= 0 or \
+            series["nos_tpu_serve_spec_accepted_per_window_count"] <= 0 \
+            or "speculative" not in stats:
+        raise AssertionError(f"spec loop series {series}")
+    out["loop"] = {"series": series, "stats": stats["speculative"],
+                   "tokens_vs_plain": token_rule(
+                       "spec over HTTP", toks, plain_runs["paged_bf16"][
+                           "seqs"][:1], prompts[:1], params, cfg)}
+    del eng
+    free()
+    emit({k: v for k, v in out.items() if k != "runs"})
+    return launches
+
+
+def phase_n(seed: int, card: str, flush) -> dict:
+    """(n): the slot-static engine and speculative decoding: the kernel
+    at the speculative shapes (n.0), the slot-static engine (n.1) and
+    ``SpeculativeDecodeServer`` (n.2), every engine on the weights of one
+    ``build_engine`` with the reference's ``kv_blocks`` 0."""
+    from nos_tpu_torch.cmd.server import ServerConfig, build_engine
+
+    t0 = time.perf_counter()
+    kernels = spec_kernel_cases(seed, torch.device("cuda"), flush)
+    torch.cuda.empty_cache()
+    eng0 = build_engine(ServerConfig(
+        bf16=True, kv_blocks=0, max_batch=8, prefix_cache_size=4,
+        seed=seed, **FULL))
+    if eng0.paged:
+        raise AssertionError("kv_blocks=0 built a paged engine")
+    prompts = full_width_prompts(seed)
+    n1 = phase_n1(seed, card, eng0, prompts)
+    plain = {"paged_run": n1["paged_run"], "static_run": n1["static_run"]}
+    n2 = phase_n2(seed, card, eng0, prompts, plain)
+    del eng0
+    torch.cuda.empty_cache()
+    emit({"phase": "n", "seconds": time.perf_counter() - t0, "card": card})
+    return {"kernels": kernels, "launches": n2}
+
+
+
 # the training slice's attention shape (bench.py's 1.1B model: batch 8,
 # seq 2048, 16 query / 4 KV heads of 128)
 ATTN = dict(b=8, h=16, h_kv=4, s_q=2048, s_k=2048, d=128)
@@ -4216,6 +4873,9 @@ def main(argv=None) -> int:
         paged["kv_payload_launches"] = phase_l(args.seed, card, served)
     if "m" in args.phases:
         paged["kv_fabric_tenant_launches"] = phase_m(args.seed, card)
+    spec = {}
+    if "n" in args.phases:
+        spec = phase_n(args.seed, card, flush)
     adamw = {}
     if "g" in args.phases:
         launches = phase_train(args.seed, card)
@@ -4229,6 +4889,20 @@ def main(argv=None) -> int:
     if set(PHASES) - set(args.phases):
         return 0
     kernels = [paged]
+    # phase (n)'s shapes of the same kernel: the speculative engine's
+    # verify window and the draft's step, each in bf16 and int8, their
+    # launches counted by shape in (n.2)'s greedy (1, 1) runs of the
+    # paged bf16 and int8 arms with the seeded draft
+    for label, row in spec["kernels"].items():
+        kernels.append({
+            "name": f"paged_decode_attention_{label}", "route": "cuda",
+            "source": "nos_tpu_torch/csrc/paged_decode_attention.cu",
+            "replaces": "nos_tpu/ops/attention.py:430",
+            "shape": {k: row[k] for k in ("b", "h", "h_kv", "d", "S",
+                                          "arena")},
+            "launches": spec["launches"][label],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
     for name, row in flash.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": "nos_tpu_torch/csrc/flash_attention.cu",

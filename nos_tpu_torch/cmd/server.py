@@ -55,10 +55,16 @@ serves a chain, a POST carrying ``kv_sources`` pulls one before it
 prefills); ``--tenant-config`` turns on tenant quotas (429
 ``reason: tenant_quota``, reclaim, scoped prefix chains, and with SLO
 objectives the ``slo_budget`` and ``chip_ledger`` sections of /stats).
+With the reference's defaults (``kv_blocks`` 0) the binary serves the
+slot-static engine; ``--kv-blocks`` > 0 serves the paged one.
 ``build_engine`` validates a config with the reference's messages, then
 refuses every knob the torch engine does not serve yet by name
-(``NotPorted``), before any weights are made: tensor parallelism,
-speculative decoding, checkpoint loading and the slot-static engine.
+(``NotPorted``), before any weights are made: tensor parallelism and
+checkpoint loading, which speculative decoding through the binary needs
+too (``--draft-checkpoint-dir``: the reference's draft model comes only
+from a checkpoint). A ``ServingLoop`` over a
+``models.spec_serving.SpeculativeDecodeServer`` built in process serves
+speculative decoding and exports its counters.
 """
 from __future__ import annotations
 
@@ -661,6 +667,28 @@ class ServingLoop:
             for ev in ("demote", "promote", "pull_hit", "pull_miss",
                        "pull_denied"):
                 self.m_kvfabric.labels(ev).inc(0)
+        # speculative decoding, registered only on a speculative engine:
+        # proposals drafted and accepted (their ratio is the live
+        # acceptance rate) and the accepted count of each verify window
+        self._spec_seen = {"drafted": 0, "accepted": 0}
+        if hasattr(engine, "spec_drafted"):
+            self.m_spec_draft = reg.counter(
+                "nos_tpu_serve_spec_draft_total",
+                "Draft-model proposals submitted to verify windows "
+                "(n_draft per round per active slot)")
+            self.m_spec_accepted = reg.counter(
+                "nos_tpu_serve_spec_accepted_total",
+                "Draft proposals accepted by target verification; "
+                "divided by nos_tpu_serve_spec_draft_total this is the "
+                "live acceptance rate")
+            self.h_spec_window = reg.histogram(
+                "nos_tpu_serve_spec_accepted_per_window",
+                "Accepted proposals per verify window (0..n_draft); "
+                "mass near n_draft means speculation is paying, mass "
+                "at 0 means the draft is guessing wrong",
+                buckets=(0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0))
+            self.m_spec_draft.inc(0)
+            self.m_spec_accepted.inc(0)
         # request-level elastic quota, registered only with tenancy on;
         # labels are the CONFIGURED tenant names (unknown wire tenants
         # resolve to the default tenant)
@@ -1731,6 +1759,7 @@ class ServingLoop:
             # the rebuilt engine's counts start at 0: reset the mirrors,
             # or their deltas would go negative and freeze the counters
             self._preempt_seen = {"swap": 0, "recompute": 0}
+            self._spec_seen = {"drafted": 0, "accepted": 0}
             self._psched_seen = {"spent": 0, "clamped": 0,
                                  "overrides": 0}
             self._prefix_evict_seen = {"drop": 0, "demote": 0}
@@ -2567,6 +2596,21 @@ class ServingLoop:
             active, pending = occupancy()
             self.g_active.set(active)
             self.g_pending.set(pending)
+        drafted = getattr(self.engine, "spec_drafted", None)
+        if drafted is not None and hasattr(self, "m_spec_draft"):
+            for key, n, m in (
+                    ("drafted", drafted, self.m_spec_draft),
+                    ("accepted", self.engine.spec_accepted,
+                     self.m_spec_accepted)):
+                delta = n - self._spec_seen[key]
+                if delta > 0:
+                    m.inc(delta)
+                    self._spec_seen[key] = n
+            events = self.engine.spec_window_events
+            if events:
+                self.engine.spec_window_events = []
+                for a in events:
+                    self.h_spec_window.observe(float(a))
         kv_stats = getattr(self.engine, "kv_stats", None)
         kv = kv_stats() if kv_stats is not None else None
         if kv:
@@ -2995,16 +3039,20 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
             "prefix_cache_size): the host tier stores demoted prefix "
             "chains, which only the paged prefix index produces — "
             "without one there is nothing to demote")
-    # knobs outside this slice, by name, still before any weights
+    # knobs outside this slice, by name, still before any weights. The
+    # reference's binary takes its draft model only from a checkpoint,
+    # so speculative serving through the binary waits for checkpoint
+    # loading; the engine itself (SpeculativeDecodeServer) is ported
     for knob, on, what in (
             ("tp", cfg.tp > 1, "tensor-parallel serving"),
             ("draft_checkpoint_dir", cfg.draft_checkpoint_dir,
-             "speculative decoding"),
+             "checkpoint loading: the binary's draft model comes from a "
+             "checkpoint"),
             ("checkpoint_dir", cfg.checkpoint_dir, "checkpoint loading")):
         if on:
             raise NotPorted(
                 f"{knob} is not ported to the torch engine yet ({what})")
-    reject_unported(kv_blocks=cfg.kv_blocks)
+    reject_unported()
     # parsed here so the supervisor's rebuild factory re-creates a
     # tenant-aware engine from the same config
     tenant_quota = TenantQuotaConfig.load(cfg.tenant_config)
@@ -3013,8 +3061,9 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
     host_tier = (HostTierStore(cfg.kv_host_tier_bytes)
                  if cfg.kv_host_tier_bytes else None)
     device = resolve_device(device)
-    check_paged_kernel_head_dim(cfg.d_model // cfg.n_heads, device,
-                                paged_impl)
+    if cfg.kv_blocks:
+        check_paged_kernel_head_dim(cfg.d_model // cfg.n_heads, device,
+                                    paged_impl)
     gcfg = GenerateConfig(
         vocab=cfg.vocab, d_model=cfg.d_model, n_layers=cfg.n_layers,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,

@@ -262,34 +262,45 @@ def forward_with_cache(
 ) -> Tuple[torch.Tensor, Cache]:
     """tokens [B, S] (the next S tokens after cache['pos']) -> (logits
     [B, S, vocab] f32, cache). A [B]-vector ``pos`` lets every row sit
-    at its own depth. K/V are written into the cache in place."""
+    at its own depth. K/V are written into the cache in place, at a
+    start clamped to ``max_len - S`` as the reference's
+    ``dynamic_update_slice`` clamps it; the rope rows and the causal mask
+    take the unclamped positions (the rope rows clamped to the table, as
+    the reference's gather clamps). With a vector ``pos`` the write is
+    one device-side scatter per plane: no host sync, so a decode program
+    over it can be captured as a CUDA graph."""
     b, s = tokens.shape
     pos0 = cache["pos"]
     vector = pos0.ndim == 1
+    max_len = cache["k"].shape[3]
     freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                              tokens.device)
     steps = torch.arange(s, device=tokens.device)
     positions = (pos0.long()[:, None] + steps[None, :] if vector
                  else pos0.long() + steps)
     scale = cfg.head_dim ** -0.5
-    starts = pos0.tolist() if vector else None
-    start = None if vector else int(pos0)
-    rope = rope_rows(freqs, positions)
+    if vector:
+        # each row's write slots [B, S], the row index broadcast beside
+        start = pos0.long().clamp(max=max_len - s)
+        slots = start[:, None] + steps[None, :]
+        rows = torch.arange(b, device=tokens.device)[:, None]
+    else:
+        start = min(int(pos0), max_len - s)
+    rope = rope_rows(freqs, positions.clamp(max=cfg.max_seq - 1))
 
     x = embed_lookup(params["embed"], tokens, cfg.dtype)
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
         ck, cv = cache["k"][i], cache["v"][i]               # [B, Hkv, T, D]
         q, k, v = _qkv(x, layer, cfg, rope)
-        kt = k.transpose(1, 2)
-        vt = v.transpose(1, 2)
         if vector:
-            for row, p in enumerate(starts):
-                ck[row, :, p:p + s] = kt[row]
-                cv[row, :, p:p + s] = vt[row]
+            # advanced indices around the head slice: the indexed view
+            # is [B, S, Hkv, D], k/v's own layout
+            ck[rows, :, slots] = k.to(ck.dtype)
+            cv[rows, :, slots] = v.to(cv.dtype)
         else:
-            ck[:, :, start:start + s] = kt
-            cv[:, :, start:start + s] = vt
+            ck[:, :, start:start + s] = k.transpose(1, 2)
+            cv[:, :, start:start + s] = v.transpose(1, 2)
         o = _cached_attention(q.transpose(1, 2), ck, cv, positions, scale)
         o = o.transpose(1, 2).reshape(b, s, cfg.d_model)
         x = x + qdot(o, layer["wo"])

@@ -1,7 +1,20 @@
-"""Continuous-batching decode serving over the paged KV cache (port of
-the paged core of ``nos_tpu/models/serving.py``).
+"""Continuous-batching decode serving (port of
+``nos_tpu/models/serving.py``): the slot-static engine (``kv_blocks``
+0, the reference's default) and the paged one.
 
-Requests occupy rows ("slots") of one decode batch; their KV lives in a
+Requests occupy rows ("slots") of one decode batch. On the slot-static
+engine each slot owns a ``[max_len]`` row of one cache with a per-row
+``pos`` (``init_cache(per_row_pos=True)``): a prompt prefills over a
+bucket-sized scratch row that is installed whole into the slot's row,
+the decode tick runs ``forward_with_cache`` over every row, and a
+prefix cache (``prefix_cache_size`` entries, LRU) keeps published
+prompts' K/V rows, which a later prompt sharing their head copies into
+its scratch row. It has no preemption, no fork, no int8 KV and no
+handoff roles, as the reference's has none; a supervised restart
+re-prefills a restored request's committed sequence
+(``_resume_recompute_static``).
+
+On the paged engine (``kv_blocks`` > 0) a slot's KV lives in a
 pooled arena mapped per slot by block tables. ``submit`` admits a
 request to a free slot and prefills it at once over a scratch row
 (``forward_with_cache``, the prompt padded to a power-of-two bucket),
@@ -110,8 +123,7 @@ objectives in the config the engine keeps the per-tenant chip-second
 ledger (``chip``) the serving loop reads.
 
 What the reference engine has and this slice does not yet port raises
-a ``ValueError`` naming the knob: meshes and the slot-static engine
-(``kv_blocks == 0``).
+a ``ValueError`` naming the knob: a mesh (tensor-parallel serving).
 """
 from __future__ import annotations
 
@@ -172,14 +184,12 @@ def _not_ported(knob: str, what: str) -> NotPorted:
         f"JAX engine nos_tpu.models.serving.DecodeServer serves it")
 
 
-def reject_unported(*, kv_blocks: int, mesh=None) -> None:
+def reject_unported(*, mesh=None) -> None:
     """Raise a ValueError naming the first engine knob set outside this
-    slice; ``build_engine`` calls it before loading any weights."""
-    for knob, on, what in (
-            ("kv_blocks=0", kv_blocks <= 0, "the slot-static engine"),
-            ("mesh", mesh is not None, "tensor-parallel serving")):
-        if on:
-            raise _not_ported(knob, what)
+    slice (a mesh); ``build_engine`` calls it before loading any
+    weights."""
+    if mesh is not None:
+        raise _not_ported("mesh", "tensor-parallel serving")
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -277,6 +287,11 @@ class _Request:
     # prefix hit's in-arena window, ("chunked", m, bucket) for chunks
     # over a scratch row, None for a one-shot prefill
     admission: Optional[tuple] = None
+    # the speculative engine: True when the draft prefilled in chunks,
+    # and each committed round as (start position, tokens committed),
+    # so that a recompute resume repeats what wrote the K/V
+    draft_chunked: bool = False
+    rounds: List[Tuple[int, int]] = field(default_factory=list)
 
     def note_token(self) -> None:
         """After each appended token: a stop token ends the request (the
@@ -329,18 +344,27 @@ class _Graph:
         return self.logits
 
 
+def install_row(cache: Cache, slot: int, row: Cache, pos: int) -> None:
+    """A prefilled one-row scratch cache into ``slot``'s row of a
+    slot-static cache, the whole row (only pos decides what exists), and
+    the slot's pos set; queued behind the ticks in flight."""
+    n = row["k"].shape[3]
+    cache["k"][:, slot, :, :n] = row["k"][:, 0]
+    cache["v"][:, slot, :, :n] = row["v"][:, 0]
+    cache["pos"][slot].fill_(pos)
+
+
 @contextlib.contextmanager
 def uncaptured(engine: "DecodeServer") -> Iterator[None]:
-    """Within the block, ``engine`` runs its decode and replay programs
-    directly on its device instead of replaying their captured graphs:
-    the comparison that ``chip_smoke.py`` and the tests make, not a mode
-    to serve in."""
-    engine._launch = engine._decode_program
-    engine._launch_replay = engine._replay_program
+    """Within the block, ``engine`` runs every captured program (each
+    key of ``_program_for``) directly on its device instead of replaying
+    its graph: the comparison that ``chip_smoke.py`` and the tests make,
+    not a mode to serve in."""
+    engine._launch_graph = lambda key: engine._program_for(key)[0]()
     try:
         yield
     finally:
-        del engine._launch, engine._launch_replay
+        del engine._launch_graph
 
 
 class DecodeServer:
@@ -393,29 +417,42 @@ class DecodeServer:
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(
                 f"kv_dtype must be bf16|int8, got {kv_dtype!r}")
+        self.paged = kv_blocks > 0
+        if kv_dtype == "int8" and not self.paged:
+            raise ValueError(
+                "kv_dtype=int8 requires the paged KV cache (set "
+                "kv_blocks/kv_block_size): the slot-static engine has "
+                "no per-block scale storage — run bf16, or enable "
+                "paging to use int8 KV")
         if role not in ("colocated", "prefill", "decode"):
             raise ValueError(
                 f"role must be colocated|prefill|decode, got {role!r}")
-        reject_unported(kv_blocks=kv_blocks, mesh=mesh)
+        if role != "colocated" and not self.paged:
+            raise ValueError(
+                f"role={role} requires the paged KV cache (set "
+                f"kv_blocks/kv_block_size): the handoff payload is the "
+                f"swap format — quantized blocks + per-block scales — "
+                f"which only the paged engine stores")
+        reject_unported(mesh=mesh)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq
-        self.kv_block_size = bs = kv_block_size
-        self.kv_dtype = kv_dtype
+        self.kv_block_size = bs = kv_block_size if self.paged else 0
+        self.kv_dtype = kv_dtype if self.paged else "bf16"
         self.kv_swap = bool(kv_swap)
         self.hbm_admit_frac = float(hbm_admit_frac or 0.0)
         if self.max_len > cfg.max_seq:
             raise ValueError(
                 f"cache max_len {self.max_len} exceeds the rope "
                 f"table (cfg.max_seq {cfg.max_seq})")
-        if bs < 8 or bs & (bs - 1):
+        if self.paged and (bs < 8 or bs & (bs - 1)):
             raise ValueError(
                 f"kv_block_size must be a power of two >= 8, got "
                 f"{bs} (blocks are compiled copy shapes, and "
                 f"power-of-two sizes keep them bucket-aligned)")
-        if self.max_len % bs:
+        if self.paged and self.max_len % bs:
             raise ValueError(
                 f"max_len {self.max_len} must be a multiple of "
                 f"kv_block_size {bs}: the gathered per-row timeline "
@@ -423,27 +460,43 @@ class DecodeServer:
                 f"exactly so paged attention stays bit-identical to "
                 f"the slot-static program")
         # the paged attention formulation, fixed ONCE at build: a later
-        # env change cannot flip what this engine runs
+        # env change cannot flip what this engine runs (None on the
+        # slot-static engine, which has no paged attention)
         if paged_impl not in (None, "kernel", "xla"):
             raise ValueError(
                 f"paged_impl must be kernel|xla, got {paged_impl!r}")
-        self.paged_kernel = paged_impl or effective_paged_impl()
-        check_paged_kernel_head_dim(cfg.head_dim, self.device,
-                                    self.paged_kernel)
-        self._nbs = self.max_len // bs
-        self._alloc = BlockAllocator(kv_blocks, bs)
-        self.cache = init_paged_cache(cfg, kv_blocks, bs, max_batch,
-                                      kv_dtype=kv_dtype, device=self.device)
+        self.paged_kernel = ((paged_impl or effective_paged_impl())
+                             if self.paged else None)
         self._scales: Optional[ScaleLedger] = None
-        if kv_dtype == "int8":
-            # per-block scale lifecycle rides the allocator: the decref
-            # that frees a block drops its ledger entry
-            self._scales = ScaleLedger()
-            self._alloc.scale_ledger = self._scales
-        # the block-granular prefix index (None = no prefix cache)
         self._prefix_max = prefix_cache_size
-        self._pindex = (PrefixBlockIndex(self._alloc, prefix_cache_size)
-                        if prefix_cache_size > 0 else None)
+        # the slot-static prefix cache: (scope, prompt tuple) -> the
+        # prompt's K/V rows ([L, 1, Hkv, plen, D] each), LRU in insertion
+        # order, at most ``prefix_cache_size`` entries
+        self._prefixes: Dict[tuple, tuple] = {}
+        if self.paged:
+            check_paged_kernel_head_dim(cfg.head_dim, self.device,
+                                        self.paged_kernel)
+            self._nbs = self.max_len // bs
+            self._alloc = BlockAllocator(kv_blocks, bs)
+            self.cache = init_paged_cache(cfg, kv_blocks, bs, max_batch,
+                                          kv_dtype=kv_dtype,
+                                          device=self.device)
+            if kv_dtype == "int8":
+                # per-block scale lifecycle rides the allocator: the
+                # decref that frees a block drops its ledger entry
+                self._scales = ScaleLedger()
+                self._alloc.scale_ledger = self._scales
+            # the block-granular prefix index (None = no prefix cache)
+            self._pindex = (PrefixBlockIndex(self._alloc,
+                                             prefix_cache_size)
+                            if prefix_cache_size > 0 else None)
+        else:
+            # every slot owns a [max_len] row, its pos a vector entry
+            self._nbs = 0
+            self._alloc = None
+            self.cache = init_cache(cfg, max_batch, self.max_len,
+                                    per_row_pos=True, device=self.device)
+            self._pindex = None
         # the host tier under the arena (a HostTierStore): the index's
         # eviction demotes a chain's payload into it, a later miss that
         # matches a stored chain promotes it back (bit-exact), and the
@@ -529,7 +582,6 @@ class DecodeServer:
         # the surface the serving loop reads, with the reference's names
         # and the values the reference engine has when these features
         # are off
-        self.paged = True
         self.role = role
         self.pipeline_depth = pipeline_depth
         self.decode_steps = decode_steps
@@ -655,9 +707,9 @@ class DecodeServer:
                 f"({max_new_tokens}) exceeds cache length {self.max_len}")
         # total KV the request can ever need: positions
         # [0, plen + max_new - 1)
-        need = blocks_for(len(prompt) + max_new_tokens - 1,
-                          self.kv_block_size)
-        if need > self._alloc.capacity:
+        need = (blocks_for(len(prompt) + max_new_tokens - 1,
+                           self.kv_block_size) if self.paged else 0)
+        if self.paged and need > self._alloc.capacity:
             raise Infeasible(
                 f"request needs {need} KV blocks at its full length "
                 f"but the pool only has {self._alloc.capacity} "
@@ -732,7 +784,7 @@ class DecodeServer:
                 continue
             i = self._pick_pending()
             req = self._pending[i]
-            if not self._admit_headroom(req):
+            if self.paged and not self._admit_headroom(req):
                 # free slots, but the picked request waits for KV-block
                 # or device-memory headroom that completions free; a
                 # guaranteed tenant reclaims blocks as it reclaims slots
@@ -773,9 +825,10 @@ class DecodeServer:
         headroom, preempt the most-over-quota tenant's youngest slot
         (swap or recompute per ``kv_swap``, re-enqueued at the front of
         the queue). Never a tenant within its min, never the requester's
-        own. True when it made progress (a preemption, or a flush that
-        freed a slot)."""
-        if self._tq is None:
+        own, never on the slot-static engine (it has no preemption).
+        True when it made progress (a preemption, or a flush that freed
+        a slot)."""
+        if self._tq is None or not self.paged:
             return False
         now = self._tq_clock()
         if not self._tq.under_min(req.tenant, now):
@@ -898,6 +951,8 @@ class DecodeServer:
         with the kernel formulation the suffix prefills in the arena.
         With ``prefill_chunk`` set and a suffix longer than one chunk,
         the forwards are left to the ticks, one chunk each."""
+        if not self.paged:
+            return self._static_prefill_slot(req)
         bs = self.kv_block_size
         plen = len(req.prompt)
         m, mkey = (self._pindex.match(req.prompt, plen - 1,
@@ -948,6 +1003,138 @@ class DecodeServer:
             step = logits[0, plen - 1]
         self._chip_add(req.tenant, "prefill", plen - m)
         self._finish_prefill(req, row, step)
+
+    def _prefix_match(self, prompt: List[int],
+                      scope: Optional[str]) -> Tuple[int, Optional[tuple]]:
+        """The slot-static prefix cache's lookup: (m, key) of the
+        longest common head between ``prompt`` and an entry in
+        ``scope``, capped at plen - 1 (one suffix token must run for
+        the next token's logits). No side effects: the caller decides
+        whether the match is used before the stats and the LRU order
+        move."""
+        cap = len(prompt) - 1
+        best, best_key = 0, None
+        for key in self._prefixes:
+            if key[0] != scope:
+                continue        # another tenant's prefix: invisible
+            m = 0
+            for a, b in zip(key[1], prompt[:cap]):
+                if a != b:
+                    break
+                m += 1
+            if m > best:
+                best, best_key = m, key
+        return best, best_key
+
+    def _publish_prefix(self, prompt: List[int], rk: torch.Tensor,
+                        rv: torch.Tensor, scope: Optional[str]) -> None:
+        """Keep a prompt's K/V rows (copies, trimmed to the prompt) as a
+        reusable prefix in ``scope``, evicting least recently used
+        entries past the cap. Re-publishing moves an entry to the back
+        of the LRU order."""
+        key = (scope, tuple(prompt))
+        plen = len(prompt)
+        self._prefixes.pop(key, None)
+        self._prefixes[key] = (rk[:, :, :, :plen].clone(),
+                               rv[:, :, :, :plen].clone())
+        while len(self._prefixes) > self._prefix_max:
+            self._prefixes.pop(next(iter(self._prefixes)))
+
+    def _take_prefix(self, mkey: tuple, m: int) -> None:
+        """A used prefix match: refresh its LRU place and count the
+        hit."""
+        self._prefixes[mkey] = self._prefixes.pop(mkey)
+        self.prefix_hits += 1
+        self.prefix_tokens_saved += m
+
+    def _seed_prefix_rows(self, row: Cache, mkey: tuple, m: int) -> None:
+        """Copy a cached prefix's first ``m`` K/V rows into a scratch
+        row."""
+        pk, pv = self._prefixes[mkey]
+        row["k"][:, :, :, :m] = pk[:, :, :, :m]
+        row["v"][:, :, :, :m] = pv[:, :, :, :m]
+
+    def _static_prefill_slot(self, req: _Request) -> None:
+        """Slot-static admission, the reference's: prefill the prompt
+        over a bucket-sized scratch row and install the row whole into
+        the slot's cache row. A cached prefix skips its share of the
+        forward (its rows seed the scratch row and only the suffix
+        runs); with ``prefill_chunk`` set and a suffix longer than one
+        chunk the forwards are left to the ticks, one chunk each."""
+        plen = len(req.prompt)
+        m, mkey = (self._prefix_match(req.prompt, self._prefix_scope(req))
+                   if self._prefixes else (0, None))
+        if self._prefill_chunk and self._start_chunked_static(req, m,
+                                                              mkey):
+            return
+        # fit: the padded suffix must land inside max_len after the
+        # prefix (a clamped write would overwrite the prefix's K/V);
+        # shrink the match rather than drop it
+        while m > 0 and m + _bucket(plen - m) > self.max_len:
+            m = max(0, self.max_len - _bucket(plen - m))
+        # profitability: the reuse must make the suffix forward cheaper
+        # (fewer query tokens per bucket tier)
+        if m > 0 and _bucket(plen - m) >= _bucket(plen):
+            m = 0
+        sbucket = _bucket(plen - m)
+        if m > 0:
+            self._take_prefix(mkey, m)
+        bucket = min(_bucket(max(plen, m + sbucket)), self.max_len)
+        row = self._row(bucket, m)
+        if m > 0:
+            self._seed_prefix_rows(row, mkey, m)
+            suffix = req.prompt[m:]
+            toks = self._tokens(suffix + [0] * (sbucket - len(suffix)))
+            logits, row = forward_with_cache(self.params, self.cfg, toks,
+                                             row)
+            step = logits[0, len(suffix) - 1]
+        else:
+            toks = self._tokens(req.prompt + [0] * (bucket - plen))
+            logits, row = forward_with_cache(self.params, self.cfg, toks,
+                                             row)
+            step = logits[0, plen - 1]
+        self._chip_add(req.tenant, "prefill", plen - m)
+        self._finish_prefill(req, row, step)
+
+    def _start_chunked_static(self, req: _Request, m: int, mkey) -> bool:
+        """Slot-static chunk-at-a-time admission (the ticks drive it);
+        False falls back to the one-shot path: the suffix fits one
+        chunk, or the chunk-padded span cannot fit ``max_len``."""
+        chunk = self._prefill_chunk
+        plen = len(req.prompt)
+
+        def span(m_: int) -> int:
+            # full chunks are exact; the last pads to its own bucket
+            full, rem = divmod(plen - m_, chunk)
+            return m_ + full * chunk + (_bucket(rem) if rem else 0)
+
+        # profitability first (shrinking only lowers m), then fit
+        if m > 0 and -(-(plen - m) // chunk) >= -(-plen // chunk):
+            m = 0
+        guard = 0
+        while m > 0 and span(m) > self.max_len and guard < 64:
+            m = max(0, self.max_len - (span(m) - m))
+            guard += 1
+        if plen - m <= chunk or span(m) > self.max_len:
+            return False
+        if m > 0:
+            self._take_prefix(mkey, m)
+        bucket = min(_bucket(max(plen, span(m))), self.max_len)
+        row = self._row(bucket, m)
+        if m > 0:
+            self._seed_prefix_rows(row, mkey, m)
+        suffix = req.prompt[m:]
+        todo = deque(suffix[i:i + chunk]
+                     for i in range(0, len(suffix), chunk))
+        self._prefilling.append({"req": req, "row": row, "todo": todo})
+        return True
+
+    def _static_install(self, slot: int, row: Cache, pos: int,
+                        feed: int) -> None:
+        """Install a prefilled scratch row into ``slot``'s cache row and
+        set the slot's pos and feed token (``install_row``)."""
+        install_row(self.cache, slot, row, pos)
+        self._last[slot, 0].fill_(feed)
 
     def _prefill_in_arena(self, req: _Request, m: int,
                           sbucket: int) -> None:
@@ -1217,6 +1404,11 @@ class DecodeServer:
         (``installed``: an in-arena window already wrote it), and stamp
         the ledger."""
         plen = len(req.prompt)
+        if req.cache_prefix and not self.paged:
+            # the paged engine publishes at install, where the slot's
+            # block table (the thing shared) exists
+            self._publish_prefix(req.prompt, row["k"], row["v"],
+                                 self._prefix_scope(req))
         if req.temperature > 0:
             # the token at absolute index plen: the decode tick's
             # (seed, index) keying, so prefill and decode are seamless
@@ -1230,7 +1422,10 @@ class DecodeServer:
         else:
             first = int(torch.argmax(step))
         self._set_sampling_rows(req)
-        self._paged_install(req, row, plen, first, installed=installed)
+        if self.paged:
+            self._paged_install(req, row, plen, first, installed=installed)
+        else:
+            self._static_install(req.slot, row, plen, first)
         req.out.append(first)
         req.note_token()
         self._note_tenant_tokens(req, 1)
@@ -1267,7 +1462,10 @@ class DecodeServer:
         """Resident device K/V bytes per tenant, from the arena's block
         tables: each active slot charges its resolved tenant, each prefix
         chain its scope (``_shared`` for an unscoped cache); a shared
-        block charges every holder."""
+        block charges every holder. Empty on the slot-static engine (a
+        fixed allocation, not per tenant)."""
+        if not self.paged:
+            return {}
         nb = self._chain_block_nbytes()
         out: Dict[str, int] = {}
         for s, req in self._active.items():
@@ -1320,10 +1518,16 @@ class DecodeServer:
             self._pindex.publish(req.prompt, table, self._prefix_scope(req))
             self._sync_prefix_stats()
 
-    def _write_rows(self, row: Cache, blocks: List[int], lo: int) -> None:
+    def _write_rows(self, row: Cache, blocks: List[int], lo: int, *,
+                    cache: Optional[Cache] = None,
+                    scales: Optional[ScaleLedger] = None) -> None:
         """Land a scratch row's positions ``[lo*bs, len(blocks)*bs)`` in
-        ``blocks[lo:]`` (quantized per token under int8, the decode
-        scatter's rule; one indexed write per plane, in place)."""
+        ``blocks[lo:]`` of the arena (``cache`` and its scale ledger
+        when given: the speculative engine's draft arena), quantized per
+        token under int8, the decode scatter's rule; one indexed write
+        per plane, in place."""
+        if cache is None:
+            cache, scales = self.cache, self._scales
         bs = self.kv_block_size
         hi = len(blocks)
         if hi <= lo:
@@ -1335,11 +1539,11 @@ class DecodeServer:
             blk = r.reshape(L, h_kv, hi - lo, bs, d).permute(0, 2, 1, 3, 4)
             if self.kv_dtype == "int8":
                 blk, sc = quantize_kv(blk)
-                self.cache[f"{name}_scale"][:, idx] = sc
-            self.cache[name][:, idx] = blk.to(self.cache[name].dtype)
-        if self._scales is not None:
+                cache[f"{name}_scale"][:, idx] = sc
+            cache[name][:, idx] = blk.to(cache[name].dtype)
+        if scales is not None:
             for b in blocks[lo:hi]:
-                self._scales.note_write(b)
+                scales.note_write(b)
 
     def _sync_prefix_stats(self) -> None:
         if self._pindex is not None:
@@ -1379,7 +1583,8 @@ class DecodeServer:
         if req.done and req.slot >= 0:
             s = req.slot
             del self._active[s]
-            self._free_slot_blocks(s)
+            if self.paged:
+                self._free_slot_blocks(s)
             # the rollback: pos alone decides what exists, so the overrun
             # of ticks that decoded past the request's end is discarded
             self.cache["pos"][s].fill_(0)
@@ -1436,6 +1641,12 @@ class DecodeServer:
                 self._alloc.decref(b)
             self._deferred.clear()
 
+    def _dispatch_span(self) -> int:
+        """The most KV positions ONE decode dispatch writes per slot:
+        ``decode_steps`` here; the speculative engine writes a verify
+        window per fused round."""
+        return self.decode_steps
+
     def _ensure_blocks(self, active: List[int]) -> None:
         """Each decoding slot's next ``decode_steps`` write positions,
         past those the ticks in flight already cover, must land in blocks
@@ -1443,7 +1654,7 @@ class DecodeServer:
         first (``_grow_slot_blocks``). Positions past the request's
         terminal length stay unallocated and route to the null block.
         Raises NoFreeBlocks under pool pressure."""
-        span = self.decode_steps
+        span = self._dispatch_span()
         for s in active:
             req = self._active[s]
             pending = sum(1 for ent in self._inflight
@@ -1498,7 +1709,10 @@ class DecodeServer:
     def _pre_dispatch(self, active: List[int]) -> bool:
         """Block discipline before a dispatch. True: dispatch ``active``
         as it is. False: the pool ran dry and pressure relief ran
-        (``_relieve_pressure``); recompute and retry."""
+        (``_relieve_pressure``); recompute and retry. The slot-static
+        engine has nothing to allocate."""
+        if not self.paged:
+            return True
         try:
             self._ensure_blocks(active)
             return True
@@ -1548,7 +1762,10 @@ class DecodeServer:
         """Preempt an active request's slot now (``mode`` swap or
         recompute, default per ``kv_swap``), re-enqueuing it at the front
         of the queue. False for a request that is not an active, fully
-        prefilled slot (or that the barrier flush finished)."""
+        prefilled slot (or that the barrier flush finished). The
+        slot-static engine has no preemption (RuntimeError)."""
+        if not self.paged:
+            raise RuntimeError("preempt requires paged KV (kv_blocks > 0)")
         mode = mode or ("swap" if self.kv_swap else "recompute")
         if mode not in ("swap", "recompute"):
             raise ValueError(f"mode must be swap|recompute, got {mode!r}")
@@ -1655,7 +1872,33 @@ class DecodeServer:
         self._restore_blocks(st, blocks)
         self._tables[req.slot] = blocks
         self._set_table_row(req.slot)
+        self._resume_draft(req)
         self._resume_row(req)
+
+    def _resume_draft(self, req: _Request) -> None:
+        """Resume hook for an engine with a sibling cache (the
+        speculative engine's draft): rebuild it for ``req``'s committed
+        sequence. Nothing to do here."""
+
+    def _resume_recompute_static(self, req: _Request) -> None:
+        """Slot-static recompute resume, the supervised restart's path
+        (the slot-static engine never preempts, but a rebuilt engine
+        re-admits requests with committed tokens): re-prefill ``prompt +
+        out[:-1]`` over a scratch row in its bucket and install it with
+        pos the committed length and the feed token the last committed
+        one, not yet fed."""
+        req.preempted = False
+        seq = req.prompt + req.out[:-1]
+        n = len(seq)
+        bucket = min(_bucket(n), self.max_len)
+        row = self._row(bucket, 0)
+        _logits, row = forward_with_cache(
+            self.params, self.cfg, self._tokens(seq + [0] * (bucket - n)),
+            row)
+        self._set_sampling_rows(req)
+        self._static_install(req.slot, row, n, req.out[-1])
+        self._resume_draft(req)
+        req.led.t_prefill_end = time.perf_counter()
 
     def _resume_recompute(self, req: _Request) -> None:
         """Recompute resume: rewrite the committed sequence's K/V and set
@@ -1667,7 +1910,10 @@ class DecodeServer:
         rewrites the committed output span with the decode ticks'
         arithmetic, so every position is the arithmetic that first wrote
         it. On the card another bucket or another path gives other bits
-        (ROADMAP C.10, C.12)."""
+        (ROADMAP C.10, C.12). The slot-static engine takes its own path
+        (``_resume_recompute_static``)."""
+        if not self.paged:
+            return self._resume_recompute_static(req)
         req.preempted = False
         bs = self.kv_block_size
         total = blocks_for(len(req.prompt) + len(req.out) - 1, bs)
@@ -1681,6 +1927,7 @@ class DecodeServer:
             self._oneshot_into(seq, blocks)
             self._tables[req.slot] = blocks
             self._set_table_row(req.slot)
+        self._resume_draft(req)
         self._resume_row(req)
 
     def _oneshot_into(self, seq: List[int], blocks: List[int]) -> None:
@@ -1798,14 +2045,8 @@ class DecodeServer:
         return logits[:, -1].float()
 
     def _launch_replay(self) -> torch.Tensor:
-        """Run the replay program: on the card, replay its graph
-        (captured at first use); on the CPU, call it."""
-        if self.device.type != "cuda":
-            return self._replay_program()
-        graph = self._graphs.get("replay")
-        if graph is None:
-            graph = self._graphs["replay"] = self._capture("replay")
-        return graph.replay()
+        """Run the replay program (``_launch_graph``)."""
+        return self._launch_graph("replay")
 
     def _request_state(self, req: _Request) -> dict:
         """The resumable description of one request: the schema
@@ -1879,7 +2120,8 @@ class DecodeServer:
                 st["out"] = []          # mid-prefill: restart admission
             elif req.swap_state is not None:
                 st["swap"] = req.swap_state     # already on the host
-            elif device_ok and self.kv_swap and req.slot >= 0 and req.out:
+            elif device_ok and self.paged and self.kv_swap \
+                    and req.slot >= 0 and req.out:
                 base = len(req.prompt) + len(req.out) - 1
                 nblk = blocks_for(base, self.kv_block_size)
                 table = self._tables[req.slot]
@@ -1940,14 +2182,16 @@ class DecodeServer:
             raise Infeasible(
                 f"restored prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new}) exceeds cache length {self.max_len}")
-        need = blocks_for(len(prompt) + max_new - 1, self.kv_block_size)
-        if need > self._alloc.capacity:
-            raise Infeasible(
-                f"restored request needs {need} KV blocks but the "
-                f"pool only has {self._alloc.capacity}")
+        if self.paged:
+            need = blocks_for(len(prompt) + max_new - 1,
+                              self.kv_block_size)
+            if need > self._alloc.capacity:
+                raise Infeasible(
+                    f"restored request needs {need} KV blocks but the "
+                    f"pool only has {self._alloc.capacity}")
         if req.out:
             swap = state.get("swap")
-            if swap is not None:
+            if self.paged and swap is not None:
                 want = tuple(self.cache["k"].shape[i] for i in (0, 2, 3, 4))
                 got = tuple(np.asarray(swap["k"]).shape[i]
                             for i in (0, 2, 3, 4))
@@ -2051,25 +2295,43 @@ class DecodeServer:
         self._begin_dispatch_s += dt
         self._inflight.append(_InFlight(buf, event, tuple(active)))
 
+    def _forward(self, toks: torch.Tensor, cache: Cache,
+                 table: Optional[torch.Tensor]) -> Tuple[torch.Tensor,
+                                                         Cache]:
+        """The target model over ``cache``: ``forward_with_cache`` on
+        the slot-static engine, ``forward_paged`` through ``table`` (the
+        engine's formulation and split scratch) on the paged one."""
+        if not self.paged:
+            return forward_with_cache(self.params, self.cfg, toks, cache)
+        return forward_paged(self.params, self.cfg, toks, cache, table,
+                             paged_impl=self.paged_kernel,
+                             scratch=self._scratch)
+
+    def _keep_table(self, table: Optional[torch.Tensor]):
+        """A block table with the rows outside ``_keep`` on the null
+        block (None on the slot-static engine)."""
+        if not self.paged:
+            return None
+        return torch.where(self._keep[:, None], table,
+                           torch.zeros_like(table))
+
     def _decode_program(self, sampling: bool) -> torch.Tensor:
         """The decode tick on the engine's static buffers: ``T =
         decode_steps`` copies of the reference's ``decode_one`` (its
-        ``lax.scan``, unrolled). Reads the arena, ``pos``, ``_table``,
-        ``_last``, ``_keep`` and the sampling rows; writes the arena,
+        ``lax.scan``, unrolled). Reads the cache, ``pos``, ``_table``,
+        ``_last``, ``_keep`` and the sampling rows; writes the cache,
         ``pos``, ``_last`` and ``_toks`` in place. Rows outside ``_keep``
-        decode into the null block with their pos and feed token frozen.
-        A sampled token is keyed by (seed, its absolute index pos + 1),
-        so streams do not depend on T. Returns the last step's logits."""
+        keep their pos and feed token; on the paged engine they decode
+        into the null block, on the slot-static one into their own row
+        at their frozen pos, which only pos decides is not there. A
+        sampled token is keyed by (seed, its absolute index pos + 1), so
+        streams do not depend on T. Returns the last step's logits."""
         keep = self._keep
         pos = self.cache["pos"]
-        table = torch.where(keep[:, None], self._table,
-                            torch.zeros_like(self._table))
+        table = self._keep_table(self._table)
         toks = self._last
         for j in range(self.decode_steps):
-            logits, out = forward_paged(self.params, self.cfg, toks,
-                                        self.cache, table,
-                                        paged_impl=self.paged_kernel,
-                                        scratch=self._scratch)
+            logits, out = self._forward(toks, self.cache, table)
             step = logits[:, -1].float()
             nxt = torch.argmax(step, dim=-1)
             if sampling:
@@ -2081,14 +2343,19 @@ class DecodeServer:
         return step
 
     def _launch(self, sampling: bool) -> torch.Tensor:
-        """Run the decode program: on the card, replay its graph
-        (captured at the first tick that needs it); on the CPU, call it.
-        Returns the last step's logits."""
+        """Run the decode program (``_launch_graph``); returns the last
+        step's logits."""
+        return self._launch_graph(sampling)
+
+    def _launch_graph(self, key) -> torch.Tensor:
+        """Run the program captured under ``key`` (``_program_for``): on
+        the card, replay its graph, captured at the first run that needs
+        it; on the CPU, call it."""
         if self.device.type != "cuda":
-            return self._decode_program(sampling)
-        graph = self._graphs.get(sampling)
+            return self._program_for(key)[0]()
+        graph = self._graphs.get(key)
         if graph is None:
-            graph = self._graphs[sampling] = self._capture(sampling)
+            graph = self._graphs[key] = self._capture(key)
         return graph.replay()
 
     def capture_programs(self) -> Dict[str, float]:
@@ -2115,6 +2382,18 @@ class DecodeServer:
                 out[name] = self.compile_s - t0
         return out
 
+    def _program_for(self, key) -> tuple:
+        """(program, the buffer its null warm-up run clears) of a
+        captured key: the replay step for "replay", else the decode tick
+        for ``key`` = sampling."""
+        if key == "replay":
+            return self._replay_program, self._rtable
+        return (lambda: self._decode_program(key)), self._keep
+
+    def _graph_scratch(self) -> tuple:
+        """The paged kernel's scratch tensors a captured graph records."""
+        return (self._scratch.part, self._scratch.ticket)
+
     def _capture(self, key) -> _Graph:
         """Capture one program into a CUDA graph, on a side stream after
         everything queued on the engine's stream: the decode program for
@@ -2127,10 +2406,7 @@ class DecodeServer:
         by the side stream. Errors raise; the time is accounted as the
         reference accounts a compile."""
         t0 = time.perf_counter()
-        if key == "replay":
-            program, null = self._replay_program, self._rtable
-        else:
-            program, null = (lambda: self._decode_program(key)), self._keep
+        program, null = self._program_for(key)
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
         side = self._capture_stream
@@ -2150,8 +2426,7 @@ class DecodeServer:
         with torch.cuda.graph(graph, stream=side,
                               capture_error_mode="thread_local"):
             logits = program()
-        out = _Graph(graph, logits,
-                     (self._scratch.part, self._scratch.ticket),
+        out = _Graph(graph, logits, self._graph_scratch(),
                      torch.cuda.memory_reserved(self.device) - reserved)
         dt = time.perf_counter() - t0
         self.compiles += 1
@@ -2216,7 +2491,15 @@ class DecodeServer:
         ent.consumed = True
         self._fetch(ent)
         now = time.perf_counter() if self.ledger_enabled else 0.0
-        toks = ent.host
+        emitted = self._consume_payload(ent, ent.host, now)
+        self.tokens_emitted += emitted
+        return emitted
+
+    def _consume_payload(self, ent: _InFlight, toks: List[List[int]],
+                         now: float) -> int:
+        """Append one tick's host tokens ``[max_batch, T]`` to the
+        requests of ``ent.slots``, stopping at each one's end; returns
+        the tokens appended."""
         emitted = 0
         for s in ent.slots:
             req = self._active.get(s)
@@ -2235,7 +2518,6 @@ class DecodeServer:
             self._note_tenant_tokens(req, n)
             self._chip_add(req.tenant, "decode", n)
             self._finish_if_done(req, admit=False)
-        self.tokens_emitted += emitted
         return emitted
 
     def _flush(self) -> int:
@@ -2365,7 +2647,10 @@ class DecodeServer:
         ``seed`` (or temperature, top-k, top-p) branches a sampled
         stream. Needs a free slot (QueueFull otherwise) and an active,
         fully prefilled source (ValueError otherwise); returns the new
-        request's id."""
+        request's id. The slot-static engine has no fork
+        (RuntimeError)."""
+        if not self.paged:
+            raise RuntimeError("fork requires paged KV (kv_blocks > 0)")
         if any(e["req"].rid == rid for e in self._prefilling):
             raise ValueError(f"request {rid} is still prefilling")
         src = next((r for r in self._active.values() if r.rid == rid),
@@ -2427,7 +2712,10 @@ class DecodeServer:
     def kv_stats(self) -> dict:
         """Block-pool accounting, the formulation this engine runs, the
         prefix index, preemptions and the admission-time memory
-        snapshot, under the reference's keys."""
+        snapshot, under the reference's keys; None on the slot-static
+        engine."""
+        if not self.paged:
+            return None
         return {
             "block_size": self.kv_block_size,
             "dtype": self.kv_dtype,
@@ -2708,7 +2996,8 @@ class DecodeServer:
                  "hits": self._pindex.hits,
                  "tokens_saved": self._pindex.tokens_saved}
                 if self._pindex is not None else
-                {"capacity": self._prefix_max, "entries": 0,
+                {"capacity": self._prefix_max,
+                 "entries": len(self._prefixes),
                  "hits": self.prefix_hits,
                  "tokens_saved": self.prefix_tokens_saved}),
             "prefix_index": self.prefix_index_snapshot(),

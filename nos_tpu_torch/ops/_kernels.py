@@ -41,6 +41,9 @@ HEAD_DIMS = (64, 128)
 # paged_decode_attention.cu: the most blocks that split one row tile's
 # live pages between them
 MAX_SPLIT = 8
+# the paged kernel's launch shapes (S, head_dim, arena dtype) it counts
+# apart
+MAX_SHAPES = 32
 
 
 def _nvcc() -> str:
@@ -173,11 +176,17 @@ class _PagedDecode(_Kernel):
     caller that records launches into a CUDA graph passes its own
     scratch; other calls share one per (device, stream): calls on one
     stream run in order, while launches on two streams never touch each
-    other's tickets. Each launch adds one to a counter on its device
-    (``launches`` reads them), so a graph's replays count as they run."""
+    other's tickets. Each launch adds one to a counter on its device,
+    one counter a launch shape (``launches`` reads their sum,
+    ``launches_by_shape`` each), so a graph's replays count as they
+    run."""
 
     def __init__(self):
+        # a device's counters: one int64 slot a shape, in ``_shapes``'
+        # order (a slot is taken on the host, so a shape first seen
+        # inside a capture allocates nothing)
         self._counts: Dict[torch.device, torch.Tensor] = {}
+        self._shapes: Dict[Tuple[int, int, str], int] = {}
         self._launch_base = 0
         super().__init__(
             "paged_decode_attention.cu", "nos_paged_decode_attention",
@@ -188,11 +197,19 @@ class _PagedDecode(_Kernel):
     def launches(self) -> int:
         """The launches the card ran since the count was last set, as
         the kernel counted them; reading waits for each device."""
-        n = self._launch_base
+        return self._launch_base + sum(self.launches_by_shape().values())
+
+    def launches_by_shape(self) -> Dict[Tuple[int, int, str], int]:
+        """{(S, head_dim, arena dtype): launches} the card ran since the
+        count was last set, summed over devices; reading waits for each
+        device."""
+        out = dict.fromkeys(self._shapes, 0)
         for device, count in self._counts.items():
             torch.cuda.synchronize(device)
-            n += int(count.item())
-        return n
+            got = count.tolist()
+            for shape, slot in self._shapes.items():
+                out[shape] += got[slot]
+        return out
 
     @launches.setter
     def launches(self, value: int) -> None:
@@ -203,8 +220,9 @@ class _PagedDecode(_Kernel):
         self._launch_base = value
 
     def _count(self, device: torch.device) -> torch.Tensor:
-        """The device's launch counter, made outside any graph capture
-        (a capture would record its zeroing into every replay)."""
+        """The device's launch counters (one a shape), made outside any
+        graph capture (a capture would record their zeroing into every
+        replay)."""
         count = self._counts.get(device)
         if count is None:
             if torch.cuda.is_current_stream_capturing():
@@ -212,8 +230,16 @@ class _PagedDecode(_Kernel):
                     "paged_decode_attention: the first launch on a device "
                     "cannot be inside a CUDA graph capture")
             count = self._counts[device] = torch.zeros(
-                1, dtype=torch.int64, device=device)
+                MAX_SHAPES, dtype=torch.int64, device=device)
         return count
+
+    def _slot(self, shape: Tuple[int, int, str]) -> int:
+        """The counter slot of a launch shape (S, head_dim, arena)."""
+        slot = self._shapes.setdefault(shape, len(self._shapes))
+        if slot >= MAX_SHAPES:
+            raise RuntimeError(f"paged_decode_attention: more than "
+                               f"{MAX_SHAPES} launch shapes to count")
+        return slot
 
     def _part(self, device: torch.device, stream: int, floats: int,
               tickets: int):
@@ -282,6 +308,8 @@ class _PagedDecode(_Kernel):
         n_split = paged_splits(tiles, _sm_count(q.device))
         stream = _stream(q)
         count = self._count(q.device)
+        counter = count.data_ptr() + count.element_size() * self._slot(
+            (s, d, str(k_arena.dtype)[6:]))
         part = ticket = None
         if n_split > 1:
             rows = 4 if gs <= 4 else 8
@@ -296,7 +324,7 @@ class _PagedDecode(_Kernel):
             table.data_ptr(), pos.data_ptr(), out.data_ptr(),
             part.data_ptr() if part is not None else None,
             ticket.data_ptr() if ticket is not None else None,
-            count.data_ptr(), b, h, h_kv, s, d, bs, nb, float(scale),
+            counter, b, h, h_kv, s, d, bs, nb, float(scale),
             n_split, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_arena.dtype],
             stream)
         if rc != 0:

@@ -93,3 +93,20 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              timeout=120)
         assert run.returncode != 0
         assert '"ok"' not in run.stdout
+
+
+def test_speculative_modules_load_no_jax_and_build_nothing():
+    """The slot-static and speculative engines import as the paged one
+    does: no JAX, no JAX package, no kernel built at import."""
+    code = ("import sys, nos_tpu_torch.models.speculative, "
+            "nos_tpu_torch.models.spec_serving, "
+            "nos_tpu_torch.models.serving; "
+            "from nos_tpu_torch.ops import _kernels; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'nos_tpu' or "
+            "m.startswith('nos_tpu.')]; "
+            "assert not bad, bad; "
+            "assert all(k._fn is None for k in _kernels.KERNELS)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)

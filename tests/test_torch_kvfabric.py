@@ -30,7 +30,6 @@ from nos_tpu_torch.kvfabric import (  # noqa: E402
     HostTierStore, chain_digest, decode_chain, encode_chain,
 )
 from nos_tpu_torch.models import transformer as ttfm  # noqa: E402
-from nos_tpu_torch.models.errors import NotPorted  # noqa: E402
 from nos_tpu_torch.models.handoff import encode_handoff  # noqa: E402
 from nos_tpu_torch.models.serving import DecodeServer, _Request  # noqa: E402
 from nos_tpu_torch.models.staging import (  # noqa: E402
@@ -513,11 +512,17 @@ def test_prefix_index_snapshot_reports_both_tiers(params):
 
 def test_prefix_index_absent_without_paging(params):
     """The reference's engine without a paged prefix index reports no
-    section; the port has no slot-static engine (refused by name), and
-    a paged engine without a prefix cache reports none either."""
-    _, tp = params
-    with pytest.raises(NotPorted, match="kv_blocks=0"):
-        DecodeServer(tp, TCFG, max_batch=2, device="cpu")
+    section: neither does the port's slot-static engine (with or
+    without its prefix cache, which is not a block index), nor a paged
+    engine without a prefix cache."""
+    jp, tp = params
+    for kw in (dict(), dict(prefix_cache_size=4)):
+        eng = DecodeServer(tp, TCFG, max_batch=2, device="cpu", **kw)
+        jeng = JDecodeServer(jp, JCFG, max_batch=2, **kw)
+        assert eng.stats()["prefix_index"] is None
+        assert jeng.stats()["prefix_index"] is None
+        assert eng.export_chain("0" * 16) is None
+        assert not eng.ingest_chain(b"")
     eng = DecodeServer(tp, TCFG, max_batch=2, kv_block_size=8,
                        kv_blocks=24, device="cpu")
     assert eng.stats()["prefix_index"] is None

@@ -254,3 +254,18 @@ def test_paged_launch_count_reads_back_what_was_set():
     assert paged.launches == 7
     paged.launches = 0
     assert paged.launches == 0 and paged._counts == {}
+
+
+def test_paged_launch_shapes_take_one_counter_slot_each():
+    """Each launch shape (S, head_dim, arena) keeps its own counter slot,
+    taken on the host in first-seen order; with no device counter yet
+    every shape reads zero and nothing touches CUDA."""
+    paged = _kernels._PagedDecode()
+    verify, draft = (4, 128, "bfloat16"), (1, 64, "int8")
+    assert [paged._slot(verify), paged._slot(draft),
+            paged._slot(verify)] == [0, 1, 0]
+    assert paged.launches_by_shape() == {verify: 0, draft: 0}
+    for s in range(2, _kernels.MAX_SHAPES):
+        assert paged._slot((s, 128, "float32")) == s
+    with pytest.raises(RuntimeError, match="launch shapes"):
+        paged._slot((1, 128, "float32"))

@@ -360,9 +360,9 @@ def test_zero_is_refused_with_the_reference_message(params, knob):
 def test_uncaptured_hook_restores_the_engine(port):
     srv = port(2, 4)
     with tserving.uncaptured(srv):
-        assert srv._launch == srv._decode_program
+        assert "_launch_graph" in vars(srv)
         got = serve(srv, GREEDY)
-    assert "_launch" not in vars(srv)
+    assert "_launch_graph" not in vars(srv)
     assert serve(srv, GREEDY) == got
     assert srv.compiles == 0        # the CPU captures nothing
 

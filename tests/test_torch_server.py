@@ -48,7 +48,8 @@ TCFG = ttfm.TransformerConfig(**MODEL, dtype=torch.float32)
 PAGED = dict(kv_block_size=8, kv_blocks=24)
 # knobs build_engine and main refused until the KV fabric and tenant
 # quotas were ported, served now
-SERVED_KNOBS = {"tenant_config", "kv_host_tier_bytes", "kv_fabric_token"}
+SERVED_KNOBS = {"tenant_config", "kv_host_tier_bytes", "kv_fabric_token",
+                "kv_blocks=0"}
 # the reference's documented replica /stats keys
 # (tests/test_metrics_docs.py::REPLICA_STATS_KEYS)
 REPLICA_STATS_KEYS = {
@@ -1389,6 +1390,9 @@ def test_build_engine_refuses_unported_knobs_by_name(kw, knob):
     elif knob == "kv_host_tier_bytes":
         assert eng._host_tier.capacity_bytes == 1024
         assert eng._pindex.on_evict == eng._demote_chain
+    elif knob == "kv_blocks=0":
+        # the reference's default: the slot-static engine
+        assert not eng.paged and eng.kv_stats() is None
     else:
         assert eng._tq is None and eng._host_tier is None
     assert eng.role == cfg.role
@@ -2306,3 +2310,130 @@ def test_gateway_tenant_door_sheds_from_port_stats(params):
     finally:
         for httpd, loop in zip(httpds, loops):
             stop(httpd, loop)
+
+
+# ---------------------------------------------------------------------------
+# the reference's defaults (kv_blocks=0): the slot-static engine serves
+# ---------------------------------------------------------------------------
+
+def test_main_serves_the_default_config_over_http(monkeypatch,
+                                                 restore_logging):
+    """``main`` with the reference's default ``ServerConfig`` (kv_blocks
+    0, its default widths) builds the slot-static engine and answers a
+    request over HTTP with the tokens of the port's ``generate`` on the
+    same engine's weights."""
+    from nos_tpu_torch.models.generate import generate
+
+    seen = {}
+    real_http = tserver.make_http_server
+
+    def capture_http(cfg, loop, host="0.0.0.0"):
+        seen["httpd"] = real_http(cfg, loop, host="127.0.0.1")
+        seen["loop"] = loop
+        return seen["httpd"]
+
+    monkeypatch.setattr(tserver, "make_http_server", capture_http)
+    t = threading.Thread(target=tserver.main,
+                         args=(["--port", "0"],),
+                         kwargs=dict(device="cpu"), daemon=True)
+    t.start()
+    assert _wait_until(lambda: "httpd" in seen, timeout=120)
+    httpd = seen["httpd"]
+    try:
+        eng = seen["loop"].engine
+        assert not eng.paged and eng.kv_stats() is None
+        assert eng.max_len == ServerConfig().max_seq
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        got = post(url, {"prompt": [1, 2, 3], "max_new_tokens": 4})
+        want = generate(eng.params, eng.cfg, [[1, 2, 3]], 4, device="cpu")
+        assert got["tokens"] == want[0].tolist()
+        st = json.loads(get(url, "/stats")[1])
+        assert st["kv"] is None and st["config"]["kv_blocks"] == 0
+    finally:
+        httpd.shutdown()
+        t.join(timeout=60)
+    assert not t.is_alive()
+
+
+def test_draft_checkpoint_dir_refused_naming_checkpoint_loading():
+    """The binary's speculative switch takes its draft from a checkpoint
+    (the reference's build_engine), so it waits for checkpoint loading
+    and says so by name, before any weights are made."""
+    cfg = ServerConfig(**MODEL, **PAGED, draft_checkpoint_dir="/d")
+    with pytest.raises(NotPorted, match="draft_checkpoint_dir") as err:
+        build_engine(cfg, device="cpu")
+    assert "checkpoint loading" in str(err.value)
+
+
+SPEC_SERIES = ("nos_tpu_serve_spec_draft_total",
+               "nos_tpu_serve_spec_accepted_total",
+               "nos_tpu_serve_spec_accepted_per_window_count",
+               "nos_tpu_serve_spec_accepted_per_window_sum")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["static", "paged"])
+def test_loop_exports_speculative_series_and_stats(params, paged):
+    """A ServingLoop over a SpeculativeDecodeServer exports the three
+    speculative series and the /stats ``speculative`` section, with the
+    values the reference's loop over the reference's engine exports for
+    the same requests."""
+    from nos_tpu.cmd import server as jserver
+    from nos_tpu.models.spec_serving import SpeculativeDecodeServer as JSpec
+    from nos_tpu_torch.models.spec_serving import SpeculativeDecodeServer
+
+    jp, tp = params
+    dkw = dict(MODEL, d_model=16, n_layers=1, n_heads=2, n_kv_heads=1,
+               d_ff=32)
+    jd = jtfm.init_params(jax.random.PRNGKey(1),
+                          jtfm.TransformerConfig(**dkw, dtype=jnp.float32))
+    td = ttfm.params_from_jax(jd, "cpu")
+    kw = dict(PAGED) if paged else {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NOS_TPU_PAGED_KERNEL", "0")
+        jeng = JSpec(jp, JCFG, jd,
+                     jtfm.TransformerConfig(**dkw, dtype=jnp.float32),
+                     n_draft=3, max_batch=2, **kw)
+    teng = SpeculativeDecodeServer(
+        tp, TCFG, td, ttfm.TransformerConfig(**dkw, dtype=torch.float32),
+        n_draft=3, max_batch=2, device="cpu",
+        **({**kw, "paged_impl": "kernel"} if paged else kw))
+    jloop = jserver.ServingLoop(jeng)
+    jhttpd = jserver.make_http_server(
+        jserver.ServerConfig(**MODEL, bf16=False, max_batch=2, port=0),
+        jloop)
+    threading.Thread(target=jhttpd.serve_forever, daemon=True).start()
+    tloop = ServingLoop(teng)
+    thttpd, turl = serve(tloop)
+    jurl = f"http://127.0.0.1:{jhttpd.server_address[1]}"
+    try:
+        before = {}
+        for url in (jurl, turl):
+            text = get(url, "/metrics")[1].decode()
+            before[url] = {n: metric_value(text, n) for n in SPEC_SERIES}
+            # the counters export zeros from the start
+            for name in SPEC_SERIES[:2]:
+                assert name in text, name
+        bodies = [{"prompt": [4, 5], "max_new_tokens": 9},
+                  {"prompt": [9, 8, 7], "max_new_tokens": 7,
+                   "temperature": 0.8, "seed": 3}]
+        got = {}
+        for url in (jurl, turl):
+            toks = [post(url, b)["tokens"] for b in bodies]
+            text = get(url, "/metrics")[1].decode()
+            for name in SPEC_SERIES:
+                assert name in text, name
+            deltas = {n: metric_value(text, n) - before[url][n]
+                      for n in SPEC_SERIES}
+            spec = json.loads(get(url, "/stats")[1])["speculative"]
+            got[url] = (toks, deltas, spec)
+        assert got[turl] == got[jurl]
+        toks, deltas, spec = got[turl]
+        assert toks[0] == want(jp, [4, 5], 9)
+        assert deltas[SPEC_SERIES[0]] == spec["drafted"] > 0
+        assert deltas[SPEC_SERIES[1]] == spec["accepted"]
+        assert deltas[SPEC_SERIES[2]] == spec["drafted"] / 3
+        assert deltas[SPEC_SERIES[3]] == spec["accepted"]
+        assert ("draft_kv" in spec) == paged
+    finally:
+        stop(jhttpd, jloop)
+        stop(thttpd, tloop)

@@ -162,6 +162,13 @@ def test_build_engine_names_every_knob_outside_the_slice(clean_env, knob):
         assert str(port.value) == str(ref.value)
         assert "not ported" not in str(port.value)
         return
+    if name == "kv_blocks":
+        # kv_blocks=0 is served now: the slot-static engine
+        eng = tserver.build_engine(tserver.ServerConfig(**kw), device="cpu")
+        ref = jserver.build_engine(jserver.ServerConfig(**kw))
+        assert eng.paged == ref.paged is False
+        assert eng.kv_stats() is None and ref.kv_stats() is None
+        return
     if name in ("kv_fabric_token", "kv_host_tier_bytes"):
         eng = tserver.build_engine(tserver.ServerConfig(**kw), device="cpu")
         ref = jserver.build_engine(jserver.ServerConfig(**kw))

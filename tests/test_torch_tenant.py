@@ -30,9 +30,7 @@ from nos_tpu.quota import info as jinfo  # noqa: E402
 from nos_tpu_torch.cmd import server as tserver  # noqa: E402
 from nos_tpu_torch.models import tenantquota as ttq  # noqa: E402
 from nos_tpu_torch.models import transformer as ttfm  # noqa: E402
-from nos_tpu_torch.models.errors import (  # noqa: E402
-    NotPorted, TenantQuotaExceeded,
-)
+from nos_tpu_torch.models.errors import TenantQuotaExceeded  # noqa: E402
 from nos_tpu_torch.models.serving import DecodeServer  # noqa: E402
 from nos_tpu_torch.quota import info as tinfo  # noqa: E402
 
@@ -300,20 +298,34 @@ def test_share_prefix_opt_out_restores_cross_tenant_reuse(params):
 
 
 def test_slot_static_prefix_scoped_by_tenant(params):
-    """The reference's case runs on its slot-static engine, which the
-    port does not have yet (ROADMAP A.12): with a tenant config set,
-    the port refuses ``kv_blocks=0`` by name, from the engine and from
-    ``build_engine``, before any weights are made."""
-    _, tp = params
-    with pytest.raises(NotPorted, match="kv_blocks=0"):
-        DecodeServer(tp, TCFG, max_batch=1, prefix_cache_size=4,
-                     tenant_quota=quota(), tenant_clock=lambda: 0.0,
-                     device="cpu")
+    """The reference's case on both slot-static engines: the prefix
+    cache is scoped by the resolved tenant, so another tenant's
+    published prompt is no hit and the publisher's own is; tokens and
+    hit counts equal the reference's, and ``build_engine`` serves the
+    same config with a scoped slot-static engine."""
+    jp, _ = params
+    base = list(range(1, 13))
+
+    def scenario(eng, clock):
+        eng.submit(base, 1, tenant="gold", cache_prefix=True)
+        eng.drain()
+        r = eng.submit(base + [30, 31, 32, 33], 2, tenant="burst")
+        got = eng.drain()[r]
+        cross = eng.prefix_hits
+        eng.submit(base + [40, 41, 42, 43], 2, tenant="gold")
+        eng.drain()
+        return got, cross, eng.prefix_hits
+
+    got, want = both(params, scenario, max_batch=1, kv_blocks=0,
+                     kv_block_size=0, prefix_cache_size=4)
+    assert got == want
+    assert got[1] == 0 and got[2] == 1
+    assert got[0] == ref(jp, base + [30, 31, 32, 33], 2)
     cfg = tserver.ServerConfig(
         **MODEL, bf16=False, kv_blocks=0, prefix_cache_size=4,
         tenant_config='{"tenants": {"gold": {"min_rate": 100}}}')
-    with pytest.raises(NotPorted, match="kv_blocks=0"):
-        tserver.build_engine(cfg, device="cpu")
+    eng = tserver.build_engine(cfg, device="cpu")
+    assert not eng.paged and eng._prefix_scoped
 
 
 # ---------------------------------------------------------------------------
