@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijklmn]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijklmno]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -200,7 +200,37 @@ n. the slot-static engine and speculative decoding at phase (e)'s width,
    with the undisturbed sampled tokens; a fork; a ``ServingLoop`` over
    the paged engine exporting the speculative series. The token rule:
    equal tokens, or a first divergence at a step where the plain run's
-   top-2 logit gap (teacher-forced) is under 0.1.
+   top-2 logit gap (teacher-forced) is under 0.1;
+o. the Mixture-of-Experts family at Mixtral-8x7B's widths (vocab 32000,
+   d_model 4096, 32/8 heads, d_ff 14336, 8 experts, top-2; 24 of its 32
+   layers, so the bf16 experts fit; max_seq 2048), every engine on the
+   weights of one ``build_engine`` with ``n_experts`` 8, built with under
+   1 GB resident, its gating held to the CPU's bit for bit: phase (e)'s
+   traffic greedy on the bf16 arena through the kernel at (depth, T)
+   (1, 1) and (2, 2) (the same tokens bit for bit), sampled twice (the
+   same tokens), int8 weights (the experts stay bf16) on the int8 arena
+   (tokens against the gather formulation's), the slot-static engine
+   (tokens against the paged engine's by the token rule, the gap read
+   with the engine's routing: the prompt in its bucket, then a token a
+   step; a divergence past the gap only after the two runs' traced
+   gating first routes apart at a router near-tie, ``ROUTER_TOL``),
+   ``SpeculativeDecodeServer`` (n_draft 4) with the seeded draft and
+   with draft = target (each verify window against ``forward_with_cache``
+   from the engine's own K/V, by the same rule), a swap
+   preemption (the undisturbed tokens) and a recompute one (the spans'
+   K/V against a twin, as l.1), phase (k)'s shared prefix with and
+   without the prefix cache, and 8 concurrent greedy requests through
+   the binary over HTTP (the direct drain's tokens); the paged kernel's
+   own count held to n_layers x T x replays (or by shape, or with the
+   in-arena windows) in every run. Prints ms a tick and tokens/s beside
+   the weights' bytes over the HBM rate, kernels a tick, the idle share,
+   the tick's device ms by kernel group with the MoE FFN's parts (gating,
+   experts, dispatch and combine) timed as CUDA graphs at the tick's
+   shape, prefill and TTFT, capture seconds, peak memory, the speculative
+   rounds, and the share of routing assignments capacity drops in a
+   prefill bucket, a verify window and a decode step. Then in f32 at 2
+   layers: the engine's tokens through the kernel equal the gather
+   formulation's.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -238,7 +268,7 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijklmn"
+PHASES = "cdefghijklmno"
 
 
 def emit(obj) -> None:
@@ -868,11 +898,11 @@ def sampling_profile(eng) -> dict:
             "sampling_profiled_wall_ms": wall}
 
 
-def full_width_prompts(seed: int) -> list:
+def full_width_prompts(seed: int, vocab: int = FULL["vocab"]) -> list:
     """Phase (e)'s 8 prompts, 64-1024 tokens, from the seed."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(64, 1025, size=8)
-    return [rng.integers(0, FULL["vocab"], size=n).tolist() for n in lens]
+    return [rng.integers(0, vocab, size=n).tolist() for n in lens]
 
 
 def phase_full_width(seed: int, kv_dtype: str, card: str,
@@ -1667,13 +1697,12 @@ PREFIX_NEW = 32
 ARENA_LOGIT_TOL = 0.15
 
 
-def prefix_traffic(seed: int) -> tuple:
+def prefix_traffic(seed: int, vocab: int = FULL["vocab"]) -> tuple:
     """(system prompt, 8 suffixes) from the seed."""
     rng = np.random.default_rng(seed + 101)
-    system = rng.integers(0, FULL["vocab"], size=PREFIX_LEN).tolist()
+    system = rng.integers(0, vocab, size=PREFIX_LEN).tolist()
     lens = rng.integers(32, 257, size=8)
-    return system, [rng.integers(0, FULL["vocab"], size=n).tolist()
-                    for n in lens]
+    return system, [rng.integers(0, vocab, size=n).tolist() for n in lens]
 
 
 def first_logits(eng) -> list:
@@ -3735,11 +3764,18 @@ def plain_gaps(params, cfg, seq: list) -> torch.Tensor:
 
 
 def token_rule(label: str, got: list, plain: list, prompts: list, params,
-               cfg) -> dict:
+               cfg, gap_at=None, routing=None) -> dict:
     """Hold greedy sequences to the plain run's: equal, or the first
     differing token sits at a step where the plain run's top-2 logit gap
-    (teacher-forced) is below ``GAP_TOL``; prints each such step and gap
-    and raises on any other divergence."""
+    (teacher-forced; ``gap_at(prompt, seq, j)`` when given, the gap of
+    the logits choosing ``seq[j]``) is below ``GAP_TOL``; prints each
+    such step and gap and raises on any other divergence, unless the
+    two runs route the MoE differently before it: ``routing(i, step)``
+    returns the first routing difference of request i before that step
+    (its margins held to ``ROUTER_TOL``), or None."""
+    if gap_at is None:
+        def gap_at(prompt, seq, j):
+            return float(plain_gaps(params, cfg, seq)[j - 1])
     diverged = []
     for i, (g, p) in enumerate(zip(got, plain)):
         if g == p:
@@ -3748,14 +3784,21 @@ def token_rule(label: str, got: list, plain: list, prompts: list, params,
             raise AssertionError(f"{label}: request {i} has {len(g)} "
                                  f"tokens, the plain run {len(p)}")
         j = next(k for k in range(len(p)) if g[k] != p[k])
-        gap = float(plain_gaps(params, cfg, p)[j - 1])
         step = j - len(prompts[i])
-        if step < 0 or gap >= GAP_TOL:
+        gap = gap_at(prompts[i], p, j) if step >= 0 else float("inf")
+        row = {"request": i, "step": step, "gap": gap, "cause": "near_tie"}
+        if step >= 0 and gap >= GAP_TOL and routing:
+            flip = routing(i, step)
+            if flip:
+                row.update(cause="routing", routing=flip)
+        if step < 0 or (gap >= GAP_TOL and row["cause"] != "routing"):
             raise AssertionError(
                 f"{label}: request {i} diverges at step {step} where the "
                 f"plain run's top-2 logit gap is {gap} (>= {GAP_TOL})")
-        diverged.append({"request": i, "step": step, "gap": gap})
+        diverged.append(row)
     return {"equal": len(got) - len(diverged), "of": len(got),
+            "near_tie": sum(d["cause"] == "near_tie" for d in diverged),
+            "routing": sum(d["cause"] == "routing" for d in diverged),
             "diverged": diverged}
 
 
@@ -4268,6 +4311,859 @@ def phase_n(seed: int, card: str, flush) -> dict:
     emit({"phase": "n", "seconds": time.perf_counter() - t0, "card": card})
     return {"kernels": kernels, "launches": n2}
 
+
+
+# ---------------------------------------------------------------------------
+# phase (o): the Mixture-of-Experts family at Mixtral-8x7B's widths
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B-v0.1's published widths (vocab 32000, hidden 4096, 32
+# query / 8 KV heads, intermediate 14336, 8 experts, top-2), cut to 24 of
+# its 32 layers: the experts stay bf16 under int8 weights too (as the
+# reference keeps them), 2.82 GB a layer, so 32 layers (90.2 GB) exceed
+# the card and 24 hold 70.2 GB; max_seq 2048 as phase (e). The
+# reference's capacity factor 1.25 (with drops) and rope theta 10000
+# (ServerConfig has no knob for Mixtral's 1e6).
+MOE = dict(vocab=32000, d_model=4096, n_layers=24, n_heads=32,
+           n_kv_heads=8, d_ff=14336, max_seq=2048, n_experts=8)
+MOE_NEW = 32
+# what may be resident on the card before the 70 GB model is built
+MOE_RESIDENT_MAX = 1 << 30
+# a routing difference excuses a divergence past the token rule's gap
+# only where it starts at a router near-tie: at the first position the
+# runs route apart (``route_apart``), each run's margin is at most twice
+# their largest router-logit difference there, which rounding keeps
+# small (first flips read 0.0002-0.03 on the H100); a larger one means
+# the runs computed other hidden states, not the same ones rounded apart
+ROUTER_TOL = 0.05
+
+
+def resident_bytes() -> int:
+    """Bytes the caching allocator holds for live tensors, read as
+    torch's own leak check reads them: after a collection, with cuBLAS's
+    per-stream workspaces released (cuBLAS keeps one for every stream it
+    ran on, each engine's capture stream among them; no graph that
+    recorded one is alive when this is called)."""
+    import gc
+
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def cuda_tensors(top: int = 6) -> dict:
+    """The live CUDA tensors the collector can see: their storages'
+    gigabytes, and the largest storages' shapes and dtypes."""
+    import gc
+
+    seen = {}
+    for obj in gc.get_objects():
+        if isinstance(obj, torch.Tensor) and obj.is_cuda:
+            st = obj.untyped_storage()
+            seen[st.data_ptr()] = (st.nbytes(), tuple(obj.shape),
+                                   str(obj.dtype))
+    big = sorted(seen.values(), reverse=True)[:top]
+    return {"gb": sum(n for n, *_ in seen.values()) / 1e9,
+            "largest": [{"gb": n / 1e9, "shape": sh, "dtype": dt}
+                        for n, sh, dt in big]}
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of a params tree's tensors (a QuantLinear's both planes)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if hasattr(tree, "q"):
+        return tree_bytes(tree.q) + tree_bytes(tree.scale)
+    return tree.numel() * tree.element_size()
+
+
+def bucket_prefill(params, cfg, prompt, bs: int = 16) -> tuple:
+    """``prompt`` through ``forward_with_cache`` as the paged engine
+    admits it, the same call bit for bit: padded to its bucket on a
+    one-row scratch cache of the bucket's length (``DecodeServer._row``).
+    Returns (logits [1, bucket, vocab], a one-row cache of ``max_seq``
+    positions holding the scratch's K/V, pos at the prompt's end)."""
+    from nos_tpu_torch.models.generate import forward_with_cache, init_cache
+    from nos_tpu_torch.models.serving import _bucket
+
+    device = params["final_norm"].device
+    n = len(prompt)
+    bucket = min(max(_bucket(n), bs), cfg.max_seq)
+    row = init_cache(cfg, 1, bucket, device=device)
+    row["pos"] = torch.tensor(0, dtype=torch.int32)
+    logits, row = forward_with_cache(params, cfg, torch.tensor(
+        [prompt + [0] * (bucket - n)], device=device), row)
+    cache = init_cache(cfg, 1, cfg.max_seq, per_row_pos=True, device=device)
+    for kv in ("k", "v"):
+        cache[kv][:, :, :, :bucket] = row[kv]
+    cache["pos"] = torch.full((1,), n, dtype=torch.int32, device=device)
+    return logits, cache
+
+
+def moe_gap_at(params, cfg):
+    """``token_rule``'s gap under MoE, read with the plain engine's
+    routing: the prompt prefilled in its admission bucket, then one token
+    a step (S 1, as a tick routes it). A single full-sequence pass would
+    route every token at another capacity."""
+    from nos_tpu_torch.models.generate import forward_with_cache
+
+    device = params["final_norm"].device
+
+    def at(prompt, seq, j):
+        n = len(prompt)
+        logits, cache = bucket_prefill(params, cfg, prompt)
+        step = logits[0, n - 1]
+        for q in range(n, j):
+            logits, cache = forward_with_cache(
+                params, cfg, torch.tensor([[seq[q]]], device=device), cache)
+            step = logits[0, -1]
+        top2 = step.float().topk(2).values
+        return float(top2[0] - top2[1])
+
+    return at
+
+
+def moe_drops(params, cfg, prompts, seqs) -> dict:
+    """Share of the real tokens' routing assignments (2 a token and
+    layer) that capacity drops: each prompt's tokens in its admission
+    bucket (the pads take their top-1 slots too), the first verify
+    window after it (S = ``SPEC_K``, the served tokens that follow) and
+    one decode step (S 1); counted around ``ops.moe.top2_gating``."""
+    from nos_tpu_torch.models.generate import forward_with_cache
+    from nos_tpu_torch.models.serving import _bucket
+    from nos_tpu_torch.ops import moe
+
+    device = params["final_norm"].device
+    tally = {}
+    gating = moe.top2_gating
+
+    def counted(logits, capacity):
+        combine, dispatch, aux = gating(logits, capacity)
+        kept = dispatch.sum(dim=(2, 3))[:, :tally["real"]]
+        t = tally.setdefault(tally["what"], [0, 0])
+        t[0] += 2 * kept.numel() - int(kept.sum())
+        t[1] += 2 * kept.numel()
+        return combine, dispatch, aux
+
+    moe.top2_gating = counted
+    try:
+        for prompt, seq in zip(prompts, seqs):
+            n = len(prompt)
+            tally.update(what="prefill", real=n)
+            _, cache = bucket_prefill(params, cfg, prompt)
+            for what, width in (("verify", SPEC_K), ("decode", 1)):
+                cache["pos"] = torch.full((1,), n, dtype=torch.int32,
+                                          device=device)
+                tally.update(what=what, real=width)
+                forward_with_cache(params, cfg, torch.tensor(
+                    [seq[n:n + width]], device=device), cache)
+    finally:
+        moe.top2_gating = gating
+    out = {}
+    for what in ("prefill", "verify", "decode"):
+        dropped, assigned = tally[what]
+        out[what] = {"dropped": dropped, "assignments": assigned,
+                     "share": dropped / assigned}
+    out["capacity"] = {
+        "prefill_buckets": sorted({moe.expert_capacity(
+            min(max(_bucket(len(p)), 16), cfg.max_seq), cfg.n_experts,
+            cfg.expert_capacity_factor) for p in prompts}),
+        "verify": moe.expert_capacity(SPEC_K, cfg.n_experts,
+                                      cfg.expert_capacity_factor),
+        "decode": moe.expert_capacity(1, cfg.n_experts,
+                                      cfg.expert_capacity_factor)}
+    return out
+
+
+def graph_of(fn):
+    """``fn`` captured as a CUDA graph (after a warm-up on a side
+    stream), returned as its replay: the tick's launch path."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def moe_split(params, cfg, flush, batch: int = 8) -> dict:
+    """Device ms of one layer's MoE FFN at the decode tick's shape (B 8,
+    S 1), each part a CUDA graph replayed after the L2 flush, as in the
+    tick: the gating (the router's f32 product and ``top2_gating``), the
+    experts' three products with their SwiGLU, and the whole
+    ``moe_ffn``; dispatch and combine (two batched products and their
+    layout copies) are the rest. Per tick: x n_layers."""
+    import torch.nn.functional as F
+
+    from nos_tpu_torch.ops import moe
+
+    layer = {k: v[0] for k, v in params["layers"].items()}
+    router, wg, wu, wd = (layer[k] for k in ("w_router", "w_gate", "w_up",
+                                              "w_down"))
+    e, cf = cfg.n_experts, cfg.expert_capacity_factor
+    cap = moe.expert_capacity(1, e, cf)
+    gen = torch.Generator(wg.device).manual_seed(0)
+    h = torch.randn((batch, 1, cfg.d_model), generator=gen,
+                    device=wg.device).to(cfg.dtype)
+    x = torch.randn((e, batch * cap, cfg.d_model), generator=gen,
+                    device=wg.device).to(cfg.dtype)
+    parts = {
+        "gating": lambda: moe.top2_gating(
+            torch.matmul(h.float(), router.float()), cap),
+        "experts": lambda: torch.matmul(
+            F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu), wd),
+        "moe_ffn": lambda: moe.moe_ffn(h, router, wg, wu, wd, cf)}
+    layer_ms = {k: cuda_ms(graph_of(fn), 20, flush) for k, fn in
+                parts.items()}
+    layer_ms["dispatch_combine"] = (layer_ms["moe_ffn"] - layer_ms["gating"]
+                                    - layer_ms["experts"])
+    L = cfg.n_layers
+    expert_bytes = 3 * wg.numel() * wg.element_size()
+    return {"layer_ms": layer_ms,
+            "tick_ms": {k: v * L for k, v in layer_ms.items()},
+            "experts_bound_ms_per_layer": expert_bytes / HBM_BYTES_PER_S
+            * 1e3}
+
+
+def moe_run(eng, prompts, label: str, sampling=None) -> dict:
+    """``engine_run`` of phase (o)'s traffic on ``eng``, the paged
+    kernel's own count held to n_layers x T x replays (a plain paged
+    engine through the kernel; none through the gather), with the
+    requests' TTFT from their ledgers."""
+    eng.drain_ledgers()
+    r = engine_run(eng, prompts, MOE_NEW, sampling)
+    leds = {d["rid"]: d for d in eng.drain_ledgers()}
+    ttft = sorted(d["ttft_s"] * 1e3 for d in leds.values())
+    r.update(ttft_p50_ms=float(np.percentile(ttft, 50)),
+             ttft_p99_ms=float(np.percentile(ttft, 99)))
+    if eng.paged and not hasattr(eng, "spec_drafted"):
+        want = (eng.cfg.n_layers * eng.decode_steps * r["ticks"]
+                if eng.paged_kernel == "kernel" else 0)
+        if r["kernel_launches"] != want:
+            raise AssertionError(
+                f"{label}: paged launches {r['kernel_launches']} != "
+                f"n_layers x T x replays = {want}")
+    for i, (p, seq) in enumerate(zip(prompts, r["seqs"])):
+        if seq[:len(p)] != p or len(seq) != len(p) + MOE_NEW:
+            raise AssertionError(f"{label}: request {i}'s sequence")
+    emit({"phase": "moe_run", "run": label, **run_row(r)})
+    return r
+
+
+def run_row(r: dict) -> dict:
+    row = {k: r[k] for k in (
+        "ms_per_tick", "tokens_per_s", "ticks", "decode_tokens",
+        "prefill_s", "capture_s", "kernel_launches", "ttft_p50_ms",
+        "ttft_p99_ms") if k in r}
+    for k in ("ms_per_round", "tokens_per_window", "acceptance", "drafted",
+              "accepted", "windows"):
+        if k in r:
+            row[k] = r[k]
+    row["launches_by_shape"] = {f"S{s}_D{d}_{a}": n for (s, d, a), n in
+                                r["launches_by_shape"].items()}
+    row["tokens_sha256"] = token_digest(r["seqs"])
+    return row
+
+
+def moe_swap(eng, prompts, want) -> dict:
+    """One request (the fourth) preempted by swap after 3 ticks: every
+    request's tokens equal the undisturbed run's; the kernel's count
+    n_layers x replays (a swap replays nothing)."""
+    from nos_tpu_torch.ops import _kernels
+
+    eng.capture_programs()
+    ticks0 = eng.ticks_dispatched
+    _kernels.paged_decode.launches = 0
+    rids = [eng.submit(p, MOE_NEW) for p in prompts]
+    for _ in range(3):
+        eng.step()
+    if not eng.preempt(rids[3], "swap"):
+        raise AssertionError("moe swap preempt refused")
+    res = eng.drain()
+    launches = _kernels.paged_decode.launches
+    ticks = eng.ticks_dispatched - ticks0
+    got = [res[r] for r in rids]
+    if got != want:
+        raise AssertionError(f"moe swap: tokens equal undisturbed "
+                             f"{[a == b for a, b in zip(got, want)]}")
+    if launches != eng.cfg.n_layers * ticks:
+        raise AssertionError(f"moe swap: launches {launches} != n_layers "
+                             f"x {ticks} replays")
+    return {"tokens_equal_undisturbed": True, "kernel_launches": launches,
+            "ticks": ticks, "preempts": eng.kv_stats()["preempts"]}
+
+
+def routing_trace(eng, prompts) -> tuple:
+    """Phase (o)'s greedy traffic once more on ``eng``, every program
+    called directly (a replay runs the same kernels), with the top-3
+    router logits of every gating call kept: (calls in order, each
+    (top-3 values, top-3 experts) [B, S, 3] on the host; each request's
+    slot; the sequences)."""
+    from nos_tpu_torch.models.serving import uncaptured
+    from nos_tpu_torch.ops import moe
+
+    calls = []
+    gating = moe.top2_gating
+
+    def traced(logits, capacity):
+        calls.append(logits.topk(3, dim=-1))
+        return gating(logits, capacity)
+
+    moe.top2_gating = traced
+    try:
+        with uncaptured(eng):
+            rids = [eng.submit(p, MOE_NEW) for p in prompts]
+            slots = {req.rid: s for s, req in eng._active.items()}
+            res = eng.drain()
+    finally:
+        moe.top2_gating = gating
+    return ([(v.cpu(), i.cpu()) for v, i in calls],
+            [slots[r] for r in rids], [res[r] for r in rids])
+
+
+def route_apart(va, ia, vb, ib, ordered: bool):
+    """Where two traced gating calls (top-3 router logits and experts
+    [..., 3] over the same positions) route apart: the top-2 experts
+    differ, or with ``ordered`` (a call of S > 1, where the top-1 picks
+    take capacity first) the top-1 does. Returns (mask [...], each
+    run's margin there [..., 2]: the gap the change had to close, first
+    minus second logit where the top-1 moved, else second minus third;
+    at most twice the runs' largest logit difference)."""
+    top1 = ia[..., 0] != ib[..., 0]
+    pairs = (ia[..., :2].sort(dim=-1).values
+             != ib[..., :2].sort(dim=-1).values).any(dim=-1)
+    apart = pairs | top1 if ordered else pairs
+    k = torch.where(ordered & top1, 0, 1)[..., None]
+
+    def gap(v):
+        return (v.gather(-1, k) - v.gather(-1, k + 1))[..., 0]
+
+    return apart, torch.stack([gap(va), gap(vb)], dim=-1)
+
+
+def hold_flip(label: str, flip: dict) -> dict:
+    """Raise unless both runs' router margins at ``flip`` (the first
+    position they route apart) are within ``ROUTER_TOL``."""
+    if max(flip["margins"]) > ROUTER_TOL:
+        raise AssertionError(
+            f"{label}: the runs first route apart at {flip} where "
+            f"a router margin exceeds {ROUTER_TOL}: not a near-tie")
+    return flip
+
+
+def routing_flip(a: tuple, b: tuple, prompts, L: int, label: str):
+    """``token_rule``'s ``routing`` for two traced runs (``routing_trace``
+    of the same traffic on two engines): the first call, layer and
+    position where request i routes apart (``route_apart``) before a
+    step (its admission's positions, ordered; then the ticks up to the
+    one that chose the step, S 1, where only the top-2 set counts), with
+    each run's router margin there, held to ``ROUTER_TOL``
+    (``hold_flip``), or None."""
+    (ca, slots, _), (cb, slots_b, _) = a, b
+    if slots != slots_b or len(ca) != len(cb):
+        raise AssertionError("traced runs scheduled their calls apart")
+    n = len(prompts)
+
+    def at(i, step):
+        # admission: request i's L calls, its prompt's positions; then
+        # tick t's L calls (t < step), its slot's row
+        spans = [(i * L, (0, slice(0, len(prompts[i]))), "prefill")]
+        spans += [((n + t) * L, (slots[i], slice(0, 1)), f"tick {t}")
+                  for t in range(step)]
+        for first, where, what in spans:
+            for layer in range(L):
+                (va, ia), (vb, ib) = ca[first + layer], cb[first + layer]
+                apart, margins = route_apart(va[where], ia[where], vb[where],
+                                             ib[where], what == "prefill")
+                if apart.any():
+                    m = int(apart.nonzero()[0, 0])
+                    return hold_flip(label, {
+                        "at": what, "layer": layer,
+                        "position": where[1].start + m
+                        if what == "prefill" else None,
+                        "experts": [ia[where][m, :2].tolist(),
+                                    ib[where][m, :2].tolist()],
+                        "margins": margins[m].tolist()})
+        return None
+
+    return at
+
+
+def first_flip(ga: list, gb: list, row: int, label: str):
+    """The first layer, then position, where two traced calls of the
+    same window (each layer's top-3 router logits and experts, row
+    ``row`` of ``ga`` against the one row of ``gb``) route apart
+    (``route_apart``, ordered: a window's S > 1), held by ``hold_flip``;
+    None where they agree."""
+    for layer, ((va, ia), (vb, ib)) in enumerate(zip(ga, gb)):
+        apart, margins = route_apart(va[row], ia[row], vb[0], ib[0], True)
+        if apart.any():
+            m = int(apart.nonzero()[0, 0])
+            return hold_flip(label, {
+                "layer": layer, "position": m,
+                "experts": [ia[row, m, :2].tolist(), ib[0, m, :2].tolist()],
+                "margins": margins[m].tolist()})
+    return None
+
+
+def verify_windows(eng, prompts, seqs, label: str) -> dict:
+    """Hold a greedy speculative run's tokens to a plain computation of
+    its own verify windows, teacher-forced on the tokens and on the K/V
+    the engine holds. The traffic runs once more with every program
+    called directly; at each target window, each live row's K/V before
+    the window are read out of the arena into a one-row cache and the
+    row's feed goes through ``forward_with_cache`` at S = k (both sides'
+    gating calls traced). A window commits the target's argmax at each
+    of its positions up to the first rejected proposal; there the run's
+    argmax must equal the plain one, or differ where the plain top-2
+    logit gap is under ``GAP_TOL``, or after the window's own first
+    routing difference from the plain computation, held to
+    ``ROUTER_TOL``. A request's last windows, whose tail runs past its
+    blocks into the null block (other rows and earlier runs wrote it;
+    under MoE it routes the window, C.16), are counted apart, and the
+    rerun's tokens equal ``seqs`` up to them."""
+    from nos_tpu_torch.models.generate import forward_with_cache, init_cache
+    from nos_tpu_torch.models.serving import uncaptured
+    from nos_tpu_torch.ops import moe
+
+    params, cfg, k, bs = eng.params, eng.cfg, eng.k, eng.kv_block_size
+    if "k_scale" in eng.cache:
+        raise AssertionError(f"{label}: a bf16 arena is read as is")
+    row = init_cache(cfg, 1, cfg.max_seq, per_row_pos=True,
+                     device=eng.device)
+    gating, forward = moe.top2_gating, eng._forward
+    windows, sink = [], [None]
+
+    def traced(logits, capacity):
+        if sink[0] is not None:
+            sink[0].append(tuple(t.cpu() for t in logits.topk(3, dim=-1)))
+        return gating(logits, capacity)
+
+    def gated(fn, *args):
+        sink[0] = []
+        try:
+            return fn(*args) + (sink[0],)
+        finally:
+            sink[0] = None
+
+    def window(toks, cache, table):
+        if toks.shape[1] != k:
+            return forward(toks, cache, table)
+        rec = {"feed": toks.cpu(), "pos": cache["pos"].tolist(),
+               "keep": eng._keep.tolist(), "plain": {}}
+        for b in (b for b, live in enumerate(rec["keep"]) if live):
+            p = rec["pos"][b]
+            blocks = table[b, :-(-p // bs)]
+            for kv in ("k", "v"):
+                held = cache[kv][:, blocks].transpose(1, 2)
+                row[kv][:, 0, :, :held.shape[2] * bs] = held.flatten(2, 3)
+            row["pos"].fill_(p)
+            logits, _, g = gated(forward_with_cache, params, cfg,
+                                 toks[b:b + 1], row)
+            step = logits[0].float()
+            rec["plain"][b] = (step.topk(2).values.cpu(),
+                               step.argmax(dim=-1).cpu(), g)
+        logits, cache, rec["gating"] = gated(forward, toks, cache, table)
+        rec["greedy"] = logits.float().argmax(dim=-1).cpu()
+        windows.append(rec)
+        return logits, cache
+
+    moe.top2_gating, eng._forward = traced, window
+    try:
+        with uncaptured(eng):
+            rids = [eng.submit(p, MOE_NEW) for p in prompts]
+            slots = {req.rid: s for s, req in eng._active.items()}
+            res = eng.drain()
+    finally:
+        moe.top2_gating = gating
+        del eng._forward
+
+    out = {"windows": 0, "positions": 0, "equal": 0, "near_tie": 0,
+           "routing": 0, "past_blocks": 0, "max_flip_margin": 0.0,
+           "diverged": []}
+    for i, (prompt, want) in enumerate(zip(prompts, seqs)):
+        slot, seq = slots[rids[i]], res[rids[i]]
+        # positions from here route to the null block
+        blocked = -(-(len(seq) - 1) // bs) * bs
+        if seq[:blocked - k + 2] != want[:blocked - k + 2]:
+            raise AssertionError(f"{label}: request {i}: the directly called "
+                                 f"programs gave other tokens than the "
+                                 f"replayed graphs")
+        for rec in windows:
+            p = rec["pos"][slot]
+            if not rec["keep"][slot] or p + 1 >= len(seq):
+                continue
+            if p + k > blocked:
+                out["past_blocks"] += 1
+                continue
+            feed, got = rec["feed"][slot], rec["greedy"][slot]
+            values, plain, ref = rec["plain"][slot]
+            if int(feed[0]) != seq[p]:
+                raise AssertionError(f"{label}: request {i}'s window at "
+                                     f"{p} does not feed its sequence")
+            # committed: the argmax up to the first rejected proposal
+            a = next((m for m in range(k - 1)
+                      if int(feed[m + 1]) != int(got[m])), k - 1)
+            span = min(a + 1, len(seq) - p - 1)
+            if got[:span].tolist() != seq[p + 1:p + 1 + span]:
+                raise AssertionError(f"{label}: request {i}'s window at {p} "
+                                     f"committed other tokens than it served")
+            out["windows"] += 1
+            out["positions"] += span
+            where = f"{label}, request {i}, window at {p}"
+            m = next((m for m in range(span)
+                      if int(got[m]) != int(plain[m])), None)
+            if m is None:
+                out["equal"] += 1
+                continue
+            row = {"request": i, "pos": p + 1 + m,
+                   "gap": float(values[m, 0] - values[m, 1]),
+                   "cause": "near_tie"}
+            if row["gap"] >= GAP_TOL:
+                flip = first_flip(rec["gating"], ref, slot, where)
+                if flip is None:
+                    raise AssertionError(
+                        f"{where}: commits {int(got[m])} where the plain "
+                        f"argmax is {int(plain[m])} at a top-2 gap of "
+                        f"{row['gap']} (>= {GAP_TOL}), the window routed as "
+                        f"the plain computation")
+                row.update(cause="routing", routing=flip)
+                out["max_flip_margin"] = max(out["max_flip_margin"],
+                                             *flip["margins"])
+            out[row["cause"]] += 1
+            out["diverged"].append(row)
+    return out
+
+
+def moe_gating_exact(seed: int, cfg) -> dict:
+    """``top2_gating`` on the card against the CPU's (which the tests
+    hold to XLA:CPU's bit for bit) on the same f32 logits: the decode
+    tick's [8, 1, E], a verify window's [8, SPEC_K, E] and a 1,024-token
+    prefill bucket's [1, 1024, E], drawn at the router's scale (unit
+    variance) and again rounded to 1/8 so that gates tie. Combine and
+    dispatch are equal bit for bit (every step elementwise and IEEE-
+    rounded, the sums over E taken in a fixed order); the aux loss, a
+    mean over B x S each device reduces in its own order, within 1e-6
+    relative."""
+    from nos_tpu_torch.ops import moe
+
+    gen = torch.Generator().manual_seed(seed)
+    e, cf = cfg.n_experts, cfg.expert_capacity_factor
+    out = {}
+    for b, s in ((8, 1), (8, SPEC_K), (1, 1024)):
+        cap = moe.expert_capacity(s, e, cf)
+        x = torch.randn((b, s, e), generator=gen)
+        for kind, logits in (("random", x), ("tied", (x * 8).round() / 8)):
+            want = moe.top2_gating(logits, cap)
+            got = [t.cpu() for t in moe.top2_gating(logits.cuda(), cap)]
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(
+                    f"moe gating [{b}, {s}, {e}] {kind}: the card's combine "
+                    f"or dispatch differs from the CPU's")
+            rel = float(abs(got[2] - want[2]) / abs(want[2]))
+            if rel > 1e-6:
+                raise AssertionError(f"moe gating [{b}, {s}, {e}] {kind}: "
+                                     f"aux loss {rel} relative apart")
+            out[f"{b}x{s}_{kind}"] = {"capacity": cap, "aux_rel_err": rel,
+                                      "kept": int(got[1].sum())}
+    return out
+
+
+def moe_f32_exact(seed: int, prompts) -> dict:
+    """Phase (o)'s traffic in f32 at 2 layers, the widths otherwise
+    phase (o)'s: the engine's tokens through the paged kernel equal
+    those through the gather formulation."""
+    import gc
+
+    from nos_tpu_torch.cmd.server import ServerConfig, build_engine
+    from nos_tpu_torch.models.serving import DecodeServer
+
+    eng = build_engine(ServerConfig(
+        bf16=False, kv_blocks=1 + 8 * 128, kv_block_size=16, max_batch=8,
+        paged_kernel="on", seed=seed, **dict(MOE, n_layers=2)))
+    kern = moe_run(eng, prompts, "f32 kernel")
+    gather = DecodeServer(eng.params, eng.cfg, max_batch=8,
+                          kv_blocks=1 + 8 * 128, kv_block_size=16,
+                          paged_impl="xla", device=eng.device)
+    plain = moe_run(gather, prompts, "f32 gather")
+    if kern["seqs"] != plain["seqs"]:
+        raise AssertionError(
+            f"moe f32: kernel tokens differ from the gather formulation's "
+            f"{[a == b for a, b in zip(kern['seqs'], plain['seqs'])]}")
+    out = {"n_layers": 2, "kernel_equals_gather": True,
+           "kernel_launches": kern["kernel_launches"],
+           "tokens_sha256": token_digest(kern["seqs"])}
+    del eng, gather
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(seed: int, card: str, flush) -> dict:
+    """(o): the MoE family served at Mixtral-8x7B's widths (24 layers),
+    every engine on the weights of one ``build_engine`` with
+    ``n_experts`` 8; returns the paged kernel's launches on the main
+    path's greedy run."""
+    import gc
+    import threading
+
+    from nos_tpu_torch.cmd.server import (
+        ServerConfig, ServingLoop, build_engine, make_http_server,
+    )
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.models.quant import quantize_params
+    from nos_tpu_torch.models.serving import DecodeServer, _bucket
+    from nos_tpu_torch.ops.quant import QuantLinear
+
+    t0 = time.perf_counter()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    cached = torch.cuda.memory_allocated()
+    resident = resident_bytes()
+    if resident >= MOE_RESIDENT_MAX:
+        raise AssertionError(f"{resident / 1e9:.3f} GB resident before the "
+                             f"MoE model is built: {cuda_tensors()}")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng0 = build_engine(ServerConfig(
+        bf16=True, kv_blocks=1 + 8 * 128, kv_block_size=16, max_batch=8,
+        paged_kernel="on", seed=seed, **MOE))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    params, cfg = eng0.params, eng0.cfg
+    L = cfg.n_layers
+    weight_bytes = tree_bytes(params)
+    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    prompts = full_width_prompts(seed, MOE["vocab"])
+    gap_at = moe_gap_at(params, cfg)
+    gating_exact = moe_gating_exact(seed, cfg)
+
+    def engine(**kw):
+        free()
+        return DecodeServer(params, cfg, max_batch=8, device=eng0.device,
+                            **{"kv_blocks": 1 + 8 * 128,
+                               "kv_block_size": 16, "paged_impl": "kernel",
+                               **kw})
+
+    out = {"phase": "moe", "card": card, **MOE,
+           "source": "Mixtral-8x7B-v0.1 widths, 24 of 32 layers",
+           "resident_gb_before": resident / 1e9,
+           "allocated_gb_before_workspace_release": cached / 1e9,
+           "build_s": build_s,
+           "weight_gb": weight_bytes / 1e9, "floor_ms_per_tick": floor_ms,
+           "gating_card_equals_cpu": gating_exact}
+    # what was measured is printed also when a check fails
+    try:
+        # o.1 the main path: greedy, bf16 arena, (1, 1), through the kernel
+        runs = {"greedy_11": moe_run(eng0, prompts, "moe greedy (1, 1)")}
+        main_launches = runs["greedy_11"]["kernel_launches"]
+        want = runs["greedy_11"]["seqs"]
+        prof = profile_ticks(eng0, prompts)
+        if prof["paged_kernels_per_tick"] != L:
+            raise AssertionError(
+                f"moe profile: {prof['paged_kernels_per_tick']} paged "
+                f"kernels a tick, not {L}")
+        split = moe_split(params, cfg, flush)
+        tick = runs["greedy_11"]["ms_per_tick"]
+        out["tick"] = {
+            "ms_per_tick": tick, "floor_ms_per_tick": floor_ms,
+            "tokens_per_s": runs["greedy_11"]["tokens_per_s"],
+            "kernels_per_tick": prof["kernels_per_tick"],
+            "device_busy_ms_per_tick": prof["device_busy_ms_per_tick"],
+            "device_idle_share": 1 - prof["device_busy_ms_per_tick"] / tick,
+            "device_ms_by_group": prof["device_ms_per_tick"],
+            "moe_part_ms_per_tick": split["tick_ms"],
+            "moe_part_ms_per_layer": split["layer_ms"],
+            "experts_bound_ms_per_layer": split["experts_bound_ms_per_layer"],
+            "top_kernels": prof["top_kernels"]}
+        # o.2 (2, 2): the same tokens bit for bit
+        eng = engine(pipeline_depth=2, decode_steps=2)
+        runs["greedy_22"] = moe_run(eng, prompts, "moe greedy (2, 2)")
+        del eng
+        if runs["greedy_22"]["seqs"] != want:
+            raise AssertionError("moe (2, 2) tokens differ from (1, 1)'s")
+        # o.3 sampled, served twice
+        runs["sampled"] = moe_run(eng0, prompts, "moe sampled", SAMPLED)
+        again = moe_run(eng0, prompts, "moe sampled rerun", SAMPLED)
+        if again["seqs"] != runs["sampled"]["seqs"]:
+            raise AssertionError("moe sampled: a rerun gave other tokens")
+        # o.4 int8 weights (the experts stay bf16) on the int8 arena
+        qparams = quantize_params(params)
+        for k in ("w_router", "w_gate", "w_up", "w_down"):
+            if isinstance(qparams["layers"][k], QuantLinear) \
+                    or qparams["layers"][k] is not params["layers"][k]:
+                raise AssertionError(f"quantize_params quantized {k}")
+        free()
+        eng = DecodeServer(qparams, cfg, max_batch=8, kv_blocks=1 + 8 * 128,
+                           kv_block_size=16, kv_dtype="int8",
+                           paged_impl="kernel", device=eng0.device)
+        runs["int8"] = moe_run(eng, prompts, "moe int8")
+        out["int8_weight_gb"] = tree_bytes(qparams) / 1e9
+        # held to the same int8 weights and arena through the gather
+        # formulation (the bf16 arm's logits lie further apart than the
+        # token rule's gap: the attention weights are quantized); both
+        # traced, so a divergence past the gap must start at a router
+        # near-tie
+        traces = [routing_trace(eng, prompts)]
+        del eng
+        free()
+        eng = DecodeServer(qparams, cfg, max_batch=8, kv_blocks=1 + 8 * 128,
+                           kv_block_size=16, kv_dtype="int8",
+                           paged_impl="xla", device=eng0.device)
+        traces.append(routing_trace(eng, prompts))
+        del eng
+        if traces[0][2] != runs["int8"]["seqs"]:
+            raise AssertionError("moe int8: the directly called programs "
+                                 "gave other tokens than the replayed graphs")
+        out["int8_vs_gather"] = token_rule(
+            "moe int8 vs gather", traces[0][2], traces[1][2], prompts,
+            qparams, cfg, gap_at=moe_gap_at(qparams, cfg),
+            routing=routing_flip(traces[0], traces[1], prompts, L,
+                                 "moe int8 vs gather"))
+        del traces, qparams
+        out["int8_equal_bf16"] = sum(a == b for a, b in zip(
+            runs["int8"]["seqs"], want))
+        # o.5 the slot-static engine (the reference's default), greedy
+        free()
+        eng = DecodeServer(params, cfg, max_batch=8, device=eng0.device)
+        runs["static_11"] = moe_run(eng, prompts, "moe static")
+        if runs["static_11"]["kernel_launches"]:
+            raise AssertionError("moe static launched the paged kernel")
+        static_prof = profile_ticks(eng, prompts)
+        del eng
+        out["static_profile"] = {
+            "kernels_per_tick": static_prof["kernels_per_tick"],
+            "device_busy_ms_per_tick": static_prof["device_busy_ms_per_tick"],
+            "device_ms_by_group": static_prof["device_ms_per_tick"]}
+        # o.6 speculative, n_draft 4, on the bf16 paged arm: the seeded dense
+        # draft at ServerConfig's draft widths, and draft = target
+        dcfg = tfm.TransformerConfig(vocab=cfg.vocab, max_seq=cfg.max_seq,
+                                     dtype=cfg.dtype, **DRAFT_W)
+        dparams = tfm.init_params(
+            dcfg, torch.Generator(eng0.device).manual_seed(DRAFT_SEED),
+            eng0.device)
+        out["speculative"] = {}
+        for name, (dp, dc) in (("seeded", (dparams, dcfg)),
+                               ("target", (params, cfg))):
+            free()
+            eng = spec_engine(params, cfg, dp, dc, "paged_bf16", 1, 1)
+            r = moe_run(eng, prompts, f"moe spec {name}")
+            hold_spec_launches(f"moe spec {name}", eng, r)
+            runs[f"spec_{name}"] = r
+            # a verify window routes at S = n_draft, the plain tick at S 1
+            # (C.17): the run is held to its own windows, recomputed
+            out["speculative"][name] = {
+                "windows_vs_plain": verify_windows(eng, prompts, r["seqs"],
+                                                   f"moe spec {name}"),
+                "equal_plain_engine": sum(a == b for a, b in zip(
+                    r["seqs"], want)),
+                "plain_ms_per_tick": tick}
+            del eng
+        del dparams, dp, dc
+        # o.7 a swap and a recompute preemption of one request
+        eng = engine(kv_swap=True)
+        out["swap"] = moe_swap(eng, prompts, want)
+        del eng
+
+        # the victim whose committed sequence crosses into the next
+        # bucket, as l.1's second probe
+        cross = min((len(p) for p in prompts), key=lambda n: _bucket(n) - n)
+        out["recompute"] = recompute_probe(engine, prompts, cross,
+                                           _bucket(cross) - cross + 4,
+                                           eager=False)
+        free()
+        # o.8 phase (k)'s shared 1024-token prefix through the prefix cache
+        system, suffixes = prefix_traffic(seed, MOE["vocab"])
+        eng = engine(prefix_cache_size=4)
+        hit = prefix_pass(eng, system, suffixes, L)
+        del eng
+        eng = engine()
+        cold = prefix_pass(eng, system, suffixes, L)
+        del eng
+        out["prefix"] = {
+            **{k: hit[k] for k in ("ttft_p50_ms", "ttft_p99_ms", "hits",
+                                   "tokens_saved", "in_arena_windows",
+                                   "graph_replays", "kernel_launches")},
+            "ttft_p50_ms_without": cold["ttft_p50_ms"],
+            "ttft_p99_ms_without": cold["ttft_p99_ms"],
+            # a hit routes its suffix in the suffix's bucket, a full prefill
+            # the whole prompt in its own: other capacities (C.16)
+            "equal_without": sum(a == b for a, b in zip(hit["seqs"],
+                                                        cold["seqs"]))}
+        if hit["hits"] != len(suffixes):
+            raise AssertionError(f"moe prefix hits {hit['hits']}")
+        # o.9 the share of routing assignments capacity drops
+        out["dropped"] = moe_drops(params, cfg, prompts, want)
+        # o.10 the binary: 8 concurrent greedy requests over HTTP
+        quiet_histograms()
+        loop = ServingLoop(eng0)
+        httpd = make_http_server(ServerConfig(port=0, max_batch=8), loop,
+                                 host="127.0.0.1")
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            seqs, _, wall = http_pass(
+                f"http://127.0.0.1:{httpd.server_address[1]}", prompts,
+                MOE_NEW, [{}] * len(prompts))
+        finally:
+            httpd.shutdown()
+            loop.shutdown()
+            httpd.server_close()
+        if seqs != want:
+            raise AssertionError(
+                f"moe over HTTP: tokens equal the direct drain "
+                f"{[a == b for a, b in zip(seqs, want)]}")
+        out["http"] = {"requests": len(seqs), "equal_direct": True,
+                       "wall_s": wall}
+        # last of the bf16 checks, so a failure here leaves every run above
+        # printed. The slot-static engine routes every call at the paged
+        # engine's S, but its attention rounds apart from the kernel's, and
+        # a router's near-tie may fall the other way: a divergence past the
+        # token rule's gap must show such a flip in the two runs' traces
+        traces = []
+        for eng, seqs in ((DecodeServer(params, cfg, max_batch=8,
+                                        device=eng0.device),
+                           runs["static_11"]["seqs"]), (engine(), want)):
+            traces.append(routing_trace(eng, prompts))
+            del eng
+            if traces[-1][2] != seqs:
+                raise AssertionError("moe: the directly called programs gave "
+                                     "other tokens than the replayed graphs")
+        out["static_vs_paged"] = token_rule(
+            "moe static vs paged", runs["static_11"]["seqs"], want, prompts,
+            params, cfg, gap_at=gap_at,
+            routing=routing_flip(traces[0], traces[1], prompts, L,
+                                 "moe static vs paged"))
+        del traces
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["runs"] = {k: {m: r[m] for m in (
+            "ms_per_tick", "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+            "capture_s", "kernel_launches", "ms_per_round",
+            "tokens_per_window", "acceptance") if m in r}
+            for k, r in runs.items()}
+        # the 70 GB model goes before the f32 one is built: every holder
+        # of the engine or its params (the loop, the server, the gap
+        # reader's closure) first
+        del eng0, params, runs, want, loop, httpd, gap_at
+        resident = resident_bytes()
+        if resident >= MOE_RESIDENT_MAX:
+            raise AssertionError(f"{resident / 1e9:.3f} GB still resident "
+                                 f"after the MoE model was freed: "
+                                 f"{cuda_tensors()}")
+        # o.11 f32 at 2 layers: the kernel's tokens equal the gather's
+        out["f32"] = moe_f32_exact(seed, prompts)
+    finally:
+        out["seconds"] = time.perf_counter() - t0
+        emit(out)
+    return main_launches
 
 
 # the training slice's attention shape (bench.py's 1.1B model: batch 8,
@@ -4876,6 +5772,8 @@ def main(argv=None) -> int:
     spec = {}
     if "n" in args.phases:
         spec = phase_n(args.seed, card, flush)
+    if "o" in args.phases:
+        paged["moe_launches"] = phase_moe(args.seed, card, flush)
     adamw = {}
     if "g" in args.phases:
         launches = phase_train(args.seed, card)

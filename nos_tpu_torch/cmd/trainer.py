@@ -8,7 +8,8 @@ through the hand-written CUDA flash-attention kernels on the card.
 
 Not ported yet, and refused with a ValueError naming the knob: the
 parallel layouts (``dp``/``fsdp``/``tp``/``pp``/``sp``/``ep`` > 1), MoE
-(``n_experts``), ``checkpoint_dir``, ``profile_dir``, ``metrics_port``,
+training (``n_experts``; the port serves MoE models, it does not train
+them yet), ``checkpoint_dir``, ``profile_dir``, ``metrics_port``,
 the lifecycle watcher (``node_name``/``lifecycle_api``) and a multi-host
 environment (``COORDINATOR_ADDRESS``).
 """
@@ -125,7 +126,7 @@ def check_ported(cfg: TrainerConfig) -> None:
                 f"{knob}={getattr(cfg, knob)}: parallel layouts are not "
                 f"ported yet; the torch trainer runs one process on one "
                 f"card")
-    refused = [("n_experts", cfg.n_experts > 0, "MoE"),
+    refused = [("n_experts", cfg.n_experts > 0, "MoE training"),
                ("checkpoint_dir", bool(cfg.checkpoint_dir), "checkpointing"),
                ("profile_dir", bool(cfg.profile_dir), "the profiler"),
                ("metrics_port", bool(cfg.metrics_port), "the metrics server"),

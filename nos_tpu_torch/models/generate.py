@@ -25,6 +25,7 @@ from nos_tpu_torch.ops.attention import (
 from nos_tpu_torch.ops.layers import (
     rms_norm, rope_frequencies, rope_rows, rotate, swiglu,
 )
+from nos_tpu_torch.ops.moe import moe_ffn
 from nos_tpu_torch.ops.quant import embed_lookup, qdot
 from nos_tpu_torch.utils import prng
 
@@ -165,8 +166,17 @@ def _layer(params: Params, i: int) -> dict:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
-def _mlp_residual(x: torch.Tensor, layer: dict) -> torch.Tensor:
+def _mlp_residual(x: torch.Tensor, layer: dict,
+                  cfg: TransformerConfig) -> torch.Tensor:
+    """The FFN sublayer + residual: the dense SwiGLU, or with
+    ``cfg.n_experts`` the reference's top-2 MoE, whose capacity is taken
+    over this call's S (the aux loss is dropped, as serving drops it)."""
     h2 = rms_norm(x, layer["mlp_norm"])
+    if cfg.n_experts > 0:
+        y, _aux = moe_ffn(h2, layer["w_router"], layer["w_gate"],
+                          layer["w_up"], layer["w_down"],
+                          cfg.expert_capacity_factor)
+        return x + y
     return x + swiglu(h2, layer["w_gate"], layer["w_up"], layer["w_down"])
 
 
@@ -218,7 +228,8 @@ def forward_paged(
     # table; their rows are clamped, as the reference's gather clamps,
     # and their output is discarded.
     rope = rope_rows(freqs, positions.clamp(max=cfg.max_seq - 1))
-    route = paged_write_route(table, pos0, s, cache["k"].shape[3])
+    route = paged_write_route(table, pos0, s, cache["k"].shape[3],
+                              cache["k"].shape[1])
 
     x = embed_lookup(params["embed"], tokens, cfg.dtype)
     for i in range(cfg.n_layers):
@@ -250,7 +261,7 @@ def forward_paged(
                 scale=scale)
         o = o.transpose(1, 2).reshape(b, s, cfg.d_model)
         x = x + qdot(o, layer["wo"])
-        x = _mlp_residual(x, layer)
+        x = _mlp_residual(x, layer, cfg)
     out = dict(cache)
     out["pos"] = pos0 + s
     return _logits(x, params), out
@@ -304,7 +315,7 @@ def forward_with_cache(
         o = _cached_attention(q.transpose(1, 2), ck, cv, positions, scale)
         o = o.transpose(1, 2).reshape(b, s, cfg.d_model)
         x = x + qdot(o, layer["wo"])
-        x = _mlp_residual(x, layer)
+        x = _mlp_residual(x, layer, cfg)
     out = dict(cache)
     out["pos"] = pos0 + s
     return _logits(x, params), out

@@ -14,12 +14,17 @@ _ATTN_KEYS = ("wq", "wk", "wv", "wo")
 
 def quantize_params(params: Any, *, quantize_embed: bool = True) -> Any:
     """A params dict whose decoder matmul weights are ``QuantLinear``
-    (int8 + per-channel scales); norms stay f32. Embedding rows get
-    per-ROW scales (axis -1)."""
+    (int8 + per-channel scales); norms stay f32, and an MoE model's
+    router and expert stacks stay as they are (the MoE products take no
+    ``qdot``), as in the reference. Embedding rows get per-ROW scales
+    (axis -1)."""
     out = dict(params)
     layers = dict(params["layers"])
-    for k in _ATTN_KEYS + _DENSE_FFN_KEYS:
+    for k in _ATTN_KEYS:
         layers[k] = quantize_array(layers[k])
+    if "w_router" not in layers:        # dense FFN only; experts stay bf16
+        for k in _DENSE_FFN_KEYS:
+            layers[k] = quantize_array(layers[k])
     out["layers"] = layers
     out["unembed"] = quantize_array(params["unembed"])
     if quantize_embed:

@@ -7,8 +7,12 @@ Params are a plain dict of tensors with the reference's layout: stacked
 [d, vocab]``, f32 norms. PyTorch runs eagerly, so the reference's
 ``lax.scan`` over layers is a Python loop over the stacked tensors, and
 its ``jax.checkpoint`` per layer is ``torch.utils.checkpoint`` (the
-"full" policy). MoE (``n_experts > 0``), sequence parallelism and the
-named remat policies are not ported yet and raise.
+"full" policy). With ``n_experts > 0`` every layer's FFN is the
+reference's top-2 MoE (``w_router`` [L, d, E] f32, experts [L, E, d, f]
+/ [L, E, f, d]); the decode path serves it (``models/generate.py``),
+and the training ``forward`` refuses it: MoE training is not ported
+yet. Sequence parallelism and the named remat policies are not ported
+yet and raise.
 """
 from __future__ import annotations
 
@@ -67,10 +71,6 @@ class TransformerConfig:
             raise ValueError(
                 f"remat_policy {self.remat_policy!r} is not ported yet: the "
                 f"torch port recomputes whole layers (remat_policy 'full')")
-        if self.n_experts > 0:
-            raise ValueError(
-                "n_experts > 0 (MoE) is not ported yet: the torch port "
-                "runs dense-FFN models only")
 
     @property
     def head_dim(self) -> int:
@@ -88,28 +88,39 @@ class TransformerConfig:
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Params:
     """Random params with the reference's shapes and init scales
-    (normal * fan_in**-0.5, norms at 1). The numbers differ from JAX's
-    PRNG stream; tests that compare the two bridge the reference's
-    params with ``params_from_jax``. Each layer is drawn in f32 and cast
-    into the stacked tensor one at a time, so the f32 transient is one
-    layer's matrix, not the model's."""
+    (normal * fan_in**-0.5, norms at 1; with ``n_experts`` an f32 router
+    and stacked experts). The numbers differ from JAX's PRNG stream;
+    tests that compare the two bridge the reference's params with
+    ``params_from_jax``. Each layer is drawn in f32 and cast into the
+    stacked tensor one at a time, so the f32 transient is one layer's
+    leaf, not the model's."""
     device = resolve_device(device)
-    d, h, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    d, h, e, L = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_layers
 
-    def randn(shape, fan_in):
+    def randn(shape, fan_in, dtype=cfg.dtype):
         return (torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32) * fan_in ** -0.5
-                ).to(cfg.dtype)
+                ).to(dtype)
 
-    shapes = {"wq": ((d, d), d), "wk": ((d, cfg.kv_dim), d),
-              "wv": ((d, cfg.kv_dim), d), "wo": ((d, d), d),
-              "w_gate": ((d, h), d), "w_up": ((d, h), d),
-              "w_down": ((h, d), h)}
-    layers = {k: torch.empty((L,) + shp, dtype=cfg.dtype, device=device)
-              for k, (shp, _) in shapes.items()}
+    # name -> (one layer's shape, fan_in, dtype)
+    shapes = {"wq": ((d, d), d, cfg.dtype),
+              "wk": ((d, cfg.kv_dim), d, cfg.dtype),
+              "wv": ((d, cfg.kv_dim), d, cfg.dtype),
+              "wo": ((d, d), d, cfg.dtype)}
+    if e > 0:
+        shapes.update(w_router=((d, e), d, torch.float32),
+                      w_gate=((e, d, h), d, cfg.dtype),
+                      w_up=((e, d, h), d, cfg.dtype),
+                      w_down=((e, h, d), h, cfg.dtype))
+    else:
+        shapes.update(w_gate=((d, h), d, cfg.dtype),
+                      w_up=((d, h), d, cfg.dtype),
+                      w_down=((h, d), h, cfg.dtype))
+    layers = {k: torch.empty((L,) + shp, dtype=dt, device=device)
+              for k, (shp, _, dt) in shapes.items()}
     for i in range(L):
-        for k, (shp, fan_in) in shapes.items():
-            layers[k][i] = randn(shp, fan_in)
+        for k, (shp, fan_in, dt) in shapes.items():
+            layers[k][i] = randn(shp, fan_in, dt)
     layers["attn_norm"] = torch.ones((L, d), dtype=torch.float32,
                                      device=device)
     layers["mlp_norm"] = torch.ones((L, d), dtype=torch.float32,
@@ -247,7 +258,14 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     yields the pre-head hidden state [B, S, d_model] + aux instead, for
     ``loss_fn``, which applies the head itself (chunked). With
     ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``: its
-    activations are recomputed in backward, attention kernel included."""
+    activations are recomputed in backward, attention kernel included.
+    An MoE config (``n_experts > 0``) is refused: MoE training is not
+    ported yet."""
+    if cfg.n_experts > 0:
+        raise ValueError(
+            "n_experts > 0 (MoE) is not ported to the training forward "
+            "yet: the torch port serves MoE models but trains dense-FFN "
+            "models only")
     freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                              tokens.device)
     x = F.embedding(tokens, params["embed"])

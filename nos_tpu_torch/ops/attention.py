@@ -133,12 +133,26 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 
 
 def paged_write_route(table: torch.Tensor, pos: torch.Tensor, s: int,
-                      bs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      bs: int, n_blocks: int) -> Tuple[
+                          torch.Tensor, torch.Tensor,
+                          Optional[torch.Tensor]]:
     """Positions pos..pos+s-1 on each row's timeline -> (phys [B, S]
-    physical block ids, offs [B, S] within-block offsets). Out-of-range
-    logical blocks route to the null block 0. It depends on the table,
-    pos and the block size only, so a forward computes it once for every
-    layer's scatters."""
+    physical block ids, offs [B, S] within-block offsets, last). Out-of-
+    range logical blocks route to the null block 0. It depends on the
+    table, pos and the arena's shape only, so a forward computes it once
+    for every layer's scatters.
+
+    With S > 1 two writes may land on one slot: a window's padding past
+    the row's blocks routes to the null block, one slot per offset, and
+    the window's later pads attend to what is left there. ``last`` [B*S]
+    maps each write to the last write (row-major) of its slot, whose
+    value the scatter writes for every one of them, so the slot ends as
+    an in-order scatter leaves it (XLA's on the CPU, the reference's),
+    not as CUDA's unordered one happens to. Under MoE those pads route,
+    and their top-1 picks take capacity from real tokens' second
+    choices. At S 1 (None) a row writes one slot; rows meet only on the
+    null block, where no later query reads before a window rewrites it.
+    """
     nb = table.shape[1]
     offs = pos.long()[:, None] + torch.arange(s, device=pos.device)[None, :]
     logical = torch.div(offs, bs, rounding_mode="floor")
@@ -146,26 +160,43 @@ def paged_write_route(table: torch.Tensor, pos: torch.Tensor, s: int,
         logical < nb,
         torch.gather(table.long(), 1, torch.clamp(logical, max=nb - 1)),
         torch.zeros_like(logical))
-    return phys, offs % bs
+    offs = offs % bs
+    if s == 1:
+        return phys, offs, None
+    slot = (phys * bs + offs).reshape(-1)
+    order = torch.arange(slot.numel(), device=slot.device)
+    last = torch.full((n_blocks * bs,), -1, dtype=torch.long,
+                      device=slot.device).scatter_reduce(
+                          0, slot, order, reduce="amax")[slot]
+    return phys, offs, last
 
 
-def scatter_kv_routed(arena: torch.Tensor, route: Tuple[torch.Tensor,
-                                                        torch.Tensor],
+def _last_writes(route, vals: torch.Tensor) -> torch.Tensor:
+    """vals [B, S, ...] with each write's value replaced by its slot's
+    last write's (``paged_write_route``'s ``last``)."""
+    last = route[2]
+    if last is None:
+        return vals
+    b, s = vals.shape[:2]
+    return vals.reshape(b * s, *vals.shape[2:])[last].reshape(vals.shape)
+
+
+def scatter_kv_routed(arena: torch.Tensor, route: tuple,
                       vals: torch.Tensor) -> torch.Tensor:
     """``paged_scatter_kv`` along a ``paged_write_route``: vals
     [B, Hkv, S, D] into arena [NB, Hkv, bs, D] IN PLACE; returns it."""
-    phys, offs = route
-    arena[phys, :, offs, :] = vals.permute(0, 2, 1, 3).to(arena.dtype)
+    phys, offs = route[:2]
+    arena[phys, :, offs, :] = _last_writes(
+        route, vals.permute(0, 2, 1, 3)).to(arena.dtype)
     return arena
 
 
-def scatter_scale_routed(scales: torch.Tensor,
-                         route: Tuple[torch.Tensor, torch.Tensor],
+def scatter_scale_routed(scales: torch.Tensor, route: tuple,
                          vals: torch.Tensor) -> torch.Tensor:
     """``paged_scatter_scale`` along a ``paged_write_route``: vals
     [B, Hkv, S] into scales [NB, Hkv, bs] IN PLACE; returns it."""
-    phys, offs = route
-    scales[phys, :, offs] = vals.permute(0, 2, 1)
+    phys, offs = route[:2]
+    scales[phys, :, offs] = _last_writes(route, vals.permute(0, 2, 1))
     return scales
 
 
@@ -173,11 +204,11 @@ def paged_scatter_kv(arena: torch.Tensor, table: torch.Tensor,
                      pos: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Write vals [B, Hkv, S, D] at positions pos..pos+S-1 of each row's
     timeline into arena [NB, Hkv, bs, D] IN PLACE (the reference donates
-    the arena); returns it. Rows routed to the null block may collide
-    there; its content is never read unmasked."""
+    the arena); returns it. Writes that meet on a slot (rows routed to
+    the null block) leave the last one's value there."""
     return scatter_kv_routed(
-        arena, paged_write_route(table, pos, vals.shape[2], arena.shape[2]),
-        vals)
+        arena, paged_write_route(table, pos, vals.shape[2], arena.shape[2],
+                                 arena.shape[0]), vals)
 
 
 def paged_scatter_scale(scales: torch.Tensor, table: torch.Tensor,
@@ -186,7 +217,7 @@ def paged_scatter_scale(scales: torch.Tensor, table: torch.Tensor,
     scales [NB, Hkv, bs] IN PLACE, same routing."""
     return scatter_scale_routed(
         scales, paged_write_route(table, pos, vals.shape[2],
-                                  scales.shape[2]), vals)
+                                  scales.shape[2], scales.shape[0]), vals)
 
 
 def effective_paged_impl() -> str:

@@ -1,0 +1,169 @@
+"""Mixture-of-Experts FFN (port of ``nos_tpu/ops/moe.py`` without a
+mesh): top-2 gating with per-expert capacity and the dense
+dispatch/combine products.
+
+The routing is the reference's, capacity drops included: every token
+picks its best and second-best expert; each expert takes at most C
+tokens per batch row (``expert_capacity`` over the call's S), top-1
+assignments before top-2 ones; the kept gates are renormalized per
+token. Dispatch and combine stay dense [B, S, E, C] tensors with static
+shapes, so the decode tick keeps one shape and is captured as a CUDA
+graph, and which tokens are dropped is exactly the reference's.
+
+Routing runs in f32 (the router product too: no TF32). The softmax
+takes XLA's f32 exp (``_xla_exp``) and sums left to right, every step
+an IEEE-rounded elementwise operation, so the gates, the top-2 picks
+and the combine weights are the reference's on XLA:CPU bit for bit,
+and the same bits on the card as on the CPU for the same logits. The
+expert products run in the model dtype.
+"""
+from __future__ import annotations
+
+import struct
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["expert_capacity", "top2_gating", "moe_ffn"]
+
+
+def _f32(c: float) -> float:
+    """``c`` rounded to f32, as XLA holds its constants."""
+    return struct.unpack("f", struct.pack("f", c))[0]
+
+
+# XLA's f32 exp (the Cephes polynomial, every multiply-add fused)
+_EXP_HI = _f32(88.3762626647950)
+_EXP_LO = _f32(-88.3762626647949)
+_LOG2E = _f32(1.44269504088896341)
+_LN2_HI = _f32(0.693359375)
+_LN2_LO = _f32(-2.12194440e-4)
+_EXP_POLY = tuple(_f32(c) for c in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1))
+_F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def expert_capacity(seq: int, n_experts: int, capacity_factor: float,
+                    top_k: int = 2) -> int:
+    """Tokens each expert can accept per batch row."""
+    return max(1, int(seq * top_k * capacity_factor / n_experts))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a * b + c`` as a fused multiply-add: the f64 product of two
+    f32 values is exact, and the f64 sum cast to f32 is the fused result
+    but on a tie of the second rounding (none among the values
+    tests/test_torch_moe.py holds to XLA's exp)."""
+    return (a.double() * b + c).float()
+
+
+def _xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """f32 exp as XLA's CPU backend emits it: clamp, n = floor(x log2 e
+    + 1/2), r = x - n ln2 in two fused steps, a degree-5 polynomial in
+    fused multiply-adds, times 2^n, a subnormal result flushed to zero.
+    ``torch.exp`` rounds ~9% of values apart from it, enough to flip a
+    gate's last bit."""
+    x = x.clamp(_EXP_LO, _EXP_HI)
+    n = torch.floor(x * _LOG2E + 0.5)
+    r = _fma(n, -_LN2_HI, x)
+    r = _fma(n, -_LN2_LO, r)
+    y = torch.full_like(r, _EXP_POLY[0])
+    for c in _EXP_POLY[1:]:
+        y = _fma(y, r, c)
+    # 2^n from its exponent bits: exact on any device (n in [-127, 128];
+    # -127 gives 0 where 2^-127 would be subnormal, flushed below anyway)
+    pow2 = ((n.int() + 127) << 23).view(torch.float32)
+    y = (_fma(y, r * r, r) + 1.0) * pow2
+    return torch.where(y < _F32_TINY, 0.0, y)
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softmax over the last axis in f32: exp(x - max) / sum,
+    with XLA's exp and the sum taken left to right, as XLA reduces a
+    short minor axis."""
+    u = _xla_exp(x - x.amax(dim=-1, keepdim=True))
+    total = u[..., 0]
+    for i in range(1, u.shape[-1]):
+        total = total + u[..., i]
+    return u / total[..., None]
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 one-hot by comparison: an index outside [0, n) gives a zero
+    row, as ``jax.nn.one_hot`` does (``F.one_hot`` would raise), with
+    no host check, so it runs inside a captured program."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def top2_gating(logits: torch.Tensor, capacity: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """logits [B, S, E] f32 -> (combine [B, S, E, C] f32, dispatch bool
+    [B, S, E, C], aux_loss f32 scalar)."""
+    e = logits.shape[-1]
+    gates = _softmax(logits)
+
+    # top-1 and top-2 picks (argmax takes the first of tied maxima, as
+    # JAX's does)
+    mask1 = _one_hot(torch.argmax(gates, dim=-1), e)        # [B, S, E]
+    gates2 = gates * (1.0 - mask1)
+    mask2 = _one_hot(torch.argmax(gates2, dim=-1), e)
+
+    # each token's slot in its expert's buffer: top-1 assignments fill
+    # first, top-2 ones go after every top-1 of the row
+    pos1 = torch.cumsum(mask1, dim=1) - mask1               # [B, S, E]
+    count1 = mask1.sum(dim=1, keepdim=True)                 # [B, 1, E]
+    pos2 = torch.cumsum(mask2, dim=1) - mask2 + count1
+
+    keep1 = mask1 * (pos1 < capacity)
+    keep2 = mask2 * (pos2 < capacity)
+
+    # gate weights renormalized over the kept assignments
+    g1 = (gates * keep1).sum(dim=-1)                        # [B, S]
+    g2 = (gates * keep2).sum(dim=-1)
+    denom = torch.clamp(g1 + g2, min=1e-9)
+    g1, g2 = g1 / denom, g2 / denom
+
+    # a dropped assignment's slot index is 0 (pos x keep 0) and its
+    # keep is 0, so its one-hot row never reaches combine
+    cap1 = _one_hot((pos1 * keep1).sum(dim=-1).int(), capacity)
+    cap2 = _one_hot((pos2 * keep2).sum(dim=-1).int(), capacity)
+    combine = (g1[..., None, None] * keep1[..., None] * cap1[..., None, :]
+               + g2[..., None, None] * keep2[..., None]
+               * cap2[..., None, :])                        # [B, S, E, C]
+    dispatch = combine > 0.0
+
+    # load-balancing aux loss (GShard's, over top-1 fractions)
+    frac_routed = mask1.mean(dim=(0, 1))                    # [E]
+    mean_gate = gates.mean(dim=(0, 1))                      # [E]
+    aux = e * (frac_routed * mean_gate).sum()
+    return combine, dispatch, aux
+
+
+def moe_ffn(h: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
+            w_up: torch.Tensor, w_down: torch.Tensor,
+            capacity_factor: float = 1.25
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h [B, S, d]; router [d, E]; expert weights [E, d, f] / [E, f, d]
+    -> (out [B, S, d], aux_loss). The capacity is the reference's over
+    this call's S, so the same tokens route alike only at the same S."""
+    b, s, d = h.shape
+    e = router.shape[-1]
+    cap = expert_capacity(s, e, capacity_factor)
+
+    logits = torch.matmul(h.float(), router.float())       # [B, S, E]
+    combine, dispatch, aux = top2_gating(logits, cap)
+
+    # dispatch: [B, S, E, C] x [B, S, d] -> [E, B, C, d]
+    disp = dispatch.to(h.dtype).reshape(b, s, e * cap)
+    x = torch.matmul(disp.transpose(1, 2), h)               # [B, E*C, d]
+    x = x.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    # per-expert SwiGLU, one batched product per weight over E
+    gate = F.silu(torch.matmul(x, w_gate))                  # [E, B*C, f]
+    up = torch.matmul(x, w_up)
+    y = torch.matmul(gate * up, w_down)                     # [E, B*C, d]
+    # combine: [E, B, C, d] x [B, S, E, C] -> [B, S, d]
+    y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+    comb = combine.to(h.dtype).reshape(b, s, e * cap)
+    return torch.matmul(comb, y), aux

@@ -155,5 +155,8 @@ def test_init_params_shapes_and_scales_match_reference():
     assert tuple(tp["embed"].shape) == jp["embed"].shape
     # same init scale: normal * fan_in**-0.5 (std within sampling noise)
     assert abs(float(tp["layers"]["w_down"].std()) * 32 ** 0.5 - 1) < 0.1
+    # an MoE config builds (the decode path serves it); the training
+    # forward refuses it, naming the knob
+    moe_cfg = ttfm.TransformerConfig(n_experts=4)
     with pytest.raises(ValueError, match="n_experts"):
-        ttfm.TransformerConfig(n_experts=4)
+        ttfm.forward({}, moe_cfg, torch.zeros((1, 2), dtype=torch.long))

@@ -140,8 +140,11 @@ def test_loss_chunk_must_divide_the_sequence():
     (dict(sp_strategy="tree"), "unknown sp_strategy"),
 ])
 def test_knobs_not_ported_raise(bad, match):
+    # a refused knob raises where it is refused: at the config, or (MoE,
+    # whose config the decode path serves) at the training forward
     with pytest.raises(ValueError, match=match):
-        tt.TransformerConfig(**dict(KW, **bad))
+        cfg = tt.TransformerConfig(**dict(KW, **bad))
+        tt.forward({}, cfg, torch.zeros((1, 2), dtype=torch.long))
 
 
 def test_param_leaves_order_is_sorted_and_complete():
