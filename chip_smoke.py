@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijklmno]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnop]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -231,6 +231,36 @@ o. the Mixture-of-Experts family at Mixtral-8x7B's widths (vocab 32000,
    prefill bucket, a verify window and a decode step. Then in f32 at 2
    layers: the engine's tokens through the kernel equal the gather
    formulation's.
+p. the MoE family trained, checkpointed, resumed and served, at
+   Mixtral-8x7B-v0.1's widths (1 of its 32 layers, to bound the disk
+   writes: three checkpoints of 10.3 GB each; batch 8 x 2048, bf16,
+   full remat, adamw, synthetic batches from the seed):
+   (1) ``train()`` with ``n_experts`` 8 and ``checkpoint_dir`` on local
+   disk takes 8 steps, an asynchronous save at step 4 overlapping steps
+   5-8 and the last at step 8; the loss finite and falling, the flash
+   forward launched 2 x n_layers x steps times (full remat re-runs it),
+   each backward kernel n_layers x steps, adamw once a leaf and step;
+   step ms with and without a save in flight, tokens/s, MFU over the
+   products the step runs (``moe_step_flops``), peak memory, each save's
+   bytes, seconds and host stall; (2) step 8 set aside, the run resumed
+   from step 4 in the same directory: steps 5-8's losses equal (1)'s and
+   the new step 8 equals the set-aside one in every leaf of params and
+   optimizer state, bit for bit; the restore's seconds; then 2 steady
+   steps profiled (device busy by kernel group, idle share); (3)
+   ``build_engine`` with ``checkpoint_dir`` (paged, 1 + 8 x 128 blocks,
+   ``max_batch`` 8): the served params equal (1)'s in process, phase
+   (e)'s greedy traffic gives the tokens of an engine on (1)'s params in
+   process, the kernel's launches n_layers x T x replays; then a seeded
+   draft at ``ServerConfig``'s draft widths saved by the port's
+   ``CheckpointManager`` through ``draft_checkpoint_dir``: the
+   ``SpeculativeDecodeServer`` built holds the saved draft, its
+   launches by shape and its verify windows held as phase (o)'s; load
+   seconds, TTFT and TPOT p50; (4) one f32 2-layer MoE train step on
+   the card against the same step on the CPU: the routing equal, loss
+   and gradients within phase (g)'s f32 tolerances; then the flash
+   kernels at (p)'s attention shape (batch 8, 32 query / 8 KV heads, S
+   2048, head_dim 128, causal, bf16) against their plain versions,
+   timed beside them, SDPA and the bound.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -268,7 +298,7 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijklmno"
+PHASES = "cdefghijklmnop"
 
 
 def emit(obj) -> None:
@@ -4538,8 +4568,11 @@ def moe_run(eng, prompts, label: str, sampling=None) -> dict:
     r = engine_run(eng, prompts, MOE_NEW, sampling)
     leds = {d["rid"]: d for d in eng.drain_ledgers()}
     ttft = sorted(d["ttft_s"] * 1e3 for d in leds.values())
+    tpot = [gap * 1e3 / n for d in leds.values() for gap, n in d["tpot"]
+            if n]
     r.update(ttft_p50_ms=float(np.percentile(ttft, 50)),
-             ttft_p99_ms=float(np.percentile(ttft, 99)))
+             ttft_p99_ms=float(np.percentile(ttft, 99)),
+             tpot_p50_ms=float(np.percentile(tpot, 50)))
     if eng.paged and not hasattr(eng, "spec_drafted"):
         want = (eng.cfg.n_layers * eng.decode_steps * r["ticks"]
                 if eng.paged_kernel == "kernel" else 0)
@@ -4558,7 +4591,7 @@ def run_row(r: dict) -> dict:
     row = {k: r[k] for k in (
         "ms_per_tick", "tokens_per_s", "ticks", "decode_tokens",
         "prefill_s", "capture_s", "kernel_launches", "ttft_p50_ms",
-        "ttft_p99_ms") if k in r}
+        "ttft_p99_ms", "tpot_p50_ms") if k in r}
     for k in ("ms_per_round", "tokens_per_window", "acceptance", "drafted",
               "accepted", "windows"):
         if k in r:
@@ -5189,6 +5222,11 @@ FLASH_PINS = {
                         grad=(1e-5, 1e-5)),
 }
 F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
+# each kernel's outputs among a flash case's checks
+FLASH_OUTPUTS = {"flash_attention_fwd": ("o", "lse"),
+                 "flash_attention_bwd_preprocess": ("delta",),
+                 "flash_attention_bwd_dkdv": ("dk", "dv"),
+                 "flash_attention_bwd_dq": ("dq",)}
 
 
 def attn_case(rng, *, b, h, h_kv, s_q, s_k, d, dtype, device):
@@ -5263,11 +5301,6 @@ def phase_flash(seed: int, device, flush) -> dict:
     and f32, the backward also bit-identical over two launches; times
     kernel, plain version and SDPA at the slice shape in bf16. Returns
     the kernels-line rows keyed by kernel name."""
-    from nos_tpu_torch.ops import _kernels
-    from nos_tpu_torch.ops.attention import (
-        flash_attention_backward_reference, flash_attention_reference,
-    )
-
     rng = np.random.default_rng(seed + 7)
 
     def sized(s, **kw):
@@ -5289,65 +5322,75 @@ def phase_flash(seed: int, device, flush) -> dict:
     rows = {}
     for label, shape, causal in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do = attn_case(rng, dtype=dtype, device=device, **shape)
-            scale = shape["d"] ** -0.5 * (-1 if label == "neg_scale_s1000"
-                                          else 1)
-            pins = FLASH_PINS[dtype]
-            kw = dict(causal=causal, scale=scale)
-            o, lse = _kernels.flash_fwd.launch(q, k, v, **kw)
-            o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
-            mag = flash_attention_reference(q, k, v.abs(), **kw)[0].float()
-            checks = {"o": pin_check("flash_attention_fwd O", o, o_ref,
-                                     *pins["o_rn"], scale=mag),
-                      "lse": pin_check("flash_attention_fwd LSE", lse,
-                                       lse_ref, pins["lse"], pins["lse"],
-                                       scale=1.0)}
-            delta = _kernels.flash_bwd_pre.launch(o, do)
-            checks["delta"] = pin_check(
-                "flash_attention_bwd_preprocess", delta,
-                (do.float() * o.float()).sum(-1), *pins["grad"])
-            dk, dv = _kernels.flash_bwd_dkdv.launch(q, k, v, do, lse, delta,
-                                                    **kw)
-            (dq,) = _kernels.flash_bwd_dq.launch(q, k, v, do, lse, delta,
-                                                 **kw)
-            torch.cuda.synchronize()
-            ref = flash_attention_backward_reference(q, k, v, o, lse, do,
-                                                     **kw)
-            for nm, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-                checks[nm] = pin_check(f"flash_attention_bwd {nm}", got,
-                                       want, *pins["grad"])
-            # no atomics: a second launch gives the same bits
-            again = (*_kernels.flash_bwd_dkdv.launch(q, k, v, do, lse, delta,
-                                                     **kw),
-                     *_kernels.flash_bwd_dq.launch(q, k, v, do, lse, delta,
-                                                   **kw))
-            if not all(torch.equal(a, b_) for a, b_ in
-                       zip(again, (dk, dv, dq))):
-                raise AssertionError(f"{label} {dtype}: dK/dV/dQ differ "
-                                     f"between two launches")
-            checks["bit_identical_rerun"] = True
-            del again
-            row = {"phase": "flash_vs_plain", "case": label,
-                   "causal": causal, "compute": str(dtype).split(".")[-1],
-                   **shape, "pins": {k_: str(v_) for k_, v_ in pins.items()},
-                   "checks": checks}
-            if label == "slice" and dtype == torch.bfloat16:
-                row["timing"] = time_flash(q, k, v, do, o, lse, delta, kw,
-                                           flush)
-                rows = {name: dict(t, max_abs_err=0.0)
-                        for name, t in row["timing"].items()}
-            for name, keys in (("flash_attention_fwd", ("o", "lse")),
-                               ("flash_attention_bwd_preprocess", ("delta",)),
-                               ("flash_attention_bwd_dkdv", ("dk", "dv")),
-                               ("flash_attention_bwd_dq", ("dq",))):
+            timed, checks = flash_case(label, shape, causal, dtype, rng,
+                                       device, flush, timed=label == "slice"
+                                       and dtype == torch.bfloat16)
+            rows = timed or rows
+            # a row's error is the largest over every case from the slice on
+            for name, keys in FLASH_OUTPUTS.items():
                 if name in rows:
                     rows[name]["max_abs_err"] = max(
                         rows[name]["max_abs_err"],
                         *(checks[c]["max_abs_err"] for c in keys))
-            emit(row)
-            del q, k, v, do, o, lse, delta, dq, dk, dv, ref, o_ref, mag
-            torch.cuda.empty_cache()
     return rows
+
+
+def flash_case(label: str, shape: dict, causal: bool, dtype, rng, device,
+               flush, timed: bool = False) -> dict:
+    """One case of (f): the four kernels against their plain versions
+    within ``FLASH_PINS``, the backward bit-identical over two launches;
+    prints the case's row. With ``timed``, also times each kernel beside
+    its plain version, SDPA and the bound. Returns the kernels-line rows
+    keyed by kernel name ({} when not timed) and the checks."""
+    from nos_tpu_torch.ops import _kernels
+    from nos_tpu_torch.ops.attention import (
+        flash_attention_backward_reference, flash_attention_reference,
+    )
+
+    q, k, v, do = attn_case(rng, dtype=dtype, device=device, **shape)
+    scale = shape["d"] ** -0.5 * (-1 if label == "neg_scale_s1000" else 1)
+    pins = FLASH_PINS[dtype]
+    kw = dict(causal=causal, scale=scale)
+    o, lse = _kernels.flash_fwd.launch(q, k, v, **kw)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
+    mag = flash_attention_reference(q, k, v.abs(), **kw)[0].float()
+    checks = {"o": pin_check("flash_attention_fwd O", o, o_ref,
+                             *pins["o_rn"], scale=mag),
+              "lse": pin_check("flash_attention_fwd LSE", lse, lse_ref,
+                               pins["lse"], pins["lse"], scale=1.0)}
+    delta = _kernels.flash_bwd_pre.launch(o, do)
+    checks["delta"] = pin_check(
+        "flash_attention_bwd_preprocess", delta,
+        (do.float() * o.float()).sum(-1), *pins["grad"])
+    dk, dv = _kernels.flash_bwd_dkdv.launch(q, k, v, do, lse, delta, **kw)
+    (dq,) = _kernels.flash_bwd_dq.launch(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    ref = flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+    for nm, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        checks[nm] = pin_check(f"flash_attention_bwd {nm}", got, want,
+                               *pins["grad"])
+    # no atomics: a second launch gives the same bits
+    again = (*_kernels.flash_bwd_dkdv.launch(q, k, v, do, lse, delta, **kw),
+             *_kernels.flash_bwd_dq.launch(q, k, v, do, lse, delta, **kw))
+    if not all(torch.equal(a, b_) for a, b_ in zip(again, (dk, dv, dq))):
+        raise AssertionError(f"{label} {dtype}: dK/dV/dQ differ between "
+                             f"two launches")
+    checks["bit_identical_rerun"] = True
+    del again
+    row = {"phase": "flash_vs_plain", "case": label, "causal": causal,
+           "compute": str(dtype).split(".")[-1], **shape,
+           "pins": {k_: str(v_) for k_, v_ in pins.items()},
+           "checks": checks}
+    rows = {}
+    if timed:
+        row["timing"] = time_flash(q, k, v, do, o, lse, delta, kw, flush)
+        rows = {name: dict(t, max_abs_err=max(
+                    checks[c]["max_abs_err"] for c in FLASH_OUTPUTS[name]))
+                for name, t in row["timing"].items()}
+    emit(row)
+    del q, k, v, do, o, lse, delta, dq, dk, dv, ref, o_ref, mag
+    torch.cuda.empty_cache()
+    return rows, checks
 
 
 def time_flash(q, k, v, do, o, lse, delta, kw, flush) -> dict:
@@ -5446,14 +5489,15 @@ def zero_train_launches() -> None:
         k.launches = 0
 
 
-def n_param_leaves() -> int:
+def n_param_leaves(n_experts: int = 0) -> int:
     """Leaves of the decoder's params (one adamw launch each per update),
     counted on a tiny CPU instance: the count does not depend on the
-    widths."""
+    widths, only on whether the FFN is dense or MoE."""
     from nos_tpu_torch.models import transformer as tfm
 
     cfg = tfm.TransformerConfig(vocab=8, d_model=8, n_layers=1, n_heads=1,
-                                d_ff=8, max_seq=8, dtype=torch.float32)
+                                d_ff=8, max_seq=8, n_experts=n_experts,
+                                dtype=torch.float32)
     return len(tfm.param_leaves(tfm.init_params(
         cfg, torch.Generator().manual_seed(0), "cpu")))
 
@@ -5571,18 +5615,20 @@ def train_setup(cfg, seed: int, device):
     return params, tfm.make_train_step(cfg, opt)
 
 
-def profile_train(seed: int, device) -> dict:
+def profile_train(seed: int, device, widths: dict = TRAIN,
+                  batch_size: int = TRAIN_BATCH,
+                  seq: int = TRAIN_SEQ) -> dict:
     """Device breakdown of 2 steady training steps at full width under
     torch.profiler: busy = the sum of kernel times; groups: the flash
-    forward, the flash backward (preprocess, dK/dV, dQ), matmuls,
-    everything else."""
+    forward, the flash backward (preprocess, dK/dV, dQ), the adamw
+    kernel, matmuls, everything else."""
     from torch.profiler import ProfilerActivity, profile
     from nos_tpu_torch.cmd.trainer import TrainerConfig, synthetic_batch
     from nos_tpu_torch.models.transformer import TransformerConfig
 
-    cfg = TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+    cfg = TransformerConfig(**widths, dtype=torch.bfloat16)
     params, step = train_setup(cfg, seed, device)
-    tcfg = TrainerConfig(**TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+    tcfg = TrainerConfig(**widths, batch_size=batch_size, seq_len=seq,
                          seed=seed)
     batch = synthetic_batch(tcfg, 0, device)
     step(params, batch)
@@ -5596,7 +5642,8 @@ def profile_train(seed: int, device) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / n
     out = device_breakdown(prof, n, {"flash_fwd": ("flash_fwd",),
-                                     "flash_bwd": ("flash_bwd",)})
+                                     "flash_bwd": ("flash_bwd",),
+                                     "adamw": ("adamw",)})
     out["profiled_ms_per_step"] = wall_ms
     out["device_idle_share"] = 1 - out["device_busy_ms"] / wall_ms
     out["attention_share_of_busy"] = (
@@ -5705,6 +5752,464 @@ def phase_train(seed: int, card: str) -> dict:
     return launches
 
 
+# (p): the MoE family trained on the card at Mixtral-8x7B-v0.1's widths.
+# Depth is cut to 1 of 32 layers to bound the disk writes: the phase
+# writes three checkpoints (p.1's steps 4 and 8, p.2's step 8; params
+# and both moments in bf16, the router in f32), 10.3 GB each at 1
+# layer, 19.0 at 2 and 36.4 at 4, and a whole run is kept under 45 GiB
+# of writes (PERF.md, section 4)
+MOE_TRAIN = dict(vocab=32000, d_model=4096, n_layers=1, n_heads=32,
+                 n_kv_heads=8, d_ff=14336, max_seq=2048, n_experts=8)
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 8, 2048
+# what the phase's checkpoints may write: a whole run stays under 45 GiB
+# of disk writes, with room for the other phases
+P_WRITE_MAX = 36 << 30
+MOE_TRAIN_STEPS, MOE_CKPT_EVERY = 8, 4
+# the flash kernels at (p)'s attention shape: Mixtral's heads, S 2048
+P_ATTN = dict(b=8, h=32, h_kv=8, s_q=2048, s_k=2048, d=128)
+# p.4: a 2-layer f32 MoE the CPU takes a step of in seconds (head_dim
+# 128, the kernel's; 8 experts, top-2; capacity 160 of 512 tokens)
+MOE_PARITY = dict(vocab=32000, d_model=1024, n_layers=2, n_heads=8,
+                  n_kv_heads=2, d_ff=2048, max_seq=512, n_experts=8)
+MOE_PARITY_BATCH = 2
+
+
+def moe_step_flops(cfg, batch: int, seq: int, remat: bool = False) -> float:
+    """The matmul FLOPs one MoE training step runs: per layer the q/k/v/o
+    projections, causal attention over the admitted (query, key) pairs,
+    the router, the dispatch product [B, E*C, S] x [B, S, d], the
+    experts' three products over E x C slots a batch row (every slot,
+    filled or dropped), the combine product [B, S, E*C] x [B, E*C, d];
+    then the head. Backward is 2x forward; ``remat`` adds the layers'
+    forward a second time (full remat re-runs it)."""
+    from nos_tpu_torch.ops.moe import expert_capacity
+
+    d, f, e, v = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.vocab
+    t = batch * seq
+    slots = batch * e * expert_capacity(seq, e, cfg.expert_capacity_factor)
+    layer = (2 * t * d * (2 * d + 2 * cfg.kv_dim)
+             + 2 * d * batch * seq * (seq + 1)
+             + 2 * t * d * e + 2 * 2 * slots * seq * d
+             + 3 * 2 * slots * d * f)
+    head = 2 * t * d * v
+    fwd_layers = cfg.n_layers * layer
+    return 3 * (fwd_layers + head) + (fwd_layers if remat else 0)
+
+
+class CkptLog(logging.Handler):
+    """Collects the checkpoint manager's save and restore records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.saves, self.restores = [], []
+
+    def emit(self, record):
+        a = record.args
+        if record.msg.startswith("saved checkpoint"):
+            self.saves.append({"step": a[0], "bytes": a[1], "seconds": a[2],
+                               "stall_s": a[3], "snapshot_s": a[4],
+                               "committed_at": record.created})
+        elif record.msg.startswith("restored checkpoint"):
+            self.restores.append({"step": a[0], "bytes": a[1],
+                                  "seconds": a[2]})
+
+
+class logs_to:
+    """Attach logging handlers ({logger name: handler}) for a ``with``
+    block."""
+
+    def __init__(self, handlers: dict):
+        self.pairs = [(logging.getLogger(name), h)
+                      for name, h in handlers.items()]
+
+    def __enter__(self):
+        for lg, h in self.pairs:
+            lg.setLevel(logging.INFO)
+            lg.addHandler(h)
+
+    def __exit__(self, *exc):
+        for lg, h in self.pairs:
+            lg.removeHandler(h)
+
+
+class captured_params:
+    """Within the block, ``train()``'s params as its step function sees
+    them (``captured.params``): the trained weights held in process after
+    ``train()`` returns."""
+
+    def __enter__(self):
+        from nos_tpu_torch.models import transformer as tfm
+
+        self.tfm, self.real, self.params = tfm, tfm.make_train_step, None
+
+        def spy(cfg, optimizer):
+            step = self.real(cfg, optimizer)
+
+            def wrapped(params, batch):
+                self.params = params
+                return step(params, batch)
+
+            return wrapped
+
+        tfm.make_train_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.tfm.make_train_step = self.real
+
+
+def moe_train_config(seed: int, checkpoint_dir: str):
+    from nos_tpu_torch.cmd.trainer import TrainerConfig
+
+    return TrainerConfig(**MOE_TRAIN, batch_size=MOE_TRAIN_BATCH,
+                         seq_len=MOE_TRAIN_SEQ, steps=MOE_TRAIN_STEPS,
+                         log_every=1, seed=seed, bf16=True,
+                         checkpoint_dir=checkpoint_dir,
+                         checkpoint_every=MOE_CKPT_EVERY)
+
+
+def moe_train_run(cfg, label: str, want: dict, device) -> dict:
+    """``train(cfg)`` on the card with the training kernels' launches
+    counted from 0, held to ``want``; per-step losses and host times,
+    the checkpoint records, wall seconds and peak memory."""
+    from nos_tpu_torch.cmd.trainer import train
+
+    log, ck = StepLog(), CkptLog()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_launches()                       # the main path's count
+    t0 = time.perf_counter()
+    with logs_to({"nos_tpu_torch.trainer": log,
+                  "nos_tpu_torch.checkpoint": ck}):
+        final = train(cfg, device=device)
+    wall_s = time.perf_counter() - t0
+    launches = train_launches()
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != {want}")
+    losses = [loss for _, loss, _ in log.steps]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    return {"final_loss": final, "steps": log.steps, "losses": losses,
+            "saves": ck.saves, "restores": ck.restores, "wall_s": wall_s,
+            "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def step_times(run: dict) -> list:
+    """(step, host ms, a save in flight) for each step after the first:
+    a step's time runs from the previous step's loss to its own, and a
+    save is in flight over it when one was issued before it began and
+    committed after it began."""
+    out = []
+    steps = run["steps"]
+    for (_, _, a), (step, _, b) in zip(steps, steps[1:]):
+        busy = any(s["step"] < step and s["committed_at"] > a
+                   for s in run["saves"])
+        out.append((step, (b - a) * 1e3, busy))
+    return out
+
+
+def same_checkpoint(a: str, b: str) -> dict:
+    """Two committed steps' directories hold the same leaves bit for bit:
+    the same index (names, shapes, dtypes) and the same bytes in every
+    leaf file. Raises on the first difference."""
+    with open(os.path.join(a, "index.json")) as f:
+        ia = json.load(f)
+    with open(os.path.join(b, "index.json")) as f:
+        ib = json.load(f)
+    if ia["leaves"] != ib["leaves"]:
+        raise AssertionError(f"{a} and {b}: the indexes differ")
+    t0 = time.perf_counter()
+    n = 0
+    chunk = 256 << 20
+    for leaf in ia["leaves"]:
+        with open(os.path.join(a, leaf["file"]), "rb") as fa, \
+                open(os.path.join(b, leaf["file"]), "rb") as fb:
+            while True:
+                x, y = fa.read(chunk), fb.read(chunk)
+                if x != y:
+                    raise AssertionError(
+                        f"{leaf['name']}: the resumed step differs from "
+                        f"the uninterrupted one")
+                if not x:
+                    break
+                n += len(x)
+    return {"leaves": len(ia["leaves"]), "bytes": n,
+            "seconds": time.perf_counter() - t0}
+
+
+def moe_f32_parity(seed: int, device) -> dict:
+    """p.4: one 2-layer f32 MoE train step on the card (the flash and
+    adamw kernels) against the same step on the CPU (their plain
+    versions): loss within ``TRAIN_LOSS_RTOL``, every gradient within
+    ``TRAIN_GRAD_TOL`` of its leaf's largest, the routing equal; the
+    params' largest difference after the update is printed."""
+    from nos_tpu_torch.cmd.trainer import TrainerConfig, synthetic_batch
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.ops import moe
+    from nos_tpu_torch.train.optim import build_optimizer
+
+    cfg = tfm.TransformerConfig(**MOE_PARITY, dtype=torch.float32)
+    params = tfm.init_params(cfg, torch.Generator(device).manual_seed(seed),
+                             device)
+    tcfg = TrainerConfig(**MOE_PARITY, batch_size=MOE_PARITY_BATCH,
+                         seq_len=MOE_PARITY["max_seq"], seed=seed)
+    batch = synthetic_batch(tcfg, 0, device)
+    runs = []
+    gating = moe.top2_gating
+    for where in (device, torch.device("cpu")):
+        # copies: the update below writes them in place
+        p = {k: (v.to(where, copy=True) if not isinstance(v, dict)
+                 else {n: t.to(where, copy=True) for n, t in v.items()})
+             for k, v in params.items()}
+        leaves = tfm.param_leaves(p)
+        for t in leaves:
+            t.requires_grad_()
+        picks = []
+
+        def traced(logits, capacity):
+            out = gating(logits, capacity)
+            picks.append(out[1].cpu())
+            return out
+
+        moe.top2_gating = traced
+        try:
+            loss = tfm.loss_fn(p, cfg, {k: v.to(where)
+                                        for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            moe.top2_gating = gating
+        for t, g in zip(leaves, grads):
+            t.grad = g
+        build_optimizer(leaves, 3e-4, 1).step()
+        runs.append((float(loss.detach()), [g.cpu() for g in grads],
+                     [t.detach().cpu() for t in leaves], picks))
+        del p, leaves, grads
+    (lk, gk, pk, rk), (lc, gc, pc, rc) = runs
+    if not all(torch.equal(a, b) for a, b in zip(rk, rc)):
+        raise AssertionError("f32 MoE step: the card routed other tokens "
+                             "than the CPU")
+    loss_rel = abs(lk - lc) / abs(lc)
+    grad_share = max(float((a - b).abs().max() / b.abs().max())
+                     for a, b in zip(gk, gc))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(pk, pc))
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_share <= TRAIN_GRAD_TOL):
+        raise AssertionError(
+            f"f32 MoE step, card vs CPU: loss rel {loss_rel} (tol "
+            f"{TRAIN_LOSS_RTOL}), worst grad share {grad_share} (tol "
+            f"{TRAIN_GRAD_TOL})")
+    return {**MOE_PARITY, "batch": MOE_PARITY_BATCH,
+            "loss_card": lk, "loss_cpu": lc, "loss_rel_diff": loss_rel,
+            "loss_rtol": TRAIN_LOSS_RTOL, "worst_grad_rel_diff": grad_share,
+            "grad_tol": TRAIN_GRAD_TOL, "grads_compared": len(gk),
+            "routing_equal": True, "updated_param_max_abs_diff": param_err}
+
+
+def phase_moe_train(seed: int, card: str, device, flush) -> dict:
+    """(p): train, checkpoint, resume and serve the MoE family on the
+    card, at Mixtral-8x7B-v0.1's widths (1 of 32 layers). Returns the
+    flash kernels' kernels-line rows at (p)'s attention shape, their
+    launches those of p.1."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from nos_tpu_torch.cmd.server import ServerConfig, build_engine
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.models.serving import DecodeServer
+    from nos_tpu_torch.models.spec_serving import SpeculativeDecodeServer
+    from nos_tpu_torch.train.checkpoint import (
+        CheckpointManager, model_arch_dict,
+    )
+
+    t_phase = time.perf_counter()
+    mcfg = tfm.TransformerConfig(**MOE_TRAIN)
+    L, steps = mcfg.n_layers, MOE_TRAIN_STEPS
+    n_params = sum(t.numel() for t in tfm.param_leaves(
+        tfm.abstract_params(mcfg)))
+    ckpt_bytes = sum(3 * t.numel() * t.element_size() for t in
+                     tfm.param_leaves(tfm.abstract_params(mcfg)))
+    root = tempfile.mkdtemp(prefix="chip_smoke_p_")
+    free_disk = shutil.disk_usage(root).free
+    out = {"phase": "moe_train", "card": card, **MOE_TRAIN,
+           "source": "Mixtral-8x7B-v0.1 widths, 1 of 32 layers",
+           "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ, "steps": steps,
+           "remat": "full", "dtype": "bf16", "params": n_params,
+           "checkpoint_bytes": ckpt_bytes, "disk_free_bytes": free_disk}
+    if free_disk < 3.2 * ckpt_bytes:
+        raise AssertionError(f"(p) needs 3 checkpoints of {ckpt_bytes} "
+                             f"bytes on {root}; {free_disk} are free")
+    if 3 * ckpt_bytes > P_WRITE_MAX:
+        raise AssertionError(f"(p) would write 3 x {ckpt_bytes} bytes, "
+                             f"past {P_WRITE_MAX}")
+
+    def want(n_steps: int) -> dict:
+        return {"flash_attention_fwd": 2 * L * n_steps,
+                "flash_attention_bwd_preprocess": L * n_steps,
+                "flash_attention_bwd_dkdv": L * n_steps,
+                "flash_attention_bwd_dq": L * n_steps,
+                "adamw": n_param_leaves(MOE_TRAIN["n_experts"]) * n_steps}
+
+    d1 = os.path.join(root, "run")
+    try:
+        # p.1: 8 steps, an async save at step 4 overlapping steps 5-8,
+        # the last at step 8
+        with captured_params() as cap:
+            p1 = moe_train_run(moe_train_config(seed, d1), "p.1",
+                               want(steps), device)
+        trained = {k: (v.detach() if not isinstance(v, dict) else
+                       {n: t.detach() for n, t in v.items()})
+                   for k, v in cap.params.items()}
+        del cap
+        if not p1["losses"][-1] < p1["losses"][0]:
+            raise AssertionError(f"p.1 losses {p1['losses']} do not fall")
+        if [s["step"] for s in p1["saves"]] != [MOE_CKPT_EVERY, steps]:
+            raise AssertionError(f"p.1 saves {p1['saves']}")
+        times = step_times(p1)
+        quiet = [ms for s, ms, busy in times if not busy]
+        busy = [ms for s, ms, b in times if b]
+        quiet_ms = float(np.median(quiet))
+        tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+        flops = moe_step_flops(mcfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
+        hw_flops = moe_step_flops(mcfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                                  remat=True)
+        out["p1"] = {
+            "losses": p1["losses"], "final_loss": p1["final_loss"],
+            "wall_s": p1["wall_s"], "launches": p1["launches"],
+            "step_ms": [[s, ms, b] for s, ms, b in times],
+            "step_ms_median_no_save": quiet_ms,
+            "step_ms_median_save_in_flight": (float(np.median(busy))
+                                              if busy else None),
+            "tokens_per_s": tokens / (quiet_ms / 1e3),
+            "model_tflops_per_step": flops / 1e12,
+            "mfu_pct": 100 * flops / (quiet_ms / 1e3) / BF16_FLOPS,
+            "hardware_tflops_per_step": hw_flops / 1e12,
+            "hfu_pct": 100 * hw_flops / (quiet_ms / 1e3) / BF16_FLOPS,
+            "peak_mem_gb": p1["peak_mem_gb"], "saves": p1["saves"]}
+        emit({"phase": "moe_train_p1", **out["p1"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # p.2: step 8 set aside, the run resumed from step 4 in the same
+        # directory (a job preempted after step 4), its step 8 held to
+        # the uninterrupted one's bit for bit
+        stash = os.path.join(root, "p1_step8")
+        os.rename(os.path.join(d1, str(steps)), stash)
+        p2 = moe_train_run(moe_train_config(seed, d1), "p.2",
+                           want(steps - MOE_CKPT_EVERY), device)
+        if [r["step"] for r in p2["restores"]] != [MOE_CKPT_EVERY]:
+            raise AssertionError(f"p.2 restores {p2['restores']}")
+        if p2["losses"] != p1["losses"][MOE_CKPT_EVERY:]:
+            raise AssertionError(f"p.2 losses {p2['losses']} != p.1's "
+                                 f"{p1['losses'][MOE_CKPT_EVERY:]}")
+        same = same_checkpoint(stash, os.path.join(d1, str(steps)))
+        shutil.rmtree(stash)
+        out["p2"] = {"restore_s": p2["restores"][0]["seconds"],
+                     "restore_bytes": p2["restores"][0]["bytes"],
+                     "losses": p2["losses"], "wall_s": p2["wall_s"],
+                     "launches": p2["launches"], "saves": p2["saves"],
+                     "step8_bit_equal": same}
+        emit({"phase": "moe_train_p2", **out["p2"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+        # where a step's device time goes: 2 steady steps profiled
+        out["profile"] = profile_train(seed, device, MOE_TRAIN,
+                                       MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # p.3: serve the checkpoint, and the in-process params
+        prompts = full_width_prompts(seed, MOE_TRAIN["vocab"])
+        scfg = ServerConfig(bf16=True, kv_blocks=1 + 8 * 128,
+                            kv_block_size=16, max_batch=8,
+                            paged_kernel="on", seed=seed, checkpoint_dir=d1,
+                            **MOE_TRAIN)
+        ck = CkptLog()
+        t = time.perf_counter()
+        with logs_to({"nos_tpu_torch.checkpoint": ck}):
+            eng = build_engine(scfg, device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        if not all(torch.equal(a, b) for a, b in zip(
+                tfm.param_leaves(eng.params), tfm.param_leaves(trained))):
+            raise AssertionError("p.3: the served params differ from p.1's")
+        served = moe_run(eng, prompts, "p.3 checkpoint")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = DecodeServer(trained, mcfg, max_batch=8, kv_blocks=1 + 8 * 128,
+                           kv_block_size=16, paged_impl="kernel",
+                           device=device)
+        inproc = moe_run(eng, prompts, "p.3 in process")
+        del eng
+        if served["seqs"] != inproc["seqs"]:
+            raise AssertionError("p.3: the checkpoint's tokens differ from "
+                                 "the in-process params'")
+        del trained
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the draft at ServerConfig's draft widths, through
+        # draft_checkpoint_dir
+        dcfg = tfm.TransformerConfig(
+            vocab=mcfg.vocab, d_model=scfg.draft_d_model,
+            n_layers=scfg.draft_n_layers, n_heads=scfg.draft_n_heads,
+            n_kv_heads=scfg.draft_n_kv_heads, d_ff=scfg.draft_d_ff,
+            max_seq=mcfg.max_seq, dtype=mcfg.dtype)
+        dparams = tfm.init_params(
+            dcfg, torch.Generator(device).manual_seed(DRAFT_SEED), device)
+        ddir = os.path.join(root, "draft")
+        mgr = CheckpointManager(ddir)
+        mgr.write_model_config(model_arch_dict(dcfg))
+        mgr.save(1, dparams, {})
+        mgr.close()
+        t = time.perf_counter()
+        with logs_to({"nos_tpu_torch.checkpoint": ck}):
+            eng = build_engine(dataclasses.replace(
+                scfg, draft_checkpoint_dir=ddir, draft_n_tokens=SPEC_K),
+                device)
+        torch.cuda.synchronize()
+        spec_load_s = time.perf_counter() - t
+        if not isinstance(eng, SpeculativeDecodeServer) or not all(
+                torch.equal(a, b) for a, b in zip(
+                    tfm.param_leaves(eng.draft_params),
+                    tfm.param_leaves(dparams))):
+            raise AssertionError("p.3: the speculative engine's draft")
+        del dparams
+        spec = moe_run(eng, prompts, "p.3 speculative")
+        hold_spec_launches("p.3 speculative", eng, spec)
+        windows = verify_windows(eng, prompts, spec["seqs"],
+                                 "p.3 speculative")
+        del eng
+        out["p3"] = {
+            "load_s": load_s, "restores": ck.restores,
+            "spec_load_s": spec_load_s,
+            "checkpoint_equals_in_process": True,
+            "served": run_row(served), "in_process": run_row(inproc),
+            "speculative": run_row(spec), "windows_vs_plain": windows,
+            "equal_plain": sum(a == b for a, b in zip(spec["seqs"],
+                                                      served["seqs"]))}
+        emit({"phase": "moe_train_p3", **out["p3"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # p.4: the f32 step on the card against the CPU
+        out["p4"] = moe_f32_parity(seed, device)
+        # the flash kernels at (p)'s shape, held and timed; launches p.1's
+        rows, _ = flash_case("moe_train", P_ATTN, True, torch.bfloat16,
+                             np.random.default_rng(seed + 11), device, flush,
+                             timed=True)
+        for name, row in rows.items():
+            row["launches"] = p1["launches"][name]
+            row["shape"] = P_ATTN
+        out["flash"] = rows
+        return rows
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        out["seconds"] = time.perf_counter() - t_phase
+        emit(out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5781,6 +6286,9 @@ def main(argv=None) -> int:
             row["launches"] = launches[name]
         adamw = check_adamw(args.seed, device, flush)
         adamw["launches"] = launches["adamw"]
+    moe_flash = {}
+    if "p" in args.phases:
+        moe_flash = phase_moe_train(args.seed, card, device, flush)
     del flush
     emit({"phase": "done", "seconds": time.perf_counter() - t_all,
           "card": card})
@@ -5801,12 +6309,15 @@ def main(argv=None) -> int:
             "launches": spec["launches"][label],
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
-    for name, row in flash.items():
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "nos_tpu_torch/csrc/flash_attention.cu",
-                        "replaces": "nos_tpu/ops/attention.py:186",
-                        "also_replaces": "nos_tpu/ops/attention.py:549",
-                        **row})
+    # phase (p)'s attention shape of the same kernels (Mixtral's heads),
+    # their launches p.1's through MoE layers
+    for suffix, rows in (("", flash), ("_moe_train", moe_flash)):
+        for name, row in rows.items():
+            kernels.append({"name": name + suffix, "route": "cuda",
+                            "source": "nos_tpu_torch/csrc/flash_attention.cu",
+                            "replaces": "nos_tpu/ops/attention.py:186",
+                            "also_replaces": "nos_tpu/ops/attention.py:549",
+                            **row})
     kernels.append({"name": "adamw", "route": "cuda",
                     "source": "nos_tpu_torch/csrc/adamw.cu",
                     "replaces": "nos_tpu/train/optim.py:78",

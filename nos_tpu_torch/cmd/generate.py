@@ -1,9 +1,10 @@
 """nos-tpu-torch-generate — decode with KV-cache generation on the card
 (port of ``nos_tpu/cmd/generate.py``).
 
-Makes the params (from ``seed``; checkpoint loading waits until a
-checkpoint format is ported, the reference's being orbax), optionally
-quantizes the matmul weights to int8, and runs greedy or sampled
+Makes the params (restored from ``checkpoint_dir``'s latest step, a
+trainer's checkpoint in the port's format (``train/checkpoint.py``), or
+else drawn from ``seed``), optionally quantizes the matmul weights to
+int8, and runs greedy or sampled
 generation (``models/generate.py::generate``). Prompts are token-id
 lists; output is one JSON line per prompt.
 
@@ -64,13 +65,10 @@ class GenerateConfig:
 
 
 def load_params(cfg: GenerateConfig, device: DeviceLike = None):
-    """(model config, params) with params drawn from ``cfg.seed`` by a
-    ``torch.Generator`` on ``device``, plus the int8 twin when
-    ``cfg.int8``."""
-    if cfg.checkpoint_dir:
-        raise ValueError(
-            "checkpoint_dir is not supported by the torch port yet: no "
-            "checkpoint format is ported (weights are made from seed)")
+    """(model config, params) on ``device``: init-or-restore, the
+    checkpoint overriding the init when ``cfg.checkpoint_dir`` is set
+    (else params drawn from ``cfg.seed`` by a ``torch.Generator``), plus
+    the int8 twin when ``cfg.int8``."""
     device = resolve_device(device)
     model_cfg = tfm.TransformerConfig(
         vocab=cfg.vocab, d_model=cfg.d_model, n_layers=cfg.n_layers,
@@ -78,8 +76,26 @@ def load_params(cfg: GenerateConfig, device: DeviceLike = None):
         max_seq=cfg.max_seq, n_experts=cfg.n_experts,
         dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
     )
-    params = tfm.init_params(
-        model_cfg, torch.Generator(device).manual_seed(cfg.seed), device)
+    if cfg.checkpoint_dir:
+        from nos_tpu_torch.train.checkpoint import (
+            CheckpointManager, model_arch_dict,
+        )
+
+        ckpt = CheckpointManager(cfg.checkpoint_dir)
+        # mismatched dims fail HERE by field name, before any array
+        ckpt.validate_model_config(model_arch_dict(cfg))
+        step = ckpt.latest()
+        # a shape-only template: the leaves go to the device one at a
+        # time, with no init before them
+        params = ckpt.restore_params(
+            step, params_template=tfm.abstract_params(model_cfg),
+            device=device)
+        ckpt.close()
+        logger.info("restored params from step %s", step)
+    else:
+        params = tfm.init_params(
+            model_cfg, torch.Generator(device).manual_seed(cfg.seed),
+            device)
     if cfg.int8:
         from nos_tpu_torch.models.quant import quantize_params
 

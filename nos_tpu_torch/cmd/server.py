@@ -58,13 +58,14 @@ objectives the ``slo_budget`` and ``chip_ledger`` sections of /stats).
 With the reference's defaults (``kv_blocks`` 0) the binary serves the
 slot-static engine; ``--kv-blocks`` > 0 serves the paged one.
 ``build_engine`` validates a config with the reference's messages, then
-refuses every knob the torch engine does not serve yet by name
-(``NotPorted``), before any weights are made: tensor parallelism and
-checkpoint loading, which speculative decoding through the binary needs
-too (``--draft-checkpoint-dir``: the reference's draft model comes only
-from a checkpoint). A ``ServingLoop`` over a
-``models.spec_serving.SpeculativeDecodeServer`` built in process serves
-speculative decoding and exports its counters.
+refuses the one knob the torch engine does not serve yet by name
+(``NotPorted``: tensor parallelism), before any weights are made.
+``--checkpoint-dir`` serves a trainer's checkpoint (the port's format,
+``train/checkpoint.py``; the stamp is validated first), and
+``--draft-checkpoint-dir`` turns on speculative decoding with the draft
+model restored from its checkpoint at the config's draft widths
+(``models.spec_serving.SpeculativeDecodeServer``), as the reference's
+binary does.
 """
 from __future__ import annotations
 
@@ -2944,10 +2945,13 @@ class _Stream:
 
 
 def build_engine(cfg: ServerConfig, device: DeviceLike = None):
-    """Make params (seeded, int8 twin when ``cfg.int8``) and build the
-    continuous-batching engine on ``device`` (default: the card). The
-    paged attention formulation goes to the engine as its
-    ``paged_impl``; nothing is written to the environment."""
+    """Make params (restored from ``cfg.checkpoint_dir`` or seeded, int8
+    twin when ``cfg.int8``) and build the continuous-batching engine on
+    ``device`` (default: the card): a ``SpeculativeDecodeServer`` with
+    the draft restored from ``cfg.draft_checkpoint_dir`` when that is
+    set, else a ``DecodeServer``. The paged attention formulation goes
+    to the engine as its ``paged_impl``; nothing is written to the
+    environment."""
     from nos_tpu_torch.cmd.generate import GenerateConfig, load_params
     from nos_tpu_torch.models.serving import DecodeServer, reject_unported
 
@@ -3039,19 +3043,10 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
             "prefix_cache_size): the host tier stores demoted prefix "
             "chains, which only the paged prefix index produces — "
             "without one there is nothing to demote")
-    # knobs outside this slice, by name, still before any weights. The
-    # reference's binary takes its draft model only from a checkpoint,
-    # so speculative serving through the binary waits for checkpoint
-    # loading; the engine itself (SpeculativeDecodeServer) is ported
-    for knob, on, what in (
-            ("tp", cfg.tp > 1, "tensor-parallel serving"),
-            ("draft_checkpoint_dir", cfg.draft_checkpoint_dir,
-             "checkpoint loading: the binary's draft model comes from a "
-             "checkpoint"),
-            ("checkpoint_dir", cfg.checkpoint_dir, "checkpoint loading")):
-        if on:
-            raise NotPorted(
-                f"{knob} is not ported to the torch engine yet ({what})")
+    # knobs outside this slice, by name, still before any weights
+    if cfg.tp > 1:
+        raise NotPorted("tp is not ported to the torch engine yet "
+                        "(tensor-parallel serving)")
     reject_unported()
     # parsed here so the supervisor's rebuild factory re-creates a
     # tenant-aware engine from the same config
@@ -3068,8 +3063,34 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
         vocab=cfg.vocab, d_model=cfg.d_model, n_layers=cfg.n_layers,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
         max_seq=cfg.max_seq, n_experts=cfg.n_experts, bf16=cfg.bf16,
-        int8=cfg.int8, seed=cfg.seed)
+        checkpoint_dir=cfg.checkpoint_dir, int8=cfg.int8, seed=cfg.seed)
     model_cfg, params = load_params(gcfg, device)
+    if cfg.draft_checkpoint_dir:
+        from nos_tpu_torch.models.spec_serving import SpeculativeDecodeServer
+
+        # the draft at its own widths, from its checkpoint (never int8)
+        dcfg_in = GenerateConfig(
+            vocab=cfg.vocab, d_model=cfg.draft_d_model,
+            n_layers=cfg.draft_n_layers, n_heads=cfg.draft_n_heads,
+            n_kv_heads=cfg.draft_n_kv_heads, d_ff=cfg.draft_d_ff,
+            max_seq=cfg.max_seq, bf16=cfg.bf16,
+            checkpoint_dir=cfg.draft_checkpoint_dir, seed=cfg.seed)
+        draft_cfg, draft_params = load_params(dcfg_in, device)
+        return SpeculativeDecodeServer(
+            params, model_cfg, draft_params, draft_cfg,
+            n_draft=cfg.draft_n_tokens, max_batch=cfg.max_batch,
+            prefix_cache_size=cfg.prefix_cache_size,
+            prefill_chunk=cfg.prefill_chunk, max_pending=cfg.max_pending,
+            # the speculative engine rides the full dispatch template:
+            # pipelined windows, fused rounds, paged + int8 KV all apply
+            pipeline_depth=cfg.pipeline_depth,
+            decode_steps=cfg.decode_steps,
+            kv_block_size=cfg.kv_block_size, kv_blocks=cfg.kv_blocks,
+            kv_swap=cfg.kv_swap, hbm_admit_frac=cfg.kv_hbm_admit_frac,
+            kv_dtype=cfg.kv_dtype, tenant_quota=tenant_quota,
+            role=cfg.role, host_tier=host_tier,
+            prefill_budget=cfg.prefill_budget, device=device,
+            paged_impl=paged_impl)
     return DecodeServer(params, model_cfg, max_batch=cfg.max_batch,
                         prefix_cache_size=cfg.prefix_cache_size,
                         prefill_chunk=cfg.prefill_chunk,

@@ -1,17 +1,21 @@
 """nos-tpu-trainer on one card (port of ``nos_tpu/cmd/trainer.py``,
 single process).
 
-Trains the decoder transformer on synthetic or memory-mapped token
-batches, logging loss and steps/s, with the reference's optimizer chain,
-held-out eval, stop event and SIGTERM handling. Causal attention runs
-through the hand-written CUDA flash-attention kernels on the card.
+Trains the decoder transformer, dense or Mixture-of-Experts
+(``n_experts``), on synthetic or memory-mapped token batches, logging
+loss and steps/s, with the reference's optimizer chain, held-out eval,
+checkpoints (``checkpoint_dir``: resume from the latest step, the
+``checkpoint_every`` and ``checkpoint_every_s`` cadences, asynchronous
+saves; ``train/checkpoint.py``), stop event and SIGTERM handling (the
+step just completed is checkpointed before the exit). Causal attention
+runs through the hand-written CUDA flash-attention kernels on the card.
 
 Not ported yet, and refused with a ValueError naming the knob: the
-parallel layouts (``dp``/``fsdp``/``tp``/``pp``/``sp``/``ep`` > 1), MoE
-training (``n_experts``; the port serves MoE models, it does not train
-them yet), ``checkpoint_dir``, ``profile_dir``, ``metrics_port``,
-the lifecycle watcher (``node_name``/``lifecycle_api``) and a multi-host
-environment (``COORDINATOR_ADDRESS``).
+parallel layouts (``dp``/``fsdp``/``tp``/``pp``/``sp``/``ep`` > 1),
+``profile_dir``, ``metrics_port`` (the ``nos_tpu_train_*`` series are
+kept in the process's registry all the same), the lifecycle watcher
+(``node_name``/``lifecycle_api``) and a multi-host environment
+(``COORDINATOR_ADDRESS``).
 """
 from __future__ import annotations
 
@@ -85,7 +89,7 @@ class TrainerConfig:
     eval_data_path: str = ""
     eval_every: int = 0
     eval_steps: int = 4
-    # checkpointing (not ported yet: a non-empty checkpoint_dir raises)
+    # checkpointing (empty checkpoint_dir = off)
     checkpoint_dir: str = ""
     checkpoint_every: int = 100
     checkpoint_every_s: float = 0.0
@@ -126,9 +130,7 @@ def check_ported(cfg: TrainerConfig) -> None:
                 f"{knob}={getattr(cfg, knob)}: parallel layouts are not "
                 f"ported yet; the torch trainer runs one process on one "
                 f"card")
-    refused = [("n_experts", cfg.n_experts > 0, "MoE training"),
-               ("checkpoint_dir", bool(cfg.checkpoint_dir), "checkpointing"),
-               ("profile_dir", bool(cfg.profile_dir), "the profiler"),
+    refused = [("profile_dir", bool(cfg.profile_dir), "the profiler"),
                ("metrics_port", bool(cfg.metrics_port), "the metrics server"),
                ("node_name/lifecycle_api",
                 bool(cfg.node_name and cfg.lifecycle_api),
@@ -162,12 +164,14 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
 
     ``stop_event`` requests a graceful early exit after the current step.
     When ``cfg.handle_sigterm`` is set and this is the main thread,
-    SIGTERM sets it (the Kubernetes preemption contract)."""
+    SIGTERM sets it (the Kubernetes preemption contract): the step just
+    completed is checkpointed and the loop exits."""
     from nos_tpu_torch.models import transformer as tfm
     from nos_tpu_torch.train.data import (
         TokenDataset, prefetch_to_device, to_device,
     )
     from nos_tpu_torch.train.optim import build_optimizer
+    from nos_tpu_torch.utils.metrics import default_registry
 
     check_ported(cfg)
     device = resolve_device(device)
@@ -189,6 +193,27 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
         min_lr_ratio=cfg.min_lr_ratio, weight_decay=cfg.weight_decay,
         b1=cfg.adam_b1, b2=cfg.adam_b2, grad_clip=cfg.grad_clip,
         accum_steps=cfg.accum_steps)
+
+    ckpt = None
+    start_step = 0
+    if cfg.checkpoint_dir:
+        from nos_tpu_torch.train.checkpoint import (
+            CheckpointManager, model_arch_dict,
+        )
+
+        ckpt = CheckpointManager(cfg.checkpoint_dir)
+        # stamp (or, on resume, validate against) the architecture so a
+        # config drift between runs fails by field name, not shape error
+        ckpt.write_model_config(model_arch_dict(cfg))
+        latest = ckpt.latest()
+        if latest is not None:
+            # into the live leaves and moments, in place
+            _, opt_state = ckpt.restore(
+                latest, params_template=params,
+                opt_state_template=optimizer.state_dict())
+            optimizer.load_state_dict(opt_state)
+            start_step = latest
+            logger.info("resumed from checkpoint step %d", latest)
     step_fn = tfm.make_train_step(model_cfg, optimizer)
 
     dataset = None
@@ -202,7 +227,8 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
                                     seed=cfg.seed + 2)
 
     def batch_for(step: int) -> dict:
-        # a pure function of (seed, step), so a rerun replays the stream
+        # a pure function of (seed, step), so a resumed run replays the
+        # stream an uninterrupted one would have seen
         if dataset is not None:
             return dataset.batch(step, cfg.batch_size)
         return synthetic_batch(cfg, step, device)
@@ -210,20 +236,44 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
     def put(batch: dict) -> dict:
         return to_device(batch, device)
 
+    reg = default_registry()
+    m_steps = reg.counter(
+        "nos_tpu_train_steps_total", "Training steps completed")
+    m_tokens = reg.counter(
+        "nos_tpu_train_tokens_total", "Tokens consumed by training")
+    m_step_s = reg.histogram(
+        "nos_tpu_train_step_seconds",
+        "Avg wall time per step, observed at log boundaries (per-step "
+        "timing would force a device sync every step)",
+        buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0))
+    m_saves = reg.counter(
+        "nos_tpu_train_checkpoint_saves_total", "Checkpoints saved")
+    m_preempt = reg.counter(
+        "nos_tpu_train_preemptions_total",
+        "Graceful preemption exits (SIGTERM/stop event, step banked)")
+    g_loss = reg.gauge("nos_tpu_train_loss", "Most recent training loss")
+    g_eval = reg.gauge(
+        "nos_tpu_train_eval_loss", "Most recent held-out eval loss")
+
     stop = stop_event if stop_event is not None else threading.Event()
     handler_installed = False
     prev_handler = None
     loss = float("nan")
+    preempted = False
+    last_saved = start_step
     t0 = time.perf_counter()
+    last_log_t, last_log_step = t0, start_step
+    last_save_t = t0
+    n = max(cfg.steps - start_step, 0)
     if cfg.prefetch > 0 and dataset is not None:
-        batches = prefetch_to_device(batch_for, 0, cfg.steps, put=put,
+        batches = prefetch_to_device(batch_for, start_step, n, put=put,
                                      depth=cfg.prefetch)
     else:
         # synchronous, no background thread: a synthetic batch is drawn
         # on the card by this thread, because a producer thread's
         # hundreds of small launches contend with the step's dispatch
         # for the interpreter lock (10-30 ms a step on an H100)
-        batches = (put(batch_for(s)) for s in range(cfg.steps))
+        batches = (put(batch_for(s)) for s in range(start_step, cfg.steps))
     try:
         if cfg.handle_sigterm and \
                 threading.current_thread() is threading.main_thread():
@@ -231,22 +281,41 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
                                          lambda *_: stop.set())
             handler_installed = True
         batch = next(batches, None)
-        for step in range(cfg.steps):
+        for step in range(start_step, cfg.steps):
             loss_t = step_fn(params, batch)
+            m_steps.inc()
+            m_tokens.inc(cfg.batch_size * cfg.seq_len)
             # the next batch goes on the stream behind this step, before
             # the host waits for its loss
             batch = next(batches, None)
             if stop.is_set():
+                # preemption: bank the step just completed (synchronous:
+                # the grace period is short, so before eval and the
+                # periodic save) under its true count, so a resume
+                # replays the stream an uninterrupted run would see
+                preempted = True
                 loss = float(loss_t)
-                logger.info("stop requested (preemption): exiting after "
-                            "step %d/%d", step + 1, cfg.steps)
+                if ckpt is not None and last_saved != step + 1:
+                    ckpt.save(step + 1, params, optimizer.state_dict())
+                    last_saved = step + 1
+                    m_saves.inc()
+                m_preempt.inc()
+                g_loss.set(loss)
+                logger.info("stop requested (preemption): checkpointed "
+                            "step %d/%d, exiting cleanly", step + 1,
+                            cfg.steps)
                 break
             if (step + 1) % cfg.log_every == 0 or step + 1 == cfg.steps:
                 loss = float(loss_t)        # waits for the step
+                g_loss.set(loss)
+                now = time.perf_counter()
+                m_step_s.observe((now - last_log_t)
+                                 / max(step + 1 - last_log_step, 1))
+                last_log_t, last_log_step = now, step + 1
                 logger.info("step %d/%d loss %.4f (%.2f steps/s)",
                             step + 1, cfg.steps, loss,
-                            (step + 1) / max(time.perf_counter() - t0,
-                                             1e-9))
+                            (step + 1 - start_step)
+                            / max(now - t0, 1e-9))
             if eval_dataset is not None and (step + 1) % cfg.eval_every == 0:
                 if eval_batches is None:
                     # the eval set is deterministic: stage it once
@@ -256,11 +325,38 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
                 with torch.no_grad():
                     losses = [float(tfm.loss_fn(params, model_cfg, eb))
                               for eb in eval_batches]
+                mean = sum(losses) / len(losses)
+                g_eval.set(mean)
                 logger.info("step %d eval loss %.4f (%d batches)", step + 1,
-                            sum(losses) / len(losses), cfg.eval_steps)
+                            mean, cfg.eval_steps)
+            due_by_time = (ckpt is not None and cfg.checkpoint_every_s > 0
+                           and time.perf_counter() - last_save_t
+                           >= cfg.checkpoint_every_s)
+            if ckpt is not None and (
+                    (step + 1) % cfg.checkpoint_every == 0 or due_by_time):
+                # async: the copy overlaps the next step's forward and
+                # backward; its update waits for the copy on the device
+                optimizer.fence(ckpt.save(step + 1, params,
+                                          optimizer.state_dict(),
+                                          wait=False))
+                last_saved = step + 1
+                last_save_t = time.perf_counter()
+                m_saves.inc()
+        # final save only when steps ran to the configured end (a restart
+        # whose restored step already meets cfg.steps must not relabel
+        # old state, and a preempted exit must not label partial
+        # progress as cfg.steps); finally fences and closes
+        if ckpt is not None and not preempted and start_step < cfg.steps \
+                and last_saved != cfg.steps:
+            ckpt.save(cfg.steps, params, optimizer.state_dict())
+            m_saves.inc()
     finally:
         # release the prefetch producer (and the batches it holds) now
         batches.close()
+        # fence any in-flight save on every exit path: a retry must not
+        # race a background writer over the checkpoint directory
+        if ckpt is not None:
+            ckpt.close()
         if handler_installed:
             signal.signal(signal.SIGTERM,
                           prev_handler if prev_handler is not None

@@ -9,10 +9,10 @@ Params are a plain dict of tensors with the reference's layout: stacked
 its ``jax.checkpoint`` per layer is ``torch.utils.checkpoint`` (the
 "full" policy). With ``n_experts > 0`` every layer's FFN is the
 reference's top-2 MoE (``w_router`` [L, d, E] f32, experts [L, E, d, f]
-/ [L, E, f, d]); the decode path serves it (``models/generate.py``),
-and the training ``forward`` refuses it: MoE training is not ported
-yet. Sequence parallelism and the named remat policies are not ported
-yet and raise.
+/ [L, E, f, d]); the decode path serves it (``models/generate.py``)
+and the training ``forward`` trains it, the layers' aux losses averaged
+into ``loss_fn``. Sequence parallelism and the named remat policies
+are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from nos_tpu_torch.ops.attention import attention
 from nos_tpu_torch.ops.layers import (
     apply_rope, rms_norm, rope_frequencies, swiglu,
 )
+from nos_tpu_torch.ops.moe import moe_ffn
 from nos_tpu_torch.ops.quant import QuantLinear
 
 Params = Dict[str, Any]
@@ -95,27 +96,14 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     stacked tensor one at a time, so the f32 transient is one layer's
     leaf, not the model's."""
     device = resolve_device(device)
-    d, h, e, L = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_layers
+    d, L = cfg.d_model, cfg.n_layers
 
     def randn(shape, fan_in, dtype=cfg.dtype):
         return (torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32) * fan_in ** -0.5
                 ).to(dtype)
 
-    # name -> (one layer's shape, fan_in, dtype)
-    shapes = {"wq": ((d, d), d, cfg.dtype),
-              "wk": ((d, cfg.kv_dim), d, cfg.dtype),
-              "wv": ((d, cfg.kv_dim), d, cfg.dtype),
-              "wo": ((d, d), d, cfg.dtype)}
-    if e > 0:
-        shapes.update(w_router=((d, e), d, torch.float32),
-                      w_gate=((e, d, h), d, cfg.dtype),
-                      w_up=((e, d, h), d, cfg.dtype),
-                      w_down=((e, h, d), h, cfg.dtype))
-    else:
-        shapes.update(w_gate=((d, h), d, cfg.dtype),
-                      w_up=((d, h), d, cfg.dtype),
-                      w_down=((h, d), h, cfg.dtype))
+    shapes = _layer_shapes(cfg)
     layers = {k: torch.empty((L,) + shp, dtype=dt, device=device)
               for k, (shp, _, dt) in shapes.items()}
     for i in range(L):
@@ -130,6 +118,44 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         "layers": layers,
         "final_norm": torch.ones((d,), dtype=torch.float32, device=device),
         "unembed": randn((d, cfg.vocab), d),
+    }
+
+
+def _layer_shapes(cfg: TransformerConfig) -> dict:
+    """name -> (one layer's shape, fan_in, dtype) of the drawn leaves."""
+    d, h, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    shapes = {"wq": ((d, d), d, cfg.dtype),
+              "wk": ((d, cfg.kv_dim), d, cfg.dtype),
+              "wv": ((d, cfg.kv_dim), d, cfg.dtype),
+              "wo": ((d, d), d, cfg.dtype)}
+    if e > 0:
+        shapes.update(w_router=((d, e), d, torch.float32),
+                      w_gate=((e, d, h), d, cfg.dtype),
+                      w_up=((e, d, h), d, cfg.dtype),
+                      w_down=((e, h, d), h, cfg.dtype))
+    else:
+        shapes.update(w_gate=((d, h), d, cfg.dtype),
+                      w_up=((d, h), d, cfg.dtype),
+                      w_down=((h, d), h, cfg.dtype))
+    return shapes
+
+
+def abstract_params(cfg: TransformerConfig) -> Params:
+    """``init_params``' tree as tensors on the meta device (shapes and
+    dtypes, no storage): the port's ``jax.eval_shape`` of the init, the
+    template a checkpoint restore fills leaf by leaf."""
+    meta = torch.device("meta")
+    L, d = cfg.n_layers, cfg.d_model
+    layers = {k: torch.empty((L,) + shp, dtype=dt, device=meta)
+              for k, (shp, _, dt) in _layer_shapes(cfg).items()}
+    for k in ("attn_norm", "mlp_norm"):
+        layers[k] = torch.empty((L, d), dtype=torch.float32, device=meta)
+    return {
+        "embed": torch.empty((cfg.vocab, d), dtype=cfg.dtype, device=meta),
+        "layers": layers,
+        "final_norm": torch.empty((d,), dtype=torch.float32, device=meta),
+        "unembed": torch.empty((d, cfg.vocab), dtype=cfg.dtype,
+                               device=meta),
     }
 
 
@@ -194,14 +220,6 @@ def dense_ffn_block(h_in: torch.Tensor, layer: dict) -> torch.Tensor:
     return h_in + swiglu(h, layer["w_gate"], layer["w_up"], layer["w_down"])
 
 
-def dense_layer_block(h_in: torch.Tensor, layer: dict,
-                      cfg: TransformerConfig, freqs,
-                      attention_call) -> torch.Tensor:
-    """One decoder layer on the dense path."""
-    x = attention_block(h_in, layer, cfg, freqs, attention_call)
-    return dense_ffn_block(x, layer)
-
-
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
@@ -259,13 +277,9 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     ``loss_fn``, which applies the head itself (chunked). With
     ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``: its
     activations are recomputed in backward, attention kernel included.
-    An MoE config (``n_experts > 0``) is refused: MoE training is not
-    ported yet."""
-    if cfg.n_experts > 0:
-        raise ValueError(
-            "n_experts > 0 (MoE) is not ported to the training forward "
-            "yet: the torch port serves MoE models but trains dense-FFN "
-            "models only")
+    With ``n_experts > 0`` each layer's FFN is ``moe_ffn`` and the aux
+    loss is the mean of the layers' (each returned by the checkpointed
+    body, so the recompute routes with the same bits)."""
     freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                              tokens.device)
     x = F.embedding(tokens, params["embed"])
@@ -273,16 +287,25 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
 
     def layer_body(x, *tensors):
         layer = dict(zip(names, tensors))
-        return dense_layer_block(x, layer, cfg, freqs, _attention_call)
+        x = attention_block(x, layer, cfg, freqs, _attention_call)
+        if cfg.n_experts > 0:
+            h = rms_norm(x, layer["mlp_norm"])
+            y, aux = moe_ffn(h, layer["w_router"], layer["w_gate"],
+                             layer["w_up"], layer["w_down"],
+                             cfg.expert_capacity_factor)
+            return x + y, aux
+        return dense_ffn_block(x, layer), x.new_zeros((), dtype=torch.float32)
 
     names = sorted(layers)
+    auxes = []
     for i in range(cfg.n_layers):
         tensors = [layers[n][i] for n in names]
         if cfg.remat:
-            x = checkpoint(layer_body, x, *tensors, use_reentrant=False)
+            x, aux = checkpoint(layer_body, x, *tensors, use_reentrant=False)
         else:
-            x = layer_body(x, *tensors)
-    aux = x.new_zeros((), dtype=torch.float32)
+            x, aux = layer_body(x, *tensors)
+        auxes.append(aux)
+    aux = torch.stack(auxes).mean()
     if return_hidden:
         return x, aux
     x = rms_norm(x, params["final_norm"])

@@ -16,6 +16,11 @@ an IEEE-rounded elementwise operation, so the gates, the top-2 picks
 and the combine weights are the reference's on XLA:CPU bit for bit,
 and the same bits on the card as on the CPU for the same logits. The
 expert products run in the model dtype.
+
+Gradients flow as in JAX: through the renormalized combine weights and
+the aux loss's mean gate into the softmax (whose backward is JAX's
+rule for ``jax.nn.softmax``) and the router; the picks, one-hots,
+cumsums and the dispatch mask carry none.
 """
 from __future__ import annotations
 
@@ -79,7 +84,7 @@ def _xla_exp(x: torch.Tensor) -> torch.Tensor:
     return torch.where(y < _F32_TINY, 0.0, y)
 
 
-def _softmax(x: torch.Tensor) -> torch.Tensor:
+def _softmax_values(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.softmax over the last axis in f32: exp(x - max) / sum,
     with XLA's exp and the sum taken left to right, as XLA reduces a
     short minor axis."""
@@ -88,6 +93,27 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     for i in range(1, u.shape[-1]):
         total = total + u[..., i]
     return u / total[..., None]
+
+
+class _Softmax(torch.autograd.Function):
+    """``_softmax_values`` with JAX's own derivative of
+    ``jax.nn.softmax`` (its custom_jvp rule, transposed): autograd
+    through ``_xla_exp`` would differentiate the Cephes polynomial
+    (poly'(r) 2^n, not exp) and keep its f64 chain for every layer."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _softmax_values(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return y * (g - (y * g).sum(-1, keepdim=True))
+
+
+_softmax = _Softmax.apply
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:

@@ -22,11 +22,16 @@ own order of operations:
 - accumulation averages k micro-step gradients with MultiSteps' running
   mean and applies one update on the k-th call; the schedule counts
   updates, not micro-steps.
+
+The state (``state_dict``: the update count, the moments, and under
+accumulation the running mean and its micro-step) is what a checkpoint
+carries as ``opt_state``, as optax's state is in the reference, and
+``load_state_dict`` puts it back in place.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Tuple
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,7 +126,9 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
 class TrainOptimizer:
     """clip_by_global_norm -> adamw(schedule) [-> MultiSteps(k)] over
     ``params``. ``step()`` consumes each param's ``.grad`` and clears it;
-    ``mu``/``nu`` hold the moments, one per param, in its dtype."""
+    ``mu``/``nu`` hold the moments, one per param, in its dtype.
+    ``fence(event)`` makes the next step's in-place writes wait for a
+    device event: an asynchronous checkpoint's copy of these tensors."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr: Schedule, *,
                  weight_decay: float, b1: float, b2: float,
@@ -138,6 +145,38 @@ class TrainOptimizer:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self._acc = ([torch.zeros_like(p) for p in self.params]
                      if accum_steps > 1 else None)
+        self._fences: list = []
+
+    def state_dict(self) -> dict:
+        """The state as named leaves: ``count`` (updates applied),
+        ``mu``, ``nu`` (lists in the params' order), and with
+        accumulation ``mini_step`` and ``acc``. The tensors are the live
+        ones, not copies."""
+        state = {"count": self.count, "mu": list(self.mu),
+                 "nu": list(self.nu)}
+        if self._acc is not None:
+            state.update(mini_step=self.mini_step, acc=list(self._acc))
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Put ``state_dict()``'s leaves back, the tensors in place."""
+        want = self.state_dict()
+        if set(state) != set(want):
+            raise ValueError(f"optimizer state keys {sorted(state)} != "
+                             f"{sorted(want)}")
+        for key in ("mu", "nu", "acc"):
+            for dst, src in zip(want.get(key, ()), state.get(key, ())):
+                if dst is not src:
+                    dst.copy_(src)
+        self.count = int(state["count"])
+        self.mini_step = int(state.get("mini_step", 0))
+
+    def fence(self, event: Optional["torch.cuda.Event"]) -> None:
+        """The next ``step()`` waits, on its device's current stream, for
+        ``event`` before it writes a tensor in place (None: nothing)."""
+        if event is not None:
+            self._fences.append(event)
 
     @torch.no_grad()
     def _clip(self, grads: List[torch.Tensor]) -> None:
@@ -152,6 +191,10 @@ class TrainOptimizer:
 
     @torch.no_grad()
     def step(self) -> None:
+        for event in self._fences:
+            torch.cuda.current_stream(self.params[0].device).wait_event(
+                event)
+        self._fences.clear()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         if self._acc is not None:

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``nos_tpu_torch/`` (nor
-``chip_smoke.py``) imports JAX or the JAX package ``nos_tpu``, and
-importing the serving entry point pulls neither in."""
+``chip_smoke.py``) imports JAX, the JAX package ``nos_tpu``, or the
+reference's checkpoint stack (orbax, etils: the port keeps its own
+format), and importing the serving entry point pulls neither in."""
 import ast
 import os
 import subprocess
@@ -15,8 +16,7 @@ PORT_FILES = sorted((ROOT / "nos_tpu_torch").rglob("*.py")) + [
 
 
 def _forbidden(module: str) -> bool:
-    return (module == "jax" or module.startswith("jax.")
-            or module == "nos_tpu" or module.startswith("nos_tpu."))
+    return module.split(".")[0] in ("jax", "nos_tpu", "orbax", "etils")
 
 
 def _imports(path: Path):
@@ -36,6 +36,7 @@ def test_no_jax_or_reference_import(path):
 
 def test_forbidden_matches_reference_not_port():
     assert _forbidden("nos_tpu.models") and _forbidden("jax.numpy")
+    assert _forbidden("orbax.checkpoint") and _forbidden("etils.epath")
     assert not _forbidden("nos_tpu_torch.models")
 
 
@@ -54,11 +55,11 @@ def test_importing_the_server_loads_no_jax():
 def test_importing_the_trainer_loads_no_jax_and_builds_nothing():
     code = ("import sys, nos_tpu_torch.cmd.trainer, "
             "nos_tpu_torch.train.optim, nos_tpu_torch.train.data, "
+            "nos_tpu_torch.train.checkpoint, "
             "nos_tpu_torch.models.transformer; "
             "from nos_tpu_torch.ops import _kernels; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'nos_tpu' or "
-            "m.startswith('nos_tpu.')]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'nos_tpu', 'orbax', 'etils')]; "
             "assert not bad, bad; "
             "assert all(k._fn is None for k in _kernels.KERNELS)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

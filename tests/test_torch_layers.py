@@ -155,8 +155,16 @@ def test_init_params_shapes_and_scales_match_reference():
     assert tuple(tp["embed"].shape) == jp["embed"].shape
     # same init scale: normal * fan_in**-0.5 (std within sampling noise)
     assert abs(float(tp["layers"]["w_down"].std()) * 32 ** 0.5 - 1) < 0.1
-    # an MoE config builds (the decode path serves it); the training
-    # forward refuses it, naming the knob
-    moe_cfg = ttfm.TransformerConfig(n_experts=4)
-    with pytest.raises(ValueError, match="n_experts"):
-        ttfm.forward({}, moe_cfg, torch.zeros((1, 2), dtype=torch.long))
+    # the shape-only template a checkpoint restore fills (the port's
+    # jax.eval_shape of the init): the same tree, shapes and dtypes, no
+    # storage, dense and MoE
+    moe_cfg = ttfm.TransformerConfig(vocab=64, d_model=16, n_layers=2,
+                                     n_heads=2, d_ff=32, max_seq=64,
+                                     n_experts=4)
+    for cfg in (tcfg, moe_cfg):
+        real = ttfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        meta = ttfm.abstract_params(cfg)
+        assert set(meta["layers"]) == set(real["layers"])
+        for a, b in zip(ttfm.param_leaves(meta), ttfm.param_leaves(real)):
+            assert a.device.type == "meta"
+            assert (a.shape, a.dtype) == (b.shape, b.dtype)

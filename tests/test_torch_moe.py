@@ -206,10 +206,20 @@ def test_colliding_null_block_writes_land_as_the_references(rows):
 # ---------------------------------------------------------------------------
 
 def test_moe_config_builds_and_training_forward_refuses():
-    cfg = ttfm.TransformerConfig(n_experts=8)
+    """The training forward refused an MoE config until MoE training was
+    ported; now it trains it: logits of the vocabulary's width and the
+    layers' mean aux loss, positive and finite
+    (tests/test_torch_moe_train.py holds both to the reference)."""
+    cfg = ttfm.TransformerConfig(vocab=64, d_model=32, n_layers=2,
+                                 n_heads=4, d_ff=64, max_seq=16,
+                                 n_experts=8, dtype=torch.float32)
     assert cfg.n_experts == 8
-    with pytest.raises(ValueError, match="n_experts"):
-        ttfm.forward({}, cfg, torch.zeros((1, 2), dtype=torch.long))
+    params = ttfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    logits, aux = ttfm.forward(params, cfg,
+                               torch.zeros((1, 2), dtype=torch.long),
+                               return_aux=True)
+    assert logits.shape == (1, 2, 64) and logits.dtype == torch.float32
+    assert torch.isfinite(logits).all() and float(aux) > 0
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -50,6 +50,8 @@ PAGED = dict(kv_block_size=8, kv_blocks=24)
 # quotas were ported, served now
 SERVED_KNOBS = {"tenant_config", "kv_host_tier_bytes", "kv_fabric_token",
                 "kv_blocks=0"}
+# refused until checkpoint loading was ported, served now
+CHECKPOINT_KNOBS = {"checkpoint_dir", "draft_checkpoint_dir"}
 # the reference's documented replica /stats keys
 # (tests/test_metrics_docs.py::REPLICA_STATS_KEYS)
 REPLICA_STATS_KEYS = {
@@ -1374,12 +1376,23 @@ def test_build_engine_validation_messages(kw, match):
     (dict(kv_swap=False, tp=2), "tp"),
     (dict(kv_blocks=0, kv_block_size=0), "kv_blocks=0"),
 ])
-def test_build_engine_refuses_unported_knobs_by_name(kw, knob):
+def test_build_engine_refuses_unported_knobs_by_name(kw, knob, tmp_path):
     """Knobs outside the port raise ``NotPorted`` by name before any
     weights; the tenant config, the host tier and the fabric token were
     among them and are served now: the engine carries the quota and the
-    tier, and the token builds (it gates the loop's HTTP surfaces)."""
+    tier, and the token builds (it gates the loop's HTTP surfaces). So
+    are the checkpoint directories: one with no committed step (under
+    the test's own directory) raises the reference's ``no checkpoint
+    under``."""
     cfg = ServerConfig(**{**MODEL, **PAGED, **kw})
+    if knob in CHECKPOINT_KNOBS:
+        missing = str(tmp_path / kw[knob].lstrip("/"))
+        with pytest.raises(FileNotFoundError,
+                           match=f"no checkpoint under {missing}"):
+            build_engine(dataclasses.replace(cfg, bf16=False,
+                                             **{knob: missing}),
+                         device="cpu")
+        return
     if knob not in SERVED_KNOBS:
         with pytest.raises(NotPorted, match=knob):
             build_engine(cfg, device="cpu")
@@ -1475,11 +1488,29 @@ def test_main_flags_give_the_reference_config(argv, monkeypatch, tmp_path,
       "--kv-fabric-token", "s"], "kv_fabric_token"),
 ])
 def test_main_refused_knob_exits_naming_it(argv, knob, capsys,
-                                           restore_logging, monkeypatch):
+                                           restore_logging, monkeypatch,
+                                           tmp_path):
     """A knob outside the port exits 2 naming it. The host tier, the
     tenant config and the fabric token were refused so, and are served
     now: their flags reach the config ``main`` builds its engine from,
-    as the reference's main makes it, and an engine builds from it."""
+    as the reference's main makes it, and an engine builds from it. So
+    is ``--draft-checkpoint-dir``: with the directory pointing at a
+    draft saved at the config's draft widths, the engine is the
+    speculative one."""
+    if knob == "draft_checkpoint_dir":
+        from nos_tpu.cmd import server as jserver
+        from nos_tpu_torch.models.spec_serving import (
+            SpeculativeDecodeServer,
+        )
+
+        got = _main_config(tserver, argv, monkeypatch)
+        assert got == _main_config(jserver, argv, monkeypatch)
+        monkeypatch.undo()
+        got["draft_checkpoint_dir"] = _draft_checkpoint(tmp_path)
+        eng = tserver.build_engine(tserver.ServerConfig(**{
+            **got, **MODEL, "bf16": False, "max_batch": 2}), device="cpu")
+        assert isinstance(eng, SpeculativeDecodeServer) and eng.paged
+        return
     if knob not in SERVED_KNOBS:
         with pytest.raises(SystemExit) as e:
             tserver.main(argv)
@@ -2355,14 +2386,66 @@ def test_main_serves_the_default_config_over_http(monkeypatch,
     assert not t.is_alive()
 
 
-def test_draft_checkpoint_dir_refused_naming_checkpoint_loading():
+def _draft_checkpoint(root) -> str:
+    """A draft at ``ServerConfig``'s draft widths (f32, seeded), saved by
+    the port's ``CheckpointManager`` with its stamp; its directory."""
+    from nos_tpu_torch.cmd.generate import GenerateConfig
+    from nos_tpu_torch.train.checkpoint import (
+        CheckpointManager, model_arch_dict,
+    )
+
+    sc = ServerConfig(**MODEL)
+    gcfg = GenerateConfig(vocab=sc.vocab, d_model=sc.draft_d_model,
+                          n_layers=sc.draft_n_layers,
+                          n_heads=sc.draft_n_heads,
+                          n_kv_heads=sc.draft_n_kv_heads,
+                          d_ff=sc.draft_d_ff, max_seq=sc.max_seq, bf16=False)
+    cfg = ttfm.TransformerConfig(
+        vocab=gcfg.vocab, d_model=gcfg.d_model, n_layers=gcfg.n_layers,
+        n_heads=gcfg.n_heads, n_kv_heads=gcfg.n_kv_heads, d_ff=gcfg.d_ff,
+        max_seq=gcfg.max_seq, dtype=torch.float32)
+    directory = str(root / "draft")
+    mgr = CheckpointManager(directory)
+    mgr.write_model_config(model_arch_dict(gcfg))
+    mgr.save(1, ttfm.init_params(cfg, torch.Generator().manual_seed(5),
+                                 "cpu"), {})
+    mgr.close()
+    return directory
+
+
+def test_draft_checkpoint_dir_refused_naming_checkpoint_loading(tmp_path):
     """The binary's speculative switch takes its draft from a checkpoint
-    (the reference's build_engine), so it waits for checkpoint loading
-    and says so by name, before any weights are made."""
-    cfg = ServerConfig(**MODEL, **PAGED, draft_checkpoint_dir="/d")
-    with pytest.raises(NotPorted, match="draft_checkpoint_dir") as err:
+    (the reference's build_engine). It was refused until checkpoint
+    loading was ported; now a directory with no committed step raises
+    the reference's ``no checkpoint under``, and a saved draft gives a
+    speculative engine whose draft is the saved params, bit for bit, at
+    the config's draft widths."""
+    from nos_tpu_torch.models.spec_serving import SpeculativeDecodeServer
+    from nos_tpu_torch.train.checkpoint import CheckpointManager
+
+    missing = str(tmp_path / "d")
+    cfg = ServerConfig(**MODEL, **PAGED, bf16=False,
+                       draft_checkpoint_dir=missing)
+    with pytest.raises(FileNotFoundError,
+                       match=f"no checkpoint under {missing}"):
         build_engine(cfg, device="cpu")
-    assert "checkpoint loading" in str(err.value)
+    directory = _draft_checkpoint(tmp_path)
+    eng = build_engine(dataclasses.replace(cfg,
+                                           draft_checkpoint_dir=directory),
+                       device="cpu")
+    assert isinstance(eng, SpeculativeDecodeServer)
+    assert eng.k == cfg.draft_n_tokens
+    assert eng.draft_cfg.d_model == cfg.draft_d_model
+    assert eng.draft_cfg.n_layers == cfg.draft_n_layers
+    mgr = CheckpointManager(directory)
+    saved = mgr.restore_params(
+        params_template=ttfm.abstract_params(eng.draft_cfg), device="cpu")
+    mgr.close()
+    for a, b in zip(ttfm.param_leaves(saved),
+                    ttfm.param_leaves(eng.draft_params)):
+        assert torch.equal(a, b)
+    rid = eng.submit([1, 2, 3], 5)
+    assert len(eng.drain()[rid]) == 3 + 5
 
 
 SPEC_SERIES = ("nos_tpu_serve_spec_draft_total",

@@ -144,16 +144,29 @@ def test_build_engine_raises_reference_messages(clean_env, bad):
     dict(tenant_config="t.json"),
     dict(draft_checkpoint_dir="/d"), dict(checkpoint_dir="/c"),
 ])
-def test_build_engine_names_every_knob_outside_the_slice(clean_env, knob):
+def test_build_engine_names_every_knob_outside_the_slice(clean_env, knob,
+                                                         tmp_path):
     """A knob outside the port is refused by name. The fabric token,
     the host tier and a tenant config (``t.json``, a file that does not
     exist) were refused so until their modules were ported; now they
     reach the reference's own validation: the token builds, the tier
     builds on a prefill-role replica, and the missing tenant config is
-    the reference's ValueError, word for word."""
+    the reference's ValueError, word for word. The checkpoint
+    directories were refused until checkpoint loading was ported: one
+    with no committed step (under the test's own directory) is the
+    reference's FileNotFoundError, word for word."""
     kw = dict(KW, bf16=False, kv_blocks=24, kv_block_size=8)
     kw.update(knob)
     name = next(iter(knob))
+    if name.endswith("checkpoint_dir"):
+        kw[name] = str(tmp_path / kw[name].lstrip("/"))
+        with pytest.raises(FileNotFoundError) as ref:
+            jserver.build_engine(jserver.ServerConfig(**kw))
+        with pytest.raises(FileNotFoundError) as port:
+            tserver.build_engine(tserver.ServerConfig(**kw), device="cpu")
+        assert str(port.value) == str(ref.value)
+        assert str(port.value) == f"no checkpoint under {kw[name]}"
+        return
     if name == "tenant_config":
         with pytest.raises(ValueError) as ref:
             jserver.build_engine(jserver.ServerConfig(**kw))

@@ -208,15 +208,38 @@ def test_from_yaml_file_matches_reference(tmp_path):
         ttr.TrainerConfig.from_yaml_file(str(path))
 
 
+# knobs the trainer refused until MoE training and checkpoints were
+# ported, trained now
+TRAINED_KNOBS = {"n_experts", "checkpoint_dir"}
+
+
 @pytest.mark.parametrize("knob,value", [
     ("dp", 2), ("fsdp", 2), ("tp", 2), ("pp", 2), ("sp", 2), ("ep", 2),
     ("n_experts", 4), ("checkpoint_dir", "/ckpt"), ("profile_dir", "/prof"),
     ("metrics_port", 9090),
 ])
-def test_refused_knobs_raise_naming_the_knob(knob, value):
-    cfg = ttr.TrainerConfig(**TINY, **{knob: value})
-    with pytest.raises(ValueError, match=knob):
-        ttr.train(cfg, device="cpu")
+def test_refused_knobs_raise_naming_the_knob(knob, value, tmp_path):
+    """A knob outside the port raises naming it. ``n_experts`` and
+    ``checkpoint_dir`` were refused so and train now: an MoE run gives a
+    finite loss, and a checkpointed run (its directory under the test's
+    own) stamps the architecture and commits the final step."""
+    if knob not in TRAINED_KNOBS:
+        cfg = ttr.TrainerConfig(**TINY, **{knob: value})
+        with pytest.raises(ValueError, match=knob):
+            ttr.train(cfg, device="cpu")
+        return
+    if knob == "checkpoint_dir":
+        value = str(tmp_path / value.lstrip("/"))
+    loss = ttr.train(ttr.TrainerConfig(**TINY, **{knob: value}),
+                     device="cpu")
+    assert np.isfinite(loss)
+    if knob == "checkpoint_dir":
+        from nos_tpu_torch.train.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(value)
+        assert mgr.all_steps() == [TINY["steps"]]
+        assert mgr.read_model_config()["d_model"] == TINY["d_model"]
+        mgr.close()
 
 
 def test_lifecycle_watcher_and_multi_host_raise(monkeypatch):

@@ -140,8 +140,20 @@ def test_loss_chunk_must_divide_the_sequence():
     (dict(sp_strategy="tree"), "unknown sp_strategy"),
 ])
 def test_knobs_not_ported_raise(bad, match):
-    # a refused knob raises where it is refused: at the config, or (MoE,
-    # whose config the decode path serves) at the training forward
+    # a refused knob raises at the config. MoE was refused at the
+    # training forward until MoE training was ported; its config now
+    # trains: the forward gives finite logits and a positive aux loss
+    # (tests/test_torch_moe_train.py holds both to the reference)
+    if "n_experts" in bad:
+        cfg = tt.TransformerConfig(**dict(KW, **bad), dtype=torch.float32)
+        params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+        logits, aux = tt.forward(params, cfg,
+                                 torch.zeros((1, 2), dtype=torch.long),
+                                 return_aux=True)
+        assert cfg.n_experts == bad["n_experts"]
+        assert torch.isfinite(logits).all() and float(aux) > 0
+        return
     with pytest.raises(ValueError, match=match):
         cfg = tt.TransformerConfig(**dict(KW, **bad))
         tt.forward({}, cfg, torch.zeros((1, 2), dtype=torch.long))
