@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnop]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopq]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -261,6 +261,29 @@ p. the MoE family trained, checkpointed, resumed and served, at
    kernels at (p)'s attention shape (batch 8, 32 query / 8 KV heads, S
    2048, head_dim 128, causal, bf16) against their plain versions,
    timed beside them, SDPA and the bound.
+q. the trainer's named remat policies ("dots", "except_mlp",
+   "minimal"; phase (g)'s run is "full", run here when (g) is not): (1)
+   ``train()`` at (g)'s widths and batch, 8 steps under each; the flash
+   forward launched n_layers x steps x 2 under "full" and "dots" and x
+   1 under "except_mlp" and "minimal" (its outputs saved by name), each
+   backward kernel n_layers x steps, adamw once a leaf and step; step
+   ms, tokens/s, MFU, HFU (the model's products plus what the policy's
+   recompute re-runs, ``remat_rerun_flops``), peak memory, and 2
+   profiled steady steps by kernel group per policy; (2) the step-1
+   gradients under each policy against "full"'s from the same params
+   and batch, leaf by leaf (bit-equal expected; a differing leaf is
+   printed with its largest difference over the leaf's largest value,
+   and fails above 1e-3), and the 8 losses of each run against "full"'s
+   the same way; (3) peak memory ordered minimal <= except_mlp <= dots
+   and full <= except_mlp; (4) phase (p)'s MoE (1 layer, batch 8 x
+   2048) 4 steps under each of the four policies, no checkpoint: the
+   launches, step ms, MFU, HFU, peak, and every gating call routing
+   exactly as under "full"; (5) ``train()`` with ``profile_dir`` under
+   a temporary directory (steps 1-2 of 3 traced; a 2-layer model with
+   head_dim 128): the Chrome trace names the flash kernels; (6) the
+   trainer binary's ``main()`` with ``metrics_port`` on a free port:
+   /metrics shows ``nos_tpu_train_steps_total`` up by the steps run and
+   /healthz answers 200 while it trains.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -298,7 +321,7 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijklmnop"
+PHASES = "cdefghijklmnopq"
 
 
 def emit(obj) -> None:
@@ -5617,7 +5640,7 @@ def train_setup(cfg, seed: int, device):
 
 def profile_train(seed: int, device, widths: dict = TRAIN,
                   batch_size: int = TRAIN_BATCH,
-                  seq: int = TRAIN_SEQ) -> dict:
+                  seq: int = TRAIN_SEQ, remat_policy: str = "full") -> dict:
     """Device breakdown of 2 steady training steps at full width under
     torch.profiler: busy = the sum of kernel times; groups: the flash
     forward, the flash backward (preprocess, dK/dV, dQ), the adamw
@@ -5626,7 +5649,8 @@ def profile_train(seed: int, device, widths: dict = TRAIN,
     from nos_tpu_torch.cmd.trainer import TrainerConfig, synthetic_batch
     from nos_tpu_torch.models.transformer import TransformerConfig
 
-    cfg = TransformerConfig(**widths, dtype=torch.bfloat16)
+    cfg = TransformerConfig(**widths, dtype=torch.bfloat16,
+                            remat_policy=remat_policy)
     params, step = train_setup(cfg, seed, device)
     tcfg = TrainerConfig(**widths, batch_size=batch_size, seq_len=seq,
                          seed=seed)
@@ -5696,7 +5720,7 @@ def phase_train(seed: int, card: str) -> dict:
     steps; the flash kernels' launches must be 2 x n_layers x steps
     (forward, re-run by full remat) and n_layers x steps (each backward
     kernel). Then 2 profiled steps, and the f32 2-layer parity. Returns
-    the main run's launches."""
+    the phase's row, the main run's launches among it."""
     from nos_tpu_torch.cmd.trainer import TrainerConfig, train
     from nos_tpu_torch.models.transformer import TransformerConfig
 
@@ -5749,7 +5773,7 @@ def phase_train(seed: int, card: str) -> dict:
     torch.cuda.empty_cache()
     row.update(f32_parity(seed, device))
     emit(row)
-    return launches
+    return row
 
 
 # (p): the MoE family trained on the card at Mixtral-8x7B-v0.1's widths.
@@ -6210,6 +6234,373 @@ def phase_moe_train(seed: int, card: str, device, flush) -> dict:
         emit(out)
 
 
+# (q): the trainer's named remat policies at (g)'s widths and batch, and
+# at (p)'s MoE widths; (g)'s run stands for "full"
+REMAT_POLICIES = ("full", "dots", "except_mlp", "minimal")
+Q_MOE_STEPS = 4
+# a step-1 gradient leaf may differ from "full"'s by this share of the
+# leaf's largest value (every policy runs the same ops on the same bits:
+# equality is expected)
+Q_GRAD_TOL = 1e-3
+# q.5 and q.6: a small model on the kernels (head_dim 128)
+Q_SMALL = dict(vocab=32000, d_model=512, n_layers=2, n_heads=4,
+               n_kv_heads=2, d_ff=1024, max_seq=512)
+
+
+def flash_fwd_per_layer(policy: str) -> int:
+    """Flash forward launches a layer and step: the recompute re-runs it
+    unless the policy saves its outputs."""
+    return 1 if policy in ("except_mlp", "minimal") else 2
+
+
+def remat_want(policy: str, n_layers: int, steps: int,
+               n_experts: int = 0) -> dict:
+    return {"flash_attention_fwd":
+            flash_fwd_per_layer(policy) * n_layers * steps,
+            "flash_attention_bwd_preprocess": n_layers * steps,
+            "flash_attention_bwd_dkdv": n_layers * steps,
+            "flash_attention_bwd_dq": n_layers * steps,
+            "adamw": n_param_leaves(n_experts) * steps}
+
+
+def hardware_flops(mcfg, batch: int, seq: int, model_flops: float,
+                   attention_layer_flops: float) -> float:
+    """HFU's numerator: the model's FLOPs a step plus what the policy's
+    recompute re-runs (``remat_rerun_flops``: its products, and its
+    attention forwards counted as the model FLOPs count attention)."""
+    from nos_tpu_torch.models.transformer import remat_rerun_flops
+
+    r = remat_rerun_flops(mcfg, batch, seq)
+    return model_flops + r["products"] + (r["attention_layers"]
+                                          * attention_layer_flops)
+
+
+def remat_train_run(policy: str, seed: int, device) -> dict:
+    """q.1: ``train()`` at (g)'s widths under ``policy``, launches
+    counted from 0 and held to ``remat_want``; losses, step ms, MFU,
+    HFU, peak memory."""
+    import gc
+
+    from nos_tpu_torch.cmd.trainer import TrainerConfig, train
+
+    cfg = TrainerConfig(**TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                        steps=TRAIN_STEPS, log_every=1, seed=seed, bf16=True,
+                        remat_policy=policy)
+    log = StepLog()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_launches()                       # the main path's count
+    t0 = time.perf_counter()
+    with logs_to({"nos_tpu_torch.trainer": log}):
+        final = train(cfg, device=device)
+    wall_s = time.perf_counter() - t0
+    launches = train_launches()
+    want = remat_want(policy, TRAIN["n_layers"], TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"q.1 {policy}: launches {launches} != {want}")
+    losses = [loss for _, loss, _ in log.steps]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"q.1 {policy}: losses {losses}")
+    times = [t for _, _, t in log.steps]
+    step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    steady_ms = float(np.median(step_ms[1:]))
+    return {"remat_policy": policy, "losses": losses, "final_loss": final,
+            "wall_s": wall_s, "step_ms": step_ms,
+            "step_ms_median_steady": steady_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (steady_ms / 1e3),
+            **policy_hfu(policy, steady_ms),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
+
+
+def policy_hfu(policy: str, step_ms: float) -> dict:
+    """(g)'s model FLOPs a step, what ``policy`` re-runs, MFU and HFU at
+    ``step_ms``."""
+    from nos_tpu_torch.models.transformer import TransformerConfig
+
+    mcfg = TransformerConfig(**TRAIN, remat_policy=policy)
+    flops = model_flops_per_step(mcfg, TRAIN_BATCH, TRAIN_SEQ)
+    # model_flops_per_step counts a layer's attention forward as 4 B S^2 d
+    hw = hardware_flops(mcfg, TRAIN_BATCH, TRAIN_SEQ, flops,
+                        4 * TRAIN_BATCH * TRAIN_SEQ ** 2 * TRAIN["d_model"])
+    return {"model_tflops_per_step": flops / 1e12,
+            "rerun_tflops_per_step": (hw - flops) / 1e12,
+            "mfu_pct": 100 * flops / (step_ms / 1e3) / BF16_FLOPS,
+            "hfu_pct": 100 * hw / (step_ms / 1e3) / BF16_FLOPS}
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """``param_leaves``' order, as names."""
+    out = []
+    for key in sorted(tree):
+        v = tree[key]
+        out.extend(leaf_names(v, f"{prefix}{key}/") if isinstance(v, dict)
+                   else [prefix + key])
+    return out
+
+
+def same_or_close(label: str, got: list, want: list, names: list) -> dict:
+    """Tensors (or floats) against a reference's, one by one: how many
+    are bit-equal, and for each that is not its largest difference over
+    the reference's largest |value|; raises above ``Q_GRAD_TOL``."""
+    differ = {}
+    for name, a, b in zip(names, got, want):
+        if isinstance(a, float):
+            if a != b:
+                differ[name] = abs(a - b) / max(abs(b), 1e-30)
+        elif not torch.equal(a, b):
+            differ[name] = float((a.float() - b.float()).abs().max()
+                                 / b.float().abs().max().clamp_min(1e-30))
+    if any(v > Q_GRAD_TOL for v in differ.values()):
+        raise AssertionError(f"{label}: differs from full's past "
+                             f"{Q_GRAD_TOL}: {differ}")
+    return {"compared": len(names), "bit_equal": len(names) - len(differ),
+            "differing": differ}
+
+
+def remat_grads(seed: int, device) -> dict:
+    """q.2: one step's loss and gradients at (g)'s widths from train()'s
+    first params and batch, under each policy, against "full"'s."""
+    from nos_tpu_torch.cmd.trainer import TrainerConfig, synthetic_batch
+    from nos_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+    params = tfm.init_params(cfg, torch.Generator(device).manual_seed(seed),
+                             device)
+    leaves = tfm.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_()
+    names = leaf_names(params)
+    batch = synthetic_batch(TrainerConfig(**TRAIN, batch_size=TRAIN_BATCH,
+                                          seq_len=TRAIN_SEQ, seed=seed),
+                            0, device)
+    full = None
+    out = {}
+    for policy in REMAT_POLICIES:
+        c = tfm.TransformerConfig(**TRAIN, dtype=torch.bfloat16,
+                                  remat_policy=policy)
+        loss = tfm.loss_fn(params, c, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        loss = float(loss.detach())
+        if full is None:
+            full = (loss, grads)
+            out[policy] = {"loss": loss}
+            continue
+        out[policy] = {"loss": loss, "loss_equal": loss == full[0],
+                       **same_or_close(f"q.2 {policy} gradients",
+                                       list(grads), list(full[1]), names)}
+        del grads
+    del params, leaves, full
+    return out
+
+
+def remat_moe(seed: int, device) -> dict:
+    """q.4: (p)'s MoE, 4 steps under each policy; every gating call's
+    dispatch held to "full"'s, call by call (the forward's and the
+    recompute's in each step)."""
+    import gc
+
+    from nos_tpu_torch.cmd.trainer import TrainerConfig
+    from nos_tpu_torch.models.transformer import TransformerConfig
+    from nos_tpu_torch.ops import moe
+
+    gating = moe.top2_gating
+    full_routes, out = [], {}
+    L, steps = MOE_TRAIN["n_layers"], Q_MOE_STEPS
+    for policy in REMAT_POLICIES:
+        calls = {"n": 0, "differ": 0}
+
+        def traced(logits, capacity, policy=policy, calls=calls):
+            res = gating(logits, capacity)
+            if policy == "full":
+                full_routes.append(res[1])
+            elif not torch.equal(res[1], full_routes[calls["n"]]):
+                calls["differ"] += 1
+            calls["n"] += 1
+            return res
+
+        cfg = TrainerConfig(**MOE_TRAIN, batch_size=MOE_TRAIN_BATCH,
+                            seq_len=MOE_TRAIN_SEQ, steps=steps, log_every=1,
+                            seed=seed, bf16=True, remat_policy=policy)
+        moe.top2_gating = traced
+        try:
+            run = moe_train_run(cfg, f"q.4 {policy}",
+                                remat_want(policy, L, steps,
+                                           MOE_TRAIN["n_experts"]), device)
+        finally:
+            moe.top2_gating = gating
+        if calls["differ"] or calls["n"] != 2 * L * steps:
+            raise AssertionError(f"q.4 {policy}: {calls['differ']} of "
+                                 f"{calls['n']} gating calls routed apart "
+                                 f"from full's")
+        ms = [m for _, m, _ in step_times(run)]
+        steady_ms = float(np.median(ms[1:]))
+        mcfg = TransformerConfig(**MOE_TRAIN, remat_policy=policy)
+        flops = moe_step_flops(mcfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
+        # moe_step_flops counts attention over the causal pairs
+        hw = hardware_flops(mcfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, flops,
+                            2 * mcfg.d_model * MOE_TRAIN_BATCH
+                            * MOE_TRAIN_SEQ * (MOE_TRAIN_SEQ + 1))
+        out[policy] = {"losses": run["losses"], "launches": run["launches"],
+                       "step_ms": ms, "step_ms_median_steady": steady_ms,
+                       "mfu_pct": 100 * flops / (steady_ms / 1e3)
+                       / BF16_FLOPS,
+                       "hfu_pct": 100 * hw / (steady_ms / 1e3) / BF16_FLOPS,
+                       "rerun_tflops_per_step": (hw - flops) / 1e12,
+                       "peak_mem_gb": run["peak_mem_gb"],
+                       "gating_calls_equal_full": calls["n"]}
+        if policy != "full":
+            out[policy]["losses_vs_full"] = same_or_close(
+                f"q.4 {policy} losses", run["losses"],
+                out["full"]["losses"],
+                [f"step {i + 1}" for i in range(steps)])
+        gc.collect()
+        torch.cuda.empty_cache()
+    del full_routes
+    return out
+
+
+def remat_profile_dir(seed: int, device, root: str) -> dict:
+    """q.5: ``train()`` with ``profile_dir``: steps 1-2 of 3 traced."""
+    from nos_tpu_torch.cmd.trainer import TrainerConfig, train
+
+    d = os.path.join(root, "trace")
+    train(TrainerConfig(**Q_SMALL, batch_size=2, seq_len=Q_SMALL["max_seq"],
+                        steps=3, seed=seed, bf16=True, profile_dir=d,
+                        profile_start=1, profile_steps=2), device=device)
+    files = sorted(os.listdir(d))
+    if len(files) != 1 or not files[0].startswith("trainer_steps_1-3_"):
+        raise AssertionError(f"q.5: trace files {files}")
+    with open(os.path.join(d, files[0])) as f:
+        text = f.read()
+    kernels = [k for k in ("flash_fwd_wgmma_kernel", "flash_bwd_pre_kernel",
+                           "flash_bwd_dkdv_wgmma_kernel",
+                           "flash_bwd_dq_wgmma_kernel") if k in text]
+    if len(kernels) != 4:
+        raise AssertionError(f"q.5: the trace names only {kernels} of the "
+                             f"four flash kernels")
+    return {"files": files, "bytes": len(text), "flash_kernels": kernels}
+
+
+def remat_metrics_port(seed: int, root: str) -> dict:
+    """q.6: the trainer binary's ``main()`` with ``metrics_port`` on a
+    free port (its config a JSON file); /metrics and /healthz scraped
+    while it trains (after ``train()``, before ``main()`` stops the
+    server)."""
+    import socket
+    import urllib.request
+
+    from nos_tpu_torch.cmd import trainer
+    from nos_tpu_torch.utils.metrics import default_registry
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    steps = 3
+    path = os.path.join(root, "trainer.json")
+    with open(path, "w") as f:
+        json.dump(dict(Q_SMALL, batch_size=2, seq_len=Q_SMALL["max_seq"],
+                       steps=steps, seed=seed, metrics_port=port), f)
+    counter = default_registry().get("nos_tpu_train_steps_total")
+    before = counter.total() if counter is not None else 0.0
+    url = f"http://127.0.0.1:{port}"
+    seen = {}
+    real = trainer.train
+
+    def scraped(cfg, *args, **kwargs):
+        out = real(cfg, *args, **kwargs)
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            seen["metrics"] = r.read().decode()
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            seen["healthz"] = r.status
+        return out
+
+    trainer.train = scraped
+    try:
+        trainer.main(["--config", path])
+    finally:
+        trainer.train = real
+    series = {line.rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1])
+              for line in seen["metrics"].splitlines()
+              if line.startswith("nos_tpu_train_")}
+    if series.get("nos_tpu_train_steps_total") != before + steps \
+            or seen["healthz"] != 200:
+        raise AssertionError(f"q.6: steps_total "
+                             f"{series.get('nos_tpu_train_steps_total')} "
+                             f"(want {before + steps}), healthz "
+                             f"{seen['healthz']}")
+    return {"port": port, "healthz": seen["healthz"],
+            "steps_total_before": before, "series": series}
+
+
+def phase_remat(seed: int, card: str, device, g_row) -> dict:
+    """(q): the named remat policies on the card. Returns each policy's
+    q.1 launches ("full"'s from (g)'s row when (g) ran)."""
+    import gc
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {"phase": "remat_policies", "card": card, **TRAIN,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS}
+    root = tempfile.mkdtemp(prefix="chip_smoke_q_")
+    try:
+        # q.1
+        runs = {}
+        if g_row is not None:
+            runs["full"] = {k: g_row[k] for k in (
+                "losses", "step_ms_median_steady", "tokens_per_s",
+                "mfu_pct", "peak_mem_gb", "launches", "profile")}
+            runs["full"]["from_phase"] = "g"
+            runs["full"].update(policy_hfu(
+                "full", runs["full"]["step_ms_median_steady"]))
+        for policy in REMAT_POLICIES:
+            if policy in runs:
+                continue
+            runs[policy] = remat_train_run(policy, seed, device)
+            if policy != "full":
+                runs[policy]["losses_vs_full"] = same_or_close(
+                    f"q.1 {policy} losses", runs[policy]["losses"],
+                    runs["full"]["losses"],
+                    [f"step {i + 1}" for i in range(TRAIN_STEPS)])
+            gc.collect()
+            torch.cuda.empty_cache()
+            runs[policy]["profile"] = profile_train(
+                seed, device, TRAIN, TRAIN_BATCH, TRAIN_SEQ,
+                remat_policy=policy)
+            emit({"phase": "remat_q1", "card": card, **runs[policy]})
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["q1"] = runs
+        # q.2
+        out["q2"] = remat_grads(seed, device)
+        emit({"phase": "remat_q2", "card": card, **out["q2"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+        # q.3
+        peak = {p: runs[p]["peak_mem_gb"] for p in REMAT_POLICIES}
+        if not (peak["minimal"] <= peak["except_mlp"] <= peak["dots"]
+                and peak["full"] <= peak["except_mlp"]):
+            raise AssertionError(f"q.3: peak memory {peak}")
+        out["q3_peak_mem_gb"] = peak
+        # q.4
+        out["q4"] = remat_moe(seed, device)
+        emit({"phase": "remat_q4", "card": card, **MOE_TRAIN,
+              "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ, **out["q4"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+        # q.5, q.6
+        out["q5"] = remat_profile_dir(seed, device, root)
+        out["q6"] = remat_metrics_port(seed, root)
+        return {p: r["launches"] for p, r in runs.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        out["seconds"] = time.perf_counter() - t_phase
+        emit(out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6280,8 +6671,10 @@ def main(argv=None) -> int:
     if "o" in args.phases:
         paged["moe_launches"] = phase_moe(args.seed, card, flush)
     adamw = {}
+    g_row = None
     if "g" in args.phases:
-        launches = phase_train(args.seed, card)
+        g_row = phase_train(args.seed, card)
+        launches = g_row["launches"]
         for name, row in flash.items():
             row["launches"] = launches[name]
         adamw = check_adamw(args.seed, device, flush)
@@ -6289,6 +6682,12 @@ def main(argv=None) -> int:
     moe_flash = {}
     if "p" in args.phases:
         moe_flash = phase_moe_train(args.seed, card, device, flush)
+    if "q" in args.phases:
+        # each flash kernel's launches in (q.1)'s run of every policy
+        by_policy = phase_remat(args.seed, card, device, g_row)
+        for name, row in flash.items():
+            row["launches_by_remat_policy"] = {
+                p: r[name] for p, r in by_policy.items()}
     del flush
     emit({"phase": "done", "seconds": time.perf_counter() - t_all,
           "card": card})

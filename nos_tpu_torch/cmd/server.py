@@ -82,6 +82,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from nos_tpu_torch.cmd.serve import metrics_payload
 from nos_tpu_torch.device import DeviceLike, resolve_device
 from nos_tpu_torch.kvfabric import FABRIC_TOKEN_HEADER, HostTierStore
 from nos_tpu_torch.models.errors import (
@@ -100,22 +101,6 @@ from nos_tpu_torch.ops.attention import check_paged_kernel_head_dim
 from nos_tpu_torch.utils.metrics import default_registry
 
 logger = logging.getLogger("nos_tpu_torch.server")
-
-OPENMETRICS_CONTENT_TYPE = \
-    "application/openmetrics-text; version=1.0.0; charset=utf-8"
-
-
-def metrics_payload(accept: str = "") -> tuple:
-    """(body, content_type) for a /metrics scrape, content-negotiated
-    (``nos_tpu/cmd/serve.py::metrics_payload``): an ``Accept`` header
-    asking for ``application/openmetrics-text`` gets the OpenMetrics
-    dialect (histogram buckets carry trace exemplars); everything else
-    gets the classic Prometheus text format."""
-    if "application/openmetrics-text" in (accept or ""):
-        return (default_registry().expose(openmetrics=True),
-                OPENMETRICS_CONTENT_TYPE)
-    return default_registry().expose(), "text/plain; version=0.0.4"
-
 
 def observability_flags(parser: argparse.ArgumentParser) -> None:
     """The shared structured-logging + tracing flags

@@ -7,19 +7,22 @@ loss and steps/s, with the reference's optimizer chain, held-out eval,
 checkpoints (``checkpoint_dir``: resume from the latest step, the
 ``checkpoint_every`` and ``checkpoint_every_s`` cadences, asynchronous
 saves; ``train/checkpoint.py``), stop event and SIGTERM handling (the
-step just completed is checkpointed before the exit). Causal attention
-runs through the hand-written CUDA flash-attention kernels on the card.
+step just completed is checkpointed before the exit), the named remat
+policies (``remat_policy``), a torch.profiler trace of a window of steps
+(``profile_dir``) and, from ``main``, the ``nos_tpu_train_*`` series
+served on ``metrics_port`` (``cmd/serve.py::HealthServer``). Causal
+attention runs through the hand-written CUDA flash-attention kernels on
+the card.
 
 Not ported yet, and refused with a ValueError naming the knob: the
-parallel layouts (``dp``/``fsdp``/``tp``/``pp``/``sp``/``ep`` > 1),
-``profile_dir``, ``metrics_port`` (the ``nos_tpu_train_*`` series are
-kept in the process's registry all the same), the lifecycle watcher
-(``node_name``/``lifecycle_api``) and a multi-host environment
-(``COORDINATOR_ADDRESS``).
+parallel layouts (``dp``/``fsdp``/``tp``/``pp``/``sp``/``ep`` > 1), the
+lifecycle watcher (``node_name``/``lifecycle_api``) and a multi-host
+environment (``COORDINATOR_ADDRESS``).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import signal
@@ -96,7 +99,8 @@ class TrainerConfig:
     # preemption: catch SIGTERM, finish the in-flight step, and exit
     handle_sigterm: bool = True
     host_sync_every: int = 8
-    # profiling (not ported yet: a non-empty profile_dir raises)
+    # profiling: a torch.profiler trace (CPU and CUDA activity) of steps
+    # [profile_start, profile_start + profile_steps) under profile_dir
     profile_dir: str = ""
     profile_start: int = 2
     profile_steps: int = 3
@@ -106,14 +110,20 @@ class TrainerConfig:
     # misc
     log_level: str = "info"
     bf16: bool = True
-    metrics_port: int = 0              # not ported yet: non-zero raises
+    metrics_port: int = 0              # main(): /metrics, /healthz (0 = off)
 
     @classmethod
     def from_yaml_file(cls, path: str) -> "TrainerConfig":
-        import yaml
-
+        """The config a YAML file sets; without PyYAML installed, a file
+        in YAML's JSON subset is read all the same."""
         with open(path) as f:
-            data = yaml.safe_load(f) or {}
+            text = f.read()
+        try:
+            import yaml
+        except ImportError:
+            data = json.loads(text) if text.strip() else {}
+        else:
+            data = yaml.safe_load(text) or {}
         known = {f.name for f in fields(cls)}
         unknown = set(data) - known
         if unknown:
@@ -130,14 +140,9 @@ def check_ported(cfg: TrainerConfig) -> None:
                 f"{knob}={getattr(cfg, knob)}: parallel layouts are not "
                 f"ported yet; the torch trainer runs one process on one "
                 f"card")
-    refused = [("profile_dir", bool(cfg.profile_dir), "the profiler"),
-               ("metrics_port", bool(cfg.metrics_port), "the metrics server"),
-               ("node_name/lifecycle_api",
-                bool(cfg.node_name and cfg.lifecycle_api),
-                "the lifecycle notice watcher")]
-    for knob, hit, what in refused:
-        if hit:
-            raise ValueError(f"{knob}: {what} is not ported yet")
+    if cfg.node_name and cfg.lifecycle_api:
+        raise ValueError("node_name/lifecycle_api: the lifecycle notice "
+                         "watcher is not ported yet")
     if os.environ.get("COORDINATOR_ADDRESS"):
         raise ValueError(
             "COORDINATOR_ADDRESS: multi-host training is not ported yet")
@@ -157,6 +162,38 @@ def synthetic_batch(cfg: TrainerConfig, step: int,
     return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
 
 
+def _start_profile(device: torch.device):
+    """A running torch.profiler (CPU activity, and CUDA's on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, cfg: TrainerConfig, first: int, end: int,
+                  device: torch.device) -> str:
+    """Stop ``prof`` once the traced steps' work is done and write its
+    Chrome trace of steps [first, end) under ``cfg.profile_dir``;
+    returns the file's path."""
+    if device.type == "cuda":
+        try:
+            torch.cuda.synchronize(device)
+        except RuntimeError:
+            # a step that failed on the card: stop all the same
+            pass
+    prof.stop()
+    os.makedirs(cfg.profile_dir, exist_ok=True)
+    path = os.path.join(cfg.profile_dir, f"trainer_steps_{first}-{end}_"
+                        f"{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace written to %s", path)
+    return path
+
+
 def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
           device: DeviceLike = None) -> float:
     """Run the configured training job on one card (``device="cpu"`` runs
@@ -165,7 +202,12 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
     ``stop_event`` requests a graceful early exit after the current step.
     When ``cfg.handle_sigterm`` is set and this is the main thread,
     SIGTERM sets it (the Kubernetes preemption contract): the step just
-    completed is checkpointed and the loop exits."""
+    completed is checkpointed and the loop exits.
+
+    With ``cfg.profile_dir`` a torch.profiler trace covers the
+    ``profile_steps`` steps from the first at or past ``profile_start``
+    (so a run resumed past it still traces), and is stopped and written
+    on every exit path."""
     from nos_tpu_torch.models import transformer as tfm
     from nos_tpu_torch.train.data import (
         TokenDataset, prefetch_to_device, to_device,
@@ -261,6 +303,9 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
     loss = float("nan")
     preempted = False
     last_saved = start_step
+    prof = None
+    profiled = not (cfg.profile_dir and cfg.profile_steps > 0)
+    profile_first = profile_end = start_step
     t0 = time.perf_counter()
     last_log_t, last_log_step = t0, start_step
     last_save_t = t0
@@ -282,9 +327,22 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
             handler_installed = True
         batch = next(batches, None)
         for step in range(start_step, cfg.steps):
+            if not profiled and step >= cfg.profile_start:
+                # the profiler starts and stops on this, the training,
+                # thread only (stopping it from another thread beside a
+                # CUDA graph's replay hung, ROADMAP C.8; the trainer
+                # replays no graph, and the checkpoint copy runs on a
+                # side stream of this thread)
+                prof = _start_profile(device)
+                profiled = True
+                profile_first = step
+                profile_end = step + cfg.profile_steps
             loss_t = step_fn(params, batch)
             m_steps.inc()
             m_tokens.inc(cfg.batch_size * cfg.seq_len)
+            if prof is not None and step + 1 >= profile_end:
+                _stop_profile(prof, cfg, profile_first, step + 1, device)
+                prof = None
             # the next batch goes on the stream behind this step, before
             # the host waits for its loss
             batch = next(batches, None)
@@ -361,20 +419,46 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
             signal.signal(signal.SIGTERM,
                           prev_handler if prev_handler is not None
                           else signal.SIG_DFL)
+        # last: a window cut short (a step raised, a stop, or the run
+        # ended inside it) is stopped and written here, so a later
+        # train() in this process finds no profiler running
+        if prof is not None:
+            _stop_profile(prof, cfg, profile_first, step + 1, device)
     return loss
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None,
+         device: DeviceLike = None) -> None:
+    """The binary: ``--config`` YAML (or JSON), ``--log-format``; with
+    ``metrics_port`` the process's metrics (the ``nos_tpu_train_*``
+    series among them) on ``/metrics`` and ``/healthz`` while it
+    trains."""
+    from nos_tpu_torch.cmd import setup_logging
+
     parser = argparse.ArgumentParser(prog="nos-tpu-torch-trainer",
                                      description=__doc__)
     parser.add_argument("--config", default="", help="trainer config YAML")
+    parser.add_argument(
+        "--log-format", choices=("text", "json"), default="text",
+        help="log line format; json emits one object per line with "
+             "trace_id/span_id injected when a tracing span is active")
     args = parser.parse_args(argv)
     cfg = TrainerConfig.from_yaml_file(args.config) if args.config \
         else TrainerConfig()
-    logging.basicConfig(
-        level=getattr(logging, cfg.log_level.upper(), logging.INFO),
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    final = train(cfg)
+    setup_logging(0, args.log_format,
+                  numeric_level=getattr(logging, cfg.log_level.upper(),
+                                        logging.INFO))
+    health = None
+    if cfg.metrics_port:
+        from nos_tpu_torch.cmd.serve import HealthServer
+
+        health = HealthServer(host="0.0.0.0", port=cfg.metrics_port).start()
+        logger.info("metrics on %s/metrics", health.address)
+    try:
+        final = train(cfg, device=device)
+    finally:
+        if health is not None:
+            health.stop()
     logger.info("training done, final loss %.4f", final)
 
 

@@ -6,30 +6,37 @@ Params are a plain dict of tensors with the reference's layout: stacked
 ``layers`` with a leading L axis, ``embed [vocab, d]``, ``unembed
 [d, vocab]``, f32 norms. PyTorch runs eagerly, so the reference's
 ``lax.scan`` over layers is a Python loop over the stacked tensors, and
-its ``jax.checkpoint`` per layer is ``torch.utils.checkpoint`` (the
-"full" policy). With ``n_experts > 0`` every layer's FFN is the
-reference's top-2 MoE (``w_router`` [L, d, E] f32, experts [L, E, d, f]
-/ [L, E, f, d]); the decode path serves it (``models/generate.py``)
-and the training ``forward`` trains it, the layers' aux losses averaged
-into ``loss_fn``. Sequence parallelism and the named remat policies
-are not ported yet and raise.
+its ``jax.checkpoint(policy=...)`` per layer is ``torch.utils.checkpoint``
+with a selective-checkpoint ``context_fn`` per ``remat_policy``
+(``remat_context_fn``): "full" saves nothing, "dots" the products with
+no batch dimension, "except_mlp" and "minimal" the outputs of the ops
+that stand for the reference's names (``REMAT_NAMES``). With
+``n_experts > 0`` every layer's FFN is the reference's top-2 MoE
+(``w_router`` [L, d, E] f32, experts [L, E, d, f] / [L, E, f, d]); the
+decode path serves it (``models/generate.py``) and the training
+``forward`` trains it, the layers' aux losses averaged into
+``loss_fn``. Sequence parallelism is not ported: it needs a mesh.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, List
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint, create_selective_checkpoint_contexts, noop_context_fn,
+)
 
 from nos_tpu_torch.device import DeviceLike, resolve_device
 from nos_tpu_torch.ops.attention import attention
 from nos_tpu_torch.ops.layers import (
-    apply_rope, rms_norm, rope_frequencies, swiglu,
+    qkv_proj, rms_norm, rope_frequencies, rope_rows, swiglu,
 )
-from nos_tpu_torch.ops.moe import moe_ffn
+from nos_tpu_torch.ops.moe import expert_capacity, moe_ffn
 from nos_tpu_torch.ops.quant import QuantLinear
 
 Params = Dict[str, Any]
@@ -45,8 +52,11 @@ class TransformerConfig:
     max_seq: int = 2048
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
-    # per-layer rematerialization: the whole layer is recomputed in
-    # backward ("full", the only policy ported so far)
+    # per-layer rematerialization: what backward recomputes of a layer.
+    # "full" recomputes all of it; "dots" saves the products with no
+    # batch dimension; "except_mlp" saves q/k/v and the attention op's
+    # outputs; "minimal" the attention op's outputs only
+    # (``remat_context_fn``)
     remat: bool = True
     remat_policy: str = "full"
     # > 0: the lm head + cross-entropy run in sequence chunks of this size
@@ -68,10 +78,6 @@ class TransformerConfig:
             raise ValueError(f"unknown sp_strategy {self.sp_strategy!r}")
         if self.remat_policy not in ("full", "dots", "except_mlp", "minimal"):
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
-        if self.remat_policy != "full":
-            raise ValueError(
-                f"remat_policy {self.remat_policy!r} is not ported yet: the "
-                f"torch port recomputes whole layers (remat_policy 'full')")
 
     @property
     def head_dim(self) -> int:
@@ -201,15 +207,13 @@ def attention_block(h_in: torch.Tensor, layer: dict, cfg: TransformerConfig,
                     freqs, attention_call) -> torch.Tensor:
     """Pre-RMSNorm attention sublayer + residual. ``attention_call(q, k,
     v)`` takes/returns [B, S, H, D]; k/v stay at kv_heads (GQA grouped
-    inside the attention op)."""
+    inside the attention op). q, k (after rope) and v come out of the
+    ``qkv_proj`` op, the reference's ``"qkv_proj"`` tensors, and o out of
+    the flash op, its ``"attn_out"``."""
     b, s = h_in.shape[:2]
     h = rms_norm(h_in, layer["attn_norm"])
-    q = torch.matmul(h, layer["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = torch.matmul(h, layer["wk"]).reshape(b, s, cfg.kv_heads,
-                                             cfg.head_dim)
-    v = torch.matmul(h, layer["wv"]).reshape(b, s, cfg.kv_heads,
-                                             cfg.head_dim)
-    q, k = apply_rope(q, freqs), apply_rope(k, freqs)
+    q, k, v = qkv_proj(h, layer["wq"], layer["wk"], layer["wv"],
+                       *rope_rows(freqs, None, s), cfg.n_heads, cfg.kv_heads)
     o = attention_call(q, k, v).reshape(b, s, cfg.d_model)
     return h_in + torch.matmul(o, layer["wo"])
 
@@ -261,6 +265,94 @@ def lm_head_loss(norm_w: torch.Tensor, unembed: torch.Tensor,
     return cross_entropy(logits, targets)
 
 
+# the reference's checkpoint names -> the registered ops whose outputs
+# carry them: q, k (after rope) and v are ``qkv_proj``'s outputs; o and
+# the kernel's lse ("attn_residuals", splash's residual name) are the
+# flash op's two outputs, saved together
+REMAT_NAMES = {
+    "qkv_proj": torch.ops.nos_tpu_torch.qkv_proj.default,
+    "attn_out": torch.ops.nos_tpu_torch.flash_attention_fwd.default,
+    "attn_residuals": torch.ops.nos_tpu_torch.flash_attention_fwd.default,
+}
+_SAVED_NAMES = {"except_mlp": ("qkv_proj", "attn_out", "attn_residuals"),
+                "minimal": ("attn_out", "attn_residuals")}
+
+
+def remat_saved_ops(policy: str) -> frozenset:
+    """The ops whose outputs a layer's checkpoint keeps for backward
+    under ``policy`` (the reference's ``_remat_policy``); every other op
+    of the layer is recomputed. "dots" is
+    ``dots_with_no_batch_dims_saveable``: a product with no batch
+    dimension is ``aten.mm`` (``torch.matmul`` folds a [..., d] x [d, f]
+    product into one: the o, FFN and MoE router products) or the
+    ``qkv_proj`` op (whose products are such), while a product over a
+    batch dimension (the MoE's dispatch, expert and combine products;
+    the plain attention's) is ``aten.bmm`` and is recomputed, as the
+    flash op, which is no product, is. The named policies save the
+    outputs of the ops in ``REMAT_NAMES``."""
+    if policy == "full":
+        return frozenset()
+    if policy == "dots":
+        return frozenset((torch.ops.aten.mm.default,
+                          REMAT_NAMES["qkv_proj"]))
+    return frozenset(REMAT_NAMES[n] for n in _SAVED_NAMES[policy])
+
+
+def remat_context_fn(policy: str):
+    """``context_fn`` for a layer's ``torch.utils.checkpoint``: saves the
+    outputs of ``remat_saved_ops(policy)`` in the forward and hands them
+    to the recompute in backward, which runs the rest of the layer
+    again and stops after the last tensor backward needs (the
+    checkpoint's early stop), so a product whose output only feeds the
+    residual add is not re-run either. Unlike the reference's partial
+    evaluation, a saved output is kept whether backward reads it or
+    not: under "dots" the down product's output (B S d a layer)."""
+    ops = remat_saved_ops(policy)
+    if not ops:
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts,
+                             sorted(ops, key=str))
+
+
+# each policy's re-run products in a layer's forward order; the last
+# product (down, or the MoE's combine) never re-runs: the recompute
+# stops at its inputs, the last tensors backward needs
+_RERUN = {
+    "full": ("qkv", "attention", "wo", "router", "dispatch", "ffn"),
+    "dots": ("attention", "dispatch", "expert_ffn"),
+    "except_mlp": ("wo", "router", "dispatch", "ffn"),
+    "minimal": ("qkv", "wo", "router", "dispatch", "ffn"),
+}
+
+
+def remat_rerun_flops(cfg: TransformerConfig, batch: int, seq: int) -> dict:
+    """What one training step's recompute re-runs under
+    ``cfg.remat_policy``: ``products``, the FLOPs of the q/k/v, o, FFN
+    (gate and up; with experts also the router, dispatch and down
+    products) products it runs again over all layers, and
+    ``attention_layers``, the layers whose flash forward it runs again
+    (the caller counts that by its own convention). Derived from
+    ``remat_saved_ops`` and the early stop (``remat_context_fn``); under
+    "dots" the MoE's batched products re-run, the others are saved.
+    Zero without ``cfg.remat``."""
+    if not cfg.remat:
+        return {"products": 0.0, "attention_layers": 0}
+    t, d, f, e = batch * seq, cfg.d_model, cfg.d_ff, cfg.n_experts
+    parts = {"qkv": 2 * t * d * (d + 2 * cfg.kv_dim), "wo": 2 * t * d * d}
+    if e > 0:
+        slots = batch * e * expert_capacity(seq, e,
+                                            cfg.expert_capacity_factor)
+        parts.update(router=2 * t * d * e, dispatch=2 * slots * seq * d,
+                     ffn=3 * 2 * slots * d * f)
+        parts["expert_ffn"] = parts["ffn"]
+    else:
+        parts.update(ffn=2 * 2 * t * d * f)
+    names = _RERUN[cfg.remat_policy]
+    return {"products": float(cfg.n_layers * sum(parts.get(n, 0)
+                                                 for n in names)),
+            "attention_layers": cfg.n_layers * ("attention" in names)}
+
+
 def _attention_call(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """q, k, v: [B, S, H, D] -> [B, H, S, D], causal ``attention``, back
@@ -275,11 +367,13 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     loss, 0 on the dense path, when ``return_aux``). ``return_hidden``
     yields the pre-head hidden state [B, S, d_model] + aux instead, for
     ``loss_fn``, which applies the head itself (chunked). With
-    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``: its
-    activations are recomputed in backward, attention kernel included.
-    With ``n_experts > 0`` each layer's FFN is ``moe_ffn`` and the aux
-    loss is the mean of the layers' (each returned by the checkpointed
-    body, so the recompute routes with the same bits)."""
+    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` with
+    ``remat_context_fn(cfg.remat_policy)``: what the policy does not
+    save is recomputed in backward (the attention kernel too under
+    "full" and "dots"). With ``n_experts > 0`` each layer's FFN is
+    ``moe_ffn`` and the aux loss is the mean of the layers' (each
+    returned by the checkpointed body, so the recompute routes with the
+    same bits under every policy)."""
     freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                              tokens.device)
     x = F.embedding(tokens, params["embed"])
@@ -297,11 +391,13 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
         return dense_ffn_block(x, layer), x.new_zeros((), dtype=torch.float32)
 
     names = sorted(layers)
+    context_fn = remat_context_fn(cfg.remat_policy)
     auxes = []
     for i in range(cfg.n_layers):
         tensors = [layers[n][i] for n in names]
         if cfg.remat:
-            x, aux = checkpoint(layer_body, x, *tensors, use_reentrant=False)
+            x, aux = checkpoint(layer_body, x, *tensors, use_reentrant=False,
+                                context_fn=context_fn)
         else:
             x, aux = layer_body(x, *tensors)
         auxes.append(aux)

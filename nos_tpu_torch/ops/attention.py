@@ -18,7 +18,9 @@ it.
 ``attention`` is the counterpart of the reference's dispatch between its
 two Pallas library kernels, splash and flash: both map to one
 hand-written CUDA kernel family (``csrc/flash_attention.cu``, forward
-and backward) behind a ``torch.autograd.Function``, with
+and backward): the forward is the registered op
+``nos_tpu_torch::flash_attention_fwd`` and the backward kernels its
+registered gradient, with
 ``flash_attention_reference`` / ``flash_attention_backward_reference``
 as the plain versions the CPU runs.
 """
@@ -31,7 +33,8 @@ import torch
 
 from nos_tpu_torch.ops import _kernels
 
-__all__ = ["attention", "effective_impl", "flash_attention_reference",
+__all__ = ["attention", "effective_impl", "flash_attention_fwd",
+           "flash_attention_reference",
            "flash_attention_backward_reference", "flash_attention_backward",
            "check_attention_head_dim", "xla_attention", "paged_gather_kv",
            "paged_gather_scale", "paged_scatter_kv", "paged_scatter_scale",
@@ -408,31 +411,51 @@ def flash_attention_backward(
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Flash attention with a kernel backward: the forward saves q, k, v,
-    o and the f32 lse (the counterpart of splash's ``"attn_residuals"``),
-    and the backward never re-runs the forward."""
+@torch.library.custom_op("nos_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward as a registered op: (o [B, H, Sq, D] in q's
+    dtype, lse f32 [B, H, Sq]) of contiguous q, k, v. On CPU tensors
+    ``flash_attention_reference``; on CUDA tensors ``_flash_fwd_cuda``,
+    the forward kernel or a raise. Being an op, not a launch inside an
+    autograd function, it is what a selective-checkpoint policy sees:
+    the named remat policies (``models/transformer.py``) save its two
+    outputs, the counterparts of the reference's ``"attn_out"`` and of
+    splash's ``"attn_residuals"``, so a recompute never re-runs it."""
+    return flash_attention_reference(q, k, v, causal=causal, scale=scale)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        if q.device.type == "cpu":
-            o, lse = flash_attention_reference(q, k, v, causal=causal,
-                                               scale=scale)
-        else:
-            o, lse = _kernels.flash_fwd.launch(q, k, v, causal=causal,
-                                               scale=scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
-            scale=ctx.scale)
-        return dq, dk, dv, None, None
+@flash_attention_fwd.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, causal, scale):
+    return _kernels.flash_fwd.launch(q, k, v, causal=causal, scale=scale)
+
+
+@flash_attention_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    b, h, s_q, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, s_q), dtype=torch.float32))
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_fwd_backward(ctx, do, dlse):
+    # lse feeds nothing differentiable: its gradient is ignored
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_backward(
+        q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+        scale=ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_attention_fwd.register_autograd(_flash_fwd_backward,
+                                      setup_context=_flash_fwd_setup)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -443,13 +466,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``xla_attention``'s), which is splash's top-left mask whenever
     Sq == Sk, as every training caller has. The scale multiplies the f32
     scores (flash's and ``xla_attention``'s rule; splash pre-scales q in
-    q's dtype, a bf16 rounding apart). "splash" and "flash" run
-    ``_FlashAttention``: on CUDA tensors the hand-written kernels (or a
-    raise), on CPU tensors their plain versions; "xla" runs
-    ``xla_attention`` under autograd."""
+    q's dtype, a bf16 rounding apart). "splash" and "flash" run the op
+    ``flash_attention_fwd`` with the backward kernels as its gradient:
+    on CUDA tensors the hand-written kernels (or a raise), on CPU
+    tensors their plain versions; "xla" runs ``xla_attention`` under
+    autograd."""
     impl = effective_impl(q.shape, k.shape, force_xla=force_xla)
     if impl == "xla":
         return xla_attention(q, k, v, causal=causal, scale=scale)
     check_attention_head_dim(q.shape[-1], q.device, impl)
     sm_scale = scale if scale is not None else q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, causal, float(sm_scale))
+    o, _ = flash_attention_fwd(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal, float(sm_scale))
+    return o

@@ -75,3 +75,65 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     gate = F.silu(qdot(x, w_gate))
     up = qdot(x, w_up)
     return qdot(gate * up, w_down)
+
+
+@torch.library.custom_op("nos_tpu_torch::qkv_proj", mutates_args=())
+def qkv_proj(h: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+             wv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+             n_heads: int, kv_heads: int
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention block's q/k/v products as one registered op: h
+    [B, S, d] -> (q [B, S, H, D] and k [B, S, Hkv, D] rotated by the
+    ``rope_rows`` pair (cos, sin), v [B, S, Hkv, D]): the tensors the
+    reference tags ``"qkv_proj"``. As an op, its outputs are what a
+    selective-checkpoint policy can save by that name, and a recompute
+    that has them saved skips the three products with them (a tag on
+    q, k and v alone would leave the products to be re-run). Its
+    gradient (``_qkv_proj_backward``) is autograd's through the same
+    products and rotations."""
+    b, s, _ = h.shape
+    head_dim = wq.shape[1] // n_heads
+    q = torch.matmul(h, wq).reshape(b, s, n_heads, head_dim)
+    k = torch.matmul(h, wk).reshape(b, s, kv_heads, head_dim)
+    v = torch.matmul(h, wv).reshape(b, s, kv_heads, head_dim)
+    return rotate(q, (cos, sin)), rotate(k, (cos, sin)), v
+
+
+@qkv_proj.register_fake
+def _qkv_proj_fake(h, wq, wk, wv, cos, sin, n_heads, kv_heads):
+    b, s, _ = h.shape
+    head_dim = wq.shape[1] // n_heads
+    return (h.new_empty((b, s, n_heads, head_dim)),
+            h.new_empty((b, s, kv_heads, head_dim)),
+            h.new_empty((b, s, kv_heads, head_dim)))
+
+
+def _qkv_proj_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:6])
+
+
+def _qkv_proj_backward(ctx, dq, dk, dv):
+    """The rotations' transpose is the rotation by -theta, exactly
+    autograd's arithmetic (a - x * -s is a + x * s in IEEE); then each
+    product's two gradients, as ``mm``'s backward forms them, and the
+    input gradient summed in the order autograd sums the three separate
+    products' (v's and k's, then q's), so the op's gradients are the
+    unfused block's bit for bit."""
+    h, wq, wk, wv, cos, sin = ctx.saved_tensors
+    back = (cos, -sin)
+    flat = h.reshape(-1, h.shape[-1])
+    dh, dws = None, [None, None, None]
+    for i, g, w in ((2, dv, wv), (1, rotate(dk, back), wk),
+                    (0, rotate(dq, back), wq)):
+        g = g.reshape(-1, w.shape[1])
+        if ctx.needs_input_grad[1 + i]:
+            dws[i] = flat.t().mm(g)
+        if ctx.needs_input_grad[0]:
+            part = g.mm(w.t())
+            dh = part if dh is None else dh + part
+    return (dh.reshape(h.shape) if dh is not None else None, *dws,
+            None, None, None, None)
+
+
+qkv_proj.register_autograd(_qkv_proj_backward,
+                           setup_context=_qkv_proj_setup)

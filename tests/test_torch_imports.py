@@ -111,3 +111,22 @@ def test_speculative_modules_load_no_jax_and_build_nothing():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=str(ROOT), timeout=120)
+
+
+def test_health_server_loads_no_jax_and_no_torch():
+    """The trainer's metrics server (``cmd/serve.py``) is host plumbing:
+    importing it loads neither JAX, nor the JAX package, nor torch; the
+    ops that stand for the remat policies' names register on import of
+    the model without building a kernel."""
+    code = ("import sys, nos_tpu_torch.cmd.serve; "
+            "bad = [m for m in sys.modules if m in ('jax', 'nos_tpu', "
+            "'torch') or m.startswith(('jax.', 'nos_tpu.', 'torch.'))]; "
+            "assert not bad, bad; "
+            "import torch, nos_tpu_torch.models.transformer as tt; "
+            "from nos_tpu_torch.ops import _kernels; "
+            "assert torch.ops.nos_tpu_torch.qkv_proj.default in "
+            "tt.remat_saved_ops('except_mlp'); "
+            "assert all(k._fn is None for k in _kernels.KERNELS)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)

@@ -10,8 +10,14 @@ gradient is itself at the noise level). Token-shard batches and the
 synthetic batches (threefry) are held bit for bit.
 """
 import dataclasses
+import json
 import logging
+import os
+import socket
+import sys
 import threading
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -208,9 +214,22 @@ def test_from_yaml_file_matches_reference(tmp_path):
         ttr.TrainerConfig.from_yaml_file(str(path))
 
 
-# knobs the trainer refused until MoE training and checkpoints were
-# ported, trained now
-TRAINED_KNOBS = {"n_experts", "checkpoint_dir"}
+def test_from_yaml_file_reads_json_without_pyyaml(tmp_path, monkeypatch):
+    """Where PyYAML is not installed, a config in YAML's JSON subset
+    loads to the config PyYAML would give."""
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({"d_model": 64, "n_layers": 3,
+                                "lr_schedule": "cosine", "bf16": False}))
+    want = ttr.TrainerConfig.from_yaml_file(str(path))
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    assert ttr.TrainerConfig.from_yaml_file(str(path)) == want
+    assert want.d_model == 64 and not want.bf16
+
+
+# knobs the trainer refused until MoE training and checkpoints, and
+# then the profiler and the metrics server, were ported, trained now
+TRAINED_KNOBS = {"n_experts", "checkpoint_dir", "profile_dir",
+                 "metrics_port"}
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -219,16 +238,18 @@ TRAINED_KNOBS = {"n_experts", "checkpoint_dir"}
     ("metrics_port", 9090),
 ])
 def test_refused_knobs_raise_naming_the_knob(knob, value, tmp_path):
-    """A knob outside the port raises naming it. ``n_experts`` and
-    ``checkpoint_dir`` were refused so and train now: an MoE run gives a
-    finite loss, and a checkpointed run (its directory under the test's
-    own) stamps the architecture and commits the final step."""
+    """A knob outside the port raises naming it. ``n_experts``,
+    ``checkpoint_dir``, ``profile_dir`` and ``metrics_port`` were refused
+    so and train now: an MoE run gives a finite loss, a checkpointed run
+    (its directory under the test's own) stamps the architecture and
+    commits the final step, a profiled run writes a trace there, and
+    ``train()`` leaves ``metrics_port`` to ``main()`` (tested below)."""
     if knob not in TRAINED_KNOBS:
         cfg = ttr.TrainerConfig(**TINY, **{knob: value})
         with pytest.raises(ValueError, match=knob):
             ttr.train(cfg, device="cpu")
         return
-    if knob == "checkpoint_dir":
+    if knob in ("checkpoint_dir", "profile_dir"):
         value = str(tmp_path / value.lstrip("/"))
     loss = ttr.train(ttr.TrainerConfig(**TINY, **{knob: value}),
                      device="cpu")
@@ -240,6 +261,8 @@ def test_refused_knobs_raise_naming_the_knob(knob, value, tmp_path):
         assert mgr.all_steps() == [TINY["steps"]]
         assert mgr.read_model_config()["d_model"] == TINY["d_model"]
         mgr.close()
+    if knob == "profile_dir":
+        assert _traces(value)
 
 
 def test_lifecycle_watcher_and_multi_host_raise(monkeypatch):
@@ -252,10 +275,140 @@ def test_lifecycle_watcher_and_multi_host_raise(monkeypatch):
 
 
 def test_main_runs_on_the_card_by_default(tmp_path, monkeypatch):
-    """``main()`` takes no device: without a visible card it refuses
+    """``main()`` with no device: without a visible card it refuses
     rather than training on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path = tmp_path / "cfg.yaml"
     path.write_text("d_model: 32\nn_layers: 1\nn_heads: 4\nvocab: 64\n")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttr.main(["--config", str(path)])
+
+
+def _traces(d):
+    return sorted(os.path.join(r, f) for r, _, fs in os.walk(d) for f in fs)
+
+
+def test_profiler_trace_written(tmp_path):
+    """The reference's ``test_profiler_trace_written``, in process: a
+    trace of steps [1, 3) lands under ``profile_dir``, a Chrome trace
+    holding the steps' ops, and the profiler is off afterwards."""
+    d = str(tmp_path / "trace")
+    ttr.train(ttr.TrainerConfig(**TINY, profile_dir=d, profile_start=1,
+                                profile_steps=2), device="cpu")
+    found = _traces(d)
+    assert [os.path.basename(f) for f in found] == [
+        f"trainer_steps_1-3_{os.getpid()}.pt.trace.json"]
+    with open(found[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "nos_tpu_torch::flash_attention_fwd" in names
+    assert not torch.autograd._profiler_enabled()
+
+
+def test_profiler_fires_on_resume_past_start(tmp_path):
+    """A run resumed at step 4 with ``profile_start`` 2 (already past)
+    still traces; its window runs past the end and is written when the
+    run ends."""
+    ckpt = str(tmp_path / "ckpt")
+    d = str(tmp_path / "trace")
+    ttr.train(ttr.TrainerConfig(**TINY, checkpoint_dir=ckpt,
+                                checkpoint_every=4), device="cpu")
+    ttr.train(ttr.TrainerConfig(**dict(TINY, steps=6), checkpoint_dir=ckpt,
+                                checkpoint_every=4, profile_dir=d,
+                                profile_start=2, profile_steps=10),
+              device="cpu")
+    assert [os.path.basename(f) for f in _traces(d)] == [
+        f"trainer_steps_4-6_{os.getpid()}.pt.trace.json"]
+    assert not torch.autograd._profiler_enabled()
+
+
+def test_profiler_stops_when_a_step_raises(tmp_path, monkeypatch):
+    """A step that raises inside the window: the trace is stopped and
+    written on the way out, and the next profiled run starts cleanly."""
+    real = tt.make_train_step
+
+    def failing(cfg, optimizer):
+        step = real(cfg, optimizer)
+        calls = []
+
+        def wrapped(params, batch):
+            calls.append(1)
+            if len(calls) == 3:
+                raise RuntimeError("step failed")
+            return step(params, batch)
+
+        return wrapped
+
+    monkeypatch.setattr(tt, "make_train_step", failing)
+    d = str(tmp_path / "trace")
+    with pytest.raises(RuntimeError, match="step failed"):
+        ttr.train(ttr.TrainerConfig(**TINY, profile_dir=d, profile_start=1,
+                                    profile_steps=3), device="cpu")
+    assert not torch.autograd._profiler_enabled()
+    assert [os.path.basename(f) for f in _traces(d)] == [
+        f"trainer_steps_1-3_{os.getpid()}.pt.trace.json"]
+    monkeypatch.setattr(tt, "make_train_step", real)
+    ttr.train(ttr.TrainerConfig(**TINY, profile_dir=d, profile_start=0,
+                                profile_steps=1), device="cpu")
+    assert len(_traces(d)) == 2
+
+
+@pytest.fixture
+def root_logging():
+    """``main()`` sets up the root logger; put it back afterwards."""
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    yield
+    root.handlers[:] = handlers
+    root.setLevel(level)
+
+
+def test_metrics_port_serves_the_train_series(tmp_path, monkeypatch,
+                                              root_logging):
+    """``main()`` with ``metrics_port``: while it trains, /metrics
+    carries the ``nos_tpu_train_*`` series (the steps counter up by the
+    steps run) and /healthz answers 200; the server is gone once
+    ``main()`` returns. The config is JSON, which the loader reads with
+    or without PyYAML."""
+    from nos_tpu_torch.utils.metrics import default_registry
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(dict(TINY, metrics_port=port)))
+    steps = default_registry().get("nos_tpu_train_steps_total")
+    before = steps.total() if steps is not None else 0.0
+    url = f"http://127.0.0.1:{port}"
+    seen = {}
+    real = ttr.train
+
+    def scraped(cfg, *args, **kwargs):
+        out = real(cfg, *args, **kwargs)
+        with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+            seen["metrics"] = r.read().decode()
+        with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+            seen["healthz"] = r.status
+        with urllib.request.urlopen(url + "/debug/traces", timeout=10) as r:
+            seen["traces"] = json.loads(r.read())
+        req = urllib.request.Request(url + "/metrics", headers={
+            "Accept": "application/openmetrics-text"})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            seen["openmetrics"] = (r.headers["Content-Type"],
+                                   r.read().decode())
+        return out
+
+    monkeypatch.setattr(ttr, "train", scraped)
+    ttr.main(["--config", str(path), "--log-format", "json"], device="cpu")
+    lines = dict(line.rsplit(" ", 1) for line in seen["metrics"].splitlines()
+                 if line.startswith("nos_tpu_train_"))
+    assert float(lines["nos_tpu_train_steps_total"]) == before + TINY["steps"]
+    assert float(lines["nos_tpu_train_tokens_total"]) > 0
+    assert np.isfinite(float(lines["nos_tpu_train_loss"]))
+    assert "nos_tpu_train_step_seconds_count" in lines
+    assert seen["healthz"] == 200
+    assert isinstance(seen["traces"], (dict, list))
+    ctype, body = seen["openmetrics"]
+    assert ctype.startswith("application/openmetrics-text")
+    assert body.rstrip().endswith("# EOF")
+    with pytest.raises(urllib.error.URLError):
+        urllib.request.urlopen(url + "/healthz", timeout=2)

@@ -3,7 +3,7 @@
 on the same f32 params (``params_from_jax``), on the CPU.
 
 The reference's attention runs ``xla_attention`` here; the port's runs
-the flash kernels' plain versions behind their autograd Function.
+the flash kernels' plain versions through the registered flash op.
 Tolerances (f32, a few layers): logits 2e-5 and loss 1e-6 relative, the
 gap left by summation order between XLA's and PyTorch's CPU matmuls;
 every gradient within 1e-5 of its tensor's largest element.
@@ -143,7 +143,19 @@ def test_knobs_not_ported_raise(bad, match):
     # a refused knob raises at the config. MoE was refused at the
     # training forward until MoE training was ported; its config now
     # trains: the forward gives finite logits and a positive aux loss
-    # (tests/test_torch_moe_train.py holds both to the reference)
+    # (tests/test_torch_moe_train.py holds both to the reference). The
+    # remat policies "dots" and "minimal" were refused until the named
+    # policies were ported: they build and give finite logits
+    # (tests/test_torch_remat.py holds them to the reference)
+    if bad.get("remat_policy") in ("dots", "minimal"):
+        cfg = tt.TransformerConfig(**dict(KW, **bad), dtype=torch.float32)
+        params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+        logits = tt.forward(params, cfg,
+                            torch.zeros((1, 2), dtype=torch.long))
+        assert cfg.remat_policy == bad["remat_policy"]
+        assert torch.isfinite(logits).all()
+        return
     if "n_experts" in bad:
         cfg = tt.TransformerConfig(**dict(KW, **bad), dtype=torch.float32)
         params = tt.init_params(cfg, torch.Generator().manual_seed(0),
