@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopq]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopqrs]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -15,7 +15,9 @@ c. hold the paged kernel against its plain PyTorch version on the card
    tokens) and at bs 8 / head_dim 64, each element within a pin derived
    from the rounding each dtype allows, and bit-identical over two
    launches; time kernel (CUDA events, and torch.profiler's kernel
-   durations), plain version, a library call and the bytes bound;
+   durations), plain version, a library call and the bytes bound; and
+   at one shard's heads under tp = 2 (16 query / 4 kv heads, phase
+   (s)'s), bf16 and int8 arenas, timed the same way;
 d. exact tokens in f32, plain and int8 arenas: the serving engine
    through the kernel commits the same tokens as ``generate_paged``
    through the kernel and through the plain gather formulation. Every
@@ -283,7 +285,36 @@ q. the trainer's named remat policies ("dots", "except_mlp",
    head_dim 128): the Chrome trace names the flash kernels; (6) the
    trainer binary's ``main()`` with ``metrics_port`` on a free port:
    /metrics shows ``nos_tpu_train_steps_total`` up by the steps run and
-   /healthz answers 200 while it trains.
+   /healthz answers 200 while it trains. "dots" must peak below
+   27.05 GB, what it peaked at while it kept the down product's output
+   (C.18).
+r. the trainer's lifecycle notice watcher at (g)'s widths and batch:
+   the port's ``ApiHttpServer`` on 127.0.0.1 serves the pod's ``Node``,
+   and the trainer binary's ``main()`` trains with ``node_name`` and
+   ``lifecycle_api`` pointing at it and ``checkpoint_dir`` on local disk;
+   a preemption notice stamped on the node after step 4's loss sets the
+   watcher's stop event (ms from the notice), the step in flight is
+   banked by a synchronous save (seconds from the notice, beside the
+   ~30 s spot grace), and ``main()`` returns (exit code 0); ``main()``
+   then resumes from that step to step 8, and an uninterrupted run of 8
+   steps has the same 8 losses (and (g)'s, when (g) ran) and the same
+   step-8 params and optimizer state in every leaf, bit for bit (the
+   two step-8 states are compared in host memory: the phase writes one
+   checkpoint); the training kernels' launches held in each run.
+s. tensor-parallel serving at phase (e)'s widths, tp = 2, both shards on
+   the one card (``TpMesh([cuda:0, cuda:0])``; ``build_engine`` takes
+   tp from the visible cards): phase (e)'s traffic greedy on the bf16
+   and int8 arenas and sampled on the bf16 arena through the paged
+   engine, and greedy on the slot-static engine, each against the
+   tp = 1 engine on the same weights by the token rule (sampled: the
+   draw's perturbed scores within the rule's tolerance over the
+   temperature, or the truncation's edge); the paged kernel's own
+   launches twice tp = 1's, all at (S 1, head_dim 128), n_layers x 2 x
+   ticks; a tp = 1 prefill-role engine's handoff adopted by a tp = 2
+   decode-role engine, its K/V read back from the shards byte for
+   byte, its tokens by the token rule; ms a tick and peak memory beside
+   tp = 1's, captured and eager (a tp = 2 engine runs eagerly): what one
+   card computing both shards costs, not a speed.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -321,7 +352,7 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijklmnopq"
+PHASES = "cdefghijklmnopqrs"
 
 
 def emit(obj) -> None:
@@ -515,6 +546,8 @@ def check_kernel(out, case) -> dict:
 # head_dim 64 (1 KB bf16 pages, the smallest bulk copies the kernel takes)
 PAGED = dict(b=8, h=32, h_kv=8, d=128, bs=16, nb=128)
 PAGED_BS8_D64 = dict(b=8, h=32, h_kv=8, d=64, bs=8, nb=256)
+# phase (s)'s shape: one shard's heads of the serving slice at tp = 2
+PAGED_TP2 = dict(PAGED, h=16, h_kv=4)
 
 
 def phase_kernels(seed: int, device, flush) -> dict:
@@ -542,6 +575,10 @@ def phase_kernels(seed: int, device, flush) -> dict:
               ("bs8_d64", PAGED_BS8_D64, "bf16", torch.bfloat16, False, 1,
                False),
               ("bs8_d64", PAGED_BS8_D64, "f32", torch.float32, False, 1,
+               False),
+              ("tp_shard", PAGED_TP2, "bf16", torch.bfloat16, False, 1,
+               False),
+              ("tp_shard", PAGED_TP2, "int8", torch.bfloat16, True, 1,
                False)]
     worst = {"max_abs_err": 0.0, "worst_pin_share": 0.0}
     timed = {}
@@ -568,7 +605,8 @@ def phase_kernels(seed: int, device, flush) -> dict:
         row["bit_identical_rerun"] = True
         for k in worst:
             worst[k] = max(worst[k], row[k])
-        if s == 1 and dtype == torch.bfloat16 and shape is PAGED:
+        if s == 1 and dtype == torch.bfloat16 and shape in (PAGED,
+                                                            PAGED_TP2):
             ref = paged_decode_attention_reference(**case)
             lib = library_call(case)
             row["library_max_abs_err"] = float(
@@ -600,7 +638,9 @@ def phase_kernels(seed: int, device, flush) -> dict:
             "full_context_ms": fc["ms"],
             "full_context_bound_ms": fc["bound_ms"],
             "full_context_int8_ms": fc8["ms"],
-            "full_context_int8_bound_ms": fc8["bound_ms"]}
+            "full_context_int8_bound_ms": fc8["bound_ms"],
+            "tp_shard": {arena: timed[("tp_shard", arena)]
+                         for arena in ("bf16", "int8")}}
 
 
 # phase (d)'s small f32 model, shared with phase (h)
@@ -6237,6 +6277,9 @@ def phase_moe_train(seed: int, card: str, device, flush) -> dict:
 # (q): the trainer's named remat policies at (g)'s widths and batch, and
 # at (p)'s MoE widths; (g)'s run stands for "full"
 REMAT_POLICIES = ("full", "dots", "except_mlp", "minimal")
+# "dots"' peak at (g)'s widths while it kept the down product's output
+# (PERF.md, section 6; NVIDIA H100 80GB HBM3, 700 W)
+Q_DOTS_PEAK_BEFORE_GB = 27.05
 Q_MOE_STEPS = 4
 # a step-1 gradient leaf may differ from "full"'s by this share of the
 # leaf's largest value (every policy runs the same ops on the same bits:
@@ -6585,6 +6628,14 @@ def phase_remat(seed: int, card: str, device, g_row) -> dict:
                 and peak["full"] <= peak["except_mlp"]):
             raise AssertionError(f"q.3: peak memory {peak}")
         out["q3_peak_mem_gb"] = peak
+        # C.18: under dots the down product's output is not kept (B S d
+        # bf16 a layer, 1 GiB over (g)'s 16 layers); keeping it peaked
+        # at Q_DOTS_PEAK_BEFORE_GB here
+        if not peak["dots"] < Q_DOTS_PEAK_BEFORE_GB:
+            raise AssertionError(f"q.3: dots peaks at {peak['dots']} GB, "
+                                 f"not below {Q_DOTS_PEAK_BEFORE_GB}")
+        out["q3_dots_peak_before_gb"] = Q_DOTS_PEAK_BEFORE_GB
+        out["q3_dots_peak_drop_gb"] = Q_DOTS_PEAK_BEFORE_GB - peak["dots"]
         # q.4
         out["q4"] = remat_moe(seed, device)
         emit({"phase": "remat_q4", "card": card, **MOE_TRAIN,
@@ -6597,6 +6648,515 @@ def phase_remat(seed: int, card: str, device, g_row) -> dict:
         return {p: r["launches"] for p, r in runs.items()}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        out["seconds"] = time.perf_counter() - t_phase
+        emit(out)
+
+
+# (r): the trainer's lifecycle notice watcher at (g)'s widths
+R_NODE = "chip-smoke-node"
+# the notice lands after this step's loss is logged; the step in flight
+# then ends and is banked
+R_NOTICE_AFTER = 4
+# the spot grace a preemption notice gives
+# (nos_tpu/lifecycle/events.py:9-10, :169): the save must commit in it
+R_SPOT_GRACE_S = 30.0
+
+
+class FinalState:
+    """For a ``with`` block, ``CheckpointManager.save`` keeps each saved
+    step's leaves as host copies instead of writing them: the resumed and
+    the uninterrupted runs' last states are compared in host memory, so
+    the phase writes one checkpoint (the preemption's) to the disk."""
+
+    def __init__(self):
+        self.steps = {}
+
+    def __enter__(self):
+        from nos_tpu_torch.train import checkpoint as ck
+
+        self.ck, self.real = ck, ck.CheckpointManager.save
+        store = self.steps
+
+        def save(mgr, step, params, opt_state, wait=True):
+            store[step] = [
+                (name, t.detach().cpu().clone()
+                 if isinstance(t, torch.Tensor) else t)
+                for name, t in ck._flatten({"params": params,
+                                            "opt_state": opt_state}, "", [])]
+            return None
+
+        ck.CheckpointManager.save = save
+        return self
+
+    def __exit__(self, *exc):
+        self.ck.CheckpointManager.save = self.real
+
+
+class MainLog(logging.Handler):
+    """The trainer binary's records a run is read by: each step's loss
+    and time, the preemption stop, the final loss."""
+
+    def __init__(self, on_step=None):
+        super().__init__(logging.INFO)
+        self.steps, self.on_step = [], on_step
+        self.final = self.stopped_at = None
+
+    def emit(self, record):
+        if record.msg.startswith("step %d/%d loss"):
+            self.steps.append((record.args[0], record.args[2],
+                               record.created))
+            if self.on_step is not None:
+                self.on_step(record.args[0])
+        elif record.msg.startswith("stop requested (preemption)"):
+            self.stopped_at = (record.args[0], record.created)
+        elif record.msg.startswith("training done, final loss"):
+            self.final = record.args[0]
+
+
+def trainer_main(path: str, log: MainLog, ck: "CkptLog") -> dict:
+    """``nos_tpu_torch.cmd.trainer.main(["--config", path])`` in this
+    process, its training kernels' launches counted from 0: its exit
+    code (0 when it returns), launches, wall seconds, peak memory."""
+    from nos_tpu_torch.cmd import trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("nos_tpu_torch.trainer", "nos_tpu_torch.checkpoint"):
+        logging.getLogger(name).setLevel(logging.INFO)
+    zero_train_launches()                       # the main path's count
+    t0 = time.perf_counter()
+    code = 0
+    with logs_to({"nos_tpu_torch.trainer": log,
+                  "nos_tpu_torch.checkpoint": ck}):
+        try:
+            trainer.main(["--config", path])
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+    return {"exit_code": code, "launches": train_launches(),
+            "wall_s": time.perf_counter() - t0,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def train_want(steps: int) -> dict:
+    L = TRAIN["n_layers"]
+    return {"flash_attention_fwd": 2 * L * steps,
+            "flash_attention_bwd_preprocess": L * steps,
+            "flash_attention_bwd_dkdv": L * steps,
+            "flash_attention_bwd_dq": L * steps,
+            "adamw": n_param_leaves() * steps}
+
+
+def phase_watcher(seed: int, card: str, g_row) -> dict:
+    """(r): the trainer binary at (g)'s widths with ``node_name`` and
+    ``lifecycle_api`` pointing at the port's ``ApiHttpServer`` on
+    127.0.0.1, which serves the pod's ``Node``. A preemption notice is
+    stamped on the node (as the control plane's watcher does) once step
+    ``R_NOTICE_AFTER``'s loss is logged: the watcher's stop event, the
+    step in flight banked by a synchronous save, exit code 0; then
+    ``main()`` resumes from that checkpoint to step 8, and an
+    uninterrupted run of 8 steps gives the same 8 losses and every leaf
+    of params and optimizer state bit for bit (both last states held in
+    host memory); (g)'s losses too when (g) ran. Returns the training
+    kernels' launches over the three runs."""
+    import shutil
+    import tempfile
+    import threading
+
+    from nos_tpu_torch.cmd import trainer
+    from nos_tpu_torch.kube.apiserver import ApiServer
+    from nos_tpu_torch.kube.client import Client
+    from nos_tpu_torch.kube.httpapi import ApiHttpServer
+    from nos_tpu_torch.kube.objects import Node, ObjectMeta
+    from nos_tpu_torch.lifecycle.events import deliver_preemption_notice
+
+    t_phase = time.perf_counter()
+    out = {"phase": "lifecycle_watcher", "card": card, **TRAIN,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "notice_after_step": R_NOTICE_AFTER, "node": R_NODE}
+    root = tempfile.mkdtemp(prefix="chip_smoke_r_")
+    api = ApiServer()
+    api.create(Node(metadata=ObjectMeta(name=R_NODE)))
+    httpd = ApiHttpServer(api).start()
+    base = dict(TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                steps=TRAIN_STEPS, log_every=1, seed=seed, bf16=True,
+                checkpoint_every=1000)
+
+    def config(name: str, **kw) -> str:
+        path = os.path.join(root, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(dict(base, **kw), f)
+        return path
+
+    seen = {}
+    real_train = trainer.train
+
+    def spied(cfg, stop_event=None, device=None):
+        # the event main() hands train(): stamped when the watcher sets it
+        if stop_event is not None:
+            def wait():
+                stop_event.wait()
+                seen["stop_at"] = time.time()
+            threading.Thread(target=wait, daemon=True).start()
+        seen["event"] = stop_event
+        return real_train(cfg, stop_event=stop_event, device=device)
+
+    def notice(step: int) -> None:
+        if step == R_NOTICE_AFTER:
+            seen["notice_at"] = time.time()
+            deliver_preemption_notice(Client(api), R_NODE,
+                                      time.time() + R_SPOT_GRACE_S)
+
+    ckpt_dir = os.path.join(root, "ckpt")
+    try:
+        # r.1 the notice, the stop, the save, the exit
+        trainer.train = spied
+        log1, ck1 = MainLog(on_step=notice), CkptLog()
+        try:
+            run1 = trainer_main(config("watched", checkpoint_dir=ckpt_dir,
+                                       node_name=R_NODE,
+                                       lifecycle_api=httpd.address),
+                                log1, ck1)
+        finally:
+            trainer.train = real_train
+        if seen.get("event") is None or "stop_at" not in seen:
+            raise AssertionError("r.1: the watcher never set the stop event")
+        if log1.stopped_at is None or len(ck1.saves) != 1:
+            raise AssertionError(f"r.1: no preemption save ({ck1.saves})")
+        saved = ck1.saves[0]
+        banked = saved["step"]
+        notice_to_save_s = saved["committed_at"] - seen["notice_at"]
+        if not (R_NOTICE_AFTER < banked < TRAIN_STEPS) \
+                or run1["exit_code"] != 0 \
+                or notice_to_save_s >= R_SPOT_GRACE_S:
+            raise AssertionError(
+                f"r.1: banked step {banked}, exit code {run1['exit_code']}, "
+                f"notice to save {notice_to_save_s} s")
+        if run1["launches"] != train_want(banked):
+            raise AssertionError(f"r.1: launches {run1['launches']} != "
+                                 f"{train_want(banked)}")
+        # r.2 the resume to step 8, and the uninterrupted run
+        log2, ck2, log3, ck3 = MainLog(), CkptLog(), MainLog(), CkptLog()
+        with FinalState() as resumed:
+            run2 = trainer_main(config("resumed", checkpoint_dir=ckpt_dir),
+                                log2, ck2)
+        with FinalState() as straight:
+            run3 = trainer_main(config("straight", checkpoint_dir=os.path.join(
+                root, "straight")), log3, ck3)
+        for label, run, steps in (("r.2 resumed", run2, TRAIN_STEPS - banked),
+                                  ("r.2 uninterrupted", run3, TRAIN_STEPS)):
+            if run["exit_code"] != 0 or run["launches"] != train_want(steps):
+                raise AssertionError(f"{label}: exit {run['exit_code']}, "
+                                     f"launches {run['launches']}")
+        losses = [x for _, x, _ in log1.steps] + [log1.final] + \
+            [x for _, x, _ in log2.steps]
+        want = [x for _, x, _ in log3.steps]
+        if losses != want:
+            raise AssertionError(f"r.2: interrupted + resumed losses "
+                                 f"{losses} != uninterrupted {want}")
+        if g_row is not None and want != g_row["losses"]:
+            raise AssertionError(f"r.2: losses {want} != (g)'s "
+                                 f"{g_row['losses']}")
+        a, b = resumed.steps[TRAIN_STEPS], straight.steps[TRAIN_STEPS]
+        if [n for n, _ in a] != [n for n, _ in b] or not all(
+                torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                for (_, x), (_, y) in zip(a, b)):
+            raise AssertionError("r.2: the resumed step 8 differs from the "
+                                 "uninterrupted one")
+        out.update({
+            "notice_to_stop_event_ms": (seen["stop_at"] - seen["notice_at"])
+            * 1e3,
+            "notice_to_save_committed_s": notice_to_save_s,
+            "spot_grace_s": R_SPOT_GRACE_S, "banked_step": banked,
+            "save_bytes": saved["bytes"], "save_s": saved["seconds"],
+            "exit_code": run1["exit_code"],
+            "restore_s": ck2.restores[0]["seconds"] if ck2.restores else None,
+            "losses": want, "losses_equal_uninterrupted": True,
+            "losses_equal_g": g_row is not None,
+            "leaves_bit_equal": len(a),
+            "leaf_bytes": sum(x.numel() * x.element_size() for _, x in a
+                              if isinstance(x, torch.Tensor)),
+            "runs": {"watched": run1, "resumed": run2, "uninterrupted": run3},
+            "disk_writes_gb": saved["bytes"] / 1e9})
+        return {k: run1["launches"][k] + run2["launches"][k]
+                + run3["launches"][k] for k in run1["launches"]}
+    finally:
+        httpd.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        out["seconds"] = time.perf_counter() - t_phase
+        emit(out)
+
+
+# (s): tensor-parallel serving at (e)'s widths, tp = 2, both shards on
+# the one card
+TP = 2
+TP_NEW = 32
+TP_PAGED = dict(max_batch=8, kv_blocks=1 + 8 * 128, kv_block_size=16)
+# the largest difference two formulations' logits of this model may show
+# in one step (``decode_probe``'s tolerance at these widths)
+SAMPLED_LOGIT_TOL = 0.15
+
+
+def flip_eps(logits: torch.Tensor, sampling: dict, key: torch.Tensor,
+             other: int, plain: int, hi: float = 1.0,
+             iters: int = 24) -> float:
+    """A logit move, in max-abs logits, under which the engine's sampled
+    decision on ``logits`` (a plain run's f32 row that draws ``plain``;
+    ``_sample``: the tempered row truncated by top-k and top-p, plus the
+    gumbel noise of ``key``) draws ``other``: the least eps, found by
+    bisection, of three moves of every logit by +-eps, each verified to
+    draw ``other``: ``other`` up and the rest down (a near-tie of the
+    draw's scores: only ``other`` can enter the truncated set); the
+    tokens above ``plain`` up and the rest down (``plain`` falls off the
+    top-p edge, the rest keep their order); the tokens above ``other``
+    down and the rest up (``other`` climbs into the set). So it is an
+    upper bound on the least move: 0 when ``logits`` draw ``other`` as
+    they are, inf past ``hi``. For a greedy decision it is half the
+    top-2 gap (the token rule's gap of 0.1 is a move of 0.05)."""
+    from nos_tpu_torch.models.generate import _truncate_logits_rows
+    from nos_tpu_torch.utils import prng
+
+    device = logits.device
+    t = torch.full((), sampling["temperature"], device=device)
+    top_k = torch.full((1,), sampling.get("top_k", 0), device=device)
+    top_p = torch.full((1,), sampling.get("top_p", 0.0), device=device)
+    noise = prng.gumbel(key, logits.shape)
+    up_mask = [torch.arange(logits.numel(), device=device) == other,
+               logits > logits[plain], logits <= logits[other]]
+
+    def draws(eps: float, up: torch.Tensor) -> bool:
+        moved = torch.where(up, logits + eps, logits - eps)
+        z = _truncate_logits_rows((moved / t)[None], top_k, top_p)[0]
+        return int(torch.argmax(z + noise)) == other
+
+    if draws(0.0, up_mask[0]):
+        return 0.0
+    best = float("inf")
+    for up in up_mask:
+        if not draws(hi, up):
+            continue
+        lo, top = 0.0, hi
+        for _ in range(iters):
+            mid = (lo + top) / 2
+            lo, top = (lo, mid) if draws(mid, up) else (mid, top)
+        best = min(best, top)
+    return best
+
+
+def sampled_rule(label: str, got: list, plain: list, prompts: list, params,
+                 cfg, sampling: list, other_params, mesh) -> dict:
+    """The token rule for sampled runs. Sequences are equal, or at the
+    first differing token, teacher-forced on the common prefix, with the
+    request's temperature, top-k, top-p and the noise of key (seed,
+    position) as the engine draws:
+    - "unstable": the plain run's own logits draw another token than it
+      did (its arithmetic alone moves the draw), or ``flip_eps`` finds a
+      move under ``GAP_TOL`` / 2 that draws the other token (the greedy
+      rule's gap of 0.1 is such a move); else
+    - "own_logits": each run's logits (the plain ``params``, the other
+      ``other_params`` on ``mesh``) draw its own token and differ by
+      less than ``SAMPLED_LOGIT_TOL`` (a draw near the top-p edge moves
+      with many logits at once, which no single move above finds).
+    Raises on any other divergence, after every request is read."""
+    from nos_tpu_torch.models.generate import (
+        _truncate_logits_rows, forward_with_cache, init_cache,
+    )
+    from nos_tpu_torch.utils import prng
+
+    device = params["final_norm"].device
+    diverged, bad = [], []
+    for i, (a, b) in enumerate(zip(got, plain)):
+        if a == b:
+            continue
+        j = next(k for k in range(len(b)) if a[k] != b[k])
+        step = j - len(prompts[i])
+        if step < 0:
+            raise AssertionError(f"{label}: request {i} differs in its "
+                                 f"prompt")
+        s = sampling[i]
+        key = prng.fold_in(prng.PRNGKey(s["seed"], device), j)
+        t = torch.full((), s["temperature"], device=device)
+        noise = prng.gumbel(key, (cfg.vocab,))
+        rows, draws = {}, {}
+        for name, ps, m in (("plain", params, None),
+                            ("other", other_params, mesh)):
+            cache = init_cache(cfg, 1, j, device=device, mesh=m)
+            logits, _ = forward_with_cache(
+                ps, cfg, torch.tensor([b[:j]], device=device), cache)
+            rows[name] = logits[0, -1].float()
+            z = _truncate_logits_rows(
+                (rows[name] / t)[None],
+                torch.full((1,), s["top_k"], device=device),
+                torch.full((1,), s["top_p"], device=device))[0]
+            draws[name] = int(torch.argmax(z + noise))
+        eps = flip_eps(rows["plain"], s, key, a[j], b[j])
+        diff = float((rows["other"] - rows["plain"]).abs().max())
+        row = {"request": i, "step": step, "plain_token": b[j],
+               "other_token": a[j], "tf_draw_plain": draws["plain"],
+               "tf_draw_other": draws["other"], "flip_eps": eps,
+               "tf_max_abs_logit_diff": diff}
+        if draws["plain"] != b[j] or eps < GAP_TOL / 2:
+            row["cause"] = "unstable"
+        elif draws["other"] == a[j] and diff < SAMPLED_LOGIT_TOL:
+            row["cause"] = "own_logits"
+        else:
+            bad.append(row)
+        diverged.append(row)
+    out = {"equal": len(got) - len(diverged), "of": len(got),
+           "diverged": diverged}
+    if bad:
+        raise AssertionError(f"{label}: divergences no near-tie explains: "
+                             f"{bad} (all: {out})")
+    return out
+
+
+def tp_run(eng, prompts, sampling=None) -> dict:
+    """``engine_run`` with the run's peak memory: the caching
+    allocator's peak since the engine's build."""
+    r = engine_run(eng, prompts, TP_NEW, sampling)
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return r
+
+
+def phase_tp(seed: int, card: str, device=None) -> dict:
+    """(s): tensor-parallel serving at phase (e)'s widths, tp = 2 with
+    both shards on the one card (``TpMesh([cuda:0, cuda:0])``): phase
+    (e)'s traffic greedy on the bf16 and the int8 arena and sampled on
+    the bf16 arena through the paged engine, and greedy on the
+    slot-static engine, each against the tp = 1 engine on the same
+    weights (``build_engine``'s, from the seed) by the token rule
+    (sampled: ``sampled_rule``); the paged kernel's own launches twice
+    tp = 1's, by shape at (S 1, head_dim 128), n_layers x tp x ticks;
+    one handoff from a tp = 1 prefill-role engine adopted by a tp = 2
+    decode-role engine, its K/V re-read from the shards byte for byte
+    and its tokens by the token rule. Prints ms a tick and peak memory
+    beside tp = 1's (captured, and eager as tp = 2 runs): the cost of
+    one card computing both shards, not a speed. Returns the paged
+    kernel's launches at the shard shape by arena dtype. ``device``
+    (default: the card) holds both shards."""
+    import gc
+
+    from nos_tpu_torch.cmd.server import ServerConfig, build_engine
+    from nos_tpu_torch.models import handoff
+    from nos_tpu_torch.models.serving import DecodeServer, uncaptured
+    from nos_tpu_torch.models.transformer import shard_params
+    from nos_tpu_torch.parallel.mesh import TpMesh
+
+    t_phase = time.perf_counter()
+    out = {"phase": "tensor_parallel_serving", "card": card, **FULL,
+           "tp": TP, **TP_PAGED, "new_tokens": TP_NEW}
+    device = device or torch.device("cuda", 0)
+    mesh = TpMesh([device] * TP)
+    L = FULL["n_layers"]
+    prompts = full_width_prompts(seed, FULL["vocab"])
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    free()
+    eng = build_engine(ServerConfig(
+        bf16=True, paged_kernel="on", seed=seed, **TP_PAGED, **FULL),
+        device=device)
+    params, cfg = eng.params, eng.cfg
+    p_gb = tree_bytes(params) / 1e9
+
+    def engine(tp: int, **kw):
+        free()
+        return DecodeServer(params if tp == 1 else tpp, cfg, device=device,
+                            mesh=mesh if tp > 1 else None,
+                            paged_impl="kernel", **{**TP_PAGED, **kw})
+
+    runs = {}
+    try:
+        # s.1 tp = 1 on the weights alone
+        runs["greedy_tp1"] = tp_run(eng, prompts)
+        with uncaptured(eng):
+            runs["greedy_tp1_eager"] = tp_run(eng, prompts)
+        runs["sampled_tp1"] = tp_run(eng, prompts, SAMPLED)
+        del eng
+        runs["int8_tp1"] = tp_run(engine(1, kv_dtype="int8"), prompts)
+        runs["static_tp1"] = tp_run(engine(1, kv_blocks=0,
+                                           kv_block_size=0), prompts)
+        pre = engine(1, role="prefill")
+        pre.submit(prompts[0], TP_NEW)
+        state = pre.pop_handoffs()[0]
+        wire = handoff.encode_handoff(state)
+        del pre
+        # s.2 tp = 2: the shards beside the tp = 1 weights (the token
+        # rule's teacher-forced reads)
+        free()
+        tpp = shard_params(params, cfg, mesh)
+        runs["greedy_tp2"] = tp_run(engine(2), prompts)
+        runs["sampled_tp2"] = tp_run(engine(2), prompts, SAMPLED)
+        runs["int8_tp2"] = tp_run(engine(2, kv_dtype="int8"), prompts)
+        runs["static_tp2"] = tp_run(engine(2, kv_blocks=0, kv_block_size=0),
+                                    prompts)
+        out["runs"] = {k: {f: r[f] for f in ("ms_per_tick", "ticks",
+                                             "kernel_launches", "peak_gb")}
+                       for k, r in runs.items()}
+        rules = out["token_rule"] = {}
+        for arm in ("greedy", "int8", "static"):
+            rules[arm] = token_rule(f"s {arm} tp2", runs[f"{arm}_tp2"]["seqs"],
+                                    runs[f"{arm}_tp1"]["seqs"], prompts,
+                                    params, cfg)
+        rules["sampled"] = sampled_rule(
+            "s sampled tp2", runs["sampled_tp2"]["seqs"],
+            runs["sampled_tp1"]["seqs"], prompts, params, cfg, SAMPLED,
+            tpp, mesh)
+        shard_launches = {}
+        for arm, arena in (("greedy", "bfloat16"), ("sampled", "bfloat16"),
+                           ("int8", "int8"), ("static", None)):
+            one, two = runs[f"{arm}_tp1"], runs[f"{arm}_tp2"]
+            want = {(1, cfg.head_dim, arena): TP * L * two["ticks"]} \
+                if arena else {}
+            if two["launches_by_shape"] != want or \
+                    two["kernel_launches"] != TP * one["kernel_launches"] \
+                    or two["ticks"] != one["ticks"]:
+                raise AssertionError(
+                    f"s {arm}: tp2 launches {two['launches_by_shape']} "
+                    f"(want {want}; tp1 {one['kernel_launches']} over "
+                    f"{one['ticks']} ticks, tp2 {two['ticks']})")
+            if arena:
+                shard_launches[arena] = shard_launches.get(arena, 0) + \
+                    two["kernel_launches"]
+        # s.3 the handoff into a tp = 2 decode engine
+        dec = engine(2, role="decode")
+        rid = dec.restore(handoff.decode_handoff(wire))
+        again = next(st for st in dec.capture_resumable() if st["rid"] == rid)
+        handoff.settle(state["swap"])
+        planes = [n for n in ("k", "v", "k_scale", "v_scale")
+                  if n in state["swap"]]
+        same = all(np.asarray(state["swap"][n]).tobytes()
+                   == np.asarray(again["swap"][n]).tobytes() for n in planes)
+        if not same or handoff.handoff_nbytes(again) != \
+                handoff.handoff_nbytes(state):
+            raise AssertionError("s.3: the adopted handoff reads back other "
+                                 "bytes from the shards")
+        adopted = dec.drain()[rid]
+        rules["handoff"] = token_rule(
+            "s.3 handoff", [adopted], [runs["greedy_tp1"]["seqs"][0]],
+            prompts[:1], params, cfg)
+        del dec
+        keep = ("ms_per_tick", "tokens_per_s", "ticks", "kernel_launches",
+                "prefill_s", "peak_gb")
+        rows = {k: {f: r[f] for f in keep} for k, r in runs.items()}
+        for k, r in rows.items():
+            # what the engine itself needs: the other layout's weights
+            # (resident beside it) taken out
+            r["peak_gb_engine"] = r["peak_gb"] - (p_gb if "tp2" in k else 0)
+            r["launches_by_shape"] = {str(s): n for s, n in
+                                      runs[k]["launches_by_shape"].items()}
+        out.update({"weights_gb": p_gb, "runs": rows,
+                    "handoff_bytes": len(wire), "handoff_planes": planes,
+                    "handoff_bytes_equal": True,
+                    "shard_kernel_launches": shard_launches,
+                    "tp2_vs_tp1_eager_ms_per_tick":
+                        rows["greedy_tp2"]["ms_per_tick"]
+                        / rows["greedy_tp1_eager"]["ms_per_tick"]})
+        return shard_launches
+    finally:
+        free()
         out["seconds"] = time.perf_counter() - t_phase
         emit(out)
 
@@ -6688,12 +7248,37 @@ def main(argv=None) -> int:
         for name, row in flash.items():
             row["launches_by_remat_policy"] = {
                 p: r[name] for p, r in by_policy.items()}
+    if "r" in args.phases:
+        # the training kernels' launches over (r)'s three runs
+        watched = phase_watcher(args.seed, card, g_row)
+        for name, row in flash.items():
+            row["launches_lifecycle_watcher"] = watched[name]
+        if adamw:
+            adamw["launches_lifecycle_watcher"] = watched["adamw"]
+    tp_launches = {}
+    if "s" in args.phases:
+        tp_launches = phase_tp(args.seed, card)
     del flush
     emit({"phase": "done", "seconds": time.perf_counter() - t_all,
           "card": card})
     if set(PHASES) - set(args.phases):
         return 0
+    tp_shard = paged.pop("tp_shard")
     kernels = [paged]
+    # phase (s)'s shape of the same kernel: one shard's heads at tp = 2
+    # (16 query / 4 kv heads), its launches (s)'s tp = 2 paged runs'
+    for arena, dtype in (("bf16", "bfloat16"), ("int8", "int8")):
+        row = tp_shard[arena]
+        kernels.append({
+            "name": f"paged_decode_attention_tp_shard_{arena}",
+            "route": "cuda",
+            "source": "nos_tpu_torch/csrc/paged_decode_attention.cu",
+            "replaces": "nos_tpu/ops/attention.py:430",
+            "shape": {k: row[k] for k in ("b", "h", "h_kv", "d", "S",
+                                          "arena")},
+            "launches": tp_launches[dtype],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
     # phase (n)'s shapes of the same kernel: the speculative engine's
     # verify window and the draft's step, each in bf16 and int8, their
     # launches counted by shape in (n.2)'s greedy (1, 1) runs of the

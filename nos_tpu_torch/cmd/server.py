@@ -198,15 +198,15 @@ class ServerConfig:
     # most this many requests wait; past it, POST /v1/generate answers
     # 429 so clients shed load instead of queueing into timeouts
     max_pending: int = 0
-    # tensor-parallel serving: shard params (transformer.param_shardings,
-    # or quant.quant_param_shardings when int8) and the KV cache
-    # (generate.cache_shardings — KV heads over tp; a paged arena
-    # shards the same head axis via paged_cache_shardings, scale
-    # planes included) across the first ``tp`` local devices. 0/1 =
-    # single device. Tokens are invariant to tp — greedy AND sampled,
-    # slot-static and paged, bf16 and int8 alike (tested; sampling
-    # decisions run on a replicated f32 logit row so the mesh cannot
-    # perturb the stream); requires kv_heads % tp == 0.
+    # tensor-parallel serving: split params (transformer.shard_params,
+    # int8 scales with their weights) and the KV cache (KV heads over
+    # tp; a paged arena splits the same head axis, scale planes
+    # included) across the first ``tp`` visible CUDA devices
+    # (parallel.mesh.TpMesh; ``build_engine(device="cpu")`` puts every
+    # shard on the CPU). 0/1 = single device. Sampling decisions run on
+    # the gathered f32 logit row, so the sampled stream is the single-
+    # device one; requires kv_heads % tp == 0. Not with n_experts or a
+    # draft yet.
     tp: int = 0
     # prefill/decode disaggregation role: "colocated" (default — one
     # engine prefills and decodes), "prefill" (requests leave after
@@ -3029,10 +3029,9 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
             "chains, which only the paged prefix index produces — "
             "without one there is nothing to demote")
     # knobs outside this slice, by name, still before any weights
-    if cfg.tp > 1:
-        raise NotPorted("tp is not ported to the torch engine yet "
-                        "(tensor-parallel serving)")
-    reject_unported()
+    mesh = _serving_mesh(cfg, device)
+    reject_unported(mesh=mesh, n_experts=cfg.n_experts,
+                    draft=bool(cfg.draft_checkpoint_dir))
     # parsed here so the supervisor's rebuild factory re-creates a
     # tenant-aware engine from the same config
     tenant_quota = TenantQuotaConfig.load(cfg.tenant_config)
@@ -3040,7 +3039,7 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
     # empty one, and demotions refill it
     host_tier = (HostTierStore(cfg.kv_host_tier_bytes)
                  if cfg.kv_host_tier_bytes else None)
-    device = resolve_device(device)
+    device = mesh.devices[0] if mesh is not None else resolve_device(device)
     if cfg.kv_blocks:
         check_paged_kernel_head_dim(cfg.d_model // cfg.n_heads, device,
                                     paged_impl)
@@ -3087,8 +3086,32 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
                         kv_blocks=cfg.kv_blocks, kv_swap=cfg.kv_swap,
                         hbm_admit_frac=cfg.kv_hbm_admit_frac,
                         kv_dtype=cfg.kv_dtype, tenant_quota=tenant_quota,
-                        role=cfg.role, host_tier=host_tier,
+                        role=cfg.role, host_tier=host_tier, mesh=mesh,
                         device=device, paged_impl=paged_impl)
+
+
+def _serving_mesh(cfg: ServerConfig, device: DeviceLike):
+    """``cfg.tp`` > 1: the ``TpMesh`` of the first tp visible CUDA
+    devices (tp CPU shards under ``device="cpu"``), after the
+    reference's checks; else None."""
+    if cfg.tp <= 1:
+        return None
+    from nos_tpu_torch.parallel.mesh import TpMesh
+
+    if device is not None and torch.device(device).type == "cpu":
+        devs = ["cpu"] * cfg.tp
+    else:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < cfg.tp:
+            raise ValueError(
+                f"tp={cfg.tp} but only {n} devices visible")
+        devs = [f"cuda:{i}" for i in range(cfg.tp)]
+    kv = cfg.n_kv_heads or cfg.n_heads
+    if kv % cfg.tp:
+        raise ValueError(
+            f"kv_heads {kv} not divisible by tp={cfg.tp}; the "
+            f"cache head axis cannot shard evenly")
+    return TpMesh(devs)
 
 
 def make_http_server(cfg: ServerConfig, loop: ServingLoop,

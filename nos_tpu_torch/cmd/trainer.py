@@ -10,14 +10,15 @@ saves; ``train/checkpoint.py``), stop event and SIGTERM handling (the
 step just completed is checkpointed before the exit), the named remat
 policies (``remat_policy``), a torch.profiler trace of a window of steps
 (``profile_dir``) and, from ``main``, the ``nos_tpu_train_*`` series
-served on ``metrics_port`` (``cmd/serve.py::HealthServer``). Causal
-attention runs through the hand-written CUDA flash-attention kernels on
-the card.
+served on ``metrics_port`` (``cmd/serve.py::HealthServer``), and with
+``node_name`` and ``lifecycle_api`` the lifecycle notice watcher, which
+stops the run with a checkpoint when the control plane stamps a
+preemption or maintenance notice on the pod's node. Causal attention
+runs through the hand-written CUDA flash-attention kernels on the card.
 
 Not ported yet, and refused with a ValueError naming the knob: the
-parallel layouts (``dp``/``fsdp``/``tp``/``pp``/``sp``/``ep`` > 1), the
-lifecycle watcher (``node_name``/``lifecycle_api``) and a multi-host
-environment (``COORDINATOR_ADDRESS``).
+parallel layouts (``dp``/``fsdp``/``tp``/``pp``/``sp``/``ep`` > 1) and a
+multi-host environment (``COORDINATOR_ADDRESS``).
 """
 from __future__ import annotations
 
@@ -104,7 +105,9 @@ class TrainerConfig:
     profile_dir: str = ""
     profile_start: int = 2
     profile_steps: int = 3
-    # lifecycle integration (not ported yet: setting both raises)
+    # lifecycle integration: with both set, main() watches this pod's
+    # node on the control plane's API server for a preemption or
+    # maintenance notice, which stops the run with a checkpoint
     node_name: str = ""
     lifecycle_api: str = ""
     # misc
@@ -140,9 +143,6 @@ def check_ported(cfg: TrainerConfig) -> None:
                 f"{knob}={getattr(cfg, knob)}: parallel layouts are not "
                 f"ported yet; the torch trainer runs one process on one "
                 f"card")
-    if cfg.node_name and cfg.lifecycle_api:
-        raise ValueError("node_name/lifecycle_api: the lifecycle notice "
-                         "watcher is not ported yet")
     if os.environ.get("COORDINATOR_ADDRESS"):
         raise ValueError(
             "COORDINATOR_ADDRESS: multi-host training is not ported yet")
@@ -454,9 +454,34 @@ def main(argv: Optional[Sequence[str]] = None,
 
         health = HealthServer(host="0.0.0.0", port=cfg.metrics_port).start()
         logger.info("metrics on %s/metrics", health.address)
+    stop_event = None
+    notice_mgr = None
+    if cfg.node_name and cfg.lifecycle_api:
+        # the preemption-notice watcher: a maintenance or preemption
+        # notice on THIS pod's node sets the stop event train()
+        # consumes, banking a checkpoint inside the notice's lead time
+        # (lifecycle/events.py)
+        from nos_tpu_torch.kube.controller import Manager
+        from nos_tpu_torch.kube.httpapi import RemoteApiServer
+        from nos_tpu_torch.lifecycle.events import (
+            preemption_signal_controller,
+        )
+
+        stop_event = threading.Event()
+        notice_mgr = Manager(RemoteApiServer(cfg.lifecycle_api))
+        notice_mgr.add_controller(
+            preemption_signal_controller(cfg.node_name, stop_event))
+        watcher = threading.Thread(target=notice_mgr.run,
+                                   name="notice-watcher", daemon=True)
+        watcher.start()
+        logger.info("watching node %s for preemption/maintenance notices",
+                    cfg.node_name)
     try:
-        final = train(cfg, device=device)
+        final = train(cfg, stop_event=stop_event, device=device)
     finally:
+        if notice_mgr is not None:
+            notice_mgr.stop()
+            watcher.join(timeout=5.0)
         if health is not None:
             health.stop()
     logger.info("training done, final loss %.4f", final)

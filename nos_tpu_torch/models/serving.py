@@ -122,8 +122,26 @@ scoped by the resolved tenant unless the config shares them. With SLO
 objectives in the config the engine keeps the per-tenant chip-second
 ledger (``chip``) the serving loop reads.
 
+With ``mesh`` (a ``parallel.mesh.TpMesh`` of tp devices) the engine
+serves tensor-parallel, single-controller as the reference's does: the
+params split over the mesh (``transformer.shard_params``; plain params
+are split here), the arena, its scale planes and the slot-static cache
+split along the head axis (``HeadShards``: ``[L, NB, Hkv/tp, bs, D]`` a
+shard), and one host state (block tables, ``pos``, the allocator, every
+scheduling decision) whose device rows live on shard 0's device. Every
+forward runs shard by shard (``models/generate.py``), and every engine
+op on the arena (the scatter, a COW copy, swap out and in, the replay,
+handoff capture and restore, demotion and promotion, fabric export and
+ingest) reads and writes each shard through ``HeadShards``' indexing,
+whose reads gather the heads in shard order: a payload's bytes are the
+reference's layout at any tp, so a tp = 2 engine adopts a tp = 1
+engine's handoff and the other way round. Under a mesh the programs run
+eagerly (no CUDA graph is captured), and each shard's paged kernel takes
+the kernel's own split scratch.
+
 What the reference engine has and this slice does not yet port raises
-a ``ValueError`` naming the knob: a mesh (tensor-parallel serving).
+a ``ValueError`` naming the knob: a mesh under the MoE family or the
+speculative engine.
 """
 from __future__ import annotations
 
@@ -145,7 +163,7 @@ from nos_tpu_torch.models.errors import (
     DEFAULT_TENANT, Infeasible, NotPorted, QueueFull, TenantQuotaExceeded,
 )
 from nos_tpu_torch.models.generate import (
-    Cache, _tempered, _truncate_logits_rows, forward_paged,
+    Cache, _tempered, _truncate_logits_rows, check_mesh, forward_paged,
     forward_with_cache, init_cache, init_paged_cache,
 )
 from nos_tpu_torch.models.handoff import (
@@ -159,7 +177,9 @@ from nos_tpu_torch.models.kvblocks import (
     BlockAllocator, NoFreeBlocks, PrefixBlockIndex, ScaleLedger,
     blocks_for,
 )
-from nos_tpu_torch.models.transformer import Params, TransformerConfig
+from nos_tpu_torch.models.transformer import (
+    Params, TpParams, TransformerConfig, shard_params,
+)
 from nos_tpu_torch.obs.slo import ChipLedger
 from nos_tpu_torch.ops import _kernels
 from nos_tpu_torch.ops.attention import (
@@ -184,12 +204,18 @@ def _not_ported(knob: str, what: str) -> NotPorted:
         f"JAX engine nos_tpu.models.serving.DecodeServer serves it")
 
 
-def reject_unported(*, mesh=None) -> None:
+def reject_unported(*, mesh=None, n_experts: int = 0,
+                    draft: bool = False) -> None:
     """Raise a ValueError naming the first engine knob set outside this
-    slice (a mesh); ``build_engine`` calls it before loading any
-    weights."""
-    if mesh is not None:
-        raise _not_ported("mesh", "tensor-parallel serving")
+    slice (a mesh under the MoE family or the speculative engine);
+    ``build_engine`` calls it before loading any weights."""
+    if mesh is not None and n_experts > 0:
+        raise _not_ported("n_experts under a mesh",
+                          "tensor-parallel MoE serving")
+    if mesh is not None and draft:
+        raise _not_ported("a draft under a mesh",
+                          "tensor-parallel speculative decoding: the "
+                          "draft and target arenas in lockstep")
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -381,7 +407,11 @@ class DecodeServer:
     splits prefill from decode through ``pop_handoffs`` / ``restore``.
     Runs on ``device`` (default: the card; the CPU only when asked).
     ``paged_impl`` picks the paged attention formulation, "kernel" or
-    "xla" (the gather); None reads ``effective_paged_impl()``."""
+    "xla" (the gather); None reads ``effective_paged_impl()``. ``mesh``
+    (a ``TpMesh``) serves tensor-parallel over its devices."""
+
+    # the speculative engine (a subclass) sets it: a mesh is refused there
+    _speculative = False
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  max_batch: int = 8, max_len: Optional[int] = None,
@@ -433,7 +463,27 @@ class DecodeServer:
                 f"kv_blocks/kv_block_size): the handoff payload is the "
                 f"swap format — quantized blocks + per-block scales — "
                 f"which only the paged engine stores")
-        reject_unported(mesh=mesh)
+        reject_unported(mesh=mesh, n_experts=cfg.n_experts,
+                        draft=self._speculative)
+        # tensor-parallel serving: the cache's head axis over the mesh,
+        # the params in the matching split, the control rows on shard
+        # 0's device
+        self.mesh = mesh
+        if mesh is not None:
+            check_mesh(mesh)
+            if cfg.kv_heads % mesh.tp:
+                raise ValueError(
+                    f"paged KV on this mesh: kv_heads {cfg.kv_heads} "
+                    f"not divisible by tp={mesh.tp} — the block arena "
+                    f"shards its head axis over tp (paged_cache_shardings)"
+                    f" and cannot split a head; use a tp that divides "
+                    f"kv_heads or run kv_blocks=0" if self.paged else
+                    f"kv_heads {cfg.kv_heads} not divisible by "
+                    f"tp={mesh.tp}; the cache head axis cannot shard "
+                    f"evenly")
+            if not isinstance(params, TpParams):
+                params = shard_params(params, cfg, mesh)
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -480,7 +530,7 @@ class DecodeServer:
             self._alloc = BlockAllocator(kv_blocks, bs)
             self.cache = init_paged_cache(cfg, kv_blocks, bs, max_batch,
                                           kv_dtype=kv_dtype,
-                                          device=self.device)
+                                          device=self.device, mesh=mesh)
             if kv_dtype == "int8":
                 # per-block scale lifecycle rides the allocator: the
                 # decref that frees a block drops its ledger entry
@@ -495,7 +545,8 @@ class DecodeServer:
             self._nbs = 0
             self._alloc = None
             self.cache = init_cache(cfg, max_batch, self.max_len,
-                                    per_row_pos=True, device=self.device)
+                                    per_row_pos=True, device=self.device,
+                                    mesh=mesh)
             self._pindex = None
         # the host tier under the arena (a HostTierStore): the index's
         # eviction demotes a chain's payload into it, a later miss that
@@ -939,7 +990,8 @@ class DecodeServer:
         dtype (an int8 arena quantizes only at install). Its write
         position is a host scalar, so a chunk forward reads it without
         waiting for the device."""
-        row = init_cache(self.cfg, 1, bucket, device=self.device)
+        row = init_cache(self.cfg, 1, bucket, device=self.device,
+                         mesh=self.mesh)
         row["pos"] = torch.tensor(pos, dtype=torch.int32)
         return row
 
@@ -1703,7 +1755,7 @@ class DecodeServer:
         for name in ("k", "v", "k_scale", "v_scale"):
             plane = self.cache.get(name)
             if plane is not None:
-                plane[:, dst].copy_(plane[:, src])
+                plane[:, dst] = plane[:, src]
         self.cow_copies += 1
 
     def _pre_dispatch(self, active: List[int]) -> bool:
@@ -2041,7 +2093,7 @@ class DecodeServer:
         view["pos"] = self._rpos
         logits, _ = forward_paged(self.params, self.cfg, self._rtoks, view,
                                   self._rtable, paged_impl=self.paged_kernel,
-                                  scratch=self._scratch)
+                                  scratch=self._program_scratch())
         return logits[:, -1].float()
 
     def _launch_replay(self) -> torch.Tensor:
@@ -2305,7 +2357,14 @@ class DecodeServer:
             return forward_with_cache(self.params, self.cfg, toks, cache)
         return forward_paged(self.params, self.cfg, toks, cache, table,
                              paged_impl=self.paged_kernel,
-                             scratch=self._scratch)
+                             scratch=self._program_scratch())
+
+    def _program_scratch(self) -> Optional[_kernels.PagedScratch]:
+        """The split scratch the programs pass the paged kernel: the
+        engine's own, which its graphs record; None under a mesh, whose
+        programs run eagerly and whose shards' launches take the
+        kernel's scratch per device."""
+        return self._scratch if self.mesh is None else None
 
     def _keep_table(self, table: Optional[torch.Tensor]):
         """A block table with the rows outside ``_keep`` on the null
@@ -2350,8 +2409,8 @@ class DecodeServer:
     def _launch_graph(self, key) -> torch.Tensor:
         """Run the program captured under ``key`` (``_program_for``): on
         the card, replay its graph, captured at the first run that needs
-        it; on the CPU, call it."""
-        if self.device.type != "cuda":
+        it; on the CPU or under a mesh, call it."""
+        if self.device.type != "cuda" or self.mesh is not None:
             return self._program_for(key)[0]()
         graph = self._graphs.get(key)
         if graph is None:
@@ -2364,8 +2423,9 @@ class DecodeServer:
         no tick pays a capture, and the replay program too when this
         engine resumes by recompute through the kernel; returns
         {"greedy"|"sampled"|"replay": seconds} for those captured. Needs
-        an idle engine. The CPU captures nothing."""
-        if self.device.type != "cuda":
+        an idle engine. The CPU, and an engine on a mesh, capture
+        nothing."""
+        if self.device.type != "cuda" or self.mesh is not None:
             return {}
         if self.has_work() or self._inflight:
             raise RuntimeError("capture_programs needs an idle engine")

@@ -87,6 +87,8 @@ class SpeculativeDecodeServer(DecodeServer):
     ``draft_cfg`` are the draft model (same vocabulary as the target);
     every other knob is the base engine's."""
 
+    _speculative = True
+
     def __init__(self, params: Params, cfg: TransformerConfig,
                  draft_params: Params, draft_cfg: TransformerConfig,
                  *, n_draft: int = 4, max_batch: int = 8,

@@ -20,7 +20,7 @@ decode path serves it (``models/generate.py``) and the training
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import functools
 
@@ -28,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
-    checkpoint, create_selective_checkpoint_contexts, noop_context_fn,
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    noop_context_fn,
 )
 
 from nos_tpu_torch.device import DeviceLike, resolve_device
@@ -189,6 +190,107 @@ def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
     return _tensor_from_numpy(tree, device)
 
 
+# ``nos_tpu/models/transformer.py::param_shardings``' Megatron layout over
+# tp: the matrix axis each leaf splits along (None: replicated). q, k, v,
+# gate and up split their output features (whole heads: shard r holds q
+# heads [r H/tp, (r+1) H/tp) and kv heads [r Hkv/tp, (r+1) Hkv/tp), so
+# the GQA grouping stays within a shard); o and down their input
+# features; the embedding its vocab rows, the unembedding its vocab
+# columns
+TP_SPLIT = {"embed": 0, "unembed": -1, "final_norm": None,
+            "attn_norm": None, "mlp_norm": None, "wq": -1, "wk": -1,
+            "wv": -1, "w_gate": -1, "w_up": -1, "wo": -2, "w_down": -2}
+
+
+@dataclass
+class TpParams:
+    """Params split over a ``TpMesh`` (``shard_params``): ``shards[r]``
+    is shard r's params dict, on its device, with the reference's keys
+    and the split axes cut to 1/tp."""
+    mesh: Any
+    shards: List[Params]
+
+
+def check_tp(cfg: TransformerConfig, tp: int) -> None:
+    """Raise a ValueError when ``cfg`` cannot be served over ``tp``
+    shards: the reference's messages for the head axis."""
+    if cfg.kv_heads % tp:
+        raise ValueError(
+            f"kv_heads {cfg.kv_heads} not divisible by tp={tp}; the "
+            f"cache head axis cannot shard evenly")
+    for name, n in (("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
+        if n % tp:
+            raise ValueError(f"{name} {n} not divisible by tp={tp}")
+
+
+def _split_leaf(leaf, axis: Optional[int], mesh) -> list:
+    if axis is None:
+        return mesh.broadcast(leaf)
+    if isinstance(leaf, QuantLinear):
+        # scales are per output channel: they split with column and
+        # vocab-row splits and are whole under a row-parallel split
+        scale_axis = {-1: -1, 0: 0}.get(axis)
+        scales = (mesh.broadcast(leaf.scale) if scale_axis is None
+                  else mesh.split(leaf.scale, scale_axis))
+        return [QuantLinear(q=q, scale=sc)
+                for q, sc in zip(mesh.split(leaf.q, axis), scales)]
+    return mesh.split(leaf, axis)
+
+
+def _gather_leaf(parts: list, axis: Optional[int], mesh):
+    if axis is None:
+        return parts[0].to(mesh.devices[0])
+    if isinstance(parts[0], QuantLinear):
+        scale_axis = {-1: -1, 0: 0}.get(axis)
+        scale = (parts[0].scale.to(mesh.devices[0]) if scale_axis is None
+                 else mesh.gather([p.scale for p in parts], scale_axis))
+        return QuantLinear(q=mesh.gather([p.q for p in parts], axis),
+                           scale=scale)
+    return mesh.gather(parts, axis)
+
+
+def shard_params(params: Params, cfg: TransformerConfig, mesh) -> TpParams:
+    """Split ``params`` (plain or ``quantize_params``' int8 twin) over
+    ``mesh`` in ``TP_SPLIT``'s layout, each shard on its device; the
+    reference's ``device_put(params, param_shardings(mesh, cfg))``.
+    The MoE family is not split (tensor-parallel MoE serving is not
+    ported)."""
+    if cfg.n_experts > 0:
+        raise ValueError(
+            "n_experts under tp: tensor-parallel MoE serving is not "
+            "ported to the torch engine yet")
+    check_tp(cfg, mesh.tp)
+    shards: List[Params] = [{"layers": {}} for _ in range(mesh.tp)]
+    for name, leaf in params.items():
+        if name == "layers":
+            for lname, lleaf in leaf.items():
+                for sh, part in zip(shards, _split_leaf(
+                        lleaf, TP_SPLIT[lname], mesh)):
+                    sh["layers"][lname] = part
+        else:
+            for sh, part in zip(shards, _split_leaf(leaf, TP_SPLIT[name],
+                                                    mesh)):
+                sh[name] = part
+    return TpParams(mesh, shards)
+
+
+def gather_params(tp_params: TpParams) -> Params:
+    """``shard_params``' inverse, on shard 0's device: the shards'
+    slices concatenated in shard order."""
+    mesh, shards = tp_params.mesh, tp_params.shards
+    out: Params = {"layers": {}}
+    for name in shards[0]:
+        if name == "layers":
+            for lname in shards[0]["layers"]:
+                out["layers"][lname] = _gather_leaf(
+                    [sh["layers"][lname] for sh in shards], TP_SPLIT[lname],
+                    mesh)
+        else:
+            out[name] = _gather_leaf([sh[name] for sh in shards],
+                                     TP_SPLIT[name], mesh)
+    return out
+
+
 def param_leaves(params: Params) -> List[torch.Tensor]:
     """Every tensor of a params dict, in a fixed (sorted-key) order: the
     leaves a training step takes gradients of."""
@@ -298,20 +400,33 @@ def remat_saved_ops(policy: str) -> frozenset:
     return frozenset(REMAT_NAMES[n] for n in _SAVED_NAMES[policy])
 
 
-def remat_context_fn(policy: str):
+def remat_context_fn(policy: str, down: Any = None):
     """``context_fn`` for a layer's ``torch.utils.checkpoint``: saves the
     outputs of ``remat_saved_ops(policy)`` in the forward and hands them
     to the recompute in backward, which runs the rest of the layer
     again and stops after the last tensor backward needs (the
     checkpoint's early stop), so a product whose output only feeds the
-    residual add is not re-run either. Unlike the reference's partial
-    evaluation, a saved output is kept whether backward reads it or
-    not: under "dots" the down product's output (B S d a layer)."""
+    residual add is not re-run either. ``down`` is the layer's dense
+    down-projection weight: its product (an ``aten.mm`` with it on the
+    right) is not saved, because no backward reads its output, as the
+    reference's partial evaluation drops it; the early stop ends before
+    it, so it never re-runs. (Under MoE the last product is the
+    combine's ``bmm``, which no policy saves.)"""
     ops = remat_saved_ops(policy)
     if not ops:
         return noop_context_fn
+    mm = torch.ops.aten.mm.default
+    skip = (down.data_ptr()
+            if down is not None and mm in ops else None)
+
+    def policy_fn(ctx, func, *args, **kwargs):
+        if func in ops and not (func is mm and skip is not None
+                                and args[1].data_ptr() == skip):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
     return functools.partial(create_selective_checkpoint_contexts,
-                             sorted(ops, key=str))
+                             policy_fn)
 
 
 # each policy's re-run products in a layer's forward order; the last
@@ -391,13 +506,15 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
         return dense_ffn_block(x, layer), x.new_zeros((), dtype=torch.float32)
 
     names = sorted(layers)
-    context_fn = remat_context_fn(cfg.remat_policy)
     auxes = []
     for i in range(cfg.n_layers):
         tensors = [layers[n][i] for n in names]
         if cfg.remat:
+            down = tensors[names.index("w_down")] if cfg.n_experts == 0 \
+                else None
             x, aux = checkpoint(layer_body, x, *tensors, use_reentrant=False,
-                                context_fn=context_fn)
+                                context_fn=remat_context_fn(
+                                    cfg.remat_policy, down))
         else:
             x, aux = layer_body(x, *tensors)
         auxes.append(aux)

@@ -130,3 +130,40 @@ def test_health_server_loads_no_jax_and_no_torch():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=str(ROOT), timeout=120)
+
+
+def test_lifecycle_watcher_loads_no_jax_and_no_torch():
+    """The notice watcher's copies of the control plane
+    (``nos_tpu_torch/kube/``, ``lifecycle/``, ``constants.py``) are host
+    plumbing: importing them loads neither JAX, nor the JAX package, nor
+    torch."""
+    code = ("import sys, nos_tpu_torch.constants, nos_tpu_torch.kube, "
+            "nos_tpu_torch.kube.objects, nos_tpu_torch.kube.apiserver, "
+            "nos_tpu_torch.kube.client, nos_tpu_torch.kube.serial, "
+            "nos_tpu_torch.kube.controller, nos_tpu_torch.kube.predicates, "
+            "nos_tpu_torch.kube.httpapi, nos_tpu_torch.lifecycle, "
+            "nos_tpu_torch.lifecycle.events; "
+            "bad = [m for m in sys.modules if m in ('jax', 'nos_tpu', "
+            "'torch') or m.startswith(('jax.', 'nos_tpu.', 'torch.'))]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
+
+
+def test_tensor_parallel_modules_load_no_jax_and_build_nothing():
+    """The serving mesh (``parallel/mesh.py``) and the sharded forward
+    import as the engine does: no JAX, no JAX package, no kernel built
+    at import."""
+    code = ("import sys, nos_tpu_torch.parallel, "
+            "nos_tpu_torch.parallel.mesh, nos_tpu_torch.models.generate, "
+            "nos_tpu_torch.models.serving; "
+            "from nos_tpu_torch.ops import _kernels; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'nos_tpu' or "
+            "m.startswith('nos_tpu.')]; "
+            "assert not bad, bad; "
+            "assert all(k._fn is None for k in _kernels.KERNELS)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)

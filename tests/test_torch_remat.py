@@ -231,7 +231,8 @@ def test_dots_saves_products_with_no_batch_dims_only():
     (``bmm``: their expert and batch axes are batch dimensions) are not
     kept, nor is the flash op's output; the products with no batch
     dimension are, a layer's o and router products (``mm``) and its
-    q/k/v op. Under "minimal" only the flash op's outputs are kept."""
+    q/k/v op; of the dense FFN's, gate and up, not down. Under
+    "minimal" only the flash op's outputs are kept."""
     L = BASE["n_layers"]
     _, ops = _held_after_forward("dots", "moe")
     flash = torch.ops.nos_tpu_torch.flash_attention_fwd.default
@@ -240,9 +241,11 @@ def test_dots_saves_products_with_no_batch_dims_only():
     assert flash not in ops
     assert ops[qkv] == 3 * L                     # q, k, v a layer
     assert ops[torch.ops.aten.mm.default] == 2 * L     # o and router
-    # the dense FFN's products have no batch dimension: kept
+    # the dense FFN's products have no batch dimension: kept, but for
+    # the down product, whose output no backward reads (the reference's
+    # partial evaluation drops it): the reference's set, o, gate and up
     _, ops = _held_after_forward("dots", "dense")
-    assert ops[torch.ops.aten.mm.default] == 4 * L     # o, gate, up, down
+    assert ops[torch.ops.aten.mm.default] == 3 * L     # o, gate, up
     _, ops = _held_after_forward("minimal", "moe")
     assert ops[flash] == 2 * L                   # o and lse a layer
     assert qkv not in ops and torch.ops.aten.bmm.default not in ops

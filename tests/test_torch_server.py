@@ -49,7 +49,7 @@ PAGED = dict(kv_block_size=8, kv_blocks=24)
 # knobs build_engine and main refused until the KV fabric and tenant
 # quotas were ported, served now
 SERVED_KNOBS = {"tenant_config", "kv_host_tier_bytes", "kv_fabric_token",
-                "kv_blocks=0"}
+                "kv_blocks=0", "tp"}
 # refused until checkpoint loading was ported, served now
 CHECKPOINT_KNOBS = {"checkpoint_dir", "draft_checkpoint_dir"}
 # the reference's documented replica /stats keys
@@ -1378,9 +1378,10 @@ def test_build_engine_validation_messages(kw, match):
 ])
 def test_build_engine_refuses_unported_knobs_by_name(kw, knob, tmp_path):
     """Knobs outside the port raise ``NotPorted`` by name before any
-    weights; the tenant config, the host tier and the fabric token were
-    among them and are served now: the engine carries the quota and the
-    tier, and the token builds (it gates the loop's HTTP surfaces). So
+    weights; the tenant config, the host tier, the fabric token and tp
+    were among them and are served now: the engine carries the quota,
+    the tier and the mesh, and the token builds (it gates the loop's
+    HTTP surfaces). So
     are the checkpoint directories: one with no committed step (under
     the test's own directory) raises the reference's ``no checkpoint
     under``."""
@@ -1406,6 +1407,9 @@ def test_build_engine_refuses_unported_knobs_by_name(kw, knob, tmp_path):
     elif knob == "kv_blocks=0":
         # the reference's default: the slot-static engine
         assert not eng.paged and eng.kv_stats() is None
+    elif knob == "tp":
+        # tensor-parallel serving: two CPU shards of the arena's heads
+        assert eng.mesh.tp == 2 and eng.cache["k"].parts[0].shape[2] == 1
     else:
         assert eng._tq is None and eng._host_tier is None
     assert eng.role == cfg.role

@@ -146,7 +146,9 @@ def test_build_engine_raises_reference_messages(clean_env, bad):
 ])
 def test_build_engine_names_every_knob_outside_the_slice(clean_env, knob,
                                                          tmp_path):
-    """A knob outside the port is refused by name. The fabric token,
+    """A knob outside the port is refused by name. tp is served: on
+    this model's single kv head it is the reference's ValueError, word
+    for word. The fabric token,
     the host tier and a tenant config (``t.json``, a file that does not
     exist) were refused so until their modules were ported; now they
     reach the reference's own validation: the token builds, the tier
@@ -181,6 +183,17 @@ def test_build_engine_names_every_knob_outside_the_slice(clean_env, knob,
         ref = jserver.build_engine(jserver.ServerConfig(**kw))
         assert eng.paged == ref.paged is False
         assert eng.kv_stats() is None and ref.kv_stats() is None
+        return
+    if name == "tp":
+        # served now: on this model's one kv head both refuse tp=2 with
+        # the reference's message (tests/test_torch_tp_serving.py serves
+        # it on two kv heads)
+        with pytest.raises(ValueError) as ref:
+            jserver.build_engine(jserver.ServerConfig(**kw))
+        with pytest.raises(ValueError) as port:
+            tserver.build_engine(tserver.ServerConfig(**kw), device="cpu")
+        assert str(port.value) == str(ref.value)
+        assert "not ported" not in str(port.value)
         return
     if name in ("kv_fabric_token", "kv_host_tier_bytes"):
         eng = tserver.build_engine(tserver.ServerConfig(**kw), device="cpu")

@@ -266,9 +266,11 @@ def test_refused_knobs_raise_naming_the_knob(knob, value, tmp_path):
 
 
 def test_lifecycle_watcher_and_multi_host_raise(monkeypatch):
+    """The lifecycle watcher's knobs are ported (``main`` runs the
+    watcher, tests/test_torch_lifecycle.py): ``train`` takes them; a
+    multi-host environment is still refused."""
     cfg = ttr.TrainerConfig(**TINY, node_name="n0", lifecycle_api="http://x")
-    with pytest.raises(ValueError, match="node_name/lifecycle_api"):
-        ttr.train(cfg, device="cpu")
+    ttr.check_ported(cfg)
     monkeypatch.setenv("COORDINATOR_ADDRESS", "10.0.0.1:1234")
     with pytest.raises(ValueError, match="COORDINATOR_ADDRESS"):
         ttr.train(ttr.TrainerConfig(**TINY), device="cpu")
