@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopqrs]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopqrst]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -204,8 +204,8 @@ n. the slot-static engine and speculative decoding at phase (e)'s width,
    equal tokens, or a first divergence at a step where the plain run's
    top-2 logit gap (teacher-forced) is under 0.1;
 o. the Mixture-of-Experts family at Mixtral-8x7B's widths (vocab 32000,
-   d_model 4096, 32/8 heads, d_ff 14336, 8 experts, top-2; 24 of its 32
-   layers, so the bf16 experts fit; max_seq 2048), every engine on the
+   d_model 4096, 32/8 heads, d_ff 14336, 8 experts, top-2; 4 of its 32
+   layers, for time (24 fit the card); max_seq 2048), every engine on the
    weights of one ``build_engine`` with ``n_experts`` 8, built with under
    1 GB resident, its gating held to the CPU's bit for bit: phase (e)'s
    traffic greedy on the bf16 arena through the kernel at (depth, T)
@@ -306,15 +306,40 @@ s. tensor-parallel serving at phase (e)'s widths, tp = 2, both shards on
    tp from the visible cards): phase (e)'s traffic greedy on the bf16
    and int8 arenas and sampled on the bf16 arena through the paged
    engine, and greedy on the slot-static engine, each against the
-   tp = 1 engine on the same weights by the token rule (sampled: the
-   draw's perturbed scores within the rule's tolerance over the
-   temperature, or the truncation's edge); the paged kernel's own
+   tp = 1 engine on the same weights by the token rule (sampled: a
+   near-tie of the plain run's draw, or the logits the tp = 2 engine
+   drew from, recorded live, draw its token and lie within the rule's
+   tolerance of the plain model's); the paged kernel's own
    launches twice tp = 1's, all at (S 1, head_dim 128), n_layers x 2 x
    ticks; a tp = 1 prefill-role engine's handoff adopted by a tp = 2
    decode-role engine, its K/V read back from the shards byte for
    byte, its tokens by the token rule; ms a tick and peak memory beside
    tp = 1's, captured and eager (a tp = 2 engine runs eagerly): what one
    card computing both shards costs, not a speed.
+t. the trainer's dp / fsdp / tp layouts, every rank a process on the
+   one card over gloo (NCCL takes one rank a card): (1) ``train()`` on
+   (g)'s model, batch 8 x 2048, bf16, full remat, 4 steps on one
+   device and under dp 2, fsdp 2 and dp 2 x tp 2 (4 ranks): each step's
+   loss within 5e-4 of the one-device run's (its losses beside (g)'s),
+   rank 0's part of each param leaf after step 4 within 5e-3 of its
+   RMS of the one-device run's, ms a step (no speed claim: the ranks
+   share one card and the collectives cross the host), each rank's
+   peak memory and params-and-moments bytes (fsdp 2's what its split
+   leaves give, about half of dp 2's), and every rank's flash and adamw
+   launches as a one-device run's (summed over ranks in the kernels
+   line, under the attention shape the ranks ran); (2) f32 at 2
+   layers, batch 2 x 1024: each layout's 4 losses within 1e-4 of one
+   device's; (3) the flash kernels at the ranks' attention shapes (a dp
+   2 or fsdp 2 rank's B 4, H 16/4; a dp 2 x tp 2 rank's B 4, H 8/2; S
+   2048, D 128, causal) against their plain versions, bf16 timed beside
+   them, SDPA and the bound, and f32;
+   (4) at 2 layers (d_model 1024, f32, batch 8 x 1024): dp 2 x tp 2
+   saves steps 2 and 4, step 2 resumed to 4 under fsdp 2 and on one
+   device (the losses within 1e-4, the moments within (g)'s f32
+   tolerance, the params' RMS difference too and their largest within
+   Adam's step bound), under dp 2 x tp 2 bit for bit; (5) a stop event
+   after step 2 at dp 2: every rank banks step 3 and ``train()``
+   returns.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -352,7 +377,7 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijklmnopqrs"
+PHASES = "cdefghijklmnopqrst"
 
 
 def emit(obj) -> None:
@@ -637,8 +662,10 @@ def phase_kernels(seed: int, device, flush) -> dict:
             "int8_ms": i8["ms"], "int8_bound_ms": i8["bound_ms"],
             "full_context_ms": fc["ms"],
             "full_context_bound_ms": fc["bound_ms"],
+            "full_context_library_ms": fc["library_ms"],
             "full_context_int8_ms": fc8["ms"],
             "full_context_int8_bound_ms": fc8["bound_ms"],
+            "full_context_int8_library_ms": fc8["library_ms"],
             "tp_shard": {arena: timed[("tp_shard", arena)]
                          for arena in ("bf16", "int8")}}
 
@@ -823,7 +850,7 @@ def decode_probe(eng, snapshot) -> dict:
     """One decode step from a snapshot of the live arena through the
     kernel and through the plain formulation. The model is bf16 and the
     two formulations round differently (the plain version rounds its
-    probabilities to bf16 before P.V), which 32 layers carry into the
+    probabilities to bf16 before P.V), which the layers carry into the
     logits. Logit tolerance 0.15: 1.5x the largest difference read on
     the H100 at this seed and these widths (0.0879 bf16 arena, 0.0996
     int8). Greedy tokens must agree on every row whose top-2 gap exceeds
@@ -4411,16 +4438,17 @@ def phase_n(seed: int, card: str, flush) -> dict:
 # ---------------------------------------------------------------------------
 
 # Mixtral-8x7B-v0.1's published widths (vocab 32000, hidden 4096, 32
-# query / 8 KV heads, intermediate 14336, 8 experts, top-2), cut to 24 of
+# query / 8 KV heads, intermediate 14336, 8 experts, top-2), cut to 4 of
 # its 32 layers: the experts stay bf16 under int8 weights too (as the
 # reference keeps them), 2.82 GB a layer, so 32 layers (90.2 GB) exceed
-# the card and 24 hold 70.2 GB; max_seq 2048 as phase (e). The
+# the card; 24 (70.2 GB) fit, and 4 keep the whole script inside its
+# 1200 s beside phase (t); max_seq 2048 as phase (e). The
 # reference's capacity factor 1.25 (with drops) and rope theta 10000
 # (ServerConfig has no knob for Mixtral's 1e6).
-MOE = dict(vocab=32000, d_model=4096, n_layers=24, n_heads=32,
+MOE = dict(vocab=32000, d_model=4096, n_layers=4, n_heads=32,
            n_kv_heads=8, d_ff=14336, max_seq=2048, n_experts=8)
 MOE_NEW = 32
-# what may be resident on the card before the 70 GB model is built
+# what may be resident on the card before the MoE model is built
 MOE_RESIDENT_MAX = 1 << 30
 # a routing difference excuses a divergence past the token rule's gap
 # only where it starts at a router near-tie: at the first position the
@@ -4531,8 +4559,8 @@ def moe_drops(params, cfg, prompts, seqs) -> dict:
     tally = {}
     gating = moe.top2_gating
 
-    def counted(logits, capacity):
-        combine, dispatch, aux = gating(logits, capacity)
+    def counted(logits, capacity, mean=None):
+        combine, dispatch, aux = gating(logits, capacity, mean)
         kept = dispatch.sum(dim=(2, 3))[:, :tally["real"]]
         t = tally.setdefault(tally["what"], [0, 0])
         t[0] += 2 * kept.numel() - int(kept.sum())
@@ -4705,9 +4733,9 @@ def routing_trace(eng, prompts) -> tuple:
     calls = []
     gating = moe.top2_gating
 
-    def traced(logits, capacity):
+    def traced(logits, capacity, mean=None):
         calls.append(logits.topk(3, dim=-1))
-        return gating(logits, capacity)
+        return gating(logits, capacity, mean)
 
     moe.top2_gating = traced
     try:
@@ -4834,10 +4862,10 @@ def verify_windows(eng, prompts, seqs, label: str) -> dict:
     gating, forward = moe.top2_gating, eng._forward
     windows, sink = [], [None]
 
-    def traced(logits, capacity):
+    def traced(logits, capacity, mean=None):
         if sink[0] is not None:
             sink[0].append(tuple(t.cpu() for t in logits.topk(3, dim=-1)))
-        return gating(logits, capacity)
+        return gating(logits, capacity, mean)
 
     def gated(fn, *args):
         sink[0] = []
@@ -5001,7 +5029,7 @@ def moe_f32_exact(seed: int, prompts) -> dict:
 
 
 def phase_moe(seed: int, card: str, flush) -> dict:
-    """(o): the MoE family served at Mixtral-8x7B's widths (24 layers),
+    """(o): the MoE family served at Mixtral-8x7B's widths (4 layers),
     every engine on the weights of one ``build_engine`` with
     ``n_experts`` 8; returns the paged kernel's launches on the main
     path's greedy run."""
@@ -5051,7 +5079,8 @@ def phase_moe(seed: int, card: str, flush) -> dict:
                                **kw})
 
     out = {"phase": "moe", "card": card, **MOE,
-           "source": "Mixtral-8x7B-v0.1 widths, 24 of 32 layers",
+           "source": f"Mixtral-8x7B-v0.1 widths, {MOE['n_layers']} of 32 "
+                     "layers",
            "resident_gb_before": resident / 1e9,
            "allocated_gb_before_workspace_release": cached / 1e9,
            "build_s": build_s,
@@ -5245,7 +5274,7 @@ def phase_moe(seed: int, card: str, flush) -> dict:
             "capture_s", "kernel_launches", "ms_per_round",
             "tokens_per_window", "acceptance") if m in r}
             for k, r in runs.items()}
-        # the 70 GB model goes before the f32 one is built: every holder
+        # the MoE model goes before the f32 one is built: every holder
         # of the engine or its params (the loop, the server, the gap
         # reader's closure) first
         del eng0, params, runs, want, loop, httpd, gap_at
@@ -5906,8 +5935,8 @@ class captured_params:
 
         self.tfm, self.real, self.params = tfm, tfm.make_train_step, None
 
-        def spy(cfg, optimizer):
-            step = self.real(cfg, optimizer)
+        def spy(cfg, optimizer, *mesh):
+            step = self.real(cfg, optimizer, *mesh)
 
             def wrapped(params, batch):
                 self.params = params
@@ -6031,8 +6060,8 @@ def moe_f32_parity(seed: int, device) -> dict:
             t.requires_grad_()
         picks = []
 
-        def traced(logits, capacity):
-            out = gating(logits, capacity)
+        def traced(logits, capacity, mean=None):
+            out = gating(logits, capacity, mean)
             picks.append(out[1].cpu())
             return out
 
@@ -6455,8 +6484,9 @@ def remat_moe(seed: int, device) -> dict:
     for policy in REMAT_POLICIES:
         calls = {"n": 0, "differ": 0}
 
-        def traced(logits, capacity, policy=policy, calls=calls):
-            res = gating(logits, capacity)
+        def traced(logits, capacity, mean=None, policy=policy,
+                   calls=calls):
+            res = gating(logits, capacity, mean)
             if policy == "full":
                 full_routes.append(res[1])
             elif not torch.equal(res[1], full_routes[calls["n"]]):
@@ -6942,21 +6972,60 @@ def flip_eps(logits: torch.Tensor, sampling: dict, key: torch.Tensor,
     return best
 
 
+class live_logits:
+    """Within a ``with`` block, every sampled decode step of ``eng`` (an
+    eager engine: a replayed graph calls no Python) keeps the f32 logit
+    rows it drew from, with each slot's position and seed: the list of
+    (step, pos, seed) the block yields."""
+
+    def __init__(self, eng):
+        self.eng, self.steps = eng, []
+
+    def __enter__(self):
+        eng, inner = self.eng, self.eng._sample
+
+        def spy(step, pos0, greedy):
+            self.steps.append((step.clone(), pos0.clone(), eng._seed.clone()))
+            return inner(step, pos0, greedy)
+
+        eng._sample = spy
+        return self.steps
+
+    def __exit__(self, *exc):
+        del self.eng._sample
+
+    @staticmethod
+    def row(steps: list, seed: int, j: int):
+        """The logits a request of ``seed`` drew its token at absolute
+        index ``j`` from (the first step whose slot has that seed at
+        position j - 1), or None (the first token is drawn at prefill)."""
+        for step, pos, seeds in steps:
+            hit = ((seeds == seed) & (pos + 1 == j)).nonzero()
+            if len(hit):
+                return step[int(hit[0, 0])]
+        return None
+
+
 def sampled_rule(label: str, got: list, plain: list, prompts: list, params,
-                 cfg, sampling: list, other_params, mesh) -> dict:
+                 cfg, sampling: list, other_params, mesh, live: list) -> dict:
     """The token rule for sampled runs. Sequences are equal, or at the
-    first differing token, teacher-forced on the common prefix, with the
-    request's temperature, top-k, top-p and the noise of key (seed,
-    position) as the engine draws:
-    - "unstable": the plain run's own logits draw another token than it
-      did (its arithmetic alone moves the draw), or ``flip_eps`` finds a
-      move under ``GAP_TOL`` / 2 that draws the other token (the greedy
-      rule's gap of 0.1 is such a move); else
-    - "own_logits": each run's logits (the plain ``params``, the other
-      ``other_params`` on ``mesh``) draw its own token and differ by
-      less than ``SAMPLED_LOGIT_TOL`` (a draw near the top-p edge moves
-      with many logits at once, which no single move above finds).
-    Raises on any other divergence, after every request is read."""
+    first differing token, with the request's temperature, top-k, top-p
+    and the noise of key (seed, position) as the engine draws:
+    - "unstable": the plain run's own logits, teacher-forced on the
+      common prefix, draw another token than it did (its arithmetic
+      alone moves the draw), or ``flip_eps`` finds a move under
+      ``GAP_TOL`` / 2 that draws the other token (the greedy rule's gap
+      of 0.1 is such a move); else
+    - "own_logits": the logits the other engine drew from (``live``:
+      ``live_logits``' record of its run) draw its own token, and they
+      differ from the plain run's teacher-forced ones by less than
+      ``SAMPLED_LOGIT_TOL``: it computed the model's logits and sampled
+      them as the plain run does (a draw near the top-p edge moves with
+      many logits at once, which no single move above finds).
+    Each row also reads the other model's teacher-forced logits
+    (``other_params`` on ``mesh``) against the live ones: the decode
+    path's own rounding. Raises on any other divergence, after every
+    request is read."""
     from nos_tpu_torch.models.generate import (
         _truncate_logits_rows, forward_with_cache, init_cache,
     )
@@ -6976,27 +7045,44 @@ def sampled_rule(label: str, got: list, plain: list, prompts: list, params,
         key = prng.fold_in(prng.PRNGKey(s["seed"], device), j)
         t = torch.full((), s["temperature"], device=device)
         noise = prng.gumbel(key, (cfg.vocab,))
-        rows, draws = {}, {}
+
+        def nucleus(row: torch.Tensor) -> torch.Tensor:
+            return _truncate_logits_rows(
+                (row / t)[None],
+                torch.full((1,), s["top_k"], device=device),
+                torch.full((1,), s["top_p"], device=device))[0]
+
+        def draw(row: torch.Tensor) -> int:
+            return int(torch.argmax(nucleus(row) + noise))
+
+        rows = {}
         for name, ps, m in (("plain", params, None),
                             ("other", other_params, mesh)):
             cache = init_cache(cfg, 1, j, device=device, mesh=m)
             logits, _ = forward_with_cache(
                 ps, cfg, torch.tensor([b[:j]], device=device), cache)
             rows[name] = logits[0, -1].float()
-            z = _truncate_logits_rows(
-                (rows[name] / t)[None],
-                torch.full((1,), s["top_k"], device=device),
-                torch.full((1,), s["top_p"], device=device))[0]
-            draws[name] = int(torch.argmax(z + noise))
         eps = flip_eps(rows["plain"], s, key, a[j], b[j])
-        diff = float((rows["other"] - rows["plain"]).abs().max())
         row = {"request": i, "step": step, "plain_token": b[j],
-               "other_token": a[j], "tf_draw_plain": draws["plain"],
-               "tf_draw_other": draws["other"], "flip_eps": eps,
-               "tf_max_abs_logit_diff": diff}
-        if draws["plain"] != b[j] or eps < GAP_TOL / 2:
+               "other_token": a[j], "tf_draw_plain": draw(rows["plain"]),
+               "tf_draw_other": draw(rows["other"]), "flip_eps": eps,
+               "tf_max_abs_logit_diff": float(
+                   (rows["other"] - rows["plain"]).abs().max())}
+        got_row = live_logits.row(live, s["seed"], j)
+        if got_row is not None:
+            kept = nucleus(got_row) > torch.finfo(torch.float32).min
+            row.update(
+                live_draw_other=draw(got_row),
+                live_kept=int(kept.sum()),
+                live_keeps_plain_token=bool(kept[b[j]]),
+                live_max_abs_logit_diff=float(
+                    (got_row - rows["plain"]).abs().max()),
+                live_vs_tf_other_max_abs=float(
+                    (got_row - rows["other"]).abs().max()))
+        if row["tf_draw_plain"] != b[j] or eps < GAP_TOL / 2:
             row["cause"] = "unstable"
-        elif draws["other"] == a[j] and diff < SAMPLED_LOGIT_TOL:
+        elif got_row is not None and row["live_draw_other"] == a[j] and \
+                row["live_max_abs_logit_diff"] < SAMPLED_LOGIT_TOL:
             row["cause"] = "own_logits"
         else:
             bad.append(row)
@@ -7088,7 +7174,10 @@ def phase_tp(seed: int, card: str, device=None) -> dict:
         free()
         tpp = shard_params(params, cfg, mesh)
         runs["greedy_tp2"] = tp_run(engine(2), prompts)
-        runs["sampled_tp2"] = tp_run(engine(2), prompts, SAMPLED)
+        sampler = engine(2)
+        with live_logits(sampler) as live:
+            runs["sampled_tp2"] = tp_run(sampler, prompts, SAMPLED)
+        del sampler
         runs["int8_tp2"] = tp_run(engine(2, kv_dtype="int8"), prompts)
         runs["static_tp2"] = tp_run(engine(2, kv_blocks=0, kv_block_size=0),
                                     prompts)
@@ -7103,7 +7192,8 @@ def phase_tp(seed: int, card: str, device=None) -> dict:
         rules["sampled"] = sampled_rule(
             "s sampled tp2", runs["sampled_tp2"]["seqs"],
             runs["sampled_tp1"]["seqs"], prompts, params, cfg, SAMPLED,
-            tpp, mesh)
+            tpp, mesh, live)
+        del live
         shard_launches = {}
         for arm, arena in (("greedy", "bfloat16"), ("sampled", "bfloat16"),
                            ("int8", "int8"), ("static", None)):
@@ -7161,6 +7251,482 @@ def phase_tp(seed: int, card: str, device=None) -> dict:
         emit(out)
 
 
+# (t): the trainer's dp / fsdp / tp layouts, every rank a process on the
+# one card over gloo (NCCL takes one rank a card). t.1 at (g)'s widths,
+# bf16, batch 8 x 2048, 4 steps, against a one-device run of the same 4
+# steps: each loss within T_LOSS_RTOL (on an H100 80GB HBM3 at 700 W the
+# layouts read at most 2.4e-5: the data ranks' bf16 gradients summed in
+# another order), and rank 0's part of each param leaf after step 4
+# against the same part of the one-device run's, the worst leaf's RMS
+# difference over its RMS within T_PARAM_RMS: the elements whose
+# gradient is near zero take Adam steps of either sign, a few in a
+# sound layout, many in a rank that steps on its own rows alone (no
+# mean over the data ranks: the control, which must fall outside). On
+# the H100 at 700 W the layouts read 2.3e-3 (dp 2, fsdp 2) and 5.9e-3
+# (dp 2 x tp 2, w_down), the control 5.8e-2
+T_LAYOUTS = (("dp2", dict(dp=2)), ("fsdp2", dict(fsdp=2)),
+             ("dp2_tp2", dict(dp=2, tp=2)))
+T_STEPS = 4
+T_LOSS_RTOL = 5e-4
+T_PARAM_RMS = 2e-2
+# t.2: f32 at 2 layers of (g)'s widths, batch 2 x 1024 (the data ranks
+# split it; for time): each layout's 4 losses against the one-device
+# run's
+T_F32_RTOL = 1e-4
+T_F32_BATCH, T_F32_SEQ = 2, 1024
+# t.4 and t.5: 2 layers at (g)'s vocab and head_dim but d_model 1024,
+# batch 8 x 1024, so the phase's checkpoints (1.15 GB each in f32) stay
+# inside the 45 GiB a call may write beside (p)'s and (r)'s. A resume on
+# another layout: the losses within T_F32_RTOL; each moment within
+# (g)'s f32 gradient tolerance (largest difference over the leaf's
+# largest value); each param leaf's RMS difference within it too, and
+# its largest difference within what two runs' Adam steps can differ by
+# (``adam_step_bound``): Adam normalises each element's step, so an
+# element whose gradient cancels to the rounding level takes a step of
+# any sign (on an H100 80GB HBM3 at 700 W, embed's largest difference
+# read 2.3e-4 of its largest value)
+T_CKPT = dict(vocab=32000, d_model=1024, n_layers=2, n_heads=8,
+              n_kv_heads=2, d_ff=4096, max_seq=2048)
+T_CKPT_SEQ = 1024
+T_STATE_TOL = TRAIN_GRAD_TOL
+T_STOP_AFTER = 2
+# t.3: the flash kernels at the shapes the layouts' ranks run of (g)'s
+# attention: a dp 2 or fsdp 2 rank's (B 4, H 16/4) and a dp 2 x tp 2
+# rank's (B 4, H 8/2)
+T_SHARDS = (("dp_shard", dict(ATTN, b=4)),
+            ("tp_shard", dict(ATTN, b=4, h=8, h_kv=2)))
+
+
+class LayoutLog(logging.Handler):
+    """Rank 0's trainer log: per-step (step, loss, time), the rank
+    summaries ``train()`` logs for a layout, the stop."""
+
+    def __init__(self, on_step=None):
+        super().__init__(logging.INFO)
+        self.steps, self.ranks, self.on_step = [], [], on_step
+        self.stopped_at = None
+
+    def emit(self, record):
+        if record.msg.startswith("step %d/%d loss"):
+            self.steps.append((record.args[0], record.args[2],
+                               record.created))
+            if self.on_step is not None:
+                self.on_step(record.args[0])
+        elif hasattr(record, "rank_summary"):
+            self.ranks.append(record.rank_summary)
+        elif record.msg.startswith("stop requested (preemption)"):
+            self.stopped_at = record.args[0]
+
+
+def layout_run(cfg, device, stop_event=None, on_step=None) -> dict:
+    """``train(cfg)`` with every rank of its layout on ``device`` (one
+    device when the layout has one chip), the training kernels' launches
+    counted from 0 in this process (rank 0's; the other ranks report
+    their own): losses, ms a step (rank 0's log, after the first step),
+    the rank summaries, wall seconds, and rank 0's params after the run
+    ({leaf name: its part})."""
+    from nos_tpu_torch.cmd.trainer import train
+    from nos_tpu_torch.models import transformer as tfm
+
+    chips = cfg.dp * cfg.fsdp * cfg.tp
+    log = LayoutLog(on_step)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_launches()                       # the main path's count
+    t0 = time.perf_counter()
+    with logs_to({"nos_tpu_torch.trainer": log}), captured_params() as cap:
+        final = train(cfg, stop_event=stop_event,
+                      **(dict(devices=[str(device)] * chips) if chips > 1
+                         else dict(device=device)))
+    times = [t for _, _, t in log.steps]
+    step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    return {"losses": [loss for _, loss, _ in log.steps], "final": final,
+            "step_ms": step_ms,
+            "ms_per_step": float(np.median(step_ms)) if step_ms else None,
+            "ranks": log.ranks, "stopped_at": log.stopped_at,
+            "wall_s": time.perf_counter() - t0,
+            "launches": train_launches(),
+            "params": dict(zip(tfm.leaf_names(cap.params),
+                               (p.detach() for p in
+                                tfm.param_leaves(cap.params))))}
+
+
+def rank0_param_diff(got: dict, full: dict, layout: dict) -> dict:
+    """Rank 0's part of each param leaf (``got``) against the same part of
+    a one-device run's full leaves: the worst leaf's RMS difference over
+    its RMS (and which leaf), and the largest difference."""
+    from nos_tpu_torch.models import transformer as tfm
+
+    worst = {"param_rms_rel": 0.0, "leaf": None, "param_max_abs": 0.0}
+    for name, a in got.items():
+        key = name.rsplit("/", 1)[-1]
+        b = full[name].to(a.device)
+        for axis, n in ((tfm.TP_SPLIT.get(key), layout.get("tp", 1)),
+                        (tfm.FSDP_SPLIT[key], layout.get("fsdp", 1))):
+            if axis is not None and n > 1:
+                b = b.chunk(n, axis)[0]
+        d = a.float() - b.float()
+        rms = float(d.square().mean().sqrt()
+                    / b.float().square().mean().sqrt().clamp_min(1e-30))
+        if rms > worst["param_rms_rel"]:
+            worst.update(param_rms_rel=rms, leaf=name)
+        worst["param_max_abs"] = max(worst["param_max_abs"],
+                                     float(d.abs().max()))
+    return worst
+
+
+class first_rows:
+    """Within the block, ``train()``'s synthetic batches are the first
+    rows of the ``batch``-row global batch: the rows data rank 0 of a
+    layout keeps."""
+
+    def __init__(self, batch: int):
+        self.batch = batch
+
+    def __enter__(self):
+        import dataclasses
+
+        from nos_tpu_torch.cmd import trainer
+
+        self.mod, self.real = trainer, trainer.synthetic_batch
+
+        def rows(cfg, step, device):
+            full = self.real(dataclasses.replace(cfg, batch_size=self.batch),
+                             step, device)
+            return {k: v[:cfg.batch_size] for k, v in full.items()}
+
+        trainer.synthetic_batch = rows
+
+    def __exit__(self, *exc):
+        self.mod.synthetic_batch = self.real
+
+
+def rel_diffs(got: list, want: list) -> list:
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def layout_state_bytes(widths: dict, layout: dict) -> int:
+    """A rank's params and both moments in bf16 under ``layout``: each
+    leaf cut by its tp and fsdp degrees where it is split."""
+    from nos_tpu_torch.models import transformer as tfm
+
+    params = tfm.abstract_params(tfm.TransformerConfig(**widths))
+    total = 0
+    for name, leaf in zip(tfm.leaf_names(params),
+                          tfm.param_leaves(params)):
+        key = name.rsplit("/", 1)[-1]
+        n = leaf.numel() * leaf.element_size()
+        if tfm.TP_SPLIT.get(key) is not None:
+            n //= layout.get("tp", 1)
+        if tfm.FSDP_SPLIT[key] is not None:
+            n //= layout.get("fsdp", 1)
+        total += 3 * n
+    return total
+
+
+def hold_layout_launches(label: str, run: dict, chips: int,
+                         steps: int) -> dict:
+    """Every rank launched each training kernel as a one-device run of
+    its steps does (flash forward 2 x n_layers a step under full remat,
+    each backward kernel n_layers, adamw one a local leaf); returns the
+    sums over ranks."""
+    want = train_want(steps)
+    total = dict.fromkeys(want, 0)
+    for r in run["ranks"]:
+        if r["launches"] != want:
+            raise AssertionError(f"t {label}: rank {r['rank']} launched "
+                                 f"{r['launches']}, want {want}")
+        for k, v in r["launches"].items():
+            total[k] += v
+    if len(run["ranks"]) != chips:
+        raise AssertionError(f"t {label}: {len(run['ranks'])} rank "
+                             f"summaries for {chips} ranks")
+    return total
+
+
+def ckpt_state(directory: str, step: int, widths: dict, dtype) -> list:
+    """(name, tensor) of every leaf of a checkpoint's step, on the CPU."""
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.train.checkpoint import CheckpointManager, _flatten
+
+    cfg = tfm.TransformerConfig(**widths, dtype=dtype)
+    params = tfm.abstract_params(cfg)
+    leaves = tfm.param_leaves(params)
+    moments = {"count": 0, "mu": leaves, "nu": leaves}
+    mgr = CheckpointManager(directory)
+    try:
+        p, o = mgr.restore(step, params_template=params,
+                           opt_state_template=moments, device="cpu")
+    finally:
+        mgr.close()
+    return _flatten({"params": p, "opt_state": o}, "", [])
+
+
+def link_step(src: str, dst: str, step: int) -> None:
+    """A checkpoint directory holding ``src``'s step alone, its files
+    hard links (no bytes written)."""
+    os.makedirs(os.path.join(dst, str(step)))
+    for name in os.listdir(os.path.join(src, str(step))):
+        os.link(os.path.join(src, str(step), name),
+                os.path.join(dst, str(step), name))
+    os.link(os.path.join(src, "model_config.json"),
+            os.path.join(dst, "model_config.json"))
+
+
+def adam_step_bound(lr: float, b1: float = 0.9, b2: float = 0.95) -> float:
+    """The most one element can move in one adamw step (weight decay
+    aside): |m_hat| / sqrt(v_hat) <= (1 - b1) / sqrt(1 - b2) / (1 - b1 /
+    sqrt(b2)) times lr, where the gradient's history is the worst."""
+    return lr * (1 - b1) / (1 - b2) ** 0.5 / (1 - b1 / b2 ** 0.5)
+
+
+def compare_states(label: str, got: list, want: list, exact: bool,
+                   steps: int, lr: float) -> dict:
+    """Each leaf of a resumed run's state against the uninterrupted
+    run's: bit for bit when ``exact``; else the moments within
+    ``T_STATE_TOL`` of their largest value, the params' RMS difference
+    within ``T_STATE_TOL`` of their RMS and their largest difference
+    within two runs' ``steps`` Adam steps. Returns the worst readings."""
+    worst = {"moment_max_rel": 0.0, "param_rms_rel": 0.0,
+             "param_max_abs": 0.0, "param_max_rel": 0.0}
+    bound = 2 * steps * adam_step_bound(lr)
+    for (name, a), (_, b) in zip(got, want):
+        if not isinstance(a, torch.Tensor):
+            if a != b:
+                raise AssertionError(f"t.4 {label}: {name} {a} != {b}")
+            continue
+        if exact:
+            if not torch.equal(a, b):
+                raise AssertionError(f"t.4 {label}: {name} differs from the "
+                                     f"uninterrupted run's")
+            continue
+        d = (a - b).abs()
+        top = float(d.max())
+        if name.startswith("/opt_state"):
+            share = top / max(float(b.abs().max()), 1e-30)
+            worst["moment_max_rel"] = max(worst["moment_max_rel"], share)
+            ok = share <= T_STATE_TOL
+        else:
+            rms = float(d.square().mean().sqrt()
+                        / b.square().mean().sqrt().clamp_min(1e-30))
+            worst["param_rms_rel"] = max(worst["param_rms_rel"], rms)
+            worst["param_max_abs"] = max(worst["param_max_abs"], top)
+            worst["param_max_rel"] = max(worst["param_max_rel"], top / max(
+                float(b.abs().max()), 1e-30))
+            ok = rms <= T_STATE_TOL and top <= bound
+        if not ok:
+            raise AssertionError(
+                f"t.4 {label}: {name} max|diff| {top}, readings {worst} "
+                f"(tol {T_STATE_TOL}, params' step bound {bound})")
+    return {"leaves": len(got), "bit_equal": exact,
+            "param_step_bound": bound, **worst}
+
+
+def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
+    """(t): the trainer's layouts, every rank a process on ``device``
+    (default: the card) over gloo. (1) (g)'s model, batch 8 x 2048,
+    bf16, full remat, 4 steps on one device (its losses beside (g)'s)
+    and under dp 2, fsdp 2 and dp 2 x tp 2 through ``train()``: each
+    step's loss within ``T_LOSS_RTOL`` of the one-device run's, rank 0's
+    part of each param leaf after step 4 within ``T_PARAM_RMS`` of the
+    same part of its params, ms a step, each rank's peak memory and
+    params-and-moments bytes (fsdp 2's what its split leaves give, about
+    half of dp 2's), every rank's training kernel launches as a
+    one-device run's; (2) f32 at 2 layers, batch 2 x 1024: each
+    layout's 4 losses within ``T_F32_RTOL`` of one device's; (3) the
+    flash kernels at the attention shapes the ranks ran (``T_SHARDS``)
+    against their plain versions, timed beside them, SDPA and the bound;
+    (4) at ``T_CKPT`` in f32: dp 2 x tp 2 saves steps 2 and 4, step 2
+    resumed to 4 under fsdp 2 and on one device within
+    ``compare_states``' tolerances, and under dp 2 x tp 2 bit for bit;
+    (5) a stop event set after step 2's log at dp 2 (``host_sync_every``
+    1): every rank banks step 3, the checkpoint holds it, ``train()``
+    returns. Returns the flash rows by rank shape and the kernels'
+    launches by layout."""
+    import tempfile
+
+    from nos_tpu_torch.cmd.trainer import TrainerConfig
+
+    t_phase = time.perf_counter()
+    device = device or torch.device("cuda", 0)
+    L = TRAIN["n_layers"]
+    out = {"phase": "train_layouts", "card": card, **TRAIN,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": T_STEPS,
+           "loss_rtol": T_LOSS_RTOL, "f32_rtol": T_F32_RTOL,
+           "state_tol": T_STATE_TOL, "devices": str(device),
+           "backend": "gloo"}
+    try:
+        # t.1
+        base = dict(TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    steps=T_STEPS, log_every=1, seed=seed, bf16=True)
+        one = layout_run(TrainerConfig(**base), device)
+        # in host memory: the ranks' peaks count no reference tensor
+        one["params"] = {k: v.cpu() for k, v in one["params"].items()}
+        out["one_device"] = {
+            "losses": one["losses"],
+            "g_losses": g_row["losses"][:T_STEPS] if g_row else None,
+            "equal_to_g": bool(g_row) and
+            one["losses"] == g_row["losses"][:T_STEPS]}
+        # the control the params' tolerance must reject: rank 0 of dp 2
+        # stepping on its own rows without the gradient mean
+        with first_rows(TRAIN_BATCH):
+            ctl = layout_run(TrainerConfig(
+                **dict(base, batch_size=TRAIN_BATCH // 2)), device)
+        out["control_no_grad_mean"] = rank0_param_diff(
+            ctl.pop("params"), one["params"], {})
+        del ctl
+        runs, launches = {}, {}
+        out["layouts"] = runs
+        for label, kw in T_LAYOUTS:
+            run = layout_run(TrainerConfig(**base, **kw), device)
+            chips = int(np.prod(list(kw.values())))
+            launches[label] = hold_layout_launches(label, run, chips,
+                                                   T_STEPS)
+            rel = rel_diffs(run["losses"], one["losses"])
+            if len(rel) != T_STEPS or not max(rel) <= T_LOSS_RTOL:
+                raise AssertionError(
+                    f"t.1 {label}: losses {run['losses']} against one "
+                    f"device's {one['losses']} (rtol {T_LOSS_RTOL})")
+            params = rank0_param_diff(run.pop("params"), one["params"], kw)
+            want_state = layout_state_bytes(TRAIN, kw)
+            for r in run["ranks"]:
+                if r["state_bytes"] != want_state:
+                    raise AssertionError(
+                        f"t.1 {label}: rank {r['rank']} holds "
+                        f"{r['state_bytes']} bytes of params and moments, "
+                        f"want {want_state}")
+            runs[label] = {
+                "losses": run["losses"], "loss_rel_diff": rel,
+                "ms_per_step": run["ms_per_step"], "step_ms": run["step_ms"],
+                "wall_s": run["wall_s"],
+                "peak_gb_by_rank": [r["peak_bytes"] / 1e9
+                                    for r in run["ranks"]],
+                "state_gb_by_rank": [r["state_bytes"] / 1e9
+                                     for r in run["ranks"]],
+                "launches_summed_over_ranks": launches[label],
+                "rank0_params_vs_one_device": params}
+            del run
+        del one
+        out["fsdp2_over_dp2_state_bytes"] = (
+            runs["fsdp2"]["state_gb_by_rank"][0]
+            / runs["dp2"]["state_gb_by_rank"][0])
+        # t.2
+        out["t1_s"] = time.perf_counter() - t_phase
+        f32 = dict(base, n_layers=2, batch_size=T_F32_BATCH,
+                   seq_len=T_F32_SEQ, bf16=False)
+        ref = layout_run(TrainerConfig(**f32), device)["losses"]
+        out["f32"] = {"one_device": ref}
+        for label, kw in T_LAYOUTS:
+            got = layout_run(TrainerConfig(**f32, **kw), device)["losses"]
+            rel = rel_diffs(got, ref)
+            if len(rel) != T_STEPS or not max(rel) <= T_F32_RTOL:
+                raise AssertionError(f"t.2 {label}: f32 losses {got} "
+                                     f"against one device's {ref}")
+            out["f32"][label] = {"losses": got, "max_rel_diff": max(rel)}
+        out["t2_s"] = time.perf_counter() - t_phase - out["t1_s"]
+        # t.3
+        rng = np.random.default_rng(seed + 17)
+        flash = {}
+        for label, shape in T_SHARDS:
+            flash[label], _ = flash_case(label, shape, True, torch.bfloat16,
+                                         rng, device, flush, timed=True)
+            flash_case(label, shape, True, torch.float32, rng, device,
+                       flush)
+            out[f"flash_{label}"] = {k: {f: v[f] for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err")} for k, v in flash[label].items()}
+        # t.4, t.5
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-t-") as root:
+            out["checkpoint"] = layout_checkpoints(seed, root, device)
+            out["stop"] = layout_stop(seed, root, device)
+        # t.1's params, held once every reading is printed
+        worst = {label: r["rank0_params_vs_one_device"]
+                 for label, r in runs.items()}
+        if any(w["param_rms_rel"] > T_PARAM_RMS for w in worst.values()) \
+                or not out["control_no_grad_mean"]["param_rms_rel"] \
+                > T_PARAM_RMS:
+            raise AssertionError(
+                f"t.1: rank 0's params against the one-device run's "
+                f"{worst}, the control {out['control_no_grad_mean']} "
+                f"(tol {T_PARAM_RMS}: the layouts within it, the control "
+                f"past it)")
+        return {"flash": flash, "launches": launches}
+    finally:
+        torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t_phase
+        emit(out)
+
+
+def layout_checkpoints(seed: int, root: str, device) -> dict:
+    """(t.4): dp 2 x tp 2 at ``T_CKPT`` in f32 saves steps 2 and 4; step
+    2 resumed to 4 under fsdp 2, on one device and under dp 2 x tp 2;
+    each step 4 against the uninterrupted run's."""
+    import shutil
+
+    from nos_tpu_torch.cmd.trainer import TrainerConfig
+
+    def cfg(d, **kw):
+        return TrainerConfig(**T_CKPT, batch_size=TRAIN_BATCH,
+                             seq_len=T_CKPT_SEQ, steps=T_STEPS, log_every=1,
+                             seed=seed, bf16=False, checkpoint_dir=d,
+                             checkpoint_every=2, **kw)
+
+    a = os.path.join(root, "dp2_tp2")
+    t0 = time.perf_counter()
+    first = layout_run(cfg(a, dp=2, tp=2), device)
+    want = ckpt_state(a, T_STEPS, T_CKPT, torch.float32)
+    out = {"widths": T_CKPT, "losses": first["losses"],
+           "save_run_s": time.perf_counter() - t0}
+    for label, kw, exact in (("fsdp2", dict(fsdp=2), False),
+                             ("one_device", {}, False),
+                             ("dp2_tp2", dict(dp=2, tp=2), True)):
+        d = os.path.join(root, f"resume_{label}")
+        link_step(a, d, 2)
+        run = layout_run(cfg(d, **kw), device)
+        rel = rel_diffs(run["losses"], first["losses"][2:])
+        if len(rel) != 2 or (exact and run["losses"] != first["losses"][2:]) \
+                or not max(rel) <= T_F32_RTOL:
+            raise AssertionError(f"t.4 {label}: resumed losses "
+                                 f"{run['losses']} against "
+                                 f"{first['losses'][2:]}")
+        out[label] = dict(compare_states(
+            label, ckpt_state(d, T_STEPS, T_CKPT, torch.float32), want,
+            exact, T_STEPS - 2, cfg(d).learning_rate),
+            losses=run["losses"], loss_rel_diff=rel, wall_s=run["wall_s"])
+        shutil.rmtree(d)
+    return out
+
+
+def layout_stop(seed: int, root: str, device) -> dict:
+    """(t.5): a stop event set once step 2's loss is logged, at dp 2 with
+    ``host_sync_every`` 1: every rank banks the next step and stops."""
+    import threading
+
+    from nos_tpu_torch.cmd.trainer import TrainerConfig
+    from nos_tpu_torch.train.checkpoint import CheckpointManager
+
+    d = os.path.join(root, "stop")
+    stop = threading.Event()
+    run = layout_run(
+        TrainerConfig(**T_CKPT, batch_size=TRAIN_BATCH, seq_len=T_CKPT_SEQ,
+                      steps=8, log_every=1, seed=seed, bf16=True,
+                      checkpoint_dir=d, host_sync_every=1, dp=2),
+        device, stop_event=stop,
+        on_step=lambda s: s == T_STOP_AFTER and stop.set())
+    banked = T_STOP_AFTER + 1
+    mgr = CheckpointManager(d)
+    steps = mgr.all_steps()
+    mgr.close()
+    last = [r["last_step"] for r in run["ranks"]]
+    if last != [banked, banked] or steps != [banked] \
+            or run["stopped_at"] != banked:
+        raise AssertionError(f"t.5: ranks stopped at {last}, checkpoints "
+                             f"{steps}, stop logged at {run['stopped_at']}; "
+                             f"want step {banked} on every rank")
+    return {"stop_after_step": T_STOP_AFTER, "ranks_last_step": last,
+            "checkpointed": steps, "wall_s": run["wall_s"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7168,7 +7734,12 @@ def main(argv=None) -> int:
                     help="phases to run after (a) and (b), e.g. 'f' while "
                          "iterating on a kernel; only a run of every phase "
                          "prints the kernels line and the ok line")
+    ap.add_argument("--serving-layers", type=int, default=FULL["n_layers"],
+                    help="the serving model's depth (phases e-n and s), "
+                         "e.g. 16 to read phase (s)'s token rules at "
+                         "another depth")
     args = ap.parse_args(argv)
+    FULL["n_layers"] = args.serving_layers
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -7258,6 +7829,9 @@ def main(argv=None) -> int:
     tp_launches = {}
     if "s" in args.phases:
         tp_launches = phase_tp(args.seed, card)
+    layouts = {}
+    if "t" in args.phases:
+        layouts = phase_layouts(args.seed, card, g_row, flush)
     del flush
     emit({"phase": "done", "seconds": time.perf_counter() - t_all,
           "card": card})
@@ -7302,6 +7876,24 @@ def main(argv=None) -> int:
                             "replaces": "nos_tpu/ops/attention.py:186",
                             "also_replaces": "nos_tpu/ops/attention.py:549",
                             **row})
+    # phase (t)'s rank shapes of the same kernels, each with the launches
+    # of the t.1 runs whose ranks ran it, summed over their ranks: a dp 2
+    # or fsdp 2 rank's (B 4, H 16/4), a dp 2 x tp 2 rank's (B 4, H 8/2);
+    # each layout's launches on adamw's row
+    for shape, labels in (("dp_shard", ("dp2", "fsdp2")),
+                          ("tp_shard", ("dp2_tp2",))):
+        for name, row in layouts["flash"][shape].items():
+            by = {label: layouts["launches"][label][name]
+                  for label in labels}
+            kernels.append({
+                "name": f"{name}_{shape}", "route": "cuda",
+                "source": "nos_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "nos_tpu/ops/attention.py:186",
+                "also_replaces": "nos_tpu/ops/attention.py:549",
+                **row, "launches": sum(by.values()),
+                "launches_by_layout": by})
+    adamw["launches_layouts"] = {label: n["adamw"] for label, n in
+                                 layouts["launches"].items()}
     kernels.append({"name": "adamw", "route": "cuda",
                     "source": "nos_tpu_torch/csrc/adamw.cu",
                     "replaces": "nos_tpu/train/optim.py:78",
@@ -7309,7 +7901,8 @@ def main(argv=None) -> int:
                                      "Pallas kernel)",
                     **{k: adamw[k] for k in (
                         "launches", "max_abs_err", "ms", "plain_ms",
-                        "bound_ms", "bound_by", "library_ms")}})
+                        "bound_ms", "bound_by", "library_ms",
+                        "launches_layouts")}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

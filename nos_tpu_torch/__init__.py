@@ -15,10 +15,12 @@ Slices ported so far:
   ``models.serving.DecodeServer`` -> ``models.generate.forward_paged``
   -> ``ops.attention.paged_decode_attention``), and the generate binary
   (``cmd.generate``);
-- single-device training (``cmd.trainer.train`` ->
+- training (``cmd.trainer.train`` ->
   ``models.transformer.make_train_step`` / ``loss_fn`` / ``forward`` ->
   ``ops.attention.attention``, with ``train.optim``, whose adamw runs
-  ``csrc/adamw.cu``, and ``train.data``);
+  ``csrc/adamw.cu``, and ``train.data``), and its ``dp``/``fsdp``/``tp``
+  layouts, one process a rank over ``torch.distributed``
+  (``parallel.mesh.TrainMesh``, ``parallel.launch``);
 - ``utils.prng``: the parts of ``jax.random`` the reference draws from
   (threefry), bit for bit, so seeds give the reference's streams.
 """

@@ -1,5 +1,4 @@
-"""nos-tpu-trainer on one card (port of ``nos_tpu/cmd/trainer.py``,
-single process).
+"""nos-tpu-trainer (port of ``nos_tpu/cmd/trainer.py``).
 
 Trains the decoder transformer, dense or Mixture-of-Experts
 (``n_experts``), on synthetic or memory-mapped token batches, logging
@@ -16,27 +15,48 @@ stops the run with a checkpoint when the control plane stamps a
 preemption or maintenance notice on the pod's node. Causal attention
 runs through the hand-written CUDA flash-attention kernels on the card.
 
-Not ported yet, and refused with a ValueError naming the knob: the
-parallel layouts (``dp``/``fsdp``/``tp``/``pp``/``sp``/``ep`` > 1) and a
-multi-host environment (``COORDINATOR_ADDRESS``).
-"""
-from __future__ import annotations
+The ``dp``, ``fsdp`` and ``tp`` layouts run one process a rank over a
+``torch.distributed`` process group (``parallel/mesh.py::TrainMesh``):
+rank 0 in the caller's process (its stop event, signal handler,
+profiler, metrics and return value are the caller's), ranks 1..N-1
+forked from a fork server that has imported the training modules
+(``parallel/launch.py``). Each rank draws the global batch and
+keeps its data rows, holds its part of the params and moments, and runs
+the flash and adamw kernels on them. One card a rank by default
+(``cuda:0..N-1``, NCCL); ``devices=`` may repeat one (gloo: NCCL refuses
+two ranks on one card), and ``device="cpu"`` runs every rank on the CPU
+over gloo. Several processes follow the reference's multi-host rule:
+every ``host_sync_every`` steps one collective carries the stop flag
+(any rank's) and rank 0's time-cadence save verdict, so every rank
+banks the same step. A checkpoint holds full leaves (gathered to rank
+0), so any layout, or one device, resumes it.
 
+Not ported yet, and refused with a ValueError naming the knob: ``pp``,
+``sp`` and ``ep`` > 1, MoE under ``tp``, and a multi-host environment
+(``COORDINATOR_ADDRESS``).
+"""
 import argparse
+import functools
 import json
 import logging
 import os
 import signal
+import sys
 import threading
 import time
 from dataclasses import dataclass, fields
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from nos_tpu_torch.device import DeviceLike, resolve_device
+from nos_tpu_torch.parallel.layout import ParallelLayout
 
 logger = logging.getLogger("nos_tpu_torch.trainer")
+
+# under a layout: every collective's time limit, and how long the other
+# ranks have to report once rank 0 is done (parallel/launch.py)
+RANK_TIMEOUT_S = 600.0
 
 
 @dataclass
@@ -137,15 +157,40 @@ class TrainerConfig:
 
 def check_ported(cfg: TrainerConfig) -> None:
     """Raise a ValueError naming the first knob this slice does not run."""
-    for knob in ("dp", "fsdp", "tp", "pp", "sp", "ep"):
+    for knob in ("pp", "sp", "ep"):
         if getattr(cfg, knob) > 1:
             raise ValueError(
-                f"{knob}={getattr(cfg, knob)}: parallel layouts are not "
-                f"ported yet; the torch trainer runs one process on one "
-                f"card")
+                f"{knob}={getattr(cfg, knob)}: pipeline, sequence and "
+                f"expert parallelism are not ported yet; the torch trainer "
+                f"runs the dp, fsdp and tp layouts")
+    if cfg.n_experts > 0 and cfg.tp > 1:
+        raise ValueError(
+            f"n_experts={cfg.n_experts} under tp={cfg.tp}: tensor-parallel "
+            f"MoE (with ep) is not ported yet; MoE trains under dp and "
+            f"fsdp")
     if os.environ.get("COORDINATOR_ADDRESS"):
         raise ValueError(
             "COORDINATOR_ADDRESS: multi-host training is not ported yet")
+
+
+def layout_devices(layout: ParallelLayout, device: DeviceLike = None,
+                   devices: Optional[Sequence[DeviceLike]] = None
+                   ) -> List[torch.device]:
+    """Each rank's device: ``devices`` as listed (a device may repeat),
+    else every rank on the CPU for ``device="cpu"``, else one card a
+    rank (``cuda:0..N-1``). Raises the reference's message when there
+    are fewer than the layout's chips."""
+    if devices is not None:
+        devs = [torch.device(d) for d in devices]
+    elif device is not None and torch.device(device).type == "cpu":
+        devs = [torch.device("cpu")] * layout.chips
+    else:
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if layout.chips > len(devs):
+        raise ValueError(f"layout needs {layout.chips} chips, only "
+                         f"{len(devs)} devices")
+    return devs[:layout.chips]
 
 
 def synthetic_batch(cfg: TrainerConfig, step: int,
@@ -195,37 +240,141 @@ def _stop_profile(prof, cfg: TrainerConfig, first: int, end: int,
 
 
 def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
-          device: DeviceLike = None) -> float:
-    """Run the configured training job on one card (``device="cpu"`` runs
-    the plain PyTorch versions); returns the final loss.
+          device: DeviceLike = None,
+          devices: Optional[Sequence[DeviceLike]] = None) -> float:
+    """Run the configured training job; returns the final loss (rank
+    0's, the mean over the data ranks, under a layout). One device:
+    ``device`` (the card by default; ``device="cpu"`` runs the plain
+    PyTorch versions). A layout (``dp`` x ``fsdp`` x ``tp`` > 1): one
+    process a rank on ``layout_devices(layout, device, devices)``.
 
     ``stop_event`` requests a graceful early exit after the current step.
     When ``cfg.handle_sigterm`` is set and this is the main thread,
     SIGTERM sets it (the Kubernetes preemption contract): the step just
-    completed is checkpointed and the loop exits.
+    completed is checkpointed and the loop exits. Under a layout the
+    ranks agree on the stop every ``host_sync_every`` steps, which needs
+    ``handle_sigterm``.
 
     With ``cfg.profile_dir`` a torch.profiler trace covers the
     ``profile_steps`` steps from the first at or past ``profile_start``
     (so a run resumed past it still traces), and is stopped and written
-    on every exit path."""
-    from nos_tpu_torch.models import transformer as tfm
-    from nos_tpu_torch.train.data import (
-        TokenDataset, prefetch_to_device, to_device,
-    )
-    from nos_tpu_torch.train.optim import build_optimizer
-    from nos_tpu_torch.utils.metrics import default_registry
+    on every exit path (rank 0's, under a layout)."""
+    from nos_tpu_torch.models.transformer import check_layout
+    from nos_tpu_torch.parallel.launch import run_ranks
+    from nos_tpu_torch.parallel.mesh import mesh_backend
 
     check_ported(cfg)
-    device = resolve_device(device)
-    model_cfg = tfm.TransformerConfig(
+    layout = ParallelLayout(dp=cfg.dp, fsdp=cfg.fsdp, tp=cfg.tp)
+    if layout.chips == 1:
+        device = resolve_device(device if devices is None else devices[0])
+        return _run(cfg, stop_event, device, None)["loss"]
+    check_layout(_model_config(cfg), layout, cfg.batch_size)
+    if stop_event is not None and not cfg.handle_sigterm:
+        raise ValueError(
+            "stop_event on a multi-host run requires handle_sigterm: true "
+            "— without the per-step flag agreement an early breaker "
+            "deadlocks the gang's collectives")
+    devs = layout_devices(layout, device, devices)
+    names = [str(d) for d in devs]
+    backend = mesh_backend(devs)
+    shared = len(set(names)) < len(names)
+    msg = (f"layout dp={cfg.dp} fsdp={cfg.fsdp} tp={cfg.tp}: "
+           f"{layout.chips} ranks on {names}, backend {backend}"
+           + (" (ranks share a device; NCCL takes one rank a device)"
+              if shared and devs[0].type == "cuda" else ""))
+    logger.info(msg)
+    print(f"nos_tpu_torch.trainer: {msg}", file=sys.stderr, flush=True)
+    if devs[0].type == "cuda":
+        from nos_tpu_torch.ops import _kernels
+
+        # built once, here: the other ranks load the libraries
+        _kernels.build_all()
+    ranks = run_ranks(
+        lambda store: _rank(0, store, cfg, names, RANK_TIMEOUT_S,
+                            stop_event),
+        _rank, (cfg, names, RANK_TIMEOUT_S), layout.chips, RANK_TIMEOUT_S)
+    for r in ranks:
+        logger.info("rank %d of %d on %s: steps %d-%d, loss %.6f, peak "
+                    "device memory %d bytes, params and moments %d bytes, "
+                    "kernel launches %s", r["rank"], layout.chips,
+                    r["device"], r["first_step"], r["last_step"], r["loss"],
+                    r["peak_bytes"], r["state_bytes"], r["launches"],
+                    extra={"rank_summary": r})
+    return ranks[0]["loss"]
+
+
+def _rank(rank: int, store: str, cfg: TrainerConfig, devices: List[str],
+          timeout_s: float,
+          stop_event: Optional[threading.Event] = None) -> dict:
+    """One rank of a layout: join its process group, train, leave the
+    group on every exit path; returns ``_run``'s summary."""
+    import torch.distributed as dist
+
+    from nos_tpu_torch.parallel.mesh import init_train_mesh
+
+    layout = ParallelLayout(dp=cfg.dp, fsdp=cfg.fsdp, tp=cfg.tp)
+    # joining a group wraps sys.excepthook (torch prefixes tracebacks
+    # with the rank) and leaving it does not unwrap: rank 0 is the
+    # caller's process, which a later train() finds as it was
+    hook = sys.excepthook
+    try:
+        mesh = init_train_mesh(layout, rank, devices, store, timeout_s)
+        return _run(cfg, stop_event, mesh.device, mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        sys.excepthook = hook
+
+
+def _model_config(cfg: TrainerConfig):
+    from nos_tpu_torch.models import transformer as tfm
+
+    return tfm.TransformerConfig(
         vocab=cfg.vocab, d_model=cfg.d_model, n_layers=cfg.n_layers,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
         max_seq=cfg.max_seq, n_experts=cfg.n_experts,
         sp_strategy=cfg.sp_strategy, remat_policy=cfg.remat_policy,
         loss_chunk=cfg.loss_chunk,
         dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
+
+
+def _tree(names: List[str], leaves: list) -> dict:
+    """``param_leaves``' leaves back into the params dict by their
+    ``leaf_names``."""
+    out: dict = {}
+    for name, leaf in zip(names, leaves):
+        *path, key = name.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[key] = leaf
+    return out
+
+
+def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
+         device: torch.device, mesh) -> dict:
+    """The training loop of one device, or of one rank of ``mesh`` (a
+    ``TrainMesh``). Returns a summary: rank, device, the first and last
+    steps, the final loss, peak device memory, the bytes of this rank's
+    params and moments, the training kernels' launches in this
+    process."""
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.ops import _kernels
+    from nos_tpu_torch.train.data import (
+        TokenDataset, prefetch_to_device, to_device,
+    )
+    from nos_tpu_torch.train.optim import build_optimizer
+    from nos_tpu_torch.utils.metrics import default_registry
+
+    model_cfg = _model_config(cfg)
+    rank0 = mesh is None or mesh.rank == 0
     params = tfm.init_params(
         model_cfg, torch.Generator(device).manual_seed(cfg.seed), device)
+    names = tfm.leaf_names(params)
+    splits = None
+    if mesh is not None:
+        splits = tfm.leaf_splits(params, mesh)
+        params = tfm.rank_params(params, mesh)
     leaves = tfm.param_leaves(params)
     for p in leaves:
         p.requires_grad_()
@@ -234,7 +383,20 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
         warmup_steps=cfg.warmup_steps, schedule=cfg.lr_schedule,
         min_lr_ratio=cfg.min_lr_ratio, weight_decay=cfg.weight_decay,
         b1=cfg.adam_b1, b2=cfg.adam_b2, grad_clip=cfg.grad_clip,
-        accum_steps=cfg.accum_steps)
+        accum_steps=cfg.accum_steps,
+        shard_sums=(functools.partial(mesh.shard_sums, splits=splits)
+                    if mesh is not None else None))
+
+    # a leaf's (tp, fsdp) axes by its checkpoint name: params and moments
+    axes = {}
+    if mesh is not None:
+        for i, (name, split) in enumerate(zip(names, splits)):
+            axes[f"params/{name}"] = split
+            for key in ("mu", "nu", "acc"):
+                axes[f"opt_state/{key}/{i}"] = split
+
+    def part(name: str, full: torch.Tensor) -> torch.Tensor:
+        return mesh.local_part(full, *axes[name]) if name in axes else full
 
     ckpt = None
     start_step = 0
@@ -243,20 +405,51 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
             CheckpointManager, model_arch_dict,
         )
 
-        ckpt = CheckpointManager(cfg.checkpoint_dir)
-        # stamp (or, on resume, validate against) the architecture so a
-        # config drift between runs fails by field name, not shape error
-        ckpt.write_model_config(model_arch_dict(cfg))
+        if rank0:
+            ckpt = CheckpointManager(cfg.checkpoint_dir)
+            # stamp (or, on resume, validate against) the architecture so
+            # a config drift between runs fails by field name, not shape
+            # error
+            ckpt.write_model_config(model_arch_dict(cfg))
+        if mesh is not None:
+            # rank 0's manager has cleared any save a crash cut short
+            mesh.barrier()
+            if not rank0:
+                ckpt = CheckpointManager(cfg.checkpoint_dir)
         latest = ckpt.latest()
         if latest is not None:
-            # into the live leaves and moments, in place
+            # into the live leaves and moments, in place (a rank: its
+            # part of each full leaf)
             _, opt_state = ckpt.restore(
                 latest, params_template=params,
-                opt_state_template=optimizer.state_dict())
+                opt_state_template=optimizer.state_dict(),
+                part=part if mesh is not None else None)
             optimizer.load_state_dict(opt_state)
             start_step = latest
             logger.info("resumed from checkpoint step %d", latest)
-    step_fn = tfm.make_train_step(model_cfg, optimizer)
+    step_fn = tfm.make_train_step(model_cfg, optimizer, mesh)
+
+    def save(step: int, wait: bool = True) -> None:
+        if mesh is None:
+            # async: the copy overlaps the next step's forward and
+            # backward; its update waits for the copy on the device
+            optimizer.fence(ckpt.save(step, params, optimizer.state_dict(),
+                                      wait=wait))
+            return
+        # a collective: every leaf whole, on rank 0's host, which writes
+        # the one-device format (synchronously: the copies are its own)
+        def whole(i: int, t: torch.Tensor):
+            full = mesh.full_leaf(t.detach(), *splits[i])
+            return full.cpu() if rank0 else None
+
+        state = optimizer.state_dict()
+        full_state = {k: ([whole(i, t) for i, t in enumerate(v)]
+                          if isinstance(v, list) else v)
+                      for k, v in state.items()}
+        full_params = _tree(names, [whole(i, t)
+                                    for i, t in enumerate(leaves)])
+        if rank0:
+            ckpt.save(step, full_params, full_state)
 
     dataset = None
     if cfg.data_path:
@@ -268,12 +461,21 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
         eval_dataset = TokenDataset(cfg.eval_data_path, cfg.seq_len,
                                     seed=cfg.seed + 2)
 
+    def rows(batch: dict) -> dict:
+        # a rank keeps its data rows of the global batch (the reference's
+        # data_sharding: dp outer, fsdp inner)
+        if mesh is None:
+            return batch
+        n = cfg.batch_size // mesh.data_size
+        return {k: v[mesh.data_index * n:(mesh.data_index + 1) * n]
+                for k, v in batch.items()}
+
     def batch_for(step: int) -> dict:
         # a pure function of (seed, step), so a resumed run replays the
         # stream an uninterrupted one would have seen
         if dataset is not None:
-            return dataset.batch(step, cfg.batch_size)
-        return synthetic_batch(cfg, step, device)
+            return rows(dataset.batch(step, cfg.batch_size))
+        return rows(synthetic_batch(cfg, step, device))
 
     def put(batch: dict) -> dict:
         return to_device(batch, device)
@@ -303,8 +505,9 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
     loss = float("nan")
     preempted = False
     last_saved = start_step
+    done = start_step
     prof = None
-    profiled = not (cfg.profile_dir and cfg.profile_steps > 0)
+    profiled = not (rank0 and cfg.profile_dir and cfg.profile_steps > 0)
     profile_first = profile_end = start_step
     t0 = time.perf_counter()
     last_log_t, last_log_step = t0, start_step
@@ -319,6 +522,12 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
         # hundreds of small launches contend with the step's dispatch
         # for the interpreter lock (10-30 ms a step on an H100)
         batches = (put(batch_for(s)) for s in range(start_step, cfg.steps))
+
+    def due_by_clock() -> bool:
+        return (ckpt is not None and cfg.checkpoint_every_s > 0
+                and time.perf_counter() - last_save_t
+                >= cfg.checkpoint_every_s)
+
     try:
         if cfg.handle_sigterm and \
                 threading.current_thread() is threading.main_thread():
@@ -338,6 +547,7 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
                 profile_first = step
                 profile_end = step + cfg.profile_steps
             loss_t = step_fn(params, batch)
+            done = step + 1
             m_steps.inc()
             m_tokens.inc(cfg.batch_size * cfg.seq_len)
             if prof is not None and step + 1 >= profile_end:
@@ -346,7 +556,23 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
             # the next batch goes on the stream behind this step, before
             # the host waits for its loss
             batch = next(batches, None)
-            if stop.is_set():
+            due_by_time = None      # one device: read after eval
+            if mesh is None:
+                stop_now = stop.is_set()
+            else:
+                # the ranks agree on a step-keyed cadence: one collective
+                # carries any rank's stop flag and rank 0's clock verdict
+                # (clocks differ, so rank 0 arbitrates)
+                stop_now = due_by_time = False
+                sync_now = ((step + 1) % max(cfg.host_sync_every, 1) == 0
+                            or step + 1 == cfg.steps)
+                if sync_now and (cfg.handle_sigterm or (
+                        ckpt is not None and cfg.checkpoint_every_s > 0)):
+                    flags = mesh.flags([
+                        float(cfg.handle_sigterm and stop.is_set()),
+                        float(rank0 and due_by_clock())])
+                    stop_now, due_by_time = flags[0] > 0, flags[1] > 0
+            if stop_now:
                 # preemption: bank the step just completed (synchronous:
                 # the grace period is short, so before eval and the
                 # periodic save) under its true count, so a resume
@@ -354,7 +580,7 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
                 preempted = True
                 loss = float(loss_t)
                 if ckpt is not None and last_saved != step + 1:
-                    ckpt.save(step + 1, params, optimizer.state_dict())
+                    save(step + 1)
                     last_saved = step + 1
                     m_saves.inc()
                 m_preempt.inc()
@@ -377,26 +603,23 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
             if eval_dataset is not None and (step + 1) % cfg.eval_every == 0:
                 if eval_batches is None:
                     # the eval set is deterministic: stage it once
-                    eval_batches = [put(eval_dataset.batch(i,
-                                                           cfg.batch_size))
-                                    for i in range(cfg.eval_steps)]
+                    eval_batches = [put(rows(eval_dataset.batch(
+                        i, cfg.batch_size))) for i in range(cfg.eval_steps)]
                 with torch.no_grad():
-                    losses = [float(tfm.loss_fn(params, model_cfg, eb))
-                              for eb in eval_batches]
+                    losses = []
+                    for eb in eval_batches:
+                        e = tfm.loss_fn(params, model_cfg, eb, mesh)
+                        losses.append(float(e if mesh is None
+                                            else mesh.data_mean(e)))
                 mean = sum(losses) / len(losses)
                 g_eval.set(mean)
                 logger.info("step %d eval loss %.4f (%d batches)", step + 1,
                             mean, cfg.eval_steps)
-            due_by_time = (ckpt is not None and cfg.checkpoint_every_s > 0
-                           and time.perf_counter() - last_save_t
-                           >= cfg.checkpoint_every_s)
+            if due_by_time is None:
+                due_by_time = due_by_clock()
             if ckpt is not None and (
                     (step + 1) % cfg.checkpoint_every == 0 or due_by_time):
-                # async: the copy overlaps the next step's forward and
-                # backward; its update waits for the copy on the device
-                optimizer.fence(ckpt.save(step + 1, params,
-                                          optimizer.state_dict(),
-                                          wait=False))
+                save(step + 1, wait=False)
                 last_saved = step + 1
                 last_save_t = time.perf_counter()
                 m_saves.inc()
@@ -406,7 +629,7 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
         # progress as cfg.steps); finally fences and closes
         if ckpt is not None and not preempted and start_step < cfg.steps \
                 and last_saved != cfg.steps:
-            ckpt.save(cfg.steps, params, optimizer.state_dict())
+            save(cfg.steps)
             m_saves.inc()
     finally:
         # release the prefetch producer (and the batches it holds) now
@@ -424,7 +647,17 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
         # train() in this process finds no profiler running
         if prof is not None:
             _stop_profile(prof, cfg, profile_first, step + 1, device)
-    return loss
+    state = leaves + [t for k in ("mu", "nu", "acc")
+                      for t in optimizer.state_dict().get(k, ())]
+    return {"rank": 0 if mesh is None else mesh.rank, "device": str(device),
+            "first_step": start_step, "last_step": done, "loss": loss,
+            "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else 0),
+            "state_bytes": sum(t.numel() * t.element_size() for t in state),
+            "launches": {k.symbol[4:]: k.launches for k in (
+                _kernels.flash_fwd, _kernels.flash_bwd_pre,
+                _kernels.flash_bwd_dkdv, _kernels.flash_bwd_dq,
+                _kernels.adamw)}}
 
 
 def main(argv: Optional[Sequence[str]] = None,

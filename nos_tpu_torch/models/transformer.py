@@ -15,17 +15,29 @@ that stand for the reference's names (``REMAT_NAMES``). With
 (``w_router`` [L, d, E] f32, experts [L, E, d, f] / [L, E, f, d]); the
 decode path serves it (``models/generate.py``) and the training
 ``forward`` trains it, the layers' aux losses averaged into
-``loss_fn``. Sequence parallelism is not ported: it needs a mesh.
+``loss_fn``.
+
+With a ``parallel.mesh.TrainMesh`` (``forward``/``loss_fn``/
+``make_train_step``'s ``mesh``) params are this rank's parts
+(``rank_params``, in ``param_shardings``' layout: ``TP_SPLIT`` and
+``FSDP_SPLIT``) and the batch its data rows: under tp a layer runs its
+H/tp query heads, Hkv/tp kv heads and d_ff/tp, the embedding is a
+vocab-split lookup and the loss Megatron's vocab-parallel
+cross-entropy; under fsdp each layer gathers its leaves just before use
+(inside the remat checkpoint, so a recompute gathers again); every
+leaf's gradient is averaged over the data ranks. Sequence, pipeline and
+expert parallelism are not ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
@@ -39,6 +51,7 @@ from nos_tpu_torch.ops.layers import (
 )
 from nos_tpu_torch.ops.moe import expert_capacity, moe_ffn
 from nos_tpu_torch.ops.quant import QuantLinear
+from nos_tpu_torch.parallel.mesh import TrainMesh
 
 Params = Dict[str, Any]
 
@@ -200,6 +213,13 @@ def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
 TP_SPLIT = {"embed": 0, "unembed": -1, "final_norm": None,
             "attn_norm": None, "mlp_norm": None, "wq": -1, "wk": -1,
             "wv": -1, "w_gate": -1, "w_up": -1, "wo": -2, "w_down": -2}
+# ... and the axis each splits along over fsdp (the matmul axis tp does
+# not take: d_model everywhere, the experts' and the router's too);
+# the embeddings and norms are whole on every fsdp rank
+FSDP_SPLIT = {"embed": None, "unembed": None, "final_norm": None,
+              "attn_norm": None, "mlp_norm": None, "wq": -2, "wk": -2,
+              "wv": -2, "w_gate": -2, "w_up": -2, "wo": -1, "w_down": -1,
+              "w_router": -2}
 
 
 @dataclass
@@ -301,53 +321,168 @@ def param_leaves(params: Params) -> List[torch.Tensor]:
     return out
 
 
+def leaf_names(params: Params, prefix: str = "") -> List[str]:
+    """``param_leaves``' leaves by path (``embed``, ``layers/wq``), in
+    its order."""
+    out = []
+    for key in sorted(params):
+        v = params[key]
+        out.extend(leaf_names(v, f"{prefix}{key}/") if isinstance(v, dict)
+                   else [prefix + key])
+    return out
+
+
+def leaf_splits(params: Params, mesh: TrainMesh
+                ) -> List[Tuple[Optional[int], Optional[int]]]:
+    """Each leaf's (tp axis, fsdp axis) on ``mesh``, in ``param_leaves``'
+    order; None where the axis has one rank or does not split it."""
+    out = []
+    for name in leaf_names(params):
+        key = name.rsplit("/", 1)[-1]
+        out.append((TP_SPLIT.get(key) if mesh.tp > 1 else None,
+                    FSDP_SPLIT[key] if mesh.fsdp > 1 else None))
+    return out
+
+
+def check_layout(cfg: TransformerConfig, layout,
+                 batch_size: int) -> None:
+    """Raise a ValueError when ``cfg`` or the batch cannot be laid out
+    over ``layout`` (a ``ParallelLayout``'s dp, fsdp, tp): tp by
+    ``check_tp``'s messages, fsdp over d_model, the batch over the data
+    ranks; the MoE family is not split over tp."""
+    if layout.tp > 1:
+        if cfg.n_experts > 0:
+            raise ValueError(
+                f"n_experts={cfg.n_experts} under tp={layout.tp}: "
+                f"tensor-parallel MoE (with ep) is not ported")
+        check_tp(cfg, layout.tp)
+    if cfg.d_model % layout.fsdp:
+        raise ValueError(f"d_model {cfg.d_model} not divisible by "
+                         f"fsdp={layout.fsdp}")
+    if batch_size % (layout.dp * layout.fsdp):
+        raise ValueError(f"batch_size {batch_size} not divisible by the "
+                         f"data ranks dp x fsdp = "
+                         f"{layout.dp * layout.fsdp}")
+
+
+def rank_params(params: Params, mesh: TrainMesh) -> Params:
+    """This rank's part of full ``params`` (the reference's
+    ``device_put(params, param_shardings(mesh, cfg))`` for one device):
+    each leaf its tp slice, then its fsdp slice, a contiguous tensor of
+    its own (the adamw kernel takes one leaf a launch)."""
+    def part(name: str, leaf: torch.Tensor) -> torch.Tensor:
+        return mesh.local_part(leaf, TP_SPLIT.get(name), FSDP_SPLIT[name])
+
+    return {k: ({n: part(n, t) for n, t in v.items()} if k == "layers"
+                else part(k, v)) for k, v in params.items()}
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
 def attention_block(h_in: torch.Tensor, layer: dict, cfg: TransformerConfig,
-                    freqs, attention_call) -> torch.Tensor:
+                    freqs, attention_call,
+                    mesh: Optional[TrainMesh] = None) -> torch.Tensor:
     """Pre-RMSNorm attention sublayer + residual. ``attention_call(q, k,
     v)`` takes/returns [B, S, H, D]; k/v stay at kv_heads (GQA grouped
     inside the attention op). q, k (after rope) and v come out of the
     ``qkv_proj`` op, the reference's ``"qkv_proj"`` tensors, and o out of
-    the flash op, its ``"attn_out"``."""
+    the flash op, its ``"attn_out"``. Under tp the layer holds H/tp
+    query and Hkv/tp kv heads, and the o product's partial sums are
+    reduced over the tp ranks."""
     b, s = h_in.shape[:2]
+    tp = mesh.tp if mesh is not None else 1
     h = rms_norm(h_in, layer["attn_norm"])
+    if mesh is not None:
+        h = mesh.copy_to_tp(h)
     q, k, v = qkv_proj(h, layer["wq"], layer["wk"], layer["wv"],
-                       *rope_rows(freqs, None, s), cfg.n_heads, cfg.kv_heads)
-    o = attention_call(q, k, v).reshape(b, s, cfg.d_model)
-    return h_in + torch.matmul(o, layer["wo"])
+                       *rope_rows(freqs, None, s), cfg.n_heads // tp,
+                       cfg.kv_heads // tp)
+    o = attention_call(q, k, v).reshape(b, s, cfg.d_model // tp)
+    out = torch.matmul(o, layer["wo"])
+    if mesh is not None:
+        out = mesh.reduce_from_tp(out)
+    return h_in + out
 
 
-def dense_ffn_block(h_in: torch.Tensor, layer: dict) -> torch.Tensor:
-    """Pre-RMSNorm SwiGLU FFN sublayer + residual."""
+def dense_ffn_block(h_in: torch.Tensor, layer: dict,
+                    mesh: Optional[TrainMesh] = None) -> torch.Tensor:
+    """Pre-RMSNorm SwiGLU FFN sublayer + residual; under tp over d_ff/tp,
+    the down product's partial sums reduced over the tp ranks."""
     h = rms_norm(h_in, layer["mlp_norm"])
-    return h_in + swiglu(h, layer["w_gate"], layer["w_up"], layer["w_down"])
+    if mesh is None:
+        return h_in + swiglu(h, layer["w_gate"], layer["w_up"],
+                             layer["w_down"])
+    y = swiglu(mesh.copy_to_tp(h), layer["w_gate"], layer["w_up"],
+               layer["w_down"])
+    return h_in + mesh.reduce_from_tp(y)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
-    return nll.mean()
+    return _token_nll(logits, targets, None).mean()
 
 
-def _chunk_nll(xc: torch.Tensor, tc: torch.Tensor,
-               unembed: torch.Tensor) -> torch.Tensor:
+class _VocabParallelNLL(torch.autograd.Function):
+    """Megatron's vocab-parallel cross-entropy: f32 logits [..., V/tp] of
+    this tp rank's vocab rows [start, start + V/tp) -> each token's
+    -log p(target) [...], from the all-reduced max, sum of exponentials
+    and target logit (no rank holds the full logits). Its gradient is
+    softmax - one-hot, on the rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, mesh):
+        n = logits.shape[-1]
+        m = mesh.all_reduce_tp_(logits.amax(dim=-1, keepdim=True),
+                                dist.ReduceOp.MAX)
+        shifted = logits - m
+        total = mesh.all_reduce_tp_(shifted.exp().sum(dim=-1, keepdim=True))
+        local = targets[..., None].long() - start
+        inside = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        picked = torch.where(inside, torch.gather(shifted, -1, local), 0.0)
+        picked = mesh.all_reduce_tp_(picked)
+        ctx.save_for_backward(shifted, total, local, inside)
+        return (torch.log(total) - picked)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        shifted, total, local, inside = ctx.saved_tensors
+        grad = torch.exp(shifted) / total
+        grad.scatter_add_(-1, local, -inside.to(grad.dtype))
+        return grad * g[..., None], None, None, None
+
+
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor,
+               mesh: Optional[TrainMesh]) -> torch.Tensor:
+    """Each token's -log p(target) from f32 logits: the whole vocab's,
+    or this tp rank's columns of it."""
+    if mesh is None or mesh.tp == 1:
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    return _VocabParallelNLL.apply(logits, targets,
+                                   mesh.tp_index * logits.shape[-1], mesh)
+
+
+def _chunk_nll(xc: torch.Tensor, tc: torch.Tensor, unembed: torch.Tensor,
+               mesh: Optional[TrainMesh] = None) -> torch.Tensor:
     logits = torch.matmul(xc, unembed).float()
-    logp = torch.log_softmax(logits, dim=-1)
-    return -torch.gather(logp, -1, tc[..., None].long()).sum()
+    return _token_nll(logits, tc, mesh).sum()
 
 
 def lm_head_loss(norm_w: torch.Tensor, unembed: torch.Tensor,
                  hidden: torch.Tensor, targets: torch.Tensor,
-                 loss_chunk: int = 0) -> torch.Tensor:
+                 loss_chunk: int = 0,
+                 mesh: Optional[TrainMesh] = None) -> torch.Tensor:
     """Final rms-norm + unembed + token cross-entropy. With loss_chunk > 0
     the sequence runs in checkpointed chunks (the reference's
     ``jax.checkpoint`` under ``lax.scan``), so the f32 [B, S, vocab]
     logits never exist at once: backward recomputes one [B, chunk,
-    vocab] block at a time."""
+    vocab] block at a time. Under tp ``unembed`` holds this rank's vocab
+    columns and the loss is vocab-parallel, chunk by chunk."""
     hidden = rms_norm(hidden, norm_w)
+    if mesh is not None:
+        hidden = mesh.copy_to_tp(hidden)
     b, s, _ = hidden.shape
     if loss_chunk and s > loss_chunk and s % loss_chunk != 0:
         raise ValueError(
@@ -360,11 +495,11 @@ def lm_head_loss(norm_w: torch.Tensor, unembed: torch.Tensor,
         for c0 in range(0, s, loss_chunk):
             total = total + checkpoint(
                 _chunk_nll, hidden[:, c0:c0 + loss_chunk],
-                targets[:, c0:c0 + loss_chunk], unembed,
+                targets[:, c0:c0 + loss_chunk], unembed, mesh,
                 use_reentrant=False)
         return total / (b * s)
     logits = torch.matmul(hidden, unembed).float()
-    return cross_entropy(logits, targets)
+    return _token_nll(logits, targets, mesh).mean()
 
 
 # the reference's checkpoint names -> the registered ops whose outputs
@@ -400,28 +535,32 @@ def remat_saved_ops(policy: str) -> frozenset:
     return frozenset(REMAT_NAMES[n] for n in _SAVED_NAMES[policy])
 
 
-def remat_context_fn(policy: str, down: Any = None):
+def remat_context_fn(policy: str,
+                     down: Optional[Callable[[], torch.Tensor]] = None):
     """``context_fn`` for a layer's ``torch.utils.checkpoint``: saves the
     outputs of ``remat_saved_ops(policy)`` in the forward and hands them
     to the recompute in backward, which runs the rest of the layer
     again and stops after the last tensor backward needs (the
     checkpoint's early stop), so a product whose output only feeds the
-    residual add is not re-run either. ``down`` is the layer's dense
-    down-projection weight: its product (an ``aten.mm`` with it on the
-    right) is not saved, because no backward reads its output, as the
-    reference's partial evaluation drops it; the early stop ends before
-    it, so it never re-runs. (Under MoE the last product is the
-    combine's ``bmm``, which no policy saves.)"""
+    residual add is not re-run either. ``down()`` is the layer's dense
+    down-projection weight as its body uses it (under fsdp the gathered
+    tensor the body made last): its product (an ``aten.mm`` with it on
+    the right) is not saved, because no backward reads its output, as
+    the reference's partial evaluation drops it; the early stop ends
+    before it, so it never re-runs. (Under MoE the last product is the
+    combine's ``bmm``, which no policy saves.) A collective's output is
+    never saved: none is among the ops."""
     ops = remat_saved_ops(policy)
     if not ops:
         return noop_context_fn
     mm = torch.ops.aten.mm.default
-    skip = (down.data_ptr()
-            if down is not None and mm in ops else None)
+    if mm not in ops:
+        down = None
 
     def policy_fn(ctx, func, *args, **kwargs):
-        if func in ops and not (func is mm and skip is not None
-                                and args[1].data_ptr() == skip):
+        if func in ops and not (func is mm and down is not None
+                                and args[1].data_ptr()
+                                == down().data_ptr()):
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -476,8 +615,34 @@ def _attention_call(q: torch.Tensor, k: torch.Tensor,
     return attention(q, k, v, causal=True).transpose(1, 2)
 
 
+def _data_parallel(params: Params, mesh: TrainMesh) -> Params:
+    """``params`` with each leaf's gradient averaged over the data ranks
+    (``TrainMesh.grad_mean``): one all-reduce a leaf when backward has
+    summed all of its uses."""
+    def mean(name: str, leaf: torch.Tensor) -> torch.Tensor:
+        return mesh.grad_mean(leaf, FSDP_SPLIT[name] is not None)
+
+    return {k: ({n: mean(n, t) for n, t in v.items()} if k == "layers"
+                else mean(k, v)) for k, v in params.items()}
+
+
+def _embed(tokens: torch.Tensor, embed: torch.Tensor,
+           mesh: Optional[TrainMesh]) -> torch.Tensor:
+    """The embedding lookup; under tp of this rank's vocab rows (a token
+    outside them looks up zeros), summed over the tp ranks."""
+    if mesh is None or mesh.tp == 1:
+        return F.embedding(tokens, embed)
+    rows = embed.shape[0]
+    local = tokens - mesh.tp_index * rows
+    inside = ((local >= 0) & (local < rows))[..., None]
+    x = torch.where(inside, F.embedding(local.clamp(0, rows - 1), embed),
+                    0.0)
+    return mesh.reduce_from_tp(x)
+
+
 def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
-            return_aux: bool = False, return_hidden: bool = False):
+            return_aux: bool = False, return_hidden: bool = False,
+            mesh: Optional[TrainMesh] = None):
     """tokens [B, S] -> logits [B, S, vocab] f32 (plus the MoE auxiliary
     loss, 0 on the dense path, when ``return_aux``). ``return_hidden``
     yields the pre-head hidden state [B, S, d_model] + aux instead, for
@@ -488,30 +653,42 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     "full" and "dots"). With ``n_experts > 0`` each layer's FFN is
     ``moe_ffn`` and the aux loss is the mean of the layers' (each
     returned by the checkpointed body, so the recompute routes with the
-    same bits under every policy)."""
+    same bits under every policy). With ``mesh``: this rank's params
+    (``rank_params``) and batch rows; its gating statistics are means
+    over the data ranks (the reference's over the global batch), and
+    its logits are its tp rank's vocab columns."""
     freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                              tokens.device)
-    x = F.embedding(tokens, params["embed"])
+    x = _embed(tokens, params["embed"], mesh)
     layers = params["layers"]
+    batch_mean = mesh.data_mean if mesh is not None and \
+        mesh.data_size > 1 else None
+    # the down weight as the body last used it, for the remat policy
+    held = {}
 
     def layer_body(x, *tensors):
         layer = dict(zip(names, tensors))
-        x = attention_block(x, layer, cfg, freqs, _attention_call)
+        if mesh is not None:
+            layer = {n: mesh.gather_fsdp(t, FSDP_SPLIT[n])
+                     for n, t in layer.items()}
+        held["w_down"] = layer["w_down"]
+        x = attention_block(x, layer, cfg, freqs, _attention_call, mesh)
         if cfg.n_experts > 0:
             h = rms_norm(x, layer["mlp_norm"])
             y, aux = moe_ffn(h, layer["w_router"], layer["w_gate"],
                              layer["w_up"], layer["w_down"],
-                             cfg.expert_capacity_factor)
+                             cfg.expert_capacity_factor,
+                             batch_mean=batch_mean)
             return x + y, aux
-        return dense_ffn_block(x, layer), x.new_zeros((), dtype=torch.float32)
+        return (dense_ffn_block(x, layer, mesh),
+                x.new_zeros((), dtype=torch.float32))
 
     names = sorted(layers)
+    down = (lambda: held["w_down"]) if cfg.n_experts == 0 else None
     auxes = []
     for i in range(cfg.n_layers):
         tensors = [layers[n][i] for n in names]
         if cfg.remat:
-            down = tensors[names.index("w_down")] if cfg.n_experts == 0 \
-                else None
             x, aux = checkpoint(layer_body, x, *tensors, use_reentrant=False,
                                 context_fn=remat_context_fn(
                                     cfg.remat_policy, down))
@@ -522,6 +699,8 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     if return_hidden:
         return x, aux
     x = rms_norm(x, params["final_norm"])
+    if mesh is not None:
+        x = mesh.copy_to_tp(x)
     logits = torch.matmul(x, params["unembed"]).float()
     if return_aux:
         return logits, aux
@@ -533,25 +712,37 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def loss_fn(params: Params, cfg: TransformerConfig,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    hidden, aux = forward(params, cfg, batch["tokens"], return_hidden=True)
+            batch: Dict[str, torch.Tensor],
+            mesh: Optional[TrainMesh] = None) -> torch.Tensor:
+    """The batch's mean token loss (+ the weighted MoE aux loss). With
+    ``mesh``, this rank's: its rows' mean (the aux loss over the data
+    ranks' batch), whose mean over the data ranks is the step's."""
+    hidden, aux = forward(params, cfg, batch["tokens"], return_hidden=True,
+                          mesh=mesh)
     loss = lm_head_loss(params["final_norm"], params["unembed"], hidden,
-                        batch["targets"], cfg.loss_chunk)
+                        batch["targets"], cfg.loss_chunk, mesh)
     return loss + cfg.moe_aux_weight * aux
 
 
-def make_train_step(cfg: TransformerConfig, optimizer):
+def make_train_step(cfg: TransformerConfig, optimizer,
+                    mesh: Optional[TrainMesh] = None):
     """Returns train_step(params, batch) -> loss (a detached f32 scalar
     tensor). ``params`` are leaf tensors with ``requires_grad`` and
     ``optimizer`` is ``nos_tpu_torch.train.optim.build_optimizer``'s,
     built over ``param_leaves(params)``: the step takes the gradients and
     updates the params IN PLACE (the reference donates them to its jitted
-    step and rebinds the outputs)."""
+    step and rebinds the outputs). With ``mesh``, ``params`` are this
+    rank's parts and ``batch`` its rows; the loss returned is the
+    step's, the mean over the data ranks."""
 
     def train_step(params: Params, batch: Dict[str, torch.Tensor]):
-        loss = loss_fn(params, cfg, batch)
+        if mesh is None:
+            loss = loss_fn(params, cfg, batch)
+        else:
+            loss = loss_fn(_data_parallel(params, mesh), cfg, batch, mesh)
         loss.backward()
         optimizer.step()
-        return loss.detach()
+        loss = loss.detach()
+        return loss if mesh is None else mesh.data_mean(loss)
 
     return train_step

@@ -25,7 +25,7 @@ cumsums and the dispatch mask carry none.
 from __future__ import annotations
 
 import struct
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -123,10 +123,17 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
-def top2_gating(logits: torch.Tensor, capacity: int
+BatchMean = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def top2_gating(logits: torch.Tensor, capacity: int,
+                batch_mean: BatchMean = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """logits [B, S, E] f32 -> (combine [B, S, E, C] f32, dispatch bool
-    [B, S, E, C], aux_loss f32 scalar)."""
+    [B, S, E, C], aux_loss f32 scalar). ``batch_mean`` maps a mean over
+    this call's rows to the mean over the whole batch (a data-parallel
+    rank's rows are a slice of it): the aux loss's statistics are the
+    batch's, as the reference's over its global batch."""
     e = logits.shape[-1]
     gates = _softmax(logits)
 
@@ -163,23 +170,27 @@ def top2_gating(logits: torch.Tensor, capacity: int
     # load-balancing aux loss (GShard's, over top-1 fractions)
     frac_routed = mask1.mean(dim=(0, 1))                    # [E]
     mean_gate = gates.mean(dim=(0, 1))                      # [E]
+    if batch_mean is not None:
+        frac_routed, mean_gate = batch_mean(frac_routed), batch_mean(
+            mean_gate)
     aux = e * (frac_routed * mean_gate).sum()
     return combine, dispatch, aux
 
 
 def moe_ffn(h: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor,
-            capacity_factor: float = 1.25
+            capacity_factor: float = 1.25, batch_mean: BatchMean = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h [B, S, d]; router [d, E]; expert weights [E, d, f] / [E, f, d]
     -> (out [B, S, d], aux_loss). The capacity is the reference's over
-    this call's S, so the same tokens route alike only at the same S."""
+    this call's S, so the same tokens route alike only at the same S.
+    ``batch_mean``: ``top2_gating``'s."""
     b, s, d = h.shape
     e = router.shape[-1]
     cap = expert_capacity(s, e, capacity_factor)
 
     logits = torch.matmul(h.float(), router.float())       # [B, S, E]
-    combine, dispatch, aux = top2_gating(logits, cap)
+    combine, dispatch, aux = top2_gating(logits, cap, batch_mean)
 
     # dispatch: [B, S, E, C] x [B, S, d] -> [E, B, C, d]
     disp = dispatch.to(h.dtype).reshape(b, s, e * cap)

@@ -31,6 +31,12 @@ is in flight at a time (the next ``save`` waits for it, as orbax's
 does), so the host holds one snapshot: the state's bytes rounded up to
 a slab, kept for the manager's life and released by ``close``.
 
+Under a training layout a step is still one file per full leaf: the
+trainer gathers every leaf to rank 0, which writes the format above (so
+a one-device run and ``cmd/generate.py::load_params`` read it), and on
+restore every rank reads each leaf and keeps its part (``restore``'s
+``part``), whatever layout wrote it.
+
 Object storage (a ``://`` directory) needs etils and gcsfs, which the
 port does not use: it is refused with a ValueError naming it.
 """
@@ -42,7 +48,7 @@ import logging
 import os
 import shutil
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +56,9 @@ import torch
 from nos_tpu_torch.device import DeviceLike, resolve_device
 
 __all__ = ["model_arch_dict", "latest_step", "CheckpointManager"]
+
+# (leaf name, full leaf) -> the part a rank keeps
+Part = Callable[[str, torch.Tensor], torch.Tensor]
 
 logger = logging.getLogger("nos_tpu_torch.checkpoint")
 
@@ -405,22 +414,25 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def restore(self, step: Optional[int] = None, *, params_template: Any,
-                opt_state_template: Any, device: DeviceLike = None
-                ) -> Tuple[Any, Any]:
+                opt_state_template: Any, device: DeviceLike = None,
+                part: Optional[Part] = None) -> Tuple[Any, Any]:
         """Restore (params, opt_state) in the templates' structure. A
         template leaf that is a tensor with storage is filled IN PLACE
         (the trainer's live params and moments) and returned; one on the
         meta device (``transformer.abstract_params``) becomes a new
         tensor on ``device`` (default: the card) with its dtype; a
-        Python number becomes the stored number. The index is read, and
-        every shape checked, before any array."""
+        Python number becomes the stored number. ``part(name, leaf)``,
+        when given, cuts each full leaf read to what the template holds
+        (a layout's rank: its part). The index is read, and every shape
+        checked, before any array."""
         step = self._resolve(step)
         index = self._index(step)
-        self._check_template_shapes(step, index, params=params_template,
+        self._check_template_shapes(step, index, part,
+                                    params=params_template,
                                     opt_state=opt_state_template)
         out = self._load(step, index, {"params": params_template,
                                        "opt_state": opt_state_template},
-                         device)
+                         device, part)
         return out["params"], out["opt_state"]
 
     def restore_params(self, step: Optional[int] = None, *,
@@ -432,9 +444,10 @@ class CheckpointManager:
         with no random init before."""
         step = self._resolve(step)
         index = self._index(step)
-        self._check_template_shapes(step, index, params=params_template)
+        self._check_template_shapes(step, index, None,
+                                    params=params_template)
         return self._load(step, index, {"params": params_template},
-                          device)["params"]
+                          device, None)["params"]
 
     def _resolve(self, step: Optional[int]) -> int:
         if step is None:
@@ -453,10 +466,11 @@ class CheckpointManager:
         return {e["name"]: e for e in index["leaves"]}
 
     def _check_template_shapes(self, step: int, index: Dict[str, dict],
-                               **templates: Any) -> None:
+                               part: Optional[Part], **templates: Any
+                               ) -> None:
         """Refuse a restore whose template shapes disagree with what is
-        on disk, naming every mismatched leaf; a template leaf the step
-        does not hold is named too."""
+        on disk (cut by ``part``), naming every mismatched leaf; a
+        template leaf the step does not hold is named too."""
         bad, missing = [], []
         for item, template in templates.items():
             for name, leaf in _flatten(template, item, []):
@@ -465,10 +479,13 @@ class CheckpointManager:
                     missing.append(name)
                     continue
                 want = tuple(getattr(leaf, "shape", ()))
-                if tuple(entry["shape"]) != want:
+                have = tuple(entry["shape"])
+                if part is not None:
+                    have = tuple(part(name, torch.empty(
+                        have, device="meta")).shape)
+                if have != want:
                     bad.append(f"{name}: checkpoint has "
-                               f"{tuple(entry['shape'])}, caller expects "
-                               f"{want}")
+                               f"{have}, caller expects {want}")
         if bad:
             raise ValueError(
                 f"checkpoint shape mismatch under {self.directory} step "
@@ -479,7 +496,7 @@ class CheckpointManager:
                 f"leaf " + ", ".join(sorted(missing)))
 
     def _load(self, step: int, index: Dict[str, dict], templates: dict,
-              device: DeviceLike) -> dict:
+              device: DeviceLike, part: Optional[Part]) -> dict:
         t0 = time.perf_counter()
         root = os.path.join(self.directory, str(step))
         target = None
@@ -494,6 +511,8 @@ class CheckpointManager:
                 e["shape"])
             if not isinstance(leaf, torch.Tensor):
                 return type(leaf)(t.item())
+            if part is not None:
+                t = part(name, t)
             if leaf.device.type == "meta":
                 if target is None:
                     target = resolve_device(device)

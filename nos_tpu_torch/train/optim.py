@@ -23,6 +23,12 @@ own order of operations:
   mean and applies one update on the k-th call; the schedule counts
   updates, not micro-steps.
 
+Under a training layout the leaves are one rank's parts (their
+gradients already averaged over the data ranks): adamw and the
+accumulation run on them unchanged, one adamw launch a leaf, and the
+clip's norm sums each split leaf's squares over its parts
+(``shard_sums``: ``parallel/mesh.py::TrainMesh.shard_sums``).
+
 The state (``state_dict``: the update count, the moments, and under
 accumulation the running mean and its micro-step) is what a checkpoint
 carries as ``opt_state``, as optax's state is in the reference, and
@@ -31,7 +37,7 @@ carries as ``opt_state``, as optax's state is in the reference, and
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +46,8 @@ __all__ = ["build_lr_schedule", "build_optimizer", "TrainOptimizer",
            "adamw_consts", "adamw_update", "adamw_update_reference"]
 
 Schedule = Callable[[int], float]
+# per leaf, this rank's part's sum -> the leaf's sum over its parts
+ShardSums = Callable[[Sequence[torch.Tensor]], List[torch.Tensor]]
 # optax.adamw's eps (the reference leaves it at the default)
 EPS = 1e-8
 
@@ -128,11 +136,14 @@ class TrainOptimizer:
     ``params``. ``step()`` consumes each param's ``.grad`` and clears it;
     ``mu``/``nu`` hold the moments, one per param, in its dtype.
     ``fence(event)`` makes the next step's in-place writes wait for a
-    device event: an asynchronous checkpoint's copy of these tensors."""
+    device event: an asynchronous checkpoint's copy of these tensors.
+    ``shard_sums`` (a layout's) completes the clip's per-leaf sums of
+    squares over the leaves' parts."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr: Schedule, *,
                  weight_decay: float, b1: float, b2: float,
-                 grad_clip: float, accum_steps: int):
+                 grad_clip: float, accum_steps: int,
+                 shard_sums: Optional[ShardSums] = None):
         self.params: List[torch.Tensor] = list(params)
         self.lr = lr
         self.weight_decay = weight_decay
@@ -146,6 +157,7 @@ class TrainOptimizer:
         self._acc = ([torch.zeros_like(p) for p in self.params]
                      if accum_steps > 1 else None)
         self._fences: list = []
+        self.shard_sums = shard_sums
 
     def state_dict(self) -> dict:
         """The state as named leaves: ``count`` (updates applied),
@@ -182,7 +194,10 @@ class TrainOptimizer:
     def _clip(self, grads: List[torch.Tensor]) -> None:
         """optax's ``clip_by_global_norm``: the norm summed leaf by leaf
         in the leaves' dtype, compared with the limit in that dtype."""
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        sums = [torch.sum(g * g) for g in grads]
+        if self.shard_sums is not None:
+            sums = self.shard_sums(sums)
+        norm = torch.sqrt(sum(sums))
         keep = norm < torch.full((), self.grad_clip, dtype=norm.dtype,
                                  device=norm.device)
         for g in grads:
@@ -241,6 +256,7 @@ def build_optimizer(
     b2: float = 0.95,
     grad_clip: float = 0.0,
     accum_steps: int = 1,
+    shard_sums: Optional[ShardSums] = None,
 ) -> TrainOptimizer:
     """adamw with the configured schedule, optional global-norm clipping,
     optional gradient accumulation, over ``params`` (leaf tensors).
@@ -248,7 +264,7 @@ def build_optimizer(
     ``total_steps``/``warmup_steps`` are in caller steps (micro-steps):
     with accum_steps > 1 the update count advances once per window, so
     the horizons are converted to update units here, as the reference
-    does."""
+    does. ``shard_sums``: ``TrainOptimizer``'s, under a layout."""
     if accum_steps > 1:
         total_steps = -(-total_steps // accum_steps)     # ceil div
         warmup_steps = -(-warmup_steps // accum_steps)
@@ -257,4 +273,4 @@ def build_optimizer(
         min_lr_ratio=min_lr_ratio)
     return TrainOptimizer(params, lr, weight_decay=weight_decay, b1=b1,
                           b2=b2, grad_clip=grad_clip,
-                          accum_steps=accum_steps)
+                          accum_steps=accum_steps, shard_sums=shard_sums)

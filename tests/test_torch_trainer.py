@@ -226,10 +226,11 @@ def test_from_yaml_file_reads_json_without_pyyaml(tmp_path, monkeypatch):
     assert want.d_model == 64 and not want.bf16
 
 
-# knobs the trainer refused until MoE training and checkpoints, and
-# then the profiler and the metrics server, were ported, trained now
+# knobs the trainer refused until MoE training and checkpoints, then
+# the profiler and the metrics server, then the dp / fsdp / tp layouts
+# (every rank a CPU process over gloo here) were ported, trained now
 TRAINED_KNOBS = {"n_experts", "checkpoint_dir", "profile_dir",
-                 "metrics_port"}
+                 "metrics_port", "dp", "fsdp", "tp"}
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -239,11 +240,13 @@ TRAINED_KNOBS = {"n_experts", "checkpoint_dir", "profile_dir",
 ])
 def test_refused_knobs_raise_naming_the_knob(knob, value, tmp_path):
     """A knob outside the port raises naming it. ``n_experts``,
-    ``checkpoint_dir``, ``profile_dir`` and ``metrics_port`` were refused
-    so and train now: an MoE run gives a finite loss, a checkpointed run
-    (its directory under the test's own) stamps the architecture and
-    commits the final step, a profiled run writes a trace there, and
-    ``train()`` leaves ``metrics_port`` to ``main()`` (tested below)."""
+    ``checkpoint_dir``, ``profile_dir``, ``metrics_port``, ``dp``,
+    ``fsdp`` and ``tp`` were refused so and train now: an MoE run and a
+    layout's run (two CPU ranks over gloo) give a finite loss, a
+    checkpointed run (its directory under the test's own) stamps the
+    architecture and commits the final step, a profiled run writes a
+    trace there, and ``train()`` leaves ``metrics_port`` to ``main()``
+    (tested below)."""
     if knob not in TRAINED_KNOBS:
         cfg = ttr.TrainerConfig(**TINY, **{knob: value})
         with pytest.raises(ValueError, match=knob):
@@ -328,8 +331,8 @@ def test_profiler_stops_when_a_step_raises(tmp_path, monkeypatch):
     written on the way out, and the next profiled run starts cleanly."""
     real = tt.make_train_step
 
-    def failing(cfg, optimizer):
-        step = real(cfg, optimizer)
+    def failing(cfg, optimizer, *mesh):
+        step = real(cfg, optimizer, *mesh)
         calls = []
 
         def wrapped(params, batch):
