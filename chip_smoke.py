@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopqrst]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopqrstu]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -340,6 +340,34 @@ t. the trainer's dp / fsdp / tp layouts, every rank a process on the
    Adam's step bound), under dp 2 x tp 2 bit for bit; (5) a stop event
    after step 2 at dp 2: every rank banks step 3 and ``train()``
    returns.
+u. the speculative engine and the MoE family under tp = 2, both shards
+   on the one card: (0) the paged kernel at the shard shapes they
+   launch it at (the verify window B 8, S 4, H 16/4, bf16 and int8; the
+   draft step at ``ServerConfig``'s draft widths split in two, H 2/2,
+   D 64, bf16 and int8; MoE decode at Mixtral's heads split in two, H
+   16/4) against its plain version, timed beside it, SDPA and the
+   bound; (1) ``SpeculativeDecodeServer`` on phase (n)'s 8B-class
+   target at full width and depth, n_draft 4, the seeded draft at the
+   draft widths (its params and arena split in lockstep with the
+   target's): greedy on the paged bf16 and int8 arenas and the
+   slot-static engine, draft = target on the paged bf16 arena, sampled
+   on the paged bf16 arena, each against the tp = 1 speculative engine
+   on the same weights by the token rule (sampled: at the first
+   difference both runs' own window logits within the rule's
+   tolerance), acceptance within ``U_ACCEPT_TOL`` of tp = 1's, the
+   kernel's launches by shape tp times the program's count; a tp = 1
+   prefill-role engine's handoff adopted by a tp = 2 decode-role
+   speculative engine (K/V read back byte for byte, tokens by the token
+   rule); (2) phase (o)'s MoE model (4 layers) with each expert's d_ff
+   split and the gating once on shard 0: greedy on the paged bf16 and
+   int8 arenas and the slot-static engine against the tp = 1 engine by
+   the token rule with the router near-tie excuse, the dropped share by
+   call width (equal call for call until a near-tie flips; in f32 at 2
+   layers every call's drops and every token equal), launches 2 x
+   tp = 1's; the seeded speculative arm, its windows held to the
+   unsplit model's on its own K/V where its tokens differ from
+   tp = 1's; ms a tick or round and peak memory beside tp = 1's
+   (captured and eager), and the phase's seconds.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -348,6 +376,7 @@ when there is no CUDA device or when the port is not beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import json
 import logging
@@ -377,15 +406,17 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijklmnopqrst"
+PHASES = "cdefghijklmnopqrstu"
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-# seconds after which a run is taken to hang (see ``main``)
-HANG_S = 1100
+# seconds after which a run is taken to hang (see ``main``): past a
+# whole run's ~1,020 s on an H100 at 700 W, with room for the stack dump
+# before the 1200 s a run may take
+HANG_S = 1150
 # ~200 us of spinning on the stream at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 400_000
 
@@ -3817,20 +3848,29 @@ SPEC_ARMS = ["paged_bf16", "paged_int8", "static"]
 
 def spec_kernel_cases(seed: int, device, flush) -> dict:
     """(n.0): the paged kernel at the speculative engine's shapes against
-    its plain version (``check_kernel``'s pins), bit-identical over two
-    launches, each row at its own pos spread over 64-1900: the verify
-    window and the draft's S 1 step at head_dim 64, each in bf16 and
-    int8 (an int8 engine's draft arena is int8 too); timed beside the
-    plain version, SDPA over the gathered timeline and the bound."""
+    its plain version: the verify window and the draft's S 1 step at
+    head_dim 64, each in bf16 and int8 (an int8 engine's draft arena is
+    int8 too) (``paged_timed_cases``)."""
+    return paged_timed_cases(
+        np.random.default_rng(seed + 12), device, flush,
+        "spec_kernel_vs_plain",
+        (("verify", VERIFY, SPEC_K, False),
+         ("verify_int8", VERIFY, SPEC_K, True),
+         ("draft", DRAFT_STEP, 1, False),
+         ("draft_int8", DRAFT_STEP, 1, True)))
+
+
+def paged_timed_cases(rng, device, flush, phase: str, cases) -> dict:
+    """The paged kernel at each (label, shape, S, int8) of ``cases``
+    against its plain version (``check_kernel``'s pins), bit-identical
+    over two launches, each row at its own pos spread over 64-1900;
+    timed beside the plain version, SDPA over the gathered timeline and
+    the bound. Returns the rows by label."""
     from nos_tpu_torch.ops import _kernels
     from nos_tpu_torch.ops.attention import paged_decode_attention_reference
 
-    rng = np.random.default_rng(seed + 12)
     rows = {}
-    for label, shape, s, int8 in (("verify", VERIFY, SPEC_K, False),
-                                  ("verify_int8", VERIFY, SPEC_K, True),
-                                  ("draft", DRAFT_STEP, 1, False),
-                                  ("draft_int8", DRAFT_STEP, 1, True)):
+    for label, shape, s, int8 in cases:
         pos = np.linspace(64, 1900, shape["b"]).round().astype(np.int32)
         case = paged_case(rng, s=s, int8=int8, dtype=torch.bfloat16,
                           device=device, pos=pos, **shape)
@@ -3842,7 +3882,7 @@ def spec_kernel_cases(seed: int, device, flush) -> dict:
                 v_scale=case["v_scale"], scale=d ** -0.5)
 
         out = launch()
-        row = {"phase": "spec_kernel_vs_plain",
+        row = {"phase": phase,
                "kernel": "paged_decode_attention", "case": label, "S": s,
                "arena": "int8" if int8 else "bf16", "compute": "bfloat16",
                **shape, "pos": pos.tolist(),
@@ -3922,15 +3962,17 @@ def token_rule(label: str, got: list, plain: list, prompts: list, params,
             "diverged": diverged}
 
 
-def engine_run(eng, prompts, new: int, sampling=None) -> dict:
+def engine_run(eng, prompts, new: int, sampling=None,
+               capture: bool = True) -> dict:
     """Phase (e)'s traffic on ``eng`` with its programs captured up
-    front: each request prefilled at submit, then the decode drain, timed
+    front (unless ``capture`` is off: a run of the programs called
+    directly): each request prefilled at submit, then the decode drain, timed
     on the host clock ending in a sync; the paged kernel's own launches
     over the run (in all and by shape), ticks, decode tokens and, on a
     speculative engine, proposals and acceptances."""
     from nos_tpu_torch.ops import _kernels
 
-    capture_s = eng.capture_programs()
+    capture_s = eng.capture_programs() if capture else {}
     torch.cuda.synchronize()
     ticks0, tok0 = eng.ticks_dispatched, eng.tokens_emitted
     d0 = getattr(eng, "spec_drafted", 0)
@@ -3941,13 +3983,15 @@ def engine_run(eng, prompts, new: int, sampling=None) -> dict:
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    active = {req.rid: s for s, req in eng._active.items()}
     t = time.perf_counter()
     served = eng.drain()
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t
     ticks = eng.ticks_dispatched - ticks0
     tokens = eng.tokens_emitted - tok0
-    out = {"seqs": [served[r] for r in rids], "capture_s": capture_s,
+    out = {"seqs": [served[r] for r in rids],
+           "slots": [active.get(r) for r in rids], "capture_s": capture_s,
            "prefill_s": prefill_s, "decode_s": decode_s, "ticks": ticks,
            "decode_tokens": tokens,
            "ms_per_tick": decode_s * 1e3 / max(ticks, 1),
@@ -3987,13 +4031,18 @@ def spec_shape_launches(eng, ticks: int) -> dict:
     return out
 
 
-def hold_spec_launches(label: str, eng, r: dict) -> None:
+def hold_spec_launches(label: str, eng, r: dict, tp: int = 1) -> dict:
     """Hold a speculative run's measured launches, shape by shape, to
-    the count its program implies (``spec_shape_launches``)."""
-    implied = spec_shape_launches(eng, r["ticks"])
+    ``tp`` times the count its program implies (``spec_shape_launches``:
+    each shard of a tensor-parallel engine launches the kernel where one
+    device does); returns them keyed for printing."""
+    implied = {k: tp * n for k, n in spec_shape_launches(
+        eng, r["ticks"]).items()}
     if r["launches_by_shape"] != implied:
         raise AssertionError(f"{label}: launches by shape "
-                             f"{r['launches_by_shape']} != implied {implied}")
+                             f"{r['launches_by_shape']} != {tp} x implied "
+                             f"{implied}")
+    return {f"S{s}_D{d}_{a}": n for (s, d, a), n in implied.items()}
 
 
 def static_restart(make, prompts, plain, params, cfg) -> dict:
@@ -4222,10 +4271,11 @@ def spec_engine(params, cfg, dparams, dcfg, arm: str, depth: int, T: int,
         kw.update(kv_blocks=1 + 8 * 128, kv_block_size=16,
                   kv_dtype="int8" if arm == "paged_int8" else "bf16",
                   paged_impl="kernel")
+    if "device" not in kw:
+        kw["device"] = params["final_norm"].device
     return SpeculativeDecodeServer(
         params, cfg, dparams, dcfg, n_draft=SPEC_K, max_batch=8,
-        pipeline_depth=depth, decode_steps=T,
-        device=params["final_norm"].device, **kw)
+        pipeline_depth=depth, decode_steps=T, **kw)
 
 
 def spec_preempt_fork(eng, prompts, L_d: int, L_t: int) -> dict:
@@ -4834,7 +4884,7 @@ def first_flip(ga: list, gb: list, row: int, label: str):
     return None
 
 
-def verify_windows(eng, prompts, seqs, label: str) -> dict:
+def verify_windows(eng, prompts, seqs, label: str, params=None) -> dict:
     """Hold a greedy speculative run's tokens to a plain computation of
     its own verify windows, teacher-forced on the tokens and on the K/V
     the engine holds. The traffic runs once more with every program
@@ -4849,12 +4899,15 @@ def verify_windows(eng, prompts, seqs, label: str) -> dict:
     ``ROUTER_TOL``. A request's last windows, whose tail runs past its
     blocks into the null block (other rows and earlier runs wrote it;
     under MoE it routes the window, C.16), are counted apart, and the
-    rerun's tokens equal ``seqs`` up to them."""
+    rerun's tokens equal ``seqs`` up to them. ``params`` (default: the
+    engine's) computes the plain side: a tensor-parallel engine's
+    windows against the unsplit model's.""" 
     from nos_tpu_torch.models.generate import forward_with_cache, init_cache
     from nos_tpu_torch.models.serving import uncaptured
     from nos_tpu_torch.ops import moe
 
-    params, cfg, k, bs = eng.params, eng.cfg, eng.k, eng.kv_block_size
+    cfg, k, bs = eng.cfg, eng.k, eng.kv_block_size
+    params = eng.params if params is None else params
     if "k_scale" in eng.cache:
         raise AssertionError(f"{label}: a bf16 arena is read as is")
     row = init_cache(cfg, 1, cfg.max_seq, per_row_pos=True,
@@ -7727,6 +7780,490 @@ def layout_stop(seed: int, root: str, device) -> dict:
             "checkpointed": steps, "wall_s": run["wall_s"]}
 
 
+# ---------------------------------------------------------------------------
+# phase (u): the speculative engine and the MoE family under tp = 2
+# ---------------------------------------------------------------------------
+
+# (u.0): the paged kernel at the shard shapes (u) launches it at: the
+# verify window on one shard's target heads (B 8, S 4, H 16/4, D 128),
+# the draft step on one shard's draft heads (ServerConfig's draft widths
+# split in two: H 2/2, D 64) and MoE decode at Mixtral's heads split in
+# two (H 16/4, D 128)
+U_VERIFY = dict(VERIFY, h=16, h_kv=4)
+U_DRAFT = dict(DRAFT_STEP, h=2, h_kv=2)
+U_MOE_DECODE = dict(PAGED_TP2)
+# the largest difference of a tp = 2 speculative run's acceptance from
+# the tp = 1 run's on the same weights: the runs differ only where
+# rounding moves a near-tie (phase (s) read such ties at a few steps of
+# 8 x 32)
+U_ACCEPT_TOL = 0.05
+
+
+class window_logits:
+    """Within a ``with`` block, every verify window of the speculative
+    engine ``eng`` (an eager engine: a replayed graph calls no Python)
+    keeps its f32 logits [B, k, V] with each slot's pos before the
+    window, seed, keep flag and feed [B, k]: the list the block
+    yields."""
+
+    def __init__(self, eng):
+        self.eng, self.recs = eng, []
+
+    def __enter__(self):
+        eng, inner = self.eng, self.eng._forward
+
+        def spy(toks, cache, table):
+            pos0 = cache["pos"].clone()
+            logits, out = inner(toks, cache, table)
+            if cache is eng.cache and toks.shape[1] == eng.k:
+                self.recs.append((logits.float().clone(), *(
+                    t.to("cpu", copy=True)
+                    for t in (pos0, eng._seed, eng._keep, toks))))
+            return logits, out
+
+        eng._forward = spy
+        return self.recs
+
+    def __exit__(self, *exc):
+        del self.eng._forward
+
+    @staticmethod
+    def row(recs: list, seed: int, j: int, seq: list):
+        """The target's logits for token ``j`` of the request of ``seed``
+        (sequence ``seq``): the last window whose row fed ``seq``'s
+        tokens up to j - 1, or None."""
+        for logits, pos, seeds, keep, feed in reversed(recs):
+            for b in ((seeds == seed) & keep).nonzero()[:, 0].tolist():
+                p = int(pos[b])
+                m = j - p - 1
+                if 0 <= m < feed.shape[1] and \
+                        feed[b, :m + 1].tolist() == seq[p:j]:
+                    return logits[b, m]
+        return None
+
+
+def spec_sampled_rule(label: str, got: list, plain: list, prompts: list,
+                      sampling: list, live_got: list,
+                      live_plain: list) -> dict:
+    """The token rule for sampled speculative runs of two layouts on the
+    same weights: sequences equal, or at the first differing token j
+    both runs' own target logits for j (``window_logits``: the window
+    that fed the common prefix, keyed by the request's seed and
+    position, from which each accepted or corrected its token) lie
+    within ``SAMPLED_LOGIT_TOL`` of each other: the runs computed the
+    same distribution, and the accept-reject draw, keyed alike, moved
+    with its rounding. Raises on any other divergence, after every
+    request is read."""
+    diverged, bad = [], []
+    for i, (a, b) in enumerate(zip(got, plain)):
+        if a == b:
+            continue
+        j = next(k for k in range(len(b)) if a[k] != b[k])
+        if j < len(prompts[i]):
+            raise AssertionError(f"{label}: request {i} differs in its "
+                                 f"prompt")
+        seed = sampling[i]["seed"]
+        rows = [window_logits.row(live, seed, j, seq)
+                for live, seq in ((live_got, a), (live_plain, b))]
+        row = {"request": i, "step": j - len(prompts[i]),
+               "plain_token": b[j], "other_token": a[j]}
+        if any(r is None for r in rows):
+            row["cause"] = "no window"
+            bad.append(row)
+        else:
+            gap = float((rows[0].to(rows[1].device) - rows[1]).abs().max())
+            row["live_max_abs_logit_diff"] = gap
+            row["cause"] = "own_logits"
+            if gap >= SAMPLED_LOGIT_TOL:
+                bad.append(row)
+        diverged.append(row)
+    out = {"equal": len(got) - len(diverged), "of": len(got),
+           "diverged": diverged}
+    if bad:
+        raise AssertionError(f"{label}: divergences no rounding explains: "
+                             f"{bad} (all: {out})")
+    return out
+
+
+def moe_traced_run(eng, prompts) -> dict:
+    """Phase (o)'s greedy traffic on ``eng``, every program called
+    directly: ``engine_run``'s readings, the gating calls' top-3 router
+    logits and experts (``routing_trace``'s record) and each call's
+    width S with its dropped and assigned routing assignments (2 a
+    position)."""
+    from nos_tpu_torch.models.serving import uncaptured
+    from nos_tpu_torch.ops import moe
+
+    calls, drops = [], []
+    gating = moe.top2_gating
+
+    def traced(logits, capacity, mean=None):
+        combine, dispatch, aux = gating(logits, capacity, mean)
+        v, i = logits.topk(3, dim=-1)
+        calls.append((v.cpu(), i.cpu()))
+        n = 2 * logits.shape[0] * logits.shape[1]
+        drops.append((logits.shape[1], n - int(dispatch.sum()), n))
+        return combine, dispatch, aux
+
+    moe.top2_gating = traced
+    try:
+        with uncaptured(eng):
+            r = engine_run(eng, prompts, MOE_NEW, capture=False)
+    finally:
+        moe.top2_gating = gating
+    r.update(calls=calls, drops=drops,
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return r
+
+
+def drop_shares(run: dict) -> dict:
+    """A traced run's (``moe_traced_run``) share of routing assignments
+    capacity dropped, by call width S."""
+    out = {}
+    for s, dropped, assigned in run["drops"]:
+        d = out.setdefault(str(s), [0, 0])
+        d[0] += dropped
+        d[1] += assigned
+    return {w: d / a for w, (d, a) in out.items()}
+
+
+def phase_tp_spec(seed: int, card: str, device, mesh) -> tuple:
+    """(u.1): the speculative engine under tp = 2 (``TpMesh([cuda:0,
+    cuda:0])``) on phase (n)'s 8B-class target at full width and depth
+    and the seeded draft at ``ServerConfig``'s draft widths, n_draft 4:
+    greedy on the paged bf16 and int8 arenas and on the slot-static
+    engine, draft = target on the paged bf16 arena, and sampled on the
+    paged bf16 arena, each against the tp = 1 speculative engine on the
+    same weights (greedy: ``token_rule``; sampled: ``spec_sampled_rule``
+    on both runs' own window logits); acceptance within
+    ``U_ACCEPT_TOL`` of tp = 1's; the paged kernel's launches by shape
+    tp x the program's count, so 2 x tp = 1's where the ticks agree;
+    then a handoff from a tp = 1 prefill-role engine adopted by a
+    tp = 2 decode-role speculative engine, its K/V re-read from the
+    shards byte for byte and its tokens by the token rule. Returns
+    (the record, the kernel's launches at the tp = 2 verify and draft
+    shapes by arena)."""
+    import gc
+
+    from nos_tpu_torch.cmd.server import ServerConfig, build_engine
+    from nos_tpu_torch.models import handoff
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.models.serving import DecodeServer, uncaptured
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    free()
+    eng0 = build_engine(ServerConfig(
+        bf16=True, paged_kernel="on", seed=seed, **TP_PAGED, **FULL),
+        device=device)
+    params, cfg = eng0.params, eng0.cfg
+    del eng0
+    dcfg = tfm.TransformerConfig(vocab=cfg.vocab, max_seq=cfg.max_seq,
+                                 dtype=cfg.dtype, **DRAFT_W)
+    dparams = tfm.init_params(
+        dcfg, torch.Generator(device).manual_seed(DRAFT_SEED), device)
+    prompts = full_width_prompts(seed, FULL["vocab"])
+    tpp = tfm.shard_params(params, cfg, mesh)
+    dtpp = tfm.shard_params(dparams, dcfg, mesh)
+    p_gb = tree_bytes(params) / 1e9
+
+    def engine(tp: int, arm: str, target_draft: bool = False, **kw):
+        free()
+        if tp == 1:
+            dp, dc = (params, cfg) if target_draft else (dparams, dcfg)
+            return spec_engine(params, cfg, dp, dc, arm, 1, 1, **kw)
+        dp, dc = (tpp, cfg) if target_draft else (dtpp, dcfg)
+        return spec_engine(tpp, cfg, dp, dc, arm, 1, 1, mesh=mesh,
+                           device=device, **kw)
+
+    def run(eng, sampling=None, eager=True):
+        ctx = uncaptured(eng) if eager and eng.mesh is None \
+            else contextlib.nullcontext()
+        with ctx:
+            r = engine_run(eng, prompts, TP_NEW, sampling, capture=not eager)
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return r
+
+    rec = {"phase": "tp_speculative", "card": card, **FULL, "tp": TP,
+           "n_draft": SPEC_K, "draft": DRAFT_W, "weights_gb": p_gb}
+    runs, rules, launches, shapes = {}, {}, {}, {}
+    arms = (("paged_bf16", "paged_bf16", False),
+            ("paged_int8", "paged_int8", False),
+            ("static", "static", False),
+            ("target_draft", "paged_bf16", True))
+    for name, arm, self_draft in arms:
+        for tp in (1, 2):
+            eng = engine(tp, arm, self_draft)
+            if tp == 1 and name == "paged_bf16":
+                runs["paged_bf16_tp1_captured"] = run(eng, eager=False)
+            r = runs[f"{name}_tp{tp}"] = run(eng)
+            shapes[f"{name}_tp{tp}"] = hold_spec_launches(
+                f"u.1 {name} tp{tp}", eng, r, tp)
+            if tp == 2 and arm != "static" and not self_draft:
+                arena = str(eng.cache["k"].dtype)[6:]
+                suffix = "" if arena == "bfloat16" else "_int8"
+                launches["tp_verify" + suffix] = r["launches_by_shape"][
+                    (SPEC_K, cfg.head_dim, arena)]
+                launches["tp_draft" + suffix] = r["launches_by_shape"][
+                    (1, dcfg.head_dim, arena)]
+            del eng
+        one, two = runs[f"{name}_tp1"], runs[f"{name}_tp2"]
+        rules[name] = token_rule(f"u.1 {name} tp2", two["seqs"],
+                                 one["seqs"], prompts, params, cfg)
+        if abs(two["acceptance"] - one["acceptance"]) > U_ACCEPT_TOL:
+            raise AssertionError(
+                f"u.1 {name}: acceptance {two['acceptance']} at tp2 "
+                f"against {one['acceptance']} at tp1")
+    # sampled, paged bf16: each run's own window logits
+    lives = {}
+    for tp in (1, 2):
+        eng = engine(tp, "paged_bf16")
+        with window_logits(eng) as lives[tp]:
+            r = runs[f"sampled_tp{tp}"] = run(eng, SAMPLED)
+        shapes[f"sampled_tp{tp}"] = hold_spec_launches(
+            f"u.1 sampled tp{tp}", eng, r, tp)
+        del eng
+    rules["sampled"] = spec_sampled_rule(
+        "u.1 sampled tp2", runs["sampled_tp2"]["seqs"],
+        runs["sampled_tp1"]["seqs"], prompts, SAMPLED, lives[2], lives[1])
+    del lives
+    # the handoff: a tp = 1 prefill-role engine's request adopted by a
+    # tp = 2 decode-role speculative engine
+    free()
+    pre = DecodeServer(params, cfg, device=device, role="prefill",
+                       paged_impl="kernel", **TP_PAGED)
+    pre.submit(prompts[0], TP_NEW)
+    state = pre.pop_handoffs()[0]
+    wire = handoff.encode_handoff(state)
+    del pre
+    dec = engine(2, "paged_bf16", role="decode")
+    rid = dec.restore(handoff.decode_handoff(wire))
+    again = next(st for st in dec.capture_resumable() if st["rid"] == rid)
+    handoff.settle(state["swap"])
+    planes = [n for n in ("k", "v", "k_scale", "v_scale")
+              if n in state["swap"]]
+    if not all(np.asarray(state["swap"][n]).tobytes()
+               == np.asarray(again["swap"][n]).tobytes() for n in planes):
+        raise AssertionError("u.1 handoff: the adopted K/V reads back "
+                             "other bytes from the shards")
+    adopted = dec.drain()[rid]
+    rules["handoff"] = token_rule(
+        "u.1 handoff", [adopted], [runs["paged_bf16_tp1"]["seqs"][0]],
+        prompts[:1], params, cfg)
+    del dec
+    keep = ("ms_per_round", "ms_per_tick", "tokens_per_s", "acceptance",
+            "tokens_per_window", "ticks", "kernel_launches", "prefill_s",
+            "peak_gb")
+    rows = {k: {f: r[f] for f in keep} for k, r in runs.items()}
+    for k, row in rows.items():
+        # the engine's own peak: the other layout's weights taken out
+        row["peak_gb_engine"] = row["peak_gb"] - (p_gb if "tp2" in k
+                                                  else 0)
+    rec.update(runs=rows, launches_by_shape=shapes, token_rule=rules,
+               handoff_bytes=len(wire), handoff_planes=planes,
+               handoff_bytes_equal=True,
+               tp2_vs_tp1_eager_ms_per_round=(
+                   rows["paged_bf16_tp2"]["ms_per_round"]
+                   / rows["paged_bf16_tp1"]["ms_per_round"]))
+    del params, dparams, tpp, dtpp
+    free()
+    return rec, launches
+
+
+def phase_tp_moe(seed: int, card: str, device, mesh) -> tuple:
+    """(u.2): the MoE family under tp = 2 at phase (o)'s Mixtral-8x7B
+    widths and depth, each expert's d_ff split over the shards and the
+    gating computed once on shard 0: phase (e)'s traffic greedy on the
+    paged bf16 and int8 arenas and on the slot-static engine, each
+    against the tp = 1 MoE engine on the same weights by the token rule
+    (a divergence past the top-2 gap only after a router near-tie,
+    ``routing_flip``), the dropped share of each call width beside
+    tp = 1's (equal call for call in the f32 arm, ``moe_f32_tp``), the
+    paged kernel's launches 2 x tp = 1's; then the
+    seeded speculative arm (paged bf16), its tokens tp = 1's or its
+    windows held to the unsplit model's on its own K/V
+    (``verify_windows``). Returns (the record, the kernel's launches at
+    the MoE decode shard shape)."""
+    import gc
+
+    from nos_tpu_torch.cmd.server import ServerConfig, build_engine
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.models.serving import DecodeServer, uncaptured
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    free()
+    resident = resident_bytes()
+    if resident >= MOE_RESIDENT_MAX:
+        raise AssertionError(f"{resident / 1e9:.3f} GB resident before the "
+                             f"MoE model is built: {cuda_tensors()}")
+    eng0 = build_engine(ServerConfig(
+        bf16=True, kv_blocks=1 + 8 * 128, kv_block_size=16, max_batch=8,
+        paged_kernel="on", seed=seed, **MOE), device=device)
+    params, cfg = eng0.params, eng0.cfg
+    L = cfg.n_layers
+    prompts = full_width_prompts(seed, MOE["vocab"])
+    tpp = tfm.shard_params(params, cfg, mesh)
+    gap_at = moe_gap_at(params, cfg)
+
+    def engine(tp: int, **kw):
+        free()
+        return DecodeServer(params if tp == 1 else tpp, cfg, max_batch=8,
+                            device=device, mesh=mesh if tp > 1 else None,
+                            **{"kv_blocks": 1 + 8 * 128, "kv_block_size": 16,
+                               "paged_impl": "kernel", **kw})
+
+    rec = {"phase": "tp_moe", "card": card, **MOE, "tp": TP,
+           "source": f"Mixtral-8x7B-v0.1 widths, {MOE['n_layers']} of 32 "
+                     "layers", "weights_gb": tree_bytes(params) / 1e9}
+    runs, rules, drops = {}, {}, {}
+    runs["greedy_tp1_captured"] = engine_run(eng0, prompts, MOE_NEW)
+    runs["greedy_tp1_captured"]["peak_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    del eng0
+    arms = (("greedy", {}), ("int8", dict(kv_dtype="int8")),
+            ("static", dict(kv_blocks=0, kv_block_size=0)))
+    for name, kw in arms:
+        for tp in (1, 2):
+            eng = engine(tp, **kw)
+            runs[f"{name}_tp{tp}"] = moe_traced_run(eng, prompts)
+            del eng
+        one, two = runs[f"{name}_tp1"], runs[f"{name}_tp2"]
+        rules[name] = token_rule(
+            f"u.2 {name} tp2", two["seqs"], one["seqs"], prompts, params,
+            cfg, gap_at=gap_at,
+            routing=routing_flip(
+                *((r["calls"], r["slots"], r["seqs"]) for r in (two, one)),
+                prompts, L, f"u.2 {name} tp2"))
+        drops[name] = {"tp1": drop_shares(one), "tp2": drop_shares(two)}
+        arena = None if name == "static" else str(
+            torch.int8 if name == "int8" else cfg.dtype)[6:]
+        want = {(1, cfg.head_dim, arena): TP * L * two["ticks"]} \
+            if arena else {}
+        if two["launches_by_shape"] != want or two["ticks"] != one["ticks"] \
+                or two["kernel_launches"] != TP * one["kernel_launches"]:
+            raise AssertionError(
+                f"u.2 {name}: tp2 launches {two['launches_by_shape']} (want "
+                f"{want}; tp1 {one['kernel_launches']} over {one['ticks']} "
+                f"ticks, tp2 {two['ticks']})")
+    # the seeded speculative arm on the paged bf16 arena
+    dcfg = tfm.TransformerConfig(vocab=cfg.vocab, max_seq=cfg.max_seq,
+                                 dtype=cfg.dtype, **DRAFT_W)
+    dparams = tfm.init_params(
+        dcfg, torch.Generator(device).manual_seed(DRAFT_SEED), device)
+    spec = {}
+    for tp in (1, 2):
+        free()
+        eng = spec_engine(params if tp == 1 else tpp, cfg,
+                          dparams, dcfg, "paged_bf16", 1, 1,
+                          mesh=mesh if tp > 1 else None, device=device)
+        with uncaptured(eng) if tp == 1 else contextlib.nullcontext():
+            r = runs[f"spec_tp{tp}"] = engine_run(eng, prompts, MOE_NEW,
+                                                  capture=False)
+        hold_spec_launches(f"u.2 spec tp{tp}", eng, r, tp)
+        if tp == 2:
+            spec["equal_tp1"] = sum(a == b for a, b in zip(
+                r["seqs"], runs["spec_tp1"]["seqs"]))
+            if r["seqs"] != runs["spec_tp1"]["seqs"]:
+                spec["windows_vs_unsplit"] = verify_windows(
+                    eng, prompts, r["seqs"], "u.2 spec tp2", params=params)
+        del eng
+    rules["spec"] = spec
+    launches = runs["greedy_tp2"]["launches_by_shape"][
+        (1, cfg.head_dim, str(cfg.dtype)[6:])]
+    del params, tpp, dparams, gap_at
+    free()
+    rec["f32"] = moe_f32_tp(seed, device, mesh, prompts)
+    keep = ("ms_per_tick", "tokens_per_s", "ticks", "kernel_launches",
+            "prefill_s", "peak_gb", "ms_per_round", "acceptance")
+    rec.update(runs={k: {f: r[f] for f in keep if f in r}
+                     for k, r in runs.items()},
+               token_rule=rules, dropped=drops,
+               tp2_vs_tp1_eager_ms_per_tick=(
+                   runs["greedy_tp2"]["ms_per_tick"]
+                   / runs["greedy_tp1"]["ms_per_tick"]))
+    return rec, launches
+
+
+def moe_f32_tp(seed: int, device, mesh, prompts) -> dict:
+    """(u.2)'s f32 arm at 2 layers, the widths otherwise phase (o)'s: the
+    tp = 2 MoE engine's greedy tokens equal tp = 1's, and every gating
+    call drops the same assignments, so the dropped share of each call
+    width is tp = 1's exactly: the gating is one computation, and in
+    f32 the shards' partial sums round the hidden states apart by far
+    less than a router margin (in bf16 a near-tie flips from the first
+    prefill call, and the token rule's routing excuse holds it)."""
+    import gc
+
+    from nos_tpu_torch.cmd.server import ServerConfig, build_engine
+    from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.models.serving import DecodeServer
+
+    kw = dict(kv_blocks=1 + 8 * 128, kv_block_size=16, max_batch=8)
+    eng = build_engine(ServerConfig(
+        bf16=False, paged_kernel="on", seed=seed, **kw,
+        **dict(MOE, n_layers=2)), device=device)
+    params, cfg = eng.params, eng.cfg
+    one = moe_traced_run(eng, prompts)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = moe_traced_run(DecodeServer(
+        tfm.shard_params(params, cfg, mesh), cfg, mesh=mesh, device=device,
+        paged_impl="kernel", **kw), prompts)
+    if two["seqs"] != one["seqs"] or two["drops"] != one["drops"]:
+        raise AssertionError(
+            f"u.2 f32: tp2 tokens equal tp1's "
+            f"{[a == b for a, b in zip(two['seqs'], one['seqs'])]}, gating "
+            f"calls dropping apart "
+            f"{sum(a != b for a, b in zip(two['drops'], one['drops']))}")
+    return {"n_layers": 2, "tokens_equal": True, "drops_equal": True,
+            "gating_calls": len(one["drops"]),
+            "dropped_share_by_width": drop_shares(one),
+            "kernel_launches": [one["kernel_launches"],
+                                two["kernel_launches"]]}
+
+
+def phase_tp_spec_moe(seed: int, card: str, flush, device=None) -> dict:
+    """(u): the speculative engine (u.1) and the MoE family (u.2) served
+    under tp = 2 with both shards on the one card, after the paged
+    kernel at their three new shard shapes (u.0). Returns the u.0 rows
+    and the kernel's launches at each shape on the main path's runs."""
+    from nos_tpu_torch.parallel.mesh import TpMesh
+
+    t0 = time.perf_counter()
+    device = device or torch.device("cuda", 0)
+    mesh = TpMesh([device] * TP)
+    out = {"phase": "tp_spec_moe", "card": card, "tp": TP}
+    try:
+        kernels = paged_timed_cases(
+            np.random.default_rng(seed + 18), device, flush,
+            "tp_kernel_vs_plain",
+            (("tp_verify", U_VERIFY, SPEC_K, False),
+             ("tp_verify_int8", U_VERIFY, SPEC_K, True),
+             ("tp_draft", U_DRAFT, 1, False),
+             ("tp_draft_int8", U_DRAFT, 1, True),
+             ("tp_moe_decode", U_MOE_DECODE, 1, False)))
+        torch.cuda.empty_cache()
+        spec, launches = phase_tp_spec(seed, card, device, mesh)
+        emit(spec)
+        out["spec_seconds"] = time.perf_counter() - t0
+        moe, launches["tp_moe_decode"] = phase_tp_moe(seed, card, device,
+                                                      mesh)
+        emit(moe)
+        out["launches"] = launches
+        return {"kernels": kernels, "launches": launches}
+    finally:
+        out["seconds"] = time.perf_counter() - t0
+        emit(out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7832,6 +8369,9 @@ def main(argv=None) -> int:
     layouts = {}
     if "t" in args.phases:
         layouts = phase_layouts(args.seed, card, g_row, flush)
+    tp_more = {}
+    if "u" in args.phases:
+        tp_more = phase_tp_spec_moe(args.seed, card, flush)
     del flush
     emit({"phase": "done", "seconds": time.perf_counter() - t_all,
           "card": card})
@@ -7851,6 +8391,20 @@ def main(argv=None) -> int:
             "shape": {k: row[k] for k in ("b", "h", "h_kv", "d", "S",
                                           "arena")},
             "launches": tp_launches[dtype],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
+    # phase (u)'s shard shapes of the same kernel: the tp = 2 verify
+    # window and draft step (bf16 and int8 arenas), their launches (u.1)'s
+    # greedy tp = 2 runs with the seeded draft, and MoE decode, its
+    # launches (u.2)'s greedy tp = 2 run on the bf16 arena
+    for label, row in tp_more["kernels"].items():
+        kernels.append({
+            "name": f"paged_decode_attention_{label}", "route": "cuda",
+            "source": "nos_tpu_torch/csrc/paged_decode_attention.cu",
+            "replaces": "nos_tpu/ops/attention.py:430",
+            "shape": {k: row[k] for k in ("b", "h", "h_kv", "d", "S",
+                                          "arena")},
+            "launches": tp_more["launches"][label],
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
     # phase (n)'s shapes of the same kernel: the speculative engine's

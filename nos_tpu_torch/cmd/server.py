@@ -57,9 +57,9 @@ prefills); ``--tenant-config`` turns on tenant quotas (429
 objectives the ``slo_budget`` and ``chip_ledger`` sections of /stats).
 With the reference's defaults (``kv_blocks`` 0) the binary serves the
 slot-static engine; ``--kv-blocks`` > 0 serves the paged one.
-``build_engine`` validates a config with the reference's messages, then
-refuses the one knob the torch engine does not serve yet by name
-(``NotPorted``: tensor parallelism), before any weights are made.
+``build_engine`` validates a config with the reference's messages
+before any weights are made; ``--tp`` serves every engine (the MoE
+family, a draft) tensor-parallel over the first tp visible cards.
 ``--checkpoint-dir`` serves a trainer's checkpoint (the port's format,
 ``train/checkpoint.py``; the stamp is validated first), and
 ``--draft-checkpoint-dir`` turns on speculative decoding with the draft
@@ -87,7 +87,7 @@ from nos_tpu_torch.device import DeviceLike, resolve_device
 from nos_tpu_torch.kvfabric import FABRIC_TOKEN_HEADER, HostTierStore
 from nos_tpu_torch.models.errors import (
     DeadlineExceeded, DeadlineUnmeetable, EngineRecovering, Infeasible,
-    NotPorted, QueueFull,
+    QueueFull,
 )
 from nos_tpu_torch.models.supervision import EngineSupervisor
 from nos_tpu_torch.models.tenantquota import (
@@ -205,8 +205,9 @@ class ServerConfig:
     # (parallel.mesh.TpMesh; ``build_engine(device="cpu")`` puts every
     # shard on the CPU). 0/1 = single device. Sampling decisions run on
     # the gathered f32 logit row, so the sampled stream is the single-
-    # device one; requires kv_heads % tp == 0. Not with n_experts or a
-    # draft yet.
+    # device one; requires kv_heads % tp == 0 (and the draft's kv heads
+    # under a draft, whose params and arena split in lockstep); the MoE
+    # family splits each expert's d_ff.
     tp: int = 0
     # prefill/decode disaggregation role: "colocated" (default — one
     # engine prefills and decodes), "prefill" (requests leave after
@@ -2938,7 +2939,7 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
     to the engine as its ``paged_impl``; nothing is written to the
     environment."""
     from nos_tpu_torch.cmd.generate import GenerateConfig, load_params
-    from nos_tpu_torch.models.serving import DecodeServer, reject_unported
+    from nos_tpu_torch.models.serving import DecodeServer
 
     # config errors must fire BEFORE the (multi-GB) weights are made
     if cfg.prefill_chunk and (cfg.prefill_chunk < 8 or
@@ -3028,10 +3029,8 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
             "prefix_cache_size): the host tier stores demoted prefix "
             "chains, which only the paged prefix index produces — "
             "without one there is nothing to demote")
-    # knobs outside this slice, by name, still before any weights
+    # the mesh's checks, still before any weights
     mesh = _serving_mesh(cfg, device)
-    reject_unported(mesh=mesh, n_experts=cfg.n_experts,
-                    draft=bool(cfg.draft_checkpoint_dir))
     # parsed here so the supervisor's rebuild factory re-creates a
     # tenant-aware engine from the same config
     tenant_quota = TenantQuotaConfig.load(cfg.tenant_config)
@@ -3060,10 +3059,12 @@ def build_engine(cfg: ServerConfig, device: DeviceLike = None):
             max_seq=cfg.max_seq, bf16=cfg.bf16,
             checkpoint_dir=cfg.draft_checkpoint_dir, seed=cfg.seed)
         draft_cfg, draft_params = load_params(dcfg_in, device)
+        # the engine splits both models over the mesh, as the
+        # reference's device_put of each by its param_shardings
         return SpeculativeDecodeServer(
             params, model_cfg, draft_params, draft_cfg,
             n_draft=cfg.draft_n_tokens, max_batch=cfg.max_batch,
-            prefix_cache_size=cfg.prefix_cache_size,
+            prefix_cache_size=cfg.prefix_cache_size, mesh=mesh,
             prefill_chunk=cfg.prefill_chunk, max_pending=cfg.max_pending,
             # the speculative engine rides the full dispatch template:
             # pipelined windows, fused rounds, paged + int8 KV all apply
@@ -3111,6 +3112,12 @@ def _serving_mesh(cfg: ServerConfig, device: DeviceLike):
         raise ValueError(
             f"kv_heads {kv} not divisible by tp={cfg.tp}; the "
             f"cache head axis cannot shard evenly")
+    if cfg.draft_checkpoint_dir:
+        dkv = cfg.draft_n_kv_heads or cfg.draft_n_heads
+        if dkv % cfg.tp:
+            raise ValueError(
+                f"draft kv_heads {dkv} not divisible by tp={cfg.tp}; "
+                f"the draft cache head axis cannot shard evenly")
     return TpMesh(devs)
 
 
@@ -3669,10 +3676,7 @@ def main(argv: Optional[Sequence[str]] = None,
     # parsed once more for the loop's accounting half (the engine half
     # parses inside build_engine, so the rebuild factory carries it)
     tenant_quota = TenantQuotaConfig.load(cfg.tenant_config)
-    try:
-        engine = build_engine(cfg, device)
-    except NotPorted as e:
-        parser.exit(2, f"{parser.prog}: {e}\n")
+    engine = build_engine(cfg, device)
 
     def _http_handoff_send(target: str, data: bytes) -> int:
         """Ship one encoded handoff to a decode replica; returns the

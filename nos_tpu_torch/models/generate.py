@@ -16,7 +16,9 @@ q/k/v heads, rotates them, writes its K/V into its own slice of the
 cache and attends over its own Hkv/tp heads (on the card the paged
 kernel at that head count, no collective inside it: the reference's
 ``_paged_kernel_sharded``); one reduction follows the row-parallel o
-product and one the down product, the embedding is a masked lookup per
+product and one the down product (under MoE each expert's down product,
+the gating computed once on shard 0 and its dispatch and combine handed
+to every shard), the embedding is a masked lookup per
 vocab shard plus a reduction, and the logits are the vocab shards
 gathered into one f32 row on shard 0's device (``replicated_logits``),
 where every sampling decision runs, so the sampled stream is the
@@ -41,7 +43,7 @@ from nos_tpu_torch.ops.attention import (
 from nos_tpu_torch.ops.layers import (
     rms_norm, rope_frequencies, rope_rows, rotate, swiglu,
 )
-from nos_tpu_torch.ops.moe import moe_ffn
+from nos_tpu_torch.ops.moe import moe_ffn, moe_ffn_tp
 from nos_tpu_torch.ops.quant import QuantLinear, embed_lookup, qdot
 from nos_tpu_torch.parallel.mesh import HeadShards, TpMesh, head_shards
 from nos_tpu_torch.utils import prng
@@ -259,8 +261,8 @@ def _decoder_tp(params: TpParams, cfg: TransformerConfig,
                 tokens: torch.Tensor, rope, attend) -> torch.Tensor:
     """``_decoder`` over ``params.mesh``: the residual stream lives on
     shard 0's device and is broadcast before each sublayer; each shard
-    runs its heads (and its d_ff slice), and its partial o and down
-    products are reduced (``TpMesh.reduce``)."""
+    runs its heads (and its d_ff slice, of each expert's under MoE), and
+    its partial o and down products are reduced (``TpMesh.reduce``)."""
     mesh, shards = params.mesh, params.shards
     tp = mesh.tp
     heads, kv_heads = cfg.n_heads // tp, cfg.kv_heads // tp
@@ -276,12 +278,28 @@ def _decoder_tp(params: TpParams, cfg: TransformerConfig,
                            ropes[r])
             parts.append(qdot(attend(r, i, q, k, v), layer["wo"]))
         x = x + mesh.reduce(parts)
-        x = x + mesh.reduce([
-            swiglu(rms_norm(xr, layer["mlp_norm"]), layer["w_gate"],
-                   layer["w_up"], layer["w_down"])
-            for layer, xr in zip(layers, mesh.broadcast(x))])
+        x = x + _mlp_tp(x, layers, cfg, mesh)
     return mesh.gather([_logits(xr, p)
                         for p, xr in zip(shards, mesh.broadcast(x))], -1)
+
+
+def _mlp_tp(x: torch.Tensor, layers: List[dict], cfg: TransformerConfig,
+            mesh: TpMesh) -> torch.Tensor:
+    """The FFN sublayer's output over the mesh (``_mlp_residual`` without
+    the residual): each shard's d_ff slice of the dense SwiGLU, or with
+    ``cfg.n_experts`` of every expert's (``moe_ffn_tp``: the gating once,
+    on shard 0, over the replicated router), the partials reduced."""
+    if cfg.n_experts > 0:
+        h = rms_norm(x, layers[0]["mlp_norm"])
+        y, _aux = moe_ffn_tp(
+            h, layers[0]["w_router"],
+            [(la["w_gate"], la["w_up"], la["w_down"]) for la in layers],
+            mesh, cfg.expert_capacity_factor)
+        return y
+    return mesh.reduce([
+        swiglu(rms_norm(xr, layer["mlp_norm"]), layer["w_gate"],
+               layer["w_up"], layer["w_down"])
+        for layer, xr in zip(layers, mesh.broadcast(x))])
 
 
 def _shard_planes(cache: Cache, names, r: int, i: int):

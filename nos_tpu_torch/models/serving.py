@@ -137,11 +137,10 @@ whose reads gather the heads in shard order: a payload's bytes are the
 reference's layout at any tp, so a tp = 2 engine adopts a tp = 1
 engine's handoff and the other way round. Under a mesh the programs run
 eagerly (no CUDA graph is captured), and each shard's paged kernel takes
-the kernel's own split scratch.
-
-What the reference engine has and this slice does not yet port raises
-a ``ValueError`` naming the knob: a mesh under the MoE family or the
-speculative engine.
+the kernel's own split scratch. The MoE family splits each expert's
+d_ff (the gating runs once, on shard 0), and the speculative subclass
+splits its draft's params and arena over the same mesh, in lockstep
+with the target's.
 """
 from __future__ import annotations
 
@@ -160,7 +159,7 @@ from nos_tpu_torch.kvfabric.codec import (
     chain_digest, decode_chain, encode_chain,
 )
 from nos_tpu_torch.models.errors import (
-    DEFAULT_TENANT, Infeasible, NotPorted, QueueFull, TenantQuotaExceeded,
+    DEFAULT_TENANT, Infeasible, QueueFull, TenantQuotaExceeded,
 )
 from nos_tpu_torch.models.generate import (
     Cache, _tempered, _truncate_logits_rows, check_mesh, forward_paged,
@@ -196,26 +195,6 @@ def _bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
-
-
-def _not_ported(knob: str, what: str) -> NotPorted:
-    return NotPorted(
-        f"{knob} is not ported to the torch engine yet ({what}); the "
-        f"JAX engine nos_tpu.models.serving.DecodeServer serves it")
-
-
-def reject_unported(*, mesh=None, n_experts: int = 0,
-                    draft: bool = False) -> None:
-    """Raise a ValueError naming the first engine knob set outside this
-    slice (a mesh under the MoE family or the speculative engine);
-    ``build_engine`` calls it before loading any weights."""
-    if mesh is not None and n_experts > 0:
-        raise _not_ported("n_experts under a mesh",
-                          "tensor-parallel MoE serving")
-    if mesh is not None and draft:
-        raise _not_ported("a draft under a mesh",
-                          "tensor-parallel speculative decoding: the "
-                          "draft and target arenas in lockstep")
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -410,9 +389,6 @@ class DecodeServer:
     "xla" (the gather); None reads ``effective_paged_impl()``. ``mesh``
     (a ``TpMesh``) serves tensor-parallel over its devices."""
 
-    # the speculative engine (a subclass) sets it: a mesh is refused there
-    _speculative = False
-
     def __init__(self, params: Params, cfg: TransformerConfig,
                  max_batch: int = 8, max_len: Optional[int] = None,
                  prefix_cache_size: int = 0, mesh=None,
@@ -463,8 +439,6 @@ class DecodeServer:
                 f"kv_blocks/kv_block_size): the handoff payload is the "
                 f"swap format — quantized blocks + per-block scales — "
                 f"which only the paged engine stores")
-        reject_unported(mesh=mesh, n_experts=cfg.n_experts,
-                        draft=self._speculative)
         # tensor-parallel serving: the cache's head axis over the mesh,
         # the params in the matching split, the control rows on shard
         # 0's device

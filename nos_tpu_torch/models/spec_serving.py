@@ -34,6 +34,14 @@ accept-reject rule with keys by (seed, absolute position, sub-stream:
 not depend on its neighbours or on the dispatch knobs; they are the
 reference engine's tokens at the same seed.
 
+Under a mesh (``mesh=``, a ``TpMesh``) the draft splits as the target
+does (``transformer.shard_params`` at the draft's widths) and its arena,
+scale planes or slot-static rows are ``HeadShards`` on the head axis, so
+the draft and target arenas split in lockstep while the draft's block
+table, pos and control rows stay on shard 0's device beside the
+target's; acceptance and sampling read the gathered f32 logit rows the
+sharded forwards return (the reference's ``replicated_logits``).
+
 The draft is derived state: a preempted or restored request's draft
 cache is rebuilt for its committed sequence (``_resume_draft``). Under
 the kernel formulation the draft re-prefills the prompt as its admission
@@ -55,8 +63,8 @@ import numpy as np
 import torch
 
 from nos_tpu_torch.models.generate import (
-    _truncate_logits_rows, forward_paged, forward_with_cache, init_cache,
-    init_paged_cache,
+    _truncate_logits_rows, check_mesh, forward_paged, forward_with_cache,
+    init_cache, init_paged_cache,
 )
 from nos_tpu_torch.models.kvblocks import (
     BlockAllocator, NoFreeBlocks, ScaleLedger, blocks_for,
@@ -65,7 +73,9 @@ from nos_tpu_torch.models.serving import (
     DecodeServer, QueueFull, _bucket, _Request, install_row,
 )
 from nos_tpu_torch.models.speculative import _sample_rows
-from nos_tpu_torch.models.transformer import Params, TransformerConfig
+from nos_tpu_torch.models.transformer import (
+    Params, TpParams, TransformerConfig, shard_params,
+)
 from nos_tpu_torch.ops import _kernels
 from nos_tpu_torch.ops.attention import check_paged_kernel_head_dim
 from nos_tpu_torch.utils import prng
@@ -87,8 +97,6 @@ class SpeculativeDecodeServer(DecodeServer):
     ``draft_cfg`` are the draft model (same vocabulary as the target);
     every other knob is the base engine's."""
 
-    _speculative = True
-
     def __init__(self, params: Params, cfg: TransformerConfig,
                  draft_params: Params, draft_cfg: TransformerConfig,
                  *, n_draft: int = 4, max_batch: int = 8,
@@ -103,8 +111,21 @@ class SpeculativeDecodeServer(DecodeServer):
                 "decode side (role=decode adopts handoffs and "
                 "re-prefills the draft from the committed sequence) or "
                 "colocated")
+        mesh = kw.get("mesh")
+        if mesh is not None and draft_cfg.kv_heads % check_mesh(mesh).tp:
+            raise ValueError(
+                f"draft kv_heads {draft_cfg.kv_heads} not divisible by "
+                f"tp={mesh.tp}; the draft cache head axis cannot shard "
+                f"evenly")
         super().__init__(params, cfg, max_batch=max_batch, max_len=max_len,
                          **kw)
+        if mesh is not None:
+            # the draft splits over the target's mesh, in lockstep: its
+            # params in the same layout, its arena's head axis
+            if draft_params is params:          # draft = target
+                draft_params = self.params
+            elif not isinstance(draft_params, TpParams):
+                draft_params = shard_params(draft_params, draft_cfg, mesh)
         self.draft_params = draft_params
         self.draft_cfg = draft_cfg
         self.k = k = max(1, int(n_draft))
@@ -130,25 +151,29 @@ class SpeculativeDecodeServer(DecodeServer):
                 self._d_alloc.scale_ledger = self._d_scales
             self.d_cache = init_paged_cache(
                 draft_cfg, self._alloc.num_blocks, self.kv_block_size,
-                max_batch, kv_dtype=self.kv_dtype, device=self.device)
+                max_batch, kv_dtype=self.kv_dtype, device=self.device,
+                mesh=mesh)
             self._d_tables: List[List[int]] = [[] for _ in range(max_batch)]
             self._d_deferred: List[int] = []
             self._d_table = torch.zeros((max_batch, self._nbs),
                                         dtype=torch.int32, device=self.device)
             # the draft replay program's table (only the resumed row
             # live) and the draft's own split-merge scratch: the draft's
-            # launches and the target's are separate owners
+            # launches and the target's are separate owners (none under
+            # a mesh, whose shards' launches take the kernel's own)
             self._d_rtable = torch.zeros((max_batch, self._nbs),
                                          dtype=torch.int32,
                                          device=self.device)
-            self._d_scratch = _kernels.PagedScratch()
+            self._d_scratch = (_kernels.PagedScratch() if mesh is None
+                               else None)
             # the window replay program's feed (a recompute resume's
             # rounds)
             self._wtoks = torch.zeros((max_batch, k), dtype=torch.long,
                                       device=self.device)
         else:
             self.d_cache = init_cache(draft_cfg, max_batch, self.max_len,
-                                      per_row_pos=True, device=self.device)
+                                      per_row_pos=True, device=self.device,
+                                      mesh=mesh)
             self._d_table = None
         self.replayed_windows = 0
         self.replayed_draft_tokens = 0
@@ -349,10 +374,10 @@ class SpeculativeDecodeServer(DecodeServer):
     def capture_programs(self):
         """The base engine's captures, and the draft replay program on a
         paged engine under the kernel formulation (every resume, swap
-        or recompute, rebuilds the draft through it)."""
+        or recompute, rebuilds the draft through it); none on a mesh."""
         out = super().capture_programs()
         if self.device.type != "cuda" or not self.paged \
-                or self.paged_kernel != "kernel":
+                or self.paged_kernel != "kernel" or self.mesh is not None:
             return out
         keys = ["dreplay"] + ([] if self.kv_swap else ["wreplay"])
         for key in keys:
@@ -406,7 +431,8 @@ class SpeculativeDecodeServer(DecodeServer):
         return max(b, self.kv_block_size) if self.paged else b
 
     def _fresh_drow(self, bucket: int) -> dict:
-        row = init_cache(self.draft_cfg, 1, bucket, device=self.device)
+        row = init_cache(self.draft_cfg, 1, bucket, device=self.device,
+                         mesh=self.mesh)
         row["pos"] = torch.tensor(0, dtype=torch.int32)
         return row
 

@@ -209,10 +209,14 @@ def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
 # heads [r H/tp, (r+1) H/tp) and kv heads [r Hkv/tp, (r+1) Hkv/tp), so
 # the GQA grouping stays within a shard); o and down their input
 # features; the embedding its vocab rows, the unembedding its vocab
-# columns
+# columns. The MoE family's expert stacks ([L, E, d, f], [L, E, f, d])
+# split each expert's d_ff through the same negative axes and the router
+# is replicated: the reference's ``ns(None, "ep", "fsdp", "tp")`` on a
+# serving mesh with no ep axis
 TP_SPLIT = {"embed": 0, "unembed": -1, "final_norm": None,
             "attn_norm": None, "mlp_norm": None, "wq": -1, "wk": -1,
-            "wv": -1, "w_gate": -1, "w_up": -1, "wo": -2, "w_down": -2}
+            "wv": -1, "w_gate": -1, "w_up": -1, "wo": -2, "w_down": -2,
+            "w_router": None}
 # ... and the axis each splits along over fsdp (the matmul axis tp does
 # not take: d_model everywhere, the experts' and the router's too);
 # the embeddings and norms are whole on every fsdp rank
@@ -272,13 +276,9 @@ def _gather_leaf(parts: list, axis: Optional[int], mesh):
 def shard_params(params: Params, cfg: TransformerConfig, mesh) -> TpParams:
     """Split ``params`` (plain or ``quantize_params``' int8 twin) over
     ``mesh`` in ``TP_SPLIT``'s layout, each shard on its device; the
-    reference's ``device_put(params, param_shardings(mesh, cfg))``.
-    The MoE family is not split (tensor-parallel MoE serving is not
-    ported)."""
-    if cfg.n_experts > 0:
-        raise ValueError(
-            "n_experts under tp: tensor-parallel MoE serving is not "
-            "ported to the torch engine yet")
+    reference's ``device_put(params, param_shardings(mesh, cfg))``
+    (``quant_param_shardings`` for the int8 twin, whose experts and
+    router stay unquantized)."""
     check_tp(cfg, mesh.tp)
     shards: List[Params] = [{"layers": {}} for _ in range(mesh.tp)]
     for name, leaf in params.items():

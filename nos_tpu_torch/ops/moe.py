@@ -1,6 +1,6 @@
-"""Mixture-of-Experts FFN (port of ``nos_tpu/ops/moe.py`` without a
-mesh): top-2 gating with per-expert capacity and the dense
-dispatch/combine products.
+"""Mixture-of-Experts FFN (port of ``nos_tpu/ops/moe.py``): top-2 gating
+with per-expert capacity and the dense dispatch/combine products; under
+a serving mesh each expert's d_ff split over tp (``moe_ffn_tp``).
 
 The routing is the reference's, capacity drops included: every token
 picks its best and second-best expert; each expert takes at most C
@@ -30,7 +30,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["expert_capacity", "top2_gating", "moe_ffn"]
+__all__ = ["expert_capacity", "top2_gating", "moe_ffn", "moe_ffn_tp"]
 
 
 def _f32(c: float) -> float:
@@ -185,13 +185,46 @@ def moe_ffn(h: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     -> (out [B, S, d], aux_loss). The capacity is the reference's over
     this call's S, so the same tokens route alike only at the same S.
     ``batch_mean``: ``top2_gating``'s."""
-    b, s, d = h.shape
-    e = router.shape[-1]
-    cap = expert_capacity(s, e, capacity_factor)
+    combine, dispatch, aux = _route(h, router, capacity_factor, batch_mean)
+    return _experts(h, combine, dispatch, w_gate, w_up, w_down), aux
 
+
+def moe_ffn_tp(h: torch.Tensor, router: torch.Tensor, experts,
+               mesh, capacity_factor: float = 1.25
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn`` over a serving mesh's shards (``parallel.mesh.TpMesh``)
+    with each expert's d_ff split Megatron-style: h [B, S, d] and the
+    replicated router on shard 0's device; ``experts[r]`` shard r's
+    (w_gate [E, d, f/tp], w_up, w_down [E, f/tp, d]) on its device. The
+    gating runs once, on shard 0, and every shard takes the same combine
+    and dispatch (``mesh.broadcast``), so the shards route alike by
+    construction; each runs dispatch, its slice of every expert's SwiGLU
+    and combine, and the partials are summed (``mesh.reduce``) ->
+    (out [B, S, d] on shard 0's device, aux_loss)."""
+    combine, dispatch, aux = _route(h, router, capacity_factor)
+    parts = [_experts(hr, cr, dr, *w) for hr, cr, dr, w in zip(
+        mesh.broadcast(h), mesh.broadcast(combine),
+        mesh.broadcast(dispatch), experts)]
+    return mesh.reduce(parts), aux
+
+
+def _route(h: torch.Tensor, router: torch.Tensor, capacity_factor: float,
+           batch_mean: BatchMean = None):
+    """The gating of ``h`` [B, S, d] over ``router`` [d, E] at the
+    reference's capacity over this call's S: (combine, dispatch, aux)."""
+    cap = expert_capacity(h.shape[1], router.shape[-1], capacity_factor)
     logits = torch.matmul(h.float(), router.float())       # [B, S, E]
-    combine, dispatch, aux = top2_gating(logits, cap, batch_mean)
+    return top2_gating(logits, cap, batch_mean)
 
+
+def _experts(h: torch.Tensor, combine: torch.Tensor, dispatch: torch.Tensor,
+             w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """Dispatch ``h`` [B, S, d] to the experts' [E, C] slots, each
+    expert's SwiGLU (the slice of d_ff the weights hold), combine ->
+    [B, S, d] in the model dtype."""
+    b, s, d = h.shape
+    e, cap = combine.shape[-2:]
     # dispatch: [B, S, E, C] x [B, S, d] -> [E, B, C, d]
     disp = dispatch.to(h.dtype).reshape(b, s, e * cap)
     x = torch.matmul(disp.transpose(1, 2), h)               # [B, E*C, d]
@@ -203,4 +236,4 @@ def moe_ffn(h: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     # combine: [E, B, C, d] x [B, S, E, C] -> [B, S, d]
     y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
     comb = combine.to(h.dtype).reshape(b, s, e * cap)
-    return torch.matmul(comb, y), aux
+    return torch.matmul(comb, y)

@@ -13,8 +13,10 @@ as ``test_paged_engine_tokens_invariant_to_mesh`` runs it), on bf16 and
 int8 arenas, through a COW fork, a preemption in either mode, a handoff
 either way between tp = 1 and tp = 2 (the payload re-read from the
 adopting arena equal to the one shipped, byte for byte), the slot-static
-engine and ``build_engine`` behind ``ServingLoop``; the sharded forward's
-logits are the reference's sharded forward's within 1e-5 (f32).
+engine and ``build_engine`` behind ``ServingLoop`` (with ``n_experts`` or
+a draft too: tests/test_torch_tp_spec_moe.py holds those engines); the
+sharded forward's logits are the reference's sharded forward's within
+1e-5 (f32).
 """
 import contextlib
 import os
@@ -36,7 +38,6 @@ from nos_tpu_torch.cmd.server import (  # noqa: E402
 from nos_tpu_torch.models import generate as tgen  # noqa: E402
 from nos_tpu_torch.models import handoff as thandoff  # noqa: E402
 from nos_tpu_torch.models import transformer as ttfm  # noqa: E402
-from nos_tpu_torch.models.errors import NotPorted  # noqa: E402
 from nos_tpu_torch.models.quant import quantize_params  # noqa: E402
 from nos_tpu_torch.models.serving import DecodeServer  # noqa: E402
 from nos_tpu_torch.ops.quant import QuantLinear  # noqa: E402
@@ -402,19 +403,56 @@ def test_tp_above_the_visible_cards_is_refused(monkeypatch):
     ("n_experts", dict(n_experts=4)),
     ("draft", dict(draft_checkpoint_dir="/d")),
 ])
-def test_moe_and_draft_under_tp_refused_by_name(params, knob, kw):
-    """The next A.8 items stay refused by name, before any weights:
-    MoE under a mesh, and the speculative engine's draft."""
-    with pytest.raises(NotPorted, match=knob):
-        build_engine(ServerConfig(**MODEL, tp=2, bf16=False, **PAGED_SERVER,
-                                  **kw), device="cpu")
-    if knob == "draft":
-        from nos_tpu_torch.models.spec_serving import SpeculativeDecodeServer
+def test_moe_and_draft_under_tp_refused_by_name(params, knob, kw, tmp_path):
+    """The two configs this check once refused by name (MoE under a
+    mesh, and the speculative engine's draft) now build tensor-parallel
+    engines: the MoE family with each expert's d_ff split, the draft
+    (restored from a checkpoint at the config's draft widths) split in
+    lockstep with the target, both arenas on the shards' head axis."""
+    from nos_tpu_torch.models.spec_serving import SpeculativeDecodeServer
 
-        _, tp = params
-        with pytest.raises(NotPorted, match="draft under a mesh"):
-            SpeculativeDecodeServer(tp, TCFG, tp, TCFG, device="cpu",
-                                    mesh=TpMesh(CPU2), **PAGED)
+    if knob == "draft":
+        kw = dict(draft_checkpoint_dir=_draft_checkpoint(tmp_path))
+    eng = build_engine(ServerConfig(**MODEL, tp=2, bf16=False,
+                                    **PAGED_SERVER, **kw), device="cpu")
+    assert eng.mesh.tp == 2
+    assert isinstance(eng.cache["k"], HeadShards)
+    assert isinstance(eng, SpeculativeDecodeServer) == (knob == "draft")
+    if knob == "draft":
+        assert isinstance(eng.d_cache["k"], HeadShards)
+        assert isinstance(eng.draft_params, ttfm.TpParams)
+    else:
+        la = eng.params.shards[1]["layers"]
+        assert la["w_gate"].shape[-1] == MODEL["d_ff"] // 2
+        assert la["w_router"].shape[-1] == 4
+    assert len(run_trace(eng, REQS[:1])[0]) == 5 + 8
+
+
+def _draft_checkpoint(root) -> str:
+    """A draft at ``ServerConfig``'s draft widths (f32, seeded), saved by
+    the port's ``CheckpointManager`` with its stamp; its directory."""
+    from nos_tpu_torch.cmd.generate import GenerateConfig
+    from nos_tpu_torch.train.checkpoint import (
+        CheckpointManager, model_arch_dict,
+    )
+
+    sc = ServerConfig(**MODEL)
+    gcfg = GenerateConfig(vocab=sc.vocab, d_model=sc.draft_d_model,
+                          n_layers=sc.draft_n_layers,
+                          n_heads=sc.draft_n_heads,
+                          n_kv_heads=sc.draft_n_kv_heads,
+                          d_ff=sc.draft_d_ff, max_seq=sc.max_seq, bf16=False)
+    dcfg = ttfm.TransformerConfig(
+        vocab=gcfg.vocab, d_model=gcfg.d_model, n_layers=gcfg.n_layers,
+        n_heads=gcfg.n_heads, n_kv_heads=gcfg.n_kv_heads, d_ff=gcfg.d_ff,
+        max_seq=gcfg.max_seq, dtype=torch.float32)
+    directory = str(root / "draft")
+    mgr = CheckpointManager(directory)
+    mgr.write_model_config(model_arch_dict(gcfg))
+    mgr.save(1, ttfm.init_params(dcfg, torch.Generator().manual_seed(5),
+                                 "cpu"), {})
+    mgr.close()
+    return directory
 
 
 PAGED_SERVER = dict(kv_blocks=24, kv_block_size=8, max_batch=2)
