@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopqrstu]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopqrstuv]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -27,8 +27,9 @@ d. exact tokens in f32, plain and int8 arenas: the serving engine
    its decode programs before the counted run, here and in (e), (h),
    (j));
 e. the main path at full width: ``build_engine`` on a Llama-3-8B-shaped
-   decoder (GQA 32/8 heads, d_model 4096, d_ff 14336, vocab 128256, 32
-   layers, random weights from the seed; max_seq cut to 2048) serves 8
+   decoder (GQA 32/8 heads, d_model 4096, d_ff 14336, vocab 128256, 16
+   of its 32 layers, random weights from the seed; max_seq cut to 2048;
+   ``--serving-layers`` sets the depth) serves 8
    requests x 32 tokens, greedy with a bf16 and an int8 KV arena, then
    sampled on the bf16 arena (temperature 0.8, top-k 50, top-p 0.95,
    seeds 0-7, served twice for the same tokens); each run's kernel
@@ -204,7 +205,7 @@ n. the slot-static engine and speculative decoding at phase (e)'s width,
    equal tokens, or a first divergence at a step where the plain run's
    top-2 logit gap (teacher-forced) is under 0.1;
 o. the Mixture-of-Experts family at Mixtral-8x7B's widths (vocab 32000,
-   d_model 4096, 32/8 heads, d_ff 14336, 8 experts, top-2; 4 of its 32
+   d_model 4096, 32/8 heads, d_ff 14336, 8 experts, top-2; 2 of its 32
    layers, for time (24 fit the card); max_seq 2048), every engine on the
    weights of one ``build_engine`` with ``n_experts`` 8, built with under
    1 GB resident, its gating held to the CPU's bit for bit: phase (e)'s
@@ -319,16 +320,17 @@ s. tensor-parallel serving at phase (e)'s widths, tp = 2, both shards on
 t. the trainer's dp / fsdp / tp layouts, every rank a process on the
    one card over gloo (NCCL takes one rank a card): (1) ``train()`` on
    (g)'s model, batch 8 x 2048, bf16, full remat, 4 steps on one
-   device and under dp 2, fsdp 2 and dp 2 x tp 2 (4 ranks): each step's
-   loss within 5e-4 of the one-device run's (its losses beside (g)'s),
-   rank 0's part of each param leaf after step 4 within 5e-3 of its
-   RMS of the one-device run's, ms a step (no speed claim: the ranks
+   device and 2 under dp 2, fsdp 2 and dp 2 x tp 2 (4 ranks): each
+   step's loss within 5e-4 of the one-device run's (its losses beside
+   (g)'s), rank 0's part of each param leaf after step 2 within 2e-2 of
+   its RMS of the one-device run's after step 2, ms a step (no speed
+   claim: the ranks
    share one card and the collectives cross the host), each rank's
    peak memory and params-and-moments bytes (fsdp 2's what its split
    leaves give, about half of dp 2's), and every rank's flash and adamw
    launches as a one-device run's (summed over ranks in the kernels
    line, under the attention shape the ranks ran); (2) f32 at 2
-   layers, batch 2 x 1024: each layout's 4 losses within 1e-4 of one
+   layers, batch 2 x 1024: each layout's 2 losses within 1e-4 of one
    device's; (3) the flash kernels at the ranks' attention shapes (a dp
    2 or fsdp 2 rank's B 4, H 16/4; a dp 2 x tp 2 rank's B 4, H 8/2; S
    2048, D 128, causal) against their plain versions, bf16 timed beside
@@ -358,7 +360,7 @@ u. the speculative engine and the MoE family under tp = 2, both shards
    kernel's launches by shape tp times the program's count; a tp = 1
    prefill-role engine's handoff adopted by a tp = 2 decode-role
    speculative engine (K/V read back byte for byte, tokens by the token
-   rule); (2) phase (o)'s MoE model (4 layers) with each expert's d_ff
+   rule); (2) phase (o)'s MoE model (2 layers) with each expert's d_ff
    split and the gating once on shard 0: greedy on the paged bf16 and
    int8 arenas and the slot-static engine against the tp = 1 engine by
    the token rule with the router near-tie excuse, the dropped share by
@@ -368,6 +370,30 @@ u. the speculative engine and the MoE family under tp = 2, both shards
    unsplit model's on its own K/V where its tokens differ from
    tp = 1's; ms a tick or round and peak memory beside tp = 1's
    (captured and eager), and the phase's seconds.
+v. the trainer's sequence and expert axes, every rank a process on the
+   one card over gloo: (1) (g)'s model, batch 8 x 2048, bf16, full
+   remat, 4 steps under sp 2 ring, sp 2 Ulysses and dp 2 x sp 2
+   Ulysses: each step's loss within 5e-4 of (t.1)'s one-device run's
+   (its own when (t) did not run), rank 0's params after step 4 within
+   2e-2 of each leaf's RMS, each Ulysses rank's flash launches a
+   one-device run's at its shape (B 8, H 8/2, S 2048; dp 2 x sp 2: B
+   4), the ring's ranks none (their blocks are plain products), adamw
+   one a leaf and step; f32 at 2 layers, batch 2 x 1024: each layout's
+   losses within 1e-4; (2) (p)'s Mixtral widths at 1 layer, batch 8 x
+   2048, bf16, 4 steps on one device and under ep 2, tp 2, tp 2 x ep 2
+   and dp 2 x ep 2: losses within ``V_MOE_LOSS_RTOL``, drop shares
+   beside one device's, each rank's launches at its shape; f32 at 2
+   layers of p.4's widths, batch 2 x 512: losses within 1e-4, step 1's
+   gating calls' drops per row equal to one device's (later calls
+   within ``V_DROP_TOL``), the router's gradient after step 1 within
+   (g)'s f32 tolerance; its tp 2 x ep 2 run's step-2 checkpoint resumed
+   on one device within ``compare_states``' tolerances and at tp 2 x
+   ep 2 bit for bit; (3) the flash kernels at a Ulysses rank's shapes
+   (B 8, H 8/2 and H 4/1, S 2048, D 128, causal) and an MoE tp 2 rank's
+   (B 8, H 16/4) against their plain versions, bf16 timed beside them,
+   SDPA and the bound, f32 at the Ulysses shapes. Prints ms a step,
+   each rank's peak and params-and-moments bytes and launches, and the
+   phase's seconds.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -402,11 +428,13 @@ KERNEL_TOL = 4e-2
 # summation order differs.
 PINS = {torch.bfloat16: (2.0 ** -7, 2.0 ** -8), torch.float32: (1e-5, 1e-5)}
 
-FULL = dict(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
+# the serving phases' model at 16 of Llama-3-8B's 32 layers: a cut for
+# time, the room phase (v) needs (PERF.md section 4)
+FULL = dict(vocab=128256, d_model=4096, n_layers=16, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijklmnopqrstu"
+PHASES = "cdefghijklmnopqrstuv"
 
 
 def emit(obj) -> None:
@@ -1838,13 +1866,13 @@ PREFIX_LEN = 1024
 PREFIX_NEW = 32
 # the in-arena windows against the scratch path's on the same arena
 # bits. bf16: the same two attention formulations (kernel, plain) over
-# the same 32 layers as phase (e)'s decode probe, whose tolerance (0.15,
-# 1.5x the largest difference read at these widths) this holds to; the
-# 8 windows read 0.074-0.098 on the H100. int8: the window attends over
-# its own suffix's K/V quantized in the arena, the scratch path over
-# them in bf16 (the reference's asymmetry, ROADMAP C.7); its 8 windows
-# read 0.078-0.102 on the H100 at this seed, and 0.15 is 1.48x the
-# largest
+# the same layers as phase (e)'s decode probe, whose tolerance (0.15,
+# 1.5x the largest difference read at these widths and 32 layers) this
+# holds to; the 8 windows read 0.074-0.098 on the H100 at 32 layers.
+# int8: the window attends over its own suffix's K/V quantized in the
+# arena, the scratch path over them in bf16 (the reference's asymmetry,
+# ROADMAP C.7); its 8 windows read 0.078-0.102 on the H100 at this seed,
+# and 0.15 is 1.48x the largest
 ARENA_LOGIT_TOL = 0.15
 
 
@@ -4495,7 +4523,9 @@ def phase_n(seed: int, card: str, flush) -> dict:
 # 1200 s beside phase (t); max_seq 2048 as phase (e). The
 # reference's capacity factor 1.25 (with drops) and rope theta 10000
 # (ServerConfig has no knob for Mixtral's 1e6).
-MOE = dict(vocab=32000, d_model=4096, n_layers=4, n_heads=32,
+# 2 of Mixtral's 32 layers: a cut for time (24 fit the card; phase (v)
+# needs the room: PERF.md section 4)
+MOE = dict(vocab=32000, d_model=4096, n_layers=2, n_heads=32,
            n_kv_heads=8, d_ff=14336, max_seq=2048, n_experts=8)
 MOE_NEW = 32
 # what may be resident on the card before the MoE model is built
@@ -5082,7 +5112,7 @@ def moe_f32_exact(seed: int, prompts) -> dict:
 
 
 def phase_moe(seed: int, card: str, flush) -> dict:
-    """(o): the MoE family served at Mixtral-8x7B's widths (4 layers),
+    """(o): the MoE family served at Mixtral-8x7B's widths (2 layers),
     every engine on the weights of one ``build_engine`` with
     ``n_experts`` 8; returns the paged kernel's launches on the main
     path's greedy run."""
@@ -5632,6 +5662,8 @@ def train_launches() -> dict:
 def zero_train_launches() -> None:
     for k in train_kernels().values():
         k.launches = 0
+        if hasattr(k, "launches_by_shape"):
+            k.launches_by_shape.clear()
 
 
 def n_param_leaves(n_experts: int = 0) -> int:
@@ -5981,7 +6013,11 @@ class logs_to:
 class captured_params:
     """Within the block, ``train()``'s params as its step function sees
     them (``captured.params``): the trained weights held in process after
-    ``train()`` returns."""
+    ``train()`` returns; with ``at_step``, also a host copy of them after
+    that step (``captured.at_step_params``, {leaf name: tensor})."""
+
+    def __init__(self, at_step=None):
+        self.at_step, self.at_step_params, self.steps = at_step, None, 0
 
     def __enter__(self):
         from nos_tpu_torch.models import transformer as tfm
@@ -5993,7 +6029,14 @@ class captured_params:
 
             def wrapped(params, batch):
                 self.params = params
-                return step(params, batch)
+                loss = step(params, batch)
+                self.steps += 1
+                if self.steps == self.at_step:
+                    self.at_step_params = dict(zip(
+                        tfm.leaf_names(params),
+                        (p.detach().cpu() for p in
+                         tfm.param_leaves(params))))
+                return loss
 
             return wrapped
 
@@ -6820,13 +6863,21 @@ def trainer_main(path: str, log: MainLog, ck: "CkptLog") -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def launches_want(n_layers: int, steps: int, n_experts: int = 0,
+           flash: bool = True) -> dict:
+    """A rank's training kernel launches over ``steps`` full-remat steps:
+    the flash forward 2 x n_layers a step (the recompute re-runs it),
+    each backward kernel n_layers, adamw one a leaf; no flash launch
+    where the attention is the ring's."""
+    n = n_layers * steps if flash else 0
+    return {"flash_attention_fwd": 2 * n,
+            "flash_attention_bwd_preprocess": n,
+            "flash_attention_bwd_dkdv": n, "flash_attention_bwd_dq": n,
+            "adamw": n_param_leaves(n_experts) * steps}
+
+
 def train_want(steps: int) -> dict:
-    L = TRAIN["n_layers"]
-    return {"flash_attention_fwd": 2 * L * steps,
-            "flash_attention_bwd_preprocess": L * steps,
-            "flash_attention_bwd_dkdv": L * steps,
-            "flash_attention_bwd_dq": L * steps,
-            "adamw": n_param_leaves() * steps}
+    return launches_want(TRAIN["n_layers"], steps)
 
 
 def phase_watcher(seed: int, card: str, g_row) -> dict:
@@ -7320,6 +7371,11 @@ def phase_tp(seed: int, card: str, device=None) -> dict:
 T_LAYOUTS = (("dp2", dict(dp=2)), ("fsdp2", dict(fsdp=2)),
              ("dp2_tp2", dict(dp=2, tp=2)))
 T_STEPS = 4
+# t.1's and t.2's layout runs take 2 steps, held to the one-device runs'
+# first 2 (their losses, and t.1's params after step 2): a cut for time,
+# the room phase (v) needs (PERF.md section 4); the one-device runs take
+# T_STEPS, which (v) holds its sp layouts to
+T_LAYOUT_STEPS = 2
 T_LOSS_RTOL = 5e-4
 T_PARAM_RMS = 2e-2
 # t.2: f32 at 2 layers of (g)'s widths, batch 2 x 1024 (the data ranks
@@ -7371,23 +7427,26 @@ class LayoutLog(logging.Handler):
             self.stopped_at = record.args[0]
 
 
-def layout_run(cfg, device, stop_event=None, on_step=None) -> dict:
+def layout_run(cfg, device, stop_event=None, on_step=None,
+               snapshot_at=None) -> dict:
     """``train(cfg)`` with every rank of its layout on ``device`` (one
     device when the layout has one chip), the training kernels' launches
     counted from 0 in this process (rank 0's; the other ranks report
     their own): losses, ms a step (rank 0's log, after the first step),
     the rank summaries, wall seconds, and rank 0's params after the run
-    ({leaf name: its part})."""
+    ({leaf name: its part}) and, with ``snapshot_at``, a host copy of
+    them after that step (``params_at``)."""
     from nos_tpu_torch.cmd.trainer import train
     from nos_tpu_torch.models import transformer as tfm
 
-    chips = cfg.dp * cfg.fsdp * cfg.tp
+    chips = cfg.dp * cfg.fsdp * cfg.tp * cfg.sp * cfg.ep
     log = LayoutLog(on_step)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_train_launches()                       # the main path's count
     t0 = time.perf_counter()
-    with logs_to({"nos_tpu_torch.trainer": log}), captured_params() as cap:
+    with logs_to({"nos_tpu_torch.trainer": log}), \
+            captured_params(snapshot_at) as cap:
         final = train(cfg, stop_event=stop_event,
                       **(dict(devices=[str(device)] * chips) if chips > 1
                          else dict(device=device)))
@@ -7398,7 +7457,7 @@ def layout_run(cfg, device, stop_event=None, on_step=None) -> dict:
             "ms_per_step": float(np.median(step_ms)) if step_ms else None,
             "ranks": log.ranks, "stopped_at": log.stopped_at,
             "wall_s": time.perf_counter() - t0,
-            "launches": train_launches(),
+            "launches": train_launches(), "params_at": cap.at_step_params,
             "params": dict(zip(tfm.leaf_names(cap.params),
                                (p.detach() for p in
                                 tfm.param_leaves(cap.params))))}
@@ -7415,7 +7474,8 @@ def rank0_param_diff(got: dict, full: dict, layout: dict) -> dict:
         key = name.rsplit("/", 1)[-1]
         b = full[name].to(a.device)
         for axis, n in ((tfm.TP_SPLIT.get(key), layout.get("tp", 1)),
-                        (tfm.FSDP_SPLIT[key], layout.get("fsdp", 1))):
+                        (tfm.FSDP_SPLIT[key], layout.get("fsdp", 1)),
+                        (tfm.EP_SPLIT.get(key), layout.get("ep", 1))):
             if axis is not None and n > 1:
                 b = b.chunk(n, axis)[0]
         d = a.float() - b.float()
@@ -7460,7 +7520,7 @@ def rel_diffs(got: list, want: list) -> list:
 
 def layout_state_bytes(widths: dict, layout: dict) -> int:
     """A rank's params and both moments in bf16 under ``layout``: each
-    leaf cut by its tp and fsdp degrees where it is split."""
+    leaf cut by its tp, fsdp and ep degrees where it is split."""
     from nos_tpu_torch.models import transformer as tfm
 
     params = tfm.abstract_params(tfm.TransformerConfig(**widths))
@@ -7473,27 +7533,9 @@ def layout_state_bytes(widths: dict, layout: dict) -> int:
             n //= layout.get("tp", 1)
         if tfm.FSDP_SPLIT[key] is not None:
             n //= layout.get("fsdp", 1)
+        if tfm.EP_SPLIT.get(key) is not None:
+            n //= layout.get("ep", 1)
         total += 3 * n
-    return total
-
-
-def hold_layout_launches(label: str, run: dict, chips: int,
-                         steps: int) -> dict:
-    """Every rank launched each training kernel as a one-device run of
-    its steps does (flash forward 2 x n_layers a step under full remat,
-    each backward kernel n_layers, adamw one a local leaf); returns the
-    sums over ranks."""
-    want = train_want(steps)
-    total = dict.fromkeys(want, 0)
-    for r in run["ranks"]:
-        if r["launches"] != want:
-            raise AssertionError(f"t {label}: rank {r['rank']} launched "
-                                 f"{r['launches']}, want {want}")
-        for k, v in r["launches"].items():
-            total[k] += v
-    if len(run["ranks"]) != chips:
-        raise AssertionError(f"t {label}: {len(run['ranks'])} rank "
-                             f"summaries for {chips} ranks")
     return total
 
 
@@ -7546,11 +7588,11 @@ def compare_states(label: str, got: list, want: list, exact: bool,
     for (name, a), (_, b) in zip(got, want):
         if not isinstance(a, torch.Tensor):
             if a != b:
-                raise AssertionError(f"t.4 {label}: {name} {a} != {b}")
+                raise AssertionError(f"{label}: {name} {a} != {b}")
             continue
         if exact:
             if not torch.equal(a, b):
-                raise AssertionError(f"t.4 {label}: {name} differs from the "
+                raise AssertionError(f"{label}: {name} differs from the "
                                      f"uninterrupted run's")
             continue
         d = (a - b).abs()
@@ -7569,7 +7611,7 @@ def compare_states(label: str, got: list, want: list, exact: bool,
             ok = rms <= T_STATE_TOL and top <= bound
         if not ok:
             raise AssertionError(
-                f"t.4 {label}: {name} max|diff| {top}, readings {worst} "
+                f"{label}: {name} max|diff| {top}, readings {worst} "
                 f"(tol {T_STATE_TOL}, params' step bound {bound})")
     return {"leaves": len(got), "bit_equal": exact,
             "param_step_bound": bound, **worst}
@@ -7595,7 +7637,8 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
     (5) a stop event set after step 2's log at dp 2 (``host_sync_every``
     1): every rank banks step 3, the checkpoint holds it, ``train()``
     returns. Returns the flash rows by rank shape and the kernels'
-    launches by layout."""
+    launches by layout, and the one-device run's losses and params (t.1)
+    and f32 losses (t.2), which (v) reuses."""
     import tempfile
 
     from nos_tpu_torch.cmd.trainer import TrainerConfig
@@ -7605,6 +7648,7 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
     L = TRAIN["n_layers"]
     out = {"phase": "train_layouts", "card": card, **TRAIN,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": T_STEPS,
+           "layout_steps": T_LAYOUT_STEPS,
            "loss_rtol": T_LOSS_RTOL, "f32_rtol": T_F32_RTOL,
            "state_tol": T_STATE_TOL, "devices": str(device),
            "backend": "gloo"}
@@ -7612,9 +7656,12 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
         # t.1
         base = dict(TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                     steps=T_STEPS, log_every=1, seed=seed, bf16=True)
-        one = layout_run(TrainerConfig(**base), device)
+        one = layout_run(TrainerConfig(**base), device,
+                         snapshot_at=T_LAYOUT_STEPS)
         # in host memory: the ranks' peaks count no reference tensor
         one["params"] = {k: v.cpu() for k, v in one["params"].items()}
+        at = one["params_at"]
+        lay = dict(base, steps=T_LAYOUT_STEPS)
         out["one_device"] = {
             "losses": one["losses"],
             "g_losses": g_row["losses"][:T_STEPS] if g_row else None,
@@ -7624,23 +7671,28 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
         # stepping on its own rows without the gradient mean
         with first_rows(TRAIN_BATCH):
             ctl = layout_run(TrainerConfig(
-                **dict(base, batch_size=TRAIN_BATCH // 2)), device)
+                **dict(lay, batch_size=TRAIN_BATCH // 2)), device)
         out["control_no_grad_mean"] = rank0_param_diff(
-            ctl.pop("params"), one["params"], {})
+            ctl.pop("params"), at, {})
         del ctl
         runs, launches = {}, {}
         out["layouts"] = runs
         for label, kw in T_LAYOUTS:
-            run = layout_run(TrainerConfig(**base, **kw), device)
+            run = layout_run(TrainerConfig(**lay, **kw), device)
             chips = int(np.prod(list(kw.values())))
-            launches[label] = hold_layout_launches(label, run, chips,
-                                                   T_STEPS)
+            tp = kw.get("tp", 1)
+            launches[label] = hold_rank_launches(
+                f"t.1 {label}", run, chips, train_want(T_LAYOUT_STEPS),
+                rank_shape(TRAIN_BATCH // (chips // tp), TRAIN["n_heads"]
+                           // tp, TRAIN["n_kv_heads"] // tp, TRAIN_SEQ,
+                           TRAIN["d_model"] // TRAIN["n_heads"],
+                           torch.bfloat16))["summed"]
             rel = rel_diffs(run["losses"], one["losses"])
-            if len(rel) != T_STEPS or not max(rel) <= T_LOSS_RTOL:
+            if len(rel) != T_LAYOUT_STEPS or not max(rel) <= T_LOSS_RTOL:
                 raise AssertionError(
                     f"t.1 {label}: losses {run['losses']} against one "
                     f"device's {one['losses']} (rtol {T_LOSS_RTOL})")
-            params = rank0_param_diff(run.pop("params"), one["params"], kw)
+            params = rank0_param_diff(run.pop("params"), at, kw)
             want_state = layout_state_bytes(TRAIN, kw)
             for r in run["ranks"]:
                 if r["state_bytes"] != want_state:
@@ -7659,6 +7711,8 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
                 "launches_summed_over_ranks": launches[label],
                 "rank0_params_vs_one_device": params}
             del run
+        # v.1 holds its sp layouts to this one-device run
+        t_one = {"losses": one["losses"], "params": one["params"]}
         del one
         out["fsdp2_over_dp2_state_bytes"] = (
             runs["fsdp2"]["state_gb_by_rank"][0]
@@ -7668,11 +7722,13 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
         f32 = dict(base, n_layers=2, batch_size=T_F32_BATCH,
                    seq_len=T_F32_SEQ, bf16=False)
         ref = layout_run(TrainerConfig(**f32), device)["losses"]
+        t_one["f32_losses"] = ref
         out["f32"] = {"one_device": ref}
         for label, kw in T_LAYOUTS:
-            got = layout_run(TrainerConfig(**f32, **kw), device)["losses"]
+            got = layout_run(TrainerConfig(**dict(f32, steps=T_LAYOUT_STEPS),
+                                           **kw), device)["losses"]
             rel = rel_diffs(got, ref)
-            if len(rel) != T_STEPS or not max(rel) <= T_F32_RTOL:
+            if len(rel) != T_LAYOUT_STEPS or not max(rel) <= T_F32_RTOL:
                 raise AssertionError(f"t.2 {label}: f32 losses {got} "
                                      f"against one device's {ref}")
             out["f32"][label] = {"losses": got, "max_rel_diff": max(rel)}
@@ -7703,7 +7759,7 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
                 f"{worst}, the control {out['control_no_grad_mean']} "
                 f"(tol {T_PARAM_RMS}: the layouts within it, the control "
                 f"past it)")
-        return {"flash": flash, "launches": launches}
+        return {"flash": flash, "launches": launches, "one_device": t_one}
     finally:
         torch.cuda.empty_cache()
         out["seconds"] = time.perf_counter() - t_phase
@@ -7743,7 +7799,8 @@ def layout_checkpoints(seed: int, root: str, device) -> dict:
                                  f"{run['losses']} against "
                                  f"{first['losses'][2:]}")
         out[label] = dict(compare_states(
-            label, ckpt_state(d, T_STEPS, T_CKPT, torch.float32), want,
+            f"t.4 {label}", ckpt_state(d, T_STEPS, T_CKPT, torch.float32),
+            want,
             exact, T_STEPS - 2, cfg(d).learning_rate),
             losses=run["losses"], loss_rel_diff=rel, wall_s=run["wall_s"])
         shutil.rmtree(d)
@@ -8264,6 +8321,427 @@ def phase_tp_spec_moe(seed: int, card: str, flush, device=None) -> dict:
         emit(out)
 
 
+# ---------------------------------------------------------------------------
+# phase (v): the trainer's sequence (sp) and expert (ep) axes
+# ---------------------------------------------------------------------------
+
+V_STEPS = 4
+# v.1: (g)'s model at full width and depth, held to t.1's one-device run
+V_SP_LAYOUTS = (("sp2_ring", dict(sp=2)),
+                ("sp2_ulysses", dict(sp=2, sp_strategy="ulysses")),
+                ("dp2_sp2_ulysses", dict(dp=2, sp=2, sp_strategy="ulysses")))
+# v.2: (p)'s Mixtral widths at its 1 layer, batch 8 x 2048; and the f32
+# arm at 2 layers of p.4's widths (d_model 1024, 8 experts, top-2),
+# batch 2 x 512, which also saves the checkpoint the resumes read
+V_EP_LAYOUTS = (("ep2", dict(ep=2)), ("tp2", dict(tp=2)),
+                ("tp2_ep2", dict(tp=2, ep=2)), ("dp2_ep2", dict(dp=2, ep=2)))
+# the bf16 arm's losses against one device's: routing flips at bf16
+# near-ties (as phase (u.2) shows) move a token's expert, so the hold is
+# looser than t.1's dense 5e-4; the exact holds rest on the f32 arm
+V_MOE_LOSS_RTOL = 2e-3
+V_MOE_F32 = dict(MOE_PARITY)
+V_MOE_F32_BATCH = 2
+# the f32 arm's gating calls past step 1: the layouts' updates differ
+# from one device's at f32 rounding, which Adam's normalised step turns
+# into up to ``adam_step_bound`` on an element whose gradient is near 0,
+# so a near-tie may route apart (on an H100 at 700 W: 1-3 of a row's
+# 1024 assignments at tp 2); each row's dropped share within this of
+# one device's. Step 1's calls route the same params: equal, row for
+# row
+V_DROP_TOL = 1e-2
+# v.3: the flash kernels at the ranks' new shapes: a Ulysses rank's
+# heads over the whole sequence at sp 2 (H 8/2) and at tp 2 x sp 2 (H
+# 4/1, one kv head), and an MoE tp 2 rank's Mixtral heads (H 16/4)
+V_SHAPES = (("ulysses_rank", dict(ATTN, h=8, h_kv=2)),
+            ("ulysses_tp_rank", dict(ATTN, h=4, h_kv=1)),
+            ("moe_tp_rank", dict(P_ATTN, h=16, h_kv=4)))
+
+
+def hold_rank_launches(label: str, run: dict, chips: int, want: dict,
+                       shape=None) -> dict:
+    """Every rank of a layout run launched ``want``, its flash launches
+    all at ``shape`` (``_kernels.flash_shape``; None: none); returns
+    the sums over ranks and the flash launches by shape summed over
+    ranks."""
+    total = dict.fromkeys(want, 0)
+    by_shape: dict = {}
+    if len(run["ranks"]) != chips:
+        raise AssertionError(f"{label}: {len(run['ranks'])} rank "
+                             f"summaries for {chips} ranks")
+    flash_want = {}
+    for k, n in want.items():
+        if k != "adamw":
+            flash_want[k] = {pre_shape(shape) if k.endswith("preprocess")
+                             else shape: n} if n else {}
+    for r in run["ranks"]:
+        shapes = r["flash_launches_by_shape"]
+        if r["launches"] != want or shapes != flash_want:
+            raise AssertionError(f"{label}: rank {r['rank']} launched "
+                                 f"{r['launches']} by shape {shapes}, want "
+                                 f"{want} by shape {flash_want}")
+        for k, v in r["launches"].items():
+            total[k] += v
+        add_by_shape(by_shape, shapes)
+    return {"summed": total, "flash_by_shape": by_shape}
+
+
+def add_by_shape(total: dict, part: dict) -> None:
+    """Add ``part``'s launches ({kernel: {shape: n}}) into ``total``."""
+    for k, d in part.items():
+        for sh, n in d.items():
+            total.setdefault(k, {}).setdefault(sh, 0)
+            total[k][sh] += n
+
+
+def pre_shape(shape: str) -> str:
+    """The preprocess's key of a flash launch's shape (no kv heads)."""
+    b, heads, *rest = shape.split()
+    return " ".join([b, heads.split("/")[0], *rest])
+
+
+def rank_shape(b: int, h: int, h_kv: int, s: int, d: int, dtype) -> str:
+    from nos_tpu_torch.ops import _kernels
+
+    return _kernels.flash_shape(b, h, h_kv, s, s, d, dtype)
+
+
+class traced_gating:
+    """Within the block, every gating call of this process (rank 0's, or
+    the one device's) records its dropped routing assignments per batch
+    row (2 a position, of the call's whole sequence)."""
+
+    def __enter__(self):
+        from nos_tpu_torch.ops import moe
+
+        self.mod, self.real, self.calls = moe, moe.top2_gating, []
+
+        def traced(logits, capacity, mean=None):
+            out = self.real(logits, capacity, mean)
+            kept = out[1].sum(dim=(1, 2, 3))
+            self.calls.append((2 * logits.shape[1] - kept).cpu())
+            return out
+
+        moe.top2_gating = traced
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.top2_gating = self.real
+
+    def shares(self, seq: int) -> list:
+        """Each call's dropped share of its rows' 2 x ``seq``
+        assignments."""
+        return [float(c.sum()) / (2 * seq * c.numel()) for c in self.calls]
+
+
+class first_router_grad:
+    """Within the block, the router's gradient of ``train()``'s first step
+    as this process's rank holds it when the optimizer steps (after the
+    gradient mean), copied to the host."""
+
+    def __enter__(self):
+        from nos_tpu_torch.models import transformer as tfm
+
+        self.tfm, self.real, self.grad = tfm, tfm.make_train_step, None
+
+        def spy(cfg, optimizer, *mesh):
+            step = self.real(cfg, optimizer, *mesh)
+            opt_step = optimizer.step
+
+            def wrapped(params, batch):
+                if self.grad is None:
+                    def record():
+                        g = params["layers"]["w_router"].grad
+                        self.grad = g.float().cpu()
+                        # the class's method again (an instance attribute
+                        # holding a bound method would keep the optimizer
+                        # alive in a cycle past the run)
+                        del optimizer.step
+                        opt_step()
+
+                    optimizer.step = record
+                return step(params, batch)
+
+            return wrapped
+
+        tfm.make_train_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.tfm.make_train_step = self.real
+
+
+def v_layout_row(phase: str, label: str, run: dict, one: list) -> dict:
+    """A layout run's row, printed before it is held: its losses beside
+    one device's, ms a step, each rank's peak and state bytes and
+    launches."""
+    row = {"losses": run["losses"],
+           "loss_rel_diff": rel_diffs(run["losses"], one),
+           "ms_per_step": run["ms_per_step"], "step_ms": run["step_ms"],
+           "wall_s": run["wall_s"],
+           "peak_gb_by_rank": [r["peak_bytes"] / 1e9 for r in run["ranks"]],
+           "state_gb_by_rank": [r["state_bytes"] / 1e9
+                                for r in run["ranks"]],
+           "launches_by_rank": [r["launches"] for r in run["ranks"]]}
+    emit({"phase": phase, "label": label, **row})
+    return row
+
+
+def hold_v_run(label: str, run: dict, row: dict, one: list, rtol: float,
+               state_bytes: int) -> None:
+    """A layout run's losses within ``rtol`` of one device's and each
+    rank's params and moments ``state_bytes``."""
+    rel = row["loss_rel_diff"]
+    if len(rel) != len(one) or not max(rel) <= rtol:
+        raise AssertionError(f"v {label}: losses {run['losses']} against one "
+                             f"device's {one} (rtol {rtol})")
+    for r in run["ranks"]:
+        if r["state_bytes"] != state_bytes:
+            raise AssertionError(
+                f"v {label}: rank {r['rank']} holds {r['state_bytes']} "
+                f"bytes of params and moments, want {state_bytes}")
+
+
+def phase_sp(seed: int, device, t_one) -> dict:
+    """(v.1): (g)'s model, batch 8 x 2048, bf16, full remat, 4 steps
+    under sp 2 ring, sp 2 Ulysses and dp 2 x sp 2 Ulysses, each held to
+    the one-device run (t.1's when (t) ran: ``t_one``, its losses and
+    params); then the f32 arm at 2 layers, batch 2 x 1024."""
+    from nos_tpu_torch.cmd.trainer import TrainerConfig
+
+    base = dict(TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                steps=V_STEPS, log_every=1, seed=seed, bf16=True)
+    out = {}
+    if t_one is None or t_one.get("params") is None:
+        run = layout_run(TrainerConfig(**base), device)
+        t_one = {"losses": run["losses"],
+                 "params": {k: v.cpu() for k, v in run["params"].items()},
+                 "f32_losses": None, "from": "v.1"}
+        del run
+    out["one_device"] = {"losses": t_one["losses"],
+                         "from": t_one.get("from", "t.1")}
+    L, H, HKV = TRAIN["n_layers"], TRAIN["n_heads"], TRAIN["n_kv_heads"]
+    runs, by_shape = {}, {}
+    for label, kw in V_SP_LAYOUTS:
+        run = layout_run(TrainerConfig(**base, **kw), device)
+        row = v_layout_row("sp_layout", label, run, t_one["losses"])
+        chips = int(np.prod([v for k, v in kw.items() if k != "sp_strategy"]))
+        ring = kw.get("sp_strategy", "ring") == "ring"
+        shape = None if ring else rank_shape(
+            TRAIN_BATCH // kw.get("dp", 1), H // kw["sp"], HKV // kw["sp"],
+            TRAIN_SEQ, TRAIN["d_model"] // H, torch.bfloat16)
+        held = hold_rank_launches(f"v.1 {label}", run, chips,
+                                  launches_want(L, V_STEPS, flash=not ring),
+                                  shape)
+        add_by_shape(by_shape, held["flash_by_shape"])
+        hold_v_run(label, run, row, t_one["losses"], T_LOSS_RTOL,
+                   layout_state_bytes(TRAIN, kw))
+        row.update(launches_summed_over_ranks=held["summed"],
+                   flash_launches_by_shape=held["flash_by_shape"],
+                   flash_kernels=("none: the ring's blocks are plain "
+                                  "products" if ring else
+                                  f"each rank {shape}, a one-device run's "
+                                  f"counts"),
+                   rank0_params_vs_one_device=rank0_param_diff(
+                       run.pop("params"), t_one["params"], kw))
+        runs[label] = row
+        del run
+    out["layouts"] = {k: {f: r[f] for f in ("losses", "ms_per_step",
+                                             "peak_gb_by_rank")}
+                      for k, r in runs.items()}
+    worst = {k: r["rank0_params_vs_one_device"] for k, r in runs.items()}
+    if any(w["param_rms_rel"] > T_PARAM_RMS for w in worst.values()):
+        raise AssertionError(f"v.1: rank 0's params against the one-device "
+                             f"run's {worst} (tol {T_PARAM_RMS})")
+    out["rank0_params_vs_one_device"] = worst
+    # the f32 arm: t.2's one-device losses when (t) ran
+    f32 = dict(base, n_layers=2, batch_size=T_F32_BATCH, seq_len=T_F32_SEQ,
+               bf16=False)
+    ref = t_one.get("f32_losses") or layout_run(TrainerConfig(**f32),
+                                                device)["losses"]
+    out["f32"] = {"one_device": ref}
+    for label, kw in V_SP_LAYOUTS:
+        got = layout_run(TrainerConfig(**f32, **kw), device)["losses"]
+        rel = rel_diffs(got, ref)
+        if len(rel) != len(ref) or not max(rel) <= T_F32_RTOL:
+            raise AssertionError(f"v.1 {label}: f32 losses {got} against "
+                                 f"one device's {ref}")
+        out["f32"][label] = {"losses": got, "max_rel_diff": max(rel)}
+    return {"row": out, "by_shape": by_shape}
+
+
+def moe_layout_run(cfg, device) -> tuple:
+    """``layout_run`` with the gating traced and the first step's router
+    gradient recorded (rank 0's); the run's params dropped."""
+    with traced_gating() as gating, first_router_grad() as router:
+        run = layout_run(cfg, device)
+    del run["params"]
+    return run, gating, router.grad
+
+
+def phase_ep(seed: int, device, root: str) -> dict:
+    """(v.2): (p)'s Mixtral widths at 1 layer, batch 8 x 2048, bf16, 4
+    steps on one device and under ep 2, tp 2, tp 2 x ep 2 and dp 2 x ep
+    2 (losses within ``V_MOE_LOSS_RTOL``, drop shares printed beside one
+    device's); the f32 arm at 2 layers, batch 2 x 512: losses within
+    ``T_F32_RTOL``, every gating call's drops per row equal to one
+    device's rows, the first step's router gradient within (g)'s f32
+    gradient tolerance; its tp 2 x ep 2 run checkpoints steps 2 and 4,
+    and step 2 resumes on one device within ``compare_states``'
+    tolerances and at tp 2 x ep 2 bit for bit."""
+    from nos_tpu_torch.cmd.trainer import TrainerConfig
+
+    E = MOE_TRAIN["n_experts"]
+    H, HKV = MOE_TRAIN["n_heads"], MOE_TRAIN["n_kv_heads"]
+    base = dict(MOE_TRAIN, batch_size=MOE_TRAIN_BATCH,
+                seq_len=MOE_TRAIN_SEQ, steps=V_STEPS, log_every=1,
+                seed=seed, bf16=True)
+    one, one_gating, _ = moe_layout_run(TrainerConfig(**base), device)
+    out = {"one_device": {"losses": one["losses"],
+                          "ms_per_step": one["ms_per_step"],
+                          "drop_share": one_gating.shares(MOE_TRAIN_SEQ)}}
+    runs, by_shape = {}, {}
+    for label, kw in V_EP_LAYOUTS:
+        run, gating, _ = moe_layout_run(TrainerConfig(**base, **kw), device)
+        row = v_layout_row("ep_layout", label, run, one["losses"])
+        chips = int(np.prod(list(kw.values())))
+        tp = kw.get("tp", 1)
+        shape = rank_shape(MOE_TRAIN_BATCH // kw.get("dp", 1), H // tp,
+                           HKV // tp, MOE_TRAIN_SEQ,
+                           MOE_TRAIN["d_model"] // H, torch.bfloat16)
+        held = hold_rank_launches(f"v.2 {label}", run, chips,
+                                  launches_want(MOE_TRAIN["n_layers"],
+                                                V_STEPS, E), shape)
+        add_by_shape(by_shape, held["flash_by_shape"])
+        # rank 0's rows (the first B/dp) beside one device's whole batch
+        row.update(launches_summed_over_ranks=held["summed"],
+                   flash_launches_by_shape=held["flash_by_shape"],
+                   drop_share=gating.shares(MOE_TRAIN_SEQ),
+                   one_device_drop_share=one_gating.shares(MOE_TRAIN_SEQ))
+        emit({"phase": "ep_layout_drops", "label": label,
+              "drop_share": row["drop_share"],
+              "one_device_drop_share": row["one_device_drop_share"]})
+        hold_v_run(label, run, row, one["losses"], V_MOE_LOSS_RTOL,
+                   layout_state_bytes(MOE_TRAIN, kw))
+        runs[label] = row
+        del run
+    out["layouts"] = {k: {f: r[f] for f in ("losses", "ms_per_step",
+                                             "peak_gb_by_rank")}
+                      for k, r in runs.items()}
+    # the f32 arm
+    f32 = dict(V_MOE_F32, batch_size=V_MOE_F32_BATCH,
+               seq_len=V_MOE_F32["max_seq"], steps=V_STEPS, log_every=1,
+               seed=seed, bf16=False)
+    ref, ref_gating, ref_grad = moe_layout_run(TrainerConfig(**f32), device)
+    out["f32"] = {"widths": V_MOE_F32, "batch": V_MOE_F32_BATCH,
+                  "one_device": ref["losses"]}
+    a = os.path.join(root, "tp2_ep2")
+    for label, kw in V_EP_LAYOUTS:
+        ck = dict(checkpoint_dir=a, checkpoint_every=2) \
+            if label == "tp2_ep2" else {}
+        run, gating, grad = moe_layout_run(TrainerConfig(**f32, **kw, **ck),
+                                           device)
+        rel = rel_diffs(run["losses"], ref["losses"])
+        if len(rel) != V_STEPS or not max(rel) <= T_F32_RTOL:
+            raise AssertionError(f"v.2 {label}: f32 losses {run['losses']} "
+                                 f"against one device's {ref['losses']}")
+        # rank 0 holds the first B/dp rows of every call; step 1's calls
+        # (each layer's forward and recompute) route the same params
+        rows = V_MOE_F32_BATCH // kw.get("dp", 1)
+        first = 2 * V_MOE_F32["n_layers"]
+        got_d = [c.tolist() for c in gating.calls]
+        want_d = [c[:rows].tolist() for c in ref_gating.calls]
+        later = max((abs(a - b) / (2 * V_MOE_F32["max_seq"])
+                     for ga, wa in zip(got_d[first:], want_d[first:])
+                     for a, b in zip(ga, wa)), default=0.0)
+        if len(got_d) != len(want_d) or got_d[:first] != want_d[:first] \
+                or not later <= V_DROP_TOL:
+            raise AssertionError(f"v.2 {label}: f32 drops per row {got_d} "
+                                 f"against one device's {want_d} (step 1 "
+                                 f"equal, later within {V_DROP_TOL})")
+        share = float((grad - ref_grad).abs().max() / ref_grad.abs().max())
+        if not share <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"v.2 {label}: f32 router gradient after "
+                                 f"step 1 differs from one device's by "
+                                 f"{share} of its largest (tol "
+                                 f"{TRAIN_GRAD_TOL})")
+        out["f32"][label] = {"losses": run["losses"],
+                             "max_rel_diff": max(rel),
+                             "gating_calls": len(gating.calls),
+                             "step1_drops_equal_per_row": True,
+                             "calls_equal": sum(a == b for a, b in zip(
+                                 got_d, want_d)),
+                             "later_drop_share_max_diff": later,
+                             "router_grad_max_rel_diff": share}
+    # the checkpoint the tp 2 x ep 2 f32 run saved, resumed
+    want = ckpt_state(a, V_STEPS, V_MOE_F32, torch.float32)
+    first = out["f32"]["tp2_ep2"]["losses"]
+    ck = {}
+    for label, kw, exact in (("one_device", {}, False),
+                             ("tp2_ep2", dict(tp=2, ep=2), True)):
+        d = os.path.join(root, f"resume_{label}")
+        link_step(a, d, 2)
+        run = layout_run(TrainerConfig(**f32, **kw, checkpoint_dir=d,
+                                       checkpoint_every=2), device)
+        rel = rel_diffs(run["losses"], first[2:])
+        if len(rel) != 2 or (exact and run["losses"] != first[2:]) \
+                or not max(rel) <= T_F32_RTOL:
+            raise AssertionError(f"v.2 resume {label}: losses "
+                                 f"{run['losses']} against {first[2:]}")
+        ck[label] = dict(compare_states(
+            f"v.2 resume {label}", ckpt_state(d, V_STEPS, V_MOE_F32,
+                                              torch.float32),
+            want, exact, V_STEPS - 2, TrainerConfig(**f32).learning_rate),
+            losses=run["losses"], loss_rel_diff=rel, wall_s=run["wall_s"])
+    out["checkpoint_tp2_ep2"] = ck
+    return {"row": out, "by_shape": by_shape}
+
+
+def phase_sp_ep(seed: int, card: str, flush, t_one=None,
+                device=None) -> dict:
+    """(v): the trainer's sp and ep axes, every rank a process on
+    ``device`` (default: the card) over gloo: v.1 (``phase_sp``), v.2
+    (``phase_ep``), then v.3, the flash kernels at ``V_SHAPES`` against
+    their plain versions (bf16 timed beside them, SDPA and the bound;
+    f32 at the Ulysses shapes). Returns v.3's rows and the flash
+    launches by shape of v.1's and v.2's runs."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    device = device or torch.device("cuda", 0)
+    out = {"phase": "sp_ep", "card": card, "steps": V_STEPS,
+           "loss_rtol": T_LOSS_RTOL, "moe_loss_rtol": V_MOE_LOSS_RTOL,
+           "f32_rtol": T_F32_RTOL, "param_rms_tol": T_PARAM_RMS,
+           "devices": str(device), "backend": "gloo"}
+    try:
+        sp = phase_sp(seed, device, t_one)
+        out["v1"] = sp["row"]
+        out["v1_s"] = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-v-") as root:
+            ep = phase_ep(seed, device, root)
+        out["v2"] = ep["row"]
+        out["v2_s"] = time.perf_counter() - t0 - out["v1_s"]
+        rng = np.random.default_rng(seed + 19)
+        flash = {}
+        for label, shape in V_SHAPES:
+            flash[label], _ = flash_case(label, shape, True, torch.bfloat16,
+                                         rng, device, flush, timed=True)
+            if label != "moe_tp_rank":
+                flash_case(label, shape, True, torch.float32, rng, device,
+                           flush)
+            out[f"flash_{label}"] = {k: {f: v[f] for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err")} for k, v in flash[label].items()}
+        by_shape = {}
+        for part in (sp, ep):
+            add_by_shape(by_shape, part["by_shape"])
+        out["flash_launches_by_shape"] = by_shape
+        return {"flash": flash, "by_shape": by_shape}
+    finally:
+        torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t0
+        emit(out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8272,9 +8750,9 @@ def main(argv=None) -> int:
                          "iterating on a kernel; only a run of every phase "
                          "prints the kernels line and the ok line")
     ap.add_argument("--serving-layers", type=int, default=FULL["n_layers"],
-                    help="the serving model's depth (phases e-n and s), "
-                         "e.g. 16 to read phase (s)'s token rules at "
-                         "another depth")
+                    help="the serving model's depth (phases e-n, s and u), "
+                         "e.g. 32 to read phase (s)'s token rules at "
+                         "Llama-3-8B's depth")
     args = ap.parse_args(argv)
     FULL["n_layers"] = args.serving_layers
     if not torch.cuda.is_available():
@@ -8372,6 +8850,10 @@ def main(argv=None) -> int:
     tp_more = {}
     if "u" in args.phases:
         tp_more = phase_tp_spec_moe(args.seed, card, flush)
+    sp_ep = {}
+    if "v" in args.phases:
+        sp_ep = phase_sp_ep(args.seed, card, flush,
+                            layouts.pop("one_device", None))
     del flush
     emit({"phase": "done", "seconds": time.perf_counter() - t_all,
           "card": card})
@@ -8446,6 +8928,27 @@ def main(argv=None) -> int:
                 "also_replaces": "nos_tpu/ops/attention.py:549",
                 **row, "launches": sum(by.values()),
                 "launches_by_layout": by})
+    # phase (v)'s rank shapes of the same kernels, each with the launches
+    # at exactly that shape summed over (v)'s runs' ranks: a Ulysses sp 2
+    # rank's (B 8, H 8/2) and an MoE tp 2 rank's (B 8, H 16/4)
+    for label, shape in V_SHAPES:
+        if label == "ulysses_tp_rank":
+            continue            # timed and held in (v.3); no run has it
+        for name, row in sp_ep["flash"][label].items():
+            key = rank_shape(shape["b"], shape["h"], shape["h_kv"],
+                             shape["s_q"], shape["d"], torch.bfloat16)
+            if name.endswith("preprocess"):
+                key = pre_shape(key)
+            n = sp_ep["by_shape"].get(name, {}).get(key, 0)
+            if not n:
+                raise AssertionError(f"v: {name} launched no time at "
+                                     f"{key} on (v)'s runs")
+            kernels.append({
+                "name": f"{name}_{label}", "route": "cuda",
+                "source": "nos_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "nos_tpu/ops/attention.py:186",
+                "also_replaces": "nos_tpu/ops/attention.py:549",
+                **row, "launches": n, "shape": key})
     adamw["launches_layouts"] = {label: n["adamw"] for label, n in
                                  layouts["launches"].items()}
     kernels.append({"name": "adamw", "route": "cuda",

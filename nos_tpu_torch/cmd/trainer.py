@@ -15,14 +15,18 @@ stops the run with a checkpoint when the control plane stamps a
 preemption or maintenance notice on the pod's node. Causal attention
 runs through the hand-written CUDA flash-attention kernels on the card.
 
-The ``dp``, ``fsdp`` and ``tp`` layouts run one process a rank over a
-``torch.distributed`` process group (``parallel/mesh.py::TrainMesh``):
+The ``dp``, ``fsdp``, ``tp``, ``sp`` and ``ep`` layouts run one process
+a rank over a ``torch.distributed`` process group
+(``parallel/mesh.py::TrainMesh``):
 rank 0 in the caller's process (its stop event, signal handler,
 profiler, metrics and return value are the caller's), ranks 1..N-1
 forked from a fork server that has imported the training modules
-(``parallel/launch.py``). Each rank draws the global batch and
-keeps its data rows, holds its part of the params and moments, and runs
-the flash and adamw kernels on them. One card a rank by default
+(``parallel/launch.py``). Each rank draws the global batch and keeps its
+data rows' sequence chunk (the targets cut after the shift, from the
+whole row), holds its part of the params and moments (its experts under
+``ep``), and runs the flash and adamw kernels on them (under ``sp``
+Ulysses runs the flash kernels on its H/sp heads over the whole
+sequence; the ring runs plain products). One card a rank by default
 (``cuda:0..N-1``, NCCL); ``devices=`` may repeat one (gloo: NCCL refuses
 two ranks on one card), and ``device="cpu"`` runs every rank on the CPU
 over gloo. Several processes follow the reference's multi-host rule:
@@ -31,9 +35,10 @@ every ``host_sync_every`` steps one collective carries the stop flag
 banks the same step. A checkpoint holds full leaves (gathered to rank
 0), so any layout, or one device, resumes it.
 
-Not ported yet, and refused with a ValueError naming the knob: ``pp``,
-``sp`` and ``ep`` > 1, MoE under ``tp``, and a multi-host environment
-(``COORDINATOR_ADDRESS``).
+Not ported yet, and refused with a ValueError naming the knob: ``pp``
+> 1 and a multi-host environment (``COORDINATOR_ADDRESS``); a layout the
+model does not divide is refused with the reference's message
+(``models/transformer.py::check_layout``).
 """
 import argparse
 import functools
@@ -50,7 +55,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from nos_tpu_torch.device import DeviceLike, resolve_device
-from nos_tpu_torch.parallel.layout import ParallelLayout
+from nos_tpu_torch.parallel.layout import AXES, ParallelLayout
 
 logger = logging.getLogger("nos_tpu_torch.trainer")
 
@@ -157,17 +162,10 @@ class TrainerConfig:
 
 def check_ported(cfg: TrainerConfig) -> None:
     """Raise a ValueError naming the first knob this slice does not run."""
-    for knob in ("pp", "sp", "ep"):
-        if getattr(cfg, knob) > 1:
-            raise ValueError(
-                f"{knob}={getattr(cfg, knob)}: pipeline, sequence and "
-                f"expert parallelism are not ported yet; the torch trainer "
-                f"runs the dp, fsdp and tp layouts")
-    if cfg.n_experts > 0 and cfg.tp > 1:
+    if cfg.pp > 1:
         raise ValueError(
-            f"n_experts={cfg.n_experts} under tp={cfg.tp}: tensor-parallel "
-            f"MoE (with ep) is not ported yet; MoE trains under dp and "
-            f"fsdp")
+            f"pp={cfg.pp}: pipeline parallelism is not ported yet; the "
+            f"torch trainer runs the dp, fsdp, tp, sp and ep layouts")
     if os.environ.get("COORDINATOR_ADDRESS"):
         raise ValueError(
             "COORDINATOR_ADDRESS: multi-host training is not ported yet")
@@ -243,10 +241,11 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
           device: DeviceLike = None,
           devices: Optional[Sequence[DeviceLike]] = None) -> float:
     """Run the configured training job; returns the final loss (rank
-    0's, the mean over the data ranks, under a layout). One device:
-    ``device`` (the card by default; ``device="cpu"`` runs the plain
-    PyTorch versions). A layout (``dp`` x ``fsdp`` x ``tp`` > 1): one
-    process a rank on ``layout_devices(layout, device, devices)``.
+    0's, the mean over the data and sp ranks, under a layout). One
+    device: ``device`` (the card by default; ``device="cpu"`` runs the
+    plain PyTorch versions). A layout (``dp`` x ``fsdp`` x ``tp`` x
+    ``sp`` x ``ep`` > 1): one process a rank on ``layout_devices(layout,
+    device, devices)``.
 
     ``stop_event`` requests a graceful early exit after the current step.
     When ``cfg.handle_sigterm`` is set and this is the main thread,
@@ -264,11 +263,11 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
     from nos_tpu_torch.parallel.mesh import mesh_backend
 
     check_ported(cfg)
-    layout = ParallelLayout(dp=cfg.dp, fsdp=cfg.fsdp, tp=cfg.tp)
+    layout = _layout(cfg)
     if layout.chips == 1:
         device = resolve_device(device if devices is None else devices[0])
         return _run(cfg, stop_event, device, None)["loss"]
-    check_layout(_model_config(cfg), layout, cfg.batch_size)
+    check_layout(_model_config(cfg), layout, cfg.batch_size, cfg.seq_len)
     if stop_event is not None and not cfg.handle_sigterm:
         raise ValueError(
             "stop_event on a multi-host run requires handle_sigterm: true "
@@ -278,8 +277,10 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
     names = [str(d) for d in devs]
     backend = mesh_backend(devs)
     shared = len(set(names)) < len(names)
-    msg = (f"layout dp={cfg.dp} fsdp={cfg.fsdp} tp={cfg.tp}: "
-           f"{layout.chips} ranks on {names}, backend {backend}"
+    axes = " ".join(f"{a}={getattr(layout, a)}" for a in AXES)
+    msg = (f"layout {axes}"
+           + (f" ({cfg.sp_strategy})" if layout.sp > 1 else "")
+           + f": {layout.chips} ranks on {names}, backend {backend}"
            + (" (ranks share a device; NCCL takes one rank a device)"
               if shared and devs[0].type == "cuda" else ""))
     logger.info(msg)
@@ -312,7 +313,7 @@ def _rank(rank: int, store: str, cfg: TrainerConfig, devices: List[str],
 
     from nos_tpu_torch.parallel.mesh import init_train_mesh
 
-    layout = ParallelLayout(dp=cfg.dp, fsdp=cfg.fsdp, tp=cfg.tp)
+    layout = _layout(cfg)
     # joining a group wraps sys.excepthook (torch prefixes tracebacks
     # with the rank) and leaving it does not unwrap: rank 0 is the
     # caller's process, which a later train() finds as it was
@@ -324,6 +325,10 @@ def _rank(rank: int, store: str, cfg: TrainerConfig, devices: List[str],
         if dist.is_initialized():
             dist.destroy_process_group()
         sys.excepthook = hook
+
+
+def _layout(cfg: TrainerConfig) -> ParallelLayout:
+    return ParallelLayout(**{a: getattr(cfg, a) for a in AXES})
 
 
 def _model_config(cfg: TrainerConfig):
@@ -357,7 +362,7 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
     ``TrainMesh``). Returns a summary: rank, device, the first and last
     steps, the final loss, peak device memory, the bytes of this rank's
     params and moments, the training kernels' launches in this
-    process."""
+    process (the flash kernels' also by shape)."""
     from nos_tpu_torch.models import transformer as tfm
     from nos_tpu_torch.ops import _kernels
     from nos_tpu_torch.train.data import (
@@ -387,7 +392,8 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
         shard_sums=(functools.partial(mesh.shard_sums, splits=splits)
                     if mesh is not None else None))
 
-    # a leaf's (tp, fsdp) axes by its checkpoint name: params and moments
+    # a leaf's (tp, fsdp, ep) axes by its checkpoint name: params and
+    # moments
     axes = {}
     if mesh is not None:
         for i, (name, split) in enumerate(zip(names, splits)):
@@ -463,11 +469,14 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
 
     def rows(batch: dict) -> dict:
         # a rank keeps its data rows of the global batch (the reference's
-        # data_sharding: dp outer, fsdp inner)
+        # data_sharding: dp outer, fsdp inner) and their sequence chunk
+        # over sp (the targets were shifted on the whole row)
         if mesh is None:
             return batch
         n = cfg.batch_size // mesh.data_size
-        return {k: v[mesh.data_index * n:(mesh.data_index + 1) * n]
+        s = cfg.seq_len // mesh.sp
+        return {k: v[mesh.data_index * n:(mesh.data_index + 1) * n,
+                     mesh.sp_index * s:(mesh.sp_index + 1) * s]
                 for k, v in batch.items()}
 
     def batch_for(step: int) -> dict:
@@ -610,7 +619,7 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
                     for eb in eval_batches:
                         e = tfm.loss_fn(params, model_cfg, eb, mesh)
                         losses.append(float(e if mesh is None
-                                            else mesh.data_mean(e)))
+                                            else mesh.token_mean(e)))
                 mean = sum(losses) / len(losses)
                 g_eval.set(mean)
                 logger.info("step %d eval loss %.4f (%d batches)", step + 1,
@@ -657,7 +666,11 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
             "launches": {k.symbol[4:]: k.launches for k in (
                 _kernels.flash_fwd, _kernels.flash_bwd_pre,
                 _kernels.flash_bwd_dkdv, _kernels.flash_bwd_dq,
-                _kernels.adamw)}}
+                _kernels.adamw)},
+            "flash_launches_by_shape": {
+                k.symbol[4:]: dict(k.launches_by_shape) for k in (
+                    _kernels.flash_fwd, _kernels.flash_bwd_pre,
+                    _kernels.flash_bwd_dkdv, _kernels.flash_bwd_dq)}}
 
 
 def main(argv: Optional[Sequence[str]] = None,

@@ -19,14 +19,18 @@ decode path serves it (``models/generate.py``) and the training
 
 With a ``parallel.mesh.TrainMesh`` (``forward``/``loss_fn``/
 ``make_train_step``'s ``mesh``) params are this rank's parts
-(``rank_params``, in ``param_shardings``' layout: ``TP_SPLIT`` and
-``FSDP_SPLIT``) and the batch its data rows: under tp a layer runs its
-H/tp query heads, Hkv/tp kv heads and d_ff/tp, the embedding is a
-vocab-split lookup and the loss Megatron's vocab-parallel
-cross-entropy; under fsdp each layer gathers its leaves just before use
-(inside the remat checkpoint, so a recompute gathers again); every
-leaf's gradient is averaged over the data ranks. Sequence, pipeline and
-expert parallelism are not ported.
+(``rank_params``, in ``param_shardings``' layout: ``TP_SPLIT``,
+``FSDP_SPLIT`` and ``EP_SPLIT``) and the batch its data rows' sequence
+chunk: under tp a layer runs its H/tp query heads, Hkv/tp kv heads and
+d_ff/tp (each expert's, under MoE), the embedding is a vocab-split
+lookup and the loss Megatron's vocab-parallel cross-entropy; under fsdp
+each layer gathers its leaves just before use (inside the remat
+checkpoint, so a recompute gathers again); under ep a rank holds E/ep
+experts and the tokens of every ep rank of its data index; under sp
+attention is the ring's or Ulysses' (``cfg.sp_strategy``) and rope
+takes global positions. Every leaf's gradient is averaged over the
+ranks holding distinct tokens (dp x fsdp x sp). Pipeline parallelism is
+not ported.
 """
 from __future__ import annotations
 
@@ -49,7 +53,9 @@ from nos_tpu_torch.ops.attention import attention
 from nos_tpu_torch.ops.layers import (
     qkv_proj, rms_norm, rope_frequencies, rope_rows, swiglu,
 )
-from nos_tpu_torch.ops.moe import expert_capacity, moe_ffn
+from nos_tpu_torch.ops.moe import expert_capacity, moe_ffn, moe_ffn_mesh
+from nos_tpu_torch.ops.ring_attention import ring_attention, ring_attention_out
+from nos_tpu_torch.ops.ulysses import check_ulysses_heads, ulysses_attention
 from nos_tpu_torch.ops.quant import QuantLinear
 from nos_tpu_torch.parallel.mesh import TrainMesh
 
@@ -211,8 +217,8 @@ def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
 # features; the embedding its vocab rows, the unembedding its vocab
 # columns. The MoE family's expert stacks ([L, E, d, f], [L, E, f, d])
 # split each expert's d_ff through the same negative axes and the router
-# is replicated: the reference's ``ns(None, "ep", "fsdp", "tp")`` on a
-# serving mesh with no ep axis
+# is replicated: the reference's ``ns(None, "ep", "fsdp", "tp")``, in
+# serving (no ep axis) and in training (the E axis over ep: EP_SPLIT)
 TP_SPLIT = {"embed": 0, "unembed": -1, "final_norm": None,
             "attn_norm": None, "mlp_norm": None, "wq": -1, "wk": -1,
             "wv": -1, "w_gate": -1, "w_up": -1, "wo": -2, "w_down": -2,
@@ -224,6 +230,10 @@ FSDP_SPLIT = {"embed": None, "unembed": None, "final_norm": None,
               "attn_norm": None, "mlp_norm": None, "wq": -2, "wk": -2,
               "wv": -2, "w_gate": -2, "w_up": -2, "wo": -1, "w_down": -1,
               "w_router": -2}
+# ... and over ep (the MoE family only): the expert stacks' E axis
+# (``ns(None, "ep", ...)``); every other leaf, the router included, is
+# whole on every ep rank
+EP_SPLIT = {"w_gate": -3, "w_up": -3, "w_down": -3}
 
 
 @dataclass
@@ -332,29 +342,32 @@ def leaf_names(params: Params, prefix: str = "") -> List[str]:
     return out
 
 
+def _splits(key: str, mesh) -> Tuple[Optional[int], ...]:
+    """A leaf's (tp, fsdp, ep) axes on ``mesh``; None where the axis has
+    one rank or does not split it."""
+    return (TP_SPLIT.get(key) if mesh.tp > 1 else None,
+            FSDP_SPLIT[key] if mesh.fsdp > 1 else None,
+            EP_SPLIT.get(key) if mesh.ep > 1 else None)
+
+
 def leaf_splits(params: Params, mesh: TrainMesh
-                ) -> List[Tuple[Optional[int], Optional[int]]]:
-    """Each leaf's (tp axis, fsdp axis) on ``mesh``, in ``param_leaves``'
-    order; None where the axis has one rank or does not split it."""
-    out = []
-    for name in leaf_names(params):
-        key = name.rsplit("/", 1)[-1]
-        out.append((TP_SPLIT.get(key) if mesh.tp > 1 else None,
-                    FSDP_SPLIT[key] if mesh.fsdp > 1 else None))
-    return out
+                ) -> List[Tuple[Optional[int], ...]]:
+    """Each leaf's (tp axis, fsdp axis, ep axis) on ``mesh``, in
+    ``param_leaves``' order; None where the axis has one rank or does not
+    split it."""
+    return [_splits(name.rsplit("/", 1)[-1], mesh)
+            for name in leaf_names(params)]
 
 
-def check_layout(cfg: TransformerConfig, layout,
-                 batch_size: int) -> None:
+def check_layout(cfg: TransformerConfig, layout, batch_size: int,
+                 seq_len: Optional[int] = None) -> None:
     """Raise a ValueError when ``cfg`` or the batch cannot be laid out
-    over ``layout`` (a ``ParallelLayout``'s dp, fsdp, tp): tp by
-    ``check_tp``'s messages, fsdp over d_model, the batch over the data
-    ranks; the MoE family is not split over tp."""
+    over ``layout`` (a ``ParallelLayout``): tp by ``check_tp``'s
+    messages, fsdp over d_model, the batch over the data ranks, the
+    experts over ep (and ep only with experts), the sequence over sp,
+    and under Ulysses each tp rank's heads over sp (the reference's
+    message)."""
     if layout.tp > 1:
-        if cfg.n_experts > 0:
-            raise ValueError(
-                f"n_experts={cfg.n_experts} under tp={layout.tp}: "
-                f"tensor-parallel MoE (with ep) is not ported")
         check_tp(cfg, layout.tp)
     if cfg.d_model % layout.fsdp:
         raise ValueError(f"d_model {cfg.d_model} not divisible by "
@@ -363,15 +376,29 @@ def check_layout(cfg: TransformerConfig, layout,
         raise ValueError(f"batch_size {batch_size} not divisible by the "
                          f"data ranks dp x fsdp = "
                          f"{layout.dp * layout.fsdp}")
+    if layout.ep > 1:
+        if cfg.n_experts == 0:
+            raise ValueError(f"ep={layout.ep} needs experts: n_experts is "
+                             f"0 (the dense FFN has none to split)")
+        if cfg.n_experts % layout.ep:
+            raise ValueError(f"n_experts {cfg.n_experts} not divisible by "
+                             f"ep={layout.ep}")
+    if layout.sp > 1:
+        if seq_len is not None and seq_len % layout.sp:
+            raise ValueError(f"seq_len {seq_len} not divisible by sp "
+                             f"{layout.sp}")
+        if cfg.sp_strategy == "ulysses":
+            check_ulysses_heads(cfg.n_heads // layout.tp,
+                                cfg.kv_heads // layout.tp, layout.sp)
 
 
 def rank_params(params: Params, mesh: TrainMesh) -> Params:
     """This rank's part of full ``params`` (the reference's
     ``device_put(params, param_shardings(mesh, cfg))`` for one device):
-    each leaf its tp slice, then its fsdp slice, a contiguous tensor of
-    its own (the adamw kernel takes one leaf a launch)."""
+    each leaf its tp slice, its fsdp slice and its experts, a contiguous
+    tensor of its own (the adamw kernel takes one leaf a launch)."""
     def part(name: str, leaf: torch.Tensor) -> torch.Tensor:
-        return mesh.local_part(leaf, TP_SPLIT.get(name), FSDP_SPLIT[name])
+        return mesh.local_part(leaf, *_splits(name, mesh))
 
     return {k: ({n: part(n, t) for n, t in v.items()} if k == "layers"
                 else part(k, v)) for k, v in params.items()}
@@ -388,17 +415,23 @@ def attention_block(h_in: torch.Tensor, layer: dict, cfg: TransformerConfig,
     v)`` takes/returns [B, S, H, D]; k/v stay at kv_heads (GQA grouped
     inside the attention op). q, k (after rope) and v come out of the
     ``qkv_proj`` op, the reference's ``"qkv_proj"`` tensors, and o out of
-    the flash op, its ``"attn_out"``. Under tp the layer holds H/tp
-    query and Hkv/tp kv heads, and the o product's partial sums are
-    reduced over the tp ranks."""
+    the flash op (or the ring's output op), its ``"attn_out"``. Under tp
+    the layer holds H/tp query and Hkv/tp kv heads, and the o product's
+    partial sums are reduced over the tp ranks; under sp it holds its
+    sequence chunk, rotated at its global positions."""
     b, s = h_in.shape[:2]
     tp = mesh.tp if mesh is not None else 1
     h = rms_norm(h_in, layer["attn_norm"])
+    rows = rope_rows(freqs, None, s)
     if mesh is not None:
         h = mesh.copy_to_tp(h)
-    q, k, v = qkv_proj(h, layer["wq"], layer["wk"], layer["wv"],
-                       *rope_rows(freqs, None, s), cfg.n_heads // tp,
-                       cfg.kv_heads // tp)
+        if mesh.sp > 1:
+            # this rank's chunk of the sequence: its global positions
+            start = mesh.sp_index * s
+            rows = rope_rows(freqs, torch.arange(start, start + s,
+                                                 device=h.device))
+    q, k, v = qkv_proj(h, layer["wq"], layer["wk"], layer["wv"], *rows,
+                       cfg.n_heads // tp, cfg.kv_heads // tp)
     o = attention_call(q, k, v).reshape(b, s, cfg.d_model // tp)
     out = torch.matmul(o, layer["wo"])
     if mesh is not None:
@@ -479,14 +512,17 @@ def lm_head_loss(norm_w: torch.Tensor, unembed: torch.Tensor,
     ``jax.checkpoint`` under ``lax.scan``), so the f32 [B, S, vocab]
     logits never exist at once: backward recomputes one [B, chunk,
     vocab] block at a time. Under tp ``unembed`` holds this rank's vocab
-    columns and the loss is vocab-parallel, chunk by chunk."""
+    columns and the loss is vocab-parallel, chunk by chunk; under sp the
+    chunks cut this rank's sequence chunk, the loss its tokens' mean."""
     hidden = rms_norm(hidden, norm_w)
     if mesh is not None:
         hidden = mesh.copy_to_tp(hidden)
     b, s, _ = hidden.shape
     if loss_chunk and s > loss_chunk and s % loss_chunk != 0:
+        where = (f"seq_len={s}" if mesh is None or mesh.sp == 1 else
+                 f"the sp rank's sequence chunk seq_len / sp = {s}")
         raise ValueError(
-            f"loss_chunk={loss_chunk} does not divide seq_len={s}; "
+            f"loss_chunk={loss_chunk} does not divide {where}; "
             f"chunking would be silently disabled and the full fp32 "
             f"[B,S,vocab] logits materialised — pick a divisor of the "
             f"sequence length")
@@ -505,20 +541,26 @@ def lm_head_loss(norm_w: torch.Tensor, unembed: torch.Tensor,
 # the reference's checkpoint names -> the registered ops whose outputs
 # carry them: q, k (after rope) and v are ``qkv_proj``'s outputs; o and
 # the kernel's lse ("attn_residuals", splash's residual name) are the
-# flash op's two outputs, saved together
+# flash op's two outputs, saved together. Under sp's ring the attention
+# is no flash op: its output is the ``ring_attention_out`` op's, and it
+# has no residual of that name
 REMAT_NAMES = {
     "qkv_proj": torch.ops.nos_tpu_torch.qkv_proj.default,
     "attn_out": torch.ops.nos_tpu_torch.flash_attention_fwd.default,
     "attn_residuals": torch.ops.nos_tpu_torch.flash_attention_fwd.default,
 }
+_RING_NAMES = dict(REMAT_NAMES,
+                   attn_out=torch.ops.nos_tpu_torch.ring_attention_out.default,
+                   attn_residuals=None)
 _SAVED_NAMES = {"except_mlp": ("qkv_proj", "attn_out", "attn_residuals"),
                 "minimal": ("attn_out", "attn_residuals")}
 
 
-def remat_saved_ops(policy: str) -> frozenset:
+def remat_saved_ops(policy: str, ring: bool = False) -> frozenset:
     """The ops whose outputs a layer's checkpoint keeps for backward
     under ``policy`` (the reference's ``_remat_policy``); every other op
-    of the layer is recomputed. "dots" is
+    of the layer is recomputed; ``ring``: the layer's attention is sp's
+    ring. "dots" is
     ``dots_with_no_batch_dims_saveable``: a product with no batch
     dimension is ``aten.mm`` (``torch.matmul`` folds a [..., d] x [d, f]
     product into one: the o, FFN and MoE router products) or the
@@ -526,17 +568,22 @@ def remat_saved_ops(policy: str) -> frozenset:
     batch dimension (the MoE's dispatch, expert and combine products;
     the plain attention's) is ``aten.bmm`` and is recomputed, as the
     flash op, which is no product, is. The named policies save the
-    outputs of the ops in ``REMAT_NAMES``."""
+    outputs of the ops in ``REMAT_NAMES`` (``_RING_NAMES`` under the
+    ring: its output is saved, and the recompute re-runs the ring's
+    rotations for its own backward, as the reference's partial
+    evaluation re-runs its unnamed residuals)."""
     if policy == "full":
         return frozenset()
     if policy == "dots":
         return frozenset((torch.ops.aten.mm.default,
                           REMAT_NAMES["qkv_proj"]))
-    return frozenset(REMAT_NAMES[n] for n in _SAVED_NAMES[policy])
+    names = _RING_NAMES if ring else REMAT_NAMES
+    return frozenset(names[n] for n in _SAVED_NAMES[policy]) - {None}
 
 
 def remat_context_fn(policy: str,
-                     down: Optional[Callable[[], torch.Tensor]] = None):
+                     down: Optional[Callable[[], torch.Tensor]] = None,
+                     ring: bool = False):
     """``context_fn`` for a layer's ``torch.utils.checkpoint``: saves the
     outputs of ``remat_saved_ops(policy)`` in the forward and hands them
     to the recompute in backward, which runs the rest of the layer
@@ -550,7 +597,7 @@ def remat_context_fn(policy: str,
     before it, so it never re-runs. (Under MoE the last product is the
     combine's ``bmm``, which no policy saves.) A collective's output is
     never saved: none is among the ops."""
-    ops = remat_saved_ops(policy)
+    ops = remat_saved_ops(policy, ring)
     if not ops:
         return noop_context_fn
     mm = torch.ops.aten.mm.default
@@ -607,18 +654,26 @@ def remat_rerun_flops(cfg: TransformerConfig, batch: int, seq: int) -> dict:
             "attention_layers": cfg.n_layers * ("attention" in names)}
 
 
-def _attention_call(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """q, k, v: [B, S, H, D] -> [B, H, S, D], causal ``attention``, back
-    to [B, S, H, D]."""
+def _attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mesh: Optional[TrainMesh] = None,
+                    sp_strategy: str = "ring") -> torch.Tensor:
+    """q, k, v: [B, S, H, D] -> [B, H, S, D], causal attention, back to
+    [B, S, H, D]: ``attention``, or under sp > 1 the ring's (its output
+    through ``ring_attention_out``) or Ulysses' over the sp ranks."""
     q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-    return attention(q, k, v, causal=True).transpose(1, 2)
+    if mesh is None or mesh.sp == 1:
+        out = attention(q, k, v, causal=True)
+    elif sp_strategy == "ring":
+        out = ring_attention_out(ring_attention(q, k, v, mesh, causal=True))
+    else:
+        out = ulysses_attention(q, k, v, mesh, causal=True)
+    return out.transpose(1, 2)
 
 
 def _data_parallel(params: Params, mesh: TrainMesh) -> Params:
-    """``params`` with each leaf's gradient averaged over the data ranks
-    (``TrainMesh.grad_mean``): one all-reduce a leaf when backward has
-    summed all of its uses."""
+    """``params`` with each leaf's gradient averaged over the ranks that
+    hold distinct tokens (``TrainMesh.grad_mean``): one all-reduce a
+    leaf when backward has summed all of its uses."""
     def mean(name: str, leaf: torch.Tensor) -> torch.Tensor:
         return mesh.grad_mean(leaf, FSDP_SPLIT[name] is not None)
 
@@ -654,17 +709,20 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     ``moe_ffn`` and the aux loss is the mean of the layers' (each
     returned by the checkpointed body, so the recompute routes with the
     same bits under every policy). With ``mesh``: this rank's params
-    (``rank_params``) and batch rows; its gating statistics are means
-    over the data ranks (the reference's over the global batch), and
-    its logits are its tp rank's vocab columns."""
+    (``rank_params``) and its batch rows' sequence chunk; the FFN is
+    ``moe_ffn_mesh`` (the gating over the whole sequence, its
+    statistics means over the data ranks: the reference's over the
+    global batch), and its logits are its tp rank's vocab columns."""
     freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                              tokens.device)
     x = _embed(tokens, params["embed"], mesh)
     layers = params["layers"]
-    batch_mean = mesh.data_mean if mesh is not None and \
-        mesh.data_size > 1 else None
     # the down weight as the body last used it, for the remat policy
     held = {}
+    ring = mesh is not None and mesh.sp > 1 and cfg.sp_strategy == "ring"
+
+    def attention_call(q, k, v):
+        return _attention_call(q, k, v, mesh, cfg.sp_strategy)
 
     def layer_body(x, *tensors):
         layer = dict(zip(names, tensors))
@@ -672,13 +730,16 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
             layer = {n: mesh.gather_fsdp(t, FSDP_SPLIT[n])
                      for n, t in layer.items()}
         held["w_down"] = layer["w_down"]
-        x = attention_block(x, layer, cfg, freqs, _attention_call, mesh)
+        x = attention_block(x, layer, cfg, freqs, attention_call, mesh)
         if cfg.n_experts > 0:
             h = rms_norm(x, layer["mlp_norm"])
-            y, aux = moe_ffn(h, layer["w_router"], layer["w_gate"],
-                             layer["w_up"], layer["w_down"],
-                             cfg.expert_capacity_factor,
-                             batch_mean=batch_mean)
+            experts = (h, layer["w_router"], layer["w_gate"], layer["w_up"],
+                       layer["w_down"])
+            if mesh is None:
+                y, aux = moe_ffn(*experts, cfg.expert_capacity_factor)
+            else:
+                y, aux = moe_ffn_mesh(*experts, mesh,
+                                      cfg.expert_capacity_factor)
             return x + y, aux
         return (dense_ffn_block(x, layer, mesh),
                 x.new_zeros((), dtype=torch.float32))
@@ -691,7 +752,7 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
         if cfg.remat:
             x, aux = checkpoint(layer_body, x, *tensors, use_reentrant=False,
                                 context_fn=remat_context_fn(
-                                    cfg.remat_policy, down))
+                                    cfg.remat_policy, down, ring))
         else:
             x, aux = layer_body(x, *tensors)
         auxes.append(aux)
@@ -715,8 +776,9 @@ def loss_fn(params: Params, cfg: TransformerConfig,
             batch: Dict[str, torch.Tensor],
             mesh: Optional[TrainMesh] = None) -> torch.Tensor:
     """The batch's mean token loss (+ the weighted MoE aux loss). With
-    ``mesh``, this rank's: its rows' mean (the aux loss over the data
-    ranks' batch), whose mean over the data ranks is the step's."""
+    ``mesh``, this rank's: its tokens' mean (the aux loss over the data
+    ranks' batch), whose mean over the data and sp ranks
+    (``TrainMesh.token_mean``) is the step's."""
     hidden, aux = forward(params, cfg, batch["tokens"], return_hidden=True,
                           mesh=mesh)
     loss = lm_head_loss(params["final_norm"], params["unembed"], hidden,
@@ -732,8 +794,8 @@ def make_train_step(cfg: TransformerConfig, optimizer,
     built over ``param_leaves(params)``: the step takes the gradients and
     updates the params IN PLACE (the reference donates them to its jitted
     step and rebinds the outputs). With ``mesh``, ``params`` are this
-    rank's parts and ``batch`` its rows; the loss returned is the
-    step's, the mean over the data ranks."""
+    rank's parts and ``batch`` its rows' sequence chunk; the loss
+    returned is the step's, the mean over the data and sp ranks."""
 
     def train_step(params: Params, batch: Dict[str, torch.Tensor]):
         if mesh is None:
@@ -743,6 +805,6 @@ def make_train_step(cfg: TransformerConfig, optimizer,
         loss.backward()
         optimizer.step()
         loss = loss.detach()
-        return loss if mesh is None else mesh.data_mean(loss)
+        return loss if mesh is None else mesh.token_mean(loss)
 
     return train_step

@@ -416,6 +416,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def flash_shape(b: int, h: int, h_kv: Optional[int], s_q: int, s_k: int,
+                d: int, dtype: torch.dtype) -> str:
+    """A flash launch's shape as ``launches_by_shape`` keys it, e.g.
+    "B8 H8/2 S2048 D128 bf16" (Sq x Sk when they differ; no kv heads
+    for the preprocess)."""
+    heads = f"H{h}" if h_kv is None else f"H{h}/{h_kv}"
+    s = str(s_q) if s_q == s_k else f"{s_q}x{s_k}"
+    kind = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+    return f"B{b} {heads} S{s} D{d} {kind}"
+
+
 class _FlashKernel(_Kernel):
     """One launch of ``csrc/flash_attention.cu``, the counterpart of the
     splash and flash kernels ``nos_tpu/ops/attention.py::attention``
@@ -429,14 +440,19 @@ class _FlashKernel(_Kernel):
 
     def __init__(self, symbol: str, argtypes: list):
         super().__init__("flash_attention.cu", symbol, argtypes)
+        # launches by ``flash_shape`` (the preprocess's by B, H, S, D);
+        # cleared with ``launches``
+        self.launches_by_shape: Dict[str, int] = {}
 
-    def _call(self, *args) -> None:
+    def _call(self, shape: str, *args) -> None:
         _refuse_capture(self.symbol[4:])
         rc = self.fn()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} kernel launch failed: "
                                f"cudaError {rc}")
         self.launches += 1
+        self.launches_by_shape[shape] = \
+            self.launches_by_shape.get(shape, 0) + 1
 
 
 class _FlashForward(_FlashKernel):
@@ -452,7 +468,8 @@ class _FlashForward(_FlashKernel):
                                                 q, k, v, causal)
         o = torch.empty_like(q)
         lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-        self._call(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        self._call(flash_shape(b, h, h_kv, s_q, s_k, d, q.dtype),
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    lse.data_ptr(), b, h, h_kv, s_q, s_k, d, float(scale),
                    int(causal), _DTYPE_CODE[q.dtype], _stream(q))
         return o, lse
@@ -475,7 +492,9 @@ class _FlashPreprocess(_FlashKernel):
                              f"{o.shape[-1]}")
         delta = torch.empty(o.shape[:-1], dtype=torch.float32,
                             device=o.device)
-        self._call(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+        b, h, s, d = o.shape
+        self._call(flash_shape(b, h, None, s, s, d, o.dtype),
+                   o.data_ptr(), do.data_ptr(), delta.data_ptr(),
                    delta.numel(), o.shape[-1], _DTYPE_CODE[o.dtype],
                    _stream(o))
         return delta
@@ -503,7 +522,8 @@ class _FlashBackward(_FlashKernel):
         _rows_f32(name, delta, (b, h, s_q), q.device)
         outs = ((torch.empty_like(q),) if self.dq
                 else (torch.empty_like(k), torch.empty_like(v)))
-        self._call(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        self._call(flash_shape(b, h, h_kv, s_q, s_k, d, q.dtype),
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                    lse.data_ptr(), delta.data_ptr(),
                    *(t.data_ptr() for t in outs), b, h, h_kv, s_q, s_k, d,
                    float(scale), int(causal), _DTYPE_CODE[q.dtype],

@@ -1,6 +1,8 @@
 """Mixture-of-Experts FFN (port of ``nos_tpu/ops/moe.py``): top-2 gating
 with per-expert capacity and the dense dispatch/combine products; under
-a serving mesh each expert's d_ff split over tp (``moe_ffn_tp``).
+a serving mesh each expert's d_ff split over tp (``moe_ffn_tp``); in
+training over a ``TrainMesh``'s tp x ep ranks, each with its experts'
+d_ff slice, and its sp ranks, each with its rows (``moe_ffn_mesh``).
 
 The routing is the reference's, capacity drops included: every token
 picks its best and second-best expert; each expert takes at most C
@@ -30,7 +32,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["expert_capacity", "top2_gating", "moe_ffn", "moe_ffn_tp"]
+__all__ = ["expert_capacity", "top2_gating", "moe_ffn", "moe_ffn_tp",
+           "moe_ffn_mesh"]
 
 
 def _f32(c: float) -> float:
@@ -179,13 +182,12 @@ def top2_gating(logits: torch.Tensor, capacity: int,
 
 def moe_ffn(h: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor,
-            capacity_factor: float = 1.25, batch_mean: BatchMean = None
+            capacity_factor: float = 1.25
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h [B, S, d]; router [d, E]; expert weights [E, d, f] / [E, f, d]
     -> (out [B, S, d], aux_loss). The capacity is the reference's over
-    this call's S, so the same tokens route alike only at the same S.
-    ``batch_mean``: ``top2_gating``'s."""
-    combine, dispatch, aux = _route(h, router, capacity_factor, batch_mean)
+    this call's S, so the same tokens route alike only at the same S."""
+    combine, dispatch, aux = _route(h, router, capacity_factor)
     return _experts(h, combine, dispatch, w_gate, w_up, w_down), aux
 
 
@@ -208,13 +210,54 @@ def moe_ffn_tp(h: torch.Tensor, router: torch.Tensor, experts,
     return mesh.reduce(parts), aux
 
 
-def _route(h: torch.Tensor, router: torch.Tensor, capacity_factor: float,
-           batch_mean: BatchMean = None):
+def moe_ffn_mesh(h: torch.Tensor, router: torch.Tensor,
+                 w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor, mesh, capacity_factor: float = 1.25
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn`` on one rank of a training ``TrainMesh``: h [B, S/sp, d]
+    this rank's rows (the same bits on every tp x ep rank of its data
+    and sp indices), the router [d, E] whole, the experts this rank's
+    E/ep experts' slices of d_ff (w_gate, w_up [E/ep, d, f/tp], w_down
+    [E/ep, f/tp, d]) -> (this rank's rows of out [B, S/sp, d], aux_loss).
+
+    The gating sees the whole sequence, as the reference's does (its
+    capacity and slot positions are a cumsum over the global S): the f32
+    logits are gathered over sp, gated at the global S on every rank
+    alike, and each rank keeps its rows of combine and dispatch and its
+    experts' columns; the aux loss's statistics are means over the data
+    ranks (``mesh.data_mean``: the reference's over the global batch;
+    every sp rank gates the same rows whole). Dispatch, the experts'
+    SwiGLU and combine run on those; a slot holding another sp rank's
+    token holds zeros here and gives zeros (SwiGLU has no bias), so the
+    rows' outputs are exact.
+    The partial outputs are summed over tp x ep.
+
+    Gradients: the gating's ``h`` and the aux loss are the same on every
+    tp x ep rank and count once; the expert path's ``h`` and ``combine``
+    pass a copy-to (identity forward, gradient summed over tp x ep), so
+    the router's gradient through combine sums every rank's experts and
+    d_ff slice, and is the same bits on every such rank."""
+    e = router.shape[-1]
+    s_local = h.shape[1]
+    cap = expert_capacity(s_local * mesh.sp, e, capacity_factor)
+    logits = torch.matmul(h.float(), router.float())       # [B, S/sp, E]
+    combine, dispatch, aux = top2_gating(mesh.gather_sp(logits, 1), cap,
+                                         mesh.data_mean)
+    rows = slice(mesh.sp_index * s_local, (mesh.sp_index + 1) * s_local)
+    e_local = w_gate.shape[0]
+    cols = slice(mesh.ep_index * e_local, (mesh.ep_index + 1) * e_local)
+    combine = mesh.copy_to_experts(combine[:, rows])[:, :, cols]
+    y = _experts(mesh.copy_to_experts(h), combine, dispatch[:, rows, cols],
+                 w_gate, w_up, w_down)
+    return mesh.reduce_from_experts(y), aux
+
+
+def _route(h: torch.Tensor, router: torch.Tensor, capacity_factor: float):
     """The gating of ``h`` [B, S, d] over ``router`` [d, E] at the
     reference's capacity over this call's S: (combine, dispatch, aux)."""
     cap = expert_capacity(h.shape[1], router.shape[-1], capacity_factor)
     logits = torch.matmul(h.float(), router.float())       # [B, S, E]
-    return top2_gating(logits, cap, batch_mean)
+    return top2_gating(logits, cap)
 
 
 def _experts(h: torch.Tensor, combine: torch.Tensor, dispatch: torch.Tensor,

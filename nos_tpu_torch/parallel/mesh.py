@@ -24,33 +24,47 @@ on the CPU for the tests, ``TpMesh(["cuda:0", "cuda:0"])`` two shards
 on one card.
 
 Training: ``TrainMesh``, one rank's view of a ``ParallelLayout``'s dp,
-fsdp and tp axes over a ``torch.distributed`` process group (SPMD, one
-process a rank, as the reference's GSPMD program is one per chip). Ranks
-lie over the reference's axis order, tp innermost (``arrange_devices``
-keeps tp on adjacent chips): rank = (dp_i x fsdp + fsdp_i) x tp + tp_i.
-The batch is split over dp x fsdp (``data_sharding``), dp outer. The
-collectives, as autograd functions:
+fsdp, tp, sp and ep axes over a ``torch.distributed`` process group
+(SPMD, one process a rank, as the reference's GSPMD program is one per
+chip). Ranks lie over the reference's axis order (dp, fsdp, tp, pp, sp,
+ep; ep innermost, pp refused), so a rank's coordinates read as the
+reference mesh's device's: rank = (((dp_i x fsdp + fsdp_i) x tp + tp_i)
+x sp + sp_i) x ep + ep_i. The batch is split over dp x fsdp
+(``data_sharding``), dp outer, and every activation's sequence over sp;
+every ep rank holds the same tokens. The collectives, as autograd
+functions:
 
 - tp (Megatron's): ``copy_to_tp`` (identity forward, all-reduce of the
   gradient) before a column-parallel product, ``reduce_from_tp``
-  (all-reduce forward, identity backward) after a row-parallel one;
+  (all-reduce forward, identity backward) after a row-parallel one; the
+  same over tp x ep around the MoE's experts (``copy_to_experts``,
+  ``reduce_from_experts``);
 - fsdp (ZeRO-3's): ``gather_fsdp`` (all-gather forward, reduce-scatter
   backward) just before a leaf is used;
+- sp: ``ring_step`` (the ring's ``ppermute`` to the next rank; backward
+  the inverse permutation), ``all_to_all_sp`` (Ulysses' exchange;
+  backward the inverse exchange) and ``gather_sp`` (all-gather along
+  the sequence, backward a reduce-scatter: the MoE gating's logits);
 - ``grad_mean``: identity forward; backward the gradient's mean over
-  the data ranks that hold the leaf whole (dp; dp x fsdp for a leaf
-  fsdp does not split, whose gather already summed over fsdp);
-- ``data_mean``: the mean over the data ranks, forward and backward
-  (the MoE load-balancing loss's batch statistics).
+  the ranks that hold distinct tokens of the leaf whole (dp x sp; and
+  fsdp for a leaf fsdp does not split, whose gather already summed over
+  fsdp);
+- ``data_mean``: the mean over the data ranks (dp x fsdp), forward and
+  backward (the MoE load-balancing loss's batch statistics), and
+  ``token_mean`` the same over dp x fsdp x sp (the loss).
 
 Every collective is an ``all_reduce``: an all-gather is the all-reduce
 of a zero-filled full buffer holding only the rank's slice (exact), a
-reduce-scatter an all-reduce and the rank's slice. gloo on CUDA tensors
-offers only ``all_reduce`` and ``broadcast``, so one code path serves
-the card, the CPU tests and NCCL.
+reduce-scatter an all-reduce and the rank's slice, a ring step or an
+all-to-all the all-reduce of a zero-filled buffer with a slot per rank
+and the slice the rank receives (the all-to-all's without the pieces a
+rank keeps). gloo on CUDA tensors offers only
+``all_reduce`` and ``broadcast``, so one code path serves the card, the
+CPU tests and NCCL.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -287,6 +301,64 @@ class _Mean(torch.autograd.Function):
         return _all_reduce(g, ctx.group).div_(ctx.size), None, None, None
 
 
+def _exchange(x: torch.Tensor, slot: int, take: int, size: int,
+              group) -> torch.Tensor:
+    """One all-reduce of zeros ``[size, *x.shape]`` holding ``x`` in
+    ``slot``; returns slot ``take`` of the sum (what the rank whose slot
+    that is holds)."""
+    buf = x.new_zeros((size,) + tuple(x.shape))
+    buf[slot].copy_(x)
+    dist.all_reduce(buf, group=group)
+    return buf[take]
+
+
+class _RingStep(torch.autograd.Function):
+    """The ring's ``ppermute`` (i -> i + 1): this rank receives the
+    previous rank's ``x``; backward the inverse permutation, so each
+    gradient goes back to the rank whose block it is."""
+
+    @staticmethod
+    def forward(ctx, x, index, size, group):
+        ctx.index, ctx.size, ctx.group = index, size, group
+        return _exchange(x, index, (index - 1) % size, size, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange(g.contiguous(), ctx.index,
+                          (ctx.index + 1) % ctx.size, ctx.size, ctx.group),
+                None, None, None)
+
+
+def _all_to_all(x: torch.Tensor, index: int, size: int,
+                group) -> torch.Tensor:
+    """``x`` [size, ...]: piece j goes to rank j; returns [size, ...],
+    piece j the one rank j sent here. One all-reduce of zeros [size
+    (to), size - 1 (from, the receiver skipped), ...]: a rank keeps its
+    own piece, so only the pieces that cross ranks are in the buffer."""
+    buf = x.new_zeros((size, size - 1) + tuple(x.shape[1:]))
+    for j in range(size):
+        if j != index:
+            buf[j, index - (index > j)].copy_(x[j])
+    dist.all_reduce(buf, group=group)
+    got = buf[index]
+    return torch.cat((got[:index], x[index:index + 1], got[index:]))
+
+
+class _AllToAll(torch.autograd.Function):
+    """``_all_to_all`` under autograd: its own inverse, so the backward
+    is the same exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, index, size, group):
+        ctx.index, ctx.size, ctx.group = index, size, group
+        return _all_to_all(x, index, size, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_to_all(g.contiguous(), ctx.index, ctx.size, ctx.group),
+                None, None, None)
+
+
 def mesh_backend(devices: Sequence[Union[str, torch.device]]) -> str:
     """NCCL when every rank has a CUDA device of its own, else gloo (ranks
     that share a device, and the CPU: NCCL refuses two ranks on one
@@ -298,15 +370,23 @@ def mesh_backend(devices: Sequence[Union[str, torch.device]]) -> str:
     return "gloo"
 
 
+# the reference's axis order (``parallel/layout.py``), outermost first;
+# pp > 1 is refused
+_AXES = ("dp", "fsdp", "tp", "sp", "ep")
+
+
 class TrainMesh:
-    """This rank's place in a dp x fsdp x tp layout, its process groups
-    (one per axis of size > 1, the data group dp x fsdp, and the model
-    group tp x fsdp: None where a group would hold this rank alone) and
-    its device. The default process group must hold ``layout.chips``
-    ranks (``init_train_mesh``)."""
+    """This rank's place in a dp x fsdp x tp x sp x ep layout, its
+    process groups and its device. A group is named by the axes its
+    ranks differ in (``_group``: None where it would hold this rank
+    alone). The default process group must hold ``layout.chips`` ranks
+    (``init_train_mesh``)."""
 
     def __init__(self, layout: ParallelLayout,
                  device: Union[str, torch.device]):
+        if layout.pp > 1:
+            raise ValueError(f"pp={layout.pp}: pipeline parallelism is not "
+                             f"ported")
         world, rank = dist.get_world_size(), dist.get_rank()
         if layout.chips != world:
             raise ValueError(f"layout needs {layout.chips} ranks, the "
@@ -315,37 +395,62 @@ class TrainMesh:
         self.rank, self.world = rank, world
         self.device = torch.device(device)
         self.dp, self.fsdp, self.tp = layout.dp, layout.fsdp, layout.tp
-        tp, fsdp = self.tp, self.fsdp
-        self.tp_index = rank % tp
-        self.fsdp_index = rank // tp % fsdp
-        self.dp_index = rank // (tp * fsdp)
-        self.data_size = self.dp * fsdp
-        self.data_index = self.dp_index * fsdp + self.fsdp_index
+        self.sp, self.ep = layout.sp, layout.ep
+        (self.dp_index, self.fsdp_index, self.tp_index, self.sp_index,
+         self.ep_index) = self._coords(rank)
+        self.data_size = self.dp * self.fsdp
+        self.data_index = self.dp_index * self.fsdp + self.fsdp_index
+        self.token_size = self.data_size * self.sp
         # every rank creates every group, in one order
-        self.tp_group = self._group(tp, lambda r: r // tp)
-        self.fsdp_group = self._group(
-            fsdp, lambda r: (r // (tp * fsdp), r % tp))
-        self.dp_group = self._group(self.dp, lambda r: r % (tp * fsdp))
-        self.data_group = self._group(self.data_size, lambda r: r % tp)
-        self.model_group = self._group(tp * fsdp,
-                                       lambda r: r // (tp * fsdp))
+        self._groups: dict = {}
+        self.tp_group = self._group("tp")
+        self.fsdp_group = self._group("fsdp")
+        self.sp_group = self._group("sp")
+        self.ep_group = self._group("ep")
+        self.data_group = self._group("dp", "fsdp")
+        # the gradient mean: the ranks holding distinct tokens, without
+        # fsdp for a leaf fsdp splits (its gather sums over fsdp)
+        self.token_group = self._group("dp", "fsdp", "sp")
+        self.token_dp_group = self._group("dp", "sp")
+        # the experts' partial sums, and the clip's per-leaf sums
+        self.expert_group = self._group("tp", "ep")
+        self.model_group = self._group("tp", "fsdp", "ep")
 
-    def _group(self, size: int, key: Callable[[int], object]):
-        if size == 1:
+    def _coords(self, rank: int) -> Tuple[int, ...]:
+        """(dp, fsdp, tp, sp, ep) indices of ``rank``, ep innermost."""
+        out = []
+        for axis in reversed(_AXES):
+            n = getattr(self.layout, axis)
+            out.append(rank % n)
+            rank //= n
+        return tuple(reversed(out))
+
+    def _group(self, *axes: str):
+        """The group of the ranks that differ from this one only in
+        ``axes`` (None when that is this rank alone); one group object
+        per set of axes of size > 1."""
+        live = tuple(a for a in _AXES if a in axes and getattr(self, a) > 1)
+        if not live:
             return None
+        if live in self._groups:
+            return self._groups[live]
+        keep = [i for i, a in enumerate(_AXES) if a not in live]
         members: dict = {}
         for r in range(self.world):
-            members.setdefault(key(r), []).append(r)
+            c = self._coords(r)
+            members.setdefault(tuple(c[i] for i in keep), []).append(r)
         mine = None
         for k in sorted(members):
             group = dist.new_group(members[k])
             if self.rank in members[k]:
                 mine = group
+        self._groups[live] = mine
         return mine
 
     def __repr__(self) -> str:
         return (f"TrainMesh(dp={self.dp}, fsdp={self.fsdp}, tp={self.tp}, "
-                f"rank={self.rank}, device={self.device})")
+                f"sp={self.sp}, ep={self.ep}, rank={self.rank}, "
+                f"device={self.device})")
 
     # -- collectives under autograd -------------------------------------
     def copy_to_tp(self, x: torch.Tensor) -> torch.Tensor:
@@ -353,6 +458,20 @@ class TrainMesh:
 
     def reduce_from_tp(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.tp == 1 else _ReduceFrom.apply(x, self.tp_group)
+
+    def copy_to_experts(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity; the gradient summed over tp x ep (the ranks that
+        share the MoE FFN's tokens, each with its experts' d_ff
+        slice)."""
+        if self.expert_group is None:
+            return x
+        return _CopyTo.apply(x, self.expert_group)
+
+    def reduce_from_experts(self, x: torch.Tensor) -> torch.Tensor:
+        """The MoE FFN's partial outputs summed over tp x ep."""
+        if self.expert_group is None:
+            return x
+        return _ReduceFrom.apply(x, self.expert_group)
 
     def gather_fsdp(self, x: torch.Tensor,
                     dim: Optional[int]) -> torch.Tensor:
@@ -362,21 +481,49 @@ class TrainMesh:
         return _Gather.apply(x, dim % x.dim(), self.fsdp_index, self.fsdp,
                              self.fsdp_group)
 
+    def gather_sp(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x``'s sequence chunks along ``dim`` concatenated over sp, in
+        sp order; the gradient summed over sp, this rank's chunk of
+        it."""
+        if self.sp == 1:
+            return x
+        return _Gather.apply(x, dim % x.dim(), self.sp_index, self.sp,
+                             self.sp_group)
+
+    def ring_step(self, x: torch.Tensor) -> torch.Tensor:
+        """The previous sp rank's ``x`` (the ring's ``ppermute`` i ->
+        i + 1)."""
+        return _RingStep.apply(x.contiguous(), self.sp_index, self.sp,
+                               self.sp_group)
+
+    def all_to_all_sp(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` [sp, ...]: piece j to sp rank j; returns [sp, ...],
+        piece j from sp rank j."""
+        return _AllToAll.apply(x.contiguous(), self.sp_index, self.sp,
+                               self.sp_group)
+
     def grad_mean(self, leaf: torch.Tensor, fsdp_split: bool) -> torch.Tensor:
-        """``leaf`` as is; its gradient averaged over the data ranks
-        (those holding it whole: dp when fsdp splits it, its gather
-        having summed the fsdp ranks' already)."""
-        if self.data_size == 1:
+        """``leaf`` as is; its gradient averaged over the ranks holding
+        distinct tokens (dp x sp when fsdp splits it, its gather having
+        summed the fsdp ranks' already; dp x fsdp x sp otherwise)."""
+        if self.token_size == 1:
             return leaf
-        group = self.dp_group if fsdp_split and self.fsdp > 1 \
-            else self.data_group
-        return _Mean.apply(leaf, group, self.data_size, False)
+        group = self.token_dp_group if fsdp_split and self.fsdp > 1 \
+            else self.token_group
+        return _Mean.apply(leaf, group, self.token_size, False)
 
     def data_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of ``x`` over the data ranks, forward and backward."""
         if self.data_size == 1:
             return x
         return _Mean.apply(x, self.data_group, self.data_size, True)
+
+    def token_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the data and sp ranks, forward and
+        backward: a loss each rank took over its own tokens."""
+        if self.token_size == 1:
+            return x
+        return _Mean.apply(x, self.token_group, self.token_size, True)
 
     # -- plain collectives ----------------------------------------------
     def all_reduce_tp_(self, x: torch.Tensor,
@@ -396,14 +543,21 @@ class TrainMesh:
         return t.tolist()
 
     # -- leaves: full <-> this rank's part ------------------------------
+    def _cuts(self, tp_axis: Optional[int], fsdp_axis: Optional[int],
+              ep_axis: Optional[int]) -> tuple:
+        return ((tp_axis, self.tp, self.tp_index),
+                (fsdp_axis, self.fsdp, self.fsdp_index),
+                (ep_axis, self.ep, self.ep_index))
+
     def local_part(self, full: torch.Tensor, tp_axis: Optional[int],
-                   fsdp_axis: Optional[int]) -> torch.Tensor:
+                   fsdp_axis: Optional[int],
+                   ep_axis: Optional[int] = None) -> torch.Tensor:
         """This rank's block of a full leaf: its tp slice along
-        ``tp_axis``, then its fsdp slice along ``fsdp_axis`` (None: not
-        split), a contiguous tensor of its own."""
+        ``tp_axis``, its fsdp slice along ``fsdp_axis`` and its ep slice
+        (its experts) along ``ep_axis`` (None: not split), a contiguous
+        tensor of its own."""
         part = full
-        for axis, n, i in ((tp_axis, self.tp, self.tp_index),
-                           (fsdp_axis, self.fsdp, self.fsdp_index)):
+        for axis, n, i in self._cuts(tp_axis, fsdp_axis, ep_axis):
             if axis is not None and n > 1:
                 if part.shape[axis] % n:
                     raise ValueError(f"axis of size {part.shape[axis]} "
@@ -411,42 +565,45 @@ class TrainMesh:
                 part = part.chunk(n, axis)[i]
         return part.clone(memory_format=torch.contiguous_format)
 
-    def _counts(self, tp_axis: Optional[int],
-                fsdp_axis: Optional[int]) -> bool:
+    def _counts(self, tp_axis: Optional[int], fsdp_axis: Optional[int],
+                ep_axis: Optional[int] = None) -> bool:
         """Whether this rank's part of a leaf split along these axes is
         the one its model group counts: a leaf is whole across a model
         axis that does not split it, so only index 0 there counts."""
-        return ((tp_axis is not None or self.tp_index == 0)
-                and (fsdp_axis is not None or self.fsdp_index == 0))
+        return all(axis is not None or i == 0 for axis, _, i in
+                   self._cuts(tp_axis, fsdp_axis, ep_axis))
 
     def full_leaf(self, part: torch.Tensor, tp_axis: Optional[int],
-                  fsdp_axis: Optional[int]) -> torch.Tensor:
+                  fsdp_axis: Optional[int],
+                  ep_axis: Optional[int] = None) -> torch.Tensor:
         """``local_part``'s inverse, on every rank: one all-reduce over
         every rank of a zero-filled full tensor holding the parts the
-        dp-index-0 model group counts (``_counts``; exact)."""
+        model group of dp index 0 and sp index 0 counts (``_counts``;
+        exact)."""
         full = part
-        for axis, n, i in ((fsdp_axis, self.fsdp, self.fsdp_index),
-                           (tp_axis, self.tp, self.tp_index)):
+        for axis, n, i in self._cuts(tp_axis, fsdp_axis, ep_axis):
             if axis is not None and n > 1:
                 full = _placed(full, axis % full.dim(), i, n)
         if full is part:
             full = part.clone(memory_format=torch.contiguous_format)
-        if self.dp_index or not self._counts(tp_axis, fsdp_axis):
+        if self.dp_index or self.sp_index or \
+                not self._counts(tp_axis, fsdp_axis, ep_axis):
             full.zero_()
         dist.all_reduce(full)
         return full
 
     def shard_sums(self, partials: Sequence[torch.Tensor],
-                   splits: Sequence[Tuple[Optional[int], Optional[int]]]
+                   splits: Sequence[Tuple[Optional[int], ...]]
                    ) -> List[torch.Tensor]:
         """Per leaf, the sum over its parts of ``partials`` (each a
         0-d tensor: this rank's part's sum; ``splits`` each leaf's (tp,
-        fsdp) axes): one all-reduce over the model group, in f32, where a
-        leaf a model axis does not split counts once (from index 0 on
-        that axis). Each sum comes back in its partial's dtype."""
+        fsdp, ep) axes): one all-reduce over the model group (tp x fsdp
+        x ep), in f32, where a leaf a model axis does not split counts
+        once (from index 0 on that axis). Each sum comes back in its
+        partial's dtype."""
         if self.model_group is None:
             return list(partials)
-        # the model group holds one dp index: this rank's own
+        # the model group holds one dp and one sp index: this rank's own
         vals = [s.float() if self._counts(*axes) else torch.zeros(
                     (), dtype=torch.float32, device=s.device)
                 for s, axes in zip(partials, splits)]

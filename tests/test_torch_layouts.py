@@ -282,18 +282,23 @@ def test_stop_event_banks_one_step_on_every_rank(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(pp=2), "pp"), (dict(sp=2), "sp"), (dict(ep=2), "ep"),
-    (dict(n_experts=2, tp=2), "n_experts"),
+    (dict(pp=2), "pp"), (dict(sp=2, seq_len=15), "sp"), (dict(ep=2), "ep"),
+    (dict(n_experts=3, ep=2), "n_experts"),
     (dict(dp=4), "layout needs 4 chips, only 2 devices"),
     (dict(dp=2, handle_sigterm=False), "requires handle_sigterm"),
     (dict(dp=2, batch_size=3), "batch_size 3 not divisible"),
+    (dict(tp=2, sp=2, sp_strategy="ulysses", n_kv_heads=2),
+     r"ulysses needs head counts divisible by the axis size \(2 q heads, "
+     r"1 kv heads, axis 2\)"),
 ])
 def test_refusals_name_the_knob(kw, match):
     """What the layouts do not run is refused before any rank starts,
-    naming the knob: pp, sp, ep, MoE under tp, fewer devices than the
-    layout's chips (the reference's message), a stop event without
-    handle_sigterm (the reference's multi-host rule), a batch the data
-    ranks do not split."""
+    naming the knob: pp, a sequence sp does not split (the reference's
+    message), ep without experts, experts ep does not split, fewer
+    devices than the layout's chips (the reference's message), a stop
+    event without handle_sigterm (the reference's multi-host rule), a
+    batch the data ranks do not split, and under Ulysses a tp rank's kv
+    heads sp does not split (the reference's message)."""
     with pytest.raises(ValueError, match=match):
         ttr.train(_cfg(**kw), stop_event=threading.Event(),
                   devices=["cpu", "cpu"])

@@ -228,9 +228,10 @@ def test_from_yaml_file_reads_json_without_pyyaml(tmp_path, monkeypatch):
 
 # knobs the trainer refused until MoE training and checkpoints, then
 # the profiler and the metrics server, then the dp / fsdp / tp layouts
-# (every rank a CPU process over gloo here) were ported, trained now
+# (every rank a CPU process over gloo here), then sp and ep (ep with
+# experts to split) were ported, trained now
 TRAINED_KNOBS = {"n_experts", "checkpoint_dir", "profile_dir",
-                 "metrics_port", "dp", "fsdp", "tp"}
+                 "metrics_port", "dp", "fsdp", "tp", "sp", "ep"}
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -241,8 +242,9 @@ TRAINED_KNOBS = {"n_experts", "checkpoint_dir", "profile_dir",
 def test_refused_knobs_raise_naming_the_knob(knob, value, tmp_path):
     """A knob outside the port raises naming it. ``n_experts``,
     ``checkpoint_dir``, ``profile_dir``, ``metrics_port``, ``dp``,
-    ``fsdp`` and ``tp`` were refused so and train now: an MoE run and a
-    layout's run (two CPU ranks over gloo) give a finite loss, a
+    ``fsdp``, ``tp``, ``sp`` and ``ep`` (with experts) were refused so
+    and train now: an MoE run and a layout's run (two CPU ranks over
+    gloo) give a finite loss, a
     checkpointed run (its directory under the test's own) stamps the
     architecture and commits the final step, a profiled run writes a
     trace there, and ``train()`` leaves ``metrics_port`` to ``main()``
@@ -254,7 +256,8 @@ def test_refused_knobs_raise_naming_the_knob(knob, value, tmp_path):
         return
     if knob in ("checkpoint_dir", "profile_dir"):
         value = str(tmp_path / value.lstrip("/"))
-    loss = ttr.train(ttr.TrainerConfig(**TINY, **{knob: value}),
+    experts = {"n_experts": 2} if knob == "ep" else {}
+    loss = ttr.train(ttr.TrainerConfig(**TINY, **{knob: value}, **experts),
                      device="cpu")
     assert np.isfinite(loss)
     if knob == "checkpoint_dir":
