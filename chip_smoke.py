@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopqrstuv]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopqrstuvw]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -372,18 +372,19 @@ u. the speculative engine and the MoE family under tp = 2, both shards
    (captured and eager), and the phase's seconds.
 v. the trainer's sequence and expert axes, every rank a process on the
    one card over gloo: (1) (g)'s model, batch 8 x 2048, bf16, full
-   remat, 4 steps under sp 2 ring, sp 2 Ulysses and dp 2 x sp 2
+   remat, 2 steps under sp 2 ring, sp 2 Ulysses and dp 2 x sp 2
    Ulysses: each step's loss within 5e-4 of (t.1)'s one-device run's
-   (its own when (t) did not run), rank 0's params after step 4 within
+   (its own when (t) did not run), rank 0's params after step 2 within
    2e-2 of each leaf's RMS, each Ulysses rank's flash launches a
    one-device run's at its shape (B 8, H 8/2, S 2048; dp 2 x sp 2: B
    4), the ring's ranks none (their blocks are plain products), adamw
    one a leaf and step; f32 at 2 layers, batch 2 x 1024: each layout's
    losses within 1e-4; (2) (p)'s Mixtral widths at 1 layer, batch 8 x
    2048, bf16, 4 steps on one device and under ep 2, tp 2, tp 2 x ep 2
-   and dp 2 x ep 2: losses within ``V_MOE_LOSS_RTOL``, drop shares
-   beside one device's, each rank's launches at its shape; f32 at 2
-   layers of p.4's widths, batch 2 x 512: losses within 1e-4, step 1's
+   and dp 2 x ep 2, 2 steps: losses within ``V_MOE_LOSS_RTOL``, drop
+   shares beside one device's, each rank's launches at its shape; f32
+   at 2 layers of p.4's widths, batch 2 x 512, 4 steps: losses within
+   1e-4, step 1's
    gating calls' drops per row equal to one device's (later calls
    within ``V_DROP_TOL``), the router's gradient after step 1 within
    (g)'s f32 tolerance; its tp 2 x ep 2 run's step-2 checkpoint resumed
@@ -394,6 +395,27 @@ v. the trainer's sequence and expert axes, every rank a process on the
    SDPA and the bound, f32 at the Ulysses shapes. Prints ms a step,
    each rank's peak and params-and-moments bytes and launches, and the
    phase's seconds.
+w. the trainer's pipeline parallelism, every rank a process on the one
+   card over gloo: (1) (g)'s model, batch 8 x 2048, bf16, full remat,
+   pp 2 with 4 microbatches (a stage's attention at B 2, H 16/4, S
+   2048) under GPipe, 1F1B and interleaved 1F1B (2 virtual stages), 2
+   steps each: each step's loss within 5e-4 of (t.1)'s one-device
+   run's, rank 0's params after step 2 within 2e-2 of each leaf's RMS,
+   every rank's flash launches at B 2, H 16/4 the schedule's count
+   (printed beside its formula: GPipe's forward 2 x K x M a step, 1F1B's
+   and the interleaved one's 3 x K x M, each backward kernel K x M;
+   K = 8 layers a stage, M = 4), adamw one a leaf and step; per
+   schedule each rank's peak (GPipe's above 1F1B's), the bubble
+   fraction from the schedule's tables (1F1B's 0.2), the stage inputs
+   held at once, ms a step; (2) f32 at 4 layers of (t.4)'s widths,
+   batch 4 x 1024, 2 microbatches, 4 steps: pp 2 x dp 2 (1F1B), pp 2 x
+   tp 2 (interleaved) and pp 2 x sp 2 (GPipe, the ring) within 1e-4 of
+   one device's losses, and the MoE at v.2's f32 widths, pp 2 x ep 2
+   (1F1B) within 1e-4 of pp 2 (GPipe); the pp 2 x dp 2 run's step-2
+   checkpoint resumed on one device within ``compare_states``'
+   tolerances and at pp 2 x dp 2 bit for bit; (3) the flash kernels at
+   the microbatch shape against their plain versions, bf16 timed
+   beside them, SDPA and the bound, and f32.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -434,7 +456,7 @@ FULL = dict(vocab=128256, d_model=4096, n_layers=16, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijklmnopqrstuv"
+PHASES = "cdefghijklmnopqrstuvw"
 
 
 def emit(obj) -> None:
@@ -6021,30 +6043,41 @@ class captured_params:
 
     def __enter__(self):
         from nos_tpu_torch.models import transformer as tfm
+        from nos_tpu_torch.parallel import pipeline
 
-        self.tfm, self.real, self.params = tfm, tfm.make_train_step, None
+        self.params = None
+        self.mods = ((tfm, "make_train_step", tfm.make_train_step),
+                     (pipeline, "make_pipeline_train_step",
+                      pipeline.make_pipeline_train_step))
 
-        def spy(cfg, optimizer, *mesh):
-            step = self.real(cfg, optimizer, *mesh)
+        def spying(real):
+            def spy(*args, **kw):
+                step = real(*args, **kw)
 
-            def wrapped(params, batch):
-                self.params = params
-                loss = step(params, batch)
-                self.steps += 1
-                if self.steps == self.at_step:
-                    self.at_step_params = dict(zip(
-                        tfm.leaf_names(params),
-                        (p.detach().cpu() for p in
-                         tfm.param_leaves(params))))
-                return loss
+                def wrapped(params, batch):
+                    self.params = params
+                    loss = step(params, batch)
+                    self.steps += 1
+                    if self.steps == self.at_step:
+                        self.at_step_params = dict(zip(
+                            tfm.leaf_names(params),
+                            (p.detach().cpu() for p in
+                             tfm.param_leaves(params))))
+                    return loss
 
-            return wrapped
+                # the pipelined step's forward-only loss and stats
+                wrapped.__dict__.update(step.__dict__)
+                return wrapped
 
-        tfm.make_train_step = spy
+            return spy
+
+        for mod, name, real in self.mods:
+            setattr(mod, name, spying(real))
         return self
 
     def __exit__(self, *exc):
-        self.tfm.make_train_step = self.real
+        for mod, name, real in self.mods:
+            setattr(mod, name, real)
 
 
 def moe_train_config(seed: int, checkpoint_dir: str):
@@ -7439,7 +7472,7 @@ def layout_run(cfg, device, stop_event=None, on_step=None,
     from nos_tpu_torch.cmd.trainer import train
     from nos_tpu_torch.models import transformer as tfm
 
-    chips = cfg.dp * cfg.fsdp * cfg.tp * cfg.sp * cfg.ep
+    chips = cfg.dp * cfg.fsdp * cfg.tp * cfg.pp * cfg.sp * cfg.ep
     log = LayoutLog(on_step)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -7466,13 +7499,22 @@ def layout_run(cfg, device, stop_event=None, on_step=None,
 def rank0_param_diff(got: dict, full: dict, layout: dict) -> dict:
     """Rank 0's part of each param leaf (``got``) against the same part of
     a one-device run's full leaves: the worst leaf's RMS difference over
-    its RMS (and which leaf), and the largest difference."""
+    its RMS (and which leaf), and the largest difference. Under pp rank
+    0 holds stage 0's layers: the first L/pp of the layer leaves in the
+    schedule's order (chunk-major under the interleaved schedule)."""
     from nos_tpu_torch.models import transformer as tfm
+    from nos_tpu_torch.parallel.pipeline import interleave_layer_order
 
     worst = {"param_rms_rel": 0.0, "leaf": None, "param_max_abs": 0.0}
+    pp = layout.get("pp", 1)
     for name, a in got.items():
         key = name.rsplit("/", 1)[-1]
         b = full[name].to(a.device)
+        if pp > 1 and name.startswith("layers/"):
+            if layout.get("pipeline_schedule") == "interleaved":
+                b = b[interleave_layer_order(
+                    b.shape[0], pp, layout.get("virtual_stages", 2))]
+            b = b.chunk(pp, 0)[0]
         for axis, n in ((tfm.TP_SPLIT.get(key), layout.get("tp", 1)),
                         (tfm.FSDP_SPLIT[key], layout.get("fsdp", 1)),
                         (tfm.EP_SPLIT.get(key), layout.get("ep", 1))):
@@ -7520,7 +7562,8 @@ def rel_diffs(got: list, want: list) -> list:
 
 def layout_state_bytes(widths: dict, layout: dict) -> int:
     """A rank's params and both moments in bf16 under ``layout``: each
-    leaf cut by its tp, fsdp and ep degrees where it is split."""
+    leaf cut by its tp, fsdp and ep degrees where it is split, and a
+    layer leaf by pp (a stage's layers)."""
     from nos_tpu_torch.models import transformer as tfm
 
     params = tfm.abstract_params(tfm.TransformerConfig(**widths))
@@ -7535,6 +7578,8 @@ def layout_state_bytes(widths: dict, layout: dict) -> int:
             n //= layout.get("fsdp", 1)
         if tfm.EP_SPLIT.get(key) is not None:
             n //= layout.get("ep", 1)
+        if name.startswith("layers/"):
+            n //= layout.get("pp", 1)
         total += 3 * n
     return total
 
@@ -7658,8 +7703,9 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
                     steps=T_STEPS, log_every=1, seed=seed, bf16=True)
         one = layout_run(TrainerConfig(**base), device,
                          snapshot_at=T_LAYOUT_STEPS)
-        # in host memory: the ranks' peaks count no reference tensor
-        one["params"] = {k: v.cpu() for k, v in one["params"].items()}
+        # the ranks' peaks count no reference tensor: the params after
+        # step T_LAYOUT_STEPS are a host copy, the final ones freed
+        del one["params"]
         at = one["params_at"]
         lay = dict(base, steps=T_LAYOUT_STEPS)
         out["one_device"] = {
@@ -7711,8 +7757,9 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
                 "launches_summed_over_ranks": launches[label],
                 "rank0_params_vs_one_device": params}
             del run
-        # v.1 holds its sp layouts to this one-device run
-        t_one = {"losses": one["losses"], "params": one["params"]}
+        # v.1 and w.1 hold their layouts to this one-device run (its
+        # first T_LAYOUT_STEPS losses and its params after that step)
+        t_one = {"losses": one["losses"], "params_at": at}
         del one
         out["fsdp2_over_dp2_state_bytes"] = (
             runs["fsdp2"]["state_gb_by_rank"][0]
@@ -8326,6 +8373,11 @@ def phase_tp_spec_moe(seed: int, card: str, flush, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 V_STEPS = 4
+# v.1's and v.2's bf16 layout runs take 2 steps (v.1 held to t.1's first
+# 2 losses and its params after step 2; v.2 to its own one-device run of
+# 2 steps): a cut for time, the room phase (w) needs (PERF.md section
+# 4); the f32 arms keep V_STEPS
+V_LAYOUT_STEPS = 2
 # v.1: (g)'s model at full width and depth, held to t.1's one-device run
 V_SP_LAYOUTS = (("sp2_ring", dict(sp=2)),
                 ("sp2_ulysses", dict(sp=2, sp_strategy="ulysses")),
@@ -8492,48 +8544,61 @@ def hold_v_run(label: str, run: dict, row: dict, one: list, rtol: float,
     rank's params and moments ``state_bytes``."""
     rel = row["loss_rel_diff"]
     if len(rel) != len(one) or not max(rel) <= rtol:
-        raise AssertionError(f"v {label}: losses {run['losses']} against one "
+        raise AssertionError(f"{label}: losses {run['losses']} against one "
                              f"device's {one} (rtol {rtol})")
     for r in run["ranks"]:
         if r["state_bytes"] != state_bytes:
             raise AssertionError(
-                f"v {label}: rank {r['rank']} holds {r['state_bytes']} "
+                f"{label}: rank {r['rank']} holds {r['state_bytes']} "
                 f"bytes of params and moments, want {state_bytes}")
 
 
+def one_device_run(seed: int, device, t_one, phase: str) -> dict:
+    """(g)'s model, batch 8 x 2048, bf16, full remat, on one device for
+    ``V_LAYOUT_STEPS`` steps: t.1's run when (t) ran (``t_one``), else
+    its own; its losses and a host copy of its params after that
+    step."""
+    from nos_tpu_torch.cmd.trainer import TrainerConfig
+
+    if t_one is not None and t_one.get("params_at") is not None:
+        return t_one
+    run = layout_run(TrainerConfig(
+        **TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        steps=V_LAYOUT_STEPS, log_every=1, seed=seed, bf16=True), device,
+        snapshot_at=V_LAYOUT_STEPS)
+    return {"losses": run["losses"], "params_at": run["params_at"],
+            "f32_losses": None, "from": phase}
+
+
 def phase_sp(seed: int, device, t_one) -> dict:
-    """(v.1): (g)'s model, batch 8 x 2048, bf16, full remat, 4 steps
+    """(v.1): (g)'s model, batch 8 x 2048, bf16, full remat, 2 steps
     under sp 2 ring, sp 2 Ulysses and dp 2 x sp 2 Ulysses, each held to
-    the one-device run (t.1's when (t) ran: ``t_one``, its losses and
-    params); then the f32 arm at 2 layers, batch 2 x 1024."""
+    the one-device run (t.1's when (t) ran: ``t_one``, its first 2
+    losses and its params after step 2); then the f32 arm at 2 layers,
+    batch 2 x 1024, 4 steps."""
     from nos_tpu_torch.cmd.trainer import TrainerConfig
 
     base = dict(TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                steps=V_STEPS, log_every=1, seed=seed, bf16=True)
+                steps=V_LAYOUT_STEPS, log_every=1, seed=seed, bf16=True)
     out = {}
-    if t_one is None or t_one.get("params") is None:
-        run = layout_run(TrainerConfig(**base), device)
-        t_one = {"losses": run["losses"],
-                 "params": {k: v.cpu() for k, v in run["params"].items()},
-                 "f32_losses": None, "from": "v.1"}
-        del run
-    out["one_device"] = {"losses": t_one["losses"],
-                         "from": t_one.get("from", "t.1")}
+    t_one = one_device_run(seed, device, t_one, "v.1")
+    one = t_one["losses"][:V_LAYOUT_STEPS]
+    out["one_device"] = {"losses": one, "from": t_one.get("from", "t.1")}
     L, H, HKV = TRAIN["n_layers"], TRAIN["n_heads"], TRAIN["n_kv_heads"]
     runs, by_shape = {}, {}
     for label, kw in V_SP_LAYOUTS:
         run = layout_run(TrainerConfig(**base, **kw), device)
-        row = v_layout_row("sp_layout", label, run, t_one["losses"])
+        row = v_layout_row("sp_layout", label, run, one)
         chips = int(np.prod([v for k, v in kw.items() if k != "sp_strategy"]))
         ring = kw.get("sp_strategy", "ring") == "ring"
         shape = None if ring else rank_shape(
             TRAIN_BATCH // kw.get("dp", 1), H // kw["sp"], HKV // kw["sp"],
             TRAIN_SEQ, TRAIN["d_model"] // H, torch.bfloat16)
         held = hold_rank_launches(f"v.1 {label}", run, chips,
-                                  launches_want(L, V_STEPS, flash=not ring),
-                                  shape)
+                                  launches_want(L, V_LAYOUT_STEPS,
+                                                flash=not ring), shape)
         add_by_shape(by_shape, held["flash_by_shape"])
-        hold_v_run(label, run, row, t_one["losses"], T_LOSS_RTOL,
+        hold_v_run(f"v.1 {label}", run, row, one, T_LOSS_RTOL,
                    layout_state_bytes(TRAIN, kw))
         row.update(launches_summed_over_ranks=held["summed"],
                    flash_launches_by_shape=held["flash_by_shape"],
@@ -8542,7 +8607,7 @@ def phase_sp(seed: int, device, t_one) -> dict:
                                   f"each rank {shape}, a one-device run's "
                                   f"counts"),
                    rank0_params_vs_one_device=rank0_param_diff(
-                       run.pop("params"), t_one["params"], kw))
+                       run.pop("params"), t_one["params_at"], kw))
         runs[label] = row
         del run
     out["layouts"] = {k: {f: r[f] for f in ("losses", "ms_per_step",
@@ -8555,7 +8620,7 @@ def phase_sp(seed: int, device, t_one) -> dict:
     out["rank0_params_vs_one_device"] = worst
     # the f32 arm: t.2's one-device losses when (t) ran
     f32 = dict(base, n_layers=2, batch_size=T_F32_BATCH, seq_len=T_F32_SEQ,
-               bf16=False)
+               bf16=False, steps=V_STEPS)
     ref = t_one.get("f32_losses") or layout_run(TrainerConfig(**f32),
                                                 device)["losses"]
     out["f32"] = {"one_device": ref}
@@ -8566,7 +8631,7 @@ def phase_sp(seed: int, device, t_one) -> dict:
             raise AssertionError(f"v.1 {label}: f32 losses {got} against "
                                  f"one device's {ref}")
         out["f32"][label] = {"losses": got, "max_rel_diff": max(rel)}
-    return {"row": out, "by_shape": by_shape}
+    return {"row": out, "by_shape": by_shape, "one_device": t_one}
 
 
 def moe_layout_run(cfg, device) -> tuple:
@@ -8579,10 +8644,10 @@ def moe_layout_run(cfg, device) -> tuple:
 
 
 def phase_ep(seed: int, device, root: str) -> dict:
-    """(v.2): (p)'s Mixtral widths at 1 layer, batch 8 x 2048, bf16, 4
+    """(v.2): (p)'s Mixtral widths at 1 layer, batch 8 x 2048, bf16, 2
     steps on one device and under ep 2, tp 2, tp 2 x ep 2 and dp 2 x ep
     2 (losses within ``V_MOE_LOSS_RTOL``, drop shares printed beside one
-    device's); the f32 arm at 2 layers, batch 2 x 512: losses within
+    device's); the f32 arm at 2 layers, batch 2 x 512, 4 steps: losses within
     ``T_F32_RTOL``, every gating call's drops per row equal to one
     device's rows, the first step's router gradient within (g)'s f32
     gradient tolerance; its tp 2 x ep 2 run checkpoints steps 2 and 4,
@@ -8593,7 +8658,7 @@ def phase_ep(seed: int, device, root: str) -> dict:
     E = MOE_TRAIN["n_experts"]
     H, HKV = MOE_TRAIN["n_heads"], MOE_TRAIN["n_kv_heads"]
     base = dict(MOE_TRAIN, batch_size=MOE_TRAIN_BATCH,
-                seq_len=MOE_TRAIN_SEQ, steps=V_STEPS, log_every=1,
+                seq_len=MOE_TRAIN_SEQ, steps=V_LAYOUT_STEPS, log_every=1,
                 seed=seed, bf16=True)
     one, one_gating, _ = moe_layout_run(TrainerConfig(**base), device)
     out = {"one_device": {"losses": one["losses"],
@@ -8610,7 +8675,7 @@ def phase_ep(seed: int, device, root: str) -> dict:
                            MOE_TRAIN["d_model"] // H, torch.bfloat16)
         held = hold_rank_launches(f"v.2 {label}", run, chips,
                                   launches_want(MOE_TRAIN["n_layers"],
-                                                V_STEPS, E), shape)
+                                                V_LAYOUT_STEPS, E), shape)
         add_by_shape(by_shape, held["flash_by_shape"])
         # rank 0's rows (the first B/dp) beside one device's whole batch
         row.update(launches_summed_over_ranks=held["summed"],
@@ -8620,7 +8685,7 @@ def phase_ep(seed: int, device, root: str) -> dict:
         emit({"phase": "ep_layout_drops", "label": label,
               "drop_share": row["drop_share"],
               "one_device_drop_share": row["one_device_drop_share"]})
-        hold_v_run(label, run, row, one["losses"], V_MOE_LOSS_RTOL,
+        hold_v_run(f"v.2 {label}", run, row, one["losses"], V_MOE_LOSS_RTOL,
                    layout_state_bytes(MOE_TRAIN, kw))
         runs[label] = row
         del run
@@ -8702,13 +8767,15 @@ def phase_sp_ep(seed: int, card: str, flush, t_one=None,
     ``device`` (default: the card) over gloo: v.1 (``phase_sp``), v.2
     (``phase_ep``), then v.3, the flash kernels at ``V_SHAPES`` against
     their plain versions (bf16 timed beside them, SDPA and the bound;
-    f32 at the Ulysses shapes). Returns v.3's rows and the flash
-    launches by shape of v.1's and v.2's runs."""
+    f32 at the Ulysses shapes). Returns v.3's rows, the flash launches
+    by shape of v.1's and v.2's runs, and v.1's one-device run (which
+    (w) reuses)."""
     import tempfile
 
     t0 = time.perf_counter()
     device = device or torch.device("cuda", 0)
     out = {"phase": "sp_ep", "card": card, "steps": V_STEPS,
+           "layout_steps": V_LAYOUT_STEPS,
            "loss_rtol": T_LOSS_RTOL, "moe_loss_rtol": V_MOE_LOSS_RTOL,
            "f32_rtol": T_F32_RTOL, "param_rms_tol": T_PARAM_RMS,
            "devices": str(device), "backend": "gloo"}
@@ -8735,11 +8802,256 @@ def phase_sp_ep(seed: int, card: str, flush, t_one=None,
         for part in (sp, ep):
             add_by_shape(by_shape, part["by_shape"])
         out["flash_launches_by_shape"] = by_shape
-        return {"flash": flash, "by_shape": by_shape}
+        return {"flash": flash, "by_shape": by_shape,
+                "one_device": sp["one_device"]}
     finally:
         torch.cuda.empty_cache()
         out["seconds"] = time.perf_counter() - t0
         emit(out)
+
+
+# (w): pipeline parallelism. w.1: (g)'s model at full width and depth,
+# pp 2, 4 microbatches (a microbatch B 2), each schedule 2 steps, held
+# to t.1's one-device run (its first 2 losses, its params after step 2)
+W_PP, W_MICRO, W_STEPS = 2, 4, 2
+W_SCHEDULES = (("gpipe", dict(pipeline_schedule="gpipe")),
+               ("1f1b", dict(pipeline_schedule="1f1b")),
+               ("interleaved", dict(pipeline_schedule="interleaved",
+                                    virtual_stages=2)))
+# w.2: f32 compositions at 4 layers of t.4's widths (d_model 1024, GQA
+# 8/2, head_dim 128; the interleaved schedule needs n_layers % (pp x v)
+# == 0), batch 4 x 1024 (4 rows, not 2: a pp 2 x dp 2 rank takes its
+# share of each microbatch's rows, so a microbatch of 2 splits over the
+# 2 data ranks), 2 microbatches, every arm at 4 ranks; each held to
+# one device's losses within T_F32_RTOL. The pp 2 x dp 2 arm
+# checkpoints steps 2 and 4, and step 2 resumes on one device and at
+# pp 2 x dp 2 (bit for bit)
+W_F32 = dict(T_CKPT, n_layers=4)
+W_F32_BATCH, W_F32_SEQ, W_F32_MICRO, W_F32_STEPS = 4, 1024, 2, 4
+W_F32_ARMS = (("pp2_dp2_1f1b", dict(pp=2, dp=2, pipeline_schedule="1f1b")),
+              ("pp2_tp2_interleaved", dict(pp=2, tp=2,
+                                           pipeline_schedule="interleaved")),
+              ("pp2_sp2_gpipe_ring", dict(pp=2, sp=2,
+                                          pipeline_schedule="gpipe")))
+# ... and the MoE at v.2's f32 widths (p.4's, 2 layers), batch 2 x 512,
+# 2 microbatches: pp 2 x ep 2 under 1F1B held to pp 2 under GPipe (with
+# M > 1 the reference's aux loss is per microbatch, not the plain
+# forward's, so one device is not the reference here)
+W_MOE_ARMS = (("pp2_gpipe", dict(pp=2, pipeline_schedule="gpipe")),
+              ("pp2_ep2_1f1b", dict(pp=2, ep=2, pipeline_schedule="1f1b")))
+# w.3: the flash kernels at a stage's microbatch shape (B 2, H 16/4, S
+# 2048, D 128)
+W_SHAPE = dict(ATTN, b=TRAIN_BATCH // W_MICRO)
+
+
+def pp_launches_want(schedule: str, n_layers: int, steps: int) -> tuple:
+    """A pp rank's training kernel launches over ``steps`` full-remat
+    steps of a stage of K = n_layers / W_PP layers over W_MICRO
+    microbatches, and the formulas: the flash forward K x M a step in
+    the forward units, K x M again in 1F1B's and the interleaved
+    schedule's backward units (which recompute the stage from its saved
+    input) and K x M in the remat re-run of every backward; each
+    backward kernel K x M; adamw one a leaf (every stage holds every
+    leaf: its layers, the embeddings and the final norm)."""
+    k, m = n_layers // W_PP, W_MICRO
+    runs = 2 if schedule == "gpipe" else 3
+    n = k * m * steps
+    want = {"flash_attention_fwd": runs * n,
+            "flash_attention_bwd_preprocess": n,
+            "flash_attention_bwd_dkdv": n, "flash_attention_bwd_dq": n,
+            "adamw": n_param_leaves() * steps}
+    units = ("forward ticks + remat re-run" if schedule == "gpipe" else
+             "fwd units + bwd units' recompute + remat re-run")
+    formula = {"flash_attention_fwd": f"{runs} x K {k} x M {m} x steps "
+                                      f"{steps} ({units})",
+               "flash_attention_bwd_*": f"K {k} x M {m} x steps {steps}",
+               "adamw": f"{n_param_leaves()} leaves x steps {steps}"}
+    return want, formula
+
+
+def phase_pp(seed: int, card: str, flush, t_one=None, device=None) -> dict:
+    """(w): the trainer's pipeline parallelism, every rank a process on
+    ``device`` (default: the card) over gloo. (1) (g)'s model, batch 8 x
+    2048, bf16, full remat, pp 2 with 4 microbatches under GPipe, 1F1B
+    and interleaved 1F1B (v 2), 2 steps each: each step's loss within
+    ``T_LOSS_RTOL`` of the one-device run's (t.1's when it ran), rank 0's
+    params after step 2 within ``T_PARAM_RMS``, every rank's flash
+    launches at the microbatch shape (B 2, H 16/4) the schedule's count
+    (``pp_launches_want``); per schedule each rank's peak (GPipe's above
+    1F1B's: it keeps every microbatch's boundary inputs, the last stage
+    the whole batch's logits), the bubble fraction from the schedule's
+    tables, ms a step. (2) f32 at ``W_F32``: pp 2 x dp 2 (1F1B), pp 2 x
+    tp 2 (interleaved), pp 2 x sp 2 (GPipe, the ring) against one
+    device, MoE pp 2 x ep 2 (1F1B) against pp 2 GPipe; the pp 2 x dp 2
+    arm's step-2 checkpoint resumed on one device and at pp 2 x dp 2 bit
+    for bit. (3) the flash kernels at the microbatch shape against their
+    plain versions, bf16 timed beside them, SDPA and the bound, and f32.
+    Returns (3)'s rows and (1)'s launches at that shape by schedule."""
+    import tempfile
+
+    from nos_tpu_torch.cmd.trainer import TrainerConfig
+
+    t0 = time.perf_counter()
+    device = device or torch.device("cuda", 0)
+    out = {"phase": "train_pipeline", "card": card, **TRAIN,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "pp": W_PP,
+           "n_microbatches": W_MICRO,
+           "steps": W_STEPS, "loss_rtol": T_LOSS_RTOL,
+           "param_rms_tol": T_PARAM_RMS, "f32_rtol": T_F32_RTOL,
+           "devices": str(device), "backend": "gloo"}
+    try:
+        # w.1
+        t_one = one_device_run(seed, device, t_one, "w.1")
+        one = t_one["losses"][:W_STEPS]
+        out["one_device"] = {"losses": one,
+                             "from": t_one.get("from", "t.1")}
+        H, HKV, L = TRAIN["n_heads"], TRAIN["n_kv_heads"], TRAIN["n_layers"]
+        shape = rank_shape(W_SHAPE["b"], H, HKV, TRAIN_SEQ,
+                           TRAIN["d_model"] // H, torch.bfloat16)
+        base = dict(TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    steps=W_STEPS, log_every=1, seed=seed, bf16=True,
+                    pp=W_PP, n_microbatches=W_MICRO)
+        runs, launches, by_shape = {}, {}, {}
+        for label, kw in W_SCHEDULES:
+            run = layout_run(TrainerConfig(**base, **kw), device)
+            row = v_layout_row("pp_schedule", label, run, one)
+            want, formula = pp_launches_want(kw["pipeline_schedule"], L,
+                                             W_STEPS)
+            stats = [r["pipeline"] for r in run["ranks"]]
+            row.update(
+                flash_shape=shape, launches_want_per_rank=want,
+                launches_formula=formula,
+                bubble_fraction=[st["bubble_fraction"] for st in stats],
+                ticks=[st["ticks"] for st in stats],
+                peak_saved_inputs=[st["peak_saved"] for st in stats],
+                rank0_params_vs_one_device=rank0_param_diff(
+                    run.pop("params"), t_one["params_at"],
+                    dict(base, **kw)))
+            emit({"phase": "pp_schedule_holds", "label": label,
+                  **{k: row[k] for k in (
+                      "launches_by_rank", "launches_want_per_rank",
+                      "launches_formula", "bubble_fraction", "ticks",
+                      "peak_saved_inputs", "peak_gb_by_rank",
+                      "rank0_params_vs_one_device")}})
+            held = hold_rank_launches(f"w.1 {label}", run, W_PP, want, shape)
+            launches[label] = held["summed"]
+            add_by_shape(by_shape, held["flash_by_shape"])
+            hold_v_run(f"w.1 {label}", run, row, one, T_LOSS_RTOL,
+                       layout_state_bytes(TRAIN, dict(pp=W_PP)))
+            runs[label] = row
+            del run
+        out["schedules"] = {k: {f: r[f] for f in (
+            "losses", "loss_rel_diff", "ms_per_step", "peak_gb_by_rank",
+            "bubble_fraction", "peak_saved_inputs")}
+            for k, r in runs.items()}
+        out["interleaved_over_1f1b_bubble"] = (
+            runs["interleaved"]["bubble_fraction"][0]
+            / runs["1f1b"]["bubble_fraction"][0])
+        worst = {k: r["rank0_params_vs_one_device"] for k, r in runs.items()}
+        if any(w["param_rms_rel"] > T_PARAM_RMS for w in worst.values()):
+            raise AssertionError(f"w.1: rank 0's params against the "
+                                 f"one-device run's {worst} (tol "
+                                 f"{T_PARAM_RMS})")
+        for a, b in zip(runs["gpipe"]["peak_gb_by_rank"],
+                        runs["1f1b"]["peak_gb_by_rank"]):
+            if not a > b:
+                raise AssertionError(
+                    f"w.1: GPipe's peaks {runs['gpipe']['peak_gb_by_rank']}"
+                    f" GB not above 1F1B's "
+                    f"{runs['1f1b']['peak_gb_by_rank']}")
+        want_bubble = (2 * W_PP - 2) / (2 * W_MICRO + 2 * W_PP - 2)
+        if runs["1f1b"]["bubble_fraction"] != [want_bubble] * W_PP:
+            raise AssertionError(f"w.1: 1F1B's bubble "
+                                 f"{runs['1f1b']['bubble_fraction']}, want "
+                                 f"{want_bubble}")
+        out["w1_s"] = time.perf_counter() - t0
+        # w.2
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-w-") as root:
+            out["f32"] = pp_compositions(seed, device, root)
+        out["w2_s"] = time.perf_counter() - t0 - out["w1_s"]
+        # w.3
+        rng = np.random.default_rng(seed + 23)
+        flash, _ = flash_case("pp_microbatch", W_SHAPE, True,
+                              torch.bfloat16, rng, device, flush, timed=True)
+        flash_case("pp_microbatch", W_SHAPE, True, torch.float32, rng,
+                   device, flush)
+        out["flash_pp_microbatch"] = {k: {f: v[f] for f in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")} for k, v in flash.items()}
+        out["flash_launches_by_shape"] = by_shape
+        return {"flash": flash, "launches": launches, "by_shape": by_shape}
+    finally:
+        torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t0
+        emit(out)
+
+
+def pp_compositions(seed: int, device, root: str) -> dict:
+    """(w.2): ``W_F32_ARMS`` against one device's f32 run at ``W_F32``,
+    ``W_MOE_ARMS`` against each other, each arm's losses within
+    ``T_F32_RTOL``; the pp 2 x dp 2 arm's checkpoint resumed."""
+    from nos_tpu_torch.cmd.trainer import TrainerConfig
+
+    f32 = dict(W_F32, batch_size=W_F32_BATCH, seq_len=W_F32_SEQ,
+               steps=W_F32_STEPS, log_every=1, seed=seed, bf16=False,
+               n_microbatches=W_F32_MICRO)
+    ref = layout_run(TrainerConfig(**f32), device)["losses"]
+    out = {"widths": W_F32, "batch": W_F32_BATCH, "seq": W_F32_SEQ,
+           "n_microbatches": W_F32_MICRO, "one_device": ref}
+    a = os.path.join(root, "pp2_dp2")
+    for label, kw in W_F32_ARMS:
+        ck = dict(checkpoint_dir=a, checkpoint_every=2) \
+            if label == "pp2_dp2_1f1b" else {}
+        run = layout_run(TrainerConfig(**f32, **kw, **ck), device)
+        rel = rel_diffs(run["losses"], ref)
+        out[label] = {"losses": run["losses"], "max_rel_diff": max(rel),
+                      "ms_per_step": run["ms_per_step"],
+                      "wall_s": run["wall_s"]}
+        emit({"phase": "pp_f32", "label": label, **out[label]})
+        if len(rel) != len(ref) or not max(rel) <= T_F32_RTOL:
+            raise AssertionError(f"w.2 {label}: f32 losses {run['losses']} "
+                                 f"against one device's {ref}")
+    moe = dict(V_MOE_F32, batch_size=V_MOE_F32_BATCH,
+               seq_len=V_MOE_F32["max_seq"], steps=W_F32_STEPS, log_every=1,
+               seed=seed, bf16=False, n_microbatches=W_F32_MICRO)
+    moe_ref = None
+    for label, kw in W_MOE_ARMS:
+        run = layout_run(TrainerConfig(**moe, **kw), device)
+        moe_ref = moe_ref or run["losses"]
+        rel = rel_diffs(run["losses"], moe_ref)
+        out[f"moe_{label}"] = {"losses": run["losses"],
+                               "max_rel_diff": max(rel),
+                               "ms_per_step": run["ms_per_step"]}
+        emit({"phase": "pp_f32", "label": f"moe_{label}",
+              **out[f"moe_{label}"]})
+        if len(rel) != W_F32_STEPS or not max(rel) <= T_F32_RTOL:
+            raise AssertionError(f"w.2 moe {label}: f32 losses "
+                                 f"{run['losses']} against pp 2 GPipe's "
+                                 f"{moe_ref}")
+    # the checkpoint the pp 2 x dp 2 arm saved, resumed
+    want = ckpt_state(a, W_F32_STEPS, W_F32, torch.float32)
+    first = out["pp2_dp2_1f1b"]["losses"]
+    ck = {}
+    for label, kw, exact in (("one_device", {}, False),
+                             ("pp2_dp2_1f1b", W_F32_ARMS[0][1], True)):
+        d = os.path.join(root, f"resume_{label}")
+        link_step(a, d, 2)
+        run = layout_run(TrainerConfig(**f32, **kw, checkpoint_dir=d,
+                                       checkpoint_every=2), device)
+        rel = rel_diffs(run["losses"], first[2:])
+        if len(rel) != W_F32_STEPS - 2 or (
+                exact and run["losses"] != first[2:]) \
+                or not max(rel) <= T_F32_RTOL:
+            raise AssertionError(f"w.2 resume {label}: losses "
+                                 f"{run['losses']} against {first[2:]}")
+        ck[label] = dict(compare_states(
+            f"w.2 resume {label}", ckpt_state(d, W_F32_STEPS, W_F32,
+                                              torch.float32),
+            want, exact, W_F32_STEPS - 2,
+            TrainerConfig(**f32).learning_rate),
+            losses=run["losses"], loss_rel_diff=rel, wall_s=run["wall_s"])
+    out["checkpoint_pp2_dp2"] = ck
+    return out
 
 
 def main(argv=None) -> int:
@@ -8774,17 +9086,30 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t_all = time.perf_counter()
+    # each phase's seconds, printed with the last phase's row
+    seconds, last = {}, [t_all]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = now - last[0]
+        last[0] = now
+
     # (b)
     emit({"phase": "build", "seconds": _kernels.build_all()})
+    lap("b")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
     paged = phase_kernels(args.seed, device, flush) if "c" in args.phases \
         else {}
+    lap("c")
     flash = phase_flash(args.seed, device, flush) if "f" in args.phases \
         else {}
+    lap("f")
     if "d" in args.phases:
         phase_exact_tokens(args.seed, device)
+    lap("d")
     if "h" in args.phases:
         phase_sampling(args.seed, device)
+    lap("h")
     served = {}
     if "e" in args.phases:
         paged["launches"], served["greedy"] = phase_full_width(
@@ -8793,13 +9118,16 @@ def main(argv=None) -> int:
             args.seed, "int8", card)
         paged["sampled_launches"], served["sampled"] = phase_full_width(
             args.seed, "bf16", card, sampled=True)
+    lap("e")
     if "i" in args.phases:
         paged["http_launches"] = phase_http(args.seed, card, served)
+    lap("i")
     if "j" in args.phases:
         paged["pipeline_launches"] = {
             f"{r['kv_dtype']}_{r['mode']}_depth{r['pipeline_depth']}"
             f"_T{r['decode_steps']}": r["kernel_launches"]
             for r in phase_pipeline(args.seed, card, served)}
+    lap("j")
     if "k" in args.phases:
         k = phase_k(args.seed, card, flush)
         paged["prefix_launches"] = k["launches"]
@@ -8807,15 +9135,20 @@ def main(argv=None) -> int:
         paged["window"] = {key: k["window"][key] for key in (
             "S", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}
+    lap("k")
     if "l" in args.phases:
         paged["kv_payload_launches"] = phase_l(args.seed, card, served)
+    lap("l")
     if "m" in args.phases:
         paged["kv_fabric_tenant_launches"] = phase_m(args.seed, card)
+    lap("m")
     spec = {}
     if "n" in args.phases:
         spec = phase_n(args.seed, card, flush)
+    lap("n")
     if "o" in args.phases:
         paged["moe_launches"] = phase_moe(args.seed, card, flush)
+    lap("o")
     adamw = {}
     g_row = None
     if "g" in args.phases:
@@ -8825,15 +9158,18 @@ def main(argv=None) -> int:
             row["launches"] = launches[name]
         adamw = check_adamw(args.seed, device, flush)
         adamw["launches"] = launches["adamw"]
+    lap("g")
     moe_flash = {}
     if "p" in args.phases:
         moe_flash = phase_moe_train(args.seed, card, device, flush)
+    lap("p")
     if "q" in args.phases:
         # each flash kernel's launches in (q.1)'s run of every policy
         by_policy = phase_remat(args.seed, card, device, g_row)
         for name, row in flash.items():
             row["launches_by_remat_policy"] = {
                 p: r[name] for p, r in by_policy.items()}
+    lap("q")
     if "r" in args.phases:
         # the training kernels' launches over (r)'s three runs
         watched = phase_watcher(args.seed, card, g_row)
@@ -8841,22 +9177,34 @@ def main(argv=None) -> int:
             row["launches_lifecycle_watcher"] = watched[name]
         if adamw:
             adamw["launches_lifecycle_watcher"] = watched["adamw"]
+    lap("r")
     tp_launches = {}
     if "s" in args.phases:
         tp_launches = phase_tp(args.seed, card)
+    lap("s")
     layouts = {}
     if "t" in args.phases:
         layouts = phase_layouts(args.seed, card, g_row, flush)
+    lap("t")
     tp_more = {}
     if "u" in args.phases:
         tp_more = phase_tp_spec_moe(args.seed, card, flush)
+    lap("u")
     sp_ep = {}
+    t_one = layouts.pop("one_device", None)
     if "v" in args.phases:
-        sp_ep = phase_sp_ep(args.seed, card, flush,
-                            layouts.pop("one_device", None))
-    del flush
+        sp_ep = phase_sp_ep(args.seed, card, flush, t_one)
+        t_one = sp_ep["one_device"]
+    lap("v")
+    pp = {}
+    if "w" in args.phases:
+        pp = phase_pp(args.seed, card, flush, t_one)
+    lap("w")
+    del flush, t_one
     emit({"phase": "done", "seconds": time.perf_counter() - t_all,
-          "card": card})
+          "card": card,
+          "phase_seconds": {k: v for k, v in seconds.items()
+                            if k == "b" or k in args.phases}})
     if set(PHASES) - set(args.phases):
         return 0
     tp_shard = paged.pop("tp_shard")
@@ -8949,8 +9297,29 @@ def main(argv=None) -> int:
                 "replaces": "nos_tpu/ops/attention.py:186",
                 "also_replaces": "nos_tpu/ops/attention.py:549",
                 **row, "launches": n, "shape": key})
+    # phase (w)'s microbatch shape of the same kernels (a stage's B 2, H
+    # 16/4), each with the launches at that shape summed over (w.1)'s
+    # runs' ranks, and by schedule
+    key = rank_shape(W_SHAPE["b"], W_SHAPE["h"], W_SHAPE["h_kv"],
+                     W_SHAPE["s_q"], W_SHAPE["d"], torch.bfloat16)
+    for name, row in pp["flash"].items():
+        n = pp["by_shape"].get(name, {}).get(
+            pre_shape(key) if name.endswith("preprocess") else key, 0)
+        if not n:
+            raise AssertionError(f"w: {name} launched no time at {key} on "
+                                 f"(w.1)'s runs")
+        kernels.append({
+            "name": f"{name}_pp_microbatch", "route": "cuda",
+            "source": "nos_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "nos_tpu/ops/attention.py:186",
+            "also_replaces": "nos_tpu/ops/attention.py:549",
+            **row, "launches": n, "shape": key,
+            "launches_by_schedule": {label: r[name] for label, r in
+                                     pp["launches"].items()}})
     adamw["launches_layouts"] = {label: n["adamw"] for label, n in
                                  layouts["launches"].items()}
+    adamw["launches_pp"] = {label: n["adamw"] for label, n in
+                            pp["launches"].items()}
     kernels.append({"name": "adamw", "route": "cuda",
                     "source": "nos_tpu_torch/csrc/adamw.cu",
                     "replaces": "nos_tpu/train/optim.py:78",
@@ -8959,7 +9328,7 @@ def main(argv=None) -> int:
                     **{k: adamw[k] for k in (
                         "launches", "max_abs_err", "ms", "plain_ms",
                         "bound_ms", "bound_by", "library_ms",
-                        "launches_layouts")}})
+                        "launches_layouts", "launches_pp")}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,8 @@ stops the run with a checkpoint when the control plane stamps a
 preemption or maintenance notice on the pod's node. Causal attention
 runs through the hand-written CUDA flash-attention kernels on the card.
 
-The ``dp``, ``fsdp``, ``tp``, ``sp`` and ``ep`` layouts run one process
-a rank over a ``torch.distributed`` process group
+The ``dp``, ``fsdp``, ``tp``, ``pp``, ``sp`` and ``ep`` layouts run one
+process a rank over a ``torch.distributed`` process group
 (``parallel/mesh.py::TrainMesh``):
 rank 0 in the caller's process (its stop event, signal handler,
 profiler, metrics and return value are the caller's), ranks 1..N-1
@@ -26,7 +26,13 @@ data rows' sequence chunk (the targets cut after the shift, from the
 whole row), holds its part of the params and moments (its experts under
 ``ep``), and runs the flash and adamw kernels on them (under ``sp``
 Ulysses runs the flash kernels on its H/sp heads over the whole
-sequence; the ring runs plain products). One card a rank by default
+sequence; the ring runs plain products). Under ``pp`` a rank holds its
+stage's layers and runs the reference's ``pipeline_schedule`` over
+``n_microbatches`` (``gpipe``, ``1f1b``, or ``interleaved`` with
+``virtual_stages`` chunks a stage, whose params are chunk-major,
+stamped so in the checkpoint; ``parallel/pipeline.py``), each data rank
+taking its share of every microbatch's rows; eval runs the schedule's
+forward only. One card a rank by default
 (``cuda:0..N-1``, NCCL); ``devices=`` may repeat one (gloo: NCCL refuses
 two ranks on one card), and ``device="cpu"`` runs every rank on the CPU
 over gloo. Several processes follow the reference's multi-host rule:
@@ -35,9 +41,10 @@ every ``host_sync_every`` steps one collective carries the stop flag
 banks the same step. A checkpoint holds full leaves (gathered to rank
 0), so any layout, or one device, resumes it.
 
-Not ported yet, and refused with a ValueError naming the knob: ``pp``
-> 1 and a multi-host environment (``COORDINATOR_ADDRESS``); a layout the
-model does not divide is refused with the reference's message
+Not ported yet, and refused with a ValueError naming the knob: a
+multi-host environment (``COORDINATOR_ADDRESS``); a layout the model
+does not divide, or a schedule that does not compose with it, is
+refused with the reference's message
 (``models/transformer.py::check_layout``).
 """
 import argparse
@@ -162,10 +169,6 @@ class TrainerConfig:
 
 def check_ported(cfg: TrainerConfig) -> None:
     """Raise a ValueError naming the first knob this slice does not run."""
-    if cfg.pp > 1:
-        raise ValueError(
-            f"pp={cfg.pp}: pipeline parallelism is not ported yet; the "
-            f"torch trainer runs the dp, fsdp, tp, sp and ep layouts")
     if os.environ.get("COORDINATOR_ADDRESS"):
         raise ValueError(
             "COORDINATOR_ADDRESS: multi-host training is not ported yet")
@@ -244,8 +247,8 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
     0's, the mean over the data and sp ranks, under a layout). One
     device: ``device`` (the card by default; ``device="cpu"`` runs the
     plain PyTorch versions). A layout (``dp`` x ``fsdp`` x ``tp`` x
-    ``sp`` x ``ep`` > 1): one process a rank on ``layout_devices(layout,
-    device, devices)``.
+    ``pp`` x ``sp`` x ``ep`` > 1): one process a rank on
+    ``layout_devices(layout, device, devices)``.
 
     ``stop_event`` requests a graceful early exit after the current step.
     When ``cfg.handle_sigterm`` is set and this is the main thread,
@@ -267,19 +270,39 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
     if layout.chips == 1:
         device = resolve_device(device if devices is None else devices[0])
         return _run(cfg, stop_event, device, None)["loss"]
-    check_layout(_model_config(cfg), layout, cfg.batch_size, cfg.seq_len)
+    check_layout(_model_config(cfg), layout, cfg.batch_size, cfg.seq_len,
+                 cfg.n_microbatches, cfg.pipeline_schedule,
+                 cfg.virtual_stages)
     if stop_event is not None and not cfg.handle_sigterm:
         raise ValueError(
             "stop_event on a multi-host run requires handle_sigterm: true "
             "— without the per-step flag agreement an early breaker "
             "deadlocks the gang's collectives")
     devs = layout_devices(layout, device, devices)
+    if cfg.checkpoint_dir:
+        from nos_tpu_torch.train.checkpoint import (
+            CheckpointManager, model_arch_dict,
+        )
+
+        # a config drifted from the directory's stamp fails here, by
+        # field name, before any rank starts (rank 0 raising alone would
+        # leave the others waiting for it)
+        mgr = CheckpointManager(cfg.checkpoint_dir)
+        try:
+            mgr.validate_model_config(model_arch_dict(cfg))
+        finally:
+            mgr.close()
     names = [str(d) for d in devs]
     backend = mesh_backend(devs)
     shared = len(set(names)) < len(names)
     axes = " ".join(f"{a}={getattr(layout, a)}" for a in AXES)
     msg = (f"layout {axes}"
            + (f" ({cfg.sp_strategy})" if layout.sp > 1 else "")
+           + (f" ({cfg.pipeline_schedule}, {cfg.n_microbatches} "
+              f"microbatches"
+              + (f", {cfg.virtual_stages} virtual stages"
+                 if cfg.pipeline_schedule == "interleaved" else "") + ")"
+              if layout.pp > 1 else "")
            + f": {layout.chips} ranks on {names}, backend {backend}"
            + (" (ranks share a device; NCCL takes one rank a device)"
               if shared and devs[0].type == "cuda" else ""))
@@ -295,11 +318,13 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
                             stop_event),
         _rank, (cfg, names, RANK_TIMEOUT_S), layout.chips, RANK_TIMEOUT_S)
     for r in ranks:
-        logger.info("rank %d of %d on %s: steps %d-%d, loss %.6f, peak "
-                    "device memory %d bytes, params and moments %d bytes, "
-                    "kernel launches %s", r["rank"], layout.chips,
-                    r["device"], r["first_step"], r["last_step"], r["loss"],
-                    r["peak_bytes"], r["state_bytes"], r["launches"],
+        logger.info("rank %d of %d on %s (pp index %d): steps %d-%d, loss "
+                    "%.6f, peak device memory %d bytes, params and moments "
+                    "%d bytes, kernel launches %s, flash launches by shape "
+                    "%s", r["rank"], layout.chips, r["device"],
+                    r["pp_index"], r["first_step"], r["last_step"],
+                    r["loss"], r["peak_bytes"], r["state_bytes"],
+                    r["launches"], r["flash_launches_by_shape"],
                     extra={"rank_summary": r})
     return ranks[0]["loss"]
 
@@ -359,10 +384,11 @@ def _tree(names: List[str], leaves: list) -> dict:
 def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
          device: torch.device, mesh) -> dict:
     """The training loop of one device, or of one rank of ``mesh`` (a
-    ``TrainMesh``). Returns a summary: rank, device, the first and last
-    steps, the final loss, peak device memory, the bytes of this rank's
-    params and moments, the training kernels' launches in this
-    process (the flash kernels' also by shape)."""
+    ``TrainMesh``). Returns a summary: rank, device, pp index, the
+    first and last steps, the final loss, peak device memory, the bytes
+    of this rank's params and moments, the training kernels' launches
+    in this process (the flash kernels' also by shape) and under pp the
+    last step's schedule stats (``Pipeline.stats``)."""
     from nos_tpu_torch.models import transformer as tfm
     from nos_tpu_torch.ops import _kernels
     from nos_tpu_torch.train.data import (
@@ -373,8 +399,16 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
 
     model_cfg = _model_config(cfg)
     rank0 = mesh is None or mesh.rank == 0
+    pipelined = mesh is not None and mesh.pp > 1
     params = tfm.init_params(
         model_cfg, torch.Generator(device).manual_seed(cfg.seed), device)
+    if pipelined and cfg.pipeline_schedule == "interleaved":
+        from nos_tpu_torch.parallel.pipeline import interleave_params
+
+        # chunk-major layer order: the interleaved schedule's params
+        # layout (checkpoints store this order too, stamped as
+        # layer_order so a schedule drift fails by name)
+        params = interleave_params(params, cfg.pp, cfg.virtual_stages)
     names = tfm.leaf_names(params)
     splits = None
     if mesh is not None:
@@ -392,8 +426,8 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
         shard_sums=(functools.partial(mesh.shard_sums, splits=splits)
                     if mesh is not None else None))
 
-    # a leaf's (tp, fsdp, ep) axes by its checkpoint name: params and
-    # moments
+    # a leaf's (tp, fsdp, ep, pp) axes by its checkpoint name: params
+    # and moments
     axes = {}
     if mesh is not None:
         for i, (name, split) in enumerate(zip(names, splits)):
@@ -433,7 +467,22 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
             optimizer.load_state_dict(opt_state)
             start_step = latest
             logger.info("resumed from checkpoint step %d", latest)
-    step_fn = tfm.make_train_step(model_cfg, optimizer, mesh)
+    if pipelined:
+        from nos_tpu_torch.parallel.pipeline import make_pipeline_train_step
+
+        step_fn = make_pipeline_train_step(
+            model_cfg, optimizer, mesh, cfg.n_microbatches,
+            cfg.pipeline_schedule, cfg.virtual_stages)
+
+        def eval_loss(batch: dict) -> torch.Tensor:
+            # the schedule's forward only (the mean over the token ranks)
+            return step_fn.pipeline.loss(params, batch)
+    else:
+        step_fn = tfm.make_train_step(model_cfg, optimizer, mesh)
+
+        def eval_loss(batch: dict) -> torch.Tensor:
+            e = tfm.loss_fn(params, model_cfg, batch, mesh)
+            return e if mesh is None else mesh.token_mean(e)
 
     def save(step: int, wait: bool = True) -> None:
         if mesh is None:
@@ -469,12 +518,21 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
 
     def rows(batch: dict) -> dict:
         # a rank keeps its data rows of the global batch (the reference's
-        # data_sharding: dp outer, fsdp inner) and their sequence chunk
-        # over sp (the targets were shifted on the whole row)
+        # data_sharding: dp outer, fsdp inner; under pp its share of each
+        # microbatch's rows) and their sequence chunk over sp (the
+        # targets were shifted on the whole row)
         if mesh is None:
             return batch
-        n = cfg.batch_size // mesh.data_size
         s = cfg.seq_len // mesh.sp
+        if pipelined:
+            from nos_tpu_torch.parallel.pipeline import microbatch_rows
+
+            idx = microbatch_rows(cfg.batch_size, cfg.n_microbatches,
+                                  mesh.data_size, mesh.data_index)
+            return {k: v[idx.to(v.device), mesh.sp_index * s:
+                         (mesh.sp_index + 1) * s]
+                    for k, v in batch.items()}
+        n = cfg.batch_size // mesh.data_size
         return {k: v[mesh.data_index * n:(mesh.data_index + 1) * n,
                      mesh.sp_index * s:(mesh.sp_index + 1) * s]
                 for k, v in batch.items()}
@@ -615,11 +673,7 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
                     eval_batches = [put(rows(eval_dataset.batch(
                         i, cfg.batch_size))) for i in range(cfg.eval_steps)]
                 with torch.no_grad():
-                    losses = []
-                    for eb in eval_batches:
-                        e = tfm.loss_fn(params, model_cfg, eb, mesh)
-                        losses.append(float(e if mesh is None
-                                            else mesh.token_mean(e)))
+                    losses = [float(eval_loss(eb)) for eb in eval_batches]
                 mean = sum(losses) / len(losses)
                 g_eval.set(mean)
                 logger.info("step %d eval loss %.4f (%d batches)", step + 1,
@@ -659,6 +713,9 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
     state = leaves + [t for k in ("mu", "nu", "acc")
                       for t in optimizer.state_dict().get(k, ())]
     return {"rank": 0 if mesh is None else mesh.rank, "device": str(device),
+            "pp_index": 0 if mesh is None else mesh.pp_index,
+            "pipeline": (dict(step_fn.pipeline.stats) if pipelined
+                         else None),
             "first_step": start_step, "last_step": done, "loss": loss,
             "peak_bytes": (torch.cuda.max_memory_allocated(device)
                            if device.type == "cuda" else 0),

@@ -342,31 +342,37 @@ def leaf_names(params: Params, prefix: str = "") -> List[str]:
     return out
 
 
-def _splits(key: str, mesh) -> Tuple[Optional[int], ...]:
-    """A leaf's (tp, fsdp, ep) axes on ``mesh``; None where the axis has
-    one rank or does not split it."""
+def _splits(key: str, mesh, layer: bool) -> Tuple[Optional[int], ...]:
+    """A leaf's (tp, fsdp, ep, pp) axes on ``mesh``; None where the axis
+    has one rank or does not split it. pp splits a ``layer`` leaf's L
+    axis (a stage's layers; chunk-major under the interleaved schedule,
+    ``parallel/pipeline.py::interleave_params``) and leaves the
+    embeddings and the final norm whole on every stage."""
     return (TP_SPLIT.get(key) if mesh.tp > 1 else None,
             FSDP_SPLIT[key] if mesh.fsdp > 1 else None,
-            EP_SPLIT.get(key) if mesh.ep > 1 else None)
+            EP_SPLIT.get(key) if mesh.ep > 1 else None,
+            0 if layer and mesh.pp > 1 else None)
 
 
 def leaf_splits(params: Params, mesh: TrainMesh
                 ) -> List[Tuple[Optional[int], ...]]:
-    """Each leaf's (tp axis, fsdp axis, ep axis) on ``mesh``, in
-    ``param_leaves``' order; None where the axis has one rank or does not
-    split it."""
-    return [_splits(name.rsplit("/", 1)[-1], mesh)
+    """Each leaf's (tp axis, fsdp axis, ep axis, pp axis) on ``mesh``,
+    in ``param_leaves``' order; None where the axis has one rank or does
+    not split it."""
+    return [_splits(name.rsplit("/", 1)[-1], mesh,
+                    name.startswith("layers/"))
             for name in leaf_names(params)]
 
 
 def check_layout(cfg: TransformerConfig, layout, batch_size: int,
-                 seq_len: Optional[int] = None) -> None:
+                 seq_len: Optional[int] = None, n_microbatches: int = 2,
+                 schedule: str = "1f1b", virtual_stages: int = 2) -> None:
     """Raise a ValueError when ``cfg`` or the batch cannot be laid out
     over ``layout`` (a ``ParallelLayout``): tp by ``check_tp``'s
     messages, fsdp over d_model, the batch over the data ranks, the
-    experts over ep (and ep only with experts), the sequence over sp,
-    and under Ulysses each tp rank's heads over sp (the reference's
-    message)."""
+    experts over ep (and ep only with experts), under pp the pipeline's
+    (``check_pipeline``), the sequence over sp, and under Ulysses each
+    tp rank's heads over sp (the reference's messages)."""
     if layout.tp > 1:
         check_tp(cfg, layout.tp)
     if cfg.d_model % layout.fsdp:
@@ -383,6 +389,9 @@ def check_layout(cfg: TransformerConfig, layout, batch_size: int,
         if cfg.n_experts % layout.ep:
             raise ValueError(f"n_experts {cfg.n_experts} not divisible by "
                              f"ep={layout.ep}")
+    if layout.pp > 1:
+        check_pipeline(cfg, layout, batch_size, n_microbatches, schedule,
+                       virtual_stages)
     if layout.sp > 1:
         if seq_len is not None and seq_len % layout.sp:
             raise ValueError(f"seq_len {seq_len} not divisible by sp "
@@ -392,16 +401,67 @@ def check_layout(cfg: TransformerConfig, layout, batch_size: int,
                                 cfg.kv_heads // layout.tp, layout.sp)
 
 
+PIPELINE_SCHEDULES = ("1f1b", "gpipe", "interleaved")
+
+
+def check_pipeline(cfg: TransformerConfig, layout, batch_size: int,
+                   n_microbatches: int, schedule: str,
+                   virtual_stages: int) -> None:
+    """The reference's refusals of a pipelined layout
+    (``nos_tpu/parallel/pipeline.py``: ``make_pipeline_train_step``'s
+    schedule, ``_check``, the GPipe sp composition's and the interleaved
+    schedule's), in its order, with its messages; and a microbatch the
+    data ranks do not split (each takes its share of every
+    microbatch's rows)."""
+    stages, sp = layout.pp, layout.sp
+    if schedule not in PIPELINE_SCHEDULES:
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    if sp > 1 and schedule != "gpipe":
+        raise ValueError(
+            "1F1B does not compose with sp (ring attention): ring ppermutes "
+            "inside the divergent 1F1B lax.cond mispair across pp rows — "
+            "use the GPipe schedule (pipeline_forward/pipeline_loss_fn), "
+            "whose uniform tick composes with manual sp")
+    if cfg.n_layers % stages:
+        raise ValueError(
+            f"n_layers {cfg.n_layers} not divisible by pp {stages}")
+    if batch_size % n_microbatches:
+        raise ValueError(
+            f"batch {batch_size} not divisible by n_microbatches "
+            f"{n_microbatches}")
+    data = layout.dp * layout.fsdp
+    if (batch_size // n_microbatches) % data:
+        raise ValueError(
+            f"microbatch of {batch_size // n_microbatches} rows not "
+            f"divisible by the data ranks dp x fsdp = {data}")
+    if sp > 1 and cfg.n_experts > 0:
+        raise ValueError(
+            "GPipe sp composition is dense-only: per-shard MoE capacity "
+            "routing diverges from global routing")
+    if schedule == "interleaved":
+        v = virtual_stages
+        if cfg.n_layers % (stages * v):
+            raise ValueError(
+                f"n_layers {cfg.n_layers} not divisible by pp*virtual_stages "
+                f"{stages}*{v}")
+        if n_microbatches % stages:
+            raise ValueError(
+                f"interleaved schedule needs n_microbatches "
+                f"({n_microbatches}) divisible by pp ({stages})")
+
+
 def rank_params(params: Params, mesh: TrainMesh) -> Params:
     """This rank's part of full ``params`` (the reference's
     ``device_put(params, param_shardings(mesh, cfg))`` for one device):
-    each leaf its tp slice, its fsdp slice and its experts, a contiguous
-    tensor of its own (the adamw kernel takes one leaf a launch)."""
-    def part(name: str, leaf: torch.Tensor) -> torch.Tensor:
-        return mesh.local_part(leaf, *_splits(name, mesh))
+    each leaf its tp slice, its fsdp slice, its experts and its stage's
+    layers, a contiguous tensor of its own (the adamw kernel takes one
+    leaf a launch)."""
+    def part(name: str, leaf: torch.Tensor, layer: bool) -> torch.Tensor:
+        return mesh.local_part(leaf, *_splits(name, mesh, layer))
 
-    return {k: ({n: part(n, t) for n, t in v.items()} if k == "layers"
-                else part(k, v)) for k, v in params.items()}
+    return {k: ({n: part(n, t, True) for n, t in v.items()}
+                if k == "layers" else part(k, v, False))
+            for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -695,28 +755,20 @@ def _embed(tokens: torch.Tensor, embed: torch.Tensor,
     return mesh.reduce_from_tp(x)
 
 
-def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
-            return_aux: bool = False, return_hidden: bool = False,
-            mesh: Optional[TrainMesh] = None):
-    """tokens [B, S] -> logits [B, S, vocab] f32 (plus the MoE auxiliary
-    loss, 0 on the dense path, when ``return_aux``). ``return_hidden``
-    yields the pre-head hidden state [B, S, d_model] + aux instead, for
-    ``loss_fn``, which applies the head itself (chunked). With
-    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` with
-    ``remat_context_fn(cfg.remat_policy)``: what the policy does not
-    save is recomputed in backward (the attention kernel too under
-    "full" and "dots"). With ``n_experts > 0`` each layer's FFN is
-    ``moe_ffn`` and the aux loss is the mean of the layers' (each
-    returned by the checkpointed body, so the recompute routes with the
-    same bits under every policy). With ``mesh``: this rank's params
-    (``rank_params``) and its batch rows' sequence chunk; the FFN is
-    ``moe_ffn_mesh`` (the gating over the whole sequence, its
-    statistics means over the data ranks: the reference's over the
-    global batch), and its logits are its tp rank's vocab columns."""
-    freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
-                             tokens.device)
-    x = _embed(tokens, params["embed"], mesh)
-    layers = params["layers"]
+def run_layers(layers: Dict[str, torch.Tensor], cfg: TransformerConfig,
+               x: torch.Tensor, freqs,
+               mesh: Optional[TrainMesh] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stacked ``layers`` (leaves [K, ...]: all of the model's, or a
+    pipeline stage's K) over the hidden state ``x`` [B, S, d] -> (y,
+    each layer's MoE aux loss [K] f32, zeros on the dense path): the
+    reference's layer scan, and its pipeline's ``_stage_fn_factory``.
+    With ``cfg.remat`` and grad enabled each layer runs under
+    ``torch.utils.checkpoint`` with ``remat_context_fn(cfg.remat_policy)``
+    (without grad nothing is saved or recomputed, so the layer runs
+    plainly). With ``mesh``: this rank's parts of the layers (its fsdp
+    slices gathered just before use, inside the checkpoint) and the FFN
+    ``moe_ffn_mesh``."""
     # the down weight as the body last used it, for the remat policy
     held = {}
     ring = mesh is not None and mesh.sp > 1 and cfg.sp_strategy == "ring"
@@ -746,17 +798,42 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
 
     names = sorted(layers)
     down = (lambda: held["w_down"]) if cfg.n_experts == 0 else None
+    remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
-    for i in range(cfg.n_layers):
+    for i in range(layers[names[0]].shape[0]):
         tensors = [layers[n][i] for n in names]
-        if cfg.remat:
+        if remat:
             x, aux = checkpoint(layer_body, x, *tensors, use_reentrant=False,
                                 context_fn=remat_context_fn(
                                     cfg.remat_policy, down, ring))
         else:
             x, aux = layer_body(x, *tensors)
         auxes.append(aux)
-    aux = torch.stack(auxes).mean()
+    return x, torch.stack(auxes)
+
+
+def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
+            return_aux: bool = False, return_hidden: bool = False,
+            mesh: Optional[TrainMesh] = None):
+    """tokens [B, S] -> logits [B, S, vocab] f32 (plus the MoE auxiliary
+    loss, 0 on the dense path, when ``return_aux``). ``return_hidden``
+    yields the pre-head hidden state [B, S, d_model] + aux instead, for
+    ``loss_fn``, which applies the head itself (chunked). The layers run
+    through ``run_layers``: with ``cfg.remat`` what the policy does not
+    save is recomputed in backward (the attention kernel too under
+    "full" and "dots"). With ``n_experts > 0`` each layer's FFN is
+    ``moe_ffn`` and the aux loss is the mean of the layers' (each
+    returned by the checkpointed body, so the recompute routes with the
+    same bits under every policy). With ``mesh``: this rank's params
+    (``rank_params``) and its batch rows' sequence chunk; the FFN is
+    ``moe_ffn_mesh`` (the gating over the whole sequence, its
+    statistics means over the data ranks: the reference's over the
+    global batch), and its logits are its tp rank's vocab columns."""
+    freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                             tokens.device)
+    x = _embed(tokens, params["embed"], mesh)
+    x, auxes = run_layers(params["layers"], cfg, x, freqs, mesh)
+    aux = auxes.mean()
     if return_hidden:
         return x, aux
     x = rms_norm(x, params["final_norm"])

@@ -24,15 +24,17 @@ on the CPU for the tests, ``TpMesh(["cuda:0", "cuda:0"])`` two shards
 on one card.
 
 Training: ``TrainMesh``, one rank's view of a ``ParallelLayout``'s dp,
-fsdp, tp, sp and ep axes over a ``torch.distributed`` process group
+fsdp, tp, pp, sp and ep axes over a ``torch.distributed`` process group
 (SPMD, one process a rank, as the reference's GSPMD program is one per
 chip). Ranks lie over the reference's axis order (dp, fsdp, tp, pp, sp,
-ep; ep innermost, pp refused), so a rank's coordinates read as the
-reference mesh's device's: rank = (((dp_i x fsdp + fsdp_i) x tp + tp_i)
-x sp + sp_i) x ep + ep_i. The batch is split over dp x fsdp
+ep; ep innermost), so a rank's coordinates read as the reference mesh's
+device's: rank = ((((dp_i x fsdp + fsdp_i) x tp + tp_i) x pp + pp_i) x
+sp + sp_i) x ep + ep_i. The batch is split over dp x fsdp
 (``data_sharding``), dp outer, and every activation's sequence over sp;
-every ep rank holds the same tokens. The collectives, as autograd
-functions:
+every ep rank holds the same tokens; a pp rank holds its stage's layers
+(``parallel/pipeline.py``). Every group but pp's holds ranks of one pp
+index, so a stage's collectives run among the ranks that run the stage.
+The collectives, as autograd functions:
 
 - tp (Megatron's): ``copy_to_tp`` (identity forward, all-reduce of the
   gradient) before a column-parallel product, ``reduce_from_tp``
@@ -52,6 +54,12 @@ functions:
 - ``data_mean``: the mean over the data ranks (dp x fsdp), forward and
   backward (the MoE load-balancing loss's batch statistics), and
   ``token_mean`` the same over dp x fsdp x sp (the loss).
+
+The pipeline's hops are plain collectives (its schedule passes the
+cotangents itself): ``pp_hop`` carries one tick's activations (stage p
+to p + 1) and cotangents (p + 1 to p) in one all-reduce, and
+``grad_mean_`` / ``pp_sum_`` average or sum a gradient once the
+schedule has accumulated it.
 
 Every collective is an ``all_reduce``: an all-gather is the all-reduce
 of a zero-filled full buffer holding only the rank's slice (exact), a
@@ -370,13 +378,12 @@ def mesh_backend(devices: Sequence[Union[str, torch.device]]) -> str:
     return "gloo"
 
 
-# the reference's axis order (``parallel/layout.py``), outermost first;
-# pp > 1 is refused
-_AXES = ("dp", "fsdp", "tp", "sp", "ep")
+# the reference's axis order (``parallel/layout.py``), outermost first
+_AXES = ("dp", "fsdp", "tp", "pp", "sp", "ep")
 
 
 class TrainMesh:
-    """This rank's place in a dp x fsdp x tp x sp x ep layout, its
+    """This rank's place in a dp x fsdp x tp x pp x sp x ep layout, its
     process groups and its device. A group is named by the axes its
     ranks differ in (``_group``: None where it would hold this rank
     alone). The default process group must hold ``layout.chips`` ranks
@@ -384,9 +391,6 @@ class TrainMesh:
 
     def __init__(self, layout: ParallelLayout,
                  device: Union[str, torch.device]):
-        if layout.pp > 1:
-            raise ValueError(f"pp={layout.pp}: pipeline parallelism is not "
-                             f"ported")
         world, rank = dist.get_world_size(), dist.get_rank()
         if layout.chips != world:
             raise ValueError(f"layout needs {layout.chips} ranks, the "
@@ -395,9 +399,9 @@ class TrainMesh:
         self.rank, self.world = rank, world
         self.device = torch.device(device)
         self.dp, self.fsdp, self.tp = layout.dp, layout.fsdp, layout.tp
-        self.sp, self.ep = layout.sp, layout.ep
-        (self.dp_index, self.fsdp_index, self.tp_index, self.sp_index,
-         self.ep_index) = self._coords(rank)
+        self.pp, self.sp, self.ep = layout.pp, layout.sp, layout.ep
+        (self.dp_index, self.fsdp_index, self.tp_index, self.pp_index,
+         self.sp_index, self.ep_index) = self._coords(rank)
         self.data_size = self.dp * self.fsdp
         self.data_index = self.dp_index * self.fsdp + self.fsdp_index
         self.token_size = self.data_size * self.sp
@@ -407,17 +411,20 @@ class TrainMesh:
         self.fsdp_group = self._group("fsdp")
         self.sp_group = self._group("sp")
         self.ep_group = self._group("ep")
+        self.pp_group = self._group("pp")
         self.data_group = self._group("dp", "fsdp")
         # the gradient mean: the ranks holding distinct tokens, without
         # fsdp for a leaf fsdp splits (its gather sums over fsdp)
         self.token_group = self._group("dp", "fsdp", "sp")
         self.token_dp_group = self._group("dp", "sp")
-        # the experts' partial sums, and the clip's per-leaf sums
+        # the experts' partial sums, and the clip's per-leaf sums (a
+        # stage's layers are a part of each layer leaf)
         self.expert_group = self._group("tp", "ep")
-        self.model_group = self._group("tp", "fsdp", "ep")
+        self.model_group = self._group("tp", "fsdp", "pp", "ep")
 
     def _coords(self, rank: int) -> Tuple[int, ...]:
-        """(dp, fsdp, tp, sp, ep) indices of ``rank``, ep innermost."""
+        """(dp, fsdp, tp, pp, sp, ep) indices of ``rank``, ep
+        innermost."""
         out = []
         for axis in reversed(_AXES):
             n = getattr(self.layout, axis)
@@ -449,8 +456,8 @@ class TrainMesh:
 
     def __repr__(self) -> str:
         return (f"TrainMesh(dp={self.dp}, fsdp={self.fsdp}, tp={self.tp}, "
-                f"sp={self.sp}, ep={self.ep}, rank={self.rank}, "
-                f"device={self.device})")
+                f"pp={self.pp}, sp={self.sp}, ep={self.ep}, "
+                f"rank={self.rank}, device={self.device})")
 
     # -- collectives under autograd -------------------------------------
     def copy_to_tp(self, x: torch.Tensor) -> torch.Tensor:
@@ -502,15 +509,21 @@ class TrainMesh:
         return _AllToAll.apply(x.contiguous(), self.sp_index, self.sp,
                                self.sp_group)
 
+    def _grad_group(self, fsdp_split: bool):
+        """The ranks a leaf's gradient is averaged over: those holding
+        distinct tokens (dp x sp when fsdp splits the leaf, its gather
+        having summed the fsdp ranks' already; dp x fsdp x sp
+        otherwise)."""
+        return self.token_dp_group if fsdp_split and self.fsdp > 1 \
+            else self.token_group
+
     def grad_mean(self, leaf: torch.Tensor, fsdp_split: bool) -> torch.Tensor:
         """``leaf`` as is; its gradient averaged over the ranks holding
-        distinct tokens (dp x sp when fsdp splits it, its gather having
-        summed the fsdp ranks' already; dp x fsdp x sp otherwise)."""
+        distinct tokens (``_grad_group``)."""
         if self.token_size == 1:
             return leaf
-        group = self.token_dp_group if fsdp_split and self.fsdp > 1 \
-            else self.token_group
-        return _Mean.apply(leaf, group, self.token_size, False)
+        return _Mean.apply(leaf, self._grad_group(fsdp_split),
+                           self.token_size, False)
 
     def data_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of ``x`` over the data ranks, forward and backward."""
@@ -533,6 +546,56 @@ class TrainMesh:
             dist.all_reduce(x, op=op, group=self.tp_group)
         return x
 
+    def grad_mean_(self, grad: torch.Tensor, fsdp_split: bool) -> None:
+        """``grad_mean``'s backward on a gradient already accumulated (the
+        pipeline's, once per leaf after the schedule), in place."""
+        if self.token_size > 1:
+            group = self._grad_group(fsdp_split)
+            if group is not None:       # None: this rank alone
+                dist.all_reduce(grad, group=group)
+            grad.div_(self.token_size)
+
+    def pp_sum_(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the pp ranks, in place: the loss, and the
+        gradients of the leaves every stage holds whole."""
+        if self.pp > 1:
+            dist.all_reduce(x, group=self.pp_group)
+        return x
+
+    def pp_hop(self, x: Optional[torch.Tensor], fwd: Sequence[int],
+               bwd: Sequence[int], shape: Sequence[int],
+               dtype: torch.dtype
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """One tick's hops over pp, the reference's two ``ppermute``s in
+        one all-reduce of zeros with a slot per sending stage: stage q
+        in ``fwd`` sends its activation to q + 1 (mod pp), stage q in
+        ``bwd`` its cotangent to q - 1 (mod pp); ``x`` is this stage's
+        (None when it is in neither), of ``shape`` and ``dtype``. Every
+        pp rank calls it with the same static ``fwd`` and ``bwd`` (the
+        schedule's), idle or not, so the gang stays in step; a tick in
+        which no stage sends makes no collective on any rank. Returns
+        (the activation stage p - 1 sent here, the cotangent stage p + 1
+        sent here), None where it sent none."""
+        senders = sorted(set(fwd) | set(bwd))
+        if not senders:
+            return None, None
+        p = self.pp_index
+        buf = torch.zeros((len(senders),) + tuple(shape), dtype=dtype,
+                          device=self.device)
+        if p in senders:
+            buf[senders.index(p)].copy_(x.detach())
+        dist.all_reduce(buf, group=self.pp_group)
+
+        def slot(q: int) -> torch.Tensor:
+            # a tensor of its own where the buffer holds other slots, so
+            # a saved input keeps no other stage's bytes alive
+            return buf[0] if len(senders) == 1 else \
+                buf[senders.index(q)].clone()
+
+        prev, nxt = (p - 1) % self.pp, (p + 1) % self.pp
+        return (slot(prev) if prev in fwd else None,
+                slot(nxt) if nxt in bwd else None)
+
     def barrier(self) -> None:
         dist.all_reduce(torch.zeros(1, device=self.device))
 
@@ -544,20 +607,21 @@ class TrainMesh:
 
     # -- leaves: full <-> this rank's part ------------------------------
     def _cuts(self, tp_axis: Optional[int], fsdp_axis: Optional[int],
-              ep_axis: Optional[int]) -> tuple:
+              ep_axis: Optional[int], pp_axis: Optional[int]) -> tuple:
         return ((tp_axis, self.tp, self.tp_index),
                 (fsdp_axis, self.fsdp, self.fsdp_index),
-                (ep_axis, self.ep, self.ep_index))
+                (ep_axis, self.ep, self.ep_index),
+                (pp_axis, self.pp, self.pp_index))
 
     def local_part(self, full: torch.Tensor, tp_axis: Optional[int],
-                   fsdp_axis: Optional[int],
-                   ep_axis: Optional[int] = None) -> torch.Tensor:
+                   fsdp_axis: Optional[int], ep_axis: Optional[int] = None,
+                   pp_axis: Optional[int] = None) -> torch.Tensor:
         """This rank's block of a full leaf: its tp slice along
-        ``tp_axis``, its fsdp slice along ``fsdp_axis`` and its ep slice
-        (its experts) along ``ep_axis`` (None: not split), a contiguous
-        tensor of its own."""
+        ``tp_axis``, its fsdp slice along ``fsdp_axis``, its ep slice
+        (its experts) along ``ep_axis`` and its stage's layers along
+        ``pp_axis`` (None: not split), a contiguous tensor of its own."""
         part = full
-        for axis, n, i in self._cuts(tp_axis, fsdp_axis, ep_axis):
+        for axis, n, i in self._cuts(tp_axis, fsdp_axis, ep_axis, pp_axis):
             if axis is not None and n > 1:
                 if part.shape[axis] % n:
                     raise ValueError(f"axis of size {part.shape[axis]} "
@@ -566,28 +630,30 @@ class TrainMesh:
         return part.clone(memory_format=torch.contiguous_format)
 
     def _counts(self, tp_axis: Optional[int], fsdp_axis: Optional[int],
-                ep_axis: Optional[int] = None) -> bool:
+                ep_axis: Optional[int] = None,
+                pp_axis: Optional[int] = None) -> bool:
         """Whether this rank's part of a leaf split along these axes is
         the one its model group counts: a leaf is whole across a model
-        axis that does not split it, so only index 0 there counts."""
+        axis that does not split it (the embeddings and final norm on
+        every stage), so only index 0 there counts."""
         return all(axis is not None or i == 0 for axis, _, i in
-                   self._cuts(tp_axis, fsdp_axis, ep_axis))
+                   self._cuts(tp_axis, fsdp_axis, ep_axis, pp_axis))
 
     def full_leaf(self, part: torch.Tensor, tp_axis: Optional[int],
-                  fsdp_axis: Optional[int],
-                  ep_axis: Optional[int] = None) -> torch.Tensor:
+                  fsdp_axis: Optional[int], ep_axis: Optional[int] = None,
+                  pp_axis: Optional[int] = None) -> torch.Tensor:
         """``local_part``'s inverse, on every rank: one all-reduce over
         every rank of a zero-filled full tensor holding the parts the
         model group of dp index 0 and sp index 0 counts (``_counts``;
         exact)."""
         full = part
-        for axis, n, i in self._cuts(tp_axis, fsdp_axis, ep_axis):
+        for axis, n, i in self._cuts(tp_axis, fsdp_axis, ep_axis, pp_axis):
             if axis is not None and n > 1:
                 full = _placed(full, axis % full.dim(), i, n)
         if full is part:
             full = part.clone(memory_format=torch.contiguous_format)
         if self.dp_index or self.sp_index or \
-                not self._counts(tp_axis, fsdp_axis, ep_axis):
+                not self._counts(tp_axis, fsdp_axis, ep_axis, pp_axis):
             full.zero_()
         dist.all_reduce(full)
         return full
@@ -597,10 +663,10 @@ class TrainMesh:
                    ) -> List[torch.Tensor]:
         """Per leaf, the sum over its parts of ``partials`` (each a
         0-d tensor: this rank's part's sum; ``splits`` each leaf's (tp,
-        fsdp, ep) axes): one all-reduce over the model group (tp x fsdp
-        x ep), in f32, where a leaf a model axis does not split counts
-        once (from index 0 on that axis). Each sum comes back in its
-        partial's dtype."""
+        fsdp, ep, pp) axes): one all-reduce over the model group (tp x
+        fsdp x pp x ep), in f32, where a leaf a model axis does not
+        split counts once (from index 0 on that axis). Each sum comes
+        back in its partial's dtype."""
         if self.model_group is None:
             return list(partials)
         # the model group holds one dp and one sp index: this rank's own

@@ -282,7 +282,11 @@ def test_stop_event_banks_one_step_on_every_rank(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(pp=2), "pp"), (dict(sp=2, seq_len=15), "sp"), (dict(ep=2), "ep"),
+    # pp trains since the pipeline's port; what stays refused of it is
+    # what the reference refuses, with its message: 1F1B under sp
+    pytest.param(dict(pp=2, sp=2), "1F1B does not compose with sp",
+                 id="kw0-pp"),
+    (dict(sp=2, seq_len=15), "sp"), (dict(ep=2), "ep"),
     (dict(n_experts=3, ep=2), "n_experts"),
     (dict(dp=4), "layout needs 4 chips, only 2 devices"),
     (dict(dp=2, handle_sigterm=False), "requires handle_sigterm"),
@@ -293,8 +297,9 @@ def test_stop_event_banks_one_step_on_every_rank(tmp_path):
 ])
 def test_refusals_name_the_knob(kw, match):
     """What the layouts do not run is refused before any rank starts,
-    naming the knob: pp, a sequence sp does not split (the reference's
-    message), ep without experts, experts ep does not split, fewer
+    naming the knob: the 1F1B pipeline under sp (the reference's
+    message), a sequence sp does not split (the reference's message),
+    ep without experts, experts ep does not split, fewer
     devices than the layout's chips (the reference's message), a stop
     event without handle_sigterm (the reference's multi-host rule), a
     batch the data ranks do not split, and under Ulysses a tp rank's kv

@@ -229,9 +229,10 @@ def test_from_yaml_file_reads_json_without_pyyaml(tmp_path, monkeypatch):
 # knobs the trainer refused until MoE training and checkpoints, then
 # the profiler and the metrics server, then the dp / fsdp / tp layouts
 # (every rank a CPU process over gloo here), then sp and ep (ep with
-# experts to split) were ported, trained now
+# experts to split), then pp (the 1F1B schedule by default) were
+# ported, trained now
 TRAINED_KNOBS = {"n_experts", "checkpoint_dir", "profile_dir",
-                 "metrics_port", "dp", "fsdp", "tp", "sp", "ep"}
+                 "metrics_port", "dp", "fsdp", "tp", "pp", "sp", "ep"}
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -242,8 +243,8 @@ TRAINED_KNOBS = {"n_experts", "checkpoint_dir", "profile_dir",
 def test_refused_knobs_raise_naming_the_knob(knob, value, tmp_path):
     """A knob outside the port raises naming it. ``n_experts``,
     ``checkpoint_dir``, ``profile_dir``, ``metrics_port``, ``dp``,
-    ``fsdp``, ``tp``, ``sp`` and ``ep`` (with experts) were refused so
-    and train now: an MoE run and a layout's run (two CPU ranks over
+    ``fsdp``, ``tp``, ``pp``, ``sp`` and ``ep`` (with experts) were
+    refused so and train now: an MoE run and a layout's run (two CPU ranks over
     gloo) give a finite loss, a
     checkpointed run (its directory under the test's own) stamps the
     architecture and commits the final step, a profiled run writes a
