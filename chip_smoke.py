@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopqrstuvw]
+    python3 chip_smoke.py [--seed N] [--phases cdefghijklmnopqrstuvwx]
 
 Phases (each raises on failure; nothing is caught):
 
@@ -27,7 +27,7 @@ d. exact tokens in f32, plain and int8 arenas: the serving engine
    its decode programs before the counted run, here and in (e), (h),
    (j));
 e. the main path at full width: ``build_engine`` on a Llama-3-8B-shaped
-   decoder (GQA 32/8 heads, d_model 4096, d_ff 14336, vocab 128256, 16
+   decoder (GQA 32/8 heads, d_model 4096, d_ff 14336, vocab 128256, 8
    of its 32 layers, random weights from the seed; max_seq cut to 2048;
    ``--serving-layers`` sets the depth) serves 8
    requests x 32 tokens, greedy with a bf16 and an int8 KV arena, then
@@ -319,10 +319,10 @@ s. tensor-parallel serving at phase (e)'s widths, tp = 2, both shards on
    card computing both shards costs, not a speed.
 t. the trainer's dp / fsdp / tp layouts, every rank a process on the
    one card over gloo (NCCL takes one rank a card): (1) ``train()`` on
-   (g)'s model, batch 8 x 2048, bf16, full remat, 4 steps on one
-   device and 2 under dp 2, fsdp 2 and dp 2 x tp 2 (4 ranks): each
-   step's loss within 5e-4 of the one-device run's (its losses beside
-   (g)'s), rank 0's part of each param leaf after step 2 within 2e-2 of
+   (g)'s widths at 8 of its 16 layers, batch 8 x 2048, bf16, full
+   remat, 4 steps on one device and 2 under dp 2, fsdp 2 and dp 2 x tp
+   2 (4 ranks): each step's loss within 5e-4 of the one-device run's,
+   rank 0's part of each param leaf after step 2 within 2e-2 of
    its RMS of the one-device run's after step 2, ms a step (no speed
    claim: the ranks
    share one card and the collectives cross the host), each rank's
@@ -371,8 +371,8 @@ u. the speculative engine and the MoE family under tp = 2, both shards
    tp = 1's; ms a tick or round and peak memory beside tp = 1's
    (captured and eager), and the phase's seconds.
 v. the trainer's sequence and expert axes, every rank a process on the
-   one card over gloo: (1) (g)'s model, batch 8 x 2048, bf16, full
-   remat, 2 steps under sp 2 ring, sp 2 Ulysses and dp 2 x sp 2
+   one card over gloo: (1) (t.1)'s model (8 layers), batch 8 x 2048,
+   bf16, full remat, 2 steps under sp 2 ring, sp 2 Ulysses and dp 2 x sp 2
    Ulysses: each step's loss within 5e-4 of (t.1)'s one-device run's
    (its own when (t) did not run), rank 0's params after step 2 within
    2e-2 of each leaf's RMS, each Ulysses rank's flash launches a
@@ -383,8 +383,8 @@ v. the trainer's sequence and expert axes, every rank a process on the
    2048, bf16, 4 steps on one device and under ep 2, tp 2, tp 2 x ep 2
    and dp 2 x ep 2, 2 steps: losses within ``V_MOE_LOSS_RTOL``, drop
    shares beside one device's, each rank's launches at its shape; f32
-   at 2 layers of p.4's widths, batch 2 x 512, 4 steps: losses within
-   1e-4, step 1's
+   at 2 layers of p.4's widths, batch 2 x 512, 2 steps (the tp 2 x ep 2
+   arm 4, for the resumes): losses within 1e-4, step 1's
    gating calls' drops per row equal to one device's (later calls
    within ``V_DROP_TOL``), the router's gradient after step 1 within
    (g)'s f32 tolerance; its tp 2 x ep 2 run's step-2 checkpoint resumed
@@ -396,19 +396,20 @@ v. the trainer's sequence and expert axes, every rank a process on the
    each rank's peak and params-and-moments bytes and launches, and the
    phase's seconds.
 w. the trainer's pipeline parallelism, every rank a process on the one
-   card over gloo: (1) (g)'s model, batch 8 x 2048, bf16, full remat,
-   pp 2 with 4 microbatches (a stage's attention at B 2, H 16/4, S
+   card over gloo: (1) (t.1)'s model (8 layers), batch 8 x 2048, bf16,
+   full remat, pp 2 with 4 microbatches (a stage's attention at B 2, H 16/4, S
    2048) under GPipe, 1F1B and interleaved 1F1B (2 virtual stages), 2
    steps each: each step's loss within 5e-4 of (t.1)'s one-device
    run's, rank 0's params after step 2 within 2e-2 of each leaf's RMS,
    every rank's flash launches at B 2, H 16/4 the schedule's count
    (printed beside its formula: GPipe's forward 2 x K x M a step, 1F1B's
    and the interleaved one's 3 x K x M, each backward kernel K x M;
-   K = 8 layers a stage, M = 4), adamw one a leaf and step; per
+   K = 4 layers a stage, M = 4), adamw one a leaf and step; per
    schedule each rank's peak (GPipe's above 1F1B's), the bubble
    fraction from the schedule's tables (1F1B's 0.2), the stage inputs
    held at once, ms a step; (2) f32 at 4 layers of (t.4)'s widths,
-   batch 4 x 1024, 2 microbatches, 4 steps: pp 2 x dp 2 (1F1B), pp 2 x
+   batch 4 x 1024, 2 microbatches, 2 steps (pp 2 x dp 2: 4, for the
+   resumes): pp 2 x dp 2 (1F1B), pp 2 x
    tp 2 (interleaved) and pp 2 x sp 2 (GPipe, the ring) within 1e-4 of
    one device's losses, and the MoE at v.2's f32 widths, pp 2 x ep 2
    (1F1B) within 1e-4 of pp 2 (GPipe); the pp 2 x dp 2 run's step-2
@@ -416,6 +417,28 @@ w. the trainer's pipeline parallelism, every rank a process on the one
    tolerances and at pp 2 x dp 2 bit for bit; (3) the flash kernels at
    the microbatch shape against their plain versions, bf16 timed
    beside them, SDPA and the bound, and f32.
+x. the ViT/YOLOS detection family, seeded bf16 weights: (0) the flash
+   kernels at YOLOS-small's attention (B 7, H 6/6, S 296, D 64, a full
+   mask: a ragged tail where only the ``key < Sk`` tests keep padded
+   keys out) and at ViT-small's (S 197), bf16 and f32, against their
+   plain versions (the backward bit-identical over two launches), bf16
+   timed beside the plain version, SDPA and the bound; (1) YOLOS-small
+   (12 layers, d 384, 6 heads, d_ff 1536, 224 x 224, 100 detection
+   tokens) and ViT-small on 7 coalesced images (``bench_infer.py:31``):
+   the kernel path against ``NOS_TPU_TORCH_ATTN_IMPL=xla`` (logits
+   within 5e-2 of the largest, boxes within 2e-2, ``postprocess``'s
+   top-10 labels equal wherever the runs' probability differences
+   cannot reorder them), ms a forward (median of 20), kernels a forward,
+   the idle share, peak memory, the flash forward's launches (12 a
+   forward); (2) ``cmd/sharing_client.py --oneshot`` in each mode, a 2
+   s window; (3) one YOLOS training step (up to 20 random targets an
+   image) through ``set_criterion``: every leaf's gradient through the
+   kernels within 5e-2 of the plain path's RMS (one matching for both),
+   each kernel launched once a layer; (4) the trainer across two
+   "hosts" on the one card (``COORDINATOR_ADDRESS`` on 127.0.0.1,
+   ``NUM_PROCESSES`` 2, host 1 a child process), dp 2 at t.4's widths
+   in f32, 2 steps, against the one-host dp 2 run's losses and rank 0's
+   params.
 
 Prints one JSON line per phase, then the kernels line, then as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without that line
@@ -450,13 +473,13 @@ KERNEL_TOL = 4e-2
 # summation order differs.
 PINS = {torch.bfloat16: (2.0 ** -7, 2.0 ** -8), torch.float32: (1e-5, 1e-5)}
 
-# the serving phases' model at 16 of Llama-3-8B's 32 layers: a cut for
-# time, the room phase (v) needs (PERF.md section 4)
-FULL = dict(vocab=128256, d_model=4096, n_layers=16, n_heads=32,
+# the serving phases' model at 8 of Llama-3-8B's 32 layers: a cut for
+# time, the room phases (v) and (x) need (PERF.md section 4)
+FULL = dict(vocab=128256, d_model=4096, n_layers=8, n_heads=32,
             n_kv_heads=8, d_ff=14336, max_seq=2048)
 # every phase after (a) and (b); a run of all of them prints the kernels
 # line and the ok line
-PHASES = "cdefghijklmnopqrstuvw"
+PHASES = "cdefghijklmnopqrstuvwx"
 
 
 def emit(obj) -> None:
@@ -464,8 +487,8 @@ def emit(obj) -> None:
 
 
 # seconds after which a run is taken to hang (see ``main``): past a
-# whole run's ~1,020 s on an H100 at 700 W, with room for the stack dump
-# before the 1200 s a run may take
+# whole run's time on an H100 at 700 W (PERF.md section 4), with room
+# for the stack dump before the 1200 s a run may take
 HANG_S = 1150
 # ~200 us of spinning on the stream at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 400_000
@@ -7403,6 +7426,11 @@ def phase_tp(seed: int, card: str, device=None) -> dict:
 # (dp 2 x tp 2, w_down), the control 5.8e-2
 T_LAYOUTS = (("dp2", dict(dp=2)), ("fsdp2", dict(fsdp=2)),
              ("dp2_tp2", dict(dp=2, tp=2)))
+# the model of (t.1), (v.1) and (w.1): (g)'s widths at 8 of its 16
+# layers, a cut for time (each layout step's gradient crosses the host
+# through gloo, about half the bytes at 8 layers; PERF.md section 4).
+# (g) keeps all 16
+T_TRAIN = dict(TRAIN, n_layers=8)
 T_STEPS = 4
 # t.1's and t.2's layout runs take 2 steps, held to the one-device runs'
 # first 2 (their losses, and t.1's params after step 2): a cut for time,
@@ -7662,10 +7690,10 @@ def compare_states(label: str, got: list, want: list, exact: bool,
             "param_step_bound": bound, **worst}
 
 
-def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
+def phase_layouts(seed: int, card: str, flush, device=None) -> dict:
     """(t): the trainer's layouts, every rank a process on ``device``
-    (default: the card) over gloo. (1) (g)'s model, batch 8 x 2048,
-    bf16, full remat, 4 steps on one device (its losses beside (g)'s)
+    (default: the card) over gloo. (1) ``T_TRAIN`` ((g)'s widths at 8
+    layers), batch 8 x 2048, bf16, full remat, 4 steps on one device
     and under dp 2, fsdp 2 and dp 2 x tp 2 through ``train()``: each
     step's loss within ``T_LOSS_RTOL`` of the one-device run's, rank 0's
     part of each param leaf after step 4 within ``T_PARAM_RMS`` of the
@@ -7690,8 +7718,8 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
 
     t_phase = time.perf_counter()
     device = device or torch.device("cuda", 0)
-    L = TRAIN["n_layers"]
-    out = {"phase": "train_layouts", "card": card, **TRAIN,
+    L = T_TRAIN["n_layers"]
+    out = {"phase": "train_layouts", "card": card, **T_TRAIN,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": T_STEPS,
            "layout_steps": T_LAYOUT_STEPS,
            "loss_rtol": T_LOSS_RTOL, "f32_rtol": T_F32_RTOL,
@@ -7699,7 +7727,7 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
            "backend": "gloo"}
     try:
         # t.1
-        base = dict(TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        base = dict(T_TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                     steps=T_STEPS, log_every=1, seed=seed, bf16=True)
         one = layout_run(TrainerConfig(**base), device,
                          snapshot_at=T_LAYOUT_STEPS)
@@ -7708,11 +7736,7 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
         del one["params"]
         at = one["params_at"]
         lay = dict(base, steps=T_LAYOUT_STEPS)
-        out["one_device"] = {
-            "losses": one["losses"],
-            "g_losses": g_row["losses"][:T_STEPS] if g_row else None,
-            "equal_to_g": bool(g_row) and
-            one["losses"] == g_row["losses"][:T_STEPS]}
+        out["one_device"] = {"losses": one["losses"]}
         # the control the params' tolerance must reject: rank 0 of dp 2
         # stepping on its own rows without the gradient mean
         with first_rows(TRAIN_BATCH):
@@ -7728,10 +7752,10 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
             chips = int(np.prod(list(kw.values())))
             tp = kw.get("tp", 1)
             launches[label] = hold_rank_launches(
-                f"t.1 {label}", run, chips, train_want(T_LAYOUT_STEPS),
-                rank_shape(TRAIN_BATCH // (chips // tp), TRAIN["n_heads"]
-                           // tp, TRAIN["n_kv_heads"] // tp, TRAIN_SEQ,
-                           TRAIN["d_model"] // TRAIN["n_heads"],
+                f"t.1 {label}", run, chips, launches_want(L, T_LAYOUT_STEPS),
+                rank_shape(TRAIN_BATCH // (chips // tp), T_TRAIN["n_heads"]
+                           // tp, T_TRAIN["n_kv_heads"] // tp, TRAIN_SEQ,
+                           T_TRAIN["d_model"] // T_TRAIN["n_heads"],
                            torch.bfloat16))["summed"]
             rel = rel_diffs(run["losses"], one["losses"])
             if len(rel) != T_LAYOUT_STEPS or not max(rel) <= T_LOSS_RTOL:
@@ -7739,7 +7763,7 @@ def phase_layouts(seed: int, card: str, g_row, flush, device=None) -> dict:
                     f"t.1 {label}: losses {run['losses']} against one "
                     f"device's {one['losses']} (rtol {T_LOSS_RTOL})")
             params = rank0_param_diff(run.pop("params"), at, kw)
-            want_state = layout_state_bytes(TRAIN, kw)
+            want_state = layout_state_bytes(T_TRAIN, kw)
             for r in run["ranks"]:
                 if r["state_bytes"] != want_state:
                     raise AssertionError(
@@ -8376,9 +8400,13 @@ V_STEPS = 4
 # v.1's and v.2's bf16 layout runs take 2 steps (v.1 held to t.1's first
 # 2 losses and its params after step 2; v.2 to its own one-device run of
 # 2 steps): a cut for time, the room phase (w) needs (PERF.md section
-# 4); the f32 arms keep V_STEPS
+# 4)
 V_LAYOUT_STEPS = 2
-# v.1: (g)'s model at full width and depth, held to t.1's one-device run
+# the f32 arms take 2 steps too, held to the one-device run's first 2
+# losses (a cut for time, the room phase (x) needs); v.2's tp 2 x ep 2
+# arm keeps V_STEPS: it saves step 2 and step 4 for the resumes
+V_F32_STEPS = 2
+# v.1: t.1's model (T_TRAIN), held to t.1's one-device run
 V_SP_LAYOUTS = (("sp2_ring", dict(sp=2)),
                 ("sp2_ulysses", dict(sp=2, sp_strategy="ulysses")),
                 ("dp2_sp2_ulysses", dict(dp=2, sp=2, sp_strategy="ulysses")))
@@ -8554,7 +8582,7 @@ def hold_v_run(label: str, run: dict, row: dict, one: list, rtol: float,
 
 
 def one_device_run(seed: int, device, t_one, phase: str) -> dict:
-    """(g)'s model, batch 8 x 2048, bf16, full remat, on one device for
+    """``T_TRAIN``, batch 8 x 2048, bf16, full remat, on one device for
     ``V_LAYOUT_STEPS`` steps: t.1's run when (t) ran (``t_one``), else
     its own; its losses and a host copy of its params after that
     step."""
@@ -8563,7 +8591,7 @@ def one_device_run(seed: int, device, t_one, phase: str) -> dict:
     if t_one is not None and t_one.get("params_at") is not None:
         return t_one
     run = layout_run(TrainerConfig(
-        **TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        **T_TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
         steps=V_LAYOUT_STEPS, log_every=1, seed=seed, bf16=True), device,
         snapshot_at=V_LAYOUT_STEPS)
     return {"losses": run["losses"], "params_at": run["params_at"],
@@ -8571,20 +8599,21 @@ def one_device_run(seed: int, device, t_one, phase: str) -> dict:
 
 
 def phase_sp(seed: int, device, t_one) -> dict:
-    """(v.1): (g)'s model, batch 8 x 2048, bf16, full remat, 2 steps
+    """(v.1): ``T_TRAIN``, batch 8 x 2048, bf16, full remat, 2 steps
     under sp 2 ring, sp 2 Ulysses and dp 2 x sp 2 Ulysses, each held to
     the one-device run (t.1's when (t) ran: ``t_one``, its first 2
     losses and its params after step 2); then the f32 arm at 2 layers,
     batch 2 x 1024, 4 steps."""
     from nos_tpu_torch.cmd.trainer import TrainerConfig
 
-    base = dict(TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+    base = dict(T_TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                 steps=V_LAYOUT_STEPS, log_every=1, seed=seed, bf16=True)
     out = {}
     t_one = one_device_run(seed, device, t_one, "v.1")
     one = t_one["losses"][:V_LAYOUT_STEPS]
     out["one_device"] = {"losses": one, "from": t_one.get("from", "t.1")}
-    L, H, HKV = TRAIN["n_layers"], TRAIN["n_heads"], TRAIN["n_kv_heads"]
+    L, H, HKV = (T_TRAIN["n_layers"], T_TRAIN["n_heads"],
+                 T_TRAIN["n_kv_heads"])
     runs, by_shape = {}, {}
     for label, kw in V_SP_LAYOUTS:
         run = layout_run(TrainerConfig(**base, **kw), device)
@@ -8593,13 +8622,13 @@ def phase_sp(seed: int, device, t_one) -> dict:
         ring = kw.get("sp_strategy", "ring") == "ring"
         shape = None if ring else rank_shape(
             TRAIN_BATCH // kw.get("dp", 1), H // kw["sp"], HKV // kw["sp"],
-            TRAIN_SEQ, TRAIN["d_model"] // H, torch.bfloat16)
+            TRAIN_SEQ, T_TRAIN["d_model"] // H, torch.bfloat16)
         held = hold_rank_launches(f"v.1 {label}", run, chips,
                                   launches_want(L, V_LAYOUT_STEPS,
                                                 flash=not ring), shape)
         add_by_shape(by_shape, held["flash_by_shape"])
         hold_v_run(f"v.1 {label}", run, row, one, T_LOSS_RTOL,
-                   layout_state_bytes(TRAIN, kw))
+                   layout_state_bytes(T_TRAIN, kw))
         row.update(launches_summed_over_ranks=held["summed"],
                    flash_launches_by_shape=held["flash_by_shape"],
                    flash_kernels=("none: the ring's blocks are plain "
@@ -8618,16 +8647,17 @@ def phase_sp(seed: int, device, t_one) -> dict:
         raise AssertionError(f"v.1: rank 0's params against the one-device "
                              f"run's {worst} (tol {T_PARAM_RMS})")
     out["rank0_params_vs_one_device"] = worst
-    # the f32 arm: t.2's one-device losses when (t) ran
+    # the f32 arm: t.2's one-device losses when (t) ran (their first
+    # V_F32_STEPS)
     f32 = dict(base, n_layers=2, batch_size=T_F32_BATCH, seq_len=T_F32_SEQ,
-               bf16=False, steps=V_STEPS)
-    ref = t_one.get("f32_losses") or layout_run(TrainerConfig(**f32),
-                                                device)["losses"]
+               bf16=False, steps=V_F32_STEPS)
+    ref = (t_one.get("f32_losses") or layout_run(
+        TrainerConfig(**f32), device)["losses"])[:V_F32_STEPS]
     out["f32"] = {"one_device": ref}
     for label, kw in V_SP_LAYOUTS:
         got = layout_run(TrainerConfig(**f32, **kw), device)["losses"]
         rel = rel_diffs(got, ref)
-        if len(rel) != len(ref) or not max(rel) <= T_F32_RTOL:
+        if len(rel) != V_F32_STEPS or not max(rel) <= T_F32_RTOL:
             raise AssertionError(f"v.1 {label}: f32 losses {got} against "
                                  f"one device's {ref}")
         out["f32"][label] = {"losses": got, "max_rel_diff": max(rel)}
@@ -8694,27 +8724,28 @@ def phase_ep(seed: int, device, root: str) -> dict:
                       for k, r in runs.items()}
     # the f32 arm
     f32 = dict(V_MOE_F32, batch_size=V_MOE_F32_BATCH,
-               seq_len=V_MOE_F32["max_seq"], steps=V_STEPS, log_every=1,
+               seq_len=V_MOE_F32["max_seq"], steps=V_F32_STEPS, log_every=1,
                seed=seed, bf16=False)
     ref, ref_gating, ref_grad = moe_layout_run(TrainerConfig(**f32), device)
     out["f32"] = {"widths": V_MOE_F32, "batch": V_MOE_F32_BATCH,
                   "one_device": ref["losses"]}
     a = os.path.join(root, "tp2_ep2")
     for label, kw in V_EP_LAYOUTS:
-        ck = dict(checkpoint_dir=a, checkpoint_every=2) \
+        ck = dict(checkpoint_dir=a, checkpoint_every=2, steps=V_STEPS) \
             if label == "tp2_ep2" else {}
-        run, gating, grad = moe_layout_run(TrainerConfig(**f32, **kw, **ck),
-                                           device)
+        run, gating, grad = moe_layout_run(
+            TrainerConfig(**dict(f32, **kw, **ck)), device)
         rel = rel_diffs(run["losses"], ref["losses"])
-        if len(rel) != V_STEPS or not max(rel) <= T_F32_RTOL:
+        if len(rel) != V_F32_STEPS or not max(rel) <= T_F32_RTOL:
             raise AssertionError(f"v.2 {label}: f32 losses {run['losses']} "
                                  f"against one device's {ref['losses']}")
         # rank 0 holds the first B/dp rows of every call; step 1's calls
         # (each layer's forward and recompute) route the same params
         rows = V_MOE_F32_BATCH // kw.get("dp", 1)
         first = 2 * V_MOE_F32["n_layers"]
-        got_d = [c.tolist() for c in gating.calls]
         want_d = [c[:rows].tolist() for c in ref_gating.calls]
+        # the checkpointing arm's later steps have no reference run
+        got_d = [c.tolist() for c in gating.calls[:len(want_d)]]
         later = max((abs(a - b) / (2 * V_MOE_F32["max_seq"])
                      for ga, wa in zip(got_d[first:], want_d[first:])
                      for a, b in zip(ga, wa)), default=0.0)
@@ -8745,8 +8776,9 @@ def phase_ep(seed: int, device, root: str) -> dict:
                              ("tp2_ep2", dict(tp=2, ep=2), True)):
         d = os.path.join(root, f"resume_{label}")
         link_step(a, d, 2)
-        run = layout_run(TrainerConfig(**f32, **kw, checkpoint_dir=d,
-                                       checkpoint_every=2), device)
+        run = layout_run(TrainerConfig(**dict(
+            f32, **kw, checkpoint_dir=d, checkpoint_every=2,
+            steps=V_STEPS)), device)
         rel = rel_diffs(run["losses"], first[2:])
         if len(rel) != 2 or (exact and run["losses"] != first[2:]) \
                 or not max(rel) <= T_F32_RTOL:
@@ -8810,7 +8842,7 @@ def phase_sp_ep(seed: int, card: str, flush, t_one=None,
         emit(out)
 
 
-# (w): pipeline parallelism. w.1: (g)'s model at full width and depth,
+# (w): pipeline parallelism. w.1: t.1's model (T_TRAIN, 8 layers),
 # pp 2, 4 microbatches (a microbatch B 2), each schedule 2 steps, held
 # to t.1's one-device run (its first 2 losses, its params after step 2)
 W_PP, W_MICRO, W_STEPS = 2, 4, 2
@@ -8822,12 +8854,14 @@ W_SCHEDULES = (("gpipe", dict(pipeline_schedule="gpipe")),
 # 8/2, head_dim 128; the interleaved schedule needs n_layers % (pp x v)
 # == 0), batch 4 x 1024 (4 rows, not 2: a pp 2 x dp 2 rank takes its
 # share of each microbatch's rows, so a microbatch of 2 splits over the
-# 2 data ranks), 2 microbatches, every arm at 4 ranks; each held to
-# one device's losses within T_F32_RTOL. The pp 2 x dp 2 arm
-# checkpoints steps 2 and 4, and step 2 resumes on one device and at
-# pp 2 x dp 2 (bit for bit)
+# 2 data ranks), 2 microbatches, every arm at 4 ranks, 2 steps (a cut
+# from 4 for time, the room phase (x) needs); each held to one device's
+# losses within T_F32_RTOL. The pp 2 x dp 2 arm runs 4 steps and
+# checkpoints steps 2 and 4, and step 2 resumes on one device and at pp
+# 2 x dp 2 (bit for bit)
 W_F32 = dict(T_CKPT, n_layers=4)
-W_F32_BATCH, W_F32_SEQ, W_F32_MICRO, W_F32_STEPS = 4, 1024, 2, 4
+W_F32_BATCH, W_F32_SEQ, W_F32_MICRO, W_F32_STEPS = 4, 1024, 2, 2
+W_RESUME_STEPS = 4
 W_F32_ARMS = (("pp2_dp2_1f1b", dict(pp=2, dp=2, pipeline_schedule="1f1b")),
               ("pp2_tp2_interleaved", dict(pp=2, tp=2,
                                            pipeline_schedule="interleaved")),
@@ -8871,8 +8905,8 @@ def pp_launches_want(schedule: str, n_layers: int, steps: int) -> tuple:
 
 def phase_pp(seed: int, card: str, flush, t_one=None, device=None) -> dict:
     """(w): the trainer's pipeline parallelism, every rank a process on
-    ``device`` (default: the card) over gloo. (1) (g)'s model, batch 8 x
-    2048, bf16, full remat, pp 2 with 4 microbatches under GPipe, 1F1B
+    ``device`` (default: the card) over gloo. (1) ``T_TRAIN``, batch 8
+    x 2048, bf16, full remat, pp 2 with 4 microbatches under GPipe, 1F1B
     and interleaved 1F1B (v 2), 2 steps each: each step's loss within
     ``T_LOSS_RTOL`` of the one-device run's (t.1's when it ran), rank 0's
     params after step 2 within ``T_PARAM_RMS``, every rank's flash
@@ -8893,7 +8927,7 @@ def phase_pp(seed: int, card: str, flush, t_one=None, device=None) -> dict:
 
     t0 = time.perf_counter()
     device = device or torch.device("cuda", 0)
-    out = {"phase": "train_pipeline", "card": card, **TRAIN,
+    out = {"phase": "train_pipeline", "card": card, **T_TRAIN,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "pp": W_PP,
            "n_microbatches": W_MICRO,
            "steps": W_STEPS, "loss_rtol": T_LOSS_RTOL,
@@ -8905,10 +8939,11 @@ def phase_pp(seed: int, card: str, flush, t_one=None, device=None) -> dict:
         one = t_one["losses"][:W_STEPS]
         out["one_device"] = {"losses": one,
                              "from": t_one.get("from", "t.1")}
-        H, HKV, L = TRAIN["n_heads"], TRAIN["n_kv_heads"], TRAIN["n_layers"]
+        H, HKV, L = (T_TRAIN["n_heads"], T_TRAIN["n_kv_heads"],
+                     T_TRAIN["n_layers"])
         shape = rank_shape(W_SHAPE["b"], H, HKV, TRAIN_SEQ,
-                           TRAIN["d_model"] // H, torch.bfloat16)
-        base = dict(TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                           T_TRAIN["d_model"] // H, torch.bfloat16)
+        base = dict(T_TRAIN, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                     steps=W_STEPS, log_every=1, seed=seed, bf16=True,
                     pp=W_PP, n_microbatches=W_MICRO)
         runs, launches, by_shape = {}, {}, {}
@@ -8937,7 +8972,7 @@ def phase_pp(seed: int, card: str, flush, t_one=None, device=None) -> dict:
             launches[label] = held["summed"]
             add_by_shape(by_shape, held["flash_by_shape"])
             hold_v_run(f"w.1 {label}", run, row, one, T_LOSS_RTOL,
-                       layout_state_bytes(TRAIN, dict(pp=W_PP)))
+                       layout_state_bytes(T_TRAIN, dict(pp=W_PP)))
             runs[label] = row
             del run
         out["schedules"] = {k: {f: r[f] for f in (
@@ -9000,15 +9035,15 @@ def pp_compositions(seed: int, device, root: str) -> dict:
            "n_microbatches": W_F32_MICRO, "one_device": ref}
     a = os.path.join(root, "pp2_dp2")
     for label, kw in W_F32_ARMS:
-        ck = dict(checkpoint_dir=a, checkpoint_every=2) \
-            if label == "pp2_dp2_1f1b" else {}
-        run = layout_run(TrainerConfig(**f32, **kw, **ck), device)
+        ck = dict(checkpoint_dir=a, checkpoint_every=2,
+                  steps=W_RESUME_STEPS) if label == "pp2_dp2_1f1b" else {}
+        run = layout_run(TrainerConfig(**dict(f32, **kw, **ck)), device)
         rel = rel_diffs(run["losses"], ref)
         out[label] = {"losses": run["losses"], "max_rel_diff": max(rel),
                       "ms_per_step": run["ms_per_step"],
                       "wall_s": run["wall_s"]}
         emit({"phase": "pp_f32", "label": label, **out[label]})
-        if len(rel) != len(ref) or not max(rel) <= T_F32_RTOL:
+        if len(rel) != W_F32_STEPS or not max(rel) <= T_F32_RTOL:
             raise AssertionError(f"w.2 {label}: f32 losses {run['losses']} "
                                  f"against one device's {ref}")
     moe = dict(V_MOE_F32, batch_size=V_MOE_F32_BATCH,
@@ -9029,29 +9064,579 @@ def pp_compositions(seed: int, device, root: str) -> dict:
                                  f"{run['losses']} against pp 2 GPipe's "
                                  f"{moe_ref}")
     # the checkpoint the pp 2 x dp 2 arm saved, resumed
-    want = ckpt_state(a, W_F32_STEPS, W_F32, torch.float32)
+    want = ckpt_state(a, W_RESUME_STEPS, W_F32, torch.float32)
     first = out["pp2_dp2_1f1b"]["losses"]
     ck = {}
     for label, kw, exact in (("one_device", {}, False),
                              ("pp2_dp2_1f1b", W_F32_ARMS[0][1], True)):
         d = os.path.join(root, f"resume_{label}")
         link_step(a, d, 2)
-        run = layout_run(TrainerConfig(**f32, **kw, checkpoint_dir=d,
-                                       checkpoint_every=2), device)
+        run = layout_run(TrainerConfig(**dict(
+            f32, **kw, checkpoint_dir=d, checkpoint_every=2,
+            steps=W_RESUME_STEPS)), device)
         rel = rel_diffs(run["losses"], first[2:])
-        if len(rel) != W_F32_STEPS - 2 or (
+        if len(rel) != W_RESUME_STEPS - 2 or (
                 exact and run["losses"] != first[2:]) \
                 or not max(rel) <= T_F32_RTOL:
             raise AssertionError(f"w.2 resume {label}: losses "
                                  f"{run['losses']} against {first[2:]}")
         ck[label] = dict(compare_states(
-            f"w.2 resume {label}", ckpt_state(d, W_F32_STEPS, W_F32,
+            f"w.2 resume {label}", ckpt_state(d, W_RESUME_STEPS, W_F32,
                                               torch.float32),
-            want, exact, W_F32_STEPS - 2,
+            want, exact, W_RESUME_STEPS - 2,
             TrainerConfig(**f32).learning_rate),
             losses=run["losses"], loss_rel_diff=rel, wall_s=run["wall_s"])
     out["checkpoint_pp2_dp2"] = ck
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase (x): the ViT/YOLOS detection family
+# ---------------------------------------------------------------------------
+
+# bench_infer.py:31: the reference's sharing scenario, 7 streams
+# coalesced into one batched forward
+X_STREAMS = 7
+# YolosConfig / ViTConfig overrides (none: YOLOS-small and ViT-small at
+# their published widths, 224 x 224, bf16; a CPU rehearsal cuts them)
+X_YOLOS: dict = {}
+X_VIT: dict = {}
+# x.0: the flash kernels at the family's attention shapes, a full mask:
+# YOLOS-small's 196 patches + 100 detection tokens, ViT-small's 196 + 1
+X_SHAPES = (("yolos", dict(b=X_STREAMS, h=6, h_kv=6, s_q=296, s_k=296,
+                           d=64)),
+            ("vit", dict(b=X_STREAMS, h=6, h_kv=6, s_q=197, s_k=197,
+                         d=64)))
+# x.1: timed forwards a path (CUDA events, the median)
+X_FORWARDS = 20
+# x.1: the kernel path against the plain one (NOS_TPU_TORCH_ATTN_IMPL=
+# xla), both bf16. The kernel's O is within one bf16 rounding of the
+# plain version's (phase (f)'s pins), and 12 residual layers carry that
+# into the logits: a share of the largest |logit| (about 1e-2 expected),
+# and the sigmoid boxes (slope at most 1/4) absolute
+X_LOGIT_TOL = 5e-2
+X_BOX_TOL = 2e-2
+# x.3: targets an image (at most). f32: each leaf's gradient through the
+# kernels within this share of the plain one's RMS (summation order
+# only, as (g)'s f32 parity). bf16: the RMS of the kernel path's
+# difference from the plain bf16 path within this many times the plain
+# bf16 path's own RMS distance from the f32 gradient: independent
+# errors of one size put the two bf16 paths sqrt(2) of it apart. A fixed
+# share cannot serve: on an H100 the deepest leaves' bf16 gradients (the
+# embeddings', which cross all 12 layers) sit 8-9e-2 of their RMS from
+# f32 on either path
+X_TARGETS = 20
+X_F32_GRAD_TOL = 1e-4
+X_BF16_NOISE = 2.0
+# x.4: t.4's widths (2 layers, d_model 1024) in f32 at t.2's batch, dp 2
+X_HOST_BATCH, X_HOST_STEPS = T_F32_BATCH, 2
+
+
+class attn_impl:
+    """``NOS_TPU_TORCH_ATTN_IMPL`` set for a ``with`` block."""
+
+    def __init__(self, impl: str):
+        self.impl = impl
+
+    def __enter__(self):
+        self.prev = os.environ.get("NOS_TPU_TORCH_ATTN_IMPL")
+        os.environ["NOS_TPU_TORCH_ATTN_IMPL"] = self.impl
+
+    def __exit__(self, *exc):
+        if self.prev is None:
+            os.environ.pop("NOS_TPU_TORCH_ATTN_IMPL", None)
+        else:
+            os.environ["NOS_TPU_TORCH_ATTN_IMPL"] = self.prev
+
+
+def flash_launches() -> dict:
+    """The flash kernels' launches by shape in this process."""
+    return {name: dict(k.launches_by_shape)
+            for name, k in train_kernels().items() if name != "adamw"}
+
+
+def forward_ms(fn, n: int, device) -> list:
+    """``n`` calls of ``fn``, each timed alone behind a sync: CUDA events
+    on the card (the host's launches inside the span: an eager forward
+    is what a request waits for), the host clock elsewhere."""
+    out = []
+    for _ in range(n):
+        if device.type == "cuda":
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            out.append(s.elapsed_time(e))
+        else:
+            t = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def vision_kernels(seed: int, device, flush) -> dict:
+    """(x.0): the four flash kernels against their plain versions at
+    YOLOS-small's and ViT-small's attention shapes under a full mask (D
+    64, one kv head a query head, S 296 and 197: ragged tails where only
+    the kernels' ``key < Sk`` tests and the TMA boxes' zero fill keep
+    the padded keys out), bf16 and f32, the backward bit-identical over
+    two launches; bf16 timed beside the plain version, SDPA and the
+    bound. Returns {shape label: kernels-line rows by kernel}."""
+    rng = np.random.default_rng(seed + 29)
+    rows = {}
+    for label, shape in X_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            timed, checks = flash_case(f"x0_{label}", shape, False, dtype,
+                                       rng, device, flush,
+                                       timed=dtype == torch.bfloat16)
+            if timed:
+                rows[label] = timed
+            for name, keys in FLASH_OUTPUTS.items():
+                rows[label][name]["max_abs_err"] = max(
+                    rows[label][name]["max_abs_err"],
+                    *(checks[c]["max_abs_err"] for c in keys))
+    return rows
+
+
+def vision_setup(seed: int, device) -> tuple:
+    """YOLOS-small and ViT-small on seeded bf16 weights, and
+    ``X_STREAMS`` seeded images."""
+    from nos_tpu_torch.models import vit, yolos
+
+    ycfg = yolos.YolosConfig(**X_YOLOS)
+    vcfg = vit.ViTConfig(**X_VIT)
+    yparams = yolos.init_params(
+        torch.Generator(device).manual_seed(seed), ycfg, device)
+    vparams = vit.init_params(
+        torch.Generator(device).manual_seed(seed + 1), vcfg, device)
+    images = torch.randn(
+        (X_STREAMS, ycfg.image_size, ycfg.image_size, 3),
+        generator=torch.Generator(device).manual_seed(seed + 2),
+        device=device)
+    return ycfg, yparams, vcfg, vparams, images
+
+
+def top_labels_held(k_out: tuple, p_out: tuple, top_k: int = 10) -> dict:
+    """``postprocess``'s top-k labels of the kernel path against the
+    plain path's, at every rank where no perturbation the two runs'
+    probabilities show can reorder them: the plain run's score gap to
+    the neighbouring ranks and the query's top-2 class gap both above
+    twice the largest probability difference between the runs."""
+    from nos_tpu_torch.models import yolos
+
+    pk = yolos.postprocess(*k_out, top_k=top_k)
+    pp = yolos.postprocess(*p_out, top_k=top_k)
+    probs_k = torch.softmax(k_out[0], -1)[..., :-1]
+    probs_p = torch.softmax(p_out[0], -1)[..., :-1]
+    tol = 2 * float((probs_k - probs_p).abs().max())
+    scores = probs_p.amax(-1)
+    order = torch.argsort(-scores, dim=-1, stable=True)
+    top2 = probs_p.topk(2, dim=-1).values
+    class_gap = (top2[..., 0] - top2[..., 1])
+    checked = 0
+    for b in range(scores.shape[0]):
+        s = scores[b, order[b]].tolist()
+        for j in range(top_k):
+            q = int(order[b, j])
+            gaps = ([s[j] - s[j + 1]] if j + 1 < len(s) else []) + (
+                [s[j - 1] - s[j]] if j else [])
+            if min(gaps, default=np.inf) <= tol or \
+                    float(class_gap[b, q]) <= tol:
+                continue
+            checked += 1
+            if int(pk["labels"][b, j]) != int(pp["labels"][b, j]):
+                raise AssertionError(
+                    f"x.1: image {b} rank {j}: label "
+                    f"{int(pk['labels'][b, j])} through the kernels, "
+                    f"{int(pp['labels'][b, j])} plain, gaps {gaps} and "
+                    f"{float(class_gap[b, q])} above the tolerance {tol}")
+    if not checked:
+        raise AssertionError(f"x.1: no top-{top_k} rank clears the "
+                             f"tolerance {tol}")
+    return {"tolerance": tol, "ranks_checked": checked,
+            "ranks": scores.shape[0] * top_k,
+            "labels_equal_all": bool(torch.equal(pk["labels"],
+                                                 pp["labels"]))}
+
+
+def vision_forward(seed: int, device) -> dict:
+    """(x.1): YOLOS-small and ViT-small at full width on ``X_STREAMS``
+    images: the kernel path against the plain one, ms a forward (median
+    of ``X_FORWARDS``), kernels a forward and the idle share from
+    torch.profiler, peak memory; the flash forward's launches (counted
+    from 0 over the kernel path's forwards: 12 a forward)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nos_tpu_torch.models import vit, yolos
+
+    ycfg, yparams, vcfg, vparams, images = vision_setup(seed, device)
+    models = {"yolos": (lambda: yolos.forward(yparams, ycfg, images),
+                        ycfg.n_layers),
+              "vit": (lambda: vit.forward(vparams, vcfg, images),
+                      vcfg.n_layers)}
+    out, plain, outs = {}, {}, {}
+    with torch.no_grad():
+        with attn_impl("xla"):
+            for name, (fn, _) in models.items():
+                plain[name] = fn()
+                out[f"{name}_plain_ms"] = float(np.median(
+                    forward_ms(fn, X_FORWARDS, device)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_train_launches()                   # the main path's count
+        forwards = {}
+        for name, (fn, _) in models.items():
+            outs[name] = fn()
+            ms = forward_ms(fn, X_FORWARDS, device)
+            n = 5
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            forwards[name] = 1 + X_FORWARDS + 1 + n
+            br = device_breakdown(prof, n, {"flash_fwd": ("flash_fwd",)})
+            med = float(np.median(ms))
+            out[name] = {
+                "ms_per_forward": med, "ms_min": min(ms), "ms_max": max(ms),
+                "plain_ms_per_forward": out.pop(f"{name}_plain_ms"),
+                "images_per_s": X_STREAMS / med * 1e3,
+                "kernels_per_forward": br["kernels_per_run"],
+                "flash_kernels_per_forward":
+                    br["group_kernels_per_run"]["flash_fwd"],
+                "device_busy_ms": br["device_busy_ms"],
+                "device_ms": br["device_ms"],
+                "device_idle_share": 1 - br["device_busy_ms"] / med,
+                "top_kernels": br["top_kernels"][:4]}
+        launches = flash_launches()
+        peak = torch.cuda.max_memory_allocated()
+    by = {}
+    for (name, (_, layers)), (_, shape) in zip(models.items(), X_SHAPES):
+        key = rank_shape(shape["b"], shape["h"], shape["h_kv"],
+                         shape["s_q"], shape["d"], torch.bfloat16)
+        got = launches["flash_attention_fwd"].get(key, 0)
+        want = layers * forwards[name]
+        out[name]["flash_fwd_launches"] = got
+        if got != want:
+            raise AssertionError(f"x.1 {name}: {got} flash forward "
+                                 f"launches at {key}, want {want} "
+                                 f"({layers} a forward x {forwards[name]})")
+        by[name] = got
+    if any(launches[k] for k in launches if k != "flash_attention_fwd"):
+        raise AssertionError(f"x.1: backward launches in inference: "
+                             f"{launches}")
+    out["peak_gb"] = peak / 1e9
+    # the kernel path against the plain one
+    (lk, bk), (lp, bp) = outs["yolos"], plain["yolos"]
+    vk, vp = outs["vit"], plain["vit"]
+    for label, got, want, tol, rel in (
+            ("yolos logits", lk, lp, X_LOGIT_TOL, True),
+            ("yolos boxes", bk, bp, X_BOX_TOL, False),
+            ("vit logits", vk, vp, X_LOGIT_TOL, True)):
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max()) if rel else 1.0
+        out[label.replace(" ", "_") + "_max_abs_err"] = err
+        out[label.replace(" ", "_") + "_share_of_tol"] = err / (tol * scale)
+        if not (err <= tol * scale and bool(torch.isfinite(got).all())
+                and got.dtype == torch.float32):
+            raise AssertionError(f"x.1 {label}: kernel path against the "
+                                 f"plain one {err} > {tol} x {scale}")
+    if lk.shape != (X_STREAMS, ycfg.n_det_tokens, ycfg.n_classes + 1) \
+            or bk.shape != (X_STREAMS, ycfg.n_det_tokens, 4) \
+            or vk.shape != (X_STREAMS, vcfg.n_classes):
+        raise AssertionError(f"x.1: shapes {lk.shape} {bk.shape} "
+                             f"{vk.shape}")
+    out["top10"] = top_labels_held((lk, bk), (lp, bp))
+    out["params"] = {"yolos": yolos.param_count(yparams),
+                     "vit": vit.param_count(vparams)}
+    return {"row": out, "launches": by}
+
+
+def vision_clients(device) -> list:
+    """(x.2): the sharing client's one-shot line in each mode, a 2 s
+    window, YOLOS-small on ``device`` (7 streams)."""
+    import io
+
+    from nos_tpu_torch.cmd import sharing_client
+
+    lines = []
+    for mode in sharing_client.MODES:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            sharing_client.main(["--mode", mode, "--streams",
+                                 str(X_STREAMS), "--seconds", "2",
+                                 "--oneshot", "--device", str(device)],
+                                cfg=sharing_client.yolos.YolosConfig(
+                                    **X_YOLOS))
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if sorted(line) != ["avg_inference_s", "mode", "streams"] or \
+                line["mode"] != mode or not line["avg_inference_s"] > 0:
+            raise AssertionError(f"x.2 {mode}: {line}")
+        emit({"phase": "vision_client", **line})
+        lines.append(line)
+    return lines
+
+
+def vision_train_step(seed: int, device) -> dict:
+    """(x.3): one YOLOS training step at full width, ``X_STREAMS``
+    images with up to ``X_TARGETS`` random targets each, through
+    ``set_criterion``, four ways on one set of weights and one matching
+    (the bf16 plain run's, so every run differentiates one objective;
+    each run's own matching is compared and printed): bf16 and f32,
+    each through the kernels and the plain path. f32: every leaf's
+    gradient through the kernels within ``X_F32_GRAD_TOL`` of the plain
+    one's RMS (summation order only). bf16: every leaf's gradient
+    through the kernels within ``X_BF16_NOISE`` times the plain bf16
+    path's own distance from the f32 gradient (both RMS): the kernels
+    no farther from the plain bf16 path than bf16's own rounding takes
+    it from f32. The flash launches are counted from 0 over the bf16
+    kernel step (each kernel once a layer)."""
+    import dataclasses
+
+    from nos_tpu_torch.models import yolos
+
+    ycfg, yparams, _, _, images = vision_setup(seed, device)
+    names = sorted(flat_leaves(yparams))
+    rng = np.random.default_rng(seed + 31)
+    n = rng.integers(1, X_TARGETS + 1, size=X_STREAMS)
+    labels = np.full((X_STREAMS, X_TARGETS), -1, np.int64)
+    boxes = np.zeros((X_STREAMS, X_TARGETS, 4), np.float32)
+    for b, k in enumerate(n):
+        labels[b, :k] = rng.integers(0, ycfg.n_classes, size=k)
+        boxes[b, :k, :2] = rng.uniform(0.2, 0.8, size=(k, 2))
+        boxes[b, :k, 2:] = rng.uniform(0.05, 0.4, size=(k, 2))
+    labels = torch.from_numpy(labels).to(device)
+    boxes = torch.from_numpy(boxes).to(device)
+    real = yolos.sinkhorn_match
+    assigns = []
+
+    def one_matching(cost, mask, **kw):
+        assigns.append(real(cost, mask, **kw))
+        return assigns[0]
+
+    runs = {}
+    yolos.sinkhorn_match = one_matching
+    try:
+        for dtype, impl in ((torch.bfloat16, "xla"),
+                            (torch.bfloat16, "splash"),
+                            (torch.float32, "xla"),
+                            (torch.float32, "splash")):
+            cfg = dataclasses.replace(ycfg, dtype=dtype)
+            params = {k: (v if v.dtype == torch.float32 else v.to(dtype))
+                      for k, v in flat_leaves(yparams).items()}
+            leaves = [params[k].detach().clone().requires_grad_()
+                      for k in names]
+            tree = unflatten(dict(zip(names, leaves)))
+            counted = dtype == torch.bfloat16 and impl == "splash"
+            with attn_impl(impl):
+                if counted:
+                    torch.cuda.synchronize()
+                    zero_train_launches()       # the main path's count
+                logits, pred = yolos.forward(tree, cfg, images)
+                losses = yolos.set_criterion(logits, pred, labels, boxes)
+                grads = torch.autograd.grad(losses["total"], leaves)
+                torch.cuda.synchronize()
+                if counted:
+                    launches = flash_launches()
+            runs[(dtype, impl)] = (
+                {k: float(v.detach()) for k, v in losses.items()},
+                [g.float() for g in grads])
+            del logits, pred, losses, grads, leaves, tree
+    finally:
+        yolos.sinkhorn_match = real
+
+    def rms(t):
+        return float(t.square().mean().sqrt())
+
+    bf, f32 = torch.bfloat16, torch.float32
+    g32 = runs[(f32, "xla")][1]
+    worst = {"f32_kernel_vs_plain": (0.0, None),
+             "bf16_kernel_vs_plain": (0.0, None),
+             "bf16_plain_vs_f32": (0.0, None),
+             "bf16_kernel_vs_f32": (0.0, None),
+             "bf16_kernel_vs_plain_over_noise": (0.0, None)}
+
+    def note(key, value, name):
+        if value >= worst[key][0]:
+            worst[key] = (value, name)
+
+    for i, name in enumerate(names):
+        ref = max(rms(g32[i]), 1e-30)
+        fk = rms(runs[(f32, "splash")][1][i] - g32[i]) / ref
+        gp, gk = runs[(bf, "xla")][1][i], runs[(bf, "splash")][1][i]
+        noise = rms(gp - g32[i]) / ref
+        apart = rms(gk - gp) / ref
+        note("f32_kernel_vs_plain", fk, name)
+        note("bf16_kernel_vs_plain", apart, name)
+        note("bf16_plain_vs_f32", noise, name)
+        note("bf16_kernel_vs_f32", rms(gk - g32[i]) / ref, name)
+        note("bf16_kernel_vs_plain_over_noise", apart / max(noise, 1e-30),
+             name)
+        if not (fk <= X_F32_GRAD_TOL and bool(torch.isfinite(gk).all())
+                and apart <= X_BF16_NOISE * noise):
+            raise AssertionError(
+                f"x.3 {name}: through the kernels f32 {fk} of the plain "
+                f"gradient's RMS apart (tol {X_F32_GRAD_TOL}); bf16 {apart} "
+                f"apart, the plain bf16 path {noise} from f32 (tol "
+                f"{X_BF16_NOISE} x that)")
+    shape = X_SHAPES[0][1]
+    key = rank_shape(shape["b"], shape["h"], shape["h_kv"], shape["s_q"],
+                     shape["d"], torch.bfloat16)
+    want = {k: {(pre_shape(key) if k.endswith("preprocess") else key):
+                ycfg.n_layers} for k in launches}
+    if launches != want:
+        raise AssertionError(f"x.3: flash launches {launches}, want {want}")
+    same = [int((a == assigns[0]).sum()) for a in assigns[1:]]
+    return {"row": {"losses": {f"{str(d).split('.')[-1]}_{i}": v[0]
+                               for (d, i), v in runs.items()},
+                    "targets_per_image": n.tolist(),
+                    "grad_rms_rel_worst": {k: {"value": v, "leaf": nm}
+                                           for k, (v, nm) in worst.items()},
+                    "leaves": len(names),
+                    "own_matching_equal_targets": same,
+                    "matching_targets": int(labels.numel())},
+            "launches": {k: sum(v.values()) for k, v in launches.items()}}
+
+
+def unflatten(leaves: dict) -> dict:
+    """``flat_leaves``' inverse."""
+    out: dict = {}
+    for path, leaf in leaves.items():
+        *head, last = path.split("/")
+        node = out
+        for p in head:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return out
+
+
+def flat_leaves(tree, prefix: str = "") -> dict:
+    """{path: leaf} of a nested params dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+X_HOST = """
+import json, sys
+sys.path.insert(0, {root!r})
+from nos_tpu_torch.cmd import trainer
+loss = trainer.train(trainer.TrainerConfig(**json.loads(sys.argv[1])),
+                     device=sys.argv[2])
+print(json.dumps({{"loss": loss}}), flush=True)
+"""
+
+
+def two_hosts(seed: int, device) -> dict:
+    """(x.4): the trainer across two "hosts" on the one card:
+    ``COORDINATOR_ADDRESS`` on 127.0.0.1, ``NUM_PROCESSES`` 2, host 0
+    this process's ``train()`` and host 1 a child process's, one local
+    rank each, dp 2, at t.4's widths in f32; every step's loss and rank
+    0's params against the one-host dp 2 run's (the same ranks on the
+    same card: bit for bit expected; held within t.2's f32 tolerance and
+    ``compare_states``' otherwise), host 1's returned loss the same."""
+    import socket
+
+    from nos_tpu_torch.cmd.trainer import TrainerConfig
+
+    cfg = dict(T_CKPT, batch_size=X_HOST_BATCH, seq_len=T_CKPT_SEQ,
+               steps=X_HOST_STEPS, log_every=1, seed=seed, bf16=False,
+               dp=2)
+    one = layout_run(TrainerConfig(**cfg), device)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{s.getsockname()[1]}"
+    gang = {"COORDINATOR_ADDRESS": address, "NUM_PROCESSES": "2"}
+    root = os.path.dirname(os.path.abspath(__file__))
+    host1 = subprocess.Popen(
+        [sys.executable, "-c", X_HOST.format(root=root), json.dumps(cfg),
+         str(device)],
+        env=dict(os.environ, PROCESS_ID="1", **gang),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        os.environ.update(PROCESS_ID="0", **gang)
+        try:
+            got = layout_run(TrainerConfig(**cfg), device)
+        finally:
+            for k in ("PROCESS_ID", *gang):
+                os.environ.pop(k, None)
+        out, err = host1.communicate(timeout=300)
+    finally:
+        if host1.poll() is None:
+            host1.kill()
+            host1.communicate()
+    if host1.returncode != 0:
+        raise AssertionError(f"x.4 host 1 exited {host1.returncode}: "
+                             f"{err[-3000:]}")
+    host1_loss = json.loads(out.strip().splitlines()[-1])["loss"]
+    rel = rel_diffs(got["losses"], one["losses"])
+    if len(rel) != X_HOST_STEPS or not max(rel) <= T_F32_RTOL \
+            or host1_loss != got["final"]:
+        raise AssertionError(f"x.4: two hosts' losses {got['losses']} "
+                             f"(host 1's final {host1_loss}) against one "
+                             f"host's {one['losses']}")
+    names = sorted(one["params"])
+    state = compare_states(
+        "x.4 rank 0's params", [(n, got["params"][n].cpu()) for n in names],
+        [(n, one["params"][n].cpu()) for n in names], False, X_HOST_STEPS,
+        TrainerConfig(**cfg).learning_rate)
+    state.pop("bit_equal")
+    return {"address": address, "losses": got["losses"],
+            "one_host_losses": one["losses"], "max_rel_diff": max(rel),
+            "losses_bit_equal": got["losses"] == one["losses"],
+            "params_bit_equal": all(torch.equal(got["params"][n],
+                                                one["params"][n])
+                                    for n in names),
+            "rank0_params": state, "host1_final_loss": host1_loss,
+            "ms_per_step": got["ms_per_step"],
+            "one_host_ms_per_step": one["ms_per_step"],
+            "rank_summaries": [{k: r[k] for k in ("rank", "device",
+                                                  "launches")}
+                               for r in got["ranks"]]}
+
+
+def phase_vision(seed: int, card: str, flush, device=None) -> dict:
+    """(x): the ViT/YOLOS detection family on the card: x.0 the flash
+    kernels at its shapes, x.1 YOLOS-small and ViT-small forwards, x.2
+    the sharing client, x.3 a YOLOS training step, x.4 the trainer
+    across two "hosts". Returns the kernels-line rows and the main
+    path's launches."""
+    device = device if device is not None else torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels = vision_kernels(seed, device, flush)
+    t_k = time.perf_counter()
+    fwd = vision_forward(seed, device)
+    emit({"phase": "vision_forward", "card": card, **fwd["row"]})
+    t_f = time.perf_counter()
+    clients = vision_clients(device)
+    t_c = time.perf_counter()
+    step = vision_train_step(seed, device)
+    emit({"phase": "vision_train_step", "card": card, **step["row"]})
+    t_s = time.perf_counter()
+    torch.cuda.empty_cache()
+    hosts = two_hosts(seed, device)
+    emit({"phase": "two_hosts", "card": card, **hosts})
+    t_h = time.perf_counter()
+    emit({"phase": "vision", "card": card, "clients": clients,
+          "seconds": {"x0": t_k - t0, "x1": t_f - t_k, "x2": t_c - t_f,
+                      "x3": t_s - t_c, "x4": t_h - t_s}})
+    # the kernels line's launches: the forward's from x.1's forwards,
+    # the backward kernels' from x.3's step
+    launches = {"yolos": {"flash_attention_fwd": fwd["launches"]["yolos"],
+                          **{k: v for k, v in step["launches"].items()
+                             if k != "flash_attention_fwd"}},
+                "vit": {"flash_attention_fwd": fwd["launches"]["vit"]}}
+    return {"kernels": kernels, "launches": launches,
+            "train_step_launches": step["launches"]}
 
 
 def main(argv=None) -> int:
@@ -9184,7 +9769,7 @@ def main(argv=None) -> int:
     lap("s")
     layouts = {}
     if "t" in args.phases:
-        layouts = phase_layouts(args.seed, card, g_row, flush)
+        layouts = phase_layouts(args.seed, card, flush)
     lap("t")
     tp_more = {}
     if "u" in args.phases:
@@ -9200,6 +9785,10 @@ def main(argv=None) -> int:
     if "w" in args.phases:
         pp = phase_pp(args.seed, card, flush, t_one)
     lap("w")
+    vision = {}
+    if "x" in args.phases:
+        vision = phase_vision(args.seed, card, flush)
+    lap("x")
     del flush, t_one
     emit({"phase": "done", "seconds": time.perf_counter() - t_all,
           "card": card,
@@ -9316,6 +9905,26 @@ def main(argv=None) -> int:
             **row, "launches": n, "shape": key,
             "launches_by_schedule": {label: r[name] for label, r in
                                      pp["launches"].items()}})
+    # phase (x)'s shapes of the same kernels, a full mask at D 64: YOLOS-
+    # small's S 296 (the forward's launches x.1's counted forwards', the
+    # backward kernels' x.3's training step's) and ViT-small's S 197 (the
+    # forward only: x.1's); the reference routes both to XLA
+    for label, shape in X_SHAPES:
+        key = rank_shape(shape["b"], shape["h"], shape["h_kv"],
+                         shape["s_q"], shape["d"], torch.bfloat16)
+        for name, n in vision["launches"][label].items():
+            if not n:
+                raise AssertionError(f"x: {name} launched no time at {key}")
+            kernels.append({
+                "name": f"{name}_{label}", "route": "cuda",
+                "source": "nos_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "nos_tpu/ops/attention.py:186",
+                "also_replaces": "nos_tpu/ops/attention.py:549",
+                "reference_routes_to": "XLA (nos_tpu/ops/attention.py:"
+                                       "172-176: S not a multiple of 128)",
+                **vision["kernels"][label][name], "launches": n,
+                "shape": pre_shape(key) if name.endswith("preprocess")
+                else key})
     adamw["launches_layouts"] = {label: n["adamw"] for label, n in
                                  layouts["launches"].items()}
     adamw["launches_pp"] = {label: n["adamw"] for label, n in

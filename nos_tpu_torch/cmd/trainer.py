@@ -41,9 +41,23 @@ every ``host_sync_every`` steps one collective carries the stop flag
 banks the same step. A checkpoint holds full leaves (gathered to rank
 0), so any layout, or one device, resumes it.
 
-Not ported yet, and refused with a ValueError naming the knob: a
-multi-host environment (``COORDINATOR_ADDRESS``); a layout the model
-does not divide, or a schedule that does not compose with it, is
+Several hosts (``host_gang``): the gang manifests' ``COORDINATOR_ADDRESS``
+(``host:port``, served by ``PROCESS_ID`` 0), ``NUM_PROCESSES`` (hosts,
+default 1) and ``PROCESS_ID`` (this host, default 0), the reference's
+contract. Each host runs ``layout.chips / NUM_PROCESSES`` ranks (its
+first in the caller, the rest forked), global rank ``PROCESS_ID x local
++ local index``, so tp stays within a host; the ranks meet at a TCP
+store at the coordinator, bounded by ``RANK_TIMEOUT_S`` as every
+collective is, and pick the backend from every rank's published card
+(NCCL only when no two ranks share one, so two "hosts" on one card run
+gloo). ``train`` returns the loss on every host, each host logs its own
+ranks' summaries and counts its share of the tokens. The checkpoint
+directory must be one every host sees (rank 0 writes it). The
+reference's other trigger, ``TPU_WORKER_HOSTNAMES``, names TPU hosts and
+is ignored on a GPU host. An address without a port, a ``PROCESS_ID``
+outside ``[0, NUM_PROCESSES)`` and a layout ``NUM_PROCESSES`` does not
+divide are refused with a ValueError naming the variable; a layout the
+model does not divide, or a schedule that does not compose with it, is
 refused with the reference's message
 (``models/transformer.py::check_layout``).
 """
@@ -57,7 +71,7 @@ import sys
 import threading
 import time
 from dataclasses import dataclass, fields
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -167,31 +181,86 @@ class TrainerConfig:
         return cls(**data)
 
 
-def check_ported(cfg: TrainerConfig) -> None:
-    """Raise a ValueError naming the first knob this slice does not run."""
-    if os.environ.get("COORDINATOR_ADDRESS"):
-        raise ValueError(
-            "COORDINATOR_ADDRESS: multi-host training is not ported yet")
+class HostGang(NamedTuple):
+    """This host's place in a multi-host run: the rendezvous
+    (``host:port``), the number of hosts, this host's index, and the
+    ranks each host runs."""
+    address: str
+    hosts: int
+    host_id: int
+    local: int
+
+    @property
+    def ranks(self) -> range:
+        """This host's global ranks: ``host_id * local + local index``.
+        Ranks lie over dp, fsdp, tp, pp, sp, ep (ep innermost), so a tp
+        group stays on one host whenever ``local`` is a multiple of
+        tp x pp x sp x ep."""
+        return range(self.host_id * self.local,
+                     (self.host_id + 1) * self.local)
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "")
+    if not raw:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} must be an integer") from None
+
+
+def host_gang(layout: ParallelLayout) -> Optional[HostGang]:
+    """The gang manifests' contract (the reference's
+    ``_maybe_init_distributed``): ``COORDINATOR_ADDRESS`` (``host:port``,
+    hosted by process 0), ``NUM_PROCESSES`` (hosts, default 1) and
+    ``PROCESS_ID`` (this host, default 0). None without
+    ``COORDINATOR_ADDRESS``, or with one host (the run is one host's).
+    Raises a ValueError naming the variable for an address without a
+    port, a ``PROCESS_ID`` outside ``[0, NUM_PROCESSES)``, and a layout
+    whose chips ``NUM_PROCESSES`` does not divide."""
+    address = os.environ.get("COORDINATOR_ADDRESS", "")
+    if not address:
+        return None
+    host, _, port = address.rpartition(":")
+    if not host or not port.isdigit() or not 0 < int(port) < 65536:
+        raise ValueError(f"COORDINATOR_ADDRESS={address!r} must be "
+                         f"host:port, with a port in 1-65535")
+    hosts = _env_int("NUM_PROCESSES", 1)
+    host_id = _env_int("PROCESS_ID", 0)
+    if hosts < 1:
+        raise ValueError(f"NUM_PROCESSES={hosts} must be at least 1")
+    if not 0 <= host_id < hosts:
+        raise ValueError(f"PROCESS_ID={host_id} is outside [0, "
+                         f"NUM_PROCESSES={hosts})")
+    if layout.chips % hosts:
+        raise ValueError(f"NUM_PROCESSES={hosts} does not divide the "
+                         f"layout's {layout.chips} chips")
+    if hosts == 1:
+        return None
+    return HostGang(address, hosts, host_id, layout.chips // hosts)
 
 
 def layout_devices(layout: ParallelLayout, device: DeviceLike = None,
-                   devices: Optional[Sequence[DeviceLike]] = None
-                   ) -> List[torch.device]:
-    """Each rank's device: ``devices`` as listed (a device may repeat),
-    else every rank on the CPU for ``device="cpu"``, else one card a
-    rank (``cuda:0..N-1``). Raises the reference's message when there
-    are fewer than the layout's chips."""
+                   devices: Optional[Sequence[DeviceLike]] = None,
+                   chips: Optional[int] = None) -> List[torch.device]:
+    """Each of this host's ranks' device (``chips`` of them, default the
+    layout's): ``devices`` as listed (a device may repeat), else every
+    rank on the CPU for ``device="cpu"``, else one card a rank
+    (``cuda:0..N-1``). Raises the reference's message when there are
+    fewer devices than ranks."""
+    chips = layout.chips if chips is None else chips
     if devices is not None:
         devs = [torch.device(d) for d in devices]
     elif device is not None and torch.device(device).type == "cpu":
-        devs = [torch.device("cpu")] * layout.chips
+        devs = [torch.device("cpu")] * chips
     else:
         devs = [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
-    if layout.chips > len(devs):
-        raise ValueError(f"layout needs {layout.chips} chips, only "
+    if chips > len(devs):
+        raise ValueError(f"layout needs {chips} chips, only "
                          f"{len(devs)} devices")
-    return devs[:layout.chips]
+    return devs[:chips]
 
 
 def synthetic_batch(cfg: TrainerConfig, step: int,
@@ -243,12 +312,14 @@ def _stop_profile(prof, cfg: TrainerConfig, first: int, end: int,
 def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
           device: DeviceLike = None,
           devices: Optional[Sequence[DeviceLike]] = None) -> float:
-    """Run the configured training job; returns the final loss (rank
-    0's, the mean over the data and sp ranks, under a layout). One
-    device: ``device`` (the card by default; ``device="cpu"`` runs the
-    plain PyTorch versions). A layout (``dp`` x ``fsdp`` x ``tp`` x
+    """Run the configured training job; returns the final loss (under a
+    layout the mean over the data and sp ranks, which every rank holds).
+    One device: ``device`` (the card by default; ``device="cpu"`` runs
+    the plain PyTorch versions). A layout (``dp`` x ``fsdp`` x ``tp`` x
     ``pp`` x ``sp`` x ``ep`` > 1): one process a rank on
-    ``layout_devices(layout, device, devices)``.
+    ``layout_devices(layout, device, devices)``; under
+    ``COORDINATOR_ADDRESS`` (``host_gang``) this host's ranks only,
+    ``devices`` then listing this host's.
 
     ``stop_event`` requests a graceful early exit after the current step.
     When ``cfg.handle_sigterm`` is set and this is the main thread,
@@ -265,8 +336,8 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
     from nos_tpu_torch.parallel.launch import run_ranks
     from nos_tpu_torch.parallel.mesh import mesh_backend
 
-    check_ported(cfg)
     layout = _layout(cfg)
+    gang = host_gang(layout)
     if layout.chips == 1:
         device = resolve_device(device if devices is None else devices[0])
         return _run(cfg, stop_event, device, None)["loss"]
@@ -278,7 +349,8 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
             "stop_event on a multi-host run requires handle_sigterm: true "
             "— without the per-step flag agreement an early breaker "
             "deadlocks the gang's collectives")
-    devs = layout_devices(layout, device, devices)
+    local = layout.chips if gang is None else gang.local
+    devs = layout_devices(layout, device, devices, local)
     if cfg.checkpoint_dir:
         from nos_tpu_torch.train.checkpoint import (
             CheckpointManager, model_arch_dict,
@@ -293,9 +365,24 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
         finally:
             mgr.close()
     names = [str(d) for d in devs]
-    backend = mesh_backend(devs)
     shared = len(set(names)) < len(names)
     axes = " ".join(f"{a}={getattr(layout, a)}" for a in AXES)
+    if gang is None:
+        where = (f"{layout.chips} ranks on {names}, backend "
+                 f"{mesh_backend(devs)}"
+                 + (" (ranks share a device; NCCL takes one rank a "
+                    "device)" if shared and devs[0].type == "cuda" else ""))
+        ranks, store, hosts = None, None, 1
+    else:
+        where = (f"host {gang.host_id} of {gang.hosts} (rendezvous "
+                 f"{gang.address}): ranks {gang.ranks.start}-"
+                 f"{gang.ranks.stop - 1} of {layout.chips} on {names}, "
+                 f"the backend agreed at the rendezvous")
+        # every host's ranks index one gang-wide list; a rank reads its
+        # own entry only
+        names = names * gang.hosts
+        ranks, store = gang.ranks, f"tcp://{gang.address}"
+        hosts = gang.hosts
     msg = (f"layout {axes}"
            + (f" ({cfg.sp_strategy})" if layout.sp > 1 else "")
            + (f" ({cfg.pipeline_schedule}, {cfg.n_microbatches} "
@@ -303,9 +390,7 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
               + (f", {cfg.virtual_stages} virtual stages"
                  if cfg.pipeline_schedule == "interleaved" else "") + ")"
               if layout.pp > 1 else "")
-           + f": {layout.chips} ranks on {names}, backend {backend}"
-           + (" (ranks share a device; NCCL takes one rank a device)"
-              if shared and devs[0].type == "cuda" else ""))
+           + f": {where}")
     logger.info(msg)
     print(f"nos_tpu_torch.trainer: {msg}", file=sys.stderr, flush=True)
     if devs[0].type == "cuda":
@@ -313,11 +398,14 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
 
         # built once, here: the other ranks load the libraries
         _kernels.build_all()
-    ranks = run_ranks(
-        lambda store: _rank(0, store, cfg, names, RANK_TIMEOUT_S,
-                            stop_event),
-        _rank, (cfg, names, RANK_TIMEOUT_S), layout.chips, RANK_TIMEOUT_S)
-    for r in ranks:
+    first = ranks[0] if ranks is not None else 0
+    out = run_ranks(
+        lambda store: _rank(first, store, cfg, names, RANK_TIMEOUT_S,
+                            hosts, stop_event),
+        _rank, (cfg, names, RANK_TIMEOUT_S, hosts), layout.chips,
+        RANK_TIMEOUT_S, ranks=ranks, store=store)
+    # this host's ranks (all of them on one host)
+    for r in out:
         logger.info("rank %d of %d on %s (pp index %d): steps %d-%d, loss "
                     "%.6f, peak device memory %d bytes, params and moments "
                     "%d bytes, kernel launches %s, flash launches by shape "
@@ -326,14 +414,15 @@ def train(cfg: TrainerConfig, stop_event: Optional[threading.Event] = None,
                     r["loss"], r["peak_bytes"], r["state_bytes"],
                     r["launches"], r["flash_launches_by_shape"],
                     extra={"rank_summary": r})
-    return ranks[0]["loss"]
+    return out[0]["loss"]
 
 
 def _rank(rank: int, store: str, cfg: TrainerConfig, devices: List[str],
-          timeout_s: float,
+          timeout_s: float, hosts: int = 1,
           stop_event: Optional[threading.Event] = None) -> dict:
-    """One rank of a layout: join its process group, train, leave the
-    group on every exit path; returns ``_run``'s summary."""
+    """One rank of a layout (``devices`` by global rank; ``hosts`` the
+    run's hosts): join its process group, train, leave the group on
+    every exit path; returns ``_run``'s summary."""
     import torch.distributed as dist
 
     from nos_tpu_torch.parallel.mesh import init_train_mesh
@@ -345,7 +434,7 @@ def _rank(rank: int, store: str, cfg: TrainerConfig, devices: List[str],
     hook = sys.excepthook
     try:
         mesh = init_train_mesh(layout, rank, devices, store, timeout_s)
-        return _run(cfg, stop_event, mesh.device, mesh)
+        return _run(cfg, stop_event, mesh.device, mesh, hosts)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -382,7 +471,7 @@ def _tree(names: List[str], leaves: list) -> dict:
 
 
 def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
-         device: torch.device, mesh) -> dict:
+         device: torch.device, mesh, hosts: int = 1) -> dict:
     """The training loop of one device, or of one rank of ``mesh`` (a
     ``TrainMesh``). Returns a summary: rank, device, pp index, the
     first and last steps, the final loss, peak device memory, the bytes
@@ -616,7 +705,9 @@ def _run(cfg: TrainerConfig, stop_event: Optional[threading.Event],
             loss_t = step_fn(params, batch)
             done = step + 1
             m_steps.inc()
-            m_tokens.inc(cfg.batch_size * cfg.seq_len)
+            # this host's share of the global batch, so a sum over a
+            # gang's pods reads the global throughput (the reference's)
+            m_tokens.inc(cfg.batch_size * cfg.seq_len / hosts)
             if prof is not None and step + 1 >= profile_end:
                 _stop_profile(prof, cfg, profile_first, step + 1, device)
                 prof = None

@@ -137,3 +137,35 @@ def _qkv_proj_backward(ctx, dq, dk, dv):
 
 qkv_proj.register_autograd(_qkv_proj_backward,
                            setup_context=_qkv_proj_setup)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Mean and variance over the last axis in f32, then the f32 scale
+    and bias, one cast back to x's dtype (the reference's rule; not
+    ``F.layer_norm``, whose reduced-precision inputs keep their dtype's
+    affine product)."""
+    orig_dtype = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    return (x * scale.float() + bias.float()).to(orig_dtype)
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """out(gelu(x @ w_in + b_in)) + b_out, GELU's tanh approximation
+    (``jax.nn.gelu(approximate=True)``)."""
+    h = F.gelu(torch.matmul(x, w_in) + b_in, approximate="tanh")
+    return torch.matmul(h, w_out) + b_out
+
+
+def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, H, W, C] (NHWC) -> [B, (H/p)*(W/p), p*p*C]: a reshape and a
+    transpose, no convolution; each patch's pixels row-major, channels
+    innermost."""
+    b, h, w, c = images.shape
+    x = images.reshape(b, h // patch, patch, w // patch, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // patch) * (w // patch), patch * patch * c)

@@ -371,11 +371,8 @@ def mesh_backend(devices: Sequence[Union[str, torch.device]]) -> str:
     """NCCL when every rank has a CUDA device of its own, else gloo (ranks
     that share a device, and the CPU: NCCL refuses two ranks on one
     device)."""
-    devs = [torch.device(d) for d in devices]
-    if all(d.type == "cuda" for d in devs) and \
-            len({d.index for d in devs}) == len(devs):
-        return "nccl"
-    return "gloo"
+    return gang_backend([f"cuda:{d.index}" if d.type == "cuda" else d.type
+                         for d in map(torch.device, devices)])
 
 
 # the reference's axis order (``parallel/layout.py``), outermost first
@@ -678,20 +675,60 @@ class TrainMesh:
         return [t.to(s.dtype) for t, s in zip(total, partials)]
 
 
+def card_identity(device: Union[str, torch.device]) -> str:
+    """What a rank publishes at a multi-host rendezvous to say which
+    device it runs on: ``"cpu"``, or the card's UUID (two "hosts" that
+    are one machine see one card under two names)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    return f"cuda:{torch.cuda.get_device_properties(device).uuid}"
+
+
+def gang_backend(identities: Sequence[str]) -> str:
+    """``mesh_backend``'s rule over a gang's published
+    ``card_identity``s, every host reaching the same answer from the
+    same list: NCCL when every rank has a card of its own, else gloo."""
+    if all(i.startswith("cuda:") for i in identities) and \
+            len(set(identities)) == len(identities):
+        return "nccl"
+    return "gloo"
+
+
 def init_train_mesh(layout: ParallelLayout, rank: int,
                     devices: Sequence[Union[str, torch.device]],
-                    store_path: str, timeout_s: float) -> TrainMesh:
-    """Join the layout's process group as ``rank`` (rendezvous through a
-    file store at ``store_path``; every collective, and the rendezvous,
-    raises after ``timeout_s``) and build its ``TrainMesh`` on
-    ``devices[rank]``. ``dist.destroy_process_group()`` ends it."""
+                    store: str, timeout_s: float) -> TrainMesh:
+    """Join the layout's process group as ``rank`` on ``devices[rank]``
+    (``devices`` by global rank) and build its ``TrainMesh``; every
+    collective, and the rendezvous, raises after ``timeout_s``.
+    ``dist.destroy_process_group()`` ends it.
+
+    ``store`` is a file store's path (one host: the backend is
+    ``mesh_backend(devices)``) or ``tcp://host:port`` (several hosts:
+    global rank 0 serves the store there, each rank publishes its
+    ``card_identity`` and every rank takes ``gang_backend``'s answer
+    over them all; another host's entries of ``devices`` are not
+    read)."""
     from datetime import timedelta
 
     device = torch.device(devices[rank])
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    timeout = timedelta(seconds=timeout_s)
+    if not store.startswith("tcp://"):
+        dist.init_process_group(
+            mesh_backend(devices), init_method=f"file://{store}",
+            rank=rank, world_size=len(devices), timeout=timeout)
+        return TrainMesh(layout, device)
+    host, port = store[len("tcp://"):].rsplit(":", 1)
+    tcp = dist.TCPStore(host, int(port), world_size=layout.chips,
+                        is_master=rank == 0, timeout=timeout,
+                        wait_for_workers=False)
+    tcp.set(f"card/{rank}", card_identity(device))
+    keys = [f"card/{r}" for r in range(layout.chips)]
+    tcp.wait(keys, timeout)
+    backend = gang_backend([tcp.get(k).decode() for k in keys])
     dist.init_process_group(
-        mesh_backend(devices), init_method=f"file://{store_path}",
-        rank=rank, world_size=len(devices),
-        timeout=timedelta(seconds=timeout_s))
+        backend, store=dist.PrefixStore("pg", tcp), rank=rank,
+        world_size=layout.chips, timeout=timeout)
     return TrainMesh(layout, device)

@@ -67,6 +67,22 @@ def test_importing_the_trainer_loads_no_jax_and_builds_nothing():
                    cwd=str(ROOT), timeout=120)
 
 
+def test_importing_the_vision_models_loads_no_jax_and_builds_nothing():
+    """ViT, YOLOS and the sharing-benchmark client load neither JAX nor
+    the JAX package, and build no kernel at import."""
+    code = ("import sys, nos_tpu_torch.models.vit, "
+            "nos_tpu_torch.models.yolos, "
+            "nos_tpu_torch.cmd.sharing_client; "
+            "from nos_tpu_torch.ops import _kernels; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'nos_tpu')]; "
+            "assert not bad, bad; "
+            "assert all(k._fn is None for k in _kernels.KERNELS)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
+
+
 def test_fabric_and_tenant_modules_load_no_jax_and_no_torch():
     """The KV fabric, the tenant quota module and the copied quota
     arithmetic are host bookkeeping: importing them loads neither JAX,

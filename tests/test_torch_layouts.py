@@ -310,6 +310,11 @@ def test_refusals_name_the_knob(kw, match):
 
 
 def test_multi_host_refused(monkeypatch):
+    """A multi-host environment trains (tests/test_torch_multihost.py);
+    a host index outside the gang is refused by name before any rank
+    starts."""
     monkeypatch.setenv("COORDINATOR_ADDRESS", "10.0.0.1:1234")
-    with pytest.raises(ValueError, match="COORDINATOR_ADDRESS"):
+    monkeypatch.setenv("NUM_PROCESSES", "2")
+    monkeypatch.setenv("PROCESS_ID", "2")
+    with pytest.raises(ValueError, match="PROCESS_ID"):
         ttr.train(_cfg(dp=2), device="cpu")

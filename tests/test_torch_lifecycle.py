@@ -336,7 +336,9 @@ def test_main_without_a_notice_trains_to_the_end(tmp_path):
 
 
 def test_multi_host_still_refused_with_the_watcher_set(monkeypatch):
-    monkeypatch.setenv("COORDINATOR_ADDRESS", "10.0.0.1:1234")
+    """With the watcher's knobs set, a malformed multi-host environment
+    (an address without a port) is still refused by name."""
+    monkeypatch.setenv("COORDINATOR_ADDRESS", "10.0.0.1")
     cfg = ttr.TrainerConfig(**TINY, node_name="n0",
                             lifecycle_api="http://127.0.0.1:9")
     with pytest.raises(ValueError, match="COORDINATOR_ADDRESS"):

@@ -274,12 +274,18 @@ def test_refused_knobs_raise_naming_the_knob(knob, value, tmp_path):
 
 def test_lifecycle_watcher_and_multi_host_raise(monkeypatch):
     """The lifecycle watcher's knobs are ported (``main`` runs the
-    watcher, tests/test_torch_lifecycle.py): ``train`` takes them; a
-    multi-host environment is still refused."""
+    watcher, tests/test_torch_lifecycle.py): ``train`` takes them. A
+    gang of one host (``COORDINATOR_ADDRESS`` with ``NUM_PROCESSES`` 1)
+    trains as one host, the loss of the run without it; a host index
+    outside the gang raises naming ``PROCESS_ID``."""
     cfg = ttr.TrainerConfig(**TINY, node_name="n0", lifecycle_api="http://x")
-    ttr.check_ported(cfg)
+    want = ttr.train(cfg, device="cpu")
     monkeypatch.setenv("COORDINATOR_ADDRESS", "10.0.0.1:1234")
-    with pytest.raises(ValueError, match="COORDINATOR_ADDRESS"):
+    monkeypatch.setenv("NUM_PROCESSES", "1")
+    assert ttr.host_gang(ttr._layout(cfg)) is None
+    assert ttr.train(cfg, device="cpu") == want
+    monkeypatch.setenv("PROCESS_ID", "1")
+    with pytest.raises(ValueError, match="PROCESS_ID"):
         ttr.train(ttr.TrainerConfig(**TINY), device="cpu")
 
 
