@@ -94,6 +94,7 @@ from nos_tpu_torch.models.tenantquota import (
     TenantQuotaConfig, validate_tenant_name,
 )
 from nos_tpu_torch.obs import tracing
+from nos_tpu_torch.obs.tracing import device_range
 from nos_tpu_torch.obs.slo import (
     IDLE_TENANT, SloBudgetEngine, objectives_from_quota,
 )
@@ -570,8 +571,30 @@ class ServingLoop:
         for _ph in TICK_PHASES:
             self.h_tick_phase.labels(_ph)
         # rolling per-tick phase samples for /stats and /debug/profile:
-        # (monotonic tick start, {phase: seconds})
+        # (tick start on the tracer's clock, {phase: seconds})
         self._tick_phases: deque = deque(maxlen=256)
+        # the request path's waits: the loop's lock, asked for by a
+        # submitting entry (stream, prefill, adopt) or by the ticker (a
+        # quantum's first acquisition with work waiting, and the
+        # re-acquisition after the device wait, which ``sample`` holds
+        # too); each prefill's seconds; the engine's first-token stamp
+        # to the stream's first yield of it
+        self.h_lock_wait = reg.histogram(
+            "nos_tpu_serve_lock_wait_seconds",
+            "Time from asking for the serving loop's lock to holding it, "
+            "by waiter (submit | ticker)",
+            labelnames=("waiter",), buckets=TICK_PHASE_BUCKETS)
+        self._submit_wait = self.h_lock_wait.labels("submit")
+        self._ticker_wait = self.h_lock_wait.labels("ticker")
+        self.h_prefill = reg.histogram(
+            "nos_tpu_serve_prefill_seconds",
+            "Per prefill (a resume's included): prefill start -> end on "
+            "the engine's ledger (admission -> first token on the host "
+            "for an eager prefill)")
+        self.h_first_delivery = reg.histogram(
+            "nos_tpu_serve_first_token_delivery_seconds",
+            "Engine's first-token stamp -> the stream's first yield of "
+            "that token", buckets=TICK_PHASE_BUCKETS)
         # request-level latency ledger surface (engine stamps, this loop
         # observes at completion; buckets carry trace exemplars of the
         # request's serve.request span when sampled)
@@ -1283,15 +1306,17 @@ class ServingLoop:
         while len(self._rates) > 1 and self._rates[0][0] < cutoff:
             self._rates.popleft()
 
-    def _note_tick_phases(self, t0: float, t1: float, t2: float,
-                          t3: float, t4: float, eng,
-                          tid: Optional[str] = None) -> None:
+    def _note_tick_phases(self, start: float, t0: float, t1: float,
+                          t2: float, t3: float, t4: float, eng) -> None:
         """Decompose one tick into TICK_PHASES (caller holds the lock).
-        ``eng`` is the split-protocol engine — its ``last_assemble_s``
-        splits step_begin into assemble vs dispatch — or None for
-        step()-only engines, whose whole step lands under ``dispatch``.
-        ``sample`` covers step_finish plus the lock reacquisition after
-        the device wait."""
+        ``start`` is the tick's start on the tracer's clock, ``t0``..``t4``
+        its boundaries on the monotonic clock. ``eng`` is the
+        split-protocol engine — its ``last_assemble_s`` splits step_begin
+        into assemble vs dispatch — or None for step()-only engines,
+        whose whole step lands under ``dispatch``. ``sample`` covers
+        step_finish plus the lock reacquisition after the device wait
+        (that reacquisition is also the ticker's second
+        ``nos_tpu_serve_lock_wait_seconds`` observation)."""
         if eng is not None:
             begin = max(0.0, t1 - t0)
             assemble = max(
@@ -1318,8 +1343,8 @@ class ServingLoop:
                 "bookkeep": max(0.0, t4 - t1),
             }
         for ph, v in phases.items():
-            self.h_tick_phase.labels(ph).observe(v, trace_id=tid)
-        self._tick_phases.append((t0, phases))
+            self.h_tick_phase.labels(ph).observe(v)
+        self._tick_phases.append((start, phases))
 
     def _tick_phase_snapshot(self) -> dict:
         """Rolling per-phase totals over the ring window for /stats
@@ -1374,6 +1399,13 @@ class ServingLoop:
             for dt in events:
                 self.m_compiles.inc()
                 self.h_compile.observe(dt)
+
+    def _drain_prefill_events(self) -> None:
+        """Each prefill the engine finished since the last drain ->
+        ``nos_tpu_serve_prefill_seconds`` (caller holds the lock)."""
+        events = getattr(self.engine, "prefill_events", None)
+        while events:
+            self.h_prefill.observe(events.popleft())
 
     def _set_device_gauges(self, label: str, in_use: int,
                            limit: int) -> None:
@@ -1509,6 +1541,14 @@ class ServingLoop:
         while self._run_quantum(gen):
             pass
 
+    def _take_lock(self) -> float:
+        """Acquire the loop's lock inside a ``serve.lock_wait`` range;
+        returns the seconds spent waiting for it."""
+        t = time.monotonic()
+        with device_range("serve.lock_wait"):
+            self._work.acquire()
+        return time.monotonic() - t
+
     def _run_quantum(self, gen: int) -> bool:
         # engines exposing the split-step protocol (DecodeServer) run
         # the blocking device wait OUTSIDE the condition lock, so
@@ -1517,39 +1557,47 @@ class ServingLoop:
         # engine reference is snapshotted per quantum: a watchdog
         # recovery swaps self.engine while this thread is blocked in
         # step_wait, and a superseded thread must only ever touch the
-        # OLD engine — then exit on the generation check.
+        # OLD engine — then exit on the generation check. Each phase
+        # runs inside a profiler range of its own (``device_range``: a
+        # no-op unless a profiler runs), at the t0..t4 boundaries.
         failure = None
-        with self._work:
+        waited = self._take_lock()
+        try:
             if self._gen != gen or self._failed is not None:
                 return False
             while not self._stop and not self.engine.has_work():
+                waited = None   # idle: waiting for work is no contention
                 self._work.wait()
                 if self._gen != gen or self._failed is not None:
                     return False
             if self._stop:
                 return False
+            if waited is not None:
+                self._ticker_wait.observe(waited)
             eng = self.engine
             split = hasattr(eng, "step_begin") \
                 and hasattr(eng, "step_wait") \
                 and hasattr(eng, "step_finish")
             t0 = time.monotonic()
-            sp = tracing.start_span("serve.tick", component="server")
+            start = tracing.tracer().clock()
             handle = None
             emitted = 0
             gap0 = getattr(eng, "dispatch_gap_s", None)
             try:
+                with device_range("serve.step_begin"):
+                    if split:
+                        handle = eng.step_begin()
+                    else:
+                        emitted = eng.step()
+                t1 = time.monotonic()
                 if split:
-                    handle = eng.step_begin()
                     # the watchdog arms for the BLOCKING wait phase only
-                    t1 = time.monotonic()
                     self._tick_started = t1
-                else:
-                    emitted = eng.step()
-                    t1 = time.monotonic()
             except BaseException as e:
-                sp.end()
                 self._tick_started = None
                 failure = e
+        finally:
+            self._work.release()
         if failure is not None:
             self._recover(failure, "step_error", gen)
             return False
@@ -1559,80 +1607,86 @@ class ServingLoop:
             # concurrent submit's barrier flush may consume the handle
             # under us (step_finish is idempotent on it)
             try:
-                eng.step_wait(handle)
+                with device_range("serve.wait"):
+                    eng.step_wait(handle)
             except BaseException as e:
                 with self._work:
-                    sp.end()
                     if self._gen != gen:
                         return False    # superseded while blocked
                     self._tick_started = None
                 self._recover(e, "step_error", gen)
                 return False
             t2 = time.monotonic()
-        with self._work:
+        waited = self._take_lock()
+        try:
             if self._gen != gen or self._failed is not None:
                 # superseded while blocked: this tick belongs to the
                 # discarded engine and must not touch loop state
-                sp.end()
                 return False
+            if split:
+                self._ticker_wait.observe(waited)
             t3 = t2
             try:
                 if split:
-                    emitted = eng.step_finish(handle)
+                    with device_range("serve.step_finish"):
+                        emitted = eng.step_finish(handle)
                     t3 = time.monotonic()
-                    if gap0 is not None:
-                        self.h_gap.observe(
-                            eng.dispatch_gap_s - gap0,
-                            trace_id=sp.trace_id or None)
-                self._tick_started = None
-                self.m_ticks.inc()
-                self.m_tokens.inc(emitted)
-                self._tokens_cum += emitted
-                self._note_rates()
-                self._mirror_engine_gauges()
-                self._sample_device_stats()
-                self._sweep_deadlines()
-                # reap results whose client already gave up. Inside the
-                # try: a failure here must flip /healthz like any other
-                # tick failure, not kill the ticker silently
-                for rid in list(self._abandoned):
-                    # no identity fallback: once _account popped the
-                    # map, the bare rid may alias another request
-                    erid = self._rid_map.get(rid)
-                    if erid is None:
-                        self._abandoned.discard(rid)
-                        continue
-                    ledger = self._pop_ledger(erid)
-                    if self.engine.pop_result(erid) is not None:
-                        self._abandoned.discard(rid)
-                        self._account(rid, "abandoned", ledger)
-                    elif self.engine.progress(erid) is None:
-                        # the engine dropped it outright: resolve NOW
-                        self._abandoned.discard(rid)
-                        self._account(rid, "cancelled", ledger)
+                with device_range("serve.bookkeep"):
+                    if split and gap0 is not None:
+                        self.h_gap.observe(eng.dispatch_gap_s - gap0)
+                    self._bookkeep(emitted)
             except BaseException as e:
-                sp.end()
                 self._tick_started = None
                 failure = e
             else:
-                sp.end()
                 t4 = time.monotonic()
-                self.h_tick.observe(t4 - t0,
-                                    trace_id=sp.trace_id or None)
+                self.h_tick.observe(t4 - t0)
                 chip_note = getattr(eng, "chip_note_quantum", None)
                 if chip_note is not None:
                     # the chip ledger charges the quantum with the same
                     # two clock reads the tick profiler takes (a no-op
                     # unless SLO accounting is configured)
                     chip_note(t0, t4)
-                self._note_tick_phases(t0, t1, t2, t3, t4,
-                                       eng if split else None,
-                                       tid=sp.trace_id or None)
+                self._note_tick_phases(start, t0, t1, t2, t3, t4,
+                                       eng if split else None)
                 self._work.notify_all()  # wake waiters to check results
+        finally:
+            self._work.release()
         if failure is not None:
             self._recover(failure, "step_error", gen)
             return False
         return True
+
+    def _bookkeep(self, emitted: int) -> None:
+        """A tick's host bookkeeping after its tokens landed (caller
+        holds the lock): counters, rates, gauges, the deadline sweep, and
+        the reaping of results whose client already gave up."""
+        self._tick_started = None
+        self.m_ticks.inc()
+        self.m_tokens.inc(emitted)
+        self._tokens_cum += emitted
+        self._note_rates()
+        self._mirror_engine_gauges()
+        self._sample_device_stats()
+        self._sweep_deadlines()
+        # reap results whose client already gave up. Inside the tick's
+        # try: a failure here must flip /healthz like any other tick
+        # failure, not kill the ticker silently
+        for rid in list(self._abandoned):
+            # no identity fallback: once _account popped the map, the
+            # bare rid may alias another request
+            erid = self._rid_map.get(rid)
+            if erid is None:
+                self._abandoned.discard(rid)
+                continue
+            ledger = self._pop_ledger(erid)
+            if self.engine.pop_result(erid) is not None:
+                self._abandoned.discard(rid)
+                self._account(rid, "abandoned", ledger)
+            elif self.engine.progress(erid) is None:
+                # the engine dropped it outright: resolve NOW
+                self._abandoned.discard(rid)
+                self._account(rid, "cancelled", ledger)
 
     # -- supervised recovery ---------------------------------------------
     def _recover(self, exc: BaseException, cause: str, gen: int,
@@ -2118,7 +2172,9 @@ class ServingLoop:
                     f"got {dl_s}")
             if dl_s == 0:       # an EXPLICIT 0 opts out of the default
                 dl_s = None
+        t_ask = time.perf_counter()
         with self._work:
+            self._submit_wait.observe(time.perf_counter() - t_ask)
             if self._failed is not None:
                 raise RuntimeError(f"serving loop failed: {self._failed}")
             if self._recovering:
@@ -2219,7 +2275,9 @@ class ServingLoop:
         # serve.request span parents into the prefill side's, so one
         # trace_id spans the disaggregated pair
         carried_tp = state.pop("traceparent", None)
+        t_ask = time.perf_counter()
         with self._work:
+            self._submit_wait.observe(time.perf_counter() - t_ask)
             if self._failed is not None:
                 raise RuntimeError(f"serving loop failed: {self._failed}")
             if self._recovering:
@@ -2616,6 +2674,7 @@ class ServingLoop:
                 self._set_device_gauges(hbm["device"], hbm["in_use"],
                                         hbm.get("limit"))
         self._drain_compile_events()
+        self._drain_prefill_events()
 
     def _mirror_chip_ledger(self) -> None:
         """Delta-mirror the engine's chip ledger into the chip-ms and
@@ -2682,7 +2741,12 @@ class ServingLoop:
         the per-tenant goodput, shed and preempt accounting here."""
         tlabel = (self._tenant_cfg.resolve(tenant)
                   if self._tenant_cfg is not None else None)
+        # the request's entry: its span starts here, before the lock
+        t_entry = time.perf_counter()
+        start = tracing.tracer().clock()
         with self._work:
+            t_locked = time.perf_counter()
+            self._submit_wait.observe(t_locked - t_entry)
             if self._failed is not None:
                 raise RuntimeError(f"serving loop failed: {self._failed}")
             if self._recovering:
@@ -2767,25 +2831,33 @@ class ServingLoop:
             self._shed_streak = 0       # an admission ends the streak
             if dl_s is not None:
                 self._deadlines[rid] = time.monotonic() + dl_s
-            # one span per REQUEST, closed by _account; an inbound
-            # ``traceparent`` is adopted instead of minting a fresh trace
+            # one span per REQUEST, from its entry, closed by _account;
+            # an inbound ``traceparent`` is adopted instead of minting a
+            # fresh trace
             sp = tracing.start_span(
                 "serve.request", component="server", parent=traceparent,
                 attrs={"prompt_tokens": len(prompt),
-                       "max_new_tokens": max_new_tokens})
+                       "max_new_tokens": max_new_tokens},
+                start_time=start)
             if sp.recording:
                 self._spans[rid] = sp
             self._mirror_engine_gauges()
             self._work.notify_all()
 
-        return _Stream(self, rid, self._deltas(rid, timeout))
+        entry = (sp, start, t_entry, t_locked) if sp.recording else None
+        return _Stream(self, rid, self._deltas(rid, timeout, entry))
 
-    def _deltas(self, rid: int, timeout: float):
+    def _deltas(self, rid: int, timeout: float, entry=None):
         """The one token-delta generator behind ``stream`` and ``watch``:
         yields newly-decoded token lists until the request finishes,
-        waiting on the loop's condition (never polling)."""
+        waiting on the loop's condition (never polling). The first yield
+        observes the first token's delivery and, with ``entry`` (the
+        request's recording span, its entry on the tracer's clock and on
+        the ledger's, and the moment it held the lock), closes the span's
+        children up to the first token."""
         sent = 0
         finished = False
+        stamps = None
         deadline = time.monotonic() + timeout
         with self._work:
             self._watchers[rid] = self._watchers.get(rid, 0) + 1
@@ -2819,6 +2891,11 @@ class ServingLoop:
                         raise RuntimeError(f"request {rid} vanished")
                     toks, done = prog
                     delta = toks[sent:]
+                    if delta and not sent:
+                        # before a finished request's result is popped
+                        get = getattr(self.engine, "first_token_stamps",
+                                      None)
+                        stamps = get(erid) if get is not None else None
                     if done:
                         ledger = self._pop_ledger(erid)
                         self.engine.pop_result(erid)
@@ -2840,6 +2917,8 @@ class ServingLoop:
                         self._work.wait(timeout=min(remaining, 1.0))
                         continue
                 if delta:
+                    if not sent and stamps is not None:
+                        self._first_yield(stamps, entry)
                     sent += len(delta)
                     yield delta
                 if finished:
@@ -2854,6 +2933,29 @@ class ServingLoop:
             if not finished and left <= 0:
                 # timeout / failure / client gone, and no OTHER consumer
                 self._forget(rid)
+
+    def _first_yield(self, stamps: tuple, entry) -> None:
+        """A request's first token reaches its stream: observe the
+        delivery, and with ``entry`` tile its span up to now with
+        ``serve.lock_wait`` (entry -> lock held), ``engine.queue``
+        (submit -> admission), ``engine.prefill`` (admission -> first
+        token on the host) and ``serve.first_token`` (-> this yield),
+        each stamp moved onto the tracer's clock."""
+        t_submit, t_admit, t_first = stamps
+        now = time.perf_counter()
+        self.h_first_delivery.observe(max(0.0, now - t_first))
+        if entry is None:
+            return
+        sp, start, t_entry, t_locked = entry
+        t_admit = min(max(t_admit, t_submit), t_first)
+        for name, a, b in (("serve.lock_wait", t_entry, t_locked),
+                           ("engine.queue", t_submit, t_admit),
+                           ("engine.prefill", t_admit, t_first),
+                           ("serve.first_token", t_first, now)):
+            child = tracing.start_span(name, component="server",
+                                       parent=sp,
+                                       start_time=start + (a - t_entry))
+            child.end(end_time=start + (b - t_entry))
 
     def _forget_if_unwatched(self, rid: int) -> None:
         """_Stream.close()'s forget: skipped while another consumer is

@@ -34,6 +34,7 @@ from nos_tpu_torch.device import DeviceLike, resolve_device
 from nos_tpu_torch.models.transformer import (
     Params, TpParams, TransformerConfig, shard_params,
 )
+from nos_tpu_torch.obs.tracing import device_range
 from nos_tpu_torch.ops._kernels import PagedScratch
 from nos_tpu_torch.ops.attention import (
     _cached_attention, effective_paged_impl, paged_decode_attention,
@@ -252,9 +253,17 @@ def _decoder(params, cfg: TransformerConfig, tokens: torch.Tensor, rope,
         layer = _layer(params, i)
         q, k, v = _qkv(x, layer, cfg.n_heads, cfg.kv_heads, cfg.head_dim,
                        rope)
-        x = x + qdot(attend(0, i, q, k, v), layer["wo"])
+        x = x + qdot(_attend_ranged(attend, 0, i, q, k, v), layer["wo"])
         x = _mlp_residual(x, layer, cfg)
     return _logits(x, params)
+
+
+def _attend_ranged(attend, r: int, i: int, q, k, v) -> torch.Tensor:
+    """``attend(r, i, q, k, v)`` inside the ``model.attention`` profiler
+    range. A call of its own, so that the caller holds no name on the
+    output and it is freed after the o product, before the FFN."""
+    with device_range("model.attention"):
+        return attend(r, i, q, k, v)
 
 
 def _decoder_tp(params: TpParams, cfg: TransformerConfig,
@@ -276,7 +285,8 @@ def _decoder_tp(params: TpParams, cfg: TransformerConfig,
         for r, (layer, xr) in enumerate(zip(layers, mesh.broadcast(x))):
             q, k, v = _qkv(xr, layer, heads, kv_heads, cfg.head_dim,
                            ropes[r])
-            parts.append(qdot(attend(r, i, q, k, v), layer["wo"]))
+            parts.append(qdot(_attend_ranged(attend, r, i, q, k, v),
+                              layer["wo"]))
         x = x + mesh.reduce(parts)
         x = x + _mlp_tp(x, layers, cfg, mesh)
     return mesh.gather([_logits(xr, p)

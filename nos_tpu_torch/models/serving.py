@@ -180,6 +180,7 @@ from nos_tpu_torch.models.transformer import (
     Params, TpParams, TransformerConfig, shard_params,
 )
 from nos_tpu_torch.obs.slo import ChipLedger
+from nos_tpu_torch.obs.tracing import device_range
 from nos_tpu_torch.ops import _kernels
 from nos_tpu_torch.ops.attention import (
     check_paged_kernel_head_dim, dequantize_kv, effective_paged_impl,
@@ -694,6 +695,10 @@ class DecodeServer:
         self.compiles = 0
         self.compile_s = 0.0
         self.compile_events: List[float] = []
+        # each prefill's seconds (t_prefill_start -> t_prefill_end) as
+        # it ends, drained by the serving loop every tick; bounded for an
+        # engine driven without one
+        self.prefill_events: Deque[float] = deque(maxlen=4096)
 
     # ------------------------------------------------------------------
     def submit(self, prompt: List[int], max_new_tokens: int, *,
@@ -823,12 +828,13 @@ class DecodeServer:
             # a preempted (or restored) request resumes through its swap
             # payload or by recompute instead of a fresh prefill
             req.led.t_admit = req.led.t_prefill_start = time.perf_counter()
-            if req.swap_state is not None:
-                self._resume_swapped(req)
-            elif req.preempted:
-                self._resume_recompute(req)
-            else:
-                self._prefill_slot(req)
+            with device_range("engine.prefill"):
+                if req.swap_state is not None:
+                    self._resume_swapped(req)
+                elif req.preempted:
+                    self._resume_recompute(req)
+                else:
+                    self._prefill_slot(req)
 
     def _pick_pending(self) -> int:
         """Index of the next request to admit: FIFO without a tenant
@@ -1278,17 +1284,18 @@ class DecodeServer:
         (1 on completion, else 0)."""
         ent = self._prefilling[idx]
         cost = self._chunk_cost(ent)
-        t0 = time.perf_counter()
-        done = self._prefill_advance(ent)
-        dt = time.perf_counter() - t0
-        self.prefill_chunk_tokens += cost
-        self._chip_add(ent["req"].tenant, "prefill", cost)
-        if cost > 0:
-            self._chunk_tok_s.append(dt / cost)
-        if not done:
-            return 0
-        del self._prefilling[idx]
-        self._finish_prefill(ent["req"], ent["row"], ent["step"])
+        with device_range("engine.prefill"):
+            t0 = time.perf_counter()
+            done = self._prefill_advance(ent)
+            dt = time.perf_counter() - t0
+            self.prefill_chunk_tokens += cost
+            self._chip_add(ent["req"].tenant, "prefill", cost)
+            if cost > 0:
+                self._chunk_tok_s.append(dt / cost)
+            if not done:
+                return 0
+            del self._prefilling[idx]
+            self._finish_prefill(ent["req"], ent["row"], ent["step"])
         return 1
 
     def _chunk_cost(self, ent: dict) -> int:
@@ -1457,14 +1464,34 @@ class DecodeServer:
         self._note_tenant_tokens(req, 1)
         # the first token is observed here (its argmax or draw was a host
         # sync): TTFT's far stamp, and the TPOT clock's arm
-        req.led.t_prefill_end = req.led.t_first = req.led.t_last = \
-            time.perf_counter()
+        req.led.t_first = req.led.t_last = self._end_prefill(req)
         if self.role == "prefill" and not req.done:
             # a prefill-role engine never decodes: the request leaves now
             # as a handoff state (its prompt KV and first token), and the
             # freed slot admits the next prefill
             return self._handoff_slot(req)
         self._finish_if_done(req)
+
+    def _end_prefill(self, req: _Request) -> float:
+        """Stamp the end of ``req``'s prefill and record its seconds
+        for ``prefill_events``; returns the stamp."""
+        now = req.led.t_prefill_end = time.perf_counter()
+        self.prefill_events.append(now - req.led.t_prefill_start)
+        return now
+
+    def first_token_stamps(self, rid: int) -> Optional[Tuple[float, ...]]:
+        """``(t_submit, t_admit, t_first)`` of a request that has its
+        first token on the host, on the ledger's clock
+        (``time.perf_counter``); None before that, or for an unknown or
+        popped rid."""
+        req = self._done.get(rid)
+        if req is None:
+            req = next((r for r in self._active.values() if r.rid == rid),
+                       None)
+        if req is None or not req.led.t_first:
+            return None
+        led = req.led
+        return led.t_submit, led.t_admit, led.t_first
 
     def _note_tenant_tokens(self, req: _Request, n: int) -> None:
         """Tenant token-rate accounting, one scheduler note per arrival:
@@ -1900,6 +1927,7 @@ class DecodeServer:
         self._set_table_row(req.slot)
         self._resume_draft(req)
         self._resume_row(req)
+        self._end_prefill(req)
 
     def _resume_draft(self, req: _Request) -> None:
         """Resume hook for an engine with a sibling cache (the
@@ -1924,7 +1952,7 @@ class DecodeServer:
         self._set_sampling_rows(req)
         self._static_install(req.slot, row, n, req.out[-1])
         self._resume_draft(req)
-        req.led.t_prefill_end = time.perf_counter()
+        self._end_prefill(req)
 
     def _resume_recompute(self, req: _Request) -> None:
         """Recompute resume: rewrite the committed sequence's K/V and set
@@ -1955,6 +1983,7 @@ class DecodeServer:
             self._set_table_row(req.slot)
         self._resume_draft(req)
         self._resume_row(req)
+        self._end_prefill(req)
 
     def _oneshot_into(self, seq: List[int], blocks: List[int]) -> None:
         """Prefill ``seq`` one-shot over a scratch row in its bucket and
@@ -2378,7 +2407,8 @@ class DecodeServer:
     def _launch(self, sampling: bool) -> torch.Tensor:
         """Run the decode program (``_launch_graph``); returns the last
         step's logits."""
-        return self._launch_graph(sampling)
+        with device_range("engine.decode_launch"):
+            return self._launch_graph(sampling)
 
     def _launch_graph(self, key) -> torch.Tensor:
         """Run the program captured under ``key`` (``_program_for``): on
@@ -2667,7 +2697,6 @@ class DecodeServer:
         self._set_sampling_rows(req)
         self.cache["pos"][s].fill_(len(req.prompt) + len(req.out) - 1)
         self._last[s, 0].fill_(req.out[-1])
-        req.led.t_prefill_end = time.perf_counter()
 
     def fork(self, rid: int, *, max_new_tokens: Optional[int] = None,
              temperature: Optional[float] = None,
@@ -2741,6 +2770,9 @@ class DecodeServer:
         self._tables[slot] = self._alloc.fork(self._tables[src.slot][:nblk])
         self._set_table_row(slot)
         self._resume_row(req)
+        # a fork prefills nothing: its stamps close, but no prefill is
+        # recorded
+        req.led.t_prefill_end = time.perf_counter()
         return nrid
 
     def kv_stats(self) -> dict:

@@ -64,6 +64,9 @@ __all__ = [
     "start_span",
     "current",
     "traced",
+    "device_range",
+    "enable_device_ranges",
+    "NOOP_RANGE",
 ]
 
 # dedicated RNG: trace/span ids must not perturb (or be perturbed by)
@@ -536,6 +539,55 @@ def start_span(name: str, component: str = "nos-tpu",
 
 def current() -> Optional[Span]:
     return _default_tracer.current()
+
+
+class _NoopRange:
+    """Shared do-nothing context manager: ``device_range`` while ranges
+    are off or no profiler is running."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+NOOP_RANGE = _NoopRange()
+_torch_profiler = None
+_ranges_on = False
+
+
+def enable_device_ranges(on: bool = True) -> None:
+    """Switch ``device_range`` on (or off) for the process. Off by
+    default: torch's profiler also files a device-side copy of each range
+    around the kernels launched in it, which a trace reader that takes
+    every device event for a kernel would count as device work. Whoever
+    starts a profiler that wants the ranges switches them on."""
+    global _ranges_on
+    _ranges_on = bool(on)
+
+
+def device_range(name: str):
+    """A ``torch.profiler`` range named ``name`` while ranges are on
+    (``enable_device_ranges``) and a profiler is running, so a device
+    trace files the kernels launched inside it under the range; otherwise
+    the shared ``NOOP_RANGE``. The gate is torch's own profiler flag: an
+    ungated ``record_function`` costs microseconds a use even with no
+    profiler. Torch is imported at the first call with ranges on, which
+    keeps this module free of it."""
+    global _torch_profiler
+    if not _ranges_on:
+        return NOOP_RANGE
+    prof = _torch_profiler
+    if prof is None:
+        import torch.autograd.profiler as prof
+
+        _torch_profiler = prof
+    if not prof._is_profiler_enabled:
+        return NOOP_RANGE
+    return prof.record_function(name)
 
 
 def traced(name: Optional[str] = None, component: str = "nos-tpu"):
